@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the streaming hierarchical-clustering system.
+
+The JAX package ``repro`` is the reference and stays as it is; this
+package imports nothing of it (and never ``jax``).  Entry points run on
+the card unless the caller asks for the CPU (``device="cpu"``), where the
+hand-written kernels give way to their plain PyTorch versions.
+"""
+
+from .carry import engine_from_reference_state
+from .kernels.ops import get_backend
+from .serving.stream import StreamingClusterEngine
+
+__all__ = ["StreamingClusterEngine", "get_backend", "engine_from_reference_state"]

@@ -1,0 +1,140 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface.  At first use, one
+``nvcc -c`` per source runs in parallel for ``sm_90a`` (Hopper), the
+objects are linked into one shared library under ``build/`` beside this
+file (listed in ``.gitignore``), and the library is loaded with
+``ctypes``: every pointer and the stream go as ``c_void_p``, every size as
+``c_int``.  The file name carries a digest of the sources and flags, so an
+edited source is never served from a stale library; concurrent builders
+publish with an atomic rename.
+
+A failed build raises.  There is no fallback: a CUDA tensor either runs
+the kernel or the call fails.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["load", "check", "current_stream", "build_info"]
+
+_CSRC = Path(__file__).with_name("csrc")
+_BUILD = Path(__file__).with_name("build")
+_SOURCES = ("assign.cu", "bubble_cd.cu", "mutual_reach.cu", "errors.cu")
+_HEADERS = ("common.cuh",)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_NVCC_TIMEOUT_S = 900
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None  # guarded by _lock
+_info: dict = {}  # guarded by _lock: path, seconds (0 when cached), log
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built at first use and need the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in _SOURCES + _HEADERS:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(_ARCH + _FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> tuple[float, str]:
+    nvcc = _nvcc()
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    log = []
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        procs = []
+        for src in _SOURCES:
+            obj = Path(tmp) / (src + ".o")
+            cmd = [nvcc, *_ARCH, *_FLAGS, "-c", str(_CSRC / src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, _, p in procs:
+            try:
+                text, _ = p.communicate(timeout=_NVCC_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+                failed.append(src)
+            log.append(f"--- {src}\n{text}")
+            if p.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {sorted(set(failed))}:\n" + "\n".join(log))
+        lib_tmp = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, *_ARCH, "-shared", "-o", str(lib_tmp), *(str(o) for _, o, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=_NVCC_TIMEOUT_S,
+        )
+        log.append(f"--- link\n{link.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError("linking the kernel library failed:\n" + "\n".join(log))
+        os.replace(lib_tmp, out)
+    return time.perf_counter() - t0, "\n".join(log)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.repro_assign_f32.argtypes = [P, P, I, I, I, P, P, P]
+    lib.repro_bubble_cd_f32.argtypes = [P, P, P, I, I, I, I, P, P]
+    lib.repro_mutual_reach_f32.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
+    for fn in (lib.repro_assign_f32, lib.repro_bubble_cd_f32, lib.repro_mutual_reach_f32):
+        fn.restype = I
+    lib.repro_error_string.argtypes = [I]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on the first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out = _BUILD / f"librepro_torch_kernels-{_digest()}.so"
+            seconds, log = (0.0, "cached") if out.exists() else _build(out)
+            _lib = _bind(ctypes.CDLL(str(out)))
+            _info.update(path=str(out), seconds=seconds, log=log)
+        return _lib
+
+
+def build_info() -> dict:
+    """Where the library came from and what the build printed."""
+    with _lock:
+        return dict(_info)
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = load().repro_error_string(code).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} (cudaError {code})")
+
+
+def current_stream(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

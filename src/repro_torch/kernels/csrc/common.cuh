@@ -1,0 +1,62 @@
+// Shared helpers of the port's distance kernels (plain C interface, sm_90a).
+//
+// Every distance here is the expanded f32 form of the JAX package's Pallas
+// kernels, max(|x|^2 + |y|^2 - 2 x.y, 0), with each dot product and norm an
+// explicit round-to-nearest FMA chain over the feature axis in ascending
+// order.  The chain is a function of the two rows' values only, so exact
+// duplicate rows give bitwise equal distances wherever they sit in a tile,
+// and index ties resolve by the lowest index exactly as in the plain
+// versions (kernels/ref.py).  No tensor cores and no TF32: d is small and
+// the contracts are f32.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <climits>
+
+namespace repro {
+
+constexpr int kMaxDim = 128;  // feature widths the kernels accept
+
+// Odd row stride in shared memory: lanes reading consecutive rows at the
+// same feature hit distinct banks.
+__host__ __device__ inline int smem_stride(int d) { return d | 1; }
+
+__device__ __forceinline__ float dot_chain(const float* a, const float* b, int d) {
+  float acc = 0.f;
+  for (int k = 0; k < d; ++k) acc = __fmaf_rn(a[k], b[k], acc);
+  return acc;
+}
+
+// max((xx + yy) - 2 xy, 0); 2 xy is exact, so no contraction can change it.
+__device__ __forceinline__ float expanded_sq(float xx, float yy, float xy) {
+  return fmaxf(__fsub_rn(__fadd_rn(xx, yy), __fmul_rn(2.f, xy)), 0.f);
+}
+
+// Stage rows [r0, r0 + rows) of a row-major (n, d) table into shared memory
+// with stride smem_stride(d); rows past n are zero.  Call with the whole
+// block; the caller synchronises.
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+                                           int r0, int rows, int n, int d) {
+  const int ds = smem_stride(d);
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int t = tid; t < rows * d; t += nthreads) {
+    const int r = t / d, k = t - r * d;
+    dst[r * ds + k] = (r0 + r < n) ? src[(size_t)(r0 + r) * d + k] : 0.f;
+  }
+}
+
+// Lexicographic (value, index) minimum across a warp; every lane returns
+// the winner.
+__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (ov < v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+}  // namespace repro

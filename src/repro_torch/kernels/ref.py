@@ -1,0 +1,135 @@
+"""Plain PyTorch versions of the main path's kernels.
+
+These are the only arithmetic the CPU path and the tests run, and the
+yardstick every CUDA kernel is held against on the card.  They run on any
+device and compute the same quantities as the Pallas kernels of the JAX
+package (``repro/kernels/{assign,bubble_cd,mutual_reach}.py``):
+
+* squared distances in the expanded form ``max(‖x‖² + ‖y‖² − 2·x·y, 0)``,
+  f32, on mean-centred inputs (the expansion cancels off-origin);
+* the nearest representative is the lowest index attaining the row
+  minimum of that clamped quantity — the Pallas ``assign`` form.  The JAX
+  package's ``ref._nearest`` instead elides ``‖x‖²`` and does not clamp,
+  so on duplicate or near-zero rows it can pick another index than the
+  Pallas kernel; the port follows the kernel;
+* Eq. 6 by stable sort + cumulative mass, Eq. 7 as the max of the
+  distance and both core distances with the diagonal at 0.
+
+Dense ``(L, L)`` work is allowed in this file only (repro-lint RPL402).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "pairwise_sqdist",
+    "mutual_reachability",
+    "nearest",
+    "assign",
+    "assign_with_dist",
+    "dim_root",
+    "bubble_core_distances_from_dm",
+    "bubble_core_distances_rows",
+    "bubble_core_distances",
+    "bubble_mutual_reachability",
+]
+
+
+def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    x = x.float()
+    y = y.float()
+    xx = (x * x).sum(-1)[:, None]
+    yy = (y * y).sum(-1)[None, :]
+    return torch.clamp_min(xx + yy - 2.0 * (x @ y.T), 0.0)
+
+
+def mutual_reachability(x, y, cd_x, cd_y, zero_diag: bool = True, n_valid: int | None = None):
+    """Eq. 7 tiles ``max(d(x, y), cd_x, cd_y)``; the global diagonal is 0
+    with ``zero_diag``, and rows/columns ≥ ``n_valid`` are +inf (the
+    offline pass's pad rows, which Borůvka must never connect)."""
+    d = torch.sqrt(pairwise_sqdist(x, y))
+    m = torch.maximum(d, torch.maximum(cd_x.float()[:, None], cd_y.float()[None, :]))
+    n, mm = m.shape
+    rows = torch.arange(n, device=m.device)[:, None]
+    cols = torch.arange(mm, device=m.device)[None, :]
+    if zero_diag:
+        m = torch.where(rows == cols, 0.0, m)
+    if n_valid is not None:
+        m = torch.where((rows >= n_valid) | (cols >= n_valid), float("inf"), m)
+    return m
+
+
+def nearest(x: torch.Tensor, reps: torch.Tensor):
+    """Lowest index attaining the row minimum of the clamped squared
+    distance, and that minimum: ``(idx int32 (n,), sq f32 (n,))``."""
+    sq = pairwise_sqdist(x, reps)
+    m = sq.min(dim=1).values
+    L = sq.shape[1]
+    cols = torch.arange(L, dtype=torch.int32, device=sq.device)[None, :]
+    idx = torch.where(sq == m[:, None], cols, L).amin(dim=1)
+    return idx.to(torch.int32), m
+
+
+def assign(x, reps):
+    return nearest(x, reps)[0]
+
+
+def assign_with_dist(x, reps):
+    """Nearest index + euclidean distance, the square root of the same
+    row minimum (the serve plane's fused query path)."""
+    idx, m = nearest(x, reps)
+    return idx, torch.sqrt(m)
+
+
+def dim_root(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x**(1/dim): repeated correctly-rounded sqrt for power-of-two dims
+    (context-stable bits), ``pow`` otherwise."""
+    if dim >= 1 and (dim & (dim - 1)) == 0:
+        for _ in range(int(dim).bit_length() - 1):
+            x = torch.sqrt(x)
+        return x
+    return torch.pow(x, 1.0 / float(dim))
+
+
+def bubble_core_distances_from_dm(d, row_ids, n_b, extent, min_pts: int, dim: int):
+    """Eq. 6 for an (m, L) euclidean-distance strip holding rows
+    ``row_ids`` of the full bubble distance matrix: self at distance 0,
+    stable ascending sort, cumulative mass crossing ``min_pts``, then
+    ``d* + dim_root(k_resid / n_C, dim) · extent_C``.  A row whose mass
+    never crosses falls back to its farthest entry."""
+    m, L = d.shape
+    dev = d.device
+    cols = torch.arange(L, device=dev)
+    d = torch.where(row_ids.long()[:, None] == cols[None, :], 0.0, d)
+    d_sorted, order = torch.sort(d, dim=1, stable=True)
+    nb = n_b.float()
+    csum = torch.cumsum(nb[order], dim=1)
+    reach = csum >= float(min_pts)
+    first = torch.argmax(reach.to(torch.int8), dim=1)
+    idx = torch.where(reach.any(dim=1), first, L - 1)
+    rows = torch.arange(m, device=dev)
+    before = torch.where(idx > 0, csum[rows, torch.clamp_min(idx - 1, 0)], 0.0)
+    k_resid = torch.clamp_min(float(min_pts) - before, 1.0)
+    C = order[rows, idx]
+    nC = torch.clamp_min(nb[C], 1.0)
+    k_resid = torch.minimum(torch.clamp_min(k_resid, 0.0), nC)
+    nnd = dim_root(k_resid / nC, dim) * extent.float()[C]
+    return d_sorted[rows, idx] + nnd
+
+
+def bubble_core_distances_rows(rep_rows, row_ids, rep, n_b, extent, min_pts: int, dim: int):
+    d = torch.sqrt(pairwise_sqdist(rep_rows, rep))
+    return bubble_core_distances_from_dm(d, row_ids, n_b, extent, min_pts, dim)
+
+
+def bubble_core_distances(rep, n_b, extent, min_pts: int, dim: int):
+    """Eq. 6 over every bubble of the table."""
+    L = rep.shape[0]
+    ids = torch.arange(L, device=rep.device)
+    return bubble_core_distances_rows(rep, ids, rep, n_b, extent, min_pts, dim)
+
+
+def bubble_mutual_reachability(rep, n_b, extent, min_pts: int, n_valid: int | None = None):
+    cd = bubble_core_distances(rep, n_b, extent, min_pts, rep.shape[1])
+    return mutual_reachability(rep, rep, cd, cd, zero_diag=True, n_valid=n_valid)

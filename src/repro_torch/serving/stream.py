@@ -1,0 +1,447 @@
+"""Streaming clustering engine — the online–offline split as a service
+(DESIGN.md §5), default mode.
+
+The PyTorch counterpart of the JAX package's ``serving/stream.py``:
+
+  request plane   `submit_insert` / `submit_delete` enqueue ops into a
+                  `HostBatcher`; `poll()` drains them in contiguous
+                  same-kind blocks into `BubbleTree.insert_block` /
+                  `delete_block`.  On the card, the block's point → leaf
+                  argmin runs through the assign kernel on rows centred
+                  at the rep mean.
+
+  offline plane   the tree tracks dirty mass; when dirty/total ≥ ε the
+                  engine captures the alive-leaf CF rows and runs
+                  `kernels.ops.offline_recluster_from_table` on the
+                  device (Eq. 6 → Eq. 7 → Borůvka → hierarchy), sync or
+                  in a background thread.
+
+  serve plane     `query` / `query_detailed` / `labels` read the newest
+                  published `ClusterSnapshot` through the versioned device
+                  cache (serving/query.py).
+
+Not in this slice: ``spatial_index``, ``device_online``, ``exact``,
+``mesh`` and checkpoint save/restore (see ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+
+import numpy as np
+
+from ..core.bubble_tree import BubbleTree
+from ..core.device_table import SnapshotDeviceTable
+from ..kernels import ops
+from .batcher import HostBatcher
+from .query import QueryEngine, QueryResult
+
+__all__ = [
+    "Ticket",
+    "StalenessPolicy",
+    "ClusterSnapshot",
+    "QueryResult",
+    "StreamingClusterEngine",
+]
+
+# options of the JAX engine that this port does not carry yet, and the
+# ROADMAP.md queue-1 item that will
+_NOT_PORTED = {
+    "device_online": "queue 1, item 8 (device-online ingest)",
+    "spatial_index": "queue 1, item 9 (grid pruning)",
+    "exact": "queue 1, item 11 (exact-dynamic path)",
+    "mesh": "queue 1, item 12 (multi-device offline pass)",
+}
+
+
+@dataclasses.dataclass
+class Ticket:
+    """Handle for a queued insert block; `pids` is filled when the
+    scheduler applies the block (needed to delete those points later)."""
+
+    size: int
+    pids: list | None = None
+
+    @property
+    def applied(self) -> bool:
+        return self.pids is not None
+
+
+@dataclasses.dataclass
+class StalenessPolicy:
+    """Re-cluster when the dirty mass (points inserted/deleted since the
+    last offline pass) reaches ``epsilon`` × current population; below
+    ``min_points`` there is nothing worth clustering."""
+
+    epsilon: float = 0.1
+    min_points: int = 32
+
+    def stale(self, tree: BubbleTree, have_snapshot: bool, pending: float = 0.0) -> bool:
+        """`pending` = dirty mass an in-flight pass has already captured."""
+        if tree.n_points < self.min_points:
+            return False
+        if not have_snapshot:
+            return True
+        eff = max(0.0, tree.dirty_mass - pending)
+        return eff / max(float(tree.n_points), 1.0) >= self.epsilon
+
+
+@dataclasses.dataclass
+class ClusterSnapshot:
+    """Immutable result of one offline pass; the serve plane reads this."""
+
+    version: int
+    n_points: int
+    bubble_rep: np.ndarray  # (L, d) representatives (serve-plane index)
+    bubble_n: np.ndarray  # (L,) represented mass
+    center: np.ndarray  # (d,) summary centroid — queries are centred
+    #   before the f32 device kernel (off-origin cancellation, DESIGN.md §2)
+    result: ops.OfflineClusterResult
+    wall_seconds: float
+    dirty_consumed: float = 0.0  # dirty mass this pass absorbed (settled
+    #   against the tree by the MAIN thread — see _settle)
+
+    @property
+    def bubble_labels(self) -> np.ndarray:
+        """(L,) flat cluster labels, -1 noise."""
+        return self.result.labels
+
+    @property
+    def mst(self) -> tuple:
+        """(u, v, w) MST edge arrays over bubbles."""
+        return self.result.mst
+
+    @property
+    def n_bubbles(self) -> int:
+        return int(self.bubble_rep.shape[0])
+
+    @property
+    def n_clusters(self) -> int:
+        return len(set(self.bubble_labels.tolist()) - {-1})
+
+    @property
+    def stabilities(self) -> np.ndarray:
+        return self.result.stabilities
+
+    @property
+    def total_mst_weight(self) -> float:
+        return float(np.sum(self.mst[2]))
+
+
+class StreamingClusterEngine:
+    """Batched Bubble-tree ingestion + ε-triggered offline re-clustering.
+
+    Args:
+      dim: feature dimensionality.
+      min_pts: HDBSCAN density parameter (offline phase).
+      compression: Bubble-tree leaf steering factor (L ≈ compression × N).
+      min_cluster_size: flat-extraction threshold (defaults to min_pts).
+      epsilon: staleness threshold — re-cluster when ≥ this fraction of
+        the population changed since the last pass.
+      max_block: scheduler block cap (points coalesced per apply).
+      device: where the kernels run; None = ``cuda`` (raises without a
+        GPU), ``"cpu"`` = the plain PyTorch versions.
+      async_offline: run offline passes in a background thread; `query`
+        keeps serving the previous snapshot meanwhile.
+      **tree_kw: forwarded to BubbleTree.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        *,
+        min_pts: int = 10,
+        compression: float = 0.05,
+        min_cluster_size: float | None = None,
+        epsilon: float = 0.1,
+        max_block: int = 512,
+        device=None,
+        async_offline: bool = False,
+        min_offline_points: int = 32,
+        spatial_index: bool = False,
+        device_online: bool | None = None,
+        exact: bool = False,
+        mesh=None,
+        **tree_kw,
+    ):
+        for name, on in (("spatial_index", spatial_index), ("device_online", device_online),
+                         ("exact", exact), ("mesh", mesh is not None)):
+            if on:
+                raise NotImplementedError(
+                    f"{name} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[name]}")
+        self.backend = ops.get_backend(device)
+        assign_fn = None
+        if self.backend.device.type == "cuda":
+            # the ingest point→leaf argmin runs on the assign kernel (on the
+            # CPU the tree's host f64 argmin is faster).  argmin is
+            # translation-invariant; centre before the f32 kernel so
+            # off-origin coordinates don't cancel (as the offline path does)
+            def assign_fn(X, reps):
+                mu = reps.mean(axis=0)
+                return self.backend.assign(X - mu, reps - mu).cpu().numpy()
+        self.tree = BubbleTree(  # owner: ingest thread (workers read captures)
+            dim=dim, compression=compression, assign_fn=assign_fn, **tree_kw
+        )
+        self.min_pts = int(min_pts)
+        self.min_cluster_size = float(
+            min_pts if min_cluster_size is None else min_cluster_size
+        )
+        self.policy = StalenessPolicy(epsilon=float(epsilon), min_points=int(min_offline_points))
+        self.batcher = HostBatcher(max_block=max_block)
+        self.async_offline = bool(async_offline)
+        self._snapshot: ClusterSnapshot | None = None  # guarded-by: _snapshot_lock
+        self._snapshot_lock = threading.Lock()
+        self._offline_thread: threading.Thread | None = None  # owner: ingest thread
+        self._version = 0  # guarded-by: _snapshot_lock
+        self._settled_version = 0  # owner: ingest thread (_settle)
+        # dirty mass captured by the running pass
+        self._inflight_consumed = 0.0  # owner: ingest thread
+        # unsynchronized: single reference swap (GIL-atomic); the worker
+        # writes once on failure, the ingest thread reads-and-clears
+        self._offline_error: BaseException | None = None
+        self._table = SnapshotDeviceTable(self.tree)
+        self._query_engine = QueryEngine(self.backend, dim)
+        # unsynchronized: single-reference swap; readers take ONE read of
+        # the (key, payload) tuple (see labels()) so entries never mix
+        self._labels_cache: tuple | None = None
+        # unsynchronized: best-effort observability counters (worker and
+        # ingest thread both increment; a lost count is acceptable)
+        self.stats = {
+            "inserts": 0,
+            "deletes": 0,
+            "blocks_applied": 0,
+            "recluster_count": 0,
+            "recluster_skipped_busy": 0,
+            "recluster_failures": 0,
+            "offline_seconds_total": 0.0,
+            "label_cache_hits": 0,
+        }
+
+    # -- request plane -----------------------------------------------------
+
+    def submit_insert(self, X) -> Ticket:
+        """Queue a block of points for insertion; returns a Ticket whose
+        `pids` fill in once the scheduler applies the block.  The points
+        are copied at submit time — callers may reuse their buffer."""
+        X = np.array(X, dtype=np.float64, copy=True, ndmin=2)
+        if X.size == 0:  # e.g. [] arrives as (1, 0); normalize to 0 points
+            X = X.reshape(0, self.tree.dim)
+        if X.ndim != 2 or X.shape[1] != self.tree.dim:
+            # validate at submit time: a bad request deferred into poll()
+            # would crash the drain loop and take coalesced siblings down
+            raise ValueError(f"expected (n, {self.tree.dim}) points, got {X.shape}")
+        t = Ticket(size=X.shape[0])
+        self.batcher.push((X, t), kind="insert")
+        return t
+
+    def submit_delete(self, pids):
+        """Queue point retirements (pids from an applied insert Ticket)."""
+        pids = [int(p) for p in np.atleast_1d(np.asarray(pids)).ravel()]
+        self.batcher.push(pids, kind="delete")
+
+    def poll(self, max_blocks: int | None = None) -> int:
+        """Drain the request queue: coalesce contiguous same-kind requests
+        into blocks (≤ max_block points each), apply them to the tree, then
+        consult the staleness policy.  Returns the number of ops applied."""
+        applied = 0
+        blocks = 0
+        while self.batcher and (max_blocks is None or blocks < max_blocks):
+            kind, items = self.batcher.next_block(size=self._point_count)
+            if kind == "insert":
+                X = np.concatenate([x for x, _ in items], axis=0)
+                pids = self.tree.insert_block(X)
+                off = 0
+                for x, ticket in items:  # requests are never split: one fill
+                    take = x.shape[0]
+                    ticket.pids = pids[off : off + take]
+                    off += take
+                self.stats["inserts"] += X.shape[0]
+                applied += X.shape[0]
+            else:
+                flat_pids = [p for chunk in items for p in chunk]
+                try:
+                    self.tree.delete_block(flat_pids)
+                except KeyError:
+                    # a bad request (dead/duplicate pid) must not take its
+                    # coalesced siblings down: delete_block is atomic per
+                    # call, so replay per request and surface the first
+                    # failure — what sequential submission would do
+                    done, err = 0, None
+                    for chunk in items:
+                        try:
+                            self.tree.delete_block(chunk)
+                            done += len(chunk)
+                        except KeyError as e:
+                            if err is None:
+                                err = e
+                    self.stats["deletes"] += done
+                    if err is not None:
+                        raise err from None
+                else:
+                    self.stats["deletes"] += len(flat_pids)
+                    applied += len(flat_pids)
+            self.stats["blocks_applied"] += 1
+            blocks += 1
+        self.maybe_recluster()
+        return applied
+
+    @staticmethod
+    def _point_count(item) -> int:
+        """Points in one queued request: insert items are (X, Ticket),
+        delete items are pid lists."""
+        return item[0].shape[0] if isinstance(item, tuple) else len(item)
+
+    def ingest(self, X) -> list[int]:
+        """Synchronous convenience: submit + drain; returns the new pids."""
+        t = self.submit_insert(X)
+        self.poll()
+        return t.pids
+
+    def retire(self, pids):
+        """Synchronous convenience: submit deletions + drain."""
+        self.submit_delete(pids)
+        self.poll()
+
+    # -- offline plane -----------------------------------------------------
+
+    def _settle(self):
+        """Consume a finished pass's dirty mass — on the MAIN thread only,
+        so `tree.dirty_mass` has a single writer thread."""
+        with self._snapshot_lock:
+            snap = self._snapshot
+        if snap is not None and snap.version > self._settled_version:
+            self.tree.dirty_mass = max(0.0, self.tree.dirty_mass - snap.dirty_consumed)
+            self._settled_version = snap.version
+            self._inflight_consumed = 0.0
+
+    def maybe_recluster(self, force: bool = False) -> bool:
+        """Trigger an offline pass if the policy says the hierarchy is
+        stale (or `force`).  Async mode returns immediately; a pass
+        already in flight absorbs the trigger."""
+        self._raise_pending_offline_error()
+        # liveness BEFORE settle: a pass landing in between is still
+        # settled before any capture below, never double-settled
+        busy = self._offline_thread is not None and self._offline_thread.is_alive()
+        self._settle()
+        pending = self._inflight_consumed if busy else 0.0
+        have = self.snapshot is not None or busy
+        if not force and not self.policy.stale(self.tree, have, pending=pending):
+            return False
+        if self.tree.n_points < 2:
+            return False
+        if busy:
+            self.stats["recluster_skipped_busy"] += 1
+            return False
+        # capture: the dirty mass this pass consumes + isolation copies of
+        # the summary rows, so an async worker is immune to tree edits
+        dirty_captured = self.tree.dirty_mass
+        n_points = self.tree.n_points
+        cap = self._table.capture(n_points)
+        if self.async_offline:
+            self._inflight_consumed = dirty_captured
+            th = threading.Thread(
+                target=self._offline_pass_guarded,
+                args=(cap, n_points, dirty_captured),
+                daemon=True,
+            )
+            self._offline_thread = th
+            th.start()
+        else:
+            self._offline_pass(cap, n_points, dirty_captured)
+            self._settle()
+        return True
+
+    def _offline_pass_guarded(self, *args):
+        """Worker entry: capture failures for the main thread, which
+        re-raises them from join()/poll()."""
+        try:
+            self._offline_pass(*args)
+        except BaseException as e:  # noqa: BLE001 — transported, not handled
+            self._offline_error = e
+            self.stats["recluster_failures"] += 1
+
+    def _raise_pending_offline_error(self):
+        if self._offline_error is not None:
+            err, self._offline_error = self._offline_error, None
+            self._inflight_consumed = 0.0
+            raise RuntimeError("async offline re-cluster pass failed") from err
+
+    def _offline_pass(self, capture, n_points, dirty_captured):
+        """One offline pass over a capture, published as ONE snapshot."""
+        t0 = time.perf_counter()
+        res, rep, n_b, center = capture.recluster(
+            self.backend, min_pts=self.min_pts, min_cluster_size=self.min_cluster_size)
+        wall = time.perf_counter() - t0
+        # version bump + swap under ONE lock hold
+        with self._snapshot_lock:
+            self._version += 1
+            snap = ClusterSnapshot(
+                version=self._version,
+                n_points=int(n_points),
+                bubble_rep=rep,
+                bubble_n=n_b,
+                center=center,
+                result=res,
+                wall_seconds=wall,
+                dirty_consumed=float(dirty_captured),
+            )
+            self._snapshot = snap
+        self.stats["recluster_count"] += 1
+        self.stats["offline_seconds_total"] += wall
+        return snap
+
+    def flush(self) -> ClusterSnapshot | None:
+        """Drain every queued request, finish any in-flight offline pass,
+        and force one final pass if anything is still dirty."""
+        while self.batcher:
+            self.poll()
+        self.join()
+        if self.tree.n_points >= 2 and (
+            self.snapshot is None or self.tree.dirty_mass > 0
+        ):
+            self.maybe_recluster(force=True)
+            self.join()
+        return self.snapshot
+
+    def join(self):
+        if self._offline_thread is not None:
+            self._offline_thread.join()
+            self._offline_thread = None
+        self._settle()
+        self._raise_pending_offline_error()
+
+    # -- serve plane -------------------------------------------------------
+
+    @property
+    def snapshot(self) -> ClusterSnapshot | None:
+        with self._snapshot_lock:
+            return self._snapshot
+
+    def query(self, X) -> np.ndarray:
+        """Cluster labels for query points from the newest snapshot
+        (nearest bubble, label inherited); -1 for all points before the
+        first pass."""
+        return self.query_detailed(X).labels
+
+    def query_detailed(self, X, *, snapshot: ClusterSnapshot | None = None) -> QueryResult:
+        """Flat label, nearest-bubble row, distance to its representative
+        and membership strength; ``snapshot`` pins the version served."""
+        snap = self.snapshot if snapshot is None else snapshot
+        return self._query_engine.query_detailed(snap, X)
+
+    def labels(self) -> tuple[np.ndarray, np.ndarray]:
+        """(pids, labels) for every alive point via the newest snapshot,
+        memoized on (snapshot version, tree mutation counter)."""
+        snap = self.snapshot
+        key = (0 if snap is None else snap.version, self.tree.mutations)
+        cache = self._labels_cache  # ONE read: never mix entries
+        if cache is not None and cache[0] == key:
+            pids, lab = cache[1]
+            self.stats["label_cache_hits"] += 1
+            return pids.copy(), lab.copy()
+        pids, X = self.tree.alive_points()
+        lab = self._query_engine.query(snap, X)
+        self._labels_cache = (key, (pids, lab))
+        return pids.copy(), lab.copy()
