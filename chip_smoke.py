@@ -20,8 +20,23 @@ Phases, each printing its own lines:
               the snapshots and the served rows held against the port's
               own plain pipeline on the CPU, and one offline pass at
               Lp = 8192 timed stage by stage;
-  5. the kernels JSON line (launches on the stream, errors, times, bounds);
-  6. the last line: {"ok": true, "device": {...}}.
+  5. points   the point-level kernel API (Def. 1 core distances, knn,
+              pairwise squared distances, Def. 2 mutual reachability) on
+              the first 65,536 points of the stream's mixture, mean-centred:
+              knn and core distances at n = m = 65,536, pairwise and
+              mutual reachability at 16,384²; each held against its plain
+              version over row strips, the knn tie order among copies held
+              on a duplicate-heavy table, with kernel / plain / library
+              times;
+  6. attention GQA flash attention at the full attention widths of
+              qwen2-1.5b (S = 4096, 12 heads, 2 kv heads, Dh 128, causal,
+              bf16 and f32) and h2o-danube-3-4b (S = 8192, 32 heads, 8 kv
+              heads, Dh 120, window 4096, bf16), and a ragged case with a
+              dead-key tail and fully masked rows; each held against the
+              plain version a few heads at a time, with times;
+  7. the kernels JSON line (launches on each kernel's own path, errors,
+     times, bounds);
+  8. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
 of the repository, or when any phase fails.  Imports nothing of JAX.
@@ -48,9 +63,20 @@ N_QUERIES = 65_536
 QUERY_CHUNK = 4096
 LP = 8192  # the offline bucket the stream reaches, and the kernels' check size
 RTOL = 1e-5
+N_KNN = 65_536  # [points]: knn and core distances at n = m
+N_PAIR = 16_384  # [points]: pairwise and point mutual reachability (1 GiB each)
+STRIP = 4096  # rows per strip of a plain version on the card
+# [attention]: (label, B, S, H, KV, Dh, window, dtype, dead keys at the head, dead keys at the tail)
+ATTENTION = (
+    ("qwen2-1.5b bf16", 1, 4096, 12, 2, 128, None, "bf16", 0, 0),
+    ("qwen2-1.5b f32", 1, 4096, 12, 2, 128, None, "f32", 0, 0),
+    ("h2o-danube-3-4b bf16", 1, 8192, 32, 8, 120, 4096, "bf16", 0, 0),
+    ("ragged f32", 2, 3001, 12, 2, 128, None, "f32", 5, 37),
+)
 
 # published peaks of one H100 SXM (NVIDIA data sheet, 700 W)
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -87,8 +113,8 @@ def time_ms(fn, reps=10, warm=2):
     return a.elapsed_time(b) / reps
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -497,6 +523,268 @@ def phase_stages(dev, table):
         + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) + f"; total {total:.2f}")
 
 
+def phase_points(dev):
+    """The point-level kernel API through ops at a size users call real;
+    returns the launches of that run and the per-kernel numbers."""
+    import torch
+
+    from repro_torch.kernels import knn as k_knn
+    from repro_torch.kernels import mutual_reach as k_mr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise as k_pw
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(SEED + 1)  # the stream's mixture (phase_stream)
+    pts = mixture(rng, N_POINTS + N_QUERIES)[:N_KNN]
+    X = torch.as_tensor(pts - pts.mean(axis=0), dtype=torch.float32, device=dev)
+    Xs = X[:N_PAIR].contiguous()
+    k = MIN_PTS
+
+    for mod in (k_knn, k_pw, k_mr):
+        mod.launches = 0
+    cd = ops.core_distances(X, k)
+    kd, ki = ops.knn(X, X, k)
+    P = ops.pairwise_sqdist(Xs, Xs)
+    cds = cd[:N_PAIR].contiguous()
+    W = ops.mutual_reachability(Xs, Xs, cds, cds)
+    torch.cuda.synchronize()
+    launches = {"knn": k_knn.launches, "pairwise": k_pw.launches, "mutual_reach": k_mr.launches}
+    say(f"[points] core_distances + knn at {N_KNN}x{N_KNN}x{DIM} k={k}, pairwise + mutual_reachability "
+        f"at {N_PAIR}²: launches {json.dumps(launches)}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} never launched on the point-level path")
+    check(bool(torch.equal(cd, kd[:, k - 1])), "core_distances is not the knn's k-th column")
+
+    # knn and core distances against the plain version, 4096 rows at a time
+    errs, kept = [], 0
+    yy = float((X * X).sum(1).max())
+    for i in range(0, N_KNN, STRIP):
+        q = X[i : i + STRIP]
+        pd, pi = ref.knn(q, X, k + 1)
+        errs.append(compare(f"knn rows {i}+", kd[i : i + STRIP], pd[:, :k], dist_tol(q, X, pd[:, :k]))[0])
+        # an entry apart from both neighbours of its sorted row by more than
+        # 64× the f32 rounding of the expanded form has one possible index
+        sq = pd.double().square()
+        noise = 64 * EPS32 * ((q * q).sum(1).double() + yy)
+        gap = (sq[:, 1:] - sq[:, :-1]) > noise[:, None]
+        iso = torch.cat([torch.ones_like(gap[:, :1]), gap[:, : k - 1]], dim=1) & gap
+        check(bool(torch.equal(ki[i : i + STRIP][iso], pi[:, :k][iso])),
+              f"knn rows {i}+: indices differ on entries without near-ties")
+        kept += int(iso.sum())
+        del pd, pi, sq
+    check(kept > N_KNN * k // 4, f"only {kept} knn entries without near-ties")
+    say(f"[points] knn / core_distances vs plain: max_abs_err {max(errs):.3e}; "
+        f"indices identical on the {kept} of {N_KNN * k} entries without near-ties")
+    knn_err = max(errs)
+
+    # pairwise and the point-level Eq. 7 against the plain version
+    dsq = 8 * EPS32 * 2 * float((Xs * Xs).sum(1).max())
+    e_pw, e_mr = [], []
+    for i in range(0, N_PAIR, STRIP):
+        q = Xs[i : i + STRIP]
+        pp = ref.pairwise_sqdist(q, Xs)
+        e_pw.append(compare(f"pairwise rows {i}+", P[i : i + STRIP], pp, RTOL * pp + dsq)[0])
+        pW = ref.mutual_reachability(q, Xs, cds[i : i + STRIP], cds, zero_diag=False)
+        rows = torch.arange(q.shape[0], device=dev)
+        pW[rows, i + rows] = 0.0  # the global diagonal
+        e_mr.append(compare(f"mutual_reachability rows {i}+", W[i : i + STRIP], pW,
+                            dist_tol(q, Xs, pp.sqrt()) + RTOL * pW.abs())[0])
+        del pp, pW
+    z = torch.zeros(N_PAIR, device=dev)
+    W0 = k_mr.mutual_reachability(Xs, Xs, z, z, zero_diag=False)
+    check(bool(torch.equal(W0, P.sqrt())), "pairwise and mutual_reach disagree on squared-distance bits")
+    del W0
+    say(f"[points] pairwise vs plain max_abs_err {max(e_pw):.3e}; mutual_reachability vs plain "
+        f"max_abs_err {max(e_mr):.3e}; mutual_reach(cd=0) == sqrt(pairwise) bit for bit")
+
+    # the (d, j) order among copies: a duplicate-heavy table against a
+    # yardstick in the direct-difference form √Σ(x−y)², where copies are
+    # exactly 0 apart as in the kernel.  Each row's first min(copies, k)
+    # entries are its site's lowest copy indices at distance 0; the rest sit
+    # at other sites and get the cancellation allowance.
+    sites = mixture(rng, 1000)
+    sites -= sites.mean(axis=0)
+    site = rng.integers(0, 1000, size=N_PAIR)
+    Xd = torch.as_tensor(sites[site], dtype=torch.float32, device=dev)
+    dd, di = k_knn.knn(Xd, Xd, k)
+    yd, yi = [], []
+    for i in range(0, N_PAIR, 256):
+        dist = (Xd[i : i + 256, None, :] - Xd[None, :, :]).square().sum(-1).sqrt()
+        v, j = torch.sort(dist, dim=1, stable=True)
+        yd.append(v[:, :k])
+        yi.append(j[:, :k].to(torch.int32))
+    yd, yi = torch.cat(yd), torch.cat(yi)
+    copies = torch.as_tensor(np.bincount(site, minlength=1000)[site], device=dev)
+    own = torch.arange(k, device=dev)[None, :] < copies.clamp_max(k)[:, None]
+    check(bool(torch.equal(di[own], yi[own])) and bool((dd[own] == 0).all()),
+          "knn duplicates: the lowest-index order among copies differs")
+    e_dup, _ = compare("knn duplicates, other sites", dd[~own], yd[~own],
+                       dist_tol(Xd, Xd, yd)[~own])
+    say(f"[points] knn duplicate table ({N_PAIR} rows, 1000 sites): {int(own.sum())} entries among "
+        f"own copies identical to the direct-difference yardstick; other entries max_abs_err {e_dup:.3e}")
+    knn_err = max(knn_err, e_dup)
+    del Xd, dd, di, yd, yi, P, W
+    torch.cuda.empty_cache()
+
+    # times
+    out = {}
+    ms = time_ms(lambda: k_knn.knn(X, X, k), reps=3, warm=1)
+
+    def plain_knn():
+        for i in range(0, N_KNN, STRIP):
+            ref.knn(X[i : i + STRIP], X, k)
+
+    plain = time_ms(plain_knn, reps=1, warm=1)
+    torch.cuda.empty_cache()
+    lib = time_ms(lambda: torch.topk(torch.cdist(X, X), k, dim=1, largest=False), reps=2, warm=1)
+    torch.cuda.empty_cache()
+    b, by = bound_ms(2.0 * N_KNN * N_KNN * DIM, 4.0 * (2 * N_KNN * DIM + 2 * N_KNN * k))
+    say(f"[points] knn {N_KNN}x{N_KNN}x{DIM} k={k}: kernel {ms:.4f} ms, plain ({N_KNN // STRIP} strips) {plain:.4f} ms, "
+        f"cdist+topk {lib:.4f} ms, bound {b:.4f} ms ({by})")
+    out["knn"] = dict(max_abs_err=knn_err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+
+    ms = time_ms(lambda: k_pw.pairwise_sqdist(Xs, Xs))
+    plain = time_ms(lambda: ref.pairwise_sqdist(Xs, Xs), reps=5)
+    lib_cdist = time_ms(lambda: torch.cdist(Xs, Xs).square_(), reps=5)
+    xx = (Xs * Xs).sum(1)
+    lib_addmm = time_ms(lambda: torch.addmm(xx[None, :], Xs, Xs.T, alpha=-2.0).add_(xx[:, None]).clamp_min_(0.0),
+                        reps=5)
+    b, by = bound_ms(2.0 * N_PAIR * N_PAIR * DIM, 4.0 * (N_PAIR * N_PAIR + 2 * N_PAIR * DIM))
+    say(f"[points] pairwise {N_PAIR}²x{DIM}: kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist**2 {lib_cdist:.4f} ms, "
+        f"addmm expansion {lib_addmm:.4f} ms, bound {b:.4f} ms ({by})")
+    out["pairwise"] = dict(max_abs_err=max(e_pw), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                           library_ms=min(lib_cdist, lib_addmm))
+    ms = time_ms(lambda: k_mr.mutual_reachability(Xs, Xs, cds, cds))
+    say(f"[points] point-level mutual_reachability {N_PAIR}²x{DIM}: kernel {ms:.4f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _live_pairs(qpos, kpos, window):
+    """Live causal (query, key) pairs of (B, S) position vectors."""
+    n = 0
+    for qp, kp in zip(qpos, kpos):
+        live = (kp[None, :] >= 0) & (kp[None, :] <= qp[:, None])
+        if window is not None:
+            live &= kp[None, :] > qp[:, None] - window
+        n += int(live.sum())
+    return n
+
+
+def flash_reading(o, want, dt):
+    """The attention check's two readings of an output against the plain
+    one, each over its limit (the output passes while both are <= 1):
+    the largest |o - want| / (atol + rtol·|want|), and the largest per-row
+    ‖o - want‖ / ‖want‖ over the row limit.  The kernel keeps (m, l, acc)
+    in f32, so in bf16 the two differ by the output's rounding (one bf16
+    ulp is at most 2^-7 relative): the limits scale with the values, which
+    shrink like 1/√(live keys), instead of a flat atol that a late row's
+    whole value fits under."""
+    rtol, atol, row_tol = (1e-4, 2e-4, 1e-3) if dt == "f32" else (1e-2, 2e-3, 1e-2)
+    d = o - want
+    elem = float((d.abs() / (atol + rtol * want.abs())).max())
+    row = float((d.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max()) / row_tol
+    return elem, row
+
+
+def phase_attention(dev):
+    """GQA flash attention through ops at the full attention widths of two
+    configurations; returns the launches of that run and the numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    cases = []
+    for label, B, S, H, KV, Dh, window, dt, dead_head, dead_tail in ATTENTION:
+        q, k, v = (torch.randn(B, S, h, Dh, generator=gen, device=dev).to(dtypes[dt]) for h in (H, KV, KV))
+        pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+        kpos = pos.clone()
+        kpos[:, :dead_head] = -1
+        kpos[:, S - dead_tail:] = -1
+        cases.append((label, q, k, v, pos, kpos, window, dt))
+
+    k_fa.launches = 0
+    outs = [ops.flash_attention(q, k, v, qp, kp, causal=True, window=w) for _, q, k, v, qp, kp, w, _ in cases]
+    torch.cuda.synchronize()
+    launches = k_fa.launches
+    say(f"[attention] {len(cases)} calls of ops.flash_attention: launches {launches}")
+    check(launches == len(cases), "flash_attention kernel not launched once per call")
+
+    def plain(q, k, v, qp, kp, window):
+        """The plain version, one kv head (G query heads) at a time."""
+        G = q.shape[2] // k.shape[2]
+        res = []
+        for g in range(k.shape[2]):
+            hq = q[:, :, g * G : (g + 1) * G].transpose(1, 2)
+            hk, hv = (t[:, :, g : g + 1].transpose(1, 2) for t in (k, v))
+            res.append(ref.gqa_flash_attention(hq, hk, hv, qp, kp, True, window))
+        return res
+
+    def wrong_readings(q, k, v, qp, kp, window, want, dt):
+        """What the check reads on two wrong outputs of kv head 0: the
+        rows past S/2 zeroed, and the 64 keys from S/2 dropped (a lost
+        K/V tile).  Returns their readings and their largest |error|."""
+        S = q.shape[1]
+        zeroed = want.clone()
+        zeroed[:, :, S // 2 :] = 0
+        kd = kp.clone()
+        kd[:, S // 2 : S // 2 + 64] = -1
+        dropped = plain(q[:, :, : q.shape[2] // k.shape[2]], k[:, :, :1], v[:, :, :1], qp, kd, window)[0].float()
+        return {name: (*flash_reading(w, want, dt), float((w - want).abs().max()))
+                for name, w in (("late rows zeroed", zeroed), ("one K/V tile dropped", dropped))}
+
+    out = {}
+    for (label, q, k, v, qp, kp, window, dt), got in zip(cases, outs):
+        B, S, H, Dh = q.shape
+        G = H // k.shape[2]
+        err, elem, row = 0.0, 0.0, 0.0
+        for g, want in enumerate(plain(q, k, v, qp, kp, window)):
+            o = got[:, :, g * G : (g + 1) * G].transpose(1, 2).float()
+            want = want.float()
+            check(bool(torch.isfinite(o).all()), f"{label}: non-finite output")
+            e, r = flash_reading(o, want, dt)
+            check(e <= 1 and r <= 1, f"{label}: kv head {g} outside tolerance, readings {e:.3f} (elements), "
+                                     f"{r:.3f} (rows)")
+            err, elem, row = max(err, float((o - want).abs().max())), max(elem, e), max(row, r)
+            if g == 0 and dt == "bf16":
+                for name, (we, wr, wa) in wrong_readings(q, k, v, qp, kp, window, want, dt).items():
+                    say(f"[attention] {label}: a wrong output ({name}) reads {we:.3f} (elements), {wr:.3f} (rows), "
+                        f"max |error| {wa:.3e}")
+                    check(we > 1 or wr > 1, f"{label}: the check passes a wrong output ({name})")
+        dead_rows = int((~((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])).any(-1)).sum())
+        live = _live_pairs(qp, kp, window)
+        peak = PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS
+        nbytes = q.element_size() * 2 * (q.numel() + k.numel())
+        b, by = bound_ms(4.0 * Dh * live * H, nbytes, peak)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, qp, kp, causal=True, window=window), reps=5)
+        p_ms = time_ms(lambda: plain(q, k, v, qp, kp, window), reps=1, warm=1)
+        lib = None
+        if not dead_rows:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if window is None:
+                lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+                              reps=5)
+            else:
+                p = qp[0]
+                mask = (p[None, :] <= p[:, None]) & (p[None, :] > p[:, None] - window)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                              reps=5)
+        say(f"[attention] {label}: B={B} S={S} H={H} KV={k.shape[2]} Dh={Dh} window={window}, "
+            f"{dead_rows} fully masked rows; max_abs_err {err:.3e}, readings {elem:.3f} (elements), "
+            f"{row:.3f} (rows) of limit 1; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"sdpa {'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms ({by}, {live} live "
+            f"(query, key) pairs per head, at the {dt} peak)")
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b, bound_by=by, library_ms=lib)
+        torch.cuda.empty_cache()
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -516,13 +804,21 @@ def main() -> int:
     run = phase_stream(dev)
     phase_cpu_check(run)
     phase_stages(dev, run["table_full"])
+    point_launches, point_numbers = phase_points(dev)
+    attn_launches, attn_numbers = phase_attention(dev)
+    launches = dict(run["launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
+                    flash_attention=attn_launches)
+    numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[0][0]])
     sources = {"assign": "src/repro/kernels/assign.py:21",
                "bubble_cd": "src/repro/kernels/bubble_cd.py:41",
-               "mutual_reach": "src/repro/kernels/mutual_reach.py:23"}
+               "mutual_reach": "src/repro/kernels/mutual_reach.py:23",
+               "knn": "src/repro/kernels/knn.py:34",
+               "pairwise": "src/repro/kernels/pairwise.py:30",
+               "flash_attention": "src/repro/kernels/flash_attention.py:38"}
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
-             replaces=sources[name], launches=run["launches"][name], **numbers[name])
-        for name in ("assign", "bubble_cd", "mutual_reach")
+             replaces=sources[name], launches=launches[name], **numbers[name])
+        for name in sources
     ]
     say(f"[done] {time.perf_counter() - t0:.1f} s on {card}")
     say(json.dumps({"kernels": kernels}))

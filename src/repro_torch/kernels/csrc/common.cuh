@@ -59,4 +59,12 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
   }
 }
 
+// Opt in to more than the default 48 KB of dynamic shared memory.
+template <typename Kernel>
+__host__ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 }  // namespace repro

@@ -8,72 +8,39 @@
 // past n_valid (the offline pass's pad bubbles, which Borůvka must never
 // connect; the JAX package applies that mask with a separate where).
 //
-// 64 x 64 output tile per block of 32 x 8 threads: both row tiles sit in
-// shared memory, each thread accumulates 8 x 2 outputs with an FMA loop over
-// d, and a warp writes 32 consecutive floats of one row per store.
-#include "common.cuh"
+// 64 x 64 output tile per block of 32 x 8 threads (dist_tile.cuh, shared
+// with the pairwise kernel, so both give the same squared-distance bits):
+// both row tiles sit in shared memory, each thread accumulates 8 x 2
+// outputs with an FMA loop over d, and a warp writes 32 consecutive floats
+// of one row per store.
+#include "dist_tile.cuh"
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kTx = 32, kTy = 8;
-constexpr int kRows = kTile / kTy;  // 8 output rows per thread
-constexpr int kCols = kTile / kTx;  // 2 output columns per thread
+using repro::kTile;
+using repro::kTileCols;
+using repro::kTileRows;
+using repro::kTileTx;
+using repro::kTileTy;
 
-__global__ void __launch_bounds__(kTx * kTy)
+__global__ void __launch_bounds__(kTileTx * kTileTy)
 mutual_reach_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ cdx, const float* __restrict__ cdy, int n, int m,
                     int d, int zero_diag, int n_valid, float* __restrict__ out) {
   extern __shared__ float smem[];
-  const int ds = repro::smem_stride(d);
-  float* xs = smem;
-  float* ys = xs + kTile * ds;
-  float* xn = ys + kTile * ds;
-  float* yn = xn + kTile;
+  const repro::DistTile t = repro::dist_tile(x, y, n, m, d, smem);
   const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTx + tx;
-
-  repro::stage_rows(xs, x, r0, kTile, n, d);
-  repro::stage_rows(ys, y, c0, kTile, m, d);
-  __syncthreads();
-  if (tid < kTile) {
-    xn[tid] = repro::dot_chain(xs + tid * ds, xs + tid * ds, d);
-  } else if (tid < 2 * kTile) {
-    const int j = tid - kTile;
-    yn[j] = repro::dot_chain(ys + j * ds, ys + j * ds, d);
-  }
-  __syncthreads();
-
-  float acc[kRows][kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < d; ++k) {
-    float yv[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) yv[j] = ys[(tx + j * kTx) * ds + k];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float xv = xs[(ty + i * kTy) * ds + k];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = __fmaf_rn(xv, yv[j], acc[i][j]);
-    }
-  }
-
   const float inf = __int_as_float(0x7f800000);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int lr = ty + i * kTy, r = r0 + lr;
+  for (int i = 0; i < kTileRows; ++i) {
+    const int r = r0 + threadIdx.y + i * kTileTy;
     if (r >= n) continue;
     const float cr = cdx[r];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int lc = tx + j * kTx, c = c0 + lc;
+    for (int j = 0; j < kTileCols; ++j) {
+      const int c = c0 + threadIdx.x + j * kTileTx;
       if (c >= m) continue;
-      const float dist = sqrtf(repro::expanded_sq(xn[lr], yn[lc], acc[i][j]));
-      float v = fmaxf(dist, fmaxf(cr, cdy[c]));
+      float v = fmaxf(sqrtf(t.sq(i, j)), fmaxf(cr, cdy[c]));
       if (zero_diag && r == c) v = 0.f;
       if (r >= n_valid || c >= n_valid) v = inf;
       out[(size_t)r * m + c] = v;
@@ -90,15 +57,11 @@ extern "C" int repro_mutual_reach_f32(const void* x, const void* y, const void* 
                                       const void* cdy, int n, int m, int d, int zero_diag,
                                       int n_valid, void* out, void* stream) {
   if (n <= 0 || m <= 0 || d <= 0 || d > repro::kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
-  const int ds = repro::smem_stride(d);
-  const size_t smem = sizeof(float) * (2 * (size_t)kTile * ds + 2 * kTile);
+  const size_t smem = repro::dist_tile_smem_bytes(d);
+  const cudaError_t e = repro::allow_smem(mutual_reach_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  const dim3 block(kTx, kTy);
-  if (smem > 48 * 1024) {  // wide d: opt in to more than the default 48 KB
-    const cudaError_t e = cudaFuncSetAttribute(
-        mutual_reach_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const dim3 block(kTileTx, kTileTy);
   mutual_reach_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const float*>(cdx),
       static_cast<const float*>(cdy), n, m, d, zero_diag, n_valid, static_cast<float*>(out));

@@ -1,11 +1,14 @@
-"""The offline pass and the kernel entry points of the main path.
+"""The kernel API and the offline pass.
 
 The PyTorch counterpart of the JAX package's ``repro/kernels/ops.py``,
 dense branch only:
 
-* ``assign`` / ``bubble_core_distances`` / ``bubble_mutual_reachability``
-  over the kernel wrappers (CUDA kernel for a CUDA tensor, plain version
-  for a CPU tensor);
+* the point-level functions ``pairwise_sqdist``, ``mutual_reachability``,
+  ``knn`` and ``core_distances`` (Def. 1, self-inclusive), the
+  model-layout GQA ``flash_attention``, and the bubble-level ``assign`` /
+  ``bubble_core_distances`` / ``bubble_mutual_reachability``, each over a
+  kernel wrapper: CUDA kernel for a CUDA tensor, plain version for a CPU
+  tensor;
 * ``bubble_table``: the host f64 derivation of Eqs. 3–4;
 * ``offline_recluster_from_table``: ``_prepare_table`` (host centring,
   the ``min_pts`` clamp and the power-of-two pad), then
@@ -15,8 +18,10 @@ dense branch only:
   a caller can time the very calls the engine makes (chip_smoke.py);
 * ``ClusterBackend``: the device, resolved once by the engine.
 
-There is no feature padding to 128 lanes (a TPU tiling) and no L cap on
-the Eq. 6 kernel (a TPU VMEM sizing): the CUDA kernels stream over L.
+There is no feature padding to 128 lanes (a TPU tiling) and no L or m
+cap on the Eq. 6 and knn kernels (TPU VMEM sizings): the CUDA kernels
+stream over the table.  ``knn`` takes k <= 64 (its kernel's per-lane
+buffer) and raises above it.
 """
 
 from __future__ import annotations
@@ -32,9 +37,17 @@ from ..core.mst import boruvka
 from ..device import resolve_device, to_numpy
 from . import assign as _assign_k
 from . import bubble_cd as _bcd_k
+from . import flash_attention as _fa_k
+from . import knn as _knn_k
 from . import mutual_reach as _mr_k
+from . import pairwise as _pw_k
 
 __all__ = [
+    "pairwise_sqdist",
+    "mutual_reachability",
+    "knn",
+    "core_distances",
+    "flash_attention",
     "assign",
     "bubble_core_distances",
     "bubble_mutual_reachability",
@@ -55,10 +68,66 @@ def _pow2_rows(n: int) -> int:
     return max(8, 1 << (max(n - 1, 1)).bit_length())
 
 
+def _contig_f32(*ts):
+    return tuple(t.float().contiguous() for t in ts)
+
+
+def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(n, m) squared distances ``max(‖x‖² + ‖y‖² − 2·x·yᵀ, 0)``."""
+    return _pw_k.pairwise_sqdist(*_contig_f32(x, y))
+
+
+def mutual_reachability(x, y, cd_x, cd_y, zero_diag: bool = True) -> torch.Tensor:
+    """Point-level Eq. 7 (Def. 2): ``max(d(x, y), cd_x, cd_y)`` as an
+    (n, m) matrix, the global diagonal at 0 with ``zero_diag``."""
+    return _mr_k.mutual_reachability(*_contig_f32(x, y, cd_x, cd_y), zero_diag=zero_diag)
+
+
+def knn(x: torch.Tensor, y: torch.Tensor, k: int):
+    """k nearest distances (ascending) and int32 indices into y for each
+    x row, with ``k = min(k, m)``.  Rows of x that also appear in y return
+    themselves at distance 0 (the Def. 1 convention counts the point
+    itself inside ``min_pts``)."""
+    return _knn_k.knn(*_contig_f32(x, y), min(int(k), y.shape[0]))
+
+
+def core_distances(x: torch.Tensor, min_pts: int) -> torch.Tensor:
+    """cd(p) per Def. 1 (self-inclusive): the distance to the
+    ``min(min_pts, n)``-th nearest row, the row itself first."""
+    d, _ = knn(x, x, min_pts)
+    return d[:, min(int(min_pts), x.shape[0]) - 1].contiguous()
+
+
+def flash_attention(q, k, v, qpos=None, kpos=None, *, causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Batched GQA attention over model-layout tensors.
+
+    q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh), f32 or bf16.  Positions
+    default to ``arange``; 1-D positions broadcast to (B, S).  Query head
+    h attends with kv head h // (H / KV), batch × heads fold into the
+    kernel's grid, and the kernel reads and writes the model layout
+    through strides: nothing is copied per head.  Returns (B, Sq, H, Dh)
+    in q's dtype."""
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    dev = q.device
+
+    def positions(p, S):
+        p = torch.arange(S, device=dev) if p is None else torch.as_tensor(p, device=dev)
+        return torch.broadcast_to(p.to(torch.int32), (B, S)).contiguous()
+
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=dev)
+    _fa_k.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), positions(qpos, Sq),
+        positions(kpos, Sk), causal=causal, window=window, out=out.transpose(1, 2))
+    return out
+
+
 def assign(x: torch.Tensor, reps: torch.Tensor, with_dist: bool = False):
     """Nearest-representative index per row (lowest index on ties); with
     ``with_dist=True`` also the euclidean distance to it."""
-    return _assign_k.assign(x.float().contiguous(), reps.float().contiguous(), with_dist=with_dist)
+    return _assign_k.assign(*_contig_f32(x, reps), with_dist=with_dist)
 
 
 def _clamp_min_pts(min_pts: int, total_mass: float) -> int:
@@ -69,7 +138,7 @@ def _clamp_min_pts(min_pts: int, total_mass: float) -> int:
 
 def bubble_core_distances(rep, n_b, extent, min_pts: int) -> torch.Tensor:
     """Eq. 6 bubble core distances, ``min_pts`` clamped to the mass."""
-    rep, n_b, extent = (t.float().contiguous() for t in (rep, n_b, extent))
+    rep, n_b, extent = _contig_f32(rep, n_b, extent)
     min_pts = _clamp_min_pts(min_pts, float(n_b.sum()))
     return _bcd_k.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=rep.shape[1])
 
@@ -77,7 +146,7 @@ def bubble_core_distances(rep, n_b, extent, min_pts: int) -> torch.Tensor:
 def bubble_mutual_reachability(rep, n_b, extent, min_pts: int) -> torch.Tensor:
     """The (L, L) bubble d_m matrix (Eqs. 6–7), diagonal 0."""
     cd = bubble_core_distances(rep, n_b, extent, min_pts)
-    rep = rep.float().contiguous()
+    (rep,) = _contig_f32(rep)
     return _mr_k.mutual_reachability(rep, rep, cd, cd, zero_diag=True)
 
 
@@ -244,7 +313,8 @@ class ClusterBackend:
     """Kernel dispatch resolved ONCE at engine construction: the device
     every call moves its inputs to.  On ``cuda`` the wrappers launch the
     hand-written kernels; on ``cpu`` they run the plain versions.  The
-    engine uses it for ingest assignment and the offline pass."""
+    engine uses it for ingest assignment and the offline pass; the other
+    methods are the JAX backend's kernel API over the same device."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -256,14 +326,45 @@ class ClusterBackend:
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
                                dtype=torch.float32).to(self.device).contiguous()
 
+    def pairwise_sqdist(self, x, y) -> torch.Tensor:
+        return pairwise_sqdist(self._f32(x), self._f32(y))
+
+    def knn(self, x, y, k: int):
+        return knn(self._f32(x), self._f32(y), k)
+
     def assign(self, x, reps) -> torch.Tensor:
         return assign(self._f32(x), self._f32(reps))
+
+    def assign_with_dist(self, x, reps):
+        return assign(self._f32(x), self._f32(reps), with_dist=True)
+
+    def bubble_core_distances(self, rep, n_b, extent, min_pts: int) -> torch.Tensor:
+        return bubble_core_distances(self._f32(rep), self._f32(n_b), self._f32(extent), min_pts)
+
+    def bubble_mutual_reachability(self, rep, n_b, extent, min_pts: int) -> torch.Tensor:
+        return bubble_mutual_reachability(self._f32(rep), self._f32(n_b), self._f32(extent), min_pts)
+
+    def offline_recluster(self, LS, SS, N, ids, min_pts: int,
+                          min_cluster_size: float | None = None) -> OfflineClusterResult:
+        """Offline re-clustering over leaf CF buffers: ``bubble_table``
+        (host f64, Eqs. 3–4) then ``offline_recluster_from_table``."""
+        rep, extent, Ng, _ = bubble_table(LS, SS, N, ids)
+        return offline_recluster_from_table(rep, Ng, extent, min_pts, min_cluster_size, device=self.device)
 
     def offline_recluster_from_table(self, rep, n_b, extent, min_pts: int,
                                      min_cluster_size: float | None = None,
                                      **kw) -> OfflineClusterResult:
         return offline_recluster_from_table(
             rep, n_b, extent, min_pts, min_cluster_size, device=self.device, **kw)
+
+    def make_flat(self, *args, **kw):
+        raise NotImplementedError("device-resident flat ingest is not ported yet (ROADMAP queue 1, item 8)")
+
+    def make_dynamic(self, *args, **kw):
+        raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP queue 1, item 11)")
+
+    def incremental_recluster(self, *args, **kw):
+        raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP queue 1, item 11)")
 
 
 def get_backend(device=None) -> ClusterBackend:

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the main path's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 These are the only arithmetic the CPU path and the tests run, and the
 yardstick every CUDA kernel is held against on the card.  They run on any
 device and compute the same quantities as the Pallas kernels of the JAX
-package (``repro/kernels/{assign,bubble_cd,mutual_reach}.py``):
+package (``repro/kernels/{assign,bubble_cd,mutual_reach,knn,pairwise,
+flash_attention}.py``):
 
 * squared distances in the expanded form ``max(‖x‖² + ‖y‖² − 2·x·y, 0)``,
   f32, on mean-centred inputs (the expansion cancels off-origin);
@@ -13,12 +14,18 @@ package (``repro/kernels/{assign,bubble_cd,mutual_reach}.py``):
   so on duplicate or near-zero rows it can pick another index than the
   Pallas kernel; the port follows the kernel;
 * Eq. 6 by stable sort + cumulative mass, Eq. 7 as the max of the
-  distance and both core distances with the diagonal at 0.
+  distance and both core distances with the diagonal at 0;
+* the k nearest by a stable ascending sort (ties at the lowest index, as
+  ``jax.lax.top_k`` orders them);
+* attention with f32 scores scaled by 1/√D, masked with the finite
+  ``-1e30`` (a fully masked row is the uniform mean of V, not NaN).
 
 Dense ``(L, L)`` work is allowed in this file only (repro-lint RPL402).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -33,6 +40,9 @@ __all__ = [
     "bubble_core_distances_rows",
     "bubble_core_distances",
     "bubble_mutual_reachability",
+    "knn",
+    "flash_attention",
+    "gqa_flash_attention",
 ]
 
 
@@ -133,3 +143,41 @@ def bubble_core_distances(rep, n_b, extent, min_pts: int, dim: int):
 def bubble_mutual_reachability(rep, n_b, extent, min_pts: int, n_valid: int | None = None):
     cd = bubble_core_distances(rep, n_b, extent, min_pts, rep.shape[1])
     return mutual_reachability(rep, rep, cd, cd, zero_diag=True, n_valid=n_valid)
+
+
+def knn(x, y, k: int):
+    """The k smallest distances of each x row to the rows of y, ascending,
+    and their int32 indices; equal distances keep the lower index first."""
+    d = torch.sqrt(pairwise_sqdist(x, y))
+    vals, idx = torch.sort(d, dim=1, stable=True)
+    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
+
+
+def flash_attention(q, k, v, qpos, kpos, causal: bool = True, window: int | None = None):
+    """Masked softmax attention over (H, S, D) head-major tensors with
+    positional masks: dead keys ``kpos < 0``, causal ``kpos > qpos``,
+    window ``kpos <= qpos - window``.  Scores in f32, masked with -1e30,
+    the result cast to q's dtype."""
+    d = q.shape[-1]
+    s = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) / math.sqrt(d)
+    kp, qp = kpos[:, None, :], qpos[:, :, None]
+    mask = kp < 0
+    if causal:
+        mask = mask | (kp > qp)
+    if window is not None:
+        mask = mask | (kp <= qp - window)
+    s = torch.where(mask, -1e30, s)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("hqk,hkd->hqd", w, v.float()).to(q.dtype)
+
+
+def gqa_flash_attention(q, k, v, qpos, kpos, causal: bool = True, window: int | None = None):
+    """``flash_attention`` over (B, H, Sq, D) queries and (B, KV, Sk, D)
+    keys and values, query head h paired with kv head h // (H / KV), and
+    (B, S) positions: the layout of the kernel wrapper."""
+    B, H, Sq, D = q.shape
+    G = H // k.shape[1]
+    kx, vx = (t.repeat_interleave(G, dim=1).reshape(B * H, -1, D) for t in (k, v))
+    out = flash_attention(q.reshape(B * H, Sq, D), kx, vx, qpos.repeat_interleave(H, dim=0),
+                          kpos.repeat_interleave(H, dim=0), causal=causal, window=window)
+    return out.reshape(B, H, Sq, D)

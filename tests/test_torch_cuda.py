@@ -11,7 +11,9 @@ Tolerances: indices identical on tie-free centred data; values within
 distance form, which the kernel and the plain version round in different
 orders: δ(r²) = 8ε(max‖x‖² + max‖y‖²) on a squared distance, hence
 δ(r) = min(√δ(r²), δ(r²)/2r) on a distance r — large only for the
-near-zero distances of queries that sit on a representative.
+near-zero distances of queries that sit on a representative.  Attention:
+f32 within rtol 1e-4 / atol 2e-4, bf16 within atol 3e-2 (as in
+tests/test_flash_attention.py).
 """
 
 import numpy as np
@@ -20,7 +22,11 @@ import torch
 
 from repro_torch.kernels import assign as t_assign
 from repro_torch.kernels import bubble_cd as t_bcd
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import knn as t_knn
 from repro_torch.kernels import mutual_reach as t_mr
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pairwise as t_pw
 from repro_torch.kernels import ref as tref
 
 RTOL = 1e-5
@@ -56,6 +62,30 @@ def _dist_allowance(x, y, r):
     """δ(r) for distances r between rows of x and y (see the docstring)."""
     dsq = 8 * EPS32 * float((x * x).sum(1).max() + (y * y).sum(1).max())
     return torch.minimum(torch.full_like(r, dsq**0.5), dsq / (2 * r.clamp_min(1e-30)))
+
+
+def _tf32_probe(rng, n, m, d=4):
+    """x with full 24-bit mantissas against rows c·e_j, c a multiple of
+    1/8 (exact in TF32): x·y is c·x_j to within f32 rounding, and off by
+    up to 2^-11 relative where the product runs in TF32 (x_j loses its low
+    13 bits).  Returns f32 x, y and the f64 squared distances."""
+    x = rng.uniform(-1, 1, size=(n, d)).astype(np.float32)
+    c = rng.choice([-7, -5, -3, -1, 1, 3, 5, 7], size=(m, 1)) / 8.0
+    y = (c * np.eye(d)[rng.integers(0, d, size=m)]).astype(np.float32)
+    sq = ((x.astype(np.float64)[:, None, :] - y.astype(np.float64)[None, :, :]) ** 2).sum(-1)
+    return x, y, sq
+
+
+def _isolated_entries(x, y, k):
+    """(n, k) mask of the knn entries whose squared distance is apart from
+    both neighbours in the sorted row by more than 64× the f32 rounding of
+    the expanded form: no rounding can move such an entry's index."""
+    sq = tref.pairwise_sqdist(x, y)
+    top = torch.sort(sq, dim=1).values[:, : k + 1]
+    noise = 64 * EPS32 * ((x * x).sum(1) + float((y * y).sum(1).max()))
+    gap = (top[:, 1:] - top[:, :-1]) > noise[:, None]  # gap[:, t]: between entries t and t + 1
+    before = torch.cat([torch.ones_like(gap[:, :1]), gap[:, : k - 1]], dim=1)
+    return before & gap
 
 
 def _assert_within(got, want, allowance):
@@ -108,6 +138,134 @@ class TestCudaKernels:
         dist = tref.pairwise_sqdist(X, X).sqrt()
         _assert_within(got, want, _dist_allowance(X, X, dist))
         assert bool((got.diagonal()[:990] == 0).all())
+
+    @pytest.mark.parametrize("d", [2, 16, 5])
+    @pytest.mark.parametrize("k", [1, 10, 64])
+    def test_knn(self, cuda_device, d, k):
+        rng = np.random.default_rng(4)
+        x = _t(_centred(rng, 3000, d)).to(cuda_device)
+        y = _t(_centred(rng, 4001, d)).to(cuda_device)
+        dist, idx = t_knn.knn(x, y, k)
+        pdist, pidx = tref.knn(x, y, k)
+        _assert_within(dist, pdist, _dist_allowance(x, y, pdist))
+        keep = _isolated_entries(x, y, k)
+        assert int(keep.sum()) > keep.numel() // 10
+        assert torch.equal(idx[keep], pidx[keep])
+
+    def test_knn_duplicates_lowest_index_first(self, cuda_device):
+        """Copies of a row are exactly 0 apart in the kernel, so each
+        row's nearest are its site's copies in index order; on the
+        all-zeros table, the first k columns."""
+        rng = np.random.default_rng(5)
+        zeros = torch.zeros(300, 3, device=cuda_device)
+        dist, idx = t_knn.knn(zeros, zeros, 12)
+        assert bool((dist == 0).all())
+        assert torch.equal(idx, torch.arange(12, dtype=torch.int32, device=cuda_device).expand(300, 12))
+        site = rng.integers(0, 40, size=2000)
+        X = _t(_centred(rng, 40, 8)[site]).to(cuda_device)
+        dist, idx = t_knn.knn(X, X, 10)
+        for i in range(0, 2000, 97):
+            copies = np.flatnonzero(site == site[i])[:10]
+            assert idx[i, : len(copies)].tolist() == copies.tolist()
+            assert bool((dist[i, : len(copies)] == 0).all())
+
+    def test_core_distances(self, cuda_device):
+        rng = np.random.default_rng(6)
+        x = _t(_centred(rng, 5000, 16)).to(cuda_device)
+        cd = tops.core_distances(x, 10)
+        assert torch.equal(cd, t_knn.knn(x, x, 10)[0][:, 9])
+        want = tref.knn(x, x, 10)[0][:, 9]
+        _assert_within(cd, want, _dist_allowance(x, x, want))
+
+    def test_knn_k_bound(self, cuda_device):
+        x = torch.zeros(8, 2, device=cuda_device)
+        y = torch.zeros(100, 2, device=cuda_device)
+        with pytest.raises(ValueError):
+            t_knn.knn(x, y, 65)
+        assert t_knn.knn(x, y, 64)[1].shape == (8, 64)
+
+    @pytest.mark.parametrize("d", [2, 16, 5])
+    def test_pairwise(self, cuda_device, d):
+        rng = np.random.default_rng(7)
+        x = _t(_centred(rng, 1001, d)).to(cuda_device)
+        y = _t(_centred(rng, 777, d)).to(cuda_device)
+        got = t_pw.pairwise_sqdist(x, y)
+        want = tref.pairwise_sqdist(x, y)
+        dsq = 8 * EPS32 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+        _assert_within(got, want, torch.full_like(want, dsq))
+
+    def test_pairwise_and_mutual_reach_share_bits(self, cuda_device):
+        """Both kernels run one tile code: with zero core distances and no
+        diagonal, mutual_reach is exactly the root of pairwise."""
+        rng = np.random.default_rng(8)
+        x = _t(_centred(rng, 999, 16)).to(cuda_device)
+        y = _t(_centred(rng, 1201, 16)).to(cuda_device)
+        sq = t_pw.pairwise_sqdist(x, y)
+        zx, zy = torch.zeros(999, device=cuda_device), torch.zeros(1201, device=cuda_device)
+        W = t_mr.mutual_reachability(x, y, zx, zy, zero_diag=False)
+        assert torch.equal(W, sq.sqrt())
+
+    @pytest.mark.parametrize("kernel", ["assign", "knn", "pairwise", "mutual_reach", "bubble_cd"])
+    def test_tf32_probe(self, cuda_device, kernel):
+        """Fails if any distance kernel drops IEEE f32 products."""
+        x, y, sq = _tf32_probe(np.random.default_rng(9), 256, 300)
+        xt, yt = _t(x).to(cuda_device), _t(y).to(cuda_device)
+        if kernel == "bubble_cd":
+            # unit masses, no extent, min_pts 2: the distance to the nearest other row
+            rep = torch.cat([xt, yt])
+            L = rep.shape[0]
+            ones, zeros = torch.ones(L, device=cuda_device), torch.zeros(L, device=cuda_device)
+            cd = t_bcd.bubble_core_distances(rep, ones, zeros, min_pts=2, dim=4)
+            got = cd.double().cpu().numpy() ** 2
+            r64 = rep.double().cpu().numpy()
+            want = ((r64[:, None, :] - r64[None, :, :]) ** 2).sum(-1)
+            np.fill_diagonal(want, np.inf)
+            want = want.min(1)
+        elif kernel == "assign":
+            idx, dist = t_assign.assign(xt, yt, with_dist=True)
+            got = dist.double().cpu().numpy() ** 2
+            want = sq[np.arange(256), idx.cpu().numpy()]
+            assert (want <= sq.min(1) + 2e-5).all()
+        elif kernel == "knn":
+            dist, idx = t_knn.knn(xt, yt, 5)
+            got = dist.double().cpu().numpy() ** 2
+            want = np.take_along_axis(sq, idx.long().cpu().numpy(), 1)
+        elif kernel == "pairwise":
+            got, want = t_pw.pairwise_sqdist(xt, yt).double().cpu().numpy(), sq
+        else:
+            z0, z1 = torch.zeros(256, device=cuda_device), torch.zeros(300, device=cuda_device)
+            got = t_mr.mutual_reachability(xt, yt, z0, z1, zero_diag=False).double().cpu().numpy() ** 2
+            want = sq
+        assert np.abs(got - want).max() < 2e-5
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,S,H,KV,D,window", [
+        (2, 300, 6, 2, 120, None), (1, 257, 4, 4, 64, 33), (1, 130, 3, 1, 256, None), (2, 64, 2, 1, 8, 5)])
+    def test_flash(self, cuda_device, dtype, B, S, H, KV, D, window):
+        gen = torch.Generator(device=cuda_device).manual_seed(10)
+        q = torch.randn(B, H, S, D, generator=gen, device=cuda_device).to(dtype)
+        k = torch.randn(B, KV, S + 11, D, generator=gen, device=cuda_device).to(dtype)
+        v = torch.randn(B, KV, S + 11, D, generator=gen, device=cuda_device).to(dtype)
+        qpos = torch.arange(S, device=cuda_device, dtype=torch.int32).expand(B, S).contiguous() + 11
+        kpos = torch.arange(S + 11, device=cuda_device, dtype=torch.int32).expand(B, S + 11).contiguous()
+        kpos[:, -7:] = -1  # a dead tail
+        kpos[0, :20] = -1  # batch 0: the first query rows see no live key
+        got = t_fa.flash_attention(q, k, v, qpos, kpos, causal=True, window=window)
+        want = tref.gqa_flash_attention(q.cpu(), k.cpu(), v.cpu(), qpos.cpu(), kpos.cpu(), True, window)
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)
+        else:
+            assert float((got.cpu().float() - want.float()).abs().max()) <= 3e-2
+
+    def test_flash_model_layout(self, cuda_device):
+        gen = torch.Generator(device=cuda_device).manual_seed(11)
+        q = torch.randn(2, 100, 6, 24, generator=gen, device=cuda_device)
+        k = torch.randn(2, 100, 3, 24, generator=gen, device=cuda_device)
+        v = torch.randn(2, 100, 3, 24, generator=gen, device=cuda_device)
+        got = tops.flash_attention(q, k, v, window=17)
+        want = tops.flash_attention(q.cpu(), k.cpu(), v.cpu(), window=17)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)
 
     def test_tf32_off(self, cuda_device):
         from repro_torch.device import resolve_device

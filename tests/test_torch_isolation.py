@@ -30,13 +30,16 @@ def test_importing_every_module_pulls_in_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+        "print(' '.join(sorted(m for m in sys.modules if m.startswith('repro_torch'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    modules = out.stdout.split()
+    assert len(modules) >= 23
+    for name in ("knn", "pairwise", "flash_attention"):
+        assert f"repro_torch.kernels.{name}" in modules
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
