@@ -32,10 +32,14 @@ Phases, each printing its own lines:
               qwen2-1.5b (S = 4096, 12 heads, 2 kv heads, Dh 128, causal,
               bf16 and f32) and h2o-danube-3-4b (S = 8192, 32 heads, 8 kv
               heads, Dh 120, window 4096, bf16), and a ragged case with a
-              dead-key tail and fully masked rows; each held against the
-              plain version a few heads at a time, with times;
+              dead-key tail and fully masked rows; the bf16 cases take the
+              tensor-core kernel and the f32 ones the CUDA-core kernel
+              (counted per route); each held against the plain version a
+              few heads at a time, with device times and the host time
+              of one ops call;
   7. the kernels JSON line (launches on each kernel's own path, errors,
-     times, bounds);
+     times, bounds; flash_attention with the qwen2-1.5b f32 case,
+     flash_attention_mma with the qwen2-1.5b bf16 case);
   8. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -111,6 +115,21 @@ def time_ms(fn, reps=10, warm=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def host_ms(fn, reps=20):
+    """Host time to enqueue one call (no synchronisation inside): the part
+    of ``time_ms``'s first call that the device does not overlap."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -709,12 +728,16 @@ def phase_attention(dev):
         kpos[:, S - dead_tail:] = -1
         cases.append((label, q, k, v, pos, kpos, window, dt))
 
-    k_fa.launches = 0
+    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = 0
     outs = [ops.flash_attention(q, k, v, qp, kp, causal=True, window=w) for _, q, k, v, qp, kp, w, _ in cases]
     torch.cuda.synchronize()
-    launches = k_fa.launches
-    say(f"[attention] {len(cases)} calls of ops.flash_attention: launches {launches}")
-    check(launches == len(cases), "flash_attention kernel not launched once per call")
+    launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt}
+    n_bf16 = sum(dt == "bf16" for *_, dt in cases)
+    say(f"[attention] {len(cases)} calls of ops.flash_attention: launches {k_fa.launches}, per route "
+        f"{json.dumps(launches)}")
+    check(k_fa.launches == len(cases), "flash_attention kernel not launched once per call")
+    check(launches["flash_attention_mma"] == n_bf16, "a bf16 case did not take the tensor-core kernel")
+    check(launches["flash_attention"] == len(cases) - n_bf16, "an f32 case did not take the CUDA-core kernel")
 
     def plain(q, k, v, qp, kp, window):
         """The plain version, one kv head (G query heads) at a time."""
@@ -763,6 +786,7 @@ def phase_attention(dev):
         nbytes = q.element_size() * 2 * (q.numel() + k.numel())
         b, by = bound_ms(4.0 * Dh * live * H, nbytes, peak)
         ms = time_ms(lambda: ops.flash_attention(q, k, v, qp, kp, causal=True, window=window), reps=5)
+        host = host_ms(lambda: ops.flash_attention(q, k, v, qp, kp, causal=True, window=window))
         p_ms = time_ms(lambda: plain(q, k, v, qp, kp, window), reps=1, warm=1)
         lib = None
         if not dead_rows:
@@ -777,7 +801,8 @@ def phase_attention(dev):
                               reps=5)
         say(f"[attention] {label}: B={B} S={S} H={H} KV={k.shape[2]} Dh={Dh} window={window}, "
             f"{dead_rows} fully masked rows; max_abs_err {err:.3e}, readings {elem:.3f} (elements), "
-            f"{row:.3f} (rows) of limit 1; kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"{row:.3f} (rows) of limit 1; kernel {ms:.4f} ms (host {host:.4f} ms per call), "
+            f"plain {p_ms:.4f} ms, "
             f"sdpa {'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms ({by}, {live} live "
             f"(query, key) pairs per head, at the {dt} peak)")
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b, bound_by=by, library_ms=lib)
@@ -807,14 +832,16 @@ def main() -> int:
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
     launches = dict(run["launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
-                    flash_attention=attn_launches)
-    numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[0][0]])
+                    **attn_launches)
+    numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
+                   flash_attention_mma=attn_numbers[ATTENTION[0][0]])
     sources = {"assign": "src/repro/kernels/assign.py:21",
                "bubble_cd": "src/repro/kernels/bubble_cd.py:41",
                "mutual_reach": "src/repro/kernels/mutual_reach.py:23",
                "knn": "src/repro/kernels/knn.py:34",
                "pairwise": "src/repro/kernels/pairwise.py:30",
-               "flash_attention": "src/repro/kernels/flash_attention.py:38"}
+               "flash_attention": "src/repro/kernels/flash_attention.py:38",
+               "flash_attention_mma": "src/repro/kernels/flash_attention.py:38"}
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
              replaces=sources[name], launches=launches[name], **numbers[name])

@@ -1,4 +1,4 @@
-"""Forward attention with positional masks: CUDA kernel and plain version.
+"""Forward attention with positional masks: two CUDA kernels and a plain version.
 
 Replaces the JAX package's Pallas kernel
 ``repro/kernels/flash_attention.py`` (``_flash_kernel`` /
@@ -13,15 +13,35 @@ depends on the block size).  It serves ``ops.flash_attention``.
 Bound on the H100: operations.  QKᵀ and PV need 4·D FLOPs per live
 (query, key) pair and head: 51.5 GFLOP for qwen2-1.5b's attention at
 S = 4096 (causal, 12 heads of 128) — 0.052 ms at 989 TFLOP/s dense bf16
-— while q, k, v and the output are 29 MB in bf16 (9 µs at 3.35 TB/s).  The kernel (``csrc/flash_attention.cu``) is
-a simple one on the CUDA cores in f32: one block per (batch × query
-head, 64-row q block), K/V tiles of 32 keys through shared memory, the
-running (max, sum, acc) in f32 registers, tiles without a live pair
-skipped.  It reads kv head ``h // G`` for query head ``h`` and takes the
+— while q, k, v and the output are 29 MB in bf16 (9 µs at 3.35 TB/s).
+
+Two kernels, one per route, chosen before the launch by ``route`` from
+dtype, head width, strides and data pointers alone:
+
+- ``"mma"`` (``csrc/flash_attention_mma.cu``): bf16 on the tensor cores —
+  ``mma.sync`` m16n8k16 products with f32 accumulators, K/V tiles of 64
+  keys through a two-stage ``cp.async`` ring, ldmatrix operands.  P
+  enters PV as two bf16 terms (hi + lo, p to 2^-17): rounded once, as the
+  Pallas kernel does, it is off by up to 2^-9 per weight, which on rows
+  with a few live keys is more than the attention check allows.  It
+  takes a call when the dtype is bf16, D ≤ 128 with D % 8 == 0, every
+  data pointer is 16-byte aligned and every batch, head and sequence
+  stride of an axis longer than 1 is a multiple of 8 elements: its
+  16-byte copies need all that.
+- ``"simt"`` (``csrc/flash_attention.cu``): the CUDA-core kernel in f32
+  arithmetic, for everything else — every f32 call, bf16 with D in
+  (128, 256], and bf16 views that the 16-byte copies cannot read.  f32
+  stays off the tensor cores: without TF32, which the port forbids, they
+  take no IEEE f32 operands.
+
+Both take one block per (batch × query head, 64-row q block), skip tiles
+without a live pair, give rows without a live key the mean of V from a
+separate sweep, read kv head ``h // G`` for query head ``h`` and take the
 layout as strides, so there is no copy of K/V per query head and no
-head-major copy of the model-layout tensors.  ``wgmma`` and TMA are
-later work.  The same kernel runs f32 and bf16; the output is in q's
-dtype.  A tensor on the CPU takes the plain version.
+head-major copy of the model-layout tensors.  The output is in q's
+dtype.  A failed build or launch raises; there is no fallback from one
+route to the other.  A tensor on the CPU takes the plain version and
+counts no launch.
 """
 
 from __future__ import annotations
@@ -33,12 +53,32 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["flash_attention", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "route", "MAX_HEAD_DIM", "MMA_MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
+MMA_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+# kernel launches since the last reset, in all and per route (chip_smoke.py reads them)
+launches = 0
+launches_mma = 0
+launches_simt = 0
+
+
+def route(dtype: torch.dtype, head_dim: int, shapes, strides, data_ptrs) -> str:
+    """The kernel a CUDA call takes: ``"mma"`` or ``"simt"`` (see the module
+    docstring).  ``shapes`` and ``strides`` hold the (B, heads, S, D)
+    shapes and element strides of the q, k, v and out views, ``data_ptrs``
+    their addresses.  The stride of an axis of length 1 is never used, so
+    it is not checked."""
+    if dtype != torch.bfloat16 or head_dim > MMA_MAX_HEAD_DIM or head_dim % 8:
+        return "simt"
+    if any(p % 16 for p in data_ptrs):
+        return "simt"
+    for shape, stride in zip(shapes, strides, strict=True):
+        if any(n > 1 and st % 8 for n, st in zip(shape[:3], stride[:3], strict=True)):
+            return "simt"
+    return "mma"
 
 
 def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int | None = None,
@@ -48,7 +88,7 @@ def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int | N
     (B, Sk) int32.  Query head h attends with kv head h // (H / KV).
     Returns (B, H, Sq, D) in q's dtype, written into ``out`` (a view of
     that shape, features contiguous) when given."""
-    global launches
+    global launches, launches_mma, launches_simt
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention wants (B, H, Sq, D) and two (B, KV, Sk, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -79,14 +119,21 @@ def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int | N
     if B * H > 65535 or max(Sq, Sk) >= 2**31:
         raise ValueError(f"flash_attention kernel takes B*H <= 65535, got {B * H}")
     if Sq and B:
+        which = route(q.dtype, D, [t.shape for t in views], [t.stride() for t in views],
+                      [t.data_ptr() for t in views])
         strides = [s for t in views for s in t.stride()[:3]]
         lib = _build.load()
+        entry = lib.repro_flash_attention_mma if which == "mma" else lib.repro_flash_attention
         with torch.cuda.device(q.device):
-            code = lib.repro_flash_attention(
+            code = entry(
                 _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
                 kpos.data_ptr(), out.data_ptr(), B, H, KV, Sq, Sk, D, *strides, int(bool(causal)),
                 int(window is not None), 0 if window is None else int(window), 1.0 / math.sqrt(D),
                 _build.current_stream(q.device))
-        _build.check(code, "flash_attention")
+        _build.check(code, f"flash_attention ({which})")
         launches += 1
+        if which == "mma":
+            launches_mma += 1
+        else:
+            launches_simt += 1
     return out

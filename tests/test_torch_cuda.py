@@ -13,7 +13,11 @@ orders: δ(r²) = 8ε(max‖x‖² + max‖y‖²) on a squared distance, hence
 δ(r) = min(√δ(r²), δ(r²)/2r) on a distance r — large only for the
 near-zero distances of queries that sit on a representative.  Attention:
 f32 within rtol 1e-4 / atol 2e-4, bf16 within atol 3e-2 (as in
-tests/test_flash_attention.py).
+tests/test_flash_attention.py); the tensor-core route's cases are held to
+chip_smoke.py's relative bf16 readings instead: per element
+|o − want| / (2e-3 + 1e-2·|want|) ≤ 1 and per row ‖o − want‖ / ‖want‖
+≤ 1e-2, since one bf16 rounding of the output is at most 2^-8 relative
+and P's rounding to bf16 before PV adds about as much again.
 """
 
 import numpy as np
@@ -86,6 +90,23 @@ def _isolated_entries(x, y, k):
     gap = (top[:, 1:] - top[:, :-1]) > noise[:, None]  # gap[:, t]: between entries t and t + 1
     before = torch.cat([torch.ones_like(gap[:, :1]), gap[:, : k - 1]], dim=1)
     return before & gap
+
+
+def _flash_reading(o, want):
+    """chip_smoke.py's bf16 attention readings (each passes while <= 1)."""
+    o, want = o.float(), want.float()
+    d = o - want
+    elem = float((d.abs() / (2e-3 + 1e-2 * want.abs())).max())
+    row = float((d.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max()) / 1e-2
+    return elem, row
+
+
+def _fa_counts():
+    return t_fa.launches_mma, t_fa.launches_simt
+
+
+def _reset_fa_counts():
+    t_fa.launches = t_fa.launches_mma = t_fa.launches_simt = 0
 
 
 def _assert_within(got, want, allowance):
@@ -266,6 +287,69 @@ class TestCudaKernels:
         got = tops.flash_attention(q, k, v, window=17)
         want = tops.flash_attention(q.cpu(), k.cpu(), v.cpu(), window=17)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,dead_head,dead_tail", [
+        (1, 300, 311, 3, 1, 8, True, None, 0, 0),
+        (2, 300, 311, 6, 1, 64, True, None, 20, 7),
+        (1, 300, 311, 4, 4, 120, True, 33, 0, 9),
+        (2, 300, 311, 6, 2, 128, True, 100, 20, 7),
+        (1, 300, 311, 6, 2, 128, True, None, 0, 0),
+        (2, 129, 700, 3, 3, 32, True, 64, 40, 0),
+        (2, 100, 311, 4, 2, 64, False, None, 0, 9),
+        (1, 70, 33_000, 2, 1, 64, True, 40_000, 0, 5),
+    ])
+    def test_flash_mma(self, cuda_device, B, Sq, Sk, H, KV, D, causal, window, dead_head, dead_tail):
+        """bf16 through the tensor-core route: D padded to 16/32/64/128,
+        Sq and Sk not multiples of 64, G in {1, 3, 6}, windows, no causal
+        mask, dead keys at the head (rows with no live key) and the tail,
+        and Sk past 32,768 keys (the tile pre-scan's second chunk)."""
+        gen = torch.Generator(device=cuda_device).manual_seed(12)
+        q = torch.randn(B, H, Sq, D, generator=gen, device=cuda_device).bfloat16()
+        k = torch.randn(B, KV, Sk, D, generator=gen, device=cuda_device).bfloat16()
+        v = torch.randn(B, KV, Sk, D, generator=gen, device=cuda_device).bfloat16()
+        qpos = torch.arange(Sq, device=cuda_device, dtype=torch.int32).expand(B, Sq).contiguous() + (Sk - Sq)
+        kpos = torch.arange(Sk, device=cuda_device, dtype=torch.int32).expand(B, Sk).contiguous()
+        kpos[:, :dead_head] = -1
+        kpos[:, Sk - dead_tail:] = -1
+        _reset_fa_counts()
+        got = t_fa.flash_attention(q, k, v, qpos, kpos, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert _fa_counts() == (1, 0)
+        want = tref.gqa_flash_attention(q.cpu(), k.cpu(), v.cpu(), qpos.cpu(), kpos.cpu(), causal, window)
+        live = (kpos[:, None, :] >= 0) & ((kpos[:, None, :] <= qpos[:, :, None]) | (not causal))
+        assert bool((~live.any(-1)).any()) == (causal and dead_head > Sk - Sq)
+        assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+        elem, row = _flash_reading(got.cpu(), want)
+        assert elem <= 1 and row <= 1, (elem, row)
+
+    def test_flash_mma_model_layout(self, cuda_device):
+        """ops.flash_attention in bf16 at Dh 120 (danube's width): the model
+        layout reaches the tensor-core route through strides."""
+        gen = torch.Generator(device=cuda_device).manual_seed(13)
+        q, k, v = (torch.randn(2, 200, h, 120, generator=gen, device=cuda_device).bfloat16() for h in (8, 2, 2))
+        _reset_fa_counts()
+        got = tops.flash_attention(q, k, v, window=50)
+        torch.cuda.synchronize()
+        assert _fa_counts() == (1, 0)
+        want = tops.flash_attention(q.cpu(), k.cpu(), v.cpu(), window=50)
+        elem, row = _flash_reading(got.cpu(), want)
+        assert elem <= 1 and row <= 1, (elem, row)
+
+    def test_flash_bf16_odd_stride_takes_simt(self, cuda_device):
+        """A bf16 view whose sequence stride is not a multiple of 8 cannot
+        be read by 16-byte copies: it takes the CUDA-core route."""
+        gen = torch.Generator(device=cuda_device).manual_seed(14)
+        q = torch.randn(1, 4, 150, 68, generator=gen, device=cuda_device).bfloat16()[..., :64]
+        k, v = (torch.randn(1, 2, 150, 64, generator=gen, device=cuda_device).bfloat16() for _ in range(2))
+        qpos = torch.arange(150, device=cuda_device, dtype=torch.int32)[None].contiguous()
+        assert q.stride(2) == 68
+        _reset_fa_counts()
+        got = t_fa.flash_attention(q, k, v, qpos, qpos.clone(), causal=True)
+        torch.cuda.synchronize()
+        assert _fa_counts() == (0, 1)
+        want = tref.gqa_flash_attention(q.cpu(), k.cpu(), v.cpu(), qpos.cpu(), qpos.cpu(), True, None)
+        elem, row = _flash_reading(got.cpu(), want)
+        assert elem <= 1 and row <= 1, (elem, row)
 
     def test_tf32_off(self, cuda_device):
         from repro_torch.device import resolve_device

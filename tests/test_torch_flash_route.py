@@ -1,0 +1,90 @@
+"""Which flash-attention kernel a CUDA call takes, decided on the CPU.
+
+``repro_torch.kernels.flash_attention.route`` is a pure function of the
+dtype, the head width, the views' shapes and strides and their data
+pointers: ``"mma"`` (tensor cores, bf16, D ≤ 128 with D % 8 == 0, 16-byte
+aligned pointers, strides of axes longer than 1 multiples of 8 elements)
+or ``"simt"`` (the CUDA-core kernel) for everything else.  The kernels
+run only on a card (tests/test_torch_cuda.py); the rule is held here.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import ops as tops
+
+
+def _contiguous(B, H, KV, S, D):
+    """Shapes and strides of contiguous head-major q, k, v and out."""
+    shapes = [(B, H, S, D), (B, KV, S, D), (B, KV, S, D), (B, H, S, D)]
+    strides = [(h * S * D, S * D, D, 1) for _, h, _, _ in shapes]
+    return shapes, strides
+
+
+def _route(dtype=torch.bfloat16, D=128, shapes=None, strides=None, ptrs=(0, 4096, 8192, 12288)):
+    if shapes is None:
+        shapes, strides = _contiguous(1, 12, 2, 64, D)
+    return t_fa.route(dtype, D, shapes, strides, ptrs)
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, "mma"), (torch.float32, "simt"), (torch.float16, "simt"), (torch.float64, "simt")])
+def test_dtype(dtype, want):
+    assert _route(dtype=dtype) == want
+
+
+@pytest.mark.parametrize("D,want", [
+    (8, "mma"), (16, "mma"), (64, "mma"), (120, "mma"), (128, "mma"),
+    (4, "simt"), (12, "simt"), (100, "simt"), (136, "simt"), (256, "simt")])
+def test_head_dim(D, want):
+    assert _route(D=D) == want
+
+
+@pytest.mark.parametrize("offset,want", [(0, "mma"), (16, "mma"), (48, "mma"), (2, "simt"), (8, "simt")])
+@pytest.mark.parametrize("which", range(4))
+def test_pointer_alignment(offset, want, which):
+    ptrs = [1 << 20, 2 << 20, 3 << 20, 4 << 20]
+    ptrs[which] += offset
+    assert _route(ptrs=ptrs) == want
+
+
+@pytest.mark.parametrize("axis,stride,want", [
+    (0, 12 * 64 * 128 + 8, "mma"), (0, 12 * 64 * 128 + 4, "simt"),
+    (1, 64 * 128 + 8, "mma"), (1, 64 * 128 + 1, "simt"),
+    (2, 136, "mma"), (2, 132, "simt"), (2, 129, "simt")])
+def test_strides(axis, stride, want):
+    shapes, strides = _contiguous(2, 12, 2, 64, 128)
+    strides = [list(s) for s in strides]
+    strides[0][axis] = stride
+    assert _route(shapes=shapes, strides=strides) == want
+
+
+def test_axis_of_length_one_is_not_checked():
+    shapes, strides = _contiguous(1, 12, 2, 64, 128)
+    strides = [list(s) for s in strides]
+    strides[0][0] = 3  # B == 1: the batch stride is never used
+    assert _route(shapes=shapes, strides=strides) == "mma"
+    shapes[0] = (2, 12, 64, 128)
+    assert _route(shapes=shapes, strides=strides) == "simt"
+
+
+@pytest.mark.parametrize("H,KV,D", [(12, 2, 128), (32, 8, 120)])  # qwen2-1.5b, h2o-danube-3-4b
+def test_model_layout_views_take_mma(H, KV, D):
+    """The views ops.flash_attention hands the wrapper for the two model
+    widths chip_smoke.py runs: (B, S, heads, D) transposed to head-major."""
+    q = torch.empty(1, 96, H, D, dtype=torch.bfloat16)
+    k = torch.empty(1, 96, KV, D, dtype=torch.bfloat16)
+    views = [t.transpose(1, 2) for t in (q, k, k.clone(), torch.empty_like(q))]
+    args = ([t.shape for t in views], [t.stride() for t in views], [t.data_ptr() for t in views])
+    assert t_fa.route(torch.bfloat16, D, *args) == "mma"
+    assert t_fa.route(torch.float32, D, *args) == "simt"
+
+
+def test_cpu_call_counts_no_launch():
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 20, h, 16, generator=g).bfloat16() for h in (4, 2, 2))
+    before = (t_fa.launches, t_fa.launches_mma, t_fa.launches_simt)
+    out = tops.flash_attention(q, k, v)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert (t_fa.launches, t_fa.launches_mma, t_fa.launches_simt) == before
