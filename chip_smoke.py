@@ -8,18 +8,23 @@ Phases, each printing its own lines:
   1. card     nvidia-smi's name and power limit, torch/CUDA versions, the
               TF32 switches;
   2. build    the hand-written CUDA kernels, built from src/repro_torch/
-              kernels/csrc at first use (nvcc, sm_90a);
+              kernels/csrc at first use (nvcc, sm_90a), with ptxas's
+              registers, stack and spills of every warp-select
+              instantiation (each must have no stack frame and no spills);
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes, on a tie-free mean-centred table
               and on a duplicate-heavy one, with kernel / plain / library
-              times;
+              times; bubble_cd also bit for bit against the per-lane kernel
+              it replaced, and timed at min_pts 1, 10, 100 and 1024 (the
+              last two held to the plain version);
   4. stream   the default StreamingClusterEngine on the card: 262,144
               points at d = 16 from a seeded Gaussian mixture, ingested in
               blocks of 8192 (compression 0.02 → ~5,200 leaves, Lp = 8192),
               a quarter retired in blocks, 65,536 queries in chunks; then
               the snapshots and the served rows held against the port's
               own plain pipeline on the CPU, and one offline pass at
-              Lp = 8192 timed stage by stage;
+              Lp = 8192 timed stage by stage, and one at min_pts = 100 on
+              the full table held to the CPU plain pass by partition;
   5. points   the point-level kernel API (Def. 1 core distances, knn,
               pairwise squared distances, Def. 2 mutual reachability) on
               the first 65,536 points of the stream's mixture, mean-centred:
@@ -27,7 +32,10 @@ Phases, each printing its own lines:
               mutual reachability at 16,384²; each held against its plain
               version over row strips, the knn tie order among copies held
               on a duplicate-heavy table, with kernel / plain / library
-              times;
+              times; knn also bit for bit against the per-lane kernel it
+              replaced (65,536² at k = 10, the duplicate table, k = 64),
+              and timed at k 1, 10, 64, 256 and 1024 (the last two held
+              to the plain version);
   6. attention GQA flash attention at the full attention widths of
               qwen2-1.5b (S = 4096, 12 heads, 2 kv heads, Dh 128, causal,
               bf16 and f32) and h2o-danube-3-4b (S = 8192, 32 heads, 8 kv
@@ -70,6 +78,9 @@ RTOL = 1e-5
 N_KNN = 65_536  # [points]: knn and core distances at n = m
 N_PAIR = 16_384  # [points]: pairwise and point mutual reachability (1 GiB each)
 STRIP = 4096  # rows per strip of a plain version on the card
+KNN_SWEEP = (1, 10, 64, 256, 1024)  # [points]: k = 1 nearly skips selection; above 64 the per-lane kernel cannot
+BCD_SWEEP = (1, 10, 100, 1024)  # [kernels]: the same for min_pts
+MIN_PTS_WIDE = 100  # [min_pts]: one offline pass past the per-lane kernel's bound
 # [attention]: (label, B, S, H, KV, Dh, window, dtype, dead keys at the head, dead keys at the tail)
 ATTENTION = (
     ("qwen2-1.5b bf16", 1, 4096, 12, 2, 128, None, "bf16", 0, 0),
@@ -83,6 +94,7 @@ PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
+WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu")  # 24 instantiations each: D in {16, 32, 64, 128} x K in {32, ..., 1024}
 
 
 def say(*parts):
@@ -198,6 +210,54 @@ def direct_core_distances(rep, nb, ext, rows=256):
     return torch.cat(out)
 
 
+def clear_crossings(rep, nb, min_pts, rows=1024):
+    """Rows whose Eq. 6 crossing is not a near-tie: the crossing entry's
+    squared distance is apart from its neighbours in the sorted row by more
+    than 64× the f32 rounding of the expanded form, so no rounding can
+    change the crossing bubble or the mass ahead of it.  Masses are whole,
+    so the f64 cumulative mass here equals the f32 one."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    yy = float((rep * rep).sum(1).max())
+    out = []
+    for i in range(0, rep.shape[0], rows):
+        q = rep[i : i + rows]
+        sq = ref.pairwise_sqdist(q, rep).double()
+        own = torch.arange(q.shape[0], device=rep.device)
+        sq[own, i + own] = 0.0
+        v, order = torch.sort(sq, dim=1, stable=True)
+        c = torch.argmax((torch.cumsum(nb.double()[order], dim=1) >= min_pts).to(torch.int8), dim=1)[:, None]
+        noise = 64 * EPS32 * ((q * q).sum(1).double() + yy)
+        at = v.gather(1, c)[:, 0]
+        lo = v.gather(1, (c - 1).clamp_min(0))[:, 0]
+        hi = v.gather(1, (c + 1).clamp_max(v.shape[1] - 1))[:, 0]
+        out.append(((at - lo > noise) | (c[:, 0] == 0)) & (hi - at > noise))
+    return torch.cat(out)
+
+
+def ptxas_ws(log: str) -> dict:
+    """{(kernel, D, K): (registers, stack bytes, spill stores, spill loads)}
+    of the warp-select kernels in an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, cur, stack = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(knn_ws|bubble_cd_ws)_kernelILi(\d+)ELi(\d+)E", line)
+        if m:
+            cur = (m.group(1), int(m.group(2)), int(m.group(3)))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            stack = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur and stack:
+            out[cur] = (int(m.group(1)), *stack)
+            cur, stack = None, None
+    return out
+
+
 def phase_card():
     import torch
 
@@ -225,9 +285,19 @@ def phase_build():
     _build.load()
     info = _build.build_info()
     say(f"[build] {info['path']} built in {info['seconds']:.2f} s (load {time.perf_counter() - t0:.2f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("---"):
+    src = None
+    for line in info["log"].splitlines():  # the warp-select sources are summarised below
+        if line.startswith("---"):
+            src = line[4:].strip()
+        if line.startswith("---") or (src not in WS_SOURCES and ("registers" in line or "spill" in line)):
             say(f"[build] {line.strip()}")
+    if info["seconds"]:  # a fresh build: its ptxas report covers every instantiation
+        ws = ptxas_ws(info["log"])
+        for (kern, D, K), (regs, stack, st, ld) in sorted(ws.items()):
+            say(f"[build] {kern} D={D} K={K}: {regs} registers, {stack} bytes stack, spill stores {st} loads {ld}")
+        check(len(ws) == 48, f"{len(ws)} warp-select instantiations in the ptxas report, not 48")
+        bad = [key for key, v in ws.items() if v[1:] != (0, 0, 0)]
+        check(not bad, f"warp-select instantiations with a stack frame or spills: {bad}")
 
 
 def phase_kernels(dev):
@@ -312,6 +382,8 @@ def phase_kernels(dev):
     cds = {}
     for label, ((rep, nb, ext), nreal) in cases.items():
         cd = k_bcd.bubble_core_distances(rep, nb, ext, min_pts=MIN_PTS, dim=DIM)
+        check(bool(torch.equal(cd, k_bcd.bubble_cd_lane(rep, nb, ext, min_pts=MIN_PTS, dim=DIM))),
+              f"bubble_cd {label}: differs from the per-lane kernel")
         pcd = ref.bubble_core_distances(rep, nb, ext, MIN_PTS, DIM)
         # pad rows (mass 0, all at one far point) never cross min_pts and
         # take each side's documented fallback; their W rows are +inf
@@ -323,9 +395,9 @@ def phase_kernels(dev):
         tol = dist_tol(rep[:nreal], rep[:nreal], r1) - RTOL * r1 + RTOL * pcd[:nreal].abs()
         e, rel = compare(f"bubble_cd {label}", cd[:nreal], pcd[:nreal], tol)
         errs.append(e)
-        cds[label] = (rep, nb, ext, pcd, nreal)
-        say(f"[kernels] bubble_cd {label}: {nreal} real rows of {rep.shape[0]}, "
-            f"max_abs_err {e:.3e} max_rel {rel:.3e}")
+        cds[label] = (rep, nb, ext, pcd, nreal, r1)
+        say(f"[kernels] bubble_cd {label}: {nreal} real rows of {rep.shape[0]}, identical to the per-lane "
+            f"kernel on all {rep.shape[0]} rows; vs plain max_abs_err {e:.3e} max_rel {rel:.3e}")
     # the (d, j) order among copies: duplicates with a mass and extent per
     # ROW, so Eq. 6 depends on which copy crosses min_pts.  A row whose
     # site holds >= min_pts of mass crosses among its own copies, all at
@@ -335,6 +407,8 @@ def phase_kernels(dev):
     # cancellation allowance as above.
     rep, nb, ext = table(Rdup, real)
     cd = k_bcd.bubble_core_distances(rep, nb, ext, min_pts=MIN_PTS, dim=DIM)
+    check(bool(torch.equal(cd, k_bcd.bubble_cd_lane(rep, nb, ext, min_pts=MIN_PTS, dim=DIM))),
+          "bubble_cd duplicates, mass per row: differs from the per-lane kernel")
     want = direct_core_distances(rep, nb, ext)
     site_mass = np.bincount(site_of_row[:real], weights=nb[:real].cpu().numpy(), minlength=300)
     own = torch.as_tensor(site_mass[site_of_row[:real]] >= MIN_PTS, device=dev)
@@ -345,21 +419,39 @@ def phase_kernels(dev):
         own, 0.0, dist_tol(rep[:real], rep[:real], r1) - RTOL * r1)
     e, rel = compare("bubble_cd duplicates, mass per row", cd[:real], want[:real], tol)
     errs.append(e)
-    say(f"[kernels] bubble_cd duplicates, mass per row, vs the direct-difference yardstick: {real} real rows, "
+    say(f"[kernels] bubble_cd duplicates, mass per row: identical to the per-lane kernel; vs the "
+        f"direct-difference yardstick: {real} real rows, "
         f"{int(own.sum())} crossing among their own copies (tie order, 1e-5 relative), "
         f"max_abs_err {e:.3e} max_rel {rel:.3e}")
-    rep, nb, ext, _, _ = cds["tie-free"]
+    rep, nb, ext, _, nreal, r1 = cds["tie-free"]
     ms = time_ms(lambda: k_bcd.bubble_core_distances(rep, nb, ext, min_pts=MIN_PTS, dim=DIM))
+    lane_ms = time_ms(lambda: k_bcd.bubble_cd_lane(rep, nb, ext, min_pts=MIN_PTS, dim=DIM))
     plain = time_ms(lambda: ref.bubble_core_distances(rep, nb, ext, MIN_PTS, DIM), reps=3)
     # every unordered pair's distance once: L(L-1)/2 · d FMAs
     b, by = bound_ms(1.0 * LP * (LP - 1) * DIM, 4.0 * (LP * DIM + 3 * LP))
-    say(f"[kernels] bubble_cd L={LP} d={DIM} min_pts={MIN_PTS}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b:.4f} ms ({by}); no single PyTorch call computes Eq. 6")
+    say(f"[kernels] bubble_cd L={LP} d={DIM} min_pts={MIN_PTS}: kernel {ms:.4f} ms, per-lane kernel "
+        f"{lane_ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}); no single PyTorch call computes Eq. 6")
     out["bubble_cd"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+    # min_pts past the per-lane kernel's 64, against the plain version on
+    # the real rows whose crossing is not a near-tie
+    for mp in BCD_SWEEP:
+        sweep_ms = time_ms(lambda: k_bcd.bubble_core_distances(rep, nb, ext, min_pts=mp, dim=DIM), reps=5)
+        note = ""
+        if mp > 64:
+            cd = k_bcd.bubble_core_distances(rep, nb, ext, min_pts=mp, dim=DIM)
+            pcd = ref.bubble_core_distances(rep, nb, ext, mp, DIM)
+            keep = clear_crossings(rep[:nreal], nb[:nreal], mp)
+            check(int(keep.sum()) > 0.9 * nreal, f"bubble_cd min_pts={mp}: only {int(keep.sum())} clear crossings")
+            tol = dist_tol(rep[:nreal], rep[:nreal], r1) - RTOL * r1 + RTOL * pcd[:nreal].abs()
+            e, rel = compare(f"bubble_cd min_pts={mp}", cd[:nreal][keep], pcd[:nreal][keep], tol[keep])
+            check(bool(torch.isfinite(cd[:nreal]).all()), f"bubble_cd min_pts={mp}: non-finite output")
+            note = (f"; vs plain on the {int(keep.sum())} of {nreal} real rows without a near-tie at the "
+                    f"crossing: max_abs_err {e:.3e} max_rel {rel:.3e}")
+        say(f"[kernels] bubble_cd sweep L={LP} min_pts={mp}: kernel {sweep_ms:.4f} ms{note}")
 
     # --- mutual_reach: LP², pad rows/cols +inf, diagonal 0
     errs = []
-    for label, (rep, _, _, pcd, nreal) in cds.items():
+    for label, (rep, _, _, pcd, nreal, _) in cds.items():
         W = k_mr.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal)
         pW = ref.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal)
         check(bool((W.diagonal()[:nreal] == 0).all()), f"mutual_reach {label}: diagonal not 0")
@@ -368,7 +460,7 @@ def phase_kernels(dev):
         errs.append(e)
         say(f"[kernels] mutual_reach {label}: {rep.shape[0]}², n_valid {nreal}, max_abs_err {e:.3e} max_rel {rel:.3e}")
         del W, pW, base
-    rep, _, _, pcd, nreal = cds["tie-free"]
+    rep, _, _, pcd, nreal, _ = cds["tie-free"]
     ms = time_ms(lambda: k_mr.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal))
     plain = time_ms(lambda: ref.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal), reps=5)
     lib = time_ms(lambda: torch.maximum(torch.cdist(rep, rep), torch.maximum(pcd[:, None], pcd[None, :])), reps=5)
@@ -415,6 +507,7 @@ def phase_stream(dev):
 
     for mod in (k_assign, k_bcd, k_mr):
         mod.launches = 0
+    k_bcd.launches_lane = 0
     torch.cuda.reset_peak_memory_stats()
     t_stream = time.perf_counter()
     ingest_s, pids = 0.0, []
@@ -456,6 +549,7 @@ def phase_stream(dev):
     say(f"[stream] launches {json.dumps(launches)}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the stream")
+    check(k_bcd.launches_lane == 0, "the per-lane bubble_cd kernel ran on the stream")
     say(f"[stream] ingest {ingest_s / N_POINTS * 1e6:.3f} ms per 1k points (host tree + assign kernel, "
         f"offline passes excluded); retire {retire_s / len(drop) * 1e6:.3f} ms per 1k points")
     say(f"[stream] offline passes (L, Lp, ms): {[(a, b, round(c, 1)) for a, b, c in passes]}")
@@ -542,6 +636,63 @@ def phase_stages(dev, table):
         + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) + f"; total {total:.2f}")
 
 
+def knn_against_plain(X, kd, ki, k):
+    """Hold knn(X, X, k) to the plain version, STRIP rows at a time:
+    distances within dist_tol, indices identical on the entries apart from
+    both neighbours of their sorted row by more than 64× the f32 rounding
+    of the expanded form (such an entry has one possible index).  Returns
+    the largest error and the count of such entries."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    errs, kept = [], 0
+    yy = float((X * X).sum(1).max())
+    for i in range(0, X.shape[0], STRIP):
+        q = X[i : i + STRIP]
+        pd, pi = ref.knn(q, X, k + 1)
+        errs.append(compare(f"knn k={k} rows {i}+", kd[i : i + STRIP], pd[:, :k], dist_tol(q, X, pd[:, :k]))[0])
+        sq = pd.double().square()
+        noise = 64 * EPS32 * ((q * q).sum(1).double() + yy)
+        gap = (sq[:, 1:] - sq[:, :-1]) > noise[:, None]
+        iso = torch.cat([torch.ones_like(gap[:, :1]), gap[:, : k - 1]], dim=1) & gap
+        check(bool(torch.equal(ki[i : i + STRIP][iso], pi[:, :k][iso])),
+              f"knn k={k} rows {i}+: indices differ on entries without near-ties")
+        kept += int(iso.sum())
+        del pd, pi, sq
+    check(kept > X.shape[0] * k // 4, f"knn k={k}: only {kept} entries without near-ties")
+    return max(errs), kept
+
+
+def phase_min_pts(dev, table):
+    """One offline pass at min_pts = MIN_PTS_WIDE, past the per-lane
+    kernel's bound, on the stream's full table through the engine's entry
+    point; the partition against the port's plain pipeline on the CPU."""
+    import torch
+
+    from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import ops
+
+    rep, extent, n_b, _ = table
+    k_bcd.launches = k_bcd.launches_lane = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS_WIDE, device=dev)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = (k_bcd.launches, k_bcd.launches_lane)
+    check(launches == (1, 0), f"min_pts={MIN_PTS_WIDE} pass: bubble_cd launches (kernel, per-lane) {launches}")
+    cpu = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS_WIDE, device="cpu")
+    w_gpu, w_cpu = float(np.sum(res.mst[2])), float(np.sum(cpu.mst[2]))
+    rel = abs(w_gpu - w_cpu) / abs(w_cpu)
+    say(f"[min_pts] one offline pass at L={rep.shape[0]} min_pts={MIN_PTS_WIDE}: {gpu_s:.2f} s on the card, "
+        f"bubble_cd launches {launches[0]} (per-lane kernel {launches[1]}); {res.n_clusters} vs {cpu.n_clusters} "
+        f"clusters on the CPU plain pass, MST weight rel diff {rel:.3e}")
+    check(res.n_clusters > 0 and _same_partition(res.labels, cpu.labels),
+          f"min_pts={MIN_PTS_WIDE}: partition differs from the CPU pass")
+    check(rel <= RTOL, f"min_pts={MIN_PTS_WIDE}: MST weight differs by {rel:.3e}")
+
+
 def phase_points(dev):
     """The point-level kernel API through ops at a size users call real;
     returns the launches of that run and the per-kernel numbers."""
@@ -561,6 +712,7 @@ def phase_points(dev):
 
     for mod in (k_knn, k_pw, k_mr):
         mod.launches = 0
+    k_knn.launches_lane = 0
     cd = ops.core_distances(X, k)
     kd, ki = ops.knn(X, X, k)
     P = ops.pairwise_sqdist(Xs, Xs)
@@ -572,29 +724,16 @@ def phase_points(dev):
         f"at {N_PAIR}²: launches {json.dumps(launches)}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the point-level path")
+    check(k_knn.launches_lane == 0, "the per-lane knn kernel ran on the point-level path")
     check(bool(torch.equal(cd, kd[:, k - 1])), "core_distances is not the knn's k-th column")
-
-    # knn and core distances against the plain version, 4096 rows at a time
-    errs, kept = [], 0
-    yy = float((X * X).sum(1).max())
-    for i in range(0, N_KNN, STRIP):
-        q = X[i : i + STRIP]
-        pd, pi = ref.knn(q, X, k + 1)
-        errs.append(compare(f"knn rows {i}+", kd[i : i + STRIP], pd[:, :k], dist_tol(q, X, pd[:, :k]))[0])
-        # an entry apart from both neighbours of its sorted row by more than
-        # 64× the f32 rounding of the expanded form has one possible index
-        sq = pd.double().square()
-        noise = 64 * EPS32 * ((q * q).sum(1).double() + yy)
-        gap = (sq[:, 1:] - sq[:, :-1]) > noise[:, None]
-        iso = torch.cat([torch.ones_like(gap[:, :1]), gap[:, : k - 1]], dim=1) & gap
-        check(bool(torch.equal(ki[i : i + STRIP][iso], pi[:, :k][iso])),
-              f"knn rows {i}+: indices differ on entries without near-ties")
-        kept += int(iso.sum())
-        del pd, pi, sq
-    check(kept > N_KNN * k // 4, f"only {kept} knn entries without near-ties")
-    say(f"[points] knn / core_distances vs plain: max_abs_err {max(errs):.3e}; "
+    ld, li = k_knn.knn_lane(X, X, k)
+    check(bool(torch.equal(kd, ld)) and bool(torch.equal(ki, li)),
+          f"knn differs from the per-lane kernel: {int((kd != ld).sum())} distances, {int((ki != li).sum())} indices")
+    del ld, li
+    knn_err, kept = knn_against_plain(X, kd, ki, k)
+    say(f"[points] knn identical to the per-lane kernel at {N_KNN}² k={k} (distances and indices); "
+        f"knn / core_distances vs plain: max_abs_err {knn_err:.3e}; "
         f"indices identical on the {kept} of {N_KNN * k} entries without near-ties")
-    knn_err = max(errs)
 
     # pairwise and the point-level Eq. 7 against the plain version
     dsq = 8 * EPS32 * 2 * float((Xs * Xs).sum(1).max())
@@ -626,6 +765,8 @@ def phase_points(dev):
     site = rng.integers(0, 1000, size=N_PAIR)
     Xd = torch.as_tensor(sites[site], dtype=torch.float32, device=dev)
     dd, di = k_knn.knn(Xd, Xd, k)
+    ld, li = k_knn.knn_lane(Xd, Xd, k)
+    check(bool(torch.equal(dd, ld)) and bool(torch.equal(di, li)), "knn duplicates: differs from the per-lane kernel")
     yd, yi = [], []
     for i in range(0, N_PAIR, 256):
         dist = (Xd[i : i + 256, None, :] - Xd[None, :, :]).square().sum(-1).sqrt()
@@ -639,7 +780,8 @@ def phase_points(dev):
           "knn duplicates: the lowest-index order among copies differs")
     e_dup, _ = compare("knn duplicates, other sites", dd[~own], yd[~own],
                        dist_tol(Xd, Xd, yd)[~own])
-    say(f"[points] knn duplicate table ({N_PAIR} rows, 1000 sites): {int(own.sum())} entries among "
+    say(f"[points] knn duplicate table ({N_PAIR} rows, 1000 sites): identical to the per-lane kernel; "
+        f"{int(own.sum())} entries among "
         f"own copies identical to the direct-difference yardstick; other entries max_abs_err {e_dup:.3e}")
     knn_err = max(knn_err, e_dup)
     del Xd, dd, di, yd, yi, P, W
@@ -648,6 +790,7 @@ def phase_points(dev):
     # times
     out = {}
     ms = time_ms(lambda: k_knn.knn(X, X, k), reps=3, warm=1)
+    lane_ms = time_ms(lambda: k_knn.knn_lane(X, X, k), reps=3, warm=1)
 
     def plain_knn():
         for i in range(0, N_KNN, STRIP):
@@ -658,9 +801,26 @@ def phase_points(dev):
     lib = time_ms(lambda: torch.topk(torch.cdist(X, X), k, dim=1, largest=False), reps=2, warm=1)
     torch.cuda.empty_cache()
     b, by = bound_ms(2.0 * N_KNN * N_KNN * DIM, 4.0 * (2 * N_KNN * DIM + 2 * N_KNN * k))
-    say(f"[points] knn {N_KNN}x{N_KNN}x{DIM} k={k}: kernel {ms:.4f} ms, plain ({N_KNN // STRIP} strips) {plain:.4f} ms, "
-        f"cdist+topk {lib:.4f} ms, bound {b:.4f} ms ({by})")
+    say(f"[points] knn {N_KNN}x{N_KNN}x{DIM} k={k}: kernel {ms:.4f} ms, per-lane kernel {lane_ms:.4f} ms, "
+        f"plain ({N_KNN // STRIP} strips) {plain:.4f} ms, cdist+topk {lib:.4f} ms, bound {b:.4f} ms ({by})")
     out["knn"] = dict(max_abs_err=knn_err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+    # k past the per-lane kernel's 64, against the plain version
+    for kk in KNN_SWEEP:
+        sweep_ms = time_ms(lambda: k_knn.knn(X, X, kk), reps=3, warm=1)
+        note = ""
+        if kk == 64:
+            sd, si = k_knn.knn(X, X, kk)
+            ld, li = k_knn.knn_lane(X, X, kk)
+            check(bool(torch.equal(sd, ld)) and bool(torch.equal(si, li)), "knn k=64 differs from the per-lane kernel")
+            note = "; identical to the per-lane kernel"
+            del sd, si, ld, li
+        elif kk > 64:
+            sd, si = k_knn.knn(X, X, kk)
+            e, kept = knn_against_plain(X, sd, si, kk)
+            note = f"; vs plain max_abs_err {e:.3e}, indices identical on the {kept} of {N_KNN * kk} entries without near-ties"
+            del sd, si
+        torch.cuda.empty_cache()
+        say(f"[points] knn sweep {N_KNN}² k={kk}: kernel {sweep_ms:.4f} ms{note}")
 
     ms = time_ms(lambda: k_pw.pairwise_sqdist(Xs, Xs))
     plain = time_ms(lambda: ref.pairwise_sqdist(Xs, Xs), reps=5)
@@ -829,23 +989,24 @@ def main() -> int:
     run = phase_stream(dev)
     phase_cpu_check(run)
     phase_stages(dev, run["table_full"])
+    phase_min_pts(dev, run["table_full"])
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
     launches = dict(run["launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
                     **attn_launches)
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
                    flash_attention_mma=attn_numbers[ATTENTION[0][0]])
-    sources = {"assign": "src/repro/kernels/assign.py:21",
-               "bubble_cd": "src/repro/kernels/bubble_cd.py:41",
-               "mutual_reach": "src/repro/kernels/mutual_reach.py:23",
-               "knn": "src/repro/kernels/knn.py:34",
-               "pairwise": "src/repro/kernels/pairwise.py:30",
-               "flash_attention": "src/repro/kernels/flash_attention.py:38",
-               "flash_attention_mma": "src/repro/kernels/flash_attention.py:38"}
+    sources = {"assign": ("assign.cu", "src/repro/kernels/assign.py:21"),
+               "bubble_cd": ("bubble_cd_ws.cu", "src/repro/kernels/bubble_cd.py:41"),
+               "mutual_reach": ("mutual_reach.cu", "src/repro/kernels/mutual_reach.py:23"),
+               "knn": ("knn_ws.cu", "src/repro/kernels/knn.py:34"),
+               "pairwise": ("pairwise.cu", "src/repro/kernels/pairwise.py:30"),
+               "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:38"),
+               "flash_attention_mma": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38")}
     kernels = [
-        dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
-             replaces=sources[name], launches=launches[name], **numbers[name])
-        for name in sources
+        dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+             replaces=tpu, launches=launches[name], **numbers[name])
+        for name, (src, tpu) in sources.items()
     ]
     say(f"[done] {time.perf_counter() - t0:.1f} s on {card}")
     say(json.dumps({"kernels": kernels}))

@@ -12,13 +12,19 @@ once: n·m·d FMAs, 68.7 G at n = m = 65,536, d = 16 — 2.05 ms at
 67 TFLOP/s f32; the inputs are 8 MiB.  The Pallas kernel holds the whole
 reference set and a (bn, m) distance tile in VMEM and runs k masked
 row-min passes over it, so the JAX package falls back to jnp above
-m = 16,384.  The CUDA kernel (``csrc/knn.cu``, the design of
-``csrc/bubble_cd.cu``) streams y through shared memory once per block of
-rows, each lane keeping a sorted buffer of its k nearest (d, j), and
-merges the 32 buffers per row: each distance is computed once, nothing
-of size (n, m) is held, and no m cap applies.  ``k`` is a runtime
-argument bounded by ``MAX_K``.  A tensor on the CPU takes the plain
-version.
+m = 16,384.  The CUDA kernel (``csrc/knn_ws.cu`` on
+``csrc/warp_select.cuh``) keeps R query rows per warp in registers and
+streams y through a ``cp.async`` ring in shared memory once per block of
+rows, so each y element read feeds R FMAs; the k nearest (d, j) of each
+row stay in registers (WarpSelect: per-lane thread queues merged into a
+sorted warp queue by bitonic shuffles).  Each distance is computed once,
+nothing of size (n, m) is held, no m cap applies, and k goes up to
+``MAX_K``.  A tensor on the CPU takes the plain version.
+
+``knn_lane`` runs the earlier kernel (``csrc/knn.cu``: one warp per row,
+per-lane sorted buffers in local memory, k ≤ ``MAX_K_LANE``).  Its
+results are bitwise the new kernel's, so the card's tests and
+``chip_smoke.py`` hold the new kernel to it; nothing else calls it.
 """
 
 from __future__ import annotations
@@ -28,46 +34,73 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["knn", "MAX_K", "MAX_DIM"]
+__all__ = ["knn", "knn_lane", "MAX_K", "MAX_K_LANE", "MAX_DIM"]
 
-MAX_K = 64  # csrc/knn.cu kMaxK
+MAX_K = 1024  # csrc/warp_select.cuh kMaxK
+MAX_K_LANE = 64  # csrc/knn.cu kMaxK
 MAX_DIM = 128
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+launches_lane = 0  # launches of the earlier kernel, through knn_lane only
 
 
-def knn(x: torch.Tensor, y: torch.Tensor, k: int):
-    """(n, d), (m, d) f32, 1 <= k <= m → ((n, k) f32 distances ascending,
-    (n, k) int32 indices into y)."""
-    global launches
+def _checked(x: torch.Tensor, y: torch.Tensor, k: int, bound: int) -> int:
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"knn wants (n, d) and (m, d), got {tuple(x.shape)} and {tuple(y.shape)}")
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise TypeError(f"knn wants float32, got {x.dtype} and {y.dtype}")
     if x.device != y.device:
         raise ValueError(f"knn inputs on {x.device} and {y.device}")
-    n, d = x.shape
-    m = y.shape[0]
     k = int(k)
-    if not 1 <= k <= m:
-        raise ValueError(f"knn wants 1 <= k <= m, got k={k} m={m}")
-    if k > MAX_K:
-        raise ValueError(f"knn kernel takes k <= {MAX_K}, got {k}")
-    if x.device.type == "cpu":
-        return _ref.knn(x, y, k)
-    if x.device.type != "cuda":
+    if not 1 <= k <= y.shape[0]:
+        raise ValueError(f"knn wants 1 <= k <= m, got k={k} m={y.shape[0]}")
+    if k > bound:
+        raise ValueError(f"knn kernel takes k <= {bound}, got {k}")
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"knn runs on cuda or cpu, not {x.device}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("knn wants contiguous inputs")
-    if d > MAX_DIM or max(n, m) >= 2**31:
-        raise ValueError(f"knn kernel takes d <= {MAX_DIM} and int32 sizes, got n={n} m={m} d={d}")
+    if x.device.type == "cuda":
+        if not (x.is_contiguous() and y.is_contiguous()):
+            raise ValueError("knn wants contiguous inputs")
+        if x.shape[1] > MAX_DIM or max(x.shape[0], y.shape[0]) >= 2**31:
+            raise ValueError(f"knn kernel takes d <= {MAX_DIM} and int32 sizes, got "
+                             f"n={x.shape[0]} m={y.shape[0]} d={x.shape[1]}")
+    return k
+
+
+def _launch(entry: str, x: torch.Tensor, y: torch.Tensor, k: int):
+    n, d = x.shape
     dist = torch.empty((n, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((n, k), dtype=torch.int32, device=x.device)
     if n:
         lib = _build.load()
         with torch.cuda.device(x.device):
-            code = lib.repro_knn_f32(x.data_ptr(), y.data_ptr(), n, m, d, k, dist.data_ptr(),
-                                     idx.data_ptr(), _build.current_stream(x.device))
+            code = getattr(lib, entry)(x.data_ptr(), y.data_ptr(), n, y.shape[0], d, k, dist.data_ptr(),
+                                       idx.data_ptr(), _build.current_stream(x.device))
         _build.check(code, "knn")
+    return dist, idx
+
+
+def knn(x: torch.Tensor, y: torch.Tensor, k: int):
+    """(n, d), (m, d) f32, 1 <= k <= min(m, MAX_K) → ((n, k) f32 distances
+    ascending, (n, k) int32 indices into y)."""
+    global launches
+    k = _checked(x, y, k, MAX_K)
+    if x.device.type == "cpu":
+        return _ref.knn(x, y, k)
+    dist, idx = _launch("repro_knn_ws_f32", x, y, k)
+    if x.shape[0]:
         launches += 1
+    return dist, idx
+
+
+def knn_lane(x: torch.Tensor, y: torch.Tensor, k: int):
+    """``knn`` through the earlier per-lane kernel, k <= MAX_K_LANE: the
+    bitwise oracle of ``knn`` on the card."""
+    global launches_lane
+    k = _checked(x, y, k, MAX_K_LANE)
+    if x.device.type == "cpu":
+        return _ref.knn(x, y, k)
+    dist, idx = _launch("repro_knn_f32", x, y, k)
+    if x.shape[0]:
+        launches_lane += 1
     return dist, idx

@@ -20,8 +20,9 @@ dense branch only:
 
 There is no feature padding to 128 lanes (a TPU tiling) and no L or m
 cap on the Eq. 6 and knn kernels (TPU VMEM sizings): the CUDA kernels
-stream over the table.  ``knn`` takes k <= 64 (its kernel's per-lane
-buffer) and raises above it.
+stream over the table.  ``knn`` (and so ``core_distances``) takes
+k <= 1024 on every device, and the Eq. 6 kernel ``min_pts`` <= 1024 (the
+largest warp queue of ``csrc/warp_select.cuh``); both raise above it.
 """
 
 from __future__ import annotations

@@ -6,6 +6,10 @@ kernel has no CPU mode).  On the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only the port is installed.
+The warp-select knn and bubble_cd kernels are also held bit for bit
+(``torch.equal``) against the per-lane kernels they replaced
+(``knn_lane``, ``bubble_cd_lane``, k and min_pts <= 64), which compute
+the same distances in the same (d, j) order.
 Tolerances: indices identical on tie-free centred data; values within
 1e-5 relative plus the f32 cancellation allowance of the expanded
 distance form, which the kernel and the plain version round in different
@@ -92,6 +96,53 @@ def _isolated_entries(x, y, k):
     return before & gap
 
 
+def _knn_table(case, rng):
+    """(x, y) for the bitwise cases: random centred rows at d in {2, 16,
+    17, 128} (m = 1001 is a multiple of no ring chunk, n = 700 of no
+    block of rows), the all-zeros table, and a table of copies of 40 sites."""
+    if case == "zeros":
+        z = np.zeros((300, 3), np.float32)
+        return z, z
+    if case == "duplicates":
+        X = _centred(rng, 40, 8)[rng.integers(0, 40, size=2000)]
+        return X, X
+    d = int(case[1:])
+    return _centred(rng, 700, d), _centred(rng, 1001, d)
+
+
+def _bubble_case(case, rng):
+    """(rep, n_b, extent) for the bitwise cases: a random table at d, the
+    all-zeros table, and copies of 40 sites with masses and extents per
+    row (so Eq. 6 depends on which copy crosses min_pts)."""
+    if case == "zeros":
+        L = 300
+        rep = np.zeros((L, 3), np.float32)
+    elif case == "duplicates":
+        L = 1500
+        rep = _centred(rng, 40, 8)[rng.integers(0, 40, size=L)]
+    else:
+        return _bubble_table(rng, 1001, int(case[1:]))
+    n_b = rng.integers(1, 6, size=L).astype(np.float32)
+    extent = rng.uniform(0.05, 0.5, size=L).astype(np.float32)
+    return rep, n_b, extent
+
+
+def _clear_crossings(rep, n_b, min_pts):
+    """Rows whose Eq. 6 crossing is unambiguous: the crossing entry's
+    squared distance is apart from its neighbours in the sorted row by
+    more than 64× the f32 rounding of the expanded form, so no rounding
+    can change the crossing bubble or the mass ahead of it."""
+    sq = tref.pairwise_sqdist(rep, rep).double().fill_diagonal_(0.0)
+    v, order = torch.sort(sq, dim=1, stable=True)
+    csum = torch.cumsum(n_b.double()[order], dim=1)
+    c = torch.argmax((csum >= min_pts).to(torch.int8), dim=1)[:, None]
+    noise = 64 * EPS32 * ((rep * rep).sum(1).double() + float((rep * rep).sum(1).max()))
+    at = v.gather(1, c)[:, 0]
+    lo = v.gather(1, (c - 1).clamp_min(0))[:, 0]
+    hi = v.gather(1, (c + 1).clamp_max(v.shape[1] - 1))[:, 0]
+    return ((at - lo > noise) | (c[:, 0] == 0)) & (hi - at > noise)
+
+
 def _flash_reading(o, want):
     """chip_smoke.py's bf16 attention readings (each passes while <= 1)."""
     o, want = o.float(), want.float()
@@ -149,6 +200,34 @@ class TestCudaKernels:
         r1 = tref.pairwise_sqdist(rep, rep).fill_diagonal_(float("inf")).amin(1).sqrt()
         _assert_within(got, want, _dist_allowance(rep, rep, r1))
 
+    @pytest.mark.parametrize("case", ["d2", "d16", "d17", "d128", "zeros", "duplicates"])
+    @pytest.mark.parametrize("min_pts", [1, 10, 32, 33, 64])
+    def test_bubble_cd_equals_lane_kernel(self, cuda_device, case, min_pts):
+        """The warp-select kernel against the per-lane kernel it replaces,
+        bit for bit: the same distances, order and f32 mass sums."""
+        rep, n_b, extent = (_t(a).to(cuda_device) for a in _bubble_case(case, np.random.default_rng(17)))
+        dim = rep.shape[1]
+        t_bcd.launches = t_bcd.launches_lane = 0
+        got = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=dim)
+        want = t_bcd.bubble_cd_lane(rep, n_b, extent, min_pts=min_pts, dim=dim)
+        assert (t_bcd.launches, t_bcd.launches_lane) == (1, 1)
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("d", [3, 16, 128])
+    @pytest.mark.parametrize("min_pts", [65, 100, 1000, 1024])
+    def test_bubble_cd_large_min_pts(self, cuda_device, d, min_pts):
+        """Against the plain version on the rows whose crossing is not a
+        near-tie (within the allowance of the nearest other bubble)."""
+        rng = np.random.default_rng(18)
+        rep, n_b, extent = (_t(a).to(cuda_device) for a in _bubble_table(rng, 1500, d))
+        got = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=d)
+        want = tref.bubble_core_distances(rep, n_b, extent, min_pts, d)
+        keep = _clear_crossings(rep, n_b, min_pts)
+        assert int(keep.sum()) > 1500 // 2
+        r1 = tref.pairwise_sqdist(rep, rep).fill_diagonal_(float("inf")).amin(1).sqrt()
+        _assert_within(got[keep], want[keep], _dist_allowance(rep, rep, r1)[keep])
+        assert bool(torch.isfinite(got).all())
+
     @pytest.mark.parametrize("d", [2, 16, 5])
     def test_mutual_reach(self, cuda_device, d):
         rng = np.random.default_rng(3)
@@ -200,10 +279,38 @@ class TestCudaKernels:
 
     def test_knn_k_bound(self, cuda_device):
         x = torch.zeros(8, 2, device=cuda_device)
-        y = torch.zeros(100, 2, device=cuda_device)
+        y = torch.zeros(1100, 2, device=cuda_device)
         with pytest.raises(ValueError):
-            t_knn.knn(x, y, 65)
-        assert t_knn.knn(x, y, 64)[1].shape == (8, 64)
+            t_knn.knn(x, y, 1025)
+        with pytest.raises(ValueError):
+            t_knn.knn_lane(x, y, 65)
+        assert t_knn.knn(x, y, 1024)[1].shape == (8, 1024)
+
+    @pytest.mark.parametrize("case", ["d2", "d16", "d17", "d128", "zeros", "duplicates"])
+    @pytest.mark.parametrize("k", [1, 10, 32, 33, 64])
+    def test_knn_equals_lane_kernel(self, cuda_device, case, k):
+        """The warp-select kernel against the per-lane kernel it replaces,
+        bit for bit: the same arithmetic and the same (d, j) order."""
+        x, y = (_t(a).to(cuda_device) for a in _knn_table(case, np.random.default_rng(15)))
+        t_knn.launches = t_knn.launches_lane = 0
+        dist, idx = t_knn.knn(x, y, k)
+        ldist, lidx = t_knn.knn_lane(x, y, k)
+        assert (t_knn.launches, t_knn.launches_lane) == (1, 1)
+        assert torch.equal(dist, ldist) and torch.equal(idx, lidx)
+
+    @pytest.mark.parametrize("d", [3, 16, 128])
+    @pytest.mark.parametrize("k", [65, 100, 300, 1000, 1024])
+    def test_knn_large_k(self, cuda_device, d, k):
+        rng = np.random.default_rng(16)
+        x = _t(_centred(rng, 300, d)).to(cuda_device)
+        y = _t(_centred(rng, 2001, d)).to(cuda_device)
+        dist, idx = t_knn.knn(x, y, k)
+        pdist, pidx = tref.knn(x, y, k)
+        _assert_within(dist, pdist, _dist_allowance(x, y, pdist))
+        keep = _isolated_entries(x, y, k)
+        assert int(keep.sum()) > keep.numel() // 10
+        assert torch.equal(idx[keep], pidx[keep])
+        assert bool((dist[:, 1:] >= dist[:, :-1]).all())
 
     @pytest.mark.parametrize("d", [2, 16, 5])
     def test_pairwise(self, cuda_device, d):

@@ -125,6 +125,30 @@ class TestBubbleCoreDistances:
         np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
         assert np.isfinite(got).all() and (got < 1e3).all()
 
+    @pytest.mark.parametrize("min_pts", [65, 100])
+    @pytest.mark.parametrize("L", [30, 160])
+    def test_large_min_pts(self, rng, min_pts, L):
+        """min_pts past the former kernel bound of 64, with masses >= 1:
+        the 30-row table's mass lies between 65 and 100, so min_pts = 100
+        reaches the ops clamp there; the 160-row table never does."""
+        rep, n_b, extent = _bubble_table(rng, L, 8)
+        assert (n_b.sum() < min_pts) == (L == 30 and min_pts == 100)
+        got = tops.bubble_core_distances(_t(rep), _t(n_b), _t(extent), min_pts).numpy()
+        want = np.asarray(jref.bubble_core_distances(rep, n_b, extent, min(min_pts, int(n_b.sum())), 8))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        pallas = np.asarray(jops.bubble_core_distances(rep, n_b, extent, min_pts, use_ref=False))
+        np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+
+    def test_min_pts_clamp_reached(self, rng):
+        """A table lighter than min_pts = 100: both sides clamp to its
+        mass, and every row's walk ends at the whole table."""
+        rep, n_b, extent = _bubble_table(rng, 20, 8)
+        assert n_b.sum() < 100
+        got = tops.bubble_core_distances(_t(rep), _t(n_b), _t(extent), 100).numpy()
+        pallas = np.asarray(jops.bubble_core_distances(rep, n_b, extent, 100, use_ref=False))
+        np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+        assert np.isfinite(got).all()
+
     def test_min_pts_bound(self):
         rep = torch.zeros(8, 2)
         with pytest.raises(ValueError):

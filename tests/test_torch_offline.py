@@ -171,6 +171,25 @@ class TestOfflinePass:
         want = jops.offline_recluster_from_table(rep, n_b, extent, 10, use_ref=True)
         _assert_results_match(got, want)
 
+    def test_min_pts_100(self, rng):
+        """min_pts = 100, past the former kernel bound of 64, on a weighted
+        Bubble-tree summary: the ROADMAP tiers (same partition, MST weight
+        within 1e-6, stabilities within 1e-5)."""
+        X, _ = make_blobs(rng, n_per=300, d=3)
+        tree = BubbleTree(dim=3, compression=0.1)
+        tree.insert_block(X)
+        rep, extent, n_b, _ = tops.bubble_table(*tree.leaf_cf_buffers()[1:], tree.leaf_cf_buffers()[0])
+        assert n_b.sum() > 100
+        got = tops.offline_recluster_from_table(rep, n_b, extent, 100, device="cpu")
+        want = jops.offline_recluster_from_table(rep, n_b, extent, 100, use_ref=True)
+        assert_same_partition(got.labels, want.labels)
+        np.testing.assert_allclose(mst_total_weight(got.mst[2]), mst_total_weight(want.mst[2]), rtol=1e-6)
+        g, w = np.sort(got.stabilities), np.sort(want.stabilities)
+        assert g.shape == w.shape
+        lo_g, lo_w = g < STAB_CEILING, w < STAB_CEILING
+        np.testing.assert_array_equal(lo_g, lo_w)
+        np.testing.assert_allclose(g[lo_g], w[lo_w], rtol=1e-5, atol=1e-5)
+
     def test_min_pts_above_mass(self):
         """A summary lighter than min_pts clamps min_pts to its mass."""
         rep = np.array([[0.0, 0.0], [1.0, 0.0], [5.0, 5.0]])

@@ -60,6 +60,19 @@ def _tie_free_rows(x, y, k):
     return (np.diff(top, axis=1) > noise[:, None]).all(1)
 
 
+def _isolated_entries(x, y, k):
+    """(n, k) mask of the knn entries whose f64 squared distance is apart
+    from both neighbours in the sorted row by more than 64× the f32
+    rounding of the expanded form: no rounding can move their index."""
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    sq = ((x64[:, None, :] - y64[None, :, :]) ** 2).sum(-1)
+    top = np.sort(sq, axis=1)[:, : k + 1]
+    noise = 64 * EPS32 * ((x64**2).sum(1) + (y64**2).sum(1).max())
+    gap = np.diff(top, axis=1) > noise[:, None]  # gap[:, t]: between entries t and t + 1
+    before = np.concatenate([np.ones_like(gap[:, :1]), gap[:, : k - 1]], axis=1)
+    return before & gap
+
+
 def _tf32_probe(rng, n=64, m=80, d=4):
     """x with full 24-bit mantissas against rows c·e_j, c a multiple of
     1/8 (exact in TF32): x·y is c·x_j to within f32 rounding, and off by
@@ -116,12 +129,37 @@ class TestKnn:
         np.testing.assert_array_equal(np.sort(idx.numpy(), axis=1), np.broadcast_to(np.arange(7), (5, 7)))
 
     def test_k_above_64_raises(self, rng):
-        X = _t(_centred(rng, 100, 3))
+        """Named for the former bound: k now goes up to 1024 on every
+        device, and 1025 raises."""
+        X = _t(_centred(rng, 1100, 3))
+        with pytest.raises(ValueError, match="k <= 1024"):
+            t_knn.knn(X, X, 1025)
+        with pytest.raises(ValueError, match="k <= 1024"):
+            tops.core_distances(X, 1025)
         with pytest.raises(ValueError, match="k <= 64"):
-            t_knn.knn(X, X, 65)
-        with pytest.raises(ValueError, match="k <= 64"):
-            tops.core_distances(X, 65)
-        assert tops.knn(X, X, 64)[0].shape == (100, 64)
+            t_knn.knn_lane(X, X, 65)
+        assert tops.knn(X, X, 1024)[0].shape == (1100, 1024)
+        assert tops.knn(X, X, 65)[0].shape == (1100, 65)
+
+    @pytest.mark.parametrize("k", [65, 100, 257])
+    def test_large_k_matches_pallas_and_reference(self, rng, k):
+        """k past the former bound of 64: ops.knn and ops.core_distances
+        against the JAX package's (its Pallas kernel takes any k)."""
+        X = _centred(rng, 40, 8)
+        Y = _centred(rng, 300, 8)
+        dist, idx = tops.knn(_t(X), _t(Y), k)
+        assert dist.shape == idx.shape == (40, k)
+        pd, pi = (np.asarray(a) for a in jops.knn(X, Y, k, use_ref=False))
+        rd, ri = (np.asarray(a) for a in jref.knn(X, Y, k))
+        np.testing.assert_allclose(dist.numpy(), pd, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(dist.numpy(), rd, rtol=RTOL, atol=ATOL)
+        keep = _isolated_entries(X, Y, k)
+        assert keep.sum() > keep.size // 2
+        np.testing.assert_array_equal(idx.numpy()[keep], pi[keep])
+        np.testing.assert_array_equal(idx.numpy()[keep], ri[keep])
+        got = tops.core_distances(_t(Y), k).numpy()
+        np.testing.assert_allclose(got, np.asarray(jops.core_distances(Y, k)), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, np_core_distances(Y.astype(np.float64), k), rtol=RTOL, atol=ATOL)
 
     @pytest.mark.parametrize("d", DIMS)
     def test_core_distances(self, rng, d):
