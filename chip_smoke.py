@@ -9,23 +9,34 @@ Phases, each printing its own lines:
               TF32 switches;
   2. build    the hand-written CUDA kernels, built from src/repro_torch/
               kernels/csrc at first use (nvcc, sm_90a), with ptxas's
-              registers, stack and spills of every warp-select
-              instantiation (each must have no stack frame and no spills);
+              registers, stack and spills of every register-tile
+              instantiation (warp-select knn and bubble_cd, assign; each
+              must have no stack frame and no spills);
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes, on a tie-free mean-centred table
               and on a duplicate-heavy one, with kernel / plain / library
-              times; bubble_cd also bit for bit against the per-lane kernel
-              it replaced, and timed at min_pts 1, 10, 100 and 1024 (the
-              last two held to the plain version);
+              times; assign and bubble_cd also bit for bit against the
+              per-lane kernels they replaced (assign's time beside the
+              per-lane kernel's), assign also at d = 200, and bubble_cd
+              timed at min_pts 1, 10, 100 and 1024 (the last two held to
+              the plain version);
   4. stream   the default StreamingClusterEngine on the card: 262,144
               points at d = 16 from a seeded Gaussian mixture, ingested in
               blocks of 8192 (compression 0.02 → ~5,200 leaves, Lp = 8192),
-              a quarter retired in blocks, 65,536 queries in chunks; then
-              the snapshots and the served rows held against the port's
-              own plain pipeline on the CPU, and one offline pass at
-              Lp = 8192 timed stage by stage, and one at min_pts = 100 on
-              the full table held to the CPU plain pass by partition;
-  5. points   the point-level kernel API (Def. 1 core distances, knn,
+              a quarter retired in blocks, 65,536 queries in chunks, and
+              assign timed at the query shape (a 4096-row chunk against the
+              final snapshot's bucket); then the snapshots and the served
+              rows held against the port's own plain pipeline on the CPU,
+              one offline pass at Lp = 8192 timed stage by stage, and
+              passes at min_pts = 100 (warp-select) and 2000 (bubble_cd's
+              strip route) on the full table held to the CPU plain pass by
+              partition;
+  5. wide     a default StreamingClusterEngine at d = 200 (past the
+              register tiles' 128): 65,536 points in blocks of 8192
+              (L ~ 1,300, Lp = 2048), then 8192 queries; every snapshot and
+              the served rows held to the port's CPU plain pipeline, the
+              routes' launch counts checked;
+  6. points   the point-level kernel API (Def. 1 core distances, knn,
               pairwise squared distances, Def. 2 mutual reachability) on
               the first 65,536 points of the stream's mixture, mean-centred:
               knn and core distances at n = m = 65,536, pairwise and
@@ -34,9 +45,11 @@ Phases, each printing its own lines:
               on a duplicate-heavy table, with kernel / plain / library
               times; knn also bit for bit against the per-lane kernel it
               replaced (65,536² at k = 10, the duplicate table, k = 64),
-              and timed at k 1, 10, 64, 256 and 1024 (the last two held
-              to the plain version);
-  6. attention GQA flash attention at the full attention widths of
+              timed at k 1, 10, 64, 256 and 1024 (the last two held to the
+              plain version), and at k = 2000 through the strip route; then
+              all four calls at d = 200 and 16,384 points (knn by the strip
+              route), each against its plain version;
+  7. attention GQA flash attention at the full attention widths of
               qwen2-1.5b (S = 4096, 12 heads, 2 kv heads, Dh 128, causal,
               bf16 and f32) and h2o-danube-3-4b (S = 8192, 32 heads, 8 kv
               heads, Dh 120, window 4096, bf16), and a ragged case with a
@@ -45,10 +58,11 @@ Phases, each printing its own lines:
               (counted per route); each held against the plain version a
               few heads at a time, with device times and the host time
               of one ops call;
-  7. the kernels JSON line (launches on each kernel's own path, errors,
-     times, bounds; flash_attention with the qwen2-1.5b f32 case,
-     flash_attention_mma with the qwen2-1.5b bf16 case);
-  8. the last line: {"ok": true, "device": {...}}.
+  8. the kernels JSON line (launches on each kernel's own path, errors,
+     times, bounds; assign with the per-lane kernel's time as lane_ms;
+     flash_attention with the qwen2-1.5b f32 case, flash_attention_mma
+     with the qwen2-1.5b bf16 case);
+  9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
 of the repository, or when any phase fails.  Imports nothing of JAX.
@@ -80,7 +94,12 @@ N_PAIR = 16_384  # [points]: pairwise and point mutual reachability (1 GiB each)
 STRIP = 4096  # rows per strip of a plain version on the card
 KNN_SWEEP = (1, 10, 64, 256, 1024)  # [points]: k = 1 nearly skips selection; above 64 the per-lane kernel cannot
 BCD_SWEEP = (1, 10, 100, 1024)  # [kernels]: the same for min_pts
-MIN_PTS_WIDE = 100  # [min_pts]: one offline pass past the per-lane kernel's bound
+K_STRIP = 2000  # [points], [min_pts]: k and min_pts past the warp-select core's 1024 (strip route)
+MIN_PTS_PASSES = ((100, "ws"), (K_STRIP, "strip"))  # [min_pts]: past the per-lane kernel's 64, past 1024
+WIDE_DIM = 200  # [kernels], [points], [wide]: d past the warp-select core's 128
+N_WIDE = 65_536  # [wide]: points of the d = 200 stream (compression 0.02: L ~ 1,300, Lp = 2048)
+N_WIDE_QUERIES = 8192
+N_WIDE_POINTS = 16_384  # [points] at d = 200: knn, core distances, pairwise, mutual reachability
 # [attention]: (label, B, S, H, KV, Dh, window, dtype, dead keys at the head, dead keys at the tail)
 ATTENTION = (
     ("qwen2-1.5b bf16", 1, 4096, 12, 2, 128, None, "bf16", 0, 0),
@@ -94,7 +113,10 @@ PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
-WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu")  # 24 instantiations each: D in {16, 32, 64, 128} x K in {32, ..., 1024}
+# register-tile sources whose ptxas report [build] checks: knn_ws.cu and bubble_cd_ws.cu, 24 instantiations
+# each (D in {16, 32, 64, 128} x K in {32, ..., 1024}); assign_ws.cu, 4 (D) + the wide kernel + its combine
+WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu")
+WS_INSTANTIATIONS = 48 + 6
 
 
 def say(*parts):
@@ -106,11 +128,11 @@ def check(cond: bool, msg: str):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def mixture(rng, n, k=20, spread=3.0):
-    """A seeded d=16 Gaussian mixture: k unit-variance blobs whose centres
-    are N(0, spread²) per coordinate."""
-    centres = rng.normal(scale=spread, size=(k, DIM))
-    return centres[rng.integers(0, k, size=n)] + rng.normal(size=(n, DIM))
+def mixture(rng, n, k=20, spread=3.0, dim=DIM):
+    """A seeded Gaussian mixture (d = 16 by default): k unit-variance blobs
+    whose centres are N(0, spread²) per coordinate."""
+    centres = rng.normal(scale=spread, size=(k, dim))
+    return centres[rng.integers(0, k, size=n)] + rng.normal(size=(n, dim))
 
 
 def time_ms(fn, reps=10, warm=2):
@@ -149,14 +171,22 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def sq_tol(x, y) -> float:
+    """The cancellation bound on an f32 squared distance between rows of x
+    and y (d features) computed in the expanded form by two different
+    summation orders: δ(r²) = γ·(max‖x‖² + max‖y‖²) with γ = max(16, d)·ε/2,
+    the worst-case rounding of a d-term dot product (Higham), which is 8ε
+    at the main path's d = 16."""
+    d = x.shape[1]
+    return max(16, d) / 2 * EPS32 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+
+
 def dist_tol(x, y, r):
-    """Elementwise allowance for an f32 distance r between rows of x and y
-    computed in the expanded form by two different summation orders:
-    1e-5 relative plus the cancellation bound δ(r²) = 8ε(max‖x‖²+max‖y‖²),
-    i.e. δ(r) = min(√δ(r²), δ(r²)/2r)."""
+    """Elementwise allowance for an f32 distance r between rows of x and y:
+    1e-5 relative plus δ(r) = min(√δ(r²), δ(r²)/2r), δ(r²) = sq_tol(x, y)."""
     import torch
 
-    dsq = 8 * EPS32 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+    dsq = sq_tol(x, y)
     floor = torch.minimum(torch.full_like(r, dsq**0.5), dsq / (2 * r.clamp_min(1e-30)))
     return RTOL * r.abs() + floor
 
@@ -239,14 +269,16 @@ def clear_crossings(rep, nb, min_pts, rows=1024):
 
 def ptxas_ws(log: str) -> dict:
     """{(kernel, D, K): (registers, stack bytes, spill stores, spill loads)}
-    of the warp-select kernels in an ``nvcc -Xptxas -v`` log."""
+    of the register-tile kernels in an ``nvcc -Xptxas -v`` log (D and K 0
+    where the kernel has no such template argument)."""
     import re
 
     out, cur, stack = {}, None, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(knn_ws|bubble_cd_ws)_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*?(knn_ws|bubble_cd_ws|assign_ws|assign_wide|assign_combine)"
+                      r"_kernel(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
         if m:
-            cur = (m.group(1), int(m.group(2)), int(m.group(3)))
+            cur = (m.group(1), int(m.group(2) or 0), int(m.group(3) or 0))
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur:
@@ -295,9 +327,10 @@ def phase_build():
         ws = ptxas_ws(info["log"])
         for (kern, D, K), (regs, stack, st, ld) in sorted(ws.items()):
             say(f"[build] {kern} D={D} K={K}: {regs} registers, {stack} bytes stack, spill stores {st} loads {ld}")
-        check(len(ws) == 48, f"{len(ws)} warp-select instantiations in the ptxas report, not 48")
+        check(len(ws) == WS_INSTANTIATIONS,
+              f"{len(ws)} register-tile instantiations in the ptxas report, not {WS_INSTANTIATIONS}")
         bad = [key for key, v in ws.items() if v[1:] != (0, 0, 0)]
-        check(not bad, f"warp-select instantiations with a stack frame or spills: {bad}")
+        check(not bad, f"register-tile instantiations with a stack frame or spills: {bad}")
 
 
 def phase_kernels(dev):
@@ -331,7 +364,8 @@ def phase_kernels(dev):
     Qdup, dropped_dup = tie_free_rows(t(near), Rdup, t(sites))
     Qdup = torch.cat([Rdup[:1000], Qdup[: LP - 1000]]).contiguous()  # on-table rows tie by index
 
-    # --- assign: 8192 × 8192 × 16, with and without the distance; ragged L
+    # --- assign: 8192 × 8192 × 16, with and without the distance; ragged L;
+    # bit for bit against the per-lane kernel it replaced
     errs = []
     ragged = LP - 192  # a multiple of no kernel chunk or tile
     Rr = R[:ragged].contiguous()
@@ -339,23 +373,45 @@ def phase_kernels(dev):
     for label, q, r in (("tie-free", Q, R), ("duplicates", Qdup, Rdup), (f"ragged L={ragged}", Qr, Rr)):
         idx, dist = k_assign.assign(q, r, with_dist=True)
         idx_only = k_assign.assign(q, r)
+        lidx, ldist = k_assign.assign_lane(q, r, with_dist=True)
+        check(bool(torch.equal(idx, lidx)) and bool(torch.equal(dist, ldist)) and bool(torch.equal(idx_only, lidx)),
+              f"assign {label}: differs from the per-lane kernel ({int((idx != lidx).sum())} indices, "
+              f"{int((dist != ldist).sum())} distances)")
         pidx, pdist = ref.assign_with_dist(q, r)
-        check(bool(torch.equal(idx, pidx)) and bool(torch.equal(idx_only, pidx)),
-              f"assign {label}: {int((idx != pidx).sum())} indices differ")
+        check(bool(torch.equal(idx, pidx)), f"assign {label}: {int((idx != pidx).sum())} indices differ")
         e, rel = compare(f"assign {label}", dist, pdist, dist_tol(q, r, pdist))
         errs.append(e)
-        say(f"[kernels] assign {label}: indices identical ({q.shape[0]} rows, {r.shape[0]} reps), "
-            f"dist max_abs_err {e:.3e} max_rel {rel:.3e}")
+        say(f"[kernels] assign {label}: identical to the per-lane kernel (indices and distances) and indices "
+            f"identical to plain ({q.shape[0]} rows, {r.shape[0]} reps), dist max_abs_err {e:.3e} max_rel {rel:.3e}")
     say(f"[kernels] assign: near-tie rows left out of the tie-free sets: {dropped} / {dropped_dup}")
     n, L = Q.shape[0], R.shape[0]
-    ms = time_ms(lambda: k_assign.assign(Q, R))
-    ms_d = time_ms(lambda: k_assign.assign(Q, R, with_dist=True))
+    ms = time_ms(lambda: k_assign.assign(Q, R), reps=50)
+    ms_d = time_ms(lambda: k_assign.assign(Q, R, with_dist=True), reps=50)
+    lane_ms = time_ms(lambda: k_assign.assign_lane(Q, R), reps=50)
     plain = time_ms(lambda: ref.assign(Q, R))
     lib = time_ms(lambda: torch.cdist(Q, R).min(dim=1))
     b, by = bound_ms(2.0 * n * L * DIM, 4.0 * (n * DIM + L * DIM + n))
-    say(f"[kernels] assign {n}x{L}x{DIM}: kernel {ms:.4f} ms (with dist {ms_d:.4f}), plain {plain:.4f} ms, "
-        f"cdist+min {lib:.4f} ms, bound {b:.4f} ms ({by})")
-    out["assign"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+    say(f"[kernels] assign {n}x{L}x{DIM}: kernel {ms:.4f} ms (with dist {ms_d:.4f}), per-lane kernel {lane_ms:.4f} ms, "
+        f"plain {plain:.4f} ms, cdist+min {lib:.4f} ms, bound {b:.4f} ms ({by})")
+    out["assign"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                         lane_ms=lane_ms)
+    # d past the register tile's 128: the same kernel file's feature slices
+    wide = mixture(rng, 2 * LP, dim=WIDE_DIM)
+    wide -= wide.mean(axis=0)
+    Rw = t(wide[:LP])
+    Qw, _ = tie_free_rows(t(wide[LP:]), Rw)
+    check(Qw.shape[0] > LP // 2, f"assign d={WIDE_DIM}: only {Qw.shape[0]} tie-free queries")
+    idx, dist = k_assign.assign(Qw, Rw, with_dist=True)
+    pidx, pdist = ref.assign_with_dist(Qw, Rw)
+    check(bool(torch.equal(idx, pidx)), f"assign d={WIDE_DIM}: {int((idx != pidx).sum())} indices differ")
+    e, rel = compare(f"assign d={WIDE_DIM}", dist, pdist, dist_tol(Qw, Rw, pdist))
+    ms_w = time_ms(lambda: k_assign.assign(Qw, Rw, with_dist=True))
+    plain_w = time_ms(lambda: ref.assign_with_dist(Qw, Rw))
+    b_w, by_w = bound_ms(2.0 * Qw.shape[0] * LP * WIDE_DIM, 4.0 * (Qw.shape[0] + LP) * WIDE_DIM)
+    say(f"[kernels] assign d={WIDE_DIM} ({Qw.shape[0]} tie-free rows x {LP} reps): indices identical to plain, "
+        f"dist max_abs_err {e:.3e} max_rel {rel:.3e}; kernel {ms_w:.4f} ms (with dist), plain {plain_w:.4f} ms, "
+        f"bound {b_w:.4f} ms ({by_w})")
+    del Rw, Qw, wide
 
     # --- bubble_cd: LP rows, min_pts 10, masses > 1; path layout (pads at
     # 1e6 with mass 0 past the real rows) and a ragged pad-free table
@@ -564,31 +620,68 @@ def phase_stream(dev):
                 table_last=table_last, Qs=Qs, served=served, launches=launches)
 
 
-def phase_cpu_check(run):
-    """The stream's snapshots and served rows against the port's own plain
-    pipeline on the CPU."""
+def assign_at_query_shape(dev, run):
+    """The assign kernel at the serve path's shape: one query chunk against
+    the final snapshot's device entry (its L reps padded to the bucket, as
+    ``query_detailed`` calls it); new kernel, per-lane kernel, plain
+    version, cdist+min and the bound."""
     import torch
 
+    from repro_torch.kernels import assign as k_assign
+    from repro_torch.kernels import ref
+    from repro_torch.serving.query import _build_entry
+
+    snap = run["snap_last"]
+    entry = _build_entry(snap, dev)
+    q = torch.as_tensor((run["Qs"][:QUERY_CHUNK] - entry.center[None, :]).astype(np.float32), device=dev)
+    r = entry.reps
+    idx, dist = k_assign.assign(q, r, with_dist=True)
+    lidx, ldist = k_assign.assign_lane(q, r, with_dist=True)
+    check(bool(torch.equal(idx, lidx)) and bool(torch.equal(dist, ldist)),
+          "assign at the query shape differs from the per-lane kernel")
+    ms = time_ms(lambda: k_assign.assign(q, r, with_dist=True), reps=50)
+    host = host_ms(lambda: k_assign.assign(q, r, with_dist=True), reps=50)
+    lane_ms = time_ms(lambda: k_assign.assign_lane(q, r, with_dist=True), reps=50)
+    plain = time_ms(lambda: ref.assign_with_dist(q, r))
+    lib = time_ms(lambda: torch.cdist(q, r).min(dim=1))
+    n, L = q.shape[0], r.shape[0]
+    b, by = bound_ms(2.0 * n * L * DIM, 4.0 * (n * DIM + L * DIM + 2 * n))
+    # where the host's enqueue time per call reaches the device time, the
+    # device idles between calls and the event time is the host's
+    say(f"[stream] assign at the query shape ({n} rows x {L} reps: the final snapshot's {snap.n_bubbles} bubbles "
+        f"in its bucket), with dist: kernel {ms:.4f} ms (host enqueue {host:.4f} ms per call), per-lane kernel "
+        f"{lane_ms:.4f} ms, plain {plain:.4f} ms, cdist+min {lib:.4f} ms, bound {b:.4f} ms ({by}); identical to the "
+        f"per-lane kernel")
+
+
+def check_snapshot(tag, name, snap, table, min_pts):
+    """A published snapshot against the port's plain pipeline on the CPU:
+    the same partition, MST weight within RTOL."""
     from repro_torch.kernels import ops
+
+    rep, extent, n_b, center = table
+    check(np.array_equal(rep, snap.bubble_rep) and np.array_equal(center, snap.center),
+          f"{name}: the captured table is not the snapshot's")
+    t0 = time.perf_counter()
+    cpu = ops.offline_recluster_from_table(rep, n_b, extent, min_pts, device="cpu")
+    w_gpu, w_cpu = float(np.sum(snap.mst[2])), float(np.sum(cpu.mst[2]))
+    rel = abs(w_gpu - w_cpu) / abs(w_cpu)
+    say(f"[{tag}] {name} snapshot (L={snap.n_bubbles}): CPU plain pass {time.perf_counter() - t0:.2f} s, "
+        f"{cpu.n_clusters} vs {snap.result.n_clusters} clusters, MST weight rel diff {rel:.3e}")
+    check(_same_partition(snap.bubble_labels, cpu.labels), f"{name}: partition differs from the CPU pass")
+    check(rel <= RTOL, f"{name}: MST weight differs by {rel:.3e}")
+
+
+def check_served(tag, snap, X, served):
+    """Served rows against the CPU plain ``_fused_query`` on the same
+    snapshot: bubble indices and labels identical on rows whose best and
+    second-best distances are more than 1e-5 apart."""
+    import torch
+
     from repro_torch.kernels import ref
     from repro_torch.serving.query import _build_entry, _fused_query
 
-    for name in ("full", "last"):
-        snap, (rep, extent, n_b, center) = run[f"snap_{name}"], run[f"table_{name}"]
-        check(np.array_equal(rep, snap.bubble_rep) and np.array_equal(center, snap.center),
-              f"{name}: the captured table is not the snapshot's")
-        t0 = time.perf_counter()
-        cpu = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device="cpu")
-        w_gpu, w_cpu = float(np.sum(snap.mst[2])), float(np.sum(cpu.mst[2]))
-        rel = abs(w_gpu - w_cpu) / abs(w_cpu)
-        say(f"[check] {name} snapshot (L={snap.n_bubbles}): CPU plain pass {time.perf_counter() - t0:.2f} s, "
-            f"{cpu.n_clusters} vs {snap.result.n_clusters} clusters, MST weight rel diff {rel:.3e}")
-        check(_same_partition(snap.bubble_labels, cpu.labels), f"{name}: partition differs from the CPU pass")
-        check(rel <= RTOL, f"{name}: MST weight differs by {rel:.3e}")
-
-    snap = run["snap_last"]
     entry = _build_entry(snap, torch.device("cpu"))
-    X = run["Qs"]
     idx, lbl, near_tie = [], [], []
     for i in range(0, X.shape[0], 16384):
         xc = torch.from_numpy((X[i : i + 16384] - entry.center[None, :]).astype(np.float32))
@@ -599,13 +692,21 @@ def phase_cpu_check(run):
         two = torch.topk(sq, 2, dim=1, largest=False).values.sqrt()
         near_tie.append(((two[:, 1] - two[:, 0]) <= RTOL * two[:, 1]).numpy())
     idx, lbl, near_tie = (np.concatenate(a) for a in (idx, lbl, near_tie))
-    got = np.concatenate([r.bubble_index for r in run["served"]])
-    got_lbl = np.concatenate([r.labels for r in run["served"]])
+    got = np.concatenate([r.bubble_index for r in served])
+    got_lbl = np.concatenate([r.labels for r in served])
     differ = (got != idx) & ~near_tie
-    say(f"[check] served bubble_index vs CPU plain _fused_query: {int(differ.sum())} differ on "
+    say(f"[{tag}] served bubble_index vs CPU plain _fused_query: {int(differ.sum())} differ on "
         f"{int((~near_tie).sum())} rows; {int(near_tie.sum())} near-ties (second-best within 1e-5) left out")
     check(not differ.any(), "served rows differ from the CPU plain query")
     check(np.array_equal(got_lbl[~near_tie], lbl[~near_tie]), "served labels differ")
+
+
+def phase_cpu_check(run):
+    """The stream's snapshots and served rows against the port's own plain
+    pipeline on the CPU."""
+    for name in ("full", "last"):
+        check_snapshot("check", name, run[f"snap_{name}"], run[f"table_{name}"], MIN_PTS)
+    check_served("check", run["snap_last"], run["Qs"], run["served"])
 
 
 def phase_stages(dev, table):
@@ -634,6 +735,63 @@ def phase_stages(dev, table):
     total = sum(times.values())
     say(f"[stages] one offline pass at L={L}, Lp={ops._pow2_rows(L)} (ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) + f"; total {total:.2f}")
+
+
+def phase_wide(dev):
+    """A default StreamingClusterEngine at d = 200 on the card: N_WIDE
+    points from a seeded mixture ingested in blocks of BLOCK (compression
+    0.02: L ~ 1,300, Lp = 2048), the last offline pass forced by a flush,
+    then N_WIDE_QUERIES queries in chunks; every published snapshot and the
+    served rows against the port's plain pipeline on the CPU.  At this
+    width assign runs its feature-sliced kernel, bubble_cd its strip route
+    and mutual_reach the sliced tile."""
+    import torch
+
+    from repro_torch import StreamingClusterEngine
+    from repro_torch.kernels import assign as k_assign
+    from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import mutual_reach as k_mr
+
+    rng = np.random.default_rng(SEED + 3)
+    data = mixture(rng, N_WIDE + N_WIDE_QUERIES, dim=WIDE_DIM) + 50.0
+    X, Qs = data[:N_WIDE], data[N_WIDE:]
+    eng = StreamingClusterEngine(
+        WIDE_DIM, min_pts=MIN_PTS, compression=COMPRESSION, epsilon=EPSILON, max_block=BLOCK, device=dev)
+    for mod in (k_assign, k_bcd, k_mr):
+        mod.launches = 0
+    k_bcd.launches_ws = k_bcd.launches_strip = 0
+    snaps = []
+
+    def note_pass(before):
+        snap = eng.snapshot
+        if snap is not None and snap.version != before:
+            snaps.append((snap, eng._table.capture(eng.tree.n_points).table()))
+
+    t0 = time.perf_counter()
+    for i in range(0, N_WIDE, BLOCK):
+        v0 = 0 if eng.snapshot is None else eng.snapshot.version
+        eng.ingest(X[i : i + BLOCK])
+        note_pass(v0)
+    v0 = eng.snapshot.version
+    eng.flush()
+    note_pass(v0)
+    served = [eng.query_detailed(Qs[i : i + QUERY_CHUNK]) for i in range(0, N_WIDE_QUERIES, QUERY_CHUNK)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"assign": k_assign.launches, "bubble_cd ws": k_bcd.launches_ws,
+                "bubble_cd strip": k_bcd.launches_strip, "mutual_reach": k_mr.launches}
+    say(f"[wide] {N_WIDE} points d={WIDE_DIM} in blocks of {BLOCK}, {N_WIDE_QUERIES} queries: {wall:.2f} s wall, "
+        f"{len(snaps)} offline passes at L = {[sn.n_bubbles for sn, _ in snaps]}; launches {json.dumps(launches)}")
+    check(launches["assign"] > 0 and launches["mutual_reach"] == len(snaps) and launches["bubble_cd ws"] == 0
+          and launches["bubble_cd strip"] == len(snaps), f"d={WIDE_DIM} stream: launches {launches}")
+    check(len(snaps) > 0, f"d={WIDE_DIM} stream: no offline pass")
+    for k, (snap, table) in enumerate(snaps):
+        check_snapshot("wide", f"pass {k + 1}", snap, table, MIN_PTS)
+    last = snaps[-1][0]
+    for res in served:
+        check(res.version == last.version and np.isfinite(res.distance).all()
+              and ((res.strength >= 0) & (res.strength <= 1)).all(), f"d={WIDE_DIM}: malformed query result")
+    check_served("wide", last, Qs, served)
 
 
 def knn_against_plain(X, kd, ki, k):
@@ -665,32 +823,121 @@ def knn_against_plain(X, kd, ki, k):
 
 
 def phase_min_pts(dev, table):
-    """One offline pass at min_pts = MIN_PTS_WIDE, past the per-lane
-    kernel's bound, on the stream's full table through the engine's entry
-    point; the partition against the port's plain pipeline on the CPU."""
+    """One offline pass per ``MIN_PTS_PASSES`` entry on the stream's full
+    table through the engine's entry point: min_pts = 100 (past the
+    per-lane kernel's bound, the warp-select kernel) and 2000 (past the
+    warp-select core's, bubble_cd's strip route), each against the port's
+    plain pipeline on the CPU.
+
+    The warp-select pass must give the CPU pass's partition.  At
+    min_pts = 2000 a row's crossing lies ~40 bubbles deep, where the
+    sorted distances sit ~1e-3 apart relative, so the f32 rounding of the
+    kernel's FMA chains and of the plain version's matrix product can swap
+    two bubbles at the crossing of a few rows of 5,243: those rows' core
+    distances then differ by more than rounding, and the partition may.  So
+    the strip pass is held in two parts: its Eq. 6 core distances to the
+    plain version's on every row whose crossing is not a near-tie
+    (``clear_crossings``), and the rest of the pass to the CPU plain pass
+    given those same core distances (through the ``stage`` hook).  Where
+    no row differs, the partition must equal the plain pass's as well."""
     import torch
 
     from repro_torch.kernels import bubble_cd as k_bcd
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
 
     rep, extent, n_b, _ = table
-    k_bcd.launches = k_bcd.launches_lane = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS_WIDE, device=dev)
-    torch.cuda.synchronize()
-    gpu_s = time.perf_counter() - t0
-    launches = (k_bcd.launches, k_bcd.launches_lane)
-    check(launches == (1, 0), f"min_pts={MIN_PTS_WIDE} pass: bubble_cd launches (kernel, per-lane) {launches}")
-    cpu = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS_WIDE, device="cpu")
-    w_gpu, w_cpu = float(np.sum(res.mst[2])), float(np.sum(cpu.mst[2]))
-    rel = abs(w_gpu - w_cpu) / abs(w_cpu)
-    say(f"[min_pts] one offline pass at L={rep.shape[0]} min_pts={MIN_PTS_WIDE}: {gpu_s:.2f} s on the card, "
-        f"bubble_cd launches {launches[0]} (per-lane kernel {launches[1]}); {res.n_clusters} vs {cpu.n_clusters} "
-        f"clusters on the CPU plain pass, MST weight rel diff {rel:.3e}")
-    check(res.n_clusters > 0 and _same_partition(res.labels, cpu.labels),
-          f"min_pts={MIN_PTS_WIDE}: partition differs from the CPU pass")
-    check(rel <= RTOL, f"min_pts={MIN_PTS_WIDE}: MST weight differs by {rel:.3e}")
+    L = rep.shape[0]
+    for min_pts, route in MIN_PTS_PASSES:
+        cds = []  # the card pass's core distances, then the CPU pass's
+
+        def capture(name, fn, *args, **kw):
+            out = fn(*args, **kw)
+            if name == "bubble_cd":
+                cds.append(out)
+            return out
+
+        k_bcd.launches_ws = k_bcd.launches_strip = k_bcd.launches_lane = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ops.offline_recluster_from_table(rep, n_b, extent, min_pts, device=dev, stage=capture)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        launches = {"ws": k_bcd.launches_ws, "strip": k_bcd.launches_strip, "lane": k_bcd.launches_lane}
+        check(launches == {"ws": int(route == "ws"), "strip": int(route == "strip"), "lane": 0},
+              f"min_pts={min_pts} pass: bubble_cd launches per route {launches}")
+        cpu = ops.offline_recluster_from_table(rep, n_b, extent, min_pts, device="cpu", stage=capture)
+        w_gpu, w_cpu = float(np.sum(res.mst[2])), float(np.sum(cpu.mst[2]))
+        rel = abs(w_gpu - w_cpu) / abs(w_cpu)
+        same = res.n_clusters > 0 and _same_partition(res.labels, cpu.labels)
+        say(f"[min_pts] one offline pass at L={L} min_pts={min_pts}: {gpu_s:.2f} s on the card, "
+            f"bubble_cd launches per route {json.dumps(launches)}; {res.n_clusters} vs {cpu.n_clusters} "
+            f"clusters on the CPU plain pass, same partition: {same}, MST weight rel diff {rel:.3e}")
+        if route == "ws":
+            check(same, f"min_pts={min_pts}: partition differs from the CPU pass")
+            check(rel <= RTOL, f"min_pts={min_pts}: MST weight differs by {rel:.3e}")
+            continue
+        # the strip pass: core distances, then the rest of the pass on equal core distances
+        (rep_t, nb_t, _), mp, _ = ops._prepare_table(rep, n_b, extent, min_pts, dev)
+        got, want = cds[0][:L], cds[1][:L].to(dev)
+        sq = ref.pairwise_sqdist(rep_t[:L], rep_t[:L]).fill_diagonal_(float("inf"))
+        r1 = sq.amin(1).sqrt()
+        del sq
+        tol = dist_tol(rep_t[:L], rep_t[:L], r1) - RTOL * r1 + RTOL * want.abs()
+        differ = (got - want).abs() > tol
+        clear = clear_crossings(rep_t[:L], nb_t[:L], mp)
+        check(int(clear.sum()) > 0.8 * L, f"min_pts={min_pts}: only {int(clear.sum())} clear crossings")
+        check(not bool((differ & clear).any()),
+              f"min_pts={min_pts}: {int((differ & clear).sum())} core distances differ on clear crossings")
+        e, _ = compare(f"min_pts={min_pts} core distances", got[clear], want[clear], tol[clear])
+        gpu_cd = cds[0].cpu()
+        same_cd = ops.offline_recluster_from_table(
+            rep, n_b, extent, min_pts, device="cpu",
+            stage=lambda name, fn, *a, **kw: gpu_cd if name == "bubble_cd" else fn(*a, **kw))
+        w_same = float(np.sum(same_cd.mst[2]))
+        rel_same = abs(w_gpu - w_same) / abs(w_same)
+        say(f"[min_pts] min_pts={min_pts} (strip route): core distances vs plain max_abs_err {e:.3e} on the "
+            f"{int(clear.sum())} of {L} rows without a near-tie at the crossing; {int(differ.sum())} rows differ "
+            f"beyond rounding, all at near-tie crossings; the CPU plain pass on the card's core distances: "
+            f"{same_cd.n_clusters} clusters, same partition, MST weight rel diff {rel_same:.3e}")
+        check(res.n_clusters > 0 and _same_partition(res.labels, same_cd.labels),
+              f"min_pts={min_pts}: partition differs from the CPU pass on the same core distances")
+        check(rel_same <= RTOL, f"min_pts={min_pts}: MST weight differs by {rel_same:.3e} on the same core distances")
+        if not bool(differ.any()):
+            check(same and rel <= RTOL, f"min_pts={min_pts}: no core distance differs, yet the pass does")
+    # bubble_cd's strip route alone at the pass's table and min_pts
+    (rep_t, nb_t, ext_t), mp, _ = ops._prepare_table(rep, n_b, extent, K_STRIP, dev)
+    ms = time_ms(lambda: k_bcd.bubble_core_distances(rep_t, nb_t, ext_t, min_pts=mp, dim=DIM), reps=3, warm=1)
+    say(f"[min_pts] bubble_cd strip route at Lp={rep_t.shape[0]} d={DIM} min_pts={mp}: {ms:.4f} ms")
+
+
+def pair_against_plain(Xs, P, W, cds):
+    """Hold pairwise P and point mutual reachability W (diagonal 0) of Xs
+    to the plain versions, STRIP rows at a time, and mutual_reach with
+    zero core distances to sqrt(P) bit for bit.  Returns both largest
+    errors."""
+    import torch
+
+    from repro_torch.kernels import mutual_reach as k_mr
+    from repro_torch.kernels import ref
+
+    n = Xs.shape[0]
+    dsq = sq_tol(Xs, Xs)
+    e_pw, e_mr = [], []
+    for i in range(0, n, STRIP):
+        q = Xs[i : i + STRIP]
+        pp = ref.pairwise_sqdist(q, Xs)
+        e_pw.append(compare(f"pairwise rows {i}+", P[i : i + STRIP], pp, RTOL * pp + dsq)[0])
+        pW = ref.mutual_reachability(q, Xs, cds[i : i + STRIP], cds, zero_diag=False)
+        rows = torch.arange(q.shape[0], device=Xs.device)
+        pW[rows, i + rows] = 0.0  # the global diagonal
+        e_mr.append(compare(f"mutual_reachability rows {i}+", W[i : i + STRIP], pW,
+                            dist_tol(q, Xs, pp.sqrt()) + RTOL * pW.abs())[0])
+        del pp, pW
+    z = torch.zeros(n, device=Xs.device)
+    W0 = k_mr.mutual_reachability(Xs, Xs, z, z, zero_diag=False)
+    check(bool(torch.equal(W0, P.sqrt())), "pairwise and mutual_reach disagree on squared-distance bits")
+    return max(e_pw), max(e_mr)
 
 
 def phase_points(dev):
@@ -735,25 +982,9 @@ def phase_points(dev):
         f"knn / core_distances vs plain: max_abs_err {knn_err:.3e}; "
         f"indices identical on the {kept} of {N_KNN * k} entries without near-ties")
 
-    # pairwise and the point-level Eq. 7 against the plain version
-    dsq = 8 * EPS32 * 2 * float((Xs * Xs).sum(1).max())
-    e_pw, e_mr = [], []
-    for i in range(0, N_PAIR, STRIP):
-        q = Xs[i : i + STRIP]
-        pp = ref.pairwise_sqdist(q, Xs)
-        e_pw.append(compare(f"pairwise rows {i}+", P[i : i + STRIP], pp, RTOL * pp + dsq)[0])
-        pW = ref.mutual_reachability(q, Xs, cds[i : i + STRIP], cds, zero_diag=False)
-        rows = torch.arange(q.shape[0], device=dev)
-        pW[rows, i + rows] = 0.0  # the global diagonal
-        e_mr.append(compare(f"mutual_reachability rows {i}+", W[i : i + STRIP], pW,
-                            dist_tol(q, Xs, pp.sqrt()) + RTOL * pW.abs())[0])
-        del pp, pW
-    z = torch.zeros(N_PAIR, device=dev)
-    W0 = k_mr.mutual_reachability(Xs, Xs, z, z, zero_diag=False)
-    check(bool(torch.equal(W0, P.sqrt())), "pairwise and mutual_reach disagree on squared-distance bits")
-    del W0
-    say(f"[points] pairwise vs plain max_abs_err {max(e_pw):.3e}; mutual_reachability vs plain "
-        f"max_abs_err {max(e_mr):.3e}; mutual_reach(cd=0) == sqrt(pairwise) bit for bit")
+    e_pw, e_mr = pair_against_plain(Xs, P, W, cds)
+    say(f"[points] pairwise vs plain max_abs_err {e_pw:.3e}; mutual_reachability vs plain "
+        f"max_abs_err {e_mr:.3e}; mutual_reach(cd=0) == sqrt(pairwise) bit for bit")
 
     # the (d, j) order among copies: a duplicate-heavy table against a
     # yardstick in the direct-difference form √Σ(x−y)², where copies are
@@ -822,6 +1053,24 @@ def phase_points(dev):
         torch.cuda.empty_cache()
         say(f"[points] knn sweep {N_KNN}² k={kk}: kernel {sweep_ms:.4f} ms{note}")
 
+    # k past the warp-select core's 1024: the strip route, through ops
+    k_knn.launches_ws = k_knn.launches_strip = 0
+    cd2 = ops.core_distances(X, K_STRIP)
+    kd2, ki2 = ops.knn(X, X, K_STRIP)
+    torch.cuda.synchronize()
+    routes = (k_knn.launches_ws, k_knn.launches_strip)
+    check(routes == (0, 2), f"knn k={K_STRIP}: launches (ws, strip) {routes}, not (0, 2)")
+    check(bool(torch.equal(cd2, kd2[:, K_STRIP - 1])), f"core_distances k={K_STRIP} is not the knn's last column")
+    del cd2
+    e2, kept2 = knn_against_plain(X, kd2, ki2, K_STRIP)
+    del kd2, ki2
+    torch.cuda.empty_cache()
+    strip_ms = time_ms(lambda: k_knn.knn(X, X, K_STRIP), reps=1, warm=0)
+    torch.cuda.empty_cache()
+    say(f"[points] knn / core_distances at {N_KNN}² k={K_STRIP} (strip route; launches ws {routes[0]}, strip "
+        f"{routes[1]}): vs plain max_abs_err {e2:.3e}, indices identical on the {kept2} of {N_KNN * K_STRIP} entries "
+        f"without near-ties; {strip_ms:.4f} ms per knn call")
+
     ms = time_ms(lambda: k_pw.pairwise_sqdist(Xs, Xs))
     plain = time_ms(lambda: ref.pairwise_sqdist(Xs, Xs), reps=5)
     lib_cdist = time_ms(lambda: torch.cdist(Xs, Xs).square_(), reps=5)
@@ -831,13 +1080,61 @@ def phase_points(dev):
     b, by = bound_ms(2.0 * N_PAIR * N_PAIR * DIM, 4.0 * (N_PAIR * N_PAIR + 2 * N_PAIR * DIM))
     say(f"[points] pairwise {N_PAIR}²x{DIM}: kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist**2 {lib_cdist:.4f} ms, "
         f"addmm expansion {lib_addmm:.4f} ms, bound {b:.4f} ms ({by})")
-    out["pairwise"] = dict(max_abs_err=max(e_pw), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+    out["pairwise"] = dict(max_abs_err=e_pw, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                            library_ms=min(lib_cdist, lib_addmm))
     ms = time_ms(lambda: k_mr.mutual_reachability(Xs, Xs, cds, cds))
     say(f"[points] point-level mutual_reachability {N_PAIR}²x{DIM}: kernel {ms:.4f} ms")
+    del Xs, X
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    points_wide(dev, rng)
     return launches, out
+
+
+def points_wide(dev, rng):
+    """All four point-level calls at d = 200, past the register tile's 128,
+    through ops: knn and core distances by the strip route, pairwise and
+    mutual reachability by the sliced tile; each against its plain
+    version, with the route counters checked."""
+    import torch
+
+    from repro_torch.kernels import knn as k_knn
+    from repro_torch.kernels import mutual_reach as k_mr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise as k_pw
+
+    pts = mixture(rng, N_WIDE_POINTS, dim=WIDE_DIM)
+    X = torch.as_tensor(pts - pts.mean(axis=0), dtype=torch.float32, device=dev)
+    k = MIN_PTS
+    for mod in (k_knn, k_pw, k_mr):
+        mod.launches = 0
+    k_knn.launches_ws = k_knn.launches_strip = 0
+    cd = ops.core_distances(X, k)
+    kd, ki = ops.knn(X, X, k)
+    P = ops.pairwise_sqdist(X, X)
+    W = ops.mutual_reachability(X, X, cd, cd)
+    torch.cuda.synchronize()
+    launches = {"knn ws": k_knn.launches_ws, "knn strip": k_knn.launches_strip, "pairwise": k_pw.launches,
+                "mutual_reach": k_mr.launches}
+    check(launches == {"knn ws": 0, "knn strip": 2, "pairwise": 1, "mutual_reach": 1},
+          f"d={WIDE_DIM} point-level launches {launches}")
+    check(bool(torch.equal(cd, kd[:, k - 1])), f"d={WIDE_DIM}: core_distances is not the knn's k-th column")
+    e_knn, kept = knn_against_plain(X, kd, ki, k)
+    e_pw, e_mr = pair_against_plain(X, P, W, cd)
+    del P, W
+    torch.cuda.empty_cache()
+    n = X.shape[0]
+    knn_ms = time_ms(lambda: k_knn.knn(X, X, k), reps=2, warm=1)
+    pw_ms = time_ms(lambda: k_pw.pairwise_sqdist(X, X), reps=5)
+    mr_ms = time_ms(lambda: k_mr.mutual_reachability(X, X, cd, cd), reps=5)
+    b, by = bound_ms(2.0 * n * n * WIDE_DIM, 4.0 * (n * n + 2 * n * WIDE_DIM))
+    say(f"[points] d={WIDE_DIM} at {n}², k={k}, launches {json.dumps(launches)}: knn / core_distances vs plain "
+        f"max_abs_err {e_knn:.3e}, indices identical on the {kept} of {n * k} entries without near-ties; pairwise "
+        f"max_abs_err {e_pw:.3e}; mutual_reachability max_abs_err {e_mr:.3e}; mutual_reach(cd=0) == "
+        f"sqrt(pairwise) bit for bit; knn (strip route) {knn_ms:.4f} ms, pairwise {pw_ms:.4f} ms, "
+        f"mutual_reachability {mr_ms:.4f} ms, tile bound {b:.4f} ms ({by})")
+    del X, kd, ki, cd
+    torch.cuda.empty_cache()
 
 
 def _live_pairs(qpos, kpos, window):
@@ -987,16 +1284,18 @@ def main() -> int:
     phase_build()
     numbers = phase_kernels(dev)
     run = phase_stream(dev)
+    assign_at_query_shape(dev, run)
     phase_cpu_check(run)
     phase_stages(dev, run["table_full"])
     phase_min_pts(dev, run["table_full"])
+    phase_wide(dev)
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
     launches = dict(run["launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
                     **attn_launches)
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
                    flash_attention_mma=attn_numbers[ATTENTION[0][0]])
-    sources = {"assign": ("assign.cu", "src/repro/kernels/assign.py:21"),
+    sources = {"assign": ("assign_ws.cu", "src/repro/kernels/assign.py:21"),
                "bubble_cd": ("bubble_cd_ws.cu", "src/repro/kernels/bubble_cd.py:41"),
                "mutual_reach": ("mutual_reach.cu", "src/repro/kernels/mutual_reach.py:23"),
                "knn": ("knn_ws.cu", "src/repro/kernels/knn.py:34"),

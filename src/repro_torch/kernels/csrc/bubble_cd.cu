@@ -26,14 +26,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxMinPts = 64;  // per-lane buffer bound; the wrapper raises above it
 constexpr int kChunkFloats = 4096;
 
-__device__ __forceinline__ float dim_root(float x, int dim) {
-  if (dim >= 1 && (dim & (dim - 1)) == 0) {
-    for (int p = dim; p > 1; p >>= 1) x = sqrtf(x);
-    return x;
-  }
-  return powf(x, 1.0f / static_cast<float>(dim));
-}
-
 __global__ void __launch_bounds__(kThreads)
 bubble_cd_kernel(const float* __restrict__ rep, const float* __restrict__ nb,
                  const float* __restrict__ ext, int L, int d, int min_pts, int dim, int chunk,
@@ -121,10 +113,7 @@ bubble_cd_kernel(const float* __restrict__ rep, const float* __restrict__ nb,
     nb_c = nb_j;
     ext_c = ext_j;
   }
-  const float n_c = fmaxf(nb_c, 1.f);
-  const float k_resid = fminf(fmaxf(fmaxf(__fsub_rn(mp, before), 1.f), 0.f), n_c);
-  const float nnd = __fmul_rn(dim_root(__fdiv_rn(k_resid, n_c), dim), ext_c);
-  if (lane == 0) out[row] = __fadd_rn(dstar, nnd);
+  if (lane == 0) out[row] = repro::eq6_core_distance(dstar, before, nb_c, ext_c, mp, dim);
 }
 
 }  // namespace

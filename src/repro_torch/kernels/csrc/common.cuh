@@ -15,14 +15,15 @@
 
 namespace repro {
 
-constexpr int kMaxDim = 128;  // feature widths the kernels accept
+constexpr int kMaxDim = 128;  // feature widths of the warp-select and per-lane kernels
 
 // Odd row stride in shared memory: lanes reading consecutive rows at the
 // same feature hit distinct banks.
 __host__ __device__ inline int smem_stride(int d) { return d | 1; }
 
-__device__ __forceinline__ float dot_chain(const float* a, const float* b, int d) {
-  float acc = 0.f;
+// acc continued over a[0..d) . b[0..d): a chain cut into slices and
+// continued slice by slice gives the bits of the uncut chain.
+__device__ __forceinline__ float dot_chain(const float* a, const float* b, int d, float acc = 0.f) {
   for (int k = 0; k < d; ++k) acc = __fmaf_rn(a[k], b[k], acc);
   return acc;
 }
@@ -32,17 +33,19 @@ __device__ __forceinline__ float expanded_sq(float xx, float yy, float xy) {
   return fmaxf(__fsub_rn(__fadd_rn(xx, yy), __fmul_rn(2.f, xy)), 0.f);
 }
 
-// Stage rows [r0, r0 + rows) of a row-major (n, d) table into shared memory
-// with stride smem_stride(d); rows past n are zero.  Call with the whole
-// block; the caller synchronises.
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
-                                           int r0, int rows, int n, int d) {
-  const int ds = smem_stride(d);
+// Stage features [k0, k0 + w) of rows [r0, r0 + rows) of a row-major
+// (n, d) table into shared memory with row stride ds (default
+// smem_stride(d), the whole row); rows past n are zero.  Call with the
+// whole block; the caller synchronises.
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int r0, int rows,
+                                           int n, int d, int k0 = 0, int w = -1, int ds = -1) {
+  if (w < 0) w = d;
+  if (ds < 0) ds = smem_stride(d);
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int t = tid; t < rows * d; t += nthreads) {
-    const int r = t / d, k = t - r * d;
-    dst[r * ds + k] = (r0 + r < n) ? src[(size_t)(r0 + r) * d + k] : 0.f;
+  for (int t = tid; t < rows * w; t += nthreads) {
+    const int r = t / w, k = t - r * w;
+    dst[r * ds + k] = (r0 + r < n) ? src[(size_t)(r0 + r) * d + k0 + k] : 0.f;
   }
 }
 
@@ -57,6 +60,26 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
       i = oi;
     }
   }
+}
+
+// x**(1/dim): repeated correctly rounded sqrt for power-of-two dims, powf
+// otherwise (kernels/ref.py::dim_root).
+__device__ __forceinline__ float dim_root(float x, int dim) {
+  if (dim >= 1 && (dim & (dim - 1)) == 0) {
+    for (int p = dim; p > 1; p >>= 1) x = sqrtf(x);
+    return x;
+  }
+  return powf(x, 1.0f / static_cast<float>(dim));
+}
+
+// Eq. 6 from the walk's crossing: C the crossing bubble (mass nb_c, extent
+// ext_c) at distance dstar with mass `before` ahead of it,
+//   d* + dim_root(clip(max(min_pts - before, 1), 0, n_C) / n_C, dim) * extent_C.
+__device__ __forceinline__ float eq6_core_distance(float dstar, float before, float nb_c, float ext_c, float mp,
+                                                   int dim) {
+  const float n_c = fmaxf(nb_c, 1.f);
+  const float k_resid = fminf(fmaxf(fmaxf(__fsub_rn(mp, before), 1.f), 0.f), n_c);
+  return __fadd_rn(dstar, __fmul_rn(dim_root(__fdiv_rn(k_resid, n_c), dim), ext_c));
 }
 
 // Opt in to more than the default 48 KB of dynamic shared memory.

@@ -23,12 +23,13 @@ using repro::kTileRows;
 using repro::kTileTx;
 using repro::kTileTy;
 
+template <bool kOneSlice>
 __global__ void __launch_bounds__(kTileTx * kTileTy)
 mutual_reach_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ cdx, const float* __restrict__ cdy, int n, int m,
                     int d, int zero_diag, int n_valid, float* __restrict__ out) {
   extern __shared__ float smem[];
-  const repro::DistTile t = repro::dist_tile(x, y, n, m, d, smem);
+  const repro::DistTile t = repro::dist_tile<kOneSlice>(x, y, n, m, d, smem);
   const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
   const float inf = __int_as_float(0x7f800000);
 #pragma unroll
@@ -56,13 +57,12 @@ mutual_reach_kernel(const float* __restrict__ x, const float* __restrict__ y,
 extern "C" int repro_mutual_reach_f32(const void* x, const void* y, const void* cdx,
                                       const void* cdy, int n, int m, int d, int zero_diag,
                                       int n_valid, void* out, void* stream) {
-  if (n <= 0 || m <= 0 || d <= 0 || d > repro::kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || m <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = repro::dist_tile_smem_bytes(d);
-  const cudaError_t e = repro::allow_smem(mutual_reach_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
   const dim3 block(kTileTx, kTileTy);
-  mutual_reach_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = d <= repro::kSlice ? mutual_reach_kernel<true> : mutual_reach_kernel<false>;
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const float*>(cdx),
       static_cast<const float*>(cdy), n, m, d, zero_diag, n_valid, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

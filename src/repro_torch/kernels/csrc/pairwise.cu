@@ -18,11 +18,12 @@ using repro::kTileRows;
 using repro::kTileTx;
 using repro::kTileTy;
 
+template <bool kOneSlice>
 __global__ void __launch_bounds__(kTileTx * kTileTy)
 pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y, int n, int m, int d,
                 float* __restrict__ out) {
   extern __shared__ float smem[];
-  const repro::DistTile t = repro::dist_tile(x, y, n, m, d, smem);
+  const repro::DistTile t = repro::dist_tile<kOneSlice>(x, y, n, m, d, smem);
   const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
 #pragma unroll
   for (int i = 0; i < kTileRows; ++i) {
@@ -42,13 +43,12 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y, int n,
 // Returns cudaGetLastError() after the launch.
 extern "C" int repro_pairwise_f32(const void* x, const void* y, int n, int m, int d, void* out,
                                   void* stream) {
-  if (n <= 0 || m <= 0 || d <= 0 || d > repro::kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || m <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = repro::dist_tile_smem_bytes(d);
-  const cudaError_t e = repro::allow_smem(pairwise_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
   const dim3 block(kTileTx, kTileTy);
-  pairwise_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = d <= repro::kSlice ? pairwise_kernel<true> : pairwise_kernel<false>;
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y), n, m, d, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

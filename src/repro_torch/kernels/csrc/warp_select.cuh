@@ -224,10 +224,10 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 
 // Start the copies of y rows [c0, c0 + CH) into `rows` (zero past m and d);
 // vec4: d % 4 == 0 and y 16-byte aligned.
-template <int D, int kThreads>
+template <int D, int kThreads, int CH = Ring<D>::CH>
 __device__ __forceinline__ void stage_chunk(float* rows, const float* __restrict__ y, int c0, int m, int d,
                                             bool vec4) {
-  constexpr int SD = Ring<D>::SD, CH = Ring<D>::CH;
+  constexpr int SD = Ring<D>::SD;
   if (vec4) {
     constexpr int G = D / 4;
     for (int t = threadIdx.x; t < CH * G; t += kThreads) {

@@ -9,7 +9,8 @@ Bound on the H100: bytes.  At Lp = 8192 the output alone is 256 MiB,
 which takes at least 80 µs at 3.35 TB/s, while its 1.07 G FMAs take 32 µs
 at 67 TFLOP/s f32.  The kernel (``csrc/mutual_reach.cu``) writes each
 element once with warp-wide 128-byte stores, computes distances from
-shared-memory row tiles on the CUDA cores in f32, and fuses the offline
+shared-memory row tiles on the CUDA cores in f32 (d in slices of 64
+features, so any d runs; ``csrc/dist_tile.cuh``), and fuses the offline
 pass's pad mask (rows/columns ≥ ``n_valid`` at +inf) into the same store
 — the JAX package applies it as a second full pass over W.  A tensor on
 the CPU takes the plain version.
@@ -22,9 +23,7 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["mutual_reachability", "MAX_DIM"]
-
-MAX_DIM = 128
+__all__ = ["mutual_reachability"]
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
@@ -49,8 +48,8 @@ def mutual_reachability(x, y, cd_x, cd_y, *, zero_diag: bool = True, n_valid: in
         raise ValueError("mutual_reachability wants contiguous inputs")
     n, d = x.shape
     m = y.shape[0]
-    if d > MAX_DIM or max(n, m) >= 2**31:
-        raise ValueError(f"mutual_reach kernel takes d <= {MAX_DIM}, got d={d}")
+    if max(n, m) >= 2**31:
+        raise ValueError(f"mutual_reach kernel takes int32 sizes, got n={n} m={m}")
     nv = max(n, m) if n_valid is None else max(0, min(int(n_valid), max(n, m)))
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     if n and m:

@@ -20,9 +20,10 @@ dense branch only:
 
 There is no feature padding to 128 lanes (a TPU tiling) and no L or m
 cap on the Eq. 6 and knn kernels (TPU VMEM sizings): the CUDA kernels
-stream over the table.  ``knn`` (and so ``core_distances``) takes
-k <= 1024 on every device, and the Eq. 6 kernel ``min_pts`` <= 1024 (the
-largest warp queue of ``csrc/warp_select.cuh``); both raise above it.
+stream over the table.  Nor is there a cap on d, on k or on ``min_pts``:
+above the warp-select core's d <= 128 and k <= 1024, knn and the Eq. 6
+kernel take their strip route (``kernels/knn.py``, ``kernels/bubble_cd.py``),
+and the assign and tile kernels walk d in slices.
 """
 
 from __future__ import annotations

@@ -9,7 +9,12 @@ This file imports no JAX, so it runs where only the port is installed.
 The warp-select knn and bubble_cd kernels are also held bit for bit
 (``torch.equal``) against the per-lane kernels they replaced
 (``knn_lane``, ``bubble_cd_lane``, k and min_pts <= 64), which compute
-the same distances in the same (d, j) order.
+the same distances in the same (d, j) order; so is the assign kernel
+against ``assign_lane`` (d <= 128), and the strip routes of knn and
+bubble_cd against the warp-select kernels at their bounds (k = min_pts =
+1024, d = 128).  A d = 300 table whose features from 128 on are zero gives
+results ``torch.equal`` to the same table cut to d = 128 in every distance
+kernel: the feature slices keep one ascending FMA chain.
 Tolerances: indices identical on tie-free centred data; values within
 1e-5 relative plus the f32 cancellation allowance of the expanded
 distance form, which the kernel and the plain version round in different
@@ -72,15 +77,19 @@ def _dist_allowance(x, y, r):
     return torch.minimum(torch.full_like(r, dsq**0.5), dsq / (2 * r.clamp_min(1e-30)))
 
 
-def _tf32_probe(rng, n, m, d=4):
+def _tf32_probe(rng, n, m, d=4, width=None):
     """x with full 24-bit mantissas against rows c·e_j, c a multiple of
     1/8 (exact in TF32): x·y is c·x_j to within f32 rounding, and off by
     up to 2^-11 relative where the product runs in TF32 (x_j loses its low
-    13 bits).  Returns f32 x, y and the f64 squared distances."""
+    13 bits).  With ``width``, the d probe features are the last d of
+    ``width`` (the rest zero): past 128, in the kernels' second feature
+    slice.  Returns f32 x, y and the f64 squared distances."""
     x = rng.uniform(-1, 1, size=(n, d)).astype(np.float32)
     c = rng.choice([-7, -5, -3, -1, 1, 3, 5, 7], size=(m, 1)) / 8.0
     y = (c * np.eye(d)[rng.integers(0, d, size=m)]).astype(np.float32)
     sq = ((x.astype(np.float64)[:, None, :] - y.astype(np.float64)[None, :, :]) ** 2).sum(-1)
+    if width is not None:
+        x, y = (np.pad(a, ((0, 0), (width - d, 0))) for a in (x, y))
     return x, y, sq
 
 
@@ -141,6 +150,20 @@ def _clear_crossings(rep, n_b, min_pts):
     lo = v.gather(1, (c - 1).clamp_min(0))[:, 0]
     hi = v.gather(1, (c + 1).clamp_max(v.shape[1] - 1))[:, 0]
     return ((at - lo > noise) | (c[:, 0] == 0)) & (hi - at > noise)
+
+
+def _assign_case(table, d, n, L, rng):
+    """(queries, reps) for the bitwise assign cases: random centred rows,
+    an all-zeros rep table (every row ties at index 0), or copies of 40
+    sites queried half on the table and half off it."""
+    if table == "zeros":
+        return _centred(rng, n, d), np.zeros((L, d), np.float32)
+    if table == "duplicates":
+        R = _centred(rng, 40, d)[rng.integers(0, 40, size=L)]
+        on = rng.random(n) < 0.5
+        Q = np.where(on[:, None], R[rng.integers(0, L, size=n)], _centred(rng, n, d))
+        return Q.astype(np.float32), R
+    return _centred(rng, n, d), _centred(rng, L, d)
 
 
 def _flash_reading(o, want):
@@ -278,13 +301,20 @@ class TestCudaKernels:
         _assert_within(cd, want, _dist_allowance(x, x, want))
 
     def test_knn_k_bound(self, cuda_device):
-        x = torch.zeros(8, 2, device=cuda_device)
+        """k has no bound but m: 1025 takes the strip route and matches the
+        plain version; the per-lane oracle still raises above 64."""
+        x = _t(_centred(np.random.default_rng(19), 8, 2)).to(cuda_device)
         y = torch.zeros(1100, 2, device=cuda_device)
-        with pytest.raises(ValueError):
-            t_knn.knn(x, y, 1025)
         with pytest.raises(ValueError):
             t_knn.knn_lane(x, y, 65)
         assert t_knn.knn(x, y, 1024)[1].shape == (8, 1024)
+        t_knn.launches = t_knn.launches_ws = t_knn.launches_strip = 0
+        dist, idx = t_knn.knn(x, y, 1025)
+        assert (t_knn.launches, t_knn.launches_ws, t_knn.launches_strip) == (1, 0, 1)
+        pdist, pidx = tref.knn(x, y, 1025)
+        assert torch.equal(idx, torch.arange(1025, dtype=torch.int32, device=cuda_device).expand(8, 1025))
+        assert torch.equal(idx, pidx)
+        _assert_within(dist, pdist, _dist_allowance(x, y, pdist))
 
     @pytest.mark.parametrize("case", ["d2", "d16", "d17", "d128", "zeros", "duplicates"])
     @pytest.mark.parametrize("k", [1, 10, 32, 33, 64])
@@ -365,6 +395,168 @@ class TestCudaKernels:
             got = t_mr.mutual_reachability(xt, yt, z0, z1, zero_diag=False).double().cpu().numpy() ** 2
             want = sq
         assert np.abs(got - want).max() < 2e-5
+
+    @pytest.mark.parametrize("kernel", ["assign", "knn", "pairwise", "mutual_reach", "bubble_cd"])
+    def test_tf32_probe_wide(self, cuda_device, kernel):
+        """The TF32 probe at d = 200, its features in the second slice."""
+        x, y, sq = _tf32_probe(np.random.default_rng(9), 256, 300, width=200)
+        xt, yt = _t(x).to(cuda_device), _t(y).to(cuda_device)
+        if kernel == "bubble_cd":
+            rep = torch.cat([xt, yt])
+            L = rep.shape[0]
+            ones, zeros = torch.ones(L, device=cuda_device), torch.zeros(L, device=cuda_device)
+            got = t_bcd.bubble_core_distances(rep, ones, zeros, min_pts=2, dim=4).double().cpu().numpy() ** 2
+            r64 = rep.double().cpu().numpy()
+            want = ((r64[:, None, :] - r64[None, :, :]) ** 2).sum(-1)
+            np.fill_diagonal(want, np.inf)
+            want = want.min(1)
+        elif kernel == "assign":
+            idx, dist = t_assign.assign(xt, yt, with_dist=True)
+            got = dist.double().cpu().numpy() ** 2
+            want = sq[np.arange(256), idx.cpu().numpy()]
+            assert (want <= sq.min(1) + 2e-5).all()
+        elif kernel == "knn":
+            dist, idx = t_knn.knn(xt, yt, 5)
+            got = dist.double().cpu().numpy() ** 2
+            want = np.take_along_axis(sq, idx.long().cpu().numpy(), 1)
+        elif kernel == "pairwise":
+            got, want = t_pw.pairwise_sqdist(xt, yt).double().cpu().numpy(), sq
+        else:
+            z0, z1 = torch.zeros(256, device=cuda_device), torch.zeros(300, device=cuda_device)
+            got = t_mr.mutual_reachability(xt, yt, z0, z1, zero_diag=False).double().cpu().numpy() ** 2
+            want = sq
+        assert np.abs(got - want).max() < 2e-5
+
+    @pytest.mark.parametrize("table", ["random", "zeros", "duplicates"])
+    @pytest.mark.parametrize("d", [2, 5, 16, 17, 40, 128])
+    @pytest.mark.parametrize("n", [1, 4096, 8192])
+    @pytest.mark.parametrize("L", [1, 31, 8192 - 192])
+    def test_assign_equals_lane_kernel(self, cuda_device, table, d, n, L):
+        """The assign kernel against the per-lane kernel it replaces, bit
+        for bit, with and without the distance: the (n, L) pairs cross one
+        slice of L and splits of 2 to 31 slices with their combine."""
+        q, r = (_t(a).to(cuda_device) for a in _assign_case(table, d, n, L, np.random.default_rng(20)))
+        t_assign.launches = t_assign.launches_lane = 0
+        idx, dist = t_assign.assign(q, r, with_dist=True)
+        lidx, ldist = t_assign.assign_lane(q, r, with_dist=True)
+        assert torch.equal(idx, lidx) and torch.equal(dist, ldist)
+        assert torch.equal(t_assign.assign(q, r), lidx)
+        assert (t_assign.launches, t_assign.launches_lane) == (2, 1)
+        if table == "zeros":
+            assert bool((idx == 0).all())
+
+    @pytest.mark.parametrize("d", [129, 256, 300])
+    def test_wide_rows(self, cuda_device, d):
+        """Every distance kernel past d = 128 against its plain version:
+        assign and knn indices identical on tie-free rows / isolated
+        entries, values within the allowances above."""
+        rng = np.random.default_rng(21)
+        R = _centred(rng, 777, d)
+        x, r = _t(_tie_free_queries(rng, R, 1001, d)).to(cuda_device), _t(R).to(cuda_device)
+        idx, dist = t_assign.assign(x, r, with_dist=True)
+        pidx, pdist = tref.assign_with_dist(x, r)
+        assert torch.equal(idx, pidx)
+        _assert_within(dist, pdist, _dist_allowance(x, r, pdist))
+        t_knn.launches_strip = 0
+        kd, ki = t_knn.knn(x, r, 10)
+        assert t_knn.launches_strip == 1
+        pkd, pki = tref.knn(x, r, 10)
+        _assert_within(kd, pkd, _dist_allowance(x, r, pkd))
+        keep = _isolated_entries(x, r, 10)
+        assert int(keep.sum()) > keep.numel() // 10
+        assert torch.equal(ki[keep], pki[keep])
+        sq = t_pw.pairwise_sqdist(x, r)
+        want = tref.pairwise_sqdist(x, r)
+        dsq = 8 * EPS32 * float((x * x).sum(1).max() + (r * r).sum(1).max())
+        _assert_within(sq, want, torch.full_like(want, dsq))
+        cx = _t(rng.uniform(0.1, 1.0, size=1001).astype(np.float32)).to(cuda_device)
+        cr = _t(rng.uniform(0.1, 1.0, size=777).astype(np.float32)).to(cuda_device)
+        W = t_mr.mutual_reachability(x, r, cx, cr, n_valid=700)
+        pW = tref.mutual_reachability(x, r, cx, cr, n_valid=700)
+        _assert_within(W, pW, _dist_allowance(x, r, want.sqrt()))
+        rep, n_b, extent = (_t(a).to(cuda_device) for a in _bubble_table(rng, 1001, d))
+        t_bcd.launches_strip = 0
+        cd = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=10, dim=d)
+        assert t_bcd.launches_strip == 1
+        pcd = tref.bubble_core_distances(rep, n_b, extent, 10, d)
+        keep = _clear_crossings(rep, n_b, 10)
+        assert int(keep.sum()) > 1001 // 2
+        r1 = tref.pairwise_sqdist(rep, rep).fill_diagonal_(float("inf")).amin(1).sqrt()
+        _assert_within(cd[keep], pcd[keep], _dist_allowance(rep, rep, r1)[keep])
+
+    def test_zero_features_change_nothing(self, cuda_device):
+        """A d = 300 table whose features from 128 on are zero against the
+        same table cut to d = 128, bit for bit, in all five distance kernels
+        (wide assign vs the register tile; knn and bubble_cd's strip route
+        vs the warp-select kernels; the sliced tile vs one slice)."""
+        rng = np.random.default_rng(22)
+        narrow = [_centred(rng, n, 128) for n in (1500, 900)]
+        wide = [np.pad(a, ((0, 0), (0, 172))) for a in narrow]
+        (x, y), (xw, yw) = ([_t(a).to(cuda_device) for a in t] for t in (narrow, wide))
+        nb = _t(rng.integers(1, 6, size=900).astype(np.float32)).to(cuda_device)
+        ext = _t(rng.uniform(0.05, 0.5, size=900).astype(np.float32)).to(cuda_device)
+        cx, cy = (_t(rng.uniform(0.1, 1.0, size=n).astype(np.float32)).to(cuda_device) for n in (1500, 900))
+        for a, b in zip(t_assign.assign(x, y, with_dist=True), t_assign.assign(xw, yw, with_dist=True)):
+            assert torch.equal(a, b)
+        for a, b in zip(t_knn.knn(x, y, 20), t_knn.knn(xw, yw, 20)):
+            assert torch.equal(a, b)
+        assert torch.equal(t_pw.pairwise_sqdist(x, y), t_pw.pairwise_sqdist(xw, yw))
+        assert torch.equal(t_mr.mutual_reachability(x, y, cx, cy, zero_diag=False),
+                           t_mr.mutual_reachability(xw, yw, cx, cy, zero_diag=False))
+        assert torch.equal(t_bcd.bubble_core_distances(y, nb, ext, min_pts=10, dim=128),
+                           t_bcd.bubble_core_distances(yw, nb, ext, min_pts=10, dim=128))
+
+    @pytest.mark.parametrize("case", ["d2", "d128", "zeros", "duplicates"])
+    def test_strip_route_equals_warp_select_at_the_bound(self, cuda_device, case):
+        """The strip routes forced at k = min_pts = 1024 (the warp-select
+        kernels' bound) against those kernels, bit for bit."""
+        rng = np.random.default_rng(23)
+        if case == "zeros":
+            x = y = torch.zeros(1100, 3, device=cuda_device)
+        elif case == "duplicates":
+            x, y = (_t(a).to(cuda_device) for a in _knn_table(case, rng))
+        else:
+            d = int(case[1:])
+            x, y = (_t(_centred(rng, n, d)).to(cuda_device) for n in (500, 1500))
+        for a, b in zip(t_knn.knn(x, y, 1024), t_knn.knn_strip(x, y, 1024)):
+            assert torch.equal(a, b)
+        rep, n_b, extent = (_t(a).to(cuda_device) for a in _bubble_case(case, rng))
+        dim = rep.shape[1]
+        t_bcd.launches_ws = t_bcd.launches_strip = 0
+        ws = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=1024, dim=dim)
+        strip = t_bcd.bubble_cd_strip(rep, n_b, extent, min_pts=1024, dim=dim)
+        assert (t_bcd.launches_ws, t_bcd.launches_strip) == (1, 1)
+        assert torch.equal(ws, strip)
+
+    @pytest.mark.parametrize("d", [16, 200])
+    @pytest.mark.parametrize("k", [1025, 2000])
+    def test_knn_above_1024(self, cuda_device, d, k):
+        rng = np.random.default_rng(24)
+        x = _t(_centred(rng, 300, d)).to(cuda_device)
+        y = _t(_centred(rng, 2500, d)).to(cuda_device)
+        t_knn.launches_strip = 0
+        dist, idx = t_knn.knn(x, y, k)
+        assert t_knn.launches_strip == 1
+        pdist, pidx = tref.knn(x, y, k)
+        _assert_within(dist, pdist, _dist_allowance(x, y, pdist))
+        keep = _isolated_entries(x, y, k)
+        assert int(keep.sum()) > keep.numel() // 10
+        assert torch.equal(idx[keep], pidx[keep])
+
+    @pytest.mark.parametrize("d", [16, 200])
+    @pytest.mark.parametrize("min_pts", [1025, 2000])
+    def test_bubble_cd_above_1024(self, cuda_device, d, min_pts):
+        rng = np.random.default_rng(25)
+        rep, n_b, extent = (_t(a).to(cuda_device) for a in _bubble_table(rng, 3000, d))
+        t_bcd.launches_strip = 0
+        got = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=d)
+        assert t_bcd.launches_strip == 1
+        want = tref.bubble_core_distances(rep, n_b, extent, min_pts, d)
+        keep = _clear_crossings(rep, n_b, min_pts)
+        assert int(keep.sum()) > 3000 // 2
+        r1 = tref.pairwise_sqdist(rep, rep).fill_diagonal_(float("inf")).amin(1).sqrt()
+        _assert_within(got[keep], want[keep], _dist_allowance(rep, rep, r1)[keep])
+        assert bool(torch.isfinite(got).all())
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("B,S,H,KV,D,window", [

@@ -31,6 +31,7 @@ from repro_torch.kernels import mutual_reach as t_mr
 from repro_torch.kernels import ops as tops
 
 DIMS = [2, 8, 16, 5]
+WIDE_DIMS = [129, 200]  # past the warp-select core's d <= 128
 L_ROWS = 37  # not a multiple of 8 (nor of any kernel chunk)
 RTOL = 1e-5
 ATOL = 1e-5  # f32 cancellation bound at unit scale (see above)
@@ -153,6 +154,42 @@ class TestBubbleCoreDistances:
         rep = torch.zeros(8, 2)
         with pytest.raises(ValueError):
             t_bcd.bubble_core_distances(rep, torch.ones(8), torch.zeros(8), min_pts=0, dim=2)
+
+
+class TestWideRows:
+    """d past 128 (on the card: the assign kernel's feature slices, the
+    strip route of Eq. 6, the sliced tile kernel): each bubble-level op
+    against the JAX package's Pallas kernels in interpret mode (d padded
+    to 256 there) and its jnp oracles."""
+
+    @pytest.mark.parametrize("d", WIDE_DIMS)
+    def test_assign(self, rng, d):
+        R = _centred(rng, L_ROWS, d)
+        Q = _tie_free_queries(rng, R, 29, d)
+        got = t_assign.assign(_t(Q), _t(R)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jref.assign(Q, R)))
+        np.testing.assert_array_equal(got, np.asarray(jops.assign(Q, R, use_ref=False)))
+        idx, dist = t_assign.assign(_t(Q), _t(R), with_dist=True)
+        pidx, pdist = jops.assign(Q, R, use_ref=False, with_dist=True)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(pidx))
+        np.testing.assert_allclose(dist.numpy(), np.asarray(pdist), rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("d", WIDE_DIMS)
+    def test_bubble_core_distances(self, rng, d):
+        rep, n_b, extent = _bubble_table(rng, L_ROWS, d)
+        got = tops.bubble_core_distances(_t(rep), _t(n_b), _t(extent), 6).numpy()
+        want = np.asarray(jref.bubble_core_distances(rep, n_b, extent, 6, d))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        pallas = np.asarray(jops.bubble_core_distances(rep, n_b, extent, 6, use_ref=False))
+        np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("d", WIDE_DIMS)
+    def test_bubble_mutual_reachability(self, rng, d):
+        rep, n_b, extent = _bubble_table(rng, L_ROWS, d)
+        got = tops.bubble_mutual_reachability(_t(rep), _t(n_b), _t(extent), 6).numpy()
+        want = np.asarray(jops.bubble_mutual_reachability(rep, n_b, extent, 6, use_ref=False))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        assert (np.diag(got) == 0.0).all()
 
 
 class TestMutualReach:

@@ -34,8 +34,10 @@ from repro_torch.kernels import knn as t_knn
 from repro_torch.kernels import mutual_reach as t_mr
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pairwise as t_pw
+from repro_torch.kernels import ref as tref
 
 DIMS = [2, 8, 16, 34]
+WIDE_DIMS = [129, 200]  # past the warp-select core's d <= 128
 RTOL = 1e-5
 ATOL = 1e-5
 EPS32 = float(np.finfo(np.float32).eps)
@@ -129,17 +131,40 @@ class TestKnn:
         np.testing.assert_array_equal(np.sort(idx.numpy(), axis=1), np.broadcast_to(np.arange(7), (5, 7)))
 
     def test_k_above_64_raises(self, rng):
-        """Named for the former bound: k now goes up to 1024 on every
-        device, and 1025 raises."""
+        """Named for the former bound of 64, which then moved to 1024: knn
+        and core_distances take any k <= m on every device now (the card
+        takes the strip route above 1024), and only the per-lane oracle
+        still raises, above 64."""
         X = _t(_centred(rng, 1100, 3))
-        with pytest.raises(ValueError, match="k <= 1024"):
-            t_knn.knn(X, X, 1025)
-        with pytest.raises(ValueError, match="k <= 1024"):
-            tops.core_distances(X, 1025)
         with pytest.raises(ValueError, match="k <= 64"):
             t_knn.knn_lane(X, X, 65)
+        dist, idx = t_knn.knn(X, X, 1025)
+        pd, pi = tref.knn(X, X, 1025)
+        assert torch.equal(dist, pd) and torch.equal(idx, pi)
+        assert torch.equal(tops.core_distances(X, 1025), pd[:, 1024])
         assert tops.knn(X, X, 1024)[0].shape == (1100, 1024)
         assert tops.knn(X, X, 65)[0].shape == (1100, 65)
+
+    @pytest.mark.parametrize("k", [1025, 1100])
+    def test_k_above_1024_matches_reference(self, rng, k):
+        """k past the warp-select core's 1024 (the strip route on the card):
+        ops.knn and ops.core_distances against the JAX package's jnp path
+        and oracle, which have no bound on k."""
+        X = _centred(rng, 40, 3)
+        Y = _centred(rng, 1200, 3)
+        dist, idx = tops.knn(_t(X), _t(Y), k)
+        assert dist.shape == idx.shape == (40, k)
+        ud, ui = (np.asarray(a) for a in jops.knn(X, Y, k, use_ref=True))
+        rd, ri = (np.asarray(a) for a in jref.knn(X, Y, k))
+        np.testing.assert_allclose(dist.numpy(), ud, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(dist.numpy(), rd, rtol=RTOL, atol=ATOL)
+        keep = _isolated_entries(X, Y, k)
+        assert keep.sum() > keep.size // 2
+        np.testing.assert_array_equal(idx.numpy()[keep], ui[keep])
+        np.testing.assert_array_equal(idx.numpy()[keep], ri[keep])
+        got = tops.core_distances(_t(Y), k).numpy()
+        np.testing.assert_allclose(got, np.asarray(jops.core_distances(Y, k)), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, np_core_distances(Y.astype(np.float64), k), rtol=RTOL, atol=ATOL)
 
     @pytest.mark.parametrize("k", [65, 100, 257])
     def test_large_k_matches_pallas_and_reference(self, rng, k):
@@ -213,6 +238,46 @@ class TestPointMutualReachability:
         jcd = jops.core_distances(X, 5)
         want = np.asarray(jops.mutual_reachability(X, X, jcd, jcd, use_ref=False))
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+class TestWideRows:
+    """d past the warp-select core's 128 (the strip route and the sliced
+    tile kernels on the card): the point-level API against the JAX
+    package's Pallas kernels in interpret mode (d padded to 256 there) and
+    its jnp oracles."""
+
+    @pytest.mark.parametrize("d", WIDE_DIMS)
+    def test_knn_and_core_distances(self, rng, d):
+        X, Y = _centred(rng, 29, d), _centred(rng, 67, d)
+        dist, idx = tops.knn(_t(X), _t(Y), 5)
+        pd, pi = (np.asarray(a) for a in jops.knn(X, Y, 5, use_ref=False))
+        rd, ri = (np.asarray(a) for a in jref.knn(X, Y, 5))
+        np.testing.assert_allclose(dist.numpy(), pd, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(dist.numpy(), rd, rtol=RTOL, atol=ATOL)
+        keep = _tie_free_rows(X, Y, 5)
+        assert keep.sum() >= 10
+        np.testing.assert_array_equal(idx.numpy()[keep], pi[keep])
+        np.testing.assert_array_equal(idx.numpy()[keep], ri[keep])
+        got = tops.core_distances(_t(Y), 7).numpy()
+        np.testing.assert_allclose(got, np.asarray(jops.core_distances(Y, 7)), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, np_core_distances(Y.astype(np.float64), 7), rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("d", WIDE_DIMS)
+    def test_pairwise(self, rng, d):
+        X, Y = _centred(rng, 37, d), _centred(rng, 53, d)
+        got = tops.pairwise_sqdist(_t(X), _t(Y)).numpy()
+        np.testing.assert_allclose(got, np.asarray(jops.pairwise_sqdist(X, Y, use_ref=False)), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, np.asarray(jref.pairwise_sqdist(X, Y)), rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("d", WIDE_DIMS)
+    def test_mutual_reachability(self, rng, d):
+        X, Y = _centred(rng, 37, d), _centred(rng, 53, d)
+        cx = rng.uniform(0.1, 1.0, size=37).astype(np.float32)
+        cy = rng.uniform(0.1, 1.0, size=53).astype(np.float32)
+        got = tops.mutual_reachability(_t(X), _t(Y), _t(cx), _t(cy)).numpy()
+        want = np.asarray(jops.mutual_reachability(X, Y, cx, cy, use_ref=False))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, np.asarray(jref.mutual_reachability(X, Y, cx, cy)), rtol=RTOL, atol=ATOL)
 
 
 class TestTf32Probe:

@@ -1,0 +1,64 @@
+"""Which kernel route a CUDA call takes, decided on the CPU.
+
+``repro_torch.kernels.knn.route`` and ``repro_torch.kernels.bubble_cd.route``
+are pure functions of the feature width and k (min_pts): ``"ws"`` (the
+warp-select kernels, d ≤ 128 and k ≤ 1024) or ``"strip"`` (row strips of
+the pairwise tile kernel, a stable sort and, for Eq. 6, the walk kernel)
+otherwise.  ``pairwise.strip_rows`` sizes the strips and
+``assign.split_for`` the assign kernel's split of L across blocks (from
+its occupancy, read from the card).  The kernels run only on a card
+(tests/test_torch_cuda.py); the rules are held here.
+"""
+
+import pytest
+
+from repro_torch.kernels import assign as t_assign
+from repro_torch.kernels import bubble_cd as t_bcd
+from repro_torch.kernels import knn as t_knn
+from repro_torch.kernels import pairwise as t_pw
+
+
+@pytest.mark.parametrize("rule", [t_knn.route, t_bcd.route])
+@pytest.mark.parametrize("d,k,want", [
+    (1, 1, "ws"), (16, 10, "ws"), (128, 1024, "ws"), (5, 1024, "ws"),
+    (129, 1, "strip"), (200, 10, "strip"), (16, 1025, "strip"), (128, 2000, "strip"), (300, 5000, "strip")])
+def test_route(rule, d, k, want):
+    assert rule(d, k) == want
+
+
+def test_route_bounds_are_the_kernels():
+    assert t_knn.MAX_DIM == t_bcd.MAX_DIM == 128
+    assert t_knn.MAX_K == t_bcd.MAX_MIN_PTS == 1024
+
+
+@pytest.mark.parametrize("m", [1, 3, 1000, 65_536, 1 << 26, 1 << 30])
+def test_strip_rows(m):
+    rows = t_pw.strip_rows(m)
+    assert rows >= 1
+    assert rows == 1 or rows * m * 4 <= t_pw.STRIP_BYTES < (rows + 1) * m * 4
+
+
+@pytest.mark.parametrize("n,L", [(1, 1), (1, 8192), (4096, 5243), (4096, 8192), (8192, 8192), (65_536, 8192),
+                                 (300, 255), (10, 100_000)])
+@pytest.mark.parametrize("rows_per_block", [8, 32, 64])
+@pytest.mark.parametrize("resident", [1, 132, 264])
+def test_split_for(n, L, rows_per_block, resident):
+    """The L split fills the blocks the card holds at once and no more:
+    row blocks × slices never reach a second wave, and one slice more
+    would (or the slices are down to MIN_SPAN reps)."""
+    split = t_assign.split_for(n, L, rows_per_block, resident)
+    blocks = -(-n // rows_per_block)
+    assert split >= 1
+    if blocks * 2 > resident or L < 2 * t_assign.MIN_SPAN:
+        assert split == 1
+    else:
+        assert blocks * split <= resident
+        assert L // split >= t_assign.MIN_SPAN
+        assert blocks * (split + 1) > resident or split == L // t_assign.MIN_SPAN
+
+
+@pytest.mark.parametrize("n,rows_per_block,want", [(8192, 64, 1), (4096, 64, 2), (2048, 64, 4), (1, 64, 32)])
+def test_split_for_path_shapes(n, rows_per_block, want):
+    """Ingest blocks (8192 rows) fill the H100's 132 SMs alone; a query
+    chunk of 4096 rows takes two slices of the stream's 8192-row bucket."""
+    assert t_assign.split_for(n, 8192, rows_per_block, 132) == want
