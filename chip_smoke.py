@@ -10,16 +10,20 @@ Phases, each printing its own lines:
   2. build    the hand-written CUDA kernels, built from src/repro_torch/
               kernels/csrc at first use (nvcc, sm_90a), with ptxas's
               registers, stack and spills of every register-tile
-              instantiation (warp-select knn and bubble_cd, assign; each
-              must have no stack frame and no spills);
+              instantiation (warp-select knn and bubble_cd, assign, the
+              distance panel of pairwise and mutual_reach and its norm
+              pass; each must have no stack frame and no spills);
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes, on a tie-free mean-centred table
               and on a duplicate-heavy one, with kernel / plain / library
               times; assign and bubble_cd also bit for bit against the
               per-lane kernels they replaced (assign's time beside the
-              per-lane kernel's), assign also at d = 200, and bubble_cd
-              timed at min_pts 1, 10, 100 and 1024 (the last two held to
-              the plain version);
+              per-lane kernel's), mutual_reach bit for bit against the
+              tile kernel it replaced on every table (its time beside the
+              tile kernel's, the card's write rate at the same size and
+              the bound), assign also at d = 200, and bubble_cd timed at
+              min_pts 1, 10, 100 and 1024 (the last two held to the plain
+              version);
   4. stream   the default StreamingClusterEngine on the card: 262,144
               points at d = 16 from a seeded Gaussian mixture, ingested in
               blocks of 8192 (compression 0.02 → ~5,200 leaves, Lp = 8192),
@@ -46,9 +50,13 @@ Phases, each printing its own lines:
               times; knn also bit for bit against the per-lane kernel it
               replaced (65,536² at k = 10, the duplicate table, k = 64),
               timed at k 1, 10, 64, 256 and 1024 (the last two held to the
-              plain version), and at k = 2000 through the strip route; then
-              all four calls at d = 200 and 16,384 points (knn by the strip
-              route), each against its plain version;
+              plain version), and at k = 2000 through the strip route;
+              pairwise and mutual reachability also bit for bit against
+              the tile kernels they replaced, timed beside them and the
+              card's write rate; then all four calls at d = 200 and 16,384
+              points (knn by the strip route), each against its plain
+              version, pairwise and mutual reachability also against the
+              tile kernels;
   7. attention GQA flash attention at the full attention widths of
               qwen2-1.5b (S = 4096, 12 heads, 2 kv heads, Dh 128, causal,
               bf16 and f32) and h2o-danube-3-4b (S = 8192, 32 heads, 8 kv
@@ -59,7 +67,8 @@ Phases, each printing its own lines:
               few heads at a time, with device times and the host time
               of one ops call;
   8. the kernels JSON line (launches on each kernel's own path, errors,
-     times, bounds; assign with the per-lane kernel's time as lane_ms;
+     times, bounds; assign with the per-lane kernel's time as lane_ms,
+     mutual_reach and pairwise with the tile kernel's as tile_ms;
      flash_attention with the qwen2-1.5b f32 case, flash_attention_mma
      with the qwen2-1.5b bf16 case);
   9. the last line: {"ok": true, "device": {...}}.
@@ -114,9 +123,10 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
 # register-tile sources whose ptxas report [build] checks: knn_ws.cu and bubble_cd_ws.cu, 24 instantiations
-# each (D in {16, 32, 64, 128} x K in {32, ..., 1024}); assign_ws.cu, 4 (D) + the wide kernel + its combine
-WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu")
-WS_INSTANTIATIONS = 48 + 6
+# each (D in {16, 32, 64, 128} x K in {32, ..., 1024}); assign_ws.cu, 4 (D) + the wide kernel + its combine;
+# dist_panel.cu, the panel for pairwise (D = 0) and mutual_reach (D = 1) + the norm pass
+WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu")
+WS_INSTANTIATIONS = 48 + 6 + 3
 
 
 def say(*parts):
@@ -164,6 +174,15 @@ def host_ms(fn, reps=20):
     t = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     return t
+
+
+def fill_ms(n: int, m: int) -> float:
+    """The card's realised write rate at an (n, m) f32 output: the time of
+    ``torch.empty(n, m).fill_(0.5)`` (a yardstick of what the byte bound
+    can reach, not a library call of the same function)."""
+    import torch
+
+    return time_ms(lambda: torch.empty(n, m, device="cuda").fill_(0.5), reps=20)
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -270,13 +289,14 @@ def clear_crossings(rep, nb, min_pts, rows=1024):
 def ptxas_ws(log: str) -> dict:
     """{(kernel, D, K): (registers, stack bytes, spill stores, spill loads)}
     of the register-tile kernels in an ``nvcc -Xptxas -v`` log (D and K 0
-    where the kernel has no such template argument)."""
+    where the kernel has no such template argument; D of dist_panel is its
+    bool, 1 for mutual_reach)."""
     import re
 
     out, cur, stack = {}, None, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(knn_ws|bubble_cd_ws|assign_ws|assign_wide|assign_combine)"
-                      r"_kernel(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
+        m = re.search(r"Compiling entry function '\S*?(knn_ws|bubble_cd_ws|assign_ws|assign_wide|assign_combine"
+                      r"|dist_panel|dist_norms)_kernel(?:IL[ib](\d+)E(?:Li(\d+)E)?)?", line)
         if m:
             cur = (m.group(1), int(m.group(2) or 0), int(m.group(3) or 0))
             continue
@@ -505,25 +525,34 @@ def phase_kernels(dev):
                     f"crossing: max_abs_err {e:.3e} max_rel {rel:.3e}")
         say(f"[kernels] bubble_cd sweep L={LP} min_pts={mp}: kernel {sweep_ms:.4f} ms{note}")
 
-    # --- mutual_reach: LP², pad rows/cols +inf, diagonal 0
+    # --- mutual_reach: LP², pad rows/cols +inf, diagonal 0; bit for bit
+    # against the tile kernel it replaced
     errs = []
     for label, (rep, _, _, pcd, nreal, _) in cds.items():
         W = k_mr.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal)
+        check(bool(torch.equal(W, k_mr.mutual_reach_tile(rep, rep, pcd, pcd, n_valid=nreal))),
+              f"mutual_reach {label}: differs from the tile kernel")
         pW = ref.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal)
         check(bool((W.diagonal()[:nreal] == 0).all()), f"mutual_reach {label}: diagonal not 0")
         base = ref.mutual_reachability(rep, rep, torch.zeros_like(pcd), torch.zeros_like(pcd), n_valid=nreal)
         e, rel = compare(f"mutual_reach {label}", W, pW, dist_tol(rep[:nreal], rep[:nreal], base) + RTOL * pW.abs())
         errs.append(e)
-        say(f"[kernels] mutual_reach {label}: {rep.shape[0]}², n_valid {nreal}, max_abs_err {e:.3e} max_rel {rel:.3e}")
+        say(f"[kernels] mutual_reach {label}: {rep.shape[0]}², n_valid {nreal}, identical to the tile kernel; "
+            f"vs plain max_abs_err {e:.3e} max_rel {rel:.3e}")
         del W, pW, base
     rep, _, _, pcd, nreal, _ = cds["tie-free"]
-    ms = time_ms(lambda: k_mr.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal))
+    ms = time_ms(lambda: k_mr.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal), reps=50)
+    tile_ms = time_ms(lambda: k_mr.mutual_reach_tile(rep, rep, pcd, pcd, n_valid=nreal), reps=50)
+    fill = fill_ms(LP, LP)
+    host = host_ms(lambda: k_mr.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal))
     plain = time_ms(lambda: ref.mutual_reachability(rep, rep, pcd, pcd, n_valid=nreal), reps=5)
     lib = time_ms(lambda: torch.maximum(torch.cdist(rep, rep), torch.maximum(pcd[:, None], pcd[None, :])), reps=5)
     b, by = bound_ms(2.0 * LP * LP * DIM, 4.0 * (LP * LP + 2 * LP * DIM + 2 * LP))
-    say(f"[kernels] mutual_reach {LP}²x{DIM}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+    say(f"[kernels] mutual_reach {LP}²x{DIM}, n_valid {nreal}: kernel {ms:.4f} ms, tile kernel {tile_ms:.4f} ms, "
+        f"write rate (fill_) {fill:.4f} ms, host enqueue {host:.4f} ms per call, plain {plain:.4f} ms, "
         f"cdist+maximum {lib:.4f} ms, bound {b:.4f} ms ({by})")
-    out["mutual_reach"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+    out["mutual_reach"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                               tile_ms=tile_ms)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -563,7 +592,7 @@ def phase_stream(dev):
 
     for mod in (k_assign, k_bcd, k_mr):
         mod.launches = 0
-    k_bcd.launches_lane = 0
+    k_bcd.launches_lane = k_mr.launches_tile = 0
     torch.cuda.reset_peak_memory_stats()
     t_stream = time.perf_counter()
     ingest_s, pids = 0.0, []
@@ -606,6 +635,7 @@ def phase_stream(dev):
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the stream")
     check(k_bcd.launches_lane == 0, "the per-lane bubble_cd kernel ran on the stream")
+    check(k_mr.launches_tile == 0, "the mutual_reach tile kernel ran on the stream")
     say(f"[stream] ingest {ingest_s / N_POINTS * 1e6:.3f} ms per 1k points (host tree + assign kernel, "
         f"offline passes excluded); retire {retire_s / len(drop) * 1e6:.3f} ms per 1k points")
     say(f"[stream] offline passes (L, Lp, ms): {[(a, b, round(c, 1)) for a, b, c in passes]}")
@@ -744,7 +774,7 @@ def phase_wide(dev):
     then N_WIDE_QUERIES queries in chunks; every published snapshot and the
     served rows against the port's plain pipeline on the CPU.  At this
     width assign runs its feature-sliced kernel, bubble_cd its strip route
-    and mutual_reach the sliced tile."""
+    and mutual_reach the distance panel's feature slices."""
     import torch
 
     from repro_torch import StreamingClusterEngine
@@ -940,6 +970,20 @@ def pair_against_plain(Xs, P, W, cds):
     return max(e_pw), max(e_mr)
 
 
+def pair_against_tile(X, P, W, cds):
+    """Hold pairwise P and point mutual reachability W of X bit for bit to
+    the tile kernels they replaced (one tile output on the card at a time)."""
+    import torch
+
+    from repro_torch.kernels import mutual_reach as k_mr
+    from repro_torch.kernels import pairwise as k_pw
+
+    check(bool(torch.equal(P, k_pw.pairwise_tile(X, X))), f"pairwise d={X.shape[1]}: differs from the tile kernel")
+    check(bool(torch.equal(W, k_mr.mutual_reach_tile(X, X, cds, cds))),
+          f"mutual_reachability d={X.shape[1]}: differs from the tile kernel")
+    torch.cuda.empty_cache()
+
+
 def phase_points(dev):
     """The point-level kernel API through ops at a size users call real;
     returns the launches of that run and the per-kernel numbers."""
@@ -959,7 +1003,7 @@ def phase_points(dev):
 
     for mod in (k_knn, k_pw, k_mr):
         mod.launches = 0
-    k_knn.launches_lane = 0
+    k_knn.launches_lane = k_pw.launches_tile = k_mr.launches_tile = 0
     cd = ops.core_distances(X, k)
     kd, ki = ops.knn(X, X, k)
     P = ops.pairwise_sqdist(Xs, Xs)
@@ -972,6 +1016,7 @@ def phase_points(dev):
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the point-level path")
     check(k_knn.launches_lane == 0, "the per-lane knn kernel ran on the point-level path")
+    check(k_pw.launches_tile == k_mr.launches_tile == 0, "a tile kernel ran on the point-level path")
     check(bool(torch.equal(cd, kd[:, k - 1])), "core_distances is not the knn's k-th column")
     ld, li = k_knn.knn_lane(X, X, k)
     check(bool(torch.equal(kd, ld)) and bool(torch.equal(ki, li)),
@@ -983,8 +1028,10 @@ def phase_points(dev):
         f"indices identical on the {kept} of {N_KNN * k} entries without near-ties")
 
     e_pw, e_mr = pair_against_plain(Xs, P, W, cds)
+    pair_against_tile(Xs, P, W, cds)
     say(f"[points] pairwise vs plain max_abs_err {e_pw:.3e}; mutual_reachability vs plain "
-        f"max_abs_err {e_mr:.3e}; mutual_reach(cd=0) == sqrt(pairwise) bit for bit")
+        f"max_abs_err {e_mr:.3e}; both identical to the tile kernels; mutual_reach(cd=0) == sqrt(pairwise) "
+        f"bit for bit")
 
     # the (d, j) order among copies: a duplicate-heavy table against a
     # yardstick in the direct-difference form √Σ(x−y)², where copies are
@@ -1071,19 +1118,24 @@ def phase_points(dev):
         f"{routes[1]}): vs plain max_abs_err {e2:.3e}, indices identical on the {kept2} of {N_KNN * K_STRIP} entries "
         f"without near-ties; {strip_ms:.4f} ms per knn call")
 
-    ms = time_ms(lambda: k_pw.pairwise_sqdist(Xs, Xs))
+    ms = time_ms(lambda: k_pw.pairwise_sqdist(Xs, Xs), reps=20)
+    tile_ms = time_ms(lambda: k_pw.pairwise_tile(Xs, Xs), reps=20)
+    fill = fill_ms(N_PAIR, N_PAIR)
     plain = time_ms(lambda: ref.pairwise_sqdist(Xs, Xs), reps=5)
     lib_cdist = time_ms(lambda: torch.cdist(Xs, Xs).square_(), reps=5)
     xx = (Xs * Xs).sum(1)
     lib_addmm = time_ms(lambda: torch.addmm(xx[None, :], Xs, Xs.T, alpha=-2.0).add_(xx[:, None]).clamp_min_(0.0),
                         reps=5)
     b, by = bound_ms(2.0 * N_PAIR * N_PAIR * DIM, 4.0 * (N_PAIR * N_PAIR + 2 * N_PAIR * DIM))
-    say(f"[points] pairwise {N_PAIR}²x{DIM}: kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist**2 {lib_cdist:.4f} ms, "
-        f"addmm expansion {lib_addmm:.4f} ms, bound {b:.4f} ms ({by})")
+    say(f"[points] pairwise {N_PAIR}²x{DIM}: kernel {ms:.4f} ms, tile kernel {tile_ms:.4f} ms, write rate (fill_) "
+        f"{fill:.4f} ms, plain {plain:.4f} ms, cdist**2 {lib_cdist:.4f} ms, addmm expansion {lib_addmm:.4f} ms, "
+        f"bound {b:.4f} ms ({by})")
     out["pairwise"] = dict(max_abs_err=e_pw, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                           library_ms=min(lib_cdist, lib_addmm))
-    ms = time_ms(lambda: k_mr.mutual_reachability(Xs, Xs, cds, cds))
-    say(f"[points] point-level mutual_reachability {N_PAIR}²x{DIM}: kernel {ms:.4f} ms")
+                           library_ms=min(lib_cdist, lib_addmm), tile_ms=tile_ms)
+    ms = time_ms(lambda: k_mr.mutual_reachability(Xs, Xs, cds, cds), reps=20)
+    tile_ms = time_ms(lambda: k_mr.mutual_reach_tile(Xs, Xs, cds, cds), reps=20)
+    say(f"[points] point-level mutual_reachability {N_PAIR}²x{DIM}: kernel {ms:.4f} ms, tile kernel "
+        f"{tile_ms:.4f} ms, write rate (fill_) {fill:.4f} ms, bound {b:.4f} ms ({by})")
     del Xs, X
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1094,8 +1146,9 @@ def phase_points(dev):
 def points_wide(dev, rng):
     """All four point-level calls at d = 200, past the register tile's 128,
     through ops: knn and core distances by the strip route, pairwise and
-    mutual reachability by the sliced tile; each against its plain
-    version, with the route counters checked."""
+    mutual reachability by the distance panel's feature slices; each
+    against its plain version and the latter two against the tile kernels,
+    with the route counters checked."""
     import torch
 
     from repro_torch.kernels import knn as k_knn
@@ -1121,18 +1174,22 @@ def points_wide(dev, rng):
     check(bool(torch.equal(cd, kd[:, k - 1])), f"d={WIDE_DIM}: core_distances is not the knn's k-th column")
     e_knn, kept = knn_against_plain(X, kd, ki, k)
     e_pw, e_mr = pair_against_plain(X, P, W, cd)
+    pair_against_tile(X, P, W, cd)
     del P, W
     torch.cuda.empty_cache()
     n = X.shape[0]
     knn_ms = time_ms(lambda: k_knn.knn(X, X, k), reps=2, warm=1)
     pw_ms = time_ms(lambda: k_pw.pairwise_sqdist(X, X), reps=5)
+    pw_tile = time_ms(lambda: k_pw.pairwise_tile(X, X), reps=5)
     mr_ms = time_ms(lambda: k_mr.mutual_reachability(X, X, cd, cd), reps=5)
+    mr_tile = time_ms(lambda: k_mr.mutual_reach_tile(X, X, cd, cd), reps=5)
     b, by = bound_ms(2.0 * n * n * WIDE_DIM, 4.0 * (n * n + 2 * n * WIDE_DIM))
     say(f"[points] d={WIDE_DIM} at {n}², k={k}, launches {json.dumps(launches)}: knn / core_distances vs plain "
         f"max_abs_err {e_knn:.3e}, indices identical on the {kept} of {n * k} entries without near-ties; pairwise "
-        f"max_abs_err {e_pw:.3e}; mutual_reachability max_abs_err {e_mr:.3e}; mutual_reach(cd=0) == "
-        f"sqrt(pairwise) bit for bit; knn (strip route) {knn_ms:.4f} ms, pairwise {pw_ms:.4f} ms, "
-        f"mutual_reachability {mr_ms:.4f} ms, tile bound {b:.4f} ms ({by})")
+        f"max_abs_err {e_pw:.3e}; mutual_reachability max_abs_err {e_mr:.3e}; both identical to the tile kernels; "
+        f"mutual_reach(cd=0) == sqrt(pairwise) bit for bit; knn (strip route) {knn_ms:.4f} ms, pairwise "
+        f"{pw_ms:.4f} ms (tile kernel {pw_tile:.4f}), mutual_reachability {mr_ms:.4f} ms (tile kernel "
+        f"{mr_tile:.4f}), bound {b:.4f} ms ({by})")
     del X, kd, ki, cd
     torch.cuda.empty_cache()
 
@@ -1297,9 +1354,9 @@ def main() -> int:
                    flash_attention_mma=attn_numbers[ATTENTION[0][0]])
     sources = {"assign": ("assign_ws.cu", "src/repro/kernels/assign.py:21"),
                "bubble_cd": ("bubble_cd_ws.cu", "src/repro/kernels/bubble_cd.py:41"),
-               "mutual_reach": ("mutual_reach.cu", "src/repro/kernels/mutual_reach.py:23"),
+               "mutual_reach": ("dist_panel.cu", "src/repro/kernels/mutual_reach.py:23"),
                "knn": ("knn_ws.cu", "src/repro/kernels/knn.py:34"),
-               "pairwise": ("pairwise.cu", "src/repro/kernels/pairwise.py:30"),
+               "pairwise": ("dist_panel.cu", "src/repro/kernels/pairwise.py:30"),
                "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:38"),
                "flash_attention_mma": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38")}
     kernels = [

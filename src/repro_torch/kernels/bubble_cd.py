@@ -23,7 +23,7 @@ the launch:
   once per row, nothing of size (rows, L) is held, and no L cap applies
   (the reference's 8192-row VMEM fallback is a TPU sizing).
 * ``"strip"`` (wider rows or larger min_pts): strips of S rows × L
-  distances from the pairwise tile kernel (``pairwise.sq_into``, the same
+  distances from the pairwise panel kernel (``pairwise.sq_into``, the same
   bits), S chosen so that one strip stays within ``pairwise.STRIP_BYTES``;
   square roots, each row's own entry set to exactly 0, a stable sort per
   row (the (distance, index) order), then the Eq. 6 walk over the first

@@ -2,7 +2,7 @@
 // tables the warp-select kernel does not take (d > 128 or min_pts > 1024).
 //
 // The wrapper computes a strip of rows' distances to every bubble with the
-// pairwise tile (the same bits as the warp-select kernel's), sets each
+// pairwise panel (the same bits as the warp-select kernel's), sets each
 // row's own entry to exactly 0 and sorts every row stably on distance, so
 // equal distances keep the lower index: the (distance, index) order of the
 // warp-select key.  Here one warp per row walks the first k = min(min_pts,

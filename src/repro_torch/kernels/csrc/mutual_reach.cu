@@ -1,5 +1,7 @@
-// Eq. 7 mutual-reachability tiles (the port of the JAX package's Pallas
-// kernel repro/kernels/mutual_reach.py::_mutual_reach_kernel).
+// Eq. 7 mutual-reachability tiles: the first port of the JAX package's
+// Pallas kernel repro/kernels/mutual_reach.py::_mutual_reach_kernel, kept
+// as the bitwise oracle of dist_panel.cu and reached only through
+// mutual_reach.mutual_reach_tile.
 //
 //   out[r, c] = max(sqrt(max(|x_r|^2 + |y_c|^2 - 2 x_r.y_c, 0)), cd_x[r], cd_y[c])
 //
@@ -54,9 +56,9 @@ mutual_reach_kernel(const float* __restrict__ x, const float* __restrict__ y,
 // x (n, d), y (m, d), cdx (n,), cdy (m,) f32 on the device; out (n, m) f32.
 // Rows and columns >= n_valid come out +inf (pass n_valid >= max(n, m) for
 // no mask).  Returns cudaGetLastError() after the launch.
-extern "C" int repro_mutual_reach_f32(const void* x, const void* y, const void* cdx,
-                                      const void* cdy, int n, int m, int d, int zero_diag,
-                                      int n_valid, void* out, void* stream) {
+extern "C" int repro_mutual_reach_tile_f32(const void* x, const void* y, const void* cdx,
+                                           const void* cdy, int n, int m, int d, int zero_diag,
+                                           int n_valid, void* out, void* stream) {
   if (n <= 0 || m <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = repro::dist_tile_smem_bytes(d);
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);

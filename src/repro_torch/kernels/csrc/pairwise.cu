@@ -1,5 +1,7 @@
-// Tiled squared euclidean distances (the port of the JAX package's Pallas
-// kernel repro/kernels/pairwise.py::_pairwise_kernel).
+// Tiled squared euclidean distances: the first port of the JAX package's
+// Pallas kernel repro/kernels/pairwise.py::_pairwise_kernel, kept as the
+// bitwise oracle of dist_panel.cu and reached only through
+// pairwise.pairwise_tile.
 //
 //   out[r, c] = max(|x_r|^2 + |y_c|^2 - 2 x_r.y_c, 0)
 //
@@ -41,8 +43,8 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y, int n,
 
 // x (n, d), y (m, d) row-major f32 on the device; out (n, m) f32.
 // Returns cudaGetLastError() after the launch.
-extern "C" int repro_pairwise_f32(const void* x, const void* y, int n, int m, int d, void* out,
-                                  void* stream) {
+extern "C" int repro_pairwise_tile_f32(const void* x, const void* y, int n, int m, int d, void* out,
+                                       void* stream) {
   if (n <= 0 || m <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = repro::dist_tile_smem_bytes(d);
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);

@@ -24,7 +24,7 @@ m = 16,384.  On the card a call takes one of two routes, chosen by
   nothing of size (n, m) is held, and no m cap applies.
 * ``"strip"`` (wider rows or larger k, whose queues and row registers the
   warp-select core cannot hold): strips of S rows × m squared distances
-  from the pairwise tile kernel (``pairwise.sq_into``: the same bits as the
+  from the pairwise panel kernel (``pairwise.sq_into``: the same bits as the
   warp-select kernel's), S chosen so that one strip stays within
   ``pairwise.STRIP_BYTES``, then square roots and a stable sort per row,
   whose order is the (distance, index) order of the warp-select key; the

@@ -7,13 +7,20 @@ main path it builds the (Lp, Lp) W that Borůvka reads.
 
 Bound on the H100: bytes.  At Lp = 8192 the output alone is 256 MiB,
 which takes at least 80 µs at 3.35 TB/s, while its 1.07 G FMAs take 32 µs
-at 67 TFLOP/s f32.  The kernel (``csrc/mutual_reach.cu``) writes each
-element once with warp-wide 128-byte stores, computes distances from
-shared-memory row tiles on the CUDA cores in f32 (d in slices of 64
-features, so any d runs; ``csrc/dist_tile.cuh``), and fuses the offline
-pass's pad mask (rows/columns ≥ ``n_valid`` at +inf) into the same store
-— the JAX package applies it as a second full pass over W.  A tensor on
-the CPU takes the plain version.
+at 67 TFLOP/s f32.  The kernel (``csrc/dist_panel.cu``, the pairwise
+kernel's core with an Eq. 7 epilogue, so both give the same
+squared-distance bits) computes each row's norm once, multiplies 8 × 8
+register tiles of 128 × 128 output tiles in f32 on the CUDA cores (any
+d), and fuses the offline pass's pad mask (rows/columns ≥ ``n_valid`` at
++inf) into its stores: a tile wholly past ``n_valid`` is written +inf
+with nothing computed, and only tiles that cross ``n_valid`` or the
+diagonal compare per element — the JAX package applies the mask as a
+second full pass over W.  A tensor on the CPU takes the plain version.
+
+``mutual_reach_tile`` runs the earlier kernel (``csrc/mutual_reach.cu``,
+one 64 × 64 tile per block).  Its output is bitwise the new kernel's, so
+the card's tests and ``chip_smoke.py`` hold the new kernel to it; nothing
+else calls it.
 """
 
 from __future__ import annotations
@@ -21,17 +28,17 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from . import pairwise as _pw
 from . import ref as _ref
 
-__all__ = ["mutual_reachability"]
+__all__ = ["mutual_reachability", "mutual_reach_tile"]
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+launches_tile = 0  # launches of the earlier tile kernel, through mutual_reach_tile only
 
 
-def mutual_reachability(x, y, cd_x, cd_y, *, zero_diag: bool = True, n_valid: int | None = None):
-    """(n, d), (m, d), (n,), (m,) f32 → (n, m) f32 Eq. 7 matrix; rows and
-    columns ≥ ``n_valid`` (when given) are +inf."""
-    global launches
+def _checked(x, y, cd_x, cd_y) -> bool:
+    """Validate; True for the card, False for the CPU (plain version)."""
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"mutual_reachability wants (n, d), (m, d), got {tuple(x.shape)}, {tuple(y.shape)}")
     if cd_x.shape != (x.shape[0],) or cd_y.shape != (y.shape[0],):
@@ -41,24 +48,51 @@ def mutual_reachability(x, y, cd_x, cd_y, *, zero_diag: bool = True, n_valid: in
     if not (x.device == y.device == cd_x.device == cd_y.device):
         raise ValueError("mutual_reachability inputs on different devices")
     if x.device.type == "cpu":
-        return _ref.mutual_reachability(x, y, cd_x, cd_y, zero_diag=zero_diag, n_valid=n_valid)
+        return False
     if x.device.type != "cuda":
         raise ValueError(f"mutual_reachability runs on cuda or cpu, not {x.device}")
     if not all(t.is_contiguous() for t in (x, y, cd_x, cd_y)):
         raise ValueError("mutual_reachability wants contiguous inputs")
-    n, d = x.shape
-    m = y.shape[0]
-    if max(n, m) >= 2**31:
-        raise ValueError(f"mutual_reach kernel takes int32 sizes, got n={n} m={m}")
+    if max(x.shape[0], y.shape[0]) >= 2**31:
+        raise ValueError(f"mutual_reach kernel takes int32 sizes, got n={x.shape[0]} m={y.shape[0]}")
+    return True
+
+
+def mutual_reachability(x, y, cd_x, cd_y, *, zero_diag: bool = True, n_valid: int | None = None):
+    """(n, d), (m, d), (n,), (m,) f32 → (n, m) f32 Eq. 7 matrix; rows and
+    columns ≥ ``n_valid`` (when given) are +inf."""
+    global launches
+    if not _checked(x, y, cd_x, cd_y):
+        return _ref.mutual_reachability(x, y, cd_x, cd_y, zero_diag=zero_diag, n_valid=n_valid)
+    (n, d), m = x.shape, y.shape[0]
     nv = max(n, m) if n_valid is None else max(0, min(int(n_valid), max(n, m)))
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     if n and m:
-        lib = _build.load()
+        grid, vec, floats = _pw.panel_plan(n, m, out.data_ptr(), _pw.resident_blocks(True, x.device.index))
+        norms = torch.empty(floats, dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
-            code = lib.repro_mutual_reach_f32(
-                x.data_ptr(), y.data_ptr(), cd_x.data_ptr(), cd_y.data_ptr(), n, m, d,
-                int(bool(zero_diag)), nv, out.data_ptr(), _build.current_stream(x.device),
-            )
+            code = _build.load().repro_mutual_reach_panel_f32(
+                x.data_ptr(), y.data_ptr(), cd_x.data_ptr(), cd_y.data_ptr(), n, m, d, int(bool(zero_diag)), nv,
+                grid, int(vec), norms.data_ptr(), out.data_ptr(), _build.current_stream(x.device))
         _build.check(code, "mutual_reach")
         launches += 1
+    return out
+
+
+def mutual_reach_tile(x, y, cd_x, cd_y, *, zero_diag: bool = True, n_valid: int | None = None):
+    """``mutual_reachability`` through the earlier tile kernel, CUDA
+    tensors only: the bitwise oracle of the panel kernel on the card."""
+    global launches_tile
+    if not _checked(x, y, cd_x, cd_y):
+        raise ValueError("mutual_reach_tile runs the tile kernel: it takes CUDA tensors only")
+    (n, d), m = x.shape, y.shape[0]
+    nv = max(n, m) if n_valid is None else max(0, min(int(n_valid), max(n, m)))
+    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    if n and m:
+        with torch.cuda.device(x.device):
+            code = _build.load().repro_mutual_reach_tile_f32(
+                x.data_ptr(), y.data_ptr(), cd_x.data_ptr(), cd_y.data_ptr(), n, m, d, int(bool(zero_diag)), nv,
+                out.data_ptr(), _build.current_stream(x.device))
+        _build.check(code, "mutual_reach tile")
+        launches_tile += 1
     return out

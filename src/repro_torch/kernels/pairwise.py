@@ -7,35 +7,67 @@ Replaces the JAX package's Pallas kernel ``repro/kernels/pairwise.py``
 
 Bound on the H100: bytes.  At 16,384² the output alone is 1 GiB, at
 least 0.32 ms at 3.35 TB/s, while its 4.3 G FMAs take 0.13 ms at
-67 TFLOP/s f32.  The kernel (``csrc/pairwise.cu``) writes each element
-once with warp-wide 128-byte stores from 64 × 64 tiles whose row tiles
-sit in shared memory, in f32 on the CUDA cores, walking d in slices of 64
-features with the accumulators in registers, so any d runs in the same
-34 KB of shared memory with the bits of one unsliced chain.  It shares its
-tile code (``csrc/dist_tile.cuh``) with the mutual_reach kernel, so the
-two give the same squared distance bits for the same pair.  ``sq_into``
-launches it uncounted into a given buffer: the strip routes of knn and
-bubble_cd take their (rows, m) strips from it.  A tensor on the CPU takes
-the plain version.
+67 TFLOP/s f32.  The kernel (``csrc/dist_panel.cu``, shared with the
+mutual_reach kernel, so the two give the same squared-distance bits for
+the same pair) computes each row's norm once in a pre-pass, then lets
+persistent blocks walk 128 × 128 output tiles in row-panel order: each
+thread multiplies an 8 × 8 register tile in f32 on the CUDA cores from
+feature-major panels that a two-stage ``cp.async`` ring stages 16
+features at a time (any d, the chains continued across slices), and
+stores it straight from registers while the next tile's copies land.
+``panel_plan`` sizes the grid (from the kernel's occupancy) and picks the
+16-byte stores.  ``sq_into`` launches it uncounted into a given buffer:
+the strip routes of knn and bubble_cd take their (rows, m) strips from
+it.  A tensor on the CPU takes the plain version.
+
+``pairwise_tile`` runs the earlier kernel (``csrc/pairwise.cu``: one
+64 × 64 tile per block, norms recomputed per tile).  Its output is bitwise
+the new kernel's, so the card's tests and ``chip_smoke.py`` hold the new
+kernel to it; nothing else calls it.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from . import _build
 from . import ref as _ref
 
-__all__ = ["pairwise_sqdist", "sq_into", "strip_rows", "STRIP_BYTES"]
+__all__ = ["pairwise_sqdist", "pairwise_tile", "sq_into", "panel_plan", "strip_rows", "STRIP_BYTES", "TILE"]
 
 STRIP_BYTES = 256 << 20  # one strip of f32 distances in the strip routes
+TILE = 128  # csrc/dist_panel.cu kBM = kBN: rows and columns of an output tile
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+launches_tile = 0  # launches of the earlier tile kernel, through pairwise_tile only
 
 
-def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(n, d), (m, d) f32 → (n, m) f32 squared distances."""
-    global launches
+def panel_plan(n: int, m: int, out_ptr: int, resident: int) -> tuple[int, bool, int]:
+    """(grid, vec, norm floats) of a distance panel launch for an (n, m)
+    output at address ``out_ptr``: one persistent block per tile, at most
+    ``resident`` (the blocks the card holds at once, so no second wave
+    runs); 16-byte row stores where every output row starts 16-byte
+    aligned; the norm scratch, x's and y's rows each padded to whole tiles."""
+    rows, cols = -(-n // TILE), -(-m // TILE)
+    return max(1, min(rows * cols, resident)), m % 4 == 0 and out_ptr % 16 == 0, (rows + cols) * TILE
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(mutual: bool, device_index: int) -> int:
+    """Blocks of the pairwise (or mutual_reach) panel kernel the card holds
+    at once."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = _build.load().repro_dist_panel_plan(int(mutual), ctypes.byref(per_sm))
+    _build.check(code, "distance panel plan")
+    return max(1, per_sm.value) * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _checked(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Validate; True for the card, False for the CPU (plain version)."""
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"pairwise_sqdist wants (n, d) and (m, d), got {tuple(x.shape)} and {tuple(y.shape)}")
     if x.dtype != torch.float32 or y.dtype != torch.float32:
@@ -43,14 +75,22 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if x.device != y.device:
         raise ValueError(f"pairwise_sqdist inputs on {x.device} and {y.device}")
     if x.device.type == "cpu":
-        return _ref.pairwise_sqdist(x, y)
+        return False
     if x.device.type != "cuda":
         raise ValueError(f"pairwise_sqdist runs on cuda or cpu, not {x.device}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("pairwise_sqdist wants contiguous inputs")
+    if max(x.shape[0], y.shape[0]) >= 2**31:
+        raise ValueError(f"pairwise kernel takes int32 sizes, got n={x.shape[0]} m={y.shape[0]}")
+    return True
+
+
+def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(n, d), (m, d) f32 → (n, m) f32 squared distances."""
+    global launches
+    if not _checked(x, y):
+        return _ref.pairwise_sqdist(x, y)
     n, m = x.shape[0], y.shape[0]
-    if max(n, m) >= 2**31:
-        raise ValueError(f"pairwise kernel takes int32 sizes, got n={n} m={m}")
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     if n and m:
         sq_into(x, y, out)
@@ -58,14 +98,34 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pairwise_tile(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``pairwise_sqdist`` through the earlier tile kernel, CUDA tensors
+    only: the bitwise oracle of the panel kernel on the card."""
+    global launches_tile
+    if not _checked(x, y):
+        raise ValueError("pairwise_tile runs the tile kernel: it takes CUDA tensors only")
+    n, m = x.shape[0], y.shape[0]
+    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    if n and m:
+        with torch.cuda.device(x.device):
+            code = _build.load().repro_pairwise_tile_f32(x.data_ptr(), y.data_ptr(), n, m, x.shape[1],
+                                                         out.data_ptr(), _build.current_stream(x.device))
+        _build.check(code, "pairwise tile")
+        launches_tile += 1
+    return out
+
+
 def sq_into(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """The kernel's (n, m) squared distances of contiguous f32 CUDA x (n, d)
     and y (m, d), n, m >= 1, written into the contiguous ``out``; not
     counted in ``launches``."""
-    lib = _build.load()
+    (n, d), m = x.shape, y.shape[0]
+    grid, vec, floats = panel_plan(n, m, out.data_ptr(), resident_blocks(False, x.device.index))
+    norms = torch.empty(floats, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        code = lib.repro_pairwise_f32(x.data_ptr(), y.data_ptr(), x.shape[0], y.shape[0], x.shape[1],
-                                      out.data_ptr(), _build.current_stream(x.device))
+        code = _build.load().repro_pairwise_panel_f32(x.data_ptr(), y.data_ptr(), n, m, d, grid, int(vec),
+                                                      norms.data_ptr(), out.data_ptr(),
+                                                      _build.current_stream(x.device))
     _build.check(code, "pairwise")
     return out
 

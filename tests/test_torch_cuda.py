@@ -10,7 +10,9 @@ The warp-select knn and bubble_cd kernels are also held bit for bit
 (``torch.equal``) against the per-lane kernels they replaced
 (``knn_lane``, ``bubble_cd_lane``, k and min_pts <= 64), which compute
 the same distances in the same (d, j) order; so is the assign kernel
-against ``assign_lane`` (d <= 128), and the strip routes of knn and
+against ``assign_lane`` (d <= 128), the distance panel of pairwise and
+mutual_reach against the tile kernels it replaced (``pairwise_tile``,
+``mutual_reach_tile``) at any d, and the strip routes of knn and
 bubble_cd against the warp-select kernels at their bounds (k = min_pts =
 1024, d = 128).  A d = 300 table whose features from 128 on are zero gives
 results ``torch.equal`` to the same table cut to d = 128 in every distance
@@ -181,6 +183,21 @@ def _fa_counts():
 
 def _reset_fa_counts():
     t_fa.launches = t_fa.launches_mma = t_fa.launches_simt = 0
+
+
+def _panel_case(table, d, n, m, rng):
+    """(x, y) for the panel's bitwise cases: random centred rows, all
+    zeros, or copies of 40 sites (exact duplicates across both tables)."""
+    if table == "zeros":
+        return np.zeros((n, d), np.float32), np.zeros((m, d), np.float32)
+    if table == "duplicates":
+        sites = _centred(rng, 40, d)
+        return sites[rng.integers(0, 40, size=n)], sites[rng.integers(0, 40, size=m)]
+    return _centred(rng, n, d), _centred(rng, m, d)
+
+
+def _core_distances(rng, n, m):
+    return (rng.uniform(0.1, 1.0, size=k).astype(np.float32) for k in (n, m))
 
 
 def _assert_within(got, want, allowance):
@@ -444,6 +461,52 @@ class TestCudaKernels:
         assert (t_assign.launches, t_assign.launches_lane) == (2, 1)
         if table == "zeros":
             assert bool((idx == 0).all())
+
+    @pytest.mark.parametrize("table", ["random", "zeros", "duplicates"])
+    @pytest.mark.parametrize("d", [1, 2, 5, 16, 17, 64, 65, 129, 200])
+    @pytest.mark.parametrize("n,m", [(1001, 777), (300, 1024), (129, 1023)])
+    def test_panel_equals_tile_kernel(self, cuda_device, table, d, n, m):
+        """pairwise and mutual_reach's distance panel against the tile
+        kernels it replaced, bit for bit: n and m not multiples of the
+        128-row tile, m % 4 in {1, 0, 3} (scalar and 16-byte stores), d
+        across the 16-feature slices."""
+        x, y = (_t(a).to(cuda_device) for a in _panel_case(table, d, n, m, np.random.default_rng(24)))
+        cx, cy = (_t(a).to(cuda_device) for a in _core_distances(np.random.default_rng(25), n, m))
+        t_pw.launches = t_pw.launches_tile = t_mr.launches = t_mr.launches_tile = 0
+        assert torch.equal(t_pw.pairwise_sqdist(x, y), t_pw.pairwise_tile(x, y))
+        assert torch.equal(t_mr.mutual_reachability(x, y, cx, cy), t_mr.mutual_reach_tile(x, y, cx, cy))
+        assert (t_pw.launches, t_pw.launches_tile, t_mr.launches, t_mr.launches_tile) == (1, 1, 1, 1)
+
+    @pytest.mark.parametrize("n_valid", [0, 127, 128, 129, 256, 500, 2000])
+    @pytest.mark.parametrize("zero_diag", [True, False])
+    @pytest.mark.parametrize("n,m", [(700, 700), (700, 301), (257, 900)])
+    def test_mutual_reach_panel_mask_equals_tile_kernel(self, cuda_device, n_valid, zero_diag, n, m):
+        """The pad mask inside, on and past a tile edge (128, 256), and the
+        diagonal on and off at n != m: tiles wholly past n_valid are only
+        written, the rest compared per element; bit for bit the tile
+        kernel's."""
+        rng = np.random.default_rng(26)
+        x, y = (_t(_centred(rng, k, 16)).to(cuda_device) for k in (n, m))
+        cx, cy = (_t(a).to(cuda_device) for a in _core_distances(rng, n, m))
+        got = t_mr.mutual_reachability(x, y, cx, cy, zero_diag=zero_diag, n_valid=n_valid)
+        assert torch.equal(got, t_mr.mutual_reach_tile(x, y, cx, cy, zero_diag=zero_diag, n_valid=n_valid))
+        nv = min(n_valid, max(n, m))
+        assert bool(torch.isinf(got[nv:]).all()) and bool(torch.isinf(got[:, nv:]).all())
+
+    @pytest.mark.parametrize("d", [3, 16, 200])
+    @pytest.mark.parametrize("m", [999, 1000])
+    def test_sq_into_strip_slice_equals_tile_kernel(self, cuda_device, d, m):
+        """sq_into from an offset row slice of x into an offset row slice of
+        a strip (the strip routes' call): the tile kernel's bits, and the
+        strip's other rows untouched."""
+        rng = np.random.default_rng(27)
+        x, y = (_t(_centred(rng, k, d)).to(cuda_device) for k in (1000, m))
+        strip = torch.full((700, m), -1.0, device=cuda_device)
+        t_pw.launches = 0
+        t_pw.sq_into(x[301:601], y, strip[101:401])
+        assert t_pw.launches == 0
+        assert torch.equal(strip[101:401], t_pw.pairwise_tile(x[301:601].contiguous(), y))
+        assert bool((strip[:101] == -1).all()) and bool((strip[401:] == -1).all())
 
     @pytest.mark.parametrize("d", [129, 256, 300])
     def test_wide_rows(self, cuda_device, d):

@@ -3,18 +3,21 @@
 ``repro_torch.kernels.knn.route`` and ``repro_torch.kernels.bubble_cd.route``
 are pure functions of the feature width and k (min_pts): ``"ws"`` (the
 warp-select kernels, d ≤ 128 and k ≤ 1024) or ``"strip"`` (row strips of
-the pairwise tile kernel, a stable sort and, for Eq. 6, the walk kernel)
-otherwise.  ``pairwise.strip_rows`` sizes the strips and
+the pairwise panel kernel, a stable sort and, for Eq. 6, the walk kernel)
+otherwise.  ``pairwise.strip_rows`` sizes the strips,
 ``assign.split_for`` the assign kernel's split of L across blocks (from
-its occupancy, read from the card).  The kernels run only on a card
-(tests/test_torch_cuda.py); the rules are held here.
+its occupancy, read from the card) and ``pairwise.panel_plan`` the
+distance panel's persistent grid and its 16-byte stores.  The kernels run
+only on a card (tests/test_torch_cuda.py); the rules are held here.
 """
 
 import pytest
+import torch
 
 from repro_torch.kernels import assign as t_assign
 from repro_torch.kernels import bubble_cd as t_bcd
 from repro_torch.kernels import knn as t_knn
+from repro_torch.kernels import mutual_reach as t_mr
 from repro_torch.kernels import pairwise as t_pw
 
 
@@ -62,3 +65,52 @@ def test_split_for_path_shapes(n, rows_per_block, want):
     """Ingest blocks (8192 rows) fill the H100's 132 SMs alone; a query
     chunk of 4096 rows takes two slices of the stream's 8192-row bucket."""
     assert t_assign.split_for(n, 8192, rows_per_block, 132) == want
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (127, 129), (1001, 777), (5243, 5243), (8192, 8192), (16_384, 16_384),
+                                 (1024, 65_536), (65_536, 300)])
+@pytest.mark.parametrize("resident", [1, 132, 264])
+def test_panel_plan_grid(n, m, resident):
+    """One persistent block per 128 × 128 tile, at most the blocks the card
+    holds at once; the norm scratch covers both sides padded to whole
+    tiles."""
+    grid, _, floats = t_pw.panel_plan(n, m, 0, resident)
+    tiles = -(-n // t_pw.TILE) * -(-m // t_pw.TILE)
+    assert grid == min(tiles, resident) >= 1
+    assert floats == (-(-n // t_pw.TILE) + -(-m // t_pw.TILE)) * t_pw.TILE
+    assert floats % 4 == 0 and -(-n // t_pw.TILE) * t_pw.TILE % 4 == 0  # 16-byte norm loads of both sides
+
+
+@pytest.mark.parametrize("m,ptr,vec", [(777, 0, False), (1024, 0, True), (1023, 0, False), (1022, 0, False),
+                                       (8192, 512, True), (8192, 4, False), (8192, 8, False), (1000, 4000, True),
+                                       (999, 3996, False)])
+def test_panel_plan_stores(m, ptr, vec):
+    """16-byte row stores only where every output row starts 16-byte
+    aligned: m % 4 == 0 and the output's address a multiple of 16."""
+    assert t_pw.panel_plan(300, m, ptr, 264)[1] is vec
+
+
+@pytest.mark.parametrize("n,m,want", [(8192, 8192, 264), (16_384, 16_384, 264), (5243, 5243, 264), (300, 300, 9),
+                                      (1, 1, 1)])
+def test_panel_plan_path_shapes(n, m, want):
+    """At the main path's W (Lp = 8192) and the point-level 16,384², the
+    grid is two resident blocks per SM on the H100's 132; small tables
+    take one block per tile."""
+    assert t_pw.panel_plan(n, m, 256, 264)[0] == want
+
+
+@pytest.mark.parametrize("oracle", ["pairwise_tile", "mutual_reach_tile"])
+def test_tile_oracles_take_cuda_tensors_only(oracle):
+    """pairwise_tile and mutual_reach_tile, the card's bitwise oracles of
+    the panel kernel, run the tile kernel or refuse: no plain version for
+    CPU tensors, and no launch counted."""
+    g = torch.Generator().manual_seed(0)
+    x, y = torch.randn(9, 3, generator=g), torch.randn(7, 3, generator=g)
+    cx, cy = torch.rand(9, generator=g), torch.rand(7, generator=g)
+    t_pw.launches_tile = t_mr.launches_tile = 0
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        if oracle == "pairwise_tile":
+            t_pw.pairwise_tile(x, y)
+        else:
+            t_mr.mutual_reach_tile(x, y, cx, cy, n_valid=5)
+    assert t_pw.launches_tile == t_mr.launches_tile == 0
