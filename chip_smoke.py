@@ -12,7 +12,9 @@ Phases, each printing its own lines:
               registers, stack and spills of every register-tile
               instantiation (warp-select knn and bubble_cd, assign, the
               distance panel of pairwise and mutual_reach and its norm
-              pass; each must have no stack frame and no spills);
+              pass, the CUDA-core flash kernel; each must have no stack
+              frame and no spills), and the flash kernel's query rows
+              and blocks per SM for each head-dim bucket;
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes, on a tie-free mean-centred table
               and on a duplicate-heavy one, with kernel / plain / library
@@ -65,12 +67,18 @@ Phases, each printing its own lines:
               tensor-core kernel and the f32 ones the CUDA-core kernel
               (counted per route); each held against the plain version a
               few heads at a time, with device times and the host time
-              of one ops call;
+              of one ops call, and shown to reject two wrong outputs; the
+              f32 cases also held to the earlier CUDA-core kernel
+              (flash_attention_scalar) on the same inputs and timed beside
+              it; then bf16 at qwen2-1.5b widths with Dh = 256, which the
+              tensor cores refuse, through the CUDA-core kernel, held to
+              the plain version and to the earlier kernel, both timed;
   8. the kernels JSON line (launches on each kernel's own path, errors,
      times, bounds; assign with the per-lane kernel's time as lane_ms,
      mutual_reach and pairwise with the tile kernel's as tile_ms;
-     flash_attention with the qwen2-1.5b f32 case, flash_attention_mma
-     with the qwen2-1.5b bf16 case);
+     flash_attention with the qwen2-1.5b f32 case and the earlier
+     CUDA-core kernel's time as scalar_ms, flash_attention_mma with the
+     qwen2-1.5b bf16 case);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -79,6 +87,7 @@ of the repository, or when any phase fails.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -124,9 +133,13 @@ PEAK_BYTES = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
 # register-tile sources whose ptxas report [build] checks: knn_ws.cu and bubble_cd_ws.cu, 24 instantiations
 # each (D in {16, 32, 64, 128} x K in {32, ..., 1024}); assign_ws.cu, 4 (D) + the wide kernel + its combine;
-# dist_panel.cu, the panel for pairwise (D = 0) and mutual_reach (D = 1) + the norm pass
-WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu")
-WS_INSTANTIATIONS = 48 + 6 + 3
+# dist_panel.cu, the panel for pairwise (D = 0) and mutual_reach (D = 1) + the norm pass;
+# flash_attention_panel.cu, 8 (head-dim bucket D in {32, 64, 128, 256} x element bits K in {32, 16})
+WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu", "flash_attention_panel.cu")
+WS_INSTANTIATIONS = 48 + 6 + 3 + 8
+FLASH_BUCKETS = (32, 64, 128, 256)
+# [attention]: bf16 on the CUDA-core route at qwen2-1.5b's widths with Dh past the tensor-core kernel's 128
+SIMT_BF16 = ("qwen2-1.5b Dh256 bf16", 1, 4096, 12, 2, 256)
 
 
 def say(*parts):
@@ -290,15 +303,18 @@ def ptxas_ws(log: str) -> dict:
     """{(kernel, D, K): (registers, stack bytes, spill stores, spill loads)}
     of the register-tile kernels in an ``nvcc -Xptxas -v`` log (D and K 0
     where the kernel has no such template argument; D of dist_panel is its
-    bool, 1 for mutual_reach)."""
+    bool, 1 for mutual_reach; flash_panel's D is its head-dim bucket and K
+    the element's bits, 32 for f32 and 16 for bf16)."""
     import re
 
     out, cur, stack = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(knn_ws|bubble_cd_ws|assign_ws|assign_wide|assign_combine"
                       r"|dist_panel|dist_norms)_kernel(?:IL[ib](\d+)E(?:Li(\d+)E)?)?", line)
-        if m:
-            cur = (m.group(1), int(m.group(2) or 0), int(m.group(3) or 0))
+        f = re.search(r"Compiling entry function '\S*?flash_panel_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+        if m or f:
+            cur = (m.group(1), int(m.group(2) or 0), int(m.group(3) or 0)) if m else \
+                ("flash_panel", int(f.group(2)), 32 if f.group(1) == "f" else 16)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur:
@@ -351,6 +367,16 @@ def phase_build():
               f"{len(ws)} register-tile instantiations in the ptxas report, not {WS_INSTANTIATIONS}")
         bad = [key for key, v in ws.items() if v[1:] != (0, 0, 0)]
         check(not bad, f"register-tile instantiations with a stack frame or spills: {bad}")
+    lib = _build.load()
+    for dtype, name in ((0, "f32"), (1, "bf16")):
+        plans = []
+        for D in FLASH_BUCKETS:
+            rows, blocks = ctypes.c_int(0), ctypes.c_int(0)
+            _build.check(lib.repro_flash_attention_panel_plan(dtype, D, ctypes.byref(rows), ctypes.byref(blocks)),
+                         "flash_attention plan")
+            check(blocks.value >= 1, f"flash_attention_panel {name} D={D}: no block fits on an SM")
+            plans.append(f"D<={D}: {rows.value} rows x {blocks.value} block(s)/SM")
+        say(f"[build] flash_attention_panel {name}: " + ", ".join(plans))
 
 
 def phase_kernels(dev):
@@ -1251,7 +1277,8 @@ def phase_attention(dev):
         f"{json.dumps(launches)}")
     check(k_fa.launches == len(cases), "flash_attention kernel not launched once per call")
     check(launches["flash_attention_mma"] == n_bf16, "a bf16 case did not take the tensor-core kernel")
-    check(launches["flash_attention"] == len(cases) - n_bf16, "an f32 case did not take the CUDA-core kernel")
+    check(launches["flash_attention"] == len(cases) - n_bf16,
+          "an f32 case did not take the CUDA-core kernel (flash_attention_panel.cu)")
 
     def plain(q, k, v, qp, kp, window):
         """The plain version, one kv head (G query heads) at a time."""
@@ -1289,11 +1316,22 @@ def phase_attention(dev):
             check(e <= 1 and r <= 1, f"{label}: kv head {g} outside tolerance, readings {e:.3f} (elements), "
                                      f"{r:.3f} (rows)")
             err, elem, row = max(err, float((o - want).abs().max())), max(elem, e), max(row, r)
-            if g == 0 and dt == "bf16":
+            if g == 0:
                 for name, (we, wr, wa) in wrong_readings(q, k, v, qp, kp, window, want, dt).items():
                     say(f"[attention] {label}: a wrong output ({name}) reads {we:.3f} (elements), {wr:.3f} (rows), "
                         f"max |error| {wa:.3e}")
                     check(we > 1 or wr > 1, f"{label}: the check passes a wrong output ({name})")
+        scalar = None
+        if dt == "f32":  # the earlier CUDA-core kernel on the same inputs
+            heads = [t.transpose(1, 2) for t in (q, k, v)]
+            old = k_fa.flash_attention_scalar(*heads, qp, kp, causal=True, window=window).transpose(1, 2)
+            e, r = flash_reading(got, old, dt)
+            scalar = dict(err=float((got - old).abs().max()), elem=e, row=r,
+                          ms=time_ms(lambda: k_fa.flash_attention_scalar(*heads, qp, kp, causal=True, window=window),
+                                     reps=5))
+            check(e <= 1 and r <= 1, f"{label}: outside tolerance of the earlier CUDA-core kernel, readings "
+                                     f"{e:.3f} (elements), {r:.3f} (rows)")
+            del old
         dead_rows = int((~((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])).any(-1)).sum())
         live = _live_pairs(qp, kp, window)
         peak = PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS
@@ -1320,8 +1358,51 @@ def phase_attention(dev):
             f"sdpa {'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms ({by}, {live} live "
             f"(query, key) pairs per head, at the {dt} peak)")
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b, bound_by=by, library_ms=lib)
+        if scalar:
+            say(f"[attention] {label}: against the earlier CUDA-core kernel max |new - scalar| {scalar['err']:.3e}, "
+                f"readings {scalar['elem']:.3f} (elements), {scalar['row']:.3f} (rows); kernel {ms:.4f} ms, "
+                f"scalar kernel {scalar['ms']:.4f} ms ({scalar['ms'] / ms:.2f}x)")
+            out[label]["scalar_ms"] = scalar["ms"]
         torch.cuda.empty_cache()
+    del cases, outs
+    attention_simt_bf16(dev, gen, plain)
     return launches, out
+
+
+def attention_simt_bf16(dev, gen, plain):
+    """bf16 through the CUDA-core route (Dh past the tensor-core kernel's
+    128), outside the counted run: held to the plain version and to the
+    earlier CUDA-core kernel, both timed."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as k_fa
+
+    label, B, S, H, KV, Dh = SIMT_BF16
+    q, k, v = (torch.randn(B, S, h, Dh, generator=gen, device=dev).bfloat16() for h in (H, KV, KV))
+    pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    before = (k_fa.launches_mma, k_fa.launches_simt)
+    got = k_fa.flash_attention(*heads, pos, pos, causal=True).transpose(1, 2)
+    old = k_fa.flash_attention_scalar(*heads, pos, pos, causal=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    check((k_fa.launches_mma, k_fa.launches_simt) == (before[0], before[1] + 1),
+          f"{label}: did not take the CUDA-core kernel")
+    G = H // KV
+    elem, row = 0.0, 0.0
+    for g, want in enumerate(plain(q, k, v, pos, pos, None)):
+        e, r = flash_reading(got[:, :, g * G : (g + 1) * G].transpose(1, 2).float(), want.float(), "bf16")
+        elem, row = max(elem, e), max(row, r)
+    e_old, r_old = flash_reading(got.float(), old.float(), "bf16")
+    check(bool(torch.isfinite(got).all()) and max(elem, row, e_old, r_old) <= 1,
+          f"{label}: readings {elem:.3f} / {row:.3f} against plain, {e_old:.3f} / {r_old:.3f} against the scalar kernel")
+    ms = time_ms(lambda: k_fa.flash_attention(*heads, pos, pos, causal=True), reps=5)
+    old_ms = time_ms(lambda: k_fa.flash_attention_scalar(*heads, pos, pos, causal=True), reps=5)
+    say(f"[attention] {label}: B={B} S={S} H={H} KV={KV} Dh={Dh}, CUDA-core route; readings {elem:.3f} (elements), "
+        f"{row:.3f} (rows) against plain, {e_old:.3f} / {r_old:.3f} against the earlier kernel (max |new - scalar| "
+        f"{float((got.float() - old.float()).abs().max()):.3e}); kernel {ms:.4f} ms, scalar kernel {old_ms:.4f} ms "
+        f"({old_ms / ms:.2f}x)")
+    del q, k, v, got, old
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1357,7 +1438,7 @@ def main() -> int:
                "mutual_reach": ("dist_panel.cu", "src/repro/kernels/mutual_reach.py:23"),
                "knn": ("knn_ws.cu", "src/repro/kernels/knn.py:34"),
                "pairwise": ("dist_panel.cu", "src/repro/kernels/pairwise.py:30"),
-               "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:38"),
+               "flash_attention": ("flash_attention_panel.cu", "src/repro/kernels/flash_attention.py:38"),
                "flash_attention_mma": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38")}
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",

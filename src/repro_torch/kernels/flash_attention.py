@@ -12,8 +12,9 @@ depends on the block size).  It serves ``ops.flash_attention``.
 
 Bound on the H100: operations.  QKᵀ and PV need 4·D FLOPs per live
 (query, key) pair and head: 51.5 GFLOP for qwen2-1.5b's attention at
-S = 4096 (causal, 12 heads of 128) — 0.052 ms at 989 TFLOP/s dense bf16
-— while q, k, v and the output are 29 MB in bf16 (9 µs at 3.35 TB/s).
+S = 4096 (causal, 12 heads of 128) — 0.052 ms at 989 TFLOP/s dense bf16,
+0.77 ms at 67 TFLOP/s f32 off the tensor cores — while q, k, v and the
+output are 29 MB in bf16 (9 µs at 3.35 TB/s).
 
 Two kernels, one per route, chosen before the launch by ``route`` from
 dtype, head width, strides and data pointers alone:
@@ -28,13 +29,18 @@ dtype, head width, strides and data pointers alone:
   data pointer is 16-byte aligned and every batch, head and sequence
   stride of an axis longer than 1 is a multiple of 8 elements: its
   16-byte copies need all that.
-- ``"simt"`` (``csrc/flash_attention.cu``): the CUDA-core kernel in f32
-  arithmetic, for everything else — every f32 call, bf16 with D in
-  (128, 256], and bf16 views that the 16-byte copies cannot read.  f32
-  stays off the tensor cores: without TF32, which the port forbids, they
-  take no IEEE f32 operands.
+- ``"simt"`` (``csrc/flash_attention_panel.cu``): the CUDA-core kernel in
+  f32 arithmetic, for everything else — every f32 call, bf16 with D in
+  (128, 256], and bf16 views that the 16-byte copies cannot read.  Each
+  thread holds a 4 × 4 tile of S and its 4 rows of O in registers, fed by
+  16-byte shared loads; the softmax stays in registers within a warp; a
+  two-stage ``cp.async`` ring brings 32-key K/V tiles (16-byte copies
+  where the rows allow, 4-byte ones otherwise; bf16 by plain loads,
+  converted as staged); blocks of 12 warps on 192 query rows (4 warps on
+  64 rows above D = 128).  f32 stays off the tensor cores: without TF32,
+  which the port forbids, they take no IEEE f32 operands.
 
-Both take one block per (batch × query head, 64-row q block), skip tiles
+Both take blocks of query rows per (batch × query head), skip tiles
 without a live pair, give rows without a live key the mean of V from a
 separate sweep, read kv head ``h // G`` for query head ``h`` and take the
 layout as strides, so there is no copy of K/V per query head and no
@@ -42,6 +48,11 @@ head-major copy of the model-layout tensors.  The output is in q's
 dtype.  A failed build or launch raises; there is no fallback from one
 route to the other.  A tensor on the CPU takes the plain version and
 counts no launch.
+
+``flash_attention_scalar`` runs the earlier CUDA-core kernel
+(``csrc/flash_attention.cu``: scalar shared loads, five barriers per
+32-key tile) on any call the ``"simt"`` route takes; the card's tests and
+``chip_smoke.py`` hold the new kernel to it.  Nothing else calls it.
 """
 
 from __future__ import annotations
@@ -53,7 +64,7 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["flash_attention", "route", "MAX_HEAD_DIM", "MMA_MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_scalar", "route", "MAX_HEAD_DIM", "MMA_MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 MMA_MAX_HEAD_DIM = 128
@@ -63,6 +74,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_mma = 0
 launches_simt = 0
+launches_scalar = 0  # launches of the earlier CUDA-core kernel, through flash_attention_scalar only
 
 
 def route(dtype: torch.dtype, head_dim: int, shapes, strides, data_ptrs) -> str:
@@ -81,14 +93,8 @@ def route(dtype: torch.dtype, head_dim: int, shapes, strides, data_ptrs) -> str:
     return "mma"
 
 
-def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int | None = None,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """q (B, H, Sq, D), k and v (B, KV, Sk, D) with H a multiple of KV,
-    f32 or bf16 views with contiguous features; qpos (B, Sq) and kpos
-    (B, Sk) int32.  Query head h attends with kv head h // (H / KV).
-    Returns (B, H, Sq, D) in q's dtype, written into ``out`` (a view of
-    that shape, features contiguous) when given."""
-    global launches, launches_mma, launches_simt
+def _checked(q, k, v, qpos, kpos, out) -> bool:
+    """Validate; True for the card, False for the CPU (plain version)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention wants (B, H, Sq, D) and two (B, KV, Sk, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -107,33 +113,70 @@ def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int | N
     if len({t.device for t in (q, k, v, qpos, kpos)}) != 1:
         raise ValueError("flash_attention inputs on different devices")
     if q.device.type == "cpu":
-        res = _ref.gqa_flash_attention(q, k, v, qpos, kpos, causal, window)
-        return res if out is None else out.copy_(res)
+        return False
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    if out is None:
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    return True
+
+
+def _launch(entry: str, which: str, q, k, v, qpos, kpos, causal, window, out) -> bool:
+    """Run the C entry ``entry`` of the kernel library on CUDA tensors that
+    ``_checked`` passed, into ``out``; False when there is nothing to do
+    (B or Sq is 0)."""
     views = (q, k, v, out)
     if any(t.stride(-1) != 1 for t in views) or not (qpos.is_contiguous() and kpos.is_contiguous()):
         raise ValueError("flash_attention wants contiguous features and contiguous positions")
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
     if B * H > 65535 or max(Sq, Sk) >= 2**31:
         raise ValueError(f"flash_attention kernel takes B*H <= 65535, got {B * H}")
-    if Sq and B:
-        which = route(q.dtype, D, [t.shape for t in views], [t.stride() for t in views],
-                      [t.data_ptr() for t in views])
-        strides = [s for t in views for s in t.stride()[:3]]
-        lib = _build.load()
-        entry = lib.repro_flash_attention_mma if which == "mma" else lib.repro_flash_attention
-        with torch.cuda.device(q.device):
-            code = entry(
-                _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-                kpos.data_ptr(), out.data_ptr(), B, H, KV, Sq, Sk, D, *strides, int(bool(causal)),
-                int(window is not None), 0 if window is None else int(window), 1.0 / math.sqrt(D),
-                _build.current_stream(q.device))
-        _build.check(code, f"flash_attention ({which})")
+    if not (B and Sq):
+        return False
+    strides = [s for t in views for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        code = getattr(_build.load(), entry)(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+            out.data_ptr(), B, H, KV, Sq, Sk, D, *strides, int(bool(causal)), int(window is not None),
+            0 if window is None else int(window), 1.0 / math.sqrt(D), _build.current_stream(q.device))
+    _build.check(code, f"flash_attention ({which})")
+    return True
+
+
+def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """q (B, H, Sq, D), k and v (B, KV, Sk, D) with H a multiple of KV,
+    f32 or bf16 views with contiguous features; qpos (B, Sq) and kpos
+    (B, Sk) int32.  Query head h attends with kv head h // (H / KV).
+    Returns (B, H, Sq, D) in q's dtype, written into ``out`` (a view of
+    that shape, features contiguous) when given."""
+    global launches, launches_mma, launches_simt
+    if not _checked(q, k, v, qpos, kpos, out):
+        res = _ref.gqa_flash_attention(q, k, v, qpos, kpos, causal, window)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    views = (q, k, v, out)
+    which = route(q.dtype, q.shape[3], [t.shape for t in views], [t.stride() for t in views],
+                  [t.data_ptr() for t in views])
+    entry = "repro_flash_attention_mma" if which == "mma" else "repro_flash_attention_panel"
+    if _launch(entry, which, q, k, v, qpos, kpos, causal, window, out):
         launches += 1
         if which == "mma":
             launches_mma += 1
         else:
             launches_simt += 1
+    return out
+
+
+def flash_attention_scalar(q, k, v, qpos, kpos, *, causal: bool = True, window: int | None = None,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """``flash_attention`` through the earlier CUDA-core kernel, CUDA
+    tensors only: the card's oracle of the ``"simt"`` route."""
+    global launches_scalar
+    if not _checked(q, k, v, qpos, kpos, out):
+        raise ValueError("flash_attention_scalar runs the earlier CUDA-core kernel: it takes CUDA tensors only")
+    if out is None:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if _launch("repro_flash_attention", "scalar", q, k, v, qpos, kpos, causal, window, out):
+        launches_scalar += 1
     return out

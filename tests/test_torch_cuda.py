@@ -24,7 +24,10 @@ orders: δ(r²) = 8ε(max‖x‖² + max‖y‖²) on a squared distance, hence
 δ(r) = min(√δ(r²), δ(r²)/2r) on a distance r — large only for the
 near-zero distances of queries that sit on a representative.  Attention:
 f32 within rtol 1e-4 / atol 2e-4, bf16 within atol 3e-2 (as in
-tests/test_flash_attention.py); the tensor-core route's cases are held to
+tests/test_flash_attention.py); the CUDA-core route's kernel
+(``csrc/flash_attention_panel.cu``) also within the same limits of the
+earlier kernel it replaced (``flash_attention_scalar``); the tensor-core
+route's cases and the CUDA-core route's bf16 cases are held to
 chip_smoke.py's relative bf16 readings instead: per element
 |o − want| / (2e-3 + 1e-2·|want|) ≤ 1 and per row ‖o − want‖ / ‖want‖
 ≤ 1e-2, since one bf16 rounding of the output is at most 2^-8 relative
@@ -712,6 +715,75 @@ class TestCudaKernels:
         want = tref.gqa_flash_attention(q.cpu(), k.cpu(), v.cpu(), qpos.cpu(), qpos.cpu(), True, None)
         elem, row = _flash_reading(got.cpu(), want)
         assert elem <= 1 and row <= 1, (elem, row)
+
+    @pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window,dead_head,dead_tail", [
+        (1, 300, 311, 3, 1, True, None, 0, 0),
+        (2, 300, 311, 6, 1, True, None, 20, 7),
+        (1, 200, 311, 4, 4, True, 33, 0, 9),
+        (2, 129, 700, 6, 2, False, None, 40, 0),
+        (1, 70, 17_000, 2, 1, True, 20_000, 0, 5),
+    ])
+    @pytest.mark.parametrize("D", [1, 8, 24, 64, 120, 128, 129, 200, 256])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_flash_panel(self, cuda_device, dtype, D, B, Sq, Sk, H, KV, causal, window, dead_head, dead_tail):
+        """The CUDA-core route (csrc/flash_attention_panel.cu) against the
+        plain version and against the earlier kernel on the same inputs:
+        every head-dim bucket (D padded to 32, 64, 128, 256), Sq and Sk not
+        multiples of the 64-row block or the 32-key tile, Sk past the
+        pre-scan's 16,384-key chunk, G in {1, 3, 6}, windows, no causal
+        mask, dead keys at the head (rows with no live key) and the tail.
+        bf16 comes as views with sequence stride D + 1, which the
+        tensor-core route refuses; f32 at D % 4 == 0 takes the 16-byte
+        copies, the rest the 4-byte ones."""
+        gen = torch.Generator(device=cuda_device).manual_seed(15)
+        pad = 1 if dtype == torch.bfloat16 else 0
+        q = torch.randn(B, H, Sq, D + pad, generator=gen, device=cuda_device).to(dtype)[..., :D]
+        k = torch.randn(B, KV, Sk, D + pad, generator=gen, device=cuda_device).to(dtype)[..., :D]
+        v = torch.randn(B, KV, Sk, D + pad, generator=gen, device=cuda_device).to(dtype)[..., :D]
+        qpos = torch.arange(Sq, device=cuda_device, dtype=torch.int32).expand(B, Sq).contiguous() + (Sk - Sq)
+        kpos = torch.arange(Sk, device=cuda_device, dtype=torch.int32).expand(B, Sk).contiguous()
+        kpos[:, :dead_head] = -1
+        kpos[:, Sk - dead_tail:] = -1
+        _reset_fa_counts()
+        t_fa.launches_scalar = 0
+        got = t_fa.flash_attention(q, k, v, qpos, kpos, causal=causal, window=window)
+        old = t_fa.flash_attention_scalar(q, k, v, qpos, kpos, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert _fa_counts() == (0, 1) and t_fa.launches == 1 and t_fa.launches_scalar == 1
+        live = (kpos[:, None, :] >= 0) & ((kpos[:, None, :] <= qpos[:, :, None]) | (not causal))
+        assert bool((~live.any(-1)).any()) == (causal and dead_head > Sk - Sq)
+        want = tref.gqa_flash_attention(q.cpu(), k.cpu(), v.cpu(), qpos.cpu(), kpos.cpu(), causal, window)
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)
+            torch.testing.assert_close(got, old, rtol=1e-4, atol=2e-4)
+        else:
+            for ref_out in (want, old.cpu()):
+                elem, row = _flash_reading(got.cpu(), ref_out)
+                assert elem <= 1 and row <= 1, (elem, row)
+
+    @pytest.mark.parametrize("D", [24, 128])
+    def test_flash_panel_model_layout_and_strided_out(self, cuda_device, D):
+        """f32 model-layout views through ops.flash_attention (the kernel
+        reads (B, S, H, D) through strides), and ``out=`` into a strided
+        view whose rows are not 16-byte aligned."""
+        gen = torch.Generator(device=cuda_device).manual_seed(16)
+        q, k, v = (torch.randn(2, 150, h, D, generator=gen, device=cuda_device) for h in (6, 2, 2))
+        _reset_fa_counts()
+        got = tops.flash_attention(q, k, v, window=40)
+        torch.cuda.synchronize()
+        assert _fa_counts() == (0, 1)
+        want = tops.flash_attention(q.cpu(), k.cpu(), v.cpu(), window=40)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        pos = torch.arange(150, device=cuda_device, dtype=torch.int32)[None].expand(2, 150).contiguous()
+        buf = torch.full((2, 150, 6, D + 3), float("nan"), device=cuda_device)
+        out = buf[..., 1 : D + 1].transpose(1, 2)
+        res = t_fa.flash_attention(qh, kh, vh, pos, pos, causal=True, window=40, out=out)
+        torch.cuda.synchronize()
+        assert res.data_ptr() == out.data_ptr() and _fa_counts() == (0, 2)
+        torch.testing.assert_close(buf[..., 1 : D + 1].cpu(), want, rtol=1e-4, atol=2e-4)
+        assert bool(buf[..., 0].isnan().all()) and bool(buf[..., D + 1 :].isnan().all())
 
     def test_tf32_off(self, cuda_device):
         from repro_torch.device import resolve_device

@@ -4,8 +4,11 @@
 dtype, the head width, the views' shapes and strides and their data
 pointers: ``"mma"`` (tensor cores, bf16, D ≤ 128 with D % 8 == 0, 16-byte
 aligned pointers, strides of axes longer than 1 multiples of 8 elements)
-or ``"simt"`` (the CUDA-core kernel) for everything else.  The kernels
-run only on a card (tests/test_torch_cuda.py); the rule is held here.
+or ``"simt"`` (the CUDA-core kernel, ``csrc/flash_attention_panel.cu``)
+for everything else.  ``flash_attention_scalar``, the earlier CUDA-core
+kernel kept as the card's oracle of the ``"simt"`` route, takes CUDA
+tensors only.  The kernels run only on a card (tests/test_torch_cuda.py);
+the rules are held here.
 """
 
 import pytest
@@ -88,3 +91,33 @@ def test_cpu_call_counts_no_launch():
     out = tops.flash_attention(q, k, v)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     assert (t_fa.launches, t_fa.launches_mma, t_fa.launches_simt) == before
+
+
+@pytest.mark.parametrize("D", [1, 8, 24, 64, 120, 128, 129, 200, 256])
+@pytest.mark.parametrize("layout", ["contiguous", "model", "odd stride", "unaligned"])
+def test_every_f32_case_takes_simt(D, layout):
+    """f32 never reaches the tensor cores, whatever its width, layout or
+    alignment."""
+    if layout == "contiguous":
+        shapes, strides = _contiguous(2, 12, 2, 64, D)
+        ptrs = (0, 4096, 8192, 12288)
+    else:
+        q = torch.empty(2, 64, 12, D + (layout == "odd stride"))[..., :D]
+        k = torch.empty(2, 64, 2, D)
+        views = [t.transpose(1, 2) for t in (q, k, k.clone(), torch.empty_like(q))]
+        shapes, strides = [t.shape for t in views], [t.stride() for t in views]
+        ptrs = [t.data_ptr() + 4 * (layout == "unaligned") for t in views]
+    assert t_fa.route(torch.float32, D, shapes, strides, ptrs) == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalar_oracle_takes_cuda_tensors_only(dtype):
+    """flash_attention_scalar runs the earlier CUDA-core kernel or refuses:
+    no plain version for CPU tensors, and no launch counted."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, h, 20, 16, generator=g).to(dtype) for h in (4, 2, 2))
+    pos = torch.arange(20, dtype=torch.int32)[None]
+    before = (t_fa.launches, t_fa.launches_mma, t_fa.launches_simt, t_fa.launches_scalar)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        t_fa.flash_attention_scalar(q, k, v, pos, pos)
+    assert (t_fa.launches, t_fa.launches_mma, t_fa.launches_simt, t_fa.launches_scalar) == before

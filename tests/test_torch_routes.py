@@ -8,12 +8,16 @@ otherwise.  ``pairwise.strip_rows`` sizes the strips,
 ``assign.split_for`` the assign kernel's split of L across blocks (from
 its occupancy, read from the card) and ``pairwise.panel_plan`` the
 distance panel's persistent grid and its 16-byte stores.  The kernels run
-only on a card (tests/test_torch_cuda.py); the rules are held here.
+only on a card (tests/test_torch_cuda.py); the rules are held here, and
+so is the build's list of sources.
 """
+
+from pathlib import Path
 
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import assign as t_assign
 from repro_torch.kernels import bubble_cd as t_bcd
 from repro_torch.kernels import knn as t_knn
@@ -114,3 +118,12 @@ def test_tile_oracles_take_cuda_tensors_only(oracle):
         else:
             t_mr.mutual_reach_tile(x, y, cx, cy, n_valid=5)
     assert t_pw.launches_tile == t_mr.launches_tile == 0
+
+
+@pytest.mark.parametrize("suffix,listed", [(".cu", _build._SOURCES), (".cuh", _build._HEADERS)])
+def test_build_lists_every_source(suffix, listed):
+    """The library is built from every ``.cu`` under ``csrc/`` (and its
+    digest covers every header), so no kernel is left out of the build."""
+    csrc = Path(_build.__file__).with_name("csrc")
+    assert sorted(listed) == sorted(p.name for p in csrc.glob("*" + suffix))
+    assert len(set(listed)) == len(listed)
