@@ -31,9 +31,20 @@ Phases, each printing its own lines:
               blocks of 8192 (compression 0.02 → ~5,200 leaves, Lp = 8192),
               a quarter retired in blocks, 65,536 queries in chunks, and
               assign timed at the query shape (a 4096-row chunk against the
-              final snapshot's bucket); then the snapshots and the served
-              rows held against the port's own plain pipeline on the CPU,
-              one offline pass at Lp = 8192 timed stage by stage, and
+              final snapshot's bucket); the hierarchy kernels launched once
+              per offline pass and the plain hierarchy loops never on the
+              card; then the snapshots and the served rows held against the
+              port's own plain pipeline on the CPU; the three hierarchy
+              kernels (single-linkage, condense, EOM) against the plain
+              loops on the card on the full table's own Borůvka buffers
+              (Lp = 8192: integer fields, λ and weights bit for bit,
+              stabilities within 1e-5, a second run bit for bit), timed
+              beside the plain loops, with their bound (the larger of the
+              bytes and a latency floor of one shared-memory round trip per
+              dependent step); one offline pass at Lp = 8192 timed stage by
+              stage, end to end, under torch.profiler (device busy share),
+              and once more with no host synchronisation allowed between
+              prepare and unwrap (torch.cuda.set_sync_debug_mode); and
               passes at min_pts = 100 (warp-select) and 2000 (bubble_cd's
               strip route) on the full table held to the CPU plain pass by
               partition;
@@ -78,7 +89,9 @@ Phases, each printing its own lines:
      mutual_reach and pairwise with the tile kernel's as tile_ms;
      flash_attention with the qwen2-1.5b f32 case and the earlier
      CUDA-core kernel's time as scalar_ms, flash_attention_mma with the
-     qwen2-1.5b bf16 case);
+     qwen2-1.5b bf16 case; single_linkage, condense and eom, which stand
+     for the JAX package's three hierarchy scans, with the stage's time
+     as stage_ms and the latency floor as latency_floor_ms);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -130,6 +143,9 @@ ATTENTION = (
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
+# the hierarchy sweeps' latency floor: one dependent shared-memory round trip per step, ~30 cycles on Hopper,
+# at the H100 SXM's 1.98 GHz boost clock
+SMEM_ROUND_TRIP_S = 30 / 1.98e9
 EPS32 = float(np.finfo(np.float32).eps)
 # register-tile sources whose ptxas report [build] checks: knn_ws.cu and bubble_cd_ws.cu, 24 instantiations
 # each (D in {16, 32, 64, 128} x K in {32, ..., 1024}); assign_ws.cu, 4 (D) + the wide kernel + its combine;
@@ -599,8 +615,10 @@ def phase_stream(dev):
     import torch
 
     from repro_torch import StreamingClusterEngine
+    from repro_torch.core import hierarchy as th
     from repro_torch.kernels import assign as k_assign
     from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import hierarchy as k_h
     from repro_torch.kernels import mutual_reach as k_mr
 
     rng = np.random.default_rng(SEED + 1)
@@ -619,6 +637,20 @@ def phase_stream(dev):
     for mod in (k_assign, k_bcd, k_mr):
         mod.launches = 0
     k_bcd.launches_lane = k_mr.launches_tile = 0
+    k_h.launches_single_linkage = k_h.launches_condense = k_h.launches_eom = 0
+    plain = {name: getattr(th, name) for name in ("single_linkage_fixed", "condense_fixed", "eom_loop")}
+    plain_on_card = []
+
+    def watched(name, fn):  # counts the plain hierarchy loops' calls on CUDA tensors
+        def call(*args, **kw):
+            first = args[0][0] if isinstance(args[0], tuple) else args[0]
+            if first.is_cuda:
+                plain_on_card.append(name)
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in plain.items():
+        setattr(th, name, watched(name, fn))
     torch.cuda.reset_peak_memory_stats()
     t_stream = time.perf_counter()
     ingest_s, pids = 0.0, []
@@ -652,7 +684,12 @@ def phase_stream(dev):
         served.append(eng.query_detailed(Qs[i : i + QUERY_CHUNK]))
         lat.append((time.perf_counter() - t0) * 1e3)
     stream_s = time.perf_counter() - t_stream
-    launches = {"assign": k_assign.launches, "bubble_cd": k_bcd.launches, "mutual_reach": k_mr.launches}
+    for name, fn in plain.items():
+        setattr(th, name, fn)
+    launches = {"assign": k_assign.launches, "bubble_cd": k_bcd.launches, "mutual_reach": k_mr.launches,
+                "single_linkage": k_h.launches_single_linkage, "condense": k_h.launches_condense,
+                "eom": k_h.launches_eom}
+    n_passes = eng.stats["recluster_count"]
 
     say(f"[stream] {N_POINTS} points d={DIM} in blocks of {BLOCK}, {len(drop)} retired, "
         f"{N_QUERIES} queries in chunks of {QUERY_CHUNK}: {stream_s:.2f} s wall, "
@@ -662,6 +699,12 @@ def phase_stream(dev):
         check(n > 0, f"kernel {name} never launched on the stream")
     check(k_bcd.launches_lane == 0, "the per-lane bubble_cd kernel ran on the stream")
     check(k_mr.launches_tile == 0, "the mutual_reach tile kernel ran on the stream")
+    say(f"[stream] {n_passes} offline passes; hierarchy kernel launches per pass: single_linkage "
+        f"{launches['single_linkage'] / n_passes:g}, condense {launches['condense'] / n_passes:g}, eom "
+        f"{launches['eom'] / n_passes:g}; plain hierarchy loops on the card: {len(plain_on_card)}")
+    check(all(launches[k] == n_passes for k in ("single_linkage", "condense", "eom")),
+          f"hierarchy kernels not launched once per offline pass ({n_passes} passes): {launches}")
+    check(not plain_on_card, f"the plain hierarchy loops ran on the card: {sorted(set(plain_on_card))}")
     say(f"[stream] ingest {ingest_s / N_POINTS * 1e6:.3f} ms per 1k points (host tree + assign kernel, "
         f"offline passes excluded); retire {retire_s / len(drop) * 1e6:.3f} ms per 1k points")
     say(f"[stream] offline passes (L, Lp, ms): {[(a, b, round(c, 1)) for a, b, c in passes]}")
@@ -765,12 +808,122 @@ def phase_cpu_check(run):
     check_served("check", run["snap_last"], run["Qs"], run["served"])
 
 
-def phase_stages(dev, table):
-    """One offline pass at Lp = 8192 through the engine's own entry point,
-    ops.offline_recluster_from_table, each stage timed through its
-    ``stage`` hook."""
+def hierarchy_bound(nbytes: float, steps: int):
+    """The larger of the bytes' time at the card's memory rate and the
+    latency floor of ``steps`` dependent steps (one shared-memory round
+    trip each); ("operations" when the floor binds)."""
+    t_bytes, t_lat = nbytes / PEAK_BYTES * 1e3, steps * SMEM_ROUND_TRIP_S * 1e3
+    return max(t_bytes, t_lat), ("bytes" if t_bytes >= t_lat else "operations"), t_lat
+
+
+def same_arrays(name, got, want):
+    """Every field of two hierarchy NamedTuples bit for bit, stabilities
+    within RTOL."""
     import torch
 
+    for field in want._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{name}.{field}: shape or dtype differs")
+        if field == "stability":
+            check(bool(torch.allclose(g, w, rtol=RTOL, atol=0)), f"{name}.{field}: beyond {RTOL} relative")
+        else:
+            check(bool(torch.equal(g, w)), f"{name}.{field}: differs")
+
+
+def phase_hierarchy(dev, table):
+    """The three hierarchy kernels against the plain loops on the card, on
+    the offline pass's own Borůvka buffers for the stream's full table
+    (Lp = 8192), with kernel, stage and plain times and the bound; returns
+    the per-kernel numbers for the JSON line."""
+    import torch
+
+    from repro_torch.core import hierarchy as th
+    from repro_torch.kernels import hierarchy as k_h
+    from repro_torch.kernels import ops
+
+    rep, extent, n_b, _ = table
+    L = rep.shape[0]
+    seen = {}
+
+    def capture(name, fn, *args, **kw):
+        seen[name] = fn(*args, **kw)
+        return seen[name]
+
+    ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=capture)
+    eu, ev, ew, valid = seen["boruvka"]
+    nb = seen["prepare"][0][1]
+    Lp, M, mcs = eu.shape[0], eu.shape[0] - 1, float(MIN_PTS)
+    check(Lp == LP, f"the full table's bucket is {Lp}, not {LP}")
+
+    def kernels():
+        u_s, v_s, w_s = th.sorted_edges(eu, ev, ew, valid, L)
+        slt = k_h.single_linkage_sorted(u_s, v_s, w_s, nb)
+        ct = k_h.condense(slt, nb, mcs)
+        stab = th.stabilities(ct)
+        return (u_s, v_s, w_s), slt, ct, stab, k_h.eom_sweep(stab, ct.cluster_parent, ct.n_labels), k_h.extract(ct)
+
+    edges, slt, ct, stab, (sel, kids), ex = kernels()
+    p_slt = th.single_linkage_fixed(eu, ev, ew, valid, L, nb)
+    p_ct = th.condense_fixed(p_slt, nb, mcs)
+    p_sel, p_kids = th.eom_loop(stab, ct.cluster_parent, ct.n_labels)
+    p_ex = th.extract_fixed(p_ct)
+    same_arrays("single_linkage", slt, p_slt)
+    same_arrays("condense", ct, p_ct)
+    check(bool(torch.equal(sel, p_sel)) and bool(torch.equal(kids.long(), p_kids)), "eom: selection or child counts")
+    same_arrays("extract", ex, p_ex)
+    again = kernels()
+    for name, a, b in (("single_linkage", slt, again[1]), ("condense", ct, again[2]), ("extract", ex, again[5])):
+        for field in a._fields:
+            check(bool(torch.equal(getattr(a, field), getattr(b, field))), f"{name}.{field}: a second run differs")
+    check(bool(torch.equal(stab, again[3])) and bool(torch.equal(sel, again[4][0])), "eom: a second run differs")
+    n_labels = int(ct.n_labels)
+    n_skipped = int((slt.left == 2 * Lp - 1).sum())
+    say(f"[kernels] hierarchy at Lp={Lp} (L={L}, the stream's full table, min_cluster_size {mcs:g}): "
+        f"{n_labels} condensed labels, {int(ex.n_clusters)} clusters, {n_skipped} skipped merges; every field of "
+        f"single-linkage, condense and extract identical to the plain loops on the card (stabilities within "
+        f"{RTOL}: identical as well: {bool(torch.equal(ex.stability, p_ex.stability))}), and EOM's selection and "
+        f"child counts; a second run identical")
+
+    u_s, v_s, w_s = edges
+    n_slots = 2 * Lp + 1
+    runs = {
+        "single_linkage": (lambda: k_h.single_linkage_sorted(u_s, v_s, w_s, nb),
+                           lambda: k_h.single_linkage(eu, ev, ew, valid, L, nb),
+                           lambda: th.single_linkage_fixed(eu, ev, ew, valid, L, nb),
+                           24.0 * Lp + 16.0 * M, M),
+        "condense": (lambda: k_h.condense(slt, nb, mcs), lambda: k_h.condense(slt, nb, mcs),
+                     lambda: th.condense_fixed(slt, nb, mcs), 12.0 * M + 16.0 * Lp + 12.0 * n_slots + 4, M),
+        "eom": (lambda: k_h.eom_sweep(stab, ct.cluster_parent, ct.n_labels), lambda: k_h.extract(ct),
+                lambda: th.eom_loop(stab, ct.cluster_parent, ct.n_labels), 13.0 * n_slots + 4, n_labels),
+    }
+    out = {}
+    for name, (kernel, stage_fn, plain, nbytes, steps) in runs.items():
+        ms = time_ms(kernel, reps=20)
+        stage_ms = time_ms(stage_fn, reps=20)
+        host = host_ms(stage_fn)
+        plain_ms = time_ms(plain, reps=1, warm=0)
+        b, by, floor = hierarchy_bound(nbytes, steps)
+        say(f"[kernels] hierarchy {name}: kernel {ms:.4f} ms, stage {stage_ms:.4f} ms (host enqueue {host:.4f} ms "
+            f"per call), plain loop {plain_ms:.2f} ms, bound {b:.4f} ms ({'latency floor of ' if by == 'operations' else ''}"
+            f"{steps} dependent steps x 30 cycles at 1.98 GHz {floor:.4f} ms; {nbytes / 1e6:.3f} MB at 3.35 TB/s "
+            f"{nbytes / PEAK_BYTES * 1e3:.5f} ms); library none")
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+                         stage_ms=stage_ms, latency_floor_ms=floor)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stages(dev, table):
+    """One offline pass at Lp = 8192 through the engine's own entry point,
+    ops.offline_recluster_from_table: each stage timed through its
+    ``stage`` hook, then the pass end to end, under torch.profiler, and
+    once with any host synchronisation from bubble_cd to extract made an
+    error (``torch.cuda.set_sync_debug_mode``; PyTorch notes that the mode
+    does not yet see every synchronising operation)."""
+    import torch
+
+    from repro_torch.kernels import hierarchy as k_h
     from repro_torch.kernels import ops
 
     rep, extent, n_b, _ = table
@@ -791,6 +944,63 @@ def phase_stages(dev, table):
     total = sum(times.values())
     say(f"[stages] one offline pass at L={L}, Lp={ops._pow2_rows(L)} (ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) + f"; total {total:.2f}")
+    walls = []
+    for _ in range(3):  # end to end: the unwrap is the pass's one synchronisation
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    say(f"[stages] the same pass end to end, no synchronisation but the unwrap's (ms): "
+        + ", ".join(f"{w:.2f}" for w in walls))
+    phase_profile(dev, table, float(np.median(walls)))
+
+    def no_sync(name, fn, *args, **kw):  # any host synchronisation between prepare and unwrap raises
+        if name in ("prepare", "unwrap"):
+            return fn(*args, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    before = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom)
+    torch.cuda.synchronize()
+    res2 = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=no_sync)
+    after = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom)
+    check(_same_partition(res2.labels, res.labels), "the pass under the sync debug mode differs")
+    check(all(a - b == 1 for a, b in zip(after, before)), f"hierarchy launches in one pass: {before} -> {after}")
+    say("[stages] the same pass with torch.cuda.set_sync_debug_mode('error') from bubble_cd to extract: no host "
+        "synchronisation raised; the hierarchy kernels launched once each")
+
+
+def phase_profile(dev, table, wall_ms: float):
+    """One offline pass under torch.profiler: the device's busy time (the
+    sum of its kernels', copies' and fills' times; one stream, so they do
+    not overlap) against ``wall_ms``, the untraced pass's wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    rep, extent, n_b, _ = table
+    ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    if busy <= 0:
+        say(f"[stages] torch.profiler: no device time in the trace (traced wall {wall:.2f} ms); idle share not "
+            f"measured")
+        return
+    say(f"[stages] torch.profiler, one pass: {len(events)} device functions, {sum(e.count for e in events)} "
+        f"launches, device busy {busy:.3f} ms (traced wall {wall:.2f} ms); against the untraced wall "
+        f"{wall_ms:.2f} ms: idle share {1 - busy / wall_ms:.3f}; top device time (ms): "
+        + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
 
 
 def phase_wide(dev):
@@ -806,6 +1016,7 @@ def phase_wide(dev):
     from repro_torch import StreamingClusterEngine
     from repro_torch.kernels import assign as k_assign
     from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import hierarchy as k_h
     from repro_torch.kernels import mutual_reach as k_mr
 
     rng = np.random.default_rng(SEED + 3)
@@ -816,6 +1027,7 @@ def phase_wide(dev):
     for mod in (k_assign, k_bcd, k_mr):
         mod.launches = 0
     k_bcd.launches_ws = k_bcd.launches_strip = 0
+    k_h.launches_single_linkage = k_h.launches_condense = k_h.launches_eom = 0
     snaps = []
 
     def note_pass(before):
@@ -835,11 +1047,13 @@ def phase_wide(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"assign": k_assign.launches, "bubble_cd ws": k_bcd.launches_ws,
-                "bubble_cd strip": k_bcd.launches_strip, "mutual_reach": k_mr.launches}
+                "bubble_cd strip": k_bcd.launches_strip, "mutual_reach": k_mr.launches,
+                "hierarchy": [k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom]}
     say(f"[wide] {N_WIDE} points d={WIDE_DIM} in blocks of {BLOCK}, {N_WIDE_QUERIES} queries: {wall:.2f} s wall, "
         f"{len(snaps)} offline passes at L = {[sn.n_bubbles for sn, _ in snaps]}; launches {json.dumps(launches)}")
     check(launches["assign"] > 0 and launches["mutual_reach"] == len(snaps) and launches["bubble_cd ws"] == 0
-          and launches["bubble_cd strip"] == len(snaps), f"d={WIDE_DIM} stream: launches {launches}")
+          and launches["bubble_cd strip"] == len(snaps) and launches["hierarchy"] == [len(snaps)] * 3,
+          f"d={WIDE_DIM} stream: launches {launches}")
     check(len(snaps) > 0, f"d={WIDE_DIM} stream: no offline pass")
     for k, (snap, table) in enumerate(snaps):
         check_snapshot("wide", f"pass {k + 1}", snap, table, MIN_PTS)
@@ -1424,6 +1638,7 @@ def main() -> int:
     run = phase_stream(dev)
     assign_at_query_shape(dev, run)
     phase_cpu_check(run)
+    numbers.update(phase_hierarchy(dev, run["table_full"]))
     phase_stages(dev, run["table_full"])
     phase_min_pts(dev, run["table_full"])
     phase_wide(dev)
@@ -1439,7 +1654,11 @@ def main() -> int:
                "knn": ("knn_ws.cu", "src/repro/kernels/knn.py:34"),
                "pairwise": ("dist_panel.cu", "src/repro/kernels/pairwise.py:30"),
                "flash_attention": ("flash_attention_panel.cu", "src/repro/kernels/flash_attention.py:38"),
-               "flash_attention_mma": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38")}
+               "flash_attention_mma": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38"),
+               # no Pallas kernel: the JAX package's lax.scan sweeps of the hierarchy
+               "single_linkage": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:195"),
+               "condense": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:265"),
+               "eom": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:336")}
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

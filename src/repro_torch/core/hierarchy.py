@@ -12,14 +12,16 @@ with the same padding scheme, array layouts and dense cluster labels
 
 The O(Lp) scans of the reference (union-find single-linkage, the
 top-down condense sweep, bottom-up EOM) are Python loops of small tensor
-operations on the engine's device, with no host sync inside a loop: an
-offline pass therefore costs Lp × (operations per step) kernel launches
-here.  The EOM sweep reads the label count once before it starts and
-visits only the labels in use (the reference's fixed 2·Lp-step scan
-only writes trash slots past them).  Selection blocking and label
-resolution are pointer-doubling sweeps of ⌈log₂ C⌉ + 1 vector steps.
-Scatter-adds use ``index_put_(accumulate=True)``, which sums in a fixed
-order on both devices.
+operations here: the plain versions, which CPU tensors run and the card's
+tests hold the CUDA kernels to.  On the card, ``kernels/hierarchy.py``
+runs the three sweeps as kernels around the same vector steps
+(``sorted_edges``, ``stabilities``, ``flat_labels``).  The EOM loop reads
+the label count once before it starts and visits only the labels in use
+(the reference's fixed 2·Lp-step scan only writes trash slots past them).
+Selection blocking and label resolution are pointer-doubling sweeps of
+⌈log₂ C⌉ + 1 vector steps.  Scatter-adds use
+``index_put_(accumulate=True)``, which sums in a fixed order on each
+device.
 """
 
 from __future__ import annotations
@@ -34,8 +36,12 @@ __all__ = [
     "SingleLinkageArrays",
     "CondensedArrays",
     "ExtractionArrays",
+    "sorted_edges",
     "single_linkage_fixed",
     "condense_fixed",
+    "stabilities",
+    "eom_loop",
+    "flat_labels",
     "extract_fixed",
     "hierarchy_fixed",
 ]
@@ -83,6 +89,26 @@ class ExtractionArrays(NamedTuple):
     n_clusters: torch.Tensor  # () int32
 
 
+def sorted_edges(eu, ev, ew, valid, n_valid: int):
+    """The merge order: pad merges synthesized (the j-th invalid slot joins
+    pad leaf ``n_valid + j`` to node 0 at ``PAD_DIST``, surplus slots park
+    at +inf), then a stable sort on weight.  Returns the (Lp,) int64 ends
+    and f32 weights; no host sync."""
+    Lp = eu.shape[0]
+    eu, ev = eu.long(), ev.long()
+    ew = ew.float()
+    valid = valid.bool()
+    inv_rank = torch.cumsum((~valid).long(), 0) - 1
+    pad_leaf = int(n_valid) + inv_rank
+    is_pad = (~valid) & (pad_leaf < Lp)
+    u_e = torch.where(valid, eu, torch.where(is_pad, pad_leaf, 0))
+    v_e = torch.where(valid, ev, 0)
+    pad_w = torch.full_like(ew, float("inf")).masked_fill_(is_pad, PAD_DIST)
+    w_e = torch.where(valid, ew, pad_w)
+    order = torch.sort(w_e, stable=True).indices
+    return u_e[order], v_e[order], w_e[order]
+
+
 def single_linkage_fixed(eu, ev, ew, valid, n_valid: int, weights) -> SingleLinkageArrays:
     """Edge-sorted union-find single-linkage over padded edge buffers
     (exactly ``n_valid - 1`` valid edges for a connected valid block).
@@ -92,20 +118,8 @@ def single_linkage_fixed(eu, ev, ew, valid, n_valid: int, weights) -> SingleLink
     Lp = eu.shape[0]
     M = Lp - 1
     trash_node = 2 * Lp - 1
-    eu, ev = eu.long(), ev.long()
-    ew = ew.float()
-    valid = valid.bool()
-
-    inv_rank = torch.cumsum((~valid).long(), 0) - 1
-    pad_leaf = int(n_valid) + inv_rank
-    is_pad = (~valid) & (pad_leaf < Lp)
-    u_e = torch.where(valid, eu, torch.where(is_pad, pad_leaf, 0))
-    v_e = torch.where(valid, ev, 0)
-    pad_w = torch.where(is_pad, torch.tensor(PAD_DIST, dtype=torch.float32, device=dev), float("inf"))
-    w_e = torch.where(valid, ew, pad_w)
-    order = torch.sort(w_e, stable=True).indices
-    uv_s = torch.stack([u_e[order], v_e[order]], 1)  # (Lp, 2)
-    w_s = w_e[order]
+    u_s, v_s, w_s = sorted_edges(eu, ev, ew, valid, n_valid)
+    uv_s = torch.stack([u_s, v_s], 1)  # (Lp, 2)
 
     comp = torch.arange(Lp, device=dev)
     node_of_comp = torch.cat([comp, torch.tensor([trash_node], device=dev)])  # slot Lp: trash
@@ -198,34 +212,25 @@ def extract_fixed(ct: CondensedArrays, method: str = "eom",
     over the labels in use (children are final when their parent is
     visited); selection blocking and label resolution by pointer
     doubling."""
-    if method not in ("eom", "leaf"):
-        raise ValueError(f"unknown extraction method {method!r} (want eom|leaf)")
-    dev = ct.cluster_parent.device
-    C = ct.cluster_parent.shape[0] - 1
-    trash = C
-    ids = torch.arange(C + 1, device=dev)
-    n_labels = ct.n_labels.long()
-    in_use = ids < n_labels
-    parent = ct.cluster_parent.long()
-    pp = ct.point_parent.long()
+    check_method(method)
+    stab = stabilities(ct)
+    sel, kid_count = eom_loop(stab, ct.cluster_parent, ct.n_labels)
+    return flat_labels(ct, stab, sel, kid_count, method, allow_single_cluster)
 
-    birth = ct.cluster_birth
-    stab = torch.zeros(C + 1, dtype=torch.float32, device=dev)
-    stab.index_put_((pp,), (ct.point_lambda - birth[pp]) * ct.point_weight, accumulate=True)
-    row_mask = in_use & (ids >= 1)
-    par_of = torch.where(row_mask, parent, trash)
-    stab.index_put_(
-        (par_of,), torch.where(row_mask, (birth - birth[par_of]) * ct.cluster_weight, 0.0),
-        accumulate=True)
 
-    # bottom-up EOM: selected iff stability ≥ Σ selected-descendant; the
-    # subtree sum flips through the selection flag, so it stays a sweep.
-    # One host read of the label count bounds it.
-    acc = torch.zeros(C + 1, dtype=torch.float32, device=dev)
-    kid_count = torch.zeros(C + 1, dtype=torch.long, device=dev)
-    sel = torch.zeros(C + 1, dtype=torch.bool, device=dev)
+def eom_loop(stab, cluster_parent, n_labels):
+    """Bottom-up EOM over the labels in use: selected iff stability ≥ Σ
+    selected-descendant; the subtree sum flips through the selection flag,
+    so it stays a sweep.  One host read of the label count bounds it.
+    Returns the (C+1,) bool selection and int64 child counts."""
+    dev = stab.device
+    n_slots = stab.shape[0]
+    parent = cluster_parent.long()
+    acc = torch.zeros(n_slots, dtype=torch.float32, device=dev)
+    kid_count = torch.zeros(n_slots, dtype=torch.long, device=dev)
+    sel = torch.zeros(n_slots, dtype=torch.bool, device=dev)
     one = torch.ones(1, dtype=torch.long, device=dev)
-    for c in range(int(ct.n_labels) - 1, -1, -1):
+    for c in range(int(n_labels) - 1, -1, -1):
         s, ksum = stab[c : c + 1], acc[c : c + 1]
         is_sel = (kid_count[c : c + 1] == 0) | (s >= ksum)
         sel[c : c + 1] = is_sel
@@ -233,7 +238,44 @@ def extract_fixed(ct: CondensedArrays, method: str = "eom",
             p = parent[c : c + 1]
             acc.index_put_((p,), torch.where(is_sel, s, ksum), accumulate=True)
             kid_count.index_put_((p,), one, accumulate=True)
+    return sel, kid_count
 
+
+def check_method(method: str) -> None:
+    if method not in ("eom", "leaf"):
+        raise ValueError(f"unknown extraction method {method!r} (want eom|leaf)")
+
+
+def stabilities(ct: CondensedArrays) -> torch.Tensor:
+    """stability(c) = Σ (λ_row − λ_birth(c)) · w_row over the leaves and
+    the child labels of c, by two scatter-adds; (C+1,) f32."""
+    dev = ct.cluster_parent.device
+    C = ct.cluster_parent.shape[0] - 1
+    ids = torch.arange(C + 1, device=dev)
+    row_mask = (ids < ct.n_labels.long()) & (ids >= 1)
+    pp = ct.point_parent.long()
+    birth = ct.cluster_birth
+    stab = torch.zeros(C + 1, dtype=torch.float32, device=dev)
+    stab.index_put_((pp,), (ct.point_lambda - birth[pp]) * ct.point_weight, accumulate=True)
+    par_of = torch.where(row_mask, ct.cluster_parent.long(), C)
+    stab.index_put_(
+        (par_of,), torch.where(row_mask, (birth - birth[par_of]) * ct.cluster_weight, 0.0),
+        accumulate=True)
+    return stab
+
+
+def flat_labels(ct: CondensedArrays, stab, sel, kid_count, method: str,
+                allow_single_cluster: bool) -> ExtractionArrays:
+    """From the EOM sweep's selection flags and child counts: selection
+    blocking (EOM) or the childless labels (leaf), then each leaf's flat
+    label, by pointer doubling; no host sync."""
+    dev = ct.cluster_parent.device
+    C = ct.cluster_parent.shape[0] - 1
+    trash = C
+    ids = torch.arange(C + 1, device=dev)
+    in_use = ids < ct.n_labels.long()
+    parent = ct.cluster_parent.long()
+    pp = ct.point_parent.long()
     n_jumps = max(C - 1, 1).bit_length() + 1
     parent_or_trash = torch.where(in_use & (ids >= 1), parent, trash)
     if method == "leaf":
@@ -264,8 +306,12 @@ def extract_fixed(ct: CondensedArrays, method: str = "eom",
 
 def hierarchy_fixed(eu, ev, ew, valid, n_valid: int, weights, min_cluster_size: float,
                     method: str = "eom", allow_single_cluster: bool = False):
-    """MST buffers → (SingleLinkageArrays, CondensedArrays, ExtractionArrays)."""
-    slt = single_linkage_fixed(eu, ev, ew, valid, n_valid, weights)
-    ct = condense_fixed(slt, weights, min_cluster_size)
-    ex = extract_fixed(ct, method=method, allow_single_cluster=allow_single_cluster)
+    """MST buffers → (SingleLinkageArrays, CondensedArrays, ExtractionArrays):
+    the sweeps' CUDA kernels for CUDA tensors, the plain loops above for CPU
+    tensors (``kernels/hierarchy.py``)."""
+    from ..kernels import hierarchy as _kernels  # kernels/hierarchy.py imports this module
+
+    slt = _kernels.single_linkage(eu, ev, ew, valid, n_valid, weights)
+    ct = _kernels.condense(slt, weights, min_cluster_size)
+    ex = _kernels.extract(ct, method=method, allow_single_cluster=allow_single_cluster)
     return slt, ct, ex

@@ -1,0 +1,208 @@
+"""The offline pass's hierarchy sweeps: CUDA kernels and plain versions.
+
+Replaces the three O(Lp) ``lax.scan`` sweeps of the JAX package's
+``repro/core/hierarchy_jax.py`` (single-linkage, the top-down condense
+sweep and the bottom-up EOM sweep of ``extract_fixed``), which the
+reference runs inside one jit; it has no Pallas kernel for them.  The
+plain versions are the torch loops of ``core/hierarchy.py``: a tensor on
+the CPU runs them, a CUDA tensor runs the kernels of ``csrc/hierarchy.cu``
+and any other device raises.
+
+On the card each sweep is one launch of one thread block, and nothing
+between the Borůvka buffers and the outputs reads the host:
+
+* ``single_linkage``: the pad-merge synthesis and the stable sort stay
+  torch ops (``core.hierarchy.sorted_edges``), then the kernel runs the
+  Lp − 1 merges as a union-find;
+* ``condense``: the kernel computes the per-merge constants (λ, child
+  weights) and walks the merges from the root down;
+* ``extract``: the two stability scatter-adds stay
+  ``index_put_(accumulate=True)`` on the device (a sorted, fixed-order
+  sum: no float atomics, so two runs give the same bits), the kernel runs
+  the EOM sweep over the labels in use, reading their count from device
+  memory, and selection blocking and label resolution stay the plain
+  version's pointer-doubling vector steps.
+
+Bound on the H100: latency, a chain of dependent steps per sweep (see the
+source).  The state a sweep reads back lives in shared memory where
+``plan`` says it fits, else in a scratch buffer allocated here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import hierarchy as _plain
+from . import _build
+
+__all__ = ["single_linkage", "single_linkage_sorted", "condense", "extract", "eom_sweep", "plan"]
+
+launches_single_linkage = 0  # kernel launches since the last reset (chip_smoke.py reads them)
+launches_condense = 0
+launches_eom = 0
+
+SMEM_BYTES = 232_448  # dynamic shared memory one block may opt in to on sm_90
+CHUNK = 1024  # steps per staged chunk of csrc/hierarchy.cu; its ring holds two
+_RING = {"single_linkage": 2 * CHUNK * 12, "condense": 2 * CHUNK * 20, "eom": 0}
+MAX_LP = 1 << 29  # node ids 0 .. 2·Lp and label slots 0 .. 2·Lp in int32
+
+
+def _state_bytes(kind: str, Lp: int) -> int:
+    if kind == "single_linkage":
+        return 12 * Lp  # parent, node of root, weight of root
+    if kind == "condense":
+        return 8 * Lp + (Lp + 3) // 4 * 4  # label, entry λ, fallen flag per internal node
+    return 8 * (2 * Lp + 1)  # EOM: sum and child count per label slot
+
+
+def plan(kind: str, Lp: int) -> tuple[bool, int]:
+    """(state in shared memory?, scratch bytes) of one sweep's kernel at
+    bucket Lp: the state goes to shared memory when it and the staging
+    ring fit one block's ``SMEM_BYTES``, else to a device scratch buffer
+    of the returned size (0 with shared memory)."""
+    state = _state_bytes(kind, Lp)
+    if state + _RING[kind] <= SMEM_BYTES:
+        return True, 0
+    return False, state
+
+
+def _on_card(name: str, *ts) -> bool:
+    """True for CUDA tensors (the kernel), False for CPU ones (the plain
+    version); raises on mixed or other devices."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name} inputs on different devices")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    return True
+
+
+def _scratch(kind: str, Lp: int, dev) -> tuple[bool, torch.Tensor]:
+    smem, nbytes = plan(kind, Lp)
+    return smem, torch.empty(nbytes // 4, dtype=torch.int32, device=dev)  # empty (null) with shared memory
+
+
+def _i32(t):
+    return t.to(torch.int32).contiguous()
+
+
+def _f32(t):
+    return t.to(torch.float32).contiguous()
+
+
+def single_linkage(eu, ev, ew, valid, n_valid: int, weights) -> _plain.SingleLinkageArrays:
+    """(Lp,) Borůvka buffers (int ends, float weights, bool valid) and
+    (Lp,) leaf weights → the merge records of ``core.hierarchy``'s
+    ``SingleLinkageArrays``."""
+    Lp = eu.shape[0]
+    if any(t.shape != (Lp,) for t in (eu, ev, ew, valid, weights)):
+        raise ValueError("single_linkage wants (Lp,) edge buffers and weights")
+    if not _on_card("single_linkage", eu, ev, ew, valid, weights):
+        return _plain.single_linkage_fixed(eu, ev, ew, valid, n_valid, weights)
+    return single_linkage_sorted(*_plain.sorted_edges(eu, ev, ew, valid, n_valid), weights)
+
+
+def single_linkage_sorted(u_s, v_s, w_s, weights) -> _plain.SingleLinkageArrays:
+    """The single-linkage kernel alone, CUDA tensors only: the Lp − 1
+    merges over ``core.hierarchy.sorted_edges``'s (Lp,) ends and weights."""
+    global launches_single_linkage
+    Lp = u_s.shape[0]
+    if any(t.shape != (Lp,) for t in (v_s, w_s, weights)) or not _on_card("single_linkage", u_s, v_s, w_s, weights):
+        raise ValueError("single_linkage_sorted runs the kernel: it takes (Lp,) CUDA tensors only")
+    if not 2 <= Lp <= MAX_LP:
+        raise ValueError(f"the single_linkage kernel takes 2 <= Lp <= {MAX_LP}, got {Lp}")
+    dev, M = u_s.device, Lp - 1
+    u_s, v_s, w_s, weights = _i32(u_s), _i32(v_s), _f32(w_s), _f32(weights)
+    left = torch.empty(M, dtype=torch.int32, device=dev)
+    right = torch.empty(M, dtype=torch.int32, device=dev)
+    dist = torch.empty(M, dtype=torch.float32, device=dev)
+    weight = torch.empty(M, dtype=torch.float32, device=dev)
+    node_weight = torch.empty(2 * Lp, dtype=torch.float32, device=dev)
+    smem, scratch = _scratch("single_linkage", Lp, dev)
+    with torch.cuda.device(dev):
+        code = _build.load().repro_single_linkage_f32(
+            u_s.data_ptr(), v_s.data_ptr(), w_s.data_ptr(), weights.data_ptr(), Lp, int(smem), scratch.data_ptr(),
+            left.data_ptr(), right.data_ptr(), dist.data_ptr(), weight.data_ptr(), node_weight.data_ptr(),
+            _build.current_stream(dev))
+    _build.check(code, "single_linkage")
+    launches_single_linkage += 1
+    return _plain.SingleLinkageArrays(left, right, dist, weight, node_weight)
+
+
+def condense(slt: _plain.SingleLinkageArrays, weights, min_cluster_size: float) -> _plain.CondensedArrays:
+    """Merge records → the array-form condensed tree (``CondensedArrays``)."""
+    global launches_condense
+    M = slt.left.shape[0]
+    Lp = M + 1
+    if (any(t.shape != (M,) for t in (slt.left, slt.right, slt.dist))
+            or slt.node_weight.shape != (2 * Lp,) or weights.shape != (Lp,)):
+        raise ValueError("condense wants (Lp-1,) merge records, (2·Lp,) node weights and (Lp,) weights")
+    if not _on_card("condense", slt.left, slt.right, slt.dist, slt.node_weight, weights):
+        return _plain.condense_fixed(slt, weights, min_cluster_size)
+    if not 2 <= Lp <= MAX_LP:
+        raise ValueError(f"the condense kernel takes 2 <= Lp <= {MAX_LP}, got {Lp}")
+    dev, C = slt.left.device, 2 * Lp
+    left, right, dist, node_weight = _i32(slt.left), _i32(slt.right), _f32(slt.dist), _f32(slt.node_weight)
+    point_parent = torch.empty(Lp, dtype=torch.int32, device=dev)
+    point_lambda = torch.empty(Lp, dtype=torch.float32, device=dev)
+    cluster_parent = torch.empty(C + 1, dtype=torch.int32, device=dev)
+    cluster_birth = torch.empty(C + 1, dtype=torch.float32, device=dev)
+    cluster_weight = torch.empty(C + 1, dtype=torch.float32, device=dev)
+    n_labels = torch.empty((), dtype=torch.int32, device=dev)
+    smem, scratch = _scratch("condense", Lp, dev)
+    with torch.cuda.device(dev):
+        code = _build.load().repro_condense_f32(
+            left.data_ptr(), right.data_ptr(), dist.data_ptr(), node_weight.data_ptr(), Lp,
+            float(min_cluster_size), int(smem), scratch.data_ptr(), point_parent.data_ptr(),
+            point_lambda.data_ptr(), cluster_parent.data_ptr(), cluster_birth.data_ptr(), cluster_weight.data_ptr(),
+            n_labels.data_ptr(), _build.current_stream(dev))
+    _build.check(code, "condense")
+    launches_condense += 1
+    return _plain.CondensedArrays(
+        point_parent=point_parent, point_lambda=point_lambda, point_weight=weights.float(),
+        cluster_parent=cluster_parent, cluster_birth=cluster_birth, cluster_weight=cluster_weight,
+        n_labels=n_labels)
+
+
+def extract(ct: _plain.CondensedArrays, method: str = "eom",
+            allow_single_cluster: bool = False) -> _plain.ExtractionArrays:
+    """Stabilities, EOM (or leaf) selection and per-leaf flat labels
+    (``ExtractionArrays``)."""
+    _plain.check_method(method)
+    n_slots = ct.cluster_parent.shape[0]
+    if (any(t.shape != (n_slots,) for t in (ct.cluster_birth, ct.cluster_weight)) or ct.n_labels.shape != ()
+            or ct.point_lambda.shape != ct.point_parent.shape or ct.point_weight.shape != ct.point_parent.shape):
+        raise ValueError("extract wants (C+1,) label arrays, a () label count and matching leaf arrays")
+    if not _on_card("extract", ct.cluster_parent, ct.cluster_birth, ct.n_labels, ct.point_parent):
+        return _plain.extract_fixed(ct, method=method, allow_single_cluster=allow_single_cluster)
+    stab = _plain.stabilities(ct)
+    sel, kid_count = eom_sweep(stab, ct.cluster_parent, ct.n_labels)
+    return _plain.flat_labels(ct, stab, sel, kid_count, method, allow_single_cluster)
+
+
+def eom_sweep(stab, cluster_parent, n_labels):
+    """The EOM kernel alone, CUDA tensors only: ``core.hierarchy.eom_loop``
+    over (2·Lp + 1,) stabilities and parents with the label count read on
+    the device.  Returns the bool selection and int32 child counts."""
+    global launches_eom
+    n_slots = stab.shape[0]
+    if (cluster_parent.shape != (n_slots,) or n_labels.shape != ()
+            or not _on_card("eom", stab, cluster_parent, n_labels)):
+        raise ValueError("eom_sweep runs the kernel: it takes (C+1,), (C+1,) and () CUDA tensors only")
+    Lp = (n_slots - 1) // 2
+    if n_slots != 2 * Lp + 1 or not 2 <= Lp <= MAX_LP:
+        raise ValueError(f"the eom kernel takes 2·Lp + 1 label slots, 2 <= Lp <= {MAX_LP}; got {n_slots}")
+    dev = stab.device
+    stab, parent, n_labels = _f32(stab), _i32(cluster_parent), _i32(n_labels)
+    sel = torch.empty(n_slots, dtype=torch.bool, device=dev)
+    kid_count = torch.empty(n_slots, dtype=torch.int32, device=dev)
+    smem, scratch = _scratch("eom", Lp, dev)
+    with torch.cuda.device(dev):
+        code = _build.load().repro_eom_f32(
+            stab.data_ptr(), parent.data_ptr(), n_labels.data_ptr(), n_slots, int(smem), scratch.data_ptr(),
+            sel.data_ptr(), kid_count.data_ptr(), _build.current_stream(dev))
+    _build.check(code, "eom")
+    launches_eom += 1
+    return sel, kid_count

@@ -34,12 +34,12 @@ import numpy as np
 import torch
 
 from ..core.cf import cf_extent, cf_rep
-from ..core.hierarchy import condense_fixed, extract_fixed, single_linkage_fixed
 from ..core.mst import boruvka
 from ..device import resolve_device, to_numpy
 from . import assign as _assign_k
 from . import bubble_cd as _bcd_k
 from . import flash_attention as _fa_k
+from . import hierarchy as _h_k
 from . import knn as _knn_k
 from . import mutual_reach as _mr_k
 from . import pairwise as _pw_k
@@ -175,18 +175,20 @@ def _offline_pipeline(rep, n_b, extent, n_valid: int, mcs: float, min_pts: int,
                       stage=_run_stage) -> dict:
     """Device offline pass over a size-bucketed, mean-centred bubble table:
     Eq. 6 → (Lp, Lp) W (Eq. 7, pad rows/cols at +inf so they stay isolated
-    in the MST) → Borůvka → hierarchy, on a pre-clamped ``min_pts``, with
-    no host sync but the EOM sweep's one.  Returns the fixed-size buffers;
-    ``stage(name, fn, *args, **kw)`` runs each step."""
+    in the MST) → Borůvka → hierarchy, on a pre-clamped ``min_pts``.  On
+    ``cuda`` no stage reads the host (the hierarchy sweeps are kernels,
+    ``kernels/hierarchy.py``); on the CPU the plain EOM loop reads the label
+    count once.  Returns the fixed-size buffers; ``stage(name, fn, *args,
+    **kw)`` runs each step."""
     cd = stage("bubble_cd", _bcd_k.bubble_core_distances, rep, n_b, extent,
                min_pts=min_pts, dim=rep.shape[1])
     W = stage("mutual_reach", _mr_k.mutual_reachability, rep, rep, cd, cd,
               zero_diag=True, n_valid=n_valid)
     eu, ev, ew, valid = stage("boruvka", boruvka, W)
     del W
-    slt = stage("single_linkage", single_linkage_fixed, eu, ev, ew, valid, n_valid, n_b)
-    ct = stage("condense", condense_fixed, slt, n_b, mcs)
-    ex = stage("extract", extract_fixed, ct, method=method, allow_single_cluster=allow_single)
+    slt = stage("single_linkage", _h_k.single_linkage, eu, ev, ew, valid, n_valid, n_b)
+    ct = stage("condense", _h_k.condense, slt, n_b, mcs)
+    ex = stage("extract", _h_k.extract, ct, method=method, allow_single_cluster=allow_single)
     return {
         "eu": eu, "ev": ev, "ew": ew, "valid": valid,
         "labels": ex.labels,

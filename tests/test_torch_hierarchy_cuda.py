@@ -1,0 +1,180 @@
+"""The hierarchy sweeps' CUDA kernels against the plain loops, on a card.
+
+Marked ``cuda``: they skip on a machine without an NVIDIA GPU (a CUDA
+kernel has no CPU mode).  On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_hierarchy_cuda.py
+
+This file imports no JAX.  The inputs are Borůvka-shaped edge buffers of
+a seeded random spanning tree (``edge_buffers``; no W is needed), which
+``kernels/hierarchy.py`` takes through its kernels (single-linkage,
+condense, the EOM sweep) and ``core/hierarchy.py``'s plain loops take on
+the same card.  Every integer field, every λ and every weight must be
+bitwise equal, trash slots included; stabilities within 1e-5 relative
+(both sides sum them with the same ``index_put_``, so they agree exactly
+on one card, but the contract is 1e-5).  The largest bucket, Lp = 65,536,
+is held against the plain loops on the CPU.  Two runs of the kernels give
+the same bits, and an offline pass on the card reads nothing back from
+the device before its unwrap (``torch.cuda.set_sync_debug_mode``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import hierarchy as th
+from repro_torch.kernels import hierarchy as t_h
+from repro_torch.kernels import ops as tops
+
+INT_FIELDS = {"left", "right", "point_parent", "cluster_parent", "n_labels", "selected", "labels", "n_clusters"}
+
+
+def edge_buffers(Lp, n_valid, seed, *, masses="int", ties=False, zeros=0.0, drop=0):
+    """(eu, ev, ew, valid, weights) numpy buffers as Borůvka leaves them
+    for a bucket of Lp leaves, the first ``n_valid`` real: the n_valid − 1
+    edges of a seeded random spanning tree in random slots (``drop`` of
+    them left out: a disconnected buffer), the other slots invalid with
+    zero ends.  ``masses``: "int" (1–5) or "frac" (uniform 0.5–3) weights,
+    0 past n_valid; ``ties``: every edge weight 1; ``zeros``: that share of
+    the edges at weight 0."""
+    rng = np.random.default_rng(seed)
+    n_e = n_valid - 1
+    child = np.arange(1, n_valid)
+    par = (rng.random(n_e) * child).astype(np.int64)
+    perm = rng.permutation(n_valid)
+    u, v = perm[child], perm[par]
+    swap = rng.random(n_e) < 0.5
+    u, v = np.where(swap, v, u), np.where(swap, u, v)
+    w = np.ones(n_e) if ties else rng.uniform(0.1, 10.0, n_e)
+    w[rng.random(n_e) < zeros] = 0.0
+    keep = np.sort(rng.permutation(n_e)[: n_e - drop])
+    slots = rng.permutation(Lp)[: keep.size]
+    eu, ev = np.zeros(Lp, np.int32), np.zeros(Lp, np.int32)
+    ew, valid = np.zeros(Lp, np.float32), np.zeros(Lp, bool)
+    eu[slots], ev[slots], ew[slots], valid[slots] = u[keep], v[keep], w[keep], True
+    weights = np.zeros(Lp, np.float32)
+    weights[:n_valid] = rng.integers(1, 6, n_valid) if masses == "int" else rng.uniform(0.5, 3.0, n_valid)
+    return eu, ev, ew, valid, weights
+
+
+# (Lp, n_valid, generator options, min_cluster_size)
+GRID = [(Lp, nv, {}, 5.0) for Lp in (8, 64, 1024, 4096) for nv in (1, Lp // 2 + 1, Lp)]
+CORNERS = {
+    "ties": (1024, 1024, {"ties": True}, 5.0),
+    "zero distances": (1024, 700, {"zeros": 0.3}, 5.0),
+    "disconnected": (1024, 800, {"drop": 40}, 5.0),
+    "mcs below every weight": (1024, 1024, {"masses": "frac"}, 0.25),
+    "mcs above the total": (1024, 1024, {}, 1e6),
+    "fractional masses": (4096, 3000, {"masses": "frac"}, 12.0),
+}
+CUDA_LPS = (8, 64, 1024, 4096, 8192, 16384, 32768, 65536)
+
+
+def _to(dev, arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def _run(route, dev, case, seed, method="eom", allow_single=False):
+    """(slt, ct, ex) of one case on ``dev``: ``route`` t_h through
+    ``hierarchy_fixed`` (the kernels on a card), th through the plain
+    loops."""
+    Lp, nv, opts, mcs = case
+    eu, ev, ew, valid, w = _to(dev, edge_buffers(Lp, nv, seed, **opts))
+    if route is t_h:
+        return th.hierarchy_fixed(eu, ev, ew, valid, nv, w, mcs, method=method, allow_single_cluster=allow_single)
+    slt = th.single_linkage_fixed(eu, ev, ew, valid, nv, w)
+    ct = th.condense_fixed(slt, w, mcs)
+    return slt, ct, th.extract_fixed(ct, method=method, allow_single_cluster=allow_single)
+
+
+def assert_same_hierarchy(got, want):
+    """Integer fields, λ and weights bitwise; stabilities within 1e-5
+    relative."""
+    for g_arr, w_arr in zip(got, want):
+        for field in w_arr._fields:
+            g, w = getattr(g_arr, field).cpu(), getattr(w_arr, field).cpu()
+            assert g.shape == w.shape, field
+            if field in INT_FIELDS:
+                assert torch.equal(g.long(), w.long()), field
+            elif field == "stability":
+                assert torch.allclose(g, w, rtol=1e-5, atol=0), field
+            else:
+                assert g.dtype == w.dtype and torch.equal(g, w), field
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestHierarchyKernels:
+    @pytest.mark.parametrize("case", GRID, ids=lambda c: f"Lp{c[0]}-nvalid{c[1]}")
+    def test_grid(self, cuda_device, case):
+        counts = (t_h.launches_single_linkage, t_h.launches_condense, t_h.launches_eom)
+        got = _run(t_h, cuda_device, case, seed=case[0] + case[1])
+        assert (t_h.launches_single_linkage, t_h.launches_condense, t_h.launches_eom) == tuple(c + 1 for c in counts)
+        assert_same_hierarchy(got, _run(th, cuda_device, case, seed=case[0] + case[1]))
+
+    @pytest.mark.parametrize("name", list(CORNERS))
+    @pytest.mark.parametrize("method,allow_single", [("eom", False), ("eom", True), ("leaf", False), ("leaf", True)])
+    def test_corners(self, cuda_device, name, method, allow_single):
+        case = CORNERS[name]
+        got = _run(t_h, cuda_device, case, 7, method, allow_single)
+        want = _run(th, cuda_device, case, 7, method, allow_single)
+        assert_same_hierarchy(got, want)
+        if name == "disconnected":  # rejected merges: skipped rows and a loaded trash node
+            slt = got[0]
+            assert int((slt.left == 2 * case[0] - 1).sum()) > 1 and float(slt.node_weight[-1]) > 0
+        if name == "zero distances":  # accepted merges at distance 0: λ = MAX_LAMBDA
+            slt = got[0]
+            assert bool(((slt.dist == 0) & (slt.left != 2 * case[0] - 1)).any())
+
+    def test_replay(self, cuda_device):
+        """Two runs of the kernels give the same bits, stabilities included."""
+        case = (4096, 3000, {"masses": "frac"}, 12.0)
+        a, b = (_run(t_h, cuda_device, case, 11) for _ in range(2))
+        for x, y in zip(a, b):
+            for field in x._fields:
+                assert torch.equal(getattr(x, field), getattr(y, field)), field
+
+    @pytest.mark.parametrize("Lp", CUDA_LPS)
+    def test_buckets_route_state(self, cuda_device, Lp):
+        """Every bucket of the offline pass, shared-memory and scratch
+        state alike, against the plain loops on the CPU (the card's plain
+        loops would take minutes at the largest)."""
+        case = (Lp, Lp - Lp // 8, {"masses": "frac"}, 20.0)
+        got = _run(t_h, cuda_device, case, 3)
+        assert_same_hierarchy(got, _run(th, torch.device("cpu"), case, 3))
+
+    def test_offline_pass_reads_no_host(self, cuda_device):
+        """Eq. 6 → Eq. 7 → Borůvka → the hierarchy on the card with no host
+        synchronisation: any sync raises under the debug mode."""
+        rng = np.random.default_rng(5)
+        L = 1000
+        rep = rng.normal(size=(L, 4))
+        (rep_t, nb_t, ext_t), min_pts, _ = tops._prepare_table(
+            rep, rng.integers(1, 4, L).astype(float), rng.uniform(0.01, 0.1, L), 10, cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = tops._offline_pipeline(rep_t, nb_t, ext_t, L, 10.0, min_pts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # the plain loops on the CPU, fed the card's own Borůvka buffers
+        _, ct, ex = th.hierarchy_fixed(*(out[k].cpu() for k in ("eu", "ev", "ew", "valid")), L, nb_t.cpu(), 10.0)
+        for key, want in (("labels", ex.labels), ("point_parent", ct.point_parent),
+                          ("point_lambda", ct.point_lambda), ("cluster_parent", ct.cluster_parent),
+                          ("n_labels", ct.n_labels)):
+            assert torch.equal(out[key].cpu(), want), key
+
+
+@pytest.mark.parametrize("Lp", [8, 1024, 8192, 16384, 65536])
+def test_cuda_cases_are_well_formed(Lp):
+    """The generator's buffers are what Borůvka leaves (runs anywhere)."""
+    eu, ev, ew, valid, w = edge_buffers(Lp, Lp // 2 + 1, 1, drop=0)
+    assert int(valid.sum()) == Lp // 2 and (eu[~valid] == 0).all() and (ew[~valid] == 0).all()
+    assert (w[Lp // 2 + 1 :] == 0).all() and (w[: Lp // 2 + 1] >= 1).all()
+    assert eu.dtype == ev.dtype == np.int32 and ew.dtype == w.dtype == np.float32

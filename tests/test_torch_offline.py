@@ -34,6 +34,7 @@ from repro_torch.core.bubble_tree import BubbleTree
 from repro_torch.core.mst import boruvka, mst_total_weight
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from test_torch_hierarchy_cuda import edge_buffers
 
 try:
     from sklearn.datasets import make_moons
@@ -115,6 +116,19 @@ def _assert_fields(got, want, exact):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=0, err_msg=field)
 
 
+# (Lp, n_valid, edge_buffers options, min_cluster_size)
+CORNERS = {
+    "ties": (64, 64, {"ties": True}, 5.0),
+    "zero distances": (64, 50, {"zeros": 0.3}, 5.0),
+    "disconnected": (64, 60, {"drop": 6}, 5.0),
+    "one valid leaf": (8, 1, {}, 5.0),
+    "full bucket": (512, 512, {"masses": "frac"}, 12.0),
+    "half bucket": (512, 257, {}, 8.0),
+    "mcs below every weight": (64, 64, {"masses": "frac"}, 0.25),
+    "mcs above the total": (64, 64, {}, 1e6),
+}
+
+
 class TestHierarchy:
     @pytest.mark.parametrize("name", DATASETS)
     @pytest.mark.parametrize("method,allow_single", [("eom", False), ("leaf", False), ("eom", True)])
@@ -129,6 +143,28 @@ class TestHierarchy:
         _assert_fields(got[0], want[0], exact={"left", "right"})
         _assert_fields(got[1], want[1], exact={"point_parent", "cluster_parent", "n_labels"})
         _assert_fields(got[2], want[2], exact={"selected", "labels", "n_clusters"})
+
+    @pytest.mark.parametrize("name", list(CORNERS))
+    @pytest.mark.parametrize("method,allow_single", [("eom", False), ("eom", True), ("leaf", False), ("leaf", True)])
+    def test_corners_match_reference(self, name, method, allow_single):
+        """The plain loops (the card kernels' oracle) on the corners the
+        card's tests use, from seeded spanning-tree buffers: tied edge
+        weights, zero distances (λ = MAX_LAMBDA), a disconnected buffer
+        (rejected merges: skipped rows, a loaded trash node), a lone valid
+        leaf, a full bucket, min_cluster_size below every weight and above
+        the total."""
+        Lp, nv, opts, mcs = CORNERS[name]
+        bufs = edge_buffers(Lp, nv, 7, **opts)
+        want = _hierarchy_jit(*(jnp.asarray(a) for a in bufs[:4]), nv, jnp.asarray(bufs[4]), mcs,
+                              method=method, allow_single_cluster=allow_single)
+        got = th.hierarchy_fixed(*(torch.from_numpy(a) for a in bufs[:4]), nv, torch.from_numpy(bufs[4]), mcs,
+                                 method=method, allow_single_cluster=allow_single)
+        _assert_fields(got[0], want[0], exact={"left", "right"})
+        _assert_fields(got[1], want[1], exact={"point_parent", "cluster_parent", "n_labels"})
+        _assert_fields(got[2], want[2], exact={"selected", "labels", "n_clusters"})
+        if name == "disconnected":
+            assert int((got[0].left == 2 * Lp - 1).sum()) == opts["drop"] and float(got[0].node_weight[-1]) > 0
+
 
 
 def _assert_results_match(got, want, dup_floor: float = 0.0):

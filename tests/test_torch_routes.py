@@ -9,7 +9,10 @@ otherwise.  ``pairwise.strip_rows`` sizes the strips,
 its occupancy, read from the card) and ``pairwise.panel_plan`` the
 distance panel's persistent grid and its 16-byte stores.  The kernels run
 only on a card (tests/test_torch_cuda.py); the rules are held here, and
-so is the build's list of sources.
+so is the build's list of sources.  The hierarchy sweeps' wrappers
+(``kernels/hierarchy.py``) take CPU tensors to the plain loops with no
+launch counted and refuse any device but cpu and cuda; ``hierarchy.plan``
+puts each sweep's state in shared memory where it fits one block.
 """
 
 from pathlib import Path
@@ -17,9 +20,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core import hierarchy as t_plain
 from repro_torch.kernels import _build
 from repro_torch.kernels import assign as t_assign
 from repro_torch.kernels import bubble_cd as t_bcd
+from repro_torch.kernels import hierarchy as t_h
 from repro_torch.kernels import knn as t_knn
 from repro_torch.kernels import mutual_reach as t_mr
 from repro_torch.kernels import pairwise as t_pw
@@ -127,3 +132,86 @@ def test_build_lists_every_source(suffix, listed):
     csrc = Path(_build.__file__).with_name("csrc")
     assert sorted(listed) == sorted(p.name for p in csrc.glob("*" + suffix))
     assert len(set(listed)) == len(listed)
+
+
+def _hierarchy_inputs(device, Lp=16):
+    g = torch.Generator().manual_seed(3)
+    eu = torch.arange(1, Lp, dtype=torch.int32)
+    ev = (torch.rand(Lp - 1, generator=g) * eu).to(torch.int32)
+    pad = torch.zeros(1, dtype=torch.int32)
+    eu, ev = torch.cat([eu, pad]), torch.cat([ev, pad])
+    ew = torch.cat([torch.rand(Lp - 1, generator=g), torch.zeros(1)])
+    valid = torch.arange(Lp) < Lp - 1
+    w = torch.randint(1, 5, (Lp,), generator=g).float()
+    return tuple(t.to(device) for t in (eu, ev, ew, valid, w))
+
+
+@pytest.mark.parametrize("method,allow_single", [("eom", False), ("leaf", True)])
+def test_hierarchy_cpu_takes_the_plain_loops(method, allow_single):
+    """CPU tensors run core/hierarchy.py's loops through the kernel
+    wrappers: the same arrays, and no kernel launch counted."""
+    eu, ev, ew, valid, w = _hierarchy_inputs("cpu")
+    t_h.launches_single_linkage = t_h.launches_condense = t_h.launches_eom = 0
+    got = t_plain.hierarchy_fixed(eu, ev, ew, valid, 16, w, 3.0, method=method, allow_single_cluster=allow_single)
+    slt = t_plain.single_linkage_fixed(eu, ev, ew, valid, 16, w)
+    ct = t_plain.condense_fixed(slt, w, 3.0)
+    want = (slt, ct, t_plain.extract_fixed(ct, method=method, allow_single_cluster=allow_single))
+    for g_arr, w_arr in zip(got, want):
+        for field in w_arr._fields:
+            assert torch.equal(getattr(g_arr, field), getattr(w_arr, field)), field
+    assert t_h.launches_single_linkage == t_h.launches_condense == t_h.launches_eom == 0
+
+
+def _to_meta(arrays):
+    return type(arrays)(*(a.to("meta") for a in arrays))
+
+
+@pytest.mark.parametrize("stage", ["single_linkage", "condense", "extract"])
+def test_hierarchy_refuses_other_devices(stage):
+    """Tensors on a device that is neither cpu nor cuda raise; nothing
+    falls back."""
+    eu, ev, ew, valid, w = _hierarchy_inputs("cpu")
+    slt = t_plain.single_linkage_fixed(eu, ev, ew, valid, 16, w)
+    ct = t_plain.condense_fixed(slt, w, 3.0)
+    with pytest.raises(ValueError, match="runs on cuda or cpu, not meta"):
+        if stage == "single_linkage":
+            t_h.single_linkage(*(t.to("meta") for t in (eu, ev, ew, valid)), 16, w.to("meta"))
+        elif stage == "condense":
+            t_h.condense(_to_meta(slt), w.to("meta"), 3.0)
+        else:
+            t_h.extract(_to_meta(ct))
+
+
+def test_hierarchy_refuses_mixed_devices():
+    eu, ev, ew, valid, w = _hierarchy_inputs("cpu")
+    with pytest.raises(ValueError, match="different devices"):
+        t_h.single_linkage(eu, ev, ew, valid, 16, w.to("meta"))
+
+
+def test_hierarchy_extract_checks_the_method_first():
+    eu, ev, ew, valid, w = _hierarchy_inputs("cpu")
+    ct = t_plain.condense_fixed(t_plain.single_linkage_fixed(eu, ev, ew, valid, 16, w), w, 3.0)
+    with pytest.raises(ValueError, match="unknown extraction method"):
+        t_h.extract(ct, method="max")
+
+
+@pytest.mark.parametrize("Lp", [8, 64, 1024, 4096, 8192, 16384, 32768, 65536])
+@pytest.mark.parametrize("kind", ["single_linkage", "condense", "eom"])
+def test_hierarchy_plan(kind, Lp):
+    """A sweep's state goes to shared memory exactly when it and the
+    staging ring fit one block's opt-in limit, else to a scratch buffer
+    of the state's size."""
+    smem, scratch = t_h.plan(kind, Lp)
+    state = {"single_linkage": 12 * Lp, "condense": 9 * Lp, "eom": 8 * (2 * Lp + 1)}[kind]
+    ring = {"single_linkage": 24 * t_h.CHUNK, "condense": 40 * t_h.CHUNK, "eom": 0}[kind]
+    assert smem == (state + ring <= t_h.SMEM_BYTES)
+    assert scratch == (0 if smem else state) and scratch % 4 == 0
+
+
+def test_hierarchy_plan_at_the_stream_bucket():
+    """At the stream's Lp = 8192 all three sweeps keep their state in
+    shared memory; single-linkage and condense do up to Lp = 16384."""
+    kinds = ("single_linkage", "condense", "eom")
+    assert all(t_h.plan(kind, 8192)[0] for kind in kinds)
+    assert [t_h.plan(kind, 16384)[0] for kind in kinds] == [True, True, False]
+    assert not any(t_h.plan(kind, 32768)[0] for kind in kinds)
