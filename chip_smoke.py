@@ -48,11 +48,44 @@ Phases, each printing its own lines:
               passes at min_pts = 100 (warp-select) and 2000 (bubble_cd's
               strip route) on the full table held to the CPU plain pass by
               partition;
+     serve    SERVE_THREADS threads of SERVE_REQUESTS requests of 512 rows
+              of the stream's query mixture through one QueryBatcher on
+              the stream's final engine: every caller's rows against a
+              direct query_detailed of the same rows (labels and
+              bubble_index identical, distance and strength bit for bit
+              counted and held within 1e-6 relative) and against the
+              port's CPU plain query, fused calls, fan-out, assign
+              launches (one per fused call), caller p50/p99 and rows/s
+              beside the same requests served one by one, at the
+              batcher's default re-contend interval (2 ms); then a
+              poisoned query_detailed that must raise in every caller,
+              and the batcher serving rightly afterwards;
+     recover  the stream engine checkpointed after its full flush
+              (checkpoint_state, a blocking save, an async save and wait,
+              into a temporary CheckpointStore), restored into a fresh
+              card engine that replays the stream's retire blocks: every
+              version published on the way bit for bit the stream's
+              (version, labels, MST u/v/w, stabilities, every result and
+              condensed field), the final query chunk identical; the same
+              checkpoint restored into a CPU engine, its snapshot equal;
+              bytes on disk and the ms of each step and of the first pass
+              after the restore;
   5. wide     a default StreamingClusterEngine at d = 200 (past the
               register tiles' 128): 65,536 points in blocks of 8192
               (L ~ 1,300, Lp = 2048), then 8192 queries; every snapshot and
               the served rows held to the port's CPU plain pipeline, the
               routes' launch counts checked;
+     tenants  benchmarks/fig9_service.py's deployment (d = 8, 4 blobs per
+              tenant 12 apart, min_pts 8, epsilon 0.3) at 8 tenants of
+              32,768 points (compression 0.02: L ~ 650, Lp = 1024) through
+              one TenantRouter on the card, ingested interleaved in blocks
+              of 2048; one closed-loop client per tenant, 40 requests of 64
+              rows, each answer held to the tenant's direct
+              query_detailed; each tenant's final snapshot and served rows
+              held to the port's CPU plain pipeline (partition, MST
+              weight, bubble indices); per-tenant p50/p99, the worst/best p99, the
+              shared cache's builds and hits; save_all, and a cold
+              router's recover() serving the same labels;
   6. points   the point-level kernel API (Def. 1 core distances, knn,
               pairwise squared distances, Def. 2 mutual reachability) on
               the first 65,536 points of the stream's mixture, mean-centred:
@@ -132,6 +165,13 @@ N_WIDE = 65_536  # [wide]: points of the d = 200 stream (compression 0.02: L ~ 1
 N_WIDE_QUERIES = 8192
 N_WIDE_POINTS = 16_384  # [points] at d = 200: knn, core distances, pairwise, mutual reachability
 # [attention]: (label, B, S, H, KV, Dh, window, dtype, dead keys at the head, dead keys at the tail)
+SERVE_THREADS, SERVE_REQUESTS, SERVE_ROWS = 8, 32, 512  # [serve]: callers, requests each, rows per request
+SERVE_MAX_BATCH = 4096
+# [tenants]: benchmarks/fig9_service.py's deployment (d = 8, 4 blobs per tenant, min_pts 8, epsilon 0.3) at a size a
+# service holds per tenant: compression 0.02 gives L ~ 650 (Lp = 1024) per tenant
+TENANTS, TENANT_DIM, TENANT_POINTS, TENANT_BLOCK = 8, 8, 32_768, 2048
+TENANT_COMPRESSION, TENANT_MIN_PTS = 0.02, 8
+TENANT_REQUESTS, TENANT_ROWS = 40, 64
 ATTENTION = (
     ("qwen2-1.5b bf16", 1, 4096, 12, 2, 128, None, "bf16", 0, 0),
     ("qwen2-1.5b f32", 1, 4096, 12, 2, 128, None, "f32", 0, 0),
@@ -616,9 +656,7 @@ def phase_stream(dev):
 
     from repro_torch import StreamingClusterEngine
     from repro_torch.core import hierarchy as th
-    from repro_torch.kernels import assign as k_assign
     from repro_torch.kernels import bubble_cd as k_bcd
-    from repro_torch.kernels import hierarchy as k_h
     from repro_torch.kernels import mutual_reach as k_mr
 
     rng = np.random.default_rng(SEED + 1)
@@ -634,10 +672,8 @@ def phase_stream(dev):
             passes.append((snap.n_bubbles, max(8, 1 << (snap.n_bubbles - 1).bit_length()),
                            snap.wall_seconds * 1e3))
 
-    for mod in (k_assign, k_bcd, k_mr):
-        mod.launches = 0
+    reset_counts()
     k_bcd.launches_lane = k_mr.launches_tile = 0
-    k_h.launches_single_linkage = k_h.launches_condense = k_h.launches_eom = 0
     plain = {name: getattr(th, name) for name in ("single_linkage_fixed", "condense_fixed", "eom_loop")}
     plain_on_card = []
 
@@ -665,30 +701,35 @@ def phase_stream(dev):
     snap_full = eng.flush()
     note_pass(v0)
     table_full = eng._table.capture(eng.tree.n_points).table()
+    ckpt = checkpoint_stream(eng)  # for [recover]; host only, left out of the stream's wall
     retire_s = 0.0
     drop = rng.choice(len(pids), size=N_POINTS // 4, replace=False)
-    for i in range(0, len(drop), BLOCK):
+    retire_blocks = [[pids[j] for j in drop[i : i + BLOCK]] for i in range(0, len(drop), BLOCK)]
+    published = {}  # version -> snapshot, each pass published from here on ([recover] replays them)
+    retire_versions = []  # the version served after each retire block
+    for block in retire_blocks:
         v0 = eng.snapshot.version
         off0 = eng.stats["offline_seconds_total"]
         t0 = time.perf_counter()
-        eng.retire([pids[j] for j in drop[i : i + BLOCK]])
+        eng.retire(block)
         retire_s += time.perf_counter() - t0 - (eng.stats["offline_seconds_total"] - off0)
         note_pass(v0)
+        published[eng.snapshot.version] = eng.snapshot
+        retire_versions.append(eng.snapshot.version)
     v0 = eng.snapshot.version
     snap_last = eng.flush()
     note_pass(v0)
+    published[snap_last.version] = snap_last
     table_last = eng._table.capture(eng.tree.n_points).table()
     lat, served = [], []
     for i in range(0, N_QUERIES, QUERY_CHUNK):
         t0 = time.perf_counter()
         served.append(eng.query_detailed(Qs[i : i + QUERY_CHUNK]))
         lat.append((time.perf_counter() - t0) * 1e3)
-    stream_s = time.perf_counter() - t_stream
+    stream_s = time.perf_counter() - t_stream - ckpt["seconds"]
     for name, fn in plain.items():
         setattr(th, name, fn)
-    launches = {"assign": k_assign.launches, "bubble_cd": k_bcd.launches, "mutual_reach": k_mr.launches,
-                "single_linkage": k_h.launches_single_linkage, "condense": k_h.launches_condense,
-                "eom": k_h.launches_eom}
+    launches = read_counts()
     n_passes = eng.stats["recluster_count"]
 
     say(f"[stream] {N_POINTS} points d={DIM} in blocks of {BLOCK}, {len(drop)} retired, "
@@ -715,8 +756,9 @@ def phase_stream(dev):
     for res in served:
         check(res.version == snap_last.version and np.isfinite(res.distance).all()
               and ((res.strength >= 0) & (res.strength <= 1)).all(), "malformed query result")
-    return dict(snap_full=snap_full, table_full=table_full, snap_last=snap_last,
-                table_last=table_last, Qs=Qs, served=served, launches=launches)
+    return dict(eng=eng, snap_full=snap_full, table_full=table_full, snap_last=snap_last,
+                table_last=table_last, Qs=Qs, served=served, launches=launches, ckpt=ckpt,
+                retire_blocks=retire_blocks, published=published, retire_versions=retire_versions)
 
 
 def assign_at_query_shape(dev, run):
@@ -798,6 +840,378 @@ def check_served(tag, snap, X, served):
         f"{int((~near_tie).sum())} rows; {int(near_tie.sum())} near-ties (second-best within 1e-5) left out")
     check(not differ.any(), "served rows differ from the CPU plain query")
     check(np.array_equal(got_lbl[~near_tie], lbl[~near_tie]), "served labels differ")
+
+
+PATH_KERNELS = ("assign", "bubble_cd", "mutual_reach", "single_linkage", "condense", "eom")
+
+
+def reset_counts():
+    """Set the launch counts of the engine's kernels to 0."""
+    from repro_torch.kernels import assign as k_assign
+    from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import hierarchy as k_h
+    from repro_torch.kernels import mutual_reach as k_mr
+
+    k_assign.launches = k_bcd.launches = k_mr.launches = 0
+    k_h.launches_single_linkage = k_h.launches_condense = k_h.launches_eom = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import assign as k_assign
+    from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import hierarchy as k_h
+    from repro_torch.kernels import mutual_reach as k_mr
+
+    return {"assign": k_assign.launches, "bubble_cd": k_bcd.launches, "mutual_reach": k_mr.launches,
+            "single_linkage": k_h.launches_single_linkage, "condense": k_h.launches_condense,
+            "eom": k_h.launches_eom}
+
+
+def checkpoint_stream(eng) -> dict:
+    """Checkpoint the stream engine at full size into a CheckpointStore in a
+    temporary directory: ``checkpoint_state`` alone, a blocking ``save``,
+    then one async ``save`` (the next step) with ``wait()``; for
+    [recover]."""
+    import tempfile
+
+    from repro_torch import CheckpointStore
+
+    t_all = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t0 = time.perf_counter()
+    state = eng.checkpoint_state()
+    state_ms = (time.perf_counter() - t0) * 1e3
+    store = CheckpointStore(root, keep=2)
+    t0 = time.perf_counter()
+    step = eng.save(store)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    eng.save(store, step=step + 1, blocking=False)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    store.wait()
+    async_ms = (time.perf_counter() - t0) * 1e3
+    store.close()
+    disk = sum(f.stat().st_size for f in (Path(root) / f"step_{step}").iterdir())
+    return dict(root=root, step=step + 1, leaves=len(state), nbytes=sum(np.asarray(v).nbytes for v in state.values()),
+                disk=disk, state_ms=state_ms, save_ms=save_ms, enqueue_ms=enqueue_ms, async_ms=async_ms,
+                seconds=time.perf_counter() - t_all)
+
+
+SNAP_RESULT_FIELDS = ("labels", "stabilities", "weights", "point_parent", "point_lambda", "cluster_parent",
+                      "cluster_birth", "cluster_weight", "selected", "all_stabilities")
+
+
+def same_snapshot(name, got, want):
+    """Two published snapshots field for field, bit for bit: version, table,
+    MST u/v/w, every result field and every condensed-tree field."""
+    pairs = [("version", got.version, want.version), ("n_points", got.n_points, want.n_points),
+             ("dirty_consumed", got.dirty_consumed, want.dirty_consumed),
+             ("min_cluster_size", got.result.min_cluster_size, want.result.min_cluster_size)]
+    pairs += [(f, getattr(got, f), getattr(want, f)) for f in ("bubble_rep", "bubble_n", "center")]
+    pairs += [(f"mst_{k}", a, b) for k, a, b in zip("uvw", got.mst, want.mst)]
+    pairs += [(f, getattr(got.result, f), getattr(want.result, f)) for f in SNAP_RESULT_FIELDS]
+    cg, cw = got.condensed, want.condensed
+    pairs += [(f"condensed.{f}", getattr(cg, f), getattr(cw, f))
+              for f in ("parent", "child", "lambda_val", "child_weight", "n_leaves")]
+    bad = [f for f, a, b in pairs
+           if not (np.shape(a) == np.shape(b) and np.asarray(a).dtype == np.asarray(b).dtype
+                   and np.array_equal(a, b))]
+    check(not bad, f"{name}: snapshot fields differ: {bad}")
+
+
+def batched_callers(qb, reqs):
+    """SERVE_THREADS closed-loop callers, each issuing its SERVE_REQUESTS
+    of ``reqs`` through ``qb``; returns the results, the callers'
+    latencies (ms), the wall (s) and the assign launches meanwhile."""
+    import threading
+
+    from repro_torch.kernels import assign as k_assign
+
+    got, lat, errors = [None] * len(reqs), [], []
+    start = threading.Barrier(SERVE_THREADS + 1)
+
+    def caller(t):
+        try:
+            start.wait(timeout=60)
+            for i in range(t * SERVE_REQUESTS, (t + 1) * SERVE_REQUESTS):
+                t1 = time.perf_counter()
+                got[i] = qb.query_detailed(reqs[i])
+                lat.append((time.perf_counter() - t1) * 1e3)
+        except BaseException as e:  # noqa: BLE001 — checked below
+            errors.append(e)
+
+    threads = [threading.Thread(target=caller, args=(t,)) for t in range(SERVE_THREADS)]
+    for t in threads:
+        t.start()
+    k_assign.launches = 0
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a batcher caller did not finish")
+    check(not errors, f"a batcher caller raised: {errors[:1]}")
+    return got, lat, wall, k_assign.launches
+
+
+def phase_serve(dev, run, card):
+    """Concurrent callers through one QueryBatcher on the stream's final
+    engine (after the retires L = 3932, Lp = 4096): SERVE_THREADS threads
+    of SERVE_REQUESTS requests of SERVE_ROWS rows each, every caller's rows
+    held to a direct ``query_detailed`` of the same rows and to the CPU
+    plain query, the same requests served one by one beside them, at the
+    batcher's default re-contend interval; then a leader that dies in its
+    fused call."""
+    import threading
+
+    from repro_torch import QueryBatcher
+
+    eng = run["eng"]
+    Qs = run["Qs"]
+    rng = np.random.default_rng(SEED + 9)
+    n_req = SERVE_THREADS * SERVE_REQUESTS
+    # rows of the stream's query mixture, resampled with a small jitter
+    reqs = [Qs[rng.integers(0, len(Qs), size=SERVE_ROWS)] + rng.normal(scale=0.05, size=(SERVE_ROWS, DIM))
+            for _ in range(n_req)]
+    eng.query_detailed(reqs[0])
+    direct, serial_lat = [], []
+    t0 = time.perf_counter()
+    for r in reqs:
+        t1 = time.perf_counter()
+        direct.append(eng.query_detailed(r))
+        serial_lat.append((time.perf_counter() - t1) * 1e3)
+    serial_s = time.perf_counter() - t0
+
+    rows = n_req * SERVE_ROWS
+    say(f"[serve] {n_req} requests of {SERVE_ROWS} rows from {SERVE_THREADS} threads through one QueryBatcher "
+        f"(max_batch {SERVE_MAX_BATCH}) on the stream's final engine (L={eng.snapshot.n_bubbles}), on {card}; "
+        f"one by one: p50 {np.percentile(serial_lat, 50):.3f} ms, p99 {np.percentile(serial_lat, 99):.3f} ms, "
+        f"{rows / serial_s:.0f} rows/s ({serial_s * 1e3:.1f} ms wall)")
+    qb = QueryBatcher(eng, max_batch=SERVE_MAX_BATCH)
+    got, lat, wall, launches = batched_callers(qb, reqs)
+    for g, w in zip(got, direct):
+        check(g.version == w.version and np.array_equal(g.labels, w.labels)
+              and np.array_equal(g.bubble_index, w.bubble_index), "batched labels or bubble_index differ")
+    dist_equal = sum(np.array_equal(g.distance, w.distance) for g, w in zip(got, direct))
+    str_equal = sum(np.array_equal(g.strength, w.strength) for g, w in zip(got, direct))
+    rel = max(float(np.max(np.abs(g.distance - w.distance) / np.maximum(np.abs(w.distance), 1e-30)))
+              for g, w in zip(got, direct))
+    rel_s = max(float(np.max(np.abs(g.strength - w.strength) / np.maximum(np.abs(w.strength), 1e-30)))
+                for g, w in zip(got, direct))
+    say(f"[serve] batched, poll_s {qb.poll_s * 1e3:g} ms: {qb.batches} fused calls, fanned_out {qb.fanned_out}, "
+        f"assign launches {launches}; caller latency p50 {np.percentile(lat, 50):.3f} ms, p99 "
+        f"{np.percentile(lat, 99):.3f} ms; {rows / wall:.0f} rows/s ({wall * 1e3:.1f} ms wall), "
+        f"{serial_s / wall:.2f}x the serial rows/s; against direct query_detailed: labels and bubble_index "
+        f"identical in all {n_req}, distance bit for bit in {dist_equal}, strength in {str_equal} (max rel "
+        f"diff {rel:.3e}, {rel_s:.3e})")
+    check(rel <= 1e-6 and rel_s <= 1e-6, "batched distance or strength beyond 1e-6 relative")
+    check(qb.fanned_out == n_req and launches == qb.batches >= 1,
+          f"fanned_out {qb.fanned_out}, batches {qb.batches}, assign launches {launches}")
+    check_served("serve", eng.snapshot, np.concatenate(reqs), got)
+
+    batches0 = qb.batches
+    outcomes = [None] * SERVE_THREADS
+
+    def poisoned(X, **kw):
+        raise RuntimeError("poisoned batch")
+
+    def victim(t):
+        try:
+            qb.query_detailed(reqs[t])
+            outcomes[t] = "ok"
+        except RuntimeError as e:
+            outcomes[t] = str(e)
+
+    eng.query_detailed = poisoned
+    try:
+        threads = [threading.Thread(target=victim, args=(t,)) for t in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        alive = sum(t.is_alive() for t in threads)
+    finally:
+        del eng.query_detailed
+    check(alive == 0, f"{alive} callers still waiting after their leader died")
+    check(outcomes == ["poisoned batch"] * SERVE_THREADS, f"leader death outcomes {outcomes}")
+    after = qb.query_detailed(reqs[0])
+    check(np.array_equal(after.labels, direct[0].labels) and np.array_equal(after.bubble_index, direct[0].bubble_index),
+          "the batcher serves wrongly after a leader died")
+    say(f"[serve] leader death: a poisoned query_detailed raised in all {SERVE_THREADS} callers (none left waiting), "
+        f"{qb.batches - batches0} fused call completed after it, and it matches the direct query")
+
+
+def phase_recover(dev, run, card):
+    """The stream's checkpoint (taken at full size, [stream]) restored into
+    a fresh card engine, which replays the stream's retire blocks: at every
+    version both engines published, the snapshots bit for bit, and the
+    final query chunk's rows identical; also restored into a CPU engine,
+    whose snapshot is the same published one."""
+    import shutil
+
+    from repro_torch import CheckpointStore, StreamingClusterEngine
+
+    ck = run["ckpt"]
+    kw = dict(min_pts=MIN_PTS, compression=COMPRESSION, epsilon=EPSILON, max_block=BLOCK)
+    reset_counts()
+    store = CheckpointStore(ck["root"])
+    fresh = StreamingClusterEngine(DIM, device=dev, **kw)
+    t0 = time.perf_counter()
+    step = fresh.restore(store)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(step == ck["step"], f"restored step {step}, not the newest {ck['step']}")
+    same_snapshot("restored", fresh.snapshot, run["snap_full"])
+    cpu = StreamingClusterEngine(DIM, device="cpu", **kw)
+    cpu.restore(store)
+    store.close()
+    same_snapshot("restored on the CPU", cpu.snapshot, fresh.snapshot)
+    first, compared = None, 0
+    for block, want_v in zip(run["retire_blocks"], run["retire_versions"]):
+        v0 = fresh.snapshot.version
+        fresh.retire(block)
+        snap = fresh.snapshot
+        check(snap.version == want_v, f"after a retire block: version {snap.version}, the stream had {want_v}")
+        if snap.version != v0:
+            same_snapshot(f"version {snap.version}", snap, run["published"][snap.version])
+            compared += 1
+            first = first or (snap.wall_seconds * 1e3, run["published"][snap.version].wall_seconds * 1e3)
+    last = fresh.flush()
+    same_snapshot("final", last, run["snap_last"])
+    compared += 1
+    first = first or (last.wall_seconds * 1e3, run["snap_last"].wall_seconds * 1e3)
+    got, want = fresh.query_detailed(run["Qs"][-QUERY_CHUNK:]), run["served"][-1]
+    for f in ("labels", "bubble_index", "distance", "strength"):
+        check(np.array_equal(getattr(got, f), getattr(want, f)), f"final query chunk: {f} differs")
+    launches = read_counts()
+    shutil.rmtree(ck["root"], ignore_errors=True)
+    say(f"[recover] checkpoint of the stream at {N_POINTS} points (L={run['snap_full'].n_bubbles}), on {card}: "
+        f"{ck['leaves']} leaves, {ck['nbytes']} bytes in memory, {ck['disk']} bytes on disk; checkpoint_state "
+        f"{ck['state_ms']:.1f} ms, save (blocking) {ck['save_ms']:.1f} ms, async save {ck['enqueue_ms']:.1f} ms "
+        f"to enqueue and {ck['async_ms']:.1f} ms to wait(); restore {restore_ms:.1f} ms")
+    say(f"[recover] the restored card engine replayed {len(run['retire_blocks'])} retire blocks: {compared} published "
+        f"versions bit for bit (version, labels, MST u/v/w, stabilities, every result and condensed field), the "
+        f"final query chunk identical; first pass after the restore {first[0]:.2f} ms (the uninterrupted stream's "
+        f"same pass {first[1]:.2f} ms); the CPU engine's restored snapshot equal field for field")
+    say(f"[recover] launches {json.dumps(launches)}")
+    for name in PATH_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched in [recover]")
+
+
+def tenant_data(rng, i, n):
+    """benchmarks/fig9_service.py's tenant: 4 blobs around a centre 12·i
+    apart per coordinate."""
+    centers = rng.normal(size=(4, TENANT_DIM)) * 2.0 + 12.0 * i
+    pick = rng.integers(0, 4, size=n)
+    return centers[pick] + rng.normal(size=(n, TENANT_DIM)) * 0.6
+
+
+def phase_tenants(dev, card):
+    """The fig9 service deployment at a tenant's real size: TENANTS tenants
+    of TENANT_POINTS points through one TenantRouter on the card, ingested
+    interleaved, one closed-loop client per tenant (each answer held to the
+    tenant's direct ``query_detailed``; each tenant's final snapshot and
+    served rows held to the port's plain pipeline on the CPU), then
+    ``save_all`` and a cold router's ``recover()`` serving the same
+    labels."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch import TenantRouter
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tenants_")
+    kw = dict(device=dev, cache_keep=2 * TENANTS, checkpoint_root=root, min_pts=TENANT_MIN_PTS,
+              compression=TENANT_COMPRESSION, min_offline_points=16, epsilon=0.3)
+    rng = np.random.default_rng(SEED + 11)
+    names = [f"tenant{i:02d}" for i in range(TENANTS)]
+    data = {n: tenant_data(rng, i, TENANT_POINTS) for i, n in enumerate(names)}
+    reqs = {}
+    for i, n in enumerate(names):
+        qrng = np.random.default_rng(1000 + i)
+        reqs[n] = [data[n][qrng.integers(0, TENANT_POINTS, size=TENANT_ROWS)] for _ in range(TENANT_REQUESTS)]
+    router = TenantRouter(TENANT_DIM, **kw)
+    reset_counts()
+    t0 = time.perf_counter()
+    for n in names:
+        router.create(n)
+    for off in range(0, TENANT_POINTS, TENANT_BLOCK):
+        for n in names:
+            router.submit_insert(n, data[n][off : off + TENANT_BLOCK])
+        router.poll()
+    router.flush()
+    ingest_s = time.perf_counter() - t0
+    tables = {n: router.engine(n)._table.capture(router.engine(n).tree.n_points).table() for n in names}
+    direct = {n: [router.engine(n).query_detailed(q) for q in reqs[n]] for n in names}
+    builds0, hits0 = router.cache.builds, router.cache.hits
+    got = {n: [None] * TENANT_REQUESTS for n in names}
+    lat = {n: [] for n in names}
+    errors = []
+    start = threading.Barrier(TENANTS + 1)
+
+    def client(n):
+        try:
+            start.wait(timeout=60)
+            for j, q in enumerate(reqs[n]):
+                t1 = time.perf_counter()
+                got[n][j] = router.query_detailed(n, q)
+                lat[n].append((time.perf_counter() - t1) * 1e3)
+        except BaseException as e:  # noqa: BLE001 — checked below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=120)
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(not any(t.is_alive() for t in threads) and not errors, f"a tenant client failed: {errors[:1]}")
+    bitwise = 0
+    for n in names:
+        for g, w in zip(got[n], direct[n]):
+            check(g.version == w.version and np.array_equal(g.labels, w.labels)
+                  and np.array_equal(g.bubble_index, w.bubble_index), f"{n}: routed labels differ")
+            check(np.allclose(g.distance, w.distance, rtol=1e-6, atol=0)
+                  and np.allclose(g.strength, w.strength, rtol=1e-6, atol=0), f"{n}: routed distances differ")
+            bitwise += np.array_equal(g.distance, w.distance) and np.array_equal(g.strength, w.strength)
+    p99 = {n: float(np.percentile(lat[n], 99)) for n in names}
+    L = [router.engine(n).snapshot.n_bubbles for n in names]
+    passes = sum(router.engine(n).stats["recluster_count"] for n in names)
+    say(f"[tenants] {TENANTS} tenants x {TENANT_POINTS} points, d={TENANT_DIM}, in interleaved blocks of "
+        f"{TENANT_BLOCK}, on {card}: ingest {ingest_s:.2f} s with {passes} offline passes, L {min(L)}..{max(L)}")
+    say(f"[tenants] {TENANTS} closed-loop clients x {TENANT_REQUESTS} requests of {TENANT_ROWS} rows: "
+        f"{serve_s * 1e3:.1f} ms wall; per-tenant p50/p99 (ms) "
+        + ", ".join(f"{n[-2:]} {np.percentile(lat[n], 50):.3f}/{p99[n]:.3f}" for n in names)
+        + f"; worst/best p99 {max(p99.values()) / min(p99.values()):.2f}; cache builds {router.cache.builds} "
+        f"hits {router.cache.hits} ({router.cache.builds - builds0} builds, {router.cache.hits - hits0} hits in "
+        f"the closed loop); batches {router.batcher.batches}; every answer equal to the tenant's direct "
+        f"query_detailed ({bitwise} of {TENANTS * TENANT_REQUESTS} bit for bit in distance and strength)")
+    say(f"[tenants] launches {json.dumps(launches)}")
+    for name in PATH_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched in [tenants]")
+    for n in names:
+        check_snapshot("tenants", n, router.engine(n).snapshot, tables[n], TENANT_MIN_PTS)
+        check_served("tenants", router.engine(n).snapshot, np.concatenate(reqs[n]), got[n])
+    t0 = time.perf_counter()
+    steps = router.save_all()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    versions = {n: router.engine(n).snapshot.version for n in names}
+    router.close()
+    cold = TenantRouter(TENANT_DIM, **kw)
+    t0 = time.perf_counter()
+    recovered = cold.recover()
+    recover_ms = (time.perf_counter() - t0) * 1e3
+    check(recovered == names and sorted(steps) == names, f"recovered {recovered}")
+    for n in names:
+        check(cold.engine(n).snapshot.version == versions[n], f"{n}: recovered version differs")
+        for q, g in zip(reqs[n], got[n]):
+            check(np.array_equal(cold.query(n, q), g.labels), f"{n}: labels served after recover() differ")
+    cold.close()
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"[tenants] save_all {save_ms:.1f} ms, a cold router's recover() {recover_ms:.1f} ms; every tenant's "
+        f"served labels identical after the recovery")
 
 
 def phase_cpu_check(run):
@@ -1638,10 +2052,13 @@ def main() -> int:
     run = phase_stream(dev)
     assign_at_query_shape(dev, run)
     phase_cpu_check(run)
+    phase_serve(dev, run, card)
+    phase_recover(dev, run, card)
     numbers.update(phase_hierarchy(dev, run["table_full"]))
     phase_stages(dev, run["table_full"])
     phase_min_pts(dev, run["table_full"])
     phase_wide(dev)
+    phase_tenants(dev, card)
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
     launches = dict(run["launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],

@@ -7,7 +7,15 @@ hand-written kernels give way to their plain PyTorch versions.
 """
 
 from .carry import engine_from_reference_state
+from .checkpoint import CheckpointStore
 from .kernels.ops import get_backend
-from .serving.stream import StreamingClusterEngine
+from .serving import QueryBatcher, StreamingClusterEngine, TenantRouter
 
-__all__ = ["StreamingClusterEngine", "get_backend", "engine_from_reference_state"]
+__all__ = [
+    "StreamingClusterEngine",
+    "QueryBatcher",
+    "TenantRouter",
+    "CheckpointStore",
+    "get_backend",
+    "engine_from_reference_state",
+]

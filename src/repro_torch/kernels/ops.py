@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.cf import cf_extent, cf_rep
+from ..core.hdbscan import CondensedTree
 from ..core.mst import boruvka
 from ..device import resolve_device, to_numpy
 from . import assign as _assign_k
@@ -172,24 +173,26 @@ def _run_stage(name: str, fn, *args, **kw):
 
 def _offline_pipeline(rep, n_b, extent, n_valid: int, mcs: float, min_pts: int,
                       method: str = "eom", allow_single: bool = False, *,
-                      stage=_run_stage) -> dict:
+                      stage=_run_stage, with_w: bool = False) -> dict:
     """Device offline pass over a size-bucketed, mean-centred bubble table:
     Eq. 6 → (Lp, Lp) W (Eq. 7, pad rows/cols at +inf so they stay isolated
     in the MST) → Borůvka → hierarchy, on a pre-clamped ``min_pts``.  On
     ``cuda`` no stage reads the host (the hierarchy sweeps are kernels,
     ``kernels/hierarchy.py``); on the CPU the plain EOM loop reads the label
-    count once.  Returns the fixed-size buffers; ``stage(name, fn, *args,
-    **kw)`` runs each step."""
+    count once.  Returns the fixed-size buffers, with the device W under
+    ``"W"`` when ``with_w``; ``stage(name, fn, *args, **kw)`` runs each
+    step."""
     cd = stage("bubble_cd", _bcd_k.bubble_core_distances, rep, n_b, extent,
                min_pts=min_pts, dim=rep.shape[1])
     W = stage("mutual_reach", _mr_k.mutual_reachability, rep, rep, cd, cd,
               zero_diag=True, n_valid=n_valid)
     eu, ev, ew, valid = stage("boruvka", boruvka, W)
-    del W
+    if not with_w:
+        del W
     slt = stage("single_linkage", _h_k.single_linkage, eu, ev, ew, valid, n_valid, n_b)
     ct = stage("condense", _h_k.condense, slt, n_b, mcs)
     ex = stage("extract", _h_k.extract, ct, method=method, allow_single_cluster=allow_single)
-    return {
+    out = {
         "eu": eu, "ev": ev, "ew": ew, "valid": valid,
         "labels": ex.labels,
         "stability": ex.stability,
@@ -201,6 +204,9 @@ def _offline_pipeline(rep, n_b, extent, n_valid: int, mcs: float, min_pts: int,
         "cluster_weight": ct.cluster_weight,
         "n_labels": ct.n_labels,
     }
+    if with_w:
+        out["W"] = W
+    return out
 
 
 @dataclasses.dataclass
@@ -210,7 +216,8 @@ class OfflineClusterResult:
     ``labels[k]``'s cluster has stability ``stabilities[labels[k]]`` —
     flat ids are the ascending rank of the selected condensed labels.  The
     condensed tree is in the device layout (label 0 = root; see
-    core/hierarchy.py)."""
+    core/hierarchy.py); ``to_condensed()`` re-emits it in the host
+    ``CondensedTree`` layout."""
 
     labels: np.ndarray  # (L,) int64 flat bubble labels, -1 noise
     stabilities: np.ndarray  # (n_clusters,) f64 per selected cluster
@@ -232,6 +239,24 @@ class OfflineClusterResult:
     @property
     def n_bubbles(self) -> int:
         return int(self.labels.shape[0])
+
+    def to_condensed(self) -> CondensedTree:
+        """Device arrays → host ``CondensedTree`` (leaves 0..L-1, cluster
+        ids L + device label, root = L)."""
+        L = self.n_bubbles
+        K = int(self.cluster_parent.shape[0])
+        lbl = np.arange(1, K, dtype=np.int64)
+        parent = np.concatenate([L + self.cluster_parent[1:], L + self.point_parent])
+        child = np.concatenate([L + lbl, np.arange(L, dtype=np.int64)])
+        lam = np.concatenate([self.cluster_birth[1:], self.point_lambda])
+        w = np.concatenate([self.cluster_weight[1:], self.weights])
+        return CondensedTree(
+            parent=parent.astype(np.int64),
+            child=child.astype(np.int64),
+            lambda_val=lam.astype(np.float64),
+            child_weight=w.astype(np.float64),
+            n_leaves=L,
+        )
 
 
 def _unwrap_result(out: dict, L: int, mcs: float, weights: np.ndarray) -> OfflineClusterResult:
@@ -289,8 +314,8 @@ def _prepare_table(rep, n_b, extent, min_pts: int, dev: torch.device):
 def offline_recluster_from_table(
     rep, n_b, extent, min_pts: int, min_cluster_size: float | None = None, *,
     device=None, method: str = "eom", allow_single_cluster: bool = False,
-    stage=_run_stage,
-) -> OfflineClusterResult:
+    return_w: bool = False, stage=_run_stage,
+):
     """The streaming engine's offline pass, from a derived bubble table:
     ``_prepare_table`` on the host, the stages on ``device`` (None →
     cuda), and the fixed-size buffers back in one unwrap.
@@ -300,17 +325,27 @@ def offline_recluster_from_table(
       min_pts: HDBSCAN density parameter.
       min_cluster_size: flat-extraction threshold (None = min_pts).
       method, allow_single_cluster: flat-extraction policy ("eom"/"leaf").
+      return_w: also return the (L, L) d_m matrix on the host, as f32 —
+        the valid corner of the device W, copied once after the unwrap.
+        Off by default: at large L the copy dwarfs the pass.
       stage: ``stage(name, fn, *args, **kw)`` runs each step — "prepare",
         the device stages of ``_offline_pipeline``, "unwrap"; the default
         just calls ``fn``.
+
+    Returns:
+      OfflineClusterResult; with ``return_w=True``, ``(W, result)``.
     """
     dev = resolve_device(device)
     L = int(np.shape(rep)[0])
     mcs = float(min_pts if min_cluster_size is None else min_cluster_size)
     (rep_t, nb_t, ext_t), min_pts, Ng = stage("prepare", _prepare_table, rep, n_b, extent, min_pts, dev)
     out = _offline_pipeline(rep_t, nb_t, ext_t, L, mcs, min_pts, method,
-                            bool(allow_single_cluster), stage=stage)
-    return stage("unwrap", _unwrap_result, out, L, mcs, Ng)
+                            bool(allow_single_cluster), stage=stage, with_w=return_w)
+    W = out.pop("W", None)
+    result = stage("unwrap", _unwrap_result, out, L, mcs, Ng)
+    if return_w:
+        return W[:L, :L].cpu().numpy(), result  # the unwrap has synced: one copy
+    return result
 
 
 class ClusterBackend:
@@ -357,18 +392,19 @@ class ClusterBackend:
 
     def offline_recluster_from_table(self, rep, n_b, extent, min_pts: int,
                                      min_cluster_size: float | None = None,
-                                     **kw) -> OfflineClusterResult:
+                                     return_w: bool = False, **kw):
         return offline_recluster_from_table(
-            rep, n_b, extent, min_pts, min_cluster_size, device=self.device, **kw)
+            rep, n_b, extent, min_pts, min_cluster_size, device=self.device,
+            return_w=return_w, **kw)
 
     def make_flat(self, *args, **kw):
-        raise NotImplementedError("device-resident flat ingest is not ported yet (ROADMAP queue 1, item 8)")
+        raise NotImplementedError("device-resident flat ingest is not ported yet (ROADMAP.md queue 1, item 4)")
 
     def make_dynamic(self, *args, **kw):
-        raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP queue 1, item 11)")
+        raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP.md queue 1, item 6)")
 
     def incremental_recluster(self, *args, **kw):
-        raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP queue 1, item 11)")
+        raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP.md queue 1, item 6)")
 
 
 def get_backend(device=None) -> ClusterBackend:

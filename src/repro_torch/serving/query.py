@@ -21,6 +21,13 @@ dense path:
                    with λ_b the bubble's condensed-tree departure λ and
                    λ_max(c) the largest finite λ among c's members.
 
+  micro-batching   `QueryBatcher` generalizes the request plane's
+                   `HostBatcher` to the serve plane: concurrent callers
+                   enqueue (X, ticket) pairs, a leader-elected caller
+                   drains them into one fused dispatch, and results fan
+                   back out by ticket — concurrent small callers ride one
+                   device call instead of N.
+
 Query rows are not padded to buckets: there is no compile cache to keep
 warm, and the kernel masks the ragged edge itself.
 """
@@ -35,12 +42,14 @@ import torch
 
 from ..device import to_numpy
 from ..kernels import ops
+from .batcher import HostBatcher
 
 __all__ = [
     "QueryResult",
     "DeviceSnapshotEntry",
     "SnapshotDeviceCache",
     "QueryEngine",
+    "QueryBatcher",
     "validate_query",
 ]
 
@@ -152,7 +161,11 @@ class SnapshotDeviceCache:
     builds the entry while racers wait on its event and reuse the result;
     a failed build releases the key so the next caller retries.  A small
     LRU on ACCESS keeps recent versions resident, so a version still being
-    served outlives ``keep`` newer publishes."""
+    served outlives ``keep`` newer publishes.
+
+    ``key`` scopes entries for shared use: the multi-tenant router passes
+    ``(tenant, version)`` so independent engines pool ONE cache (and one
+    device-memory budget) without their version counters colliding."""
 
     def __init__(self, device, keep: int = 4):
         self.device = device
@@ -165,8 +178,8 @@ class SnapshotDeviceCache:
         self.hits = 0  # guarded-by: _lock
         self.builds = 0  # guarded-by: _lock
 
-    def entry(self, snap) -> DeviceSnapshotEntry:
-        k = int(snap.version)
+    def entry(self, snap, key=None) -> DeviceSnapshotEntry:
+        k = int(snap.version) if key is None else key
         while True:
             with self._lock:
                 e = self._entries.get(k)
@@ -230,17 +243,27 @@ class QueryEngine:
     cache.  The caller passes whichever snapshot object it captured, so
     labels, representatives and λ arrays come from that ONE snapshot."""
 
-    def __init__(self, backend, dim: int, cache_keep: int = 4):
+    def __init__(self, backend, dim: int, cache_keep: int = 4, *,
+                 cache: SnapshotDeviceCache | None = None, scope=None):
+        """``cache``/``scope`` support multi-tenant pooling: tenants share
+        ONE SnapshotDeviceCache with entries keyed ``(scope, version)``
+        so their independent version counters never collide."""
         self.backend = backend
         self.dim = int(dim)
-        self.cache = SnapshotDeviceCache(backend.device, keep=cache_keep)
+        self.scope = scope
+        self.cache = cache if cache is not None else SnapshotDeviceCache(
+            backend.device, keep=cache_keep)
+
+    def _cache_key(self, version: int):
+        v = int(version)
+        return v if self.scope is None else (self.scope, v)
 
     def query_detailed(self, snap, X) -> QueryResult:
         X = validate_query(X, self.dim)
         n = X.shape[0]
         if snap is None or snap.n_bubbles == 0 or n == 0:
             return _empty_result(n, 0 if snap is None else snap.version)
-        entry = self.cache.entry(snap)
+        entry = self.cache.entry(snap, key=self._cache_key(snap.version))
         parts = []
         for c0 in range(0, n, _MAX_CHUNK):
             Xr = X[c0 : c0 + _MAX_CHUNK]
@@ -268,3 +291,122 @@ class QueryEngine:
 
     def query(self, snap, X) -> np.ndarray:
         return self.query_detailed(snap, X).labels
+
+
+class _QueryTicket:
+    __slots__ = ("event", "result", "error")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.result: QueryResult | None = None
+        self.error: BaseException | None = None
+
+
+class QueryBatcher:
+    """Micro-batch concurrent `query()` callers into one fused dispatch.
+
+    Callers push (X, ticket) pairs; whoever grabs the dispatch lock drains
+    contiguous pending requests (point-counted, the same
+    ``next_block(size=...)`` discipline as the ingest scheduler), runs ONE
+    device-cached query over the concatenation, and fans the slices back
+    out by ticket.  Followers wait on their ticket and re-contend for the
+    lock every ``poll_s``, so a request pushed after the leader's last
+    drain never strands.
+
+    **Leader death**: a caller holding the dispatch lock executes OTHER
+    callers' requests.  Any failure while it holds a drained block — the
+    fused call raising, the concatenation, a malformed result — fans the
+    exception out to every ticket of that block and re-raises at each
+    ticket's caller; no follower waits forever on a ticket its dead
+    leader popped.
+
+    **Multi-tenant dispatch** (serving/tenants.py): requests carry a
+    ``kind`` (the tenant name) and ``resolve(kind)`` maps each drained
+    block to its engine.  `HostBatcher` only coalesces contiguous
+    SAME-kind runs, so a block never mixes tenants.
+    """
+
+    def __init__(self, engine=None, max_batch: int = 1024,
+                 poll_s: float = 0.002, resolve=None):
+        if engine is None and resolve is None:
+            raise ValueError("QueryBatcher needs an engine or a resolve(kind)")
+        self.engine = engine  # anything with .query_detailed and ._query_engine
+        self.poll_s = float(poll_s)
+        self._resolve = resolve if resolve is not None else (lambda kind: self.engine)
+        self._q = HostBatcher(max_block=int(max_batch))
+        self._dispatch = threading.Lock()
+        self.batches = 0  # guarded-by: _dispatch
+        self.fanned_out = 0  # guarded-by: _dispatch
+
+    def query_detailed(self, X, *, kind: str = "query") -> QueryResult:
+        eng = self._resolve(kind)
+        # validate in the CALLER so bad input raises here, not in a peer
+        X = validate_query(X, eng._query_engine.dim)
+        if X.shape[0] == 0:
+            return eng.query_detailed(X)
+        t = _QueryTicket()
+        self._q.push((X, t), kind=kind)
+        while True:
+            if self._dispatch.acquire(blocking=False):
+                try:
+                    self._drain(own=t)
+                except BaseException as e:  # noqa: BLE001 — leader died
+                    # outside any block's fan-out (e.g. next_block itself):
+                    # surface on our own ticket, never leave it pending
+                    if not t.event.is_set():
+                        t.error = e
+                        t.event.set()
+                finally:
+                    self._dispatch.release()
+            if t.event.wait(self.poll_s):
+                break
+        if t.error is not None:
+            raise t.error
+        return t.result
+
+    def query(self, X, *, kind: str = "query") -> np.ndarray:
+        return self.query_detailed(X, kind=kind).labels
+
+    def _drain(self, own: _QueryTicket | None = None):  # holds: _dispatch
+        """Service pending blocks; a leader stops once its OWN ticket is
+        done (the rest are drained by their own pushers' acquire loops),
+        so one unlucky caller never becomes a server thread with unbounded
+        latency.  Called only with `_dispatch` held."""
+        while self._q and not (own is not None and own.event.is_set()):
+            kind, items = self._q.next_block(size=lambda it: it[0].shape[0])
+            try:
+                # everything between popping the block and completing its
+                # tickets runs under the fan-out guard: once the items left
+                # the queue, only this leader can complete them
+                eng = self._resolve(kind)  # may-acquire: TenantRouter._lock
+                X = np.concatenate([x for x, _ in items], axis=0)
+                # may-acquire: StreamingClusterEngine._snapshot_lock, SnapshotDeviceCache._lock
+                res = eng.query_detailed(X)
+                if len(res) != X.shape[0]:
+                    raise RuntimeError(
+                        f"batched query returned {len(res)} rows for {X.shape[0]} requests")
+                out = []
+                off = 0
+                for x, _ in items:
+                    sl = slice(off, off + x.shape[0])
+                    out.append(QueryResult(
+                        labels=res.labels[sl],
+                        bubble_index=res.bubble_index[sl],
+                        distance=res.distance[sl],
+                        strength=res.strength[sl],
+                        version=res.version,
+                    ))
+                    off += x.shape[0]
+            except BaseException as e:  # noqa: BLE001 — fanned out, not handled
+                for _, t in items:
+                    if not t.event.is_set():
+                        t.error = e
+                        t.event.set()
+                continue
+            # fan out only after EVERY slice exists: a failure above
+            # poisons the whole block, never completes half of it
+            for (_, t), r in zip(items, out):
+                t.result = r
+                t.event.set()
+            self.batches += 1
+            self.fanned_out += len(items)

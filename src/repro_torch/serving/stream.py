@@ -18,10 +18,19 @@ The PyTorch counterpart of the JAX package's ``serving/stream.py``:
 
   serve plane     `query` / `query_detailed` / `labels` read the newest
                   published `ClusterSnapshot` through the versioned device
-                  cache (serving/query.py).
+                  cache (serving/query.py); `QueryBatcher` coalesces
+                  concurrent callers, `TenantRouter` hosts many engines
+                  on one cache (serving/tenants.py).
 
-Not in this slice: ``spatial_index``, ``device_online``, ``exact``,
-``mesh`` and checkpoint save/restore (see ROADMAP.md, queue 1).
+  checkpoints     `checkpoint_state` / `save` / `restore` (DESIGN.md §11):
+                  the JAX engine's format 1, key for key, through a
+                  `CheckpointStore` (repro_torch/checkpoint) — the two
+                  packages restore each other's checkpoints.
+
+The options ``spatial_index``, ``device_online``, ``exact`` and ``mesh``
+are not ported yet (ROADMAP.md, queue 1, items 4 to 7): each raises
+``NotImplementedError``, and so does restoring a checkpoint of an
+``exact`` engine or one with a live device-online flat table.
 """
 
 from __future__ import annotations
@@ -49,11 +58,44 @@ __all__ = [
 # options of the JAX engine that this port does not carry yet, and the
 # ROADMAP.md queue-1 item that will
 _NOT_PORTED = {
-    "device_online": "queue 1, item 8 (device-online ingest)",
-    "spatial_index": "queue 1, item 9 (grid pruning)",
-    "exact": "queue 1, item 11 (exact-dynamic path)",
-    "mesh": "queue 1, item 12 (multi-device offline pass)",
+    "device_online": "queue 1, item 4 (device-online ingest)",
+    "spatial_index": "queue 1, item 5 (grid pruning)",
+    "exact": "queue 1, item 6 (exact-dynamic path)",
+    "mesh": "queue 1, item 7 (multi-device offline pass)",
 }
+
+_CKPT_FORMAT = 1  # the JAX engine's checkpoint format, key for key
+
+# OfflineClusterResult fields stored as snap/res_<field>
+_RESULT_FIELDS = (
+    "labels", "stabilities", "weights", "point_parent", "point_lambda",
+    "cluster_parent", "cluster_birth", "cluster_weight", "selected",
+    "all_stabilities",
+)
+
+
+def _refuse_unported(d: dict):
+    """Refuse, rather than silently drop, checkpointed state of a mode
+    this port does not carry yet."""
+    if bool(d["cfg/exact"]):
+        raise NotImplementedError(
+            "exact=True engines are not ported yet (ROADMAP.md queue 1, item 6)")
+    if bool(d.get("flat/has", False)):
+        raise NotImplementedError(
+            "a live device-online flat table is not ported yet (ROADMAP.md queue 1, item 4)")
+
+
+def _ragged_pack(lists):
+    """list of int lists → (flat, offsets) int64 arrays (CSR)."""
+    off = np.zeros(len(lists) + 1, dtype=np.int64)
+    for i, xs in enumerate(lists):
+        off[i + 1] = off[i] + len(xs)
+    flat = np.fromiter((p for xs in lists for p in xs), dtype=np.int64, count=int(off[-1]))
+    return flat, off
+
+
+def _ragged_unpack(flat, off) -> list[list[int]]:
+    return [flat[off[i] : off[i + 1]].tolist() for i in range(len(off) - 1)]
 
 
 @dataclasses.dataclass
@@ -126,6 +168,12 @@ class ClusterSnapshot:
         return self.result.stabilities
 
     @property
+    def condensed(self):
+        """Host-layout CondensedTree, rebuilt on demand from the device
+        arrays (the hot path never builds it)."""
+        return self.result.to_condensed()
+
+    @property
     def total_mst_weight(self) -> float:
         return float(np.sum(self.mst[2]))
 
@@ -145,6 +193,9 @@ class StreamingClusterEngine:
         GPU), ``"cpu"`` = the plain PyTorch versions.
       async_offline: run offline passes in a background thread; `query`
         keeps serving the previous snapshot meanwhile.
+      query_cache, query_scope: a shared `SnapshotDeviceCache` and this
+        engine's scope in it — a `TenantRouter` pools one cache across
+        engines with ``(tenant, version)`` keys.
       **tree_kw: forwarded to BubbleTree.
     """
 
@@ -164,6 +215,8 @@ class StreamingClusterEngine:
         device_online: bool | None = None,
         exact: bool = False,
         mesh=None,
+        query_cache=None,
+        query_scope=None,
         **tree_kw,
     ):
         for name, on in (("spatial_index", spatial_index), ("device_online", device_online),
@@ -202,7 +255,7 @@ class StreamingClusterEngine:
         # writes once on failure, the ingest thread reads-and-clears
         self._offline_error: BaseException | None = None
         self._table = SnapshotDeviceTable(self.tree)
-        self._query_engine = QueryEngine(self.backend, dim)
+        self._query_engine = QueryEngine(self.backend, dim, cache=query_cache, scope=query_scope)
         # unsynchronized: single-reference swap; readers take ONE read of
         # the (key, payload) tuple (see labels()) so entries never mix
         self._labels_cache: tuple | None = None
@@ -411,6 +464,169 @@ class StreamingClusterEngine:
             self._offline_thread = None
         self._settle()
         self._raise_pending_offline_error()
+
+    # -- checkpointing (DESIGN.md §11) --------------------------------------
+
+    def checkpoint_state(self) -> dict:
+        """The engine's durable state as one flat dict of host arrays, in
+        the JAX engine's format 1: the whole tree (CF arrays, topology,
+        point store, free lists in order, so point ids replay bit for
+        bit), the ε accounting and the last PUBLISHED snapshot.  Not
+        captured: an in-flight async pass (recovery replays to the last
+        published version and the pass re-triggers off the kept dirty
+        mass), queued requests and the counters.  Call from the ingest
+        thread, as `poll()`."""
+        # ONE lock hold for (version, snapshot): separate reads could pair
+        # version N with a version-N+1 snapshot, and the restored engine
+        # would issue N+1 a second time
+        with self._snapshot_lock:
+            version = self._version
+            snap = self._snapshot
+        t = self.tree
+        cap = t.LS.shape[0]
+        ch_flat, ch_off = _ragged_pack(t.children[:cap])
+        lp_flat, lp_off = _ragged_pack(t.leaf_points[:cap])
+        state = {
+            "cfg/format": np.int64(_CKPT_FORMAT),
+            "cfg/dim": np.int64(t.dim),
+            "cfg/min_pts": np.int64(self.min_pts),
+            "cfg/min_cluster_size": np.float64(self.min_cluster_size),
+            "cfg/compression": np.float64(t.compression),
+            "cfg/epsilon": np.float64(self.policy.epsilon),
+            "cfg/exact": np.bool_(False),
+            "cfg/device_online": np.bool_(False),
+            "tree/LS": t.LS.copy(),
+            "tree/SS": t.SS.copy(),
+            "tree/N": t.N.copy(),
+            "tree/parent": t.parent.copy(),
+            "tree/height": t.height.copy(),
+            "tree/node_alive": t.node_alive.copy(),
+            "tree/is_leaf": t.is_leaf.copy(),
+            "tree/children_flat": ch_flat,
+            "tree/children_off": ch_off,
+            "tree/leaf_points_flat": lp_flat,
+            "tree/leaf_points_off": lp_off,
+            "tree/node_free": np.asarray(t._node_free, dtype=np.int64),
+            "tree/PX": t.PX.copy(),
+            "tree/point_alive": t.point_alive.copy(),
+            "tree/point_leaf": t.point_leaf.copy(),
+            "tree/point_free": np.asarray(t._point_free, dtype=np.int64),
+            "tree/struct_dirty": np.asarray(sorted(t._struct_dirty), dtype=np.int64),
+            "tree/root": np.int64(t.root),
+            "tree/n_points": np.int64(t.n_points),
+            "tree/dirty_mass": np.float64(t.dirty_mass),
+            "tree/mutations": np.int64(t.mutations),
+            "tree/op_count": np.int64(t._op_count),
+            "eng/version": np.int64(version),
+            "eng/settled_version": np.int64(self._settled_version),
+            "snap/has": np.bool_(snap is not None),
+        }
+        if snap is not None:
+            state.update({
+                "snap/version": np.int64(snap.version),
+                "snap/n_points": np.int64(snap.n_points),
+                "snap/bubble_rep": np.asarray(snap.bubble_rep),
+                "snap/bubble_n": np.asarray(snap.bubble_n),
+                "snap/center": np.asarray(snap.center),
+                "snap/wall_seconds": np.float64(snap.wall_seconds),
+                "snap/dirty_consumed": np.float64(snap.dirty_consumed),
+                "snap/mst_u": np.asarray(snap.mst[0]),
+                "snap/mst_v": np.asarray(snap.mst[1]),
+                "snap/mst_w": np.asarray(snap.mst[2]),
+            })
+            for f in _RESULT_FIELDS:
+                state[f"snap/res_{f}"] = np.asarray(getattr(snap.result, f))
+            state["snap/res_min_cluster_size"] = np.float64(snap.result.min_cluster_size)
+        state["flat/has"] = np.bool_(False)
+        return state
+
+    def save(self, store, step: int | None = None, *, blocking: bool = True) -> int:
+        """Checkpoint through a `CheckpointStore` (atomic publish, async
+        writes, retention).  ``step`` defaults to the tree's monotonic
+        mutation counter, so successive saves of a live stream land under
+        distinct, ordered steps.  Returns the step."""
+        if step is None:
+            step = int(self.tree.mutations)
+        store.save(step, self.checkpoint_state(), blocking=blocking)
+        return step
+
+    def restore(self, store, step: int | None = None) -> int:
+        """Load a checkpoint written by `save()` — by this package or the
+        JAX one — into THIS engine (built with a compatible config): the
+        killed-worker recovery path.  The summary, the accounting and the
+        last published snapshot replay, so serving resumes at that version
+        and the stream continues bit for bit.  Returns the step."""
+        step, d = store.restore(step=step)
+        self._load_state(d, same_mode=True)
+        return step
+
+    def _load_state(self, d: dict, *, same_mode: bool = False):
+        """Install a format-1 state dict field by field: the tree (free-list
+        order and struct_dirty included), the ε accounting, the version
+        counter and the published snapshot.  Raises as the JAX engine's
+        restore does on an unknown format, a wrong dim or queued requests,
+        and with ``same_mode`` on a device-online checkpoint; raises
+        NotImplementedError for state this port does not carry yet."""
+        if int(d["cfg/format"]) != _CKPT_FORMAT:
+            raise ValueError(f"unknown checkpoint format {int(d['cfg/format'])}")
+        if int(d["cfg/dim"]) != self.tree.dim:
+            raise ValueError(f"checkpoint dim {int(d['cfg/dim'])} != engine dim {self.tree.dim}")
+        _refuse_unported(d)
+        if same_mode and bool(d["cfg/device_online"]):
+            raise ValueError(
+                "checkpoint cfg/device_online=True does not match this engine (False) — "
+                "construct the replacement worker with the same mode")
+        if self.batcher:
+            raise RuntimeError("restore() into an engine with queued requests")
+        t = self.tree
+        t.LS = np.array(d["tree/LS"], dtype=np.float64)
+        t.SS = np.array(d["tree/SS"], dtype=np.float64)
+        t.N = np.array(d["tree/N"], dtype=np.float64)
+        t.parent = np.array(d["tree/parent"], dtype=np.int64)
+        t.height = np.array(d["tree/height"], dtype=np.int64)
+        t.node_alive = np.array(d["tree/node_alive"], dtype=bool)
+        t.is_leaf = np.array(d["tree/is_leaf"], dtype=bool)
+        t.children = _ragged_unpack(d["tree/children_flat"], d["tree/children_off"])
+        t.leaf_points = _ragged_unpack(d["tree/leaf_points_flat"], d["tree/leaf_points_off"])
+        if not (len(t.children) == len(t.leaf_points) == t.LS.shape[0]):
+            raise ValueError("checkpoint tree arrays disagree on the node capacity")
+        t._node_free = d["tree/node_free"].astype(int).tolist()
+        t.PX = np.array(d["tree/PX"], dtype=np.float64)
+        t.point_alive = np.array(d["tree/point_alive"], dtype=bool)
+        t.point_leaf = np.array(d["tree/point_leaf"], dtype=np.int64)
+        t._point_free = d["tree/point_free"].astype(int).tolist()
+        t._struct_dirty = set(d["tree/struct_dirty"].astype(int).tolist())
+        t.root = int(d["tree/root"])
+        t.n_points = int(d["tree/n_points"])
+        t.dirty_mass = float(d["tree/dirty_mass"])
+        t.mutations = int(d["tree/mutations"])
+        t._op_count = int(d["tree/op_count"])
+        self._settled_version = int(d["eng/settled_version"])
+        self._inflight_consumed = 0.0
+        self._offline_thread = None
+        self._offline_error = None
+        self._labels_cache = None
+        snap = None
+        if bool(d["snap/has"]):
+            res = ops.OfflineClusterResult(
+                mst=(np.asarray(d["snap/mst_u"]), np.asarray(d["snap/mst_v"]),
+                     np.asarray(d["snap/mst_w"])),
+                min_cluster_size=float(d["snap/res_min_cluster_size"]),
+                **{f: np.asarray(d[f"snap/res_{f}"]) for f in _RESULT_FIELDS},
+            )
+            snap = ClusterSnapshot(
+                version=int(d["snap/version"]),
+                n_points=int(d["snap/n_points"]),
+                bubble_rep=np.asarray(d["snap/bubble_rep"]),
+                bubble_n=np.asarray(d["snap/bubble_n"]),
+                center=np.asarray(d["snap/center"]),
+                result=res,
+                wall_seconds=float(d["snap/wall_seconds"]),
+                dirty_consumed=float(d["snap/dirty_consumed"]),
+            )
+        with self._snapshot_lock:
+            self._version = int(d["eng/version"])
+            self._snapshot = snap
 
     # -- serve plane -------------------------------------------------------
 

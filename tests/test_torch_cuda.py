@@ -791,3 +791,109 @@ class TestCudaKernels:
         resolve_device(cuda_device)
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32
+
+
+def _serving_blocks(seed, n_blocks, n_per=400, d=4):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(6, d)) * 6.0
+    return [rng.normal(size=(n_per, d)) * 0.7 + centres[rng.integers(0, 6, size=n_per)] + 3.0
+            for _ in range(n_blocks)]
+
+
+def _card_engine(cuda_device, **kw):
+    from repro_torch import StreamingClusterEngine
+
+    return StreamingClusterEngine(4, min_pts=8, compression=0.05, epsilon=0.2, min_offline_points=8,
+                                  device=cuda_device, **kw)
+
+
+def _drive_card(eng, blocks):
+    for i, b in enumerate(blocks):
+        pids = eng.ingest(b)
+        if i % 3 == 2:
+            eng.retire(pids[::4])
+    eng.flush()
+
+
+@pytest.mark.cuda
+class TestCudaServing:
+    """The serve plane's remainder and checkpoint replay on the card."""
+
+    def test_batcher_matches_direct_queries(self, cuda_device):
+        import threading
+
+        from repro_torch import QueryBatcher
+
+        eng = _card_engine(cuda_device)
+        _drive_card(eng, _serving_blocks(3, 6))
+        rng = np.random.default_rng(4)
+        chunks = [rng.normal(size=(int(rng.integers(1, 300)), 4)) * 5.0 + 3.0 for _ in range(24)]
+        qb = QueryBatcher(eng, max_batch=1024)
+        got, errors = [None] * len(chunks), []
+
+        def worker(i):
+            try:
+                got[i] = qb.query_detailed(chunks[i])
+            except BaseException as e:  # noqa: BLE001 — surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(chunks))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads) and not errors
+        for c, g in zip(chunks, got):
+            w = eng.query_detailed(c)
+            for f in ("labels", "bubble_index"):
+                np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+            np.testing.assert_allclose(g.distance, w.distance, rtol=1e-6, atol=0)
+            np.testing.assert_allclose(g.strength, w.strength, rtol=1e-6, atol=0)
+        assert qb.fanned_out == len(chunks) and 1 <= qb.batches <= len(chunks)
+
+    def test_drill_replays_bit_for_bit(self, cuda_device, tmp_path):
+        from repro_torch import CheckpointStore
+
+        blocks = _serving_blocks(5, 8)
+        oracle, victim = _card_engine(cuda_device), _card_engine(cuda_device)
+        for eng in (oracle, victim):
+            _drive_card(eng, blocks[:4])
+        store = CheckpointStore(str(tmp_path), keep=2)
+        victim.save(store)
+        del victim
+        recovered = _card_engine(cuda_device)
+        recovered.restore(store)
+        store.close()
+        for eng in (oracle, recovered):
+            _drive_card(eng, blocks[4:])
+        a, b = oracle.snapshot, recovered.snapshot
+        assert a.version == b.version > 1
+        for u, v in zip(a.mst, b.mst):
+            np.testing.assert_array_equal(u, v)
+        for f in ("labels", "stabilities", "point_parent", "point_lambda", "cluster_parent",
+                  "cluster_birth", "cluster_weight", "selected", "all_stabilities"):
+            np.testing.assert_array_equal(getattr(a.result, f), getattr(b.result, f), err_msg=f)
+        q = blocks[0][:500]
+        ra, rb = oracle.query_detailed(q), recovered.query_detailed(q)
+        for f in ("labels", "bubble_index", "distance", "strength"):
+            np.testing.assert_array_equal(getattr(ra, f), getattr(rb, f))
+
+    def test_return_w_on_the_card(self, cuda_device):
+        """``return_w`` on the card: the pass's own W (the valid corner of
+        the device matrix) against the bubble d_m computed alone on the
+        same centred table (within the mutual_reach parity tolerance,
+        1e-5 relative plus 1e-5 at this unit scale), and the result the
+        pass gives without it."""
+        rng = np.random.default_rng(6)
+        rep, n_b, extent = _bubble_table(rng, 700, 16)
+        W, res = tops.offline_recluster_from_table(rep, n_b, extent, 10, device=cuda_device, return_w=True)
+        plain = tops.offline_recluster_from_table(rep, n_b, extent, 10, device=cuda_device)
+        assert W.shape == (700, 700) and W.dtype == np.float32
+        np.testing.assert_array_equal(res.labels, plain.labels)
+        for u, v in zip(res.mst, plain.mst):
+            np.testing.assert_array_equal(u, v)
+        r64, m64 = rep.astype(np.float64), n_b.astype(np.float64)
+        c = r64 - (m64 @ r64) / m64.sum()
+        alone = tops.bubble_mutual_reachability(*(torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+                                                  for a in (c, n_b, extent)), 10)
+        np.testing.assert_allclose(W, alone.cpu().numpy(), rtol=1e-5, atol=1e-5)

@@ -233,3 +233,80 @@ class TestOfflinePass:
         got = tops.offline_recluster_from_table(rep, n_b, extent, 50, min_cluster_size=2.0, device="cpu")
         want = jops.offline_recluster_from_table(rep, n_b, extent, 50, min_cluster_size=2.0, use_ref=True)
         _assert_results_match(got, want)
+
+
+def _pass_dict(buffers, ct, ex):
+    """The fixed-size buffers an offline pass hands to its unwrap."""
+    eu, ev, ew, valid = buffers
+    return {
+        "eu": eu, "ev": ev, "ew": ew, "valid": valid,
+        "labels": ex.labels, "stability": ex.stability, "selected": ex.selected,
+        "point_parent": ct.point_parent, "point_lambda": ct.point_lambda,
+        "cluster_parent": ct.cluster_parent, "cluster_birth": ct.cluster_birth,
+        "cluster_weight": ct.cluster_weight, "n_labels": ct.n_labels,
+    }
+
+
+class TestCondensedAndW:
+    """``to_condensed()`` against the reference's on the four families,
+    each side's result unwrapped from its own hierarchy over one shared W
+    and one set of edge buffers (as in TestHierarchy): parent and child
+    exact, λ and weights within 1e-5 relative.  ``return_w``'s W against
+    the reference's within the mutual_reach parity tolerance of
+    tests/test_torch_kernels.py (1e-5 relative plus 1e-5; for duplicate
+    rows plus the f32 floor above, as far as copies sit apart)."""
+
+    @pytest.mark.parametrize("name", DATASETS)
+    def test_to_condensed_matches_reference(self, rng, name):
+        W, n, nb, mcs = _padded_W(name, rng)
+        buffers = _boruvka_jit(jnp.asarray(W.numpy()))
+        want_h = _hierarchy_jit(*buffers, n, jnp.asarray(nb), mcs, method="eom", allow_single_cluster=False)
+        tb = [torch.from_numpy(np.array(a)) for a in buffers]
+        got_h = th.hierarchy_fixed(*tb, n, torch.from_numpy(nb), mcs)
+        weights = nb[:n].astype(np.float64)
+        want = jops._unwrap_result(_pass_dict(buffers, *want_h[1:]), n, mcs, weights).to_condensed()
+        got = tops._unwrap_result(_pass_dict(tb, *got_h[1:]), n, mcs, weights).to_condensed()
+        assert got.n_leaves == want.n_leaves == n
+        np.testing.assert_array_equal(got.parent, want.parent)
+        np.testing.assert_array_equal(got.child, want.child)
+        for field in ("lambda_val", "child_weight"):
+            g, w = getattr(got, field), getattr(want, field)
+            assert g.dtype == w.dtype == np.float64
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=0, err_msg=field)
+        np.testing.assert_array_equal(got.cluster_ids(), want.cluster_ids())
+
+    @pytest.mark.parametrize("name", DATASETS)
+    def test_return_w_matches_reference(self, rng, name):
+        X, mp, mcs = _dataset(name, rng)
+        n = X.shape[0]
+        Xc = X - X.mean(axis=0)
+        floor = np.sqrt(4 * np.finfo(np.float32).eps * (Xc**2).sum(1).max()) if name == "dups" else 0.0
+        args = (X, np.ones(n), np.zeros(n), mp)
+        W, res = tops.offline_recluster_from_table(*args, min_cluster_size=mcs, device="cpu", return_w=True)
+        W_ref, res_ref = jops.offline_recluster_from_table(*args, min_cluster_size=mcs, use_ref=True,
+                                                           return_w=True)
+        assert W.shape == (n, n) and W.dtype == np.float32
+        np.testing.assert_allclose(W, np.asarray(W_ref), rtol=1e-5, atol=1e-5 + floor)
+        assert_same_partition(res.labels, res_ref.labels)
+
+    def test_condensed_of_the_pass_is_its_snapshot_layout(self, rng):
+        """The whole pass's tree: one row per leaf and per non-root label,
+        leaf mass conserved, cluster ids from L on."""
+        X, _ = make_blobs(rng, n_per=40)
+        n = len(X)
+        res = tops.offline_recluster_from_table(X, np.ones(n), np.zeros(n), 6, device="cpu")
+        ct = res.to_condensed()
+        K = res.cluster_parent.shape[0]
+        assert ct.parent.shape == ct.child.shape == (n + K - 1,)
+        np.testing.assert_array_equal(np.sort(ct.child[K - 1 :]), np.arange(n))
+        assert ct.child_weight[K - 1 :].sum() == n
+        assert ct.parent.min() == n and ct.child[: K - 1].min() > n
+
+    def test_backend_return_w_is_the_pass_without_it(self, rng):
+        X, _ = make_blobs(rng, n_per=40)
+        be = tops.get_backend("cpu")
+        W, res = be.offline_recluster_from_table(X, np.ones(len(X)), np.zeros(len(X)), 6, return_w=True)
+        plain = be.offline_recluster_from_table(X, np.ones(len(X)), np.zeros(len(X)), 6)
+        np.testing.assert_array_equal(res.labels, plain.labels)
+        np.testing.assert_array_equal(np.diag(W), 0.0)
+        np.testing.assert_array_equal(W, W.T)

@@ -364,5 +364,5 @@ class TestBackend:
 
     @pytest.mark.parametrize("method", ["make_flat", "make_dynamic", "incremental_recluster"])
     def test_unported_paths_raise(self, method):
-        with pytest.raises(NotImplementedError, match="queue 1, item (8|11)"):
+        with pytest.raises(NotImplementedError, match="queue 1, item (4|6)"):
             getattr(tops.get_backend("cpu"), method)(4)
