@@ -70,6 +70,24 @@ Phases, each printing its own lines:
               checkpoint restored into a CPU engine, its snapshot equal;
               bytes on disk and the ms of each step and of the first pass
               after the restore;
+     online   the [stream] configuration with device_online=True (the same
+              data, blocks, retires and queries): the leaf CF table also on
+              the card, each block through the assign and flat_scatter
+              kernels, ε-passes read straight from the table; CF parity
+              against the host tree after every block (and the host's
+              populated slots equal to the device's), every pass's
+              partition equal to the card's host-table pass on the same
+              tree, the final snapshot and the served rows against the CPU
+              plain pipeline, a capture and pass under
+              torch.cuda.set_sync_debug_mode("error") up to the unwrap;
+              ingest and retire ms per 1k points beside [stream]'s, the
+              device-table pass's stages at the full table beside the
+              host-table pass's; flat_scatter bit for bit against its
+              plain version at the stream's shapes and on a
+              duplicate-heavy block (insert and delete, two runs), timed
+              beside the plain version and index_put_(accumulate) with the
+              Kahan adds; a checkpoint drill replaying the retires bit for
+              bit;
   5. wide     a default StreamingClusterEngine at d = 200 (past the
               register tiles' 128): 65,536 points in blocks of 8192
               (L ~ 1,300, Lp = 2048), then 8192 queries; every snapshot and
@@ -124,7 +142,9 @@ Phases, each printing its own lines:
      CUDA-core kernel's time as scalar_ms, flash_attention_mma with the
      qwen2-1.5b bf16 case; single_linkage, condense and eom, which stand
      for the JAX package's three hierarchy scans, with the stage's time
-     as stage_ms and the latency floor as latency_floor_ms);
+     as stage_ms and the latency floor as latency_floor_ms; flat_scatter,
+     which stands for the segment sums of device-online ingest, with its
+     launches from [online] and one launch's time as launch_ms);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -758,7 +778,8 @@ def phase_stream(dev):
               and ((res.strength >= 0) & (res.strength <= 1)).all(), "malformed query result")
     return dict(eng=eng, snap_full=snap_full, table_full=table_full, snap_last=snap_last,
                 table_last=table_last, Qs=Qs, served=served, launches=launches, ckpt=ckpt,
-                retire_blocks=retire_blocks, published=published, retire_versions=retire_versions)
+                retire_blocks=retire_blocks, published=published, retire_versions=retire_versions,
+                ingest_ms=ingest_s / N_POINTS * 1e6, retire_ms=retire_s / len(drop) * 1e6)
 
 
 def assign_at_query_shape(dev, run):
@@ -845,15 +866,18 @@ def check_served(tag, snap, X, served):
 PATH_KERNELS = ("assign", "bubble_cd", "mutual_reach", "single_linkage", "condense", "eom")
 
 
-def reset_counts():
-    """Set the launch counts of the engine's kernels to 0."""
+def reset_counts(counts=None):
+    """Set the launch counts of the engine's kernels to 0, or to ``counts``
+    (a ``read_counts()`` result)."""
     from repro_torch.kernels import assign as k_assign
     from repro_torch.kernels import bubble_cd as k_bcd
     from repro_torch.kernels import hierarchy as k_h
     from repro_torch.kernels import mutual_reach as k_mr
 
-    k_assign.launches = k_bcd.launches = k_mr.launches = 0
-    k_h.launches_single_linkage = k_h.launches_condense = k_h.launches_eom = 0
+    c = counts or dict.fromkeys(PATH_KERNELS, 0)
+    k_assign.launches, k_bcd.launches, k_mr.launches = c["assign"], c["bubble_cd"], c["mutual_reach"]
+    k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom = (
+        c["single_linkage"], c["condense"], c["eom"])
 
 
 def read_counts() -> dict:
@@ -1097,6 +1121,351 @@ def phase_recover(dev, run, card):
         check(launches[name] > 0, f"kernel {name} never launched in [recover]")
 
 
+ONLINE_DUP_SLOTS = 16  # [online]: the distinct slots of flat_scatter's duplicate-heavy block
+
+
+def flat_parity(eng) -> float:
+    """The device-online engine's flat table against its host tree, per
+    alive leaf: the same leaves, N exact, the uncentred LS and SS within
+    1e-6 relative (plus 1e-6 of the largest magnitude); and the populated
+    slots the host takes for a capture equal to the ones the device's N
+    gives.  Returns the largest difference relative to that allowance's
+    scale."""
+    import torch
+
+    f, t = eng._flat, eng.tree
+    leaf_ids, LS, SS, N = f.host_cfs()
+    ids = t.alive_leaf_ids()
+    order, srt = np.argsort(leaf_ids), np.sort(leaf_ids)
+    check(np.array_equal(srt, np.sort(ids[t.N[ids] > 0])), "[online] the flat table's leaves are not the tree's")
+    check(np.array_equal(N[order], t.N[srt]), "[online] the flat table's N differs from the tree's")
+    worst = 0.0
+    for name, got, want in (("LS", LS[order], t.LS[srt]), ("SS", SS[order], t.SS[srt])):
+        scale = np.abs(want) + max(1.0, float(np.abs(want).max()))
+        rel = float(np.max(np.abs(got - want) / scale))
+        check(rel <= 1e-6, f"[online] flat {name} differs from the tree's by {rel:.3e} of its scale")
+        worst = max(worst, rel)
+    dev_slots = torch.nonzero(f.alive & (f.N > 0)).squeeze(1).cpu().numpy()
+    check(np.array_equal(f.alive_slots(), dev_slots), "[online] the host's populated slots are not the device's")
+    return worst
+
+
+def online_pass_parity(eng):
+    """The newest snapshot (a device-table pass) against the card's
+    host-table pass on the same tree, aligned per leaf: the same partition;
+    returns the MST weights' relative difference.  The check's own kernel
+    launches are taken back out of the counts."""
+    snap, f = eng.snapshot, eng._flat
+    ids, LS, SS, N = eng.tree.leaf_cf_buffers()
+    counts = read_counts()
+    host = eng.backend.offline_recluster(LS, SS, N, ids, MIN_PTS)
+    reset_counts(counts)  # a check's launches are not the path's
+    pos = {int(leaf): i for i, leaf in enumerate(ids)}
+    rows = np.asarray([pos[int(leaf)] for leaf in f.leaf_of_slot[f.alive_slots()]])
+    check(snap.n_bubbles == len(rows), "[online] the snapshot's rows are not the flat table's populated slots")
+    check(_same_partition(snap.bubble_labels, host.labels[rows]),
+          f"[online] version {snap.version}: partition differs from the host-table pass")
+    w = float(np.sum(host.mst[2]))
+    return abs(snap.total_mst_weight - w) / w
+
+
+def phase_online(dev, run, card):
+    """Device-online ingest on the card: the [stream] configuration (the
+    same data, blocks, retires and queries) with ``device_online=True``;
+    CF parity after every block, every pass against the host-table pass on
+    the same tree, the final snapshot and the served rows against the CPU
+    plain pipeline, one pass with no host synchronisation allowed from the
+    capture to the unwrap; then the device-table pass's stages at the full
+    table beside the host-table pass's, flat_scatter against its plain
+    version at the stream's shapes, and a checkpoint drill.  Returns
+    (launches, flat_scatter's numbers)."""
+    import torch
+
+    from repro_torch import StreamingClusterEngine
+    from repro_torch.core.device_table import FlatTableCapture
+    from repro_torch.kernels import flat_scatter as k_fs
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED + 1)
+    data = mixture(rng, N_POINTS + N_QUERIES) + 50.0  # [stream]'s data, blocks and retires
+    X, Qs = data[:N_POINTS], data[N_POINTS:]
+    kw = dict(min_pts=MIN_PTS, compression=COMPRESSION, epsilon=EPSILON, max_block=BLOCK, device_online=True)
+    eng = StreamingClusterEngine(DIM, device=dev, **kw)
+    passes, parity, weights = [], [], []
+
+    def note_pass(before):
+        snap = eng.snapshot
+        if snap is not None and snap.version != before:
+            passes.append((snap.n_bubbles, ops._pow2_rows(snap.n_bubbles), snap.wall_seconds * 1e3))
+            weights.append(online_pass_parity(eng))
+
+    reset_counts()
+    k_fs.launches = 0
+    ingest_s, pids = 0.0, []
+    for i in range(0, N_POINTS, BLOCK):
+        v0 = 0 if eng.snapshot is None else eng.snapshot.version
+        off0 = eng.stats["offline_seconds_total"]
+        t0 = time.perf_counter()
+        pids.extend(eng.ingest(X[i : i + BLOCK]))
+        ingest_s += time.perf_counter() - t0 - (eng.stats["offline_seconds_total"] - off0)
+        if not eng._flat.stale:
+            parity.append(flat_parity(eng))
+        note_pass(v0)
+    v0 = eng.snapshot.version
+    snap_full = eng.flush()
+    note_pass(v0)
+    f = eng._flat
+    check(not f.stale, "[online] the flat table is stale after the ingest")
+    # for the stage split and the drill, outside the stream's timed windows:
+    # a capture (isolation clones), the host tree's table, a checkpoint
+    cap_full = f.capture(eng.tree.n_points)
+    table_full = eng._host_table.capture(eng.tree.n_points).table()
+    ckpt = checkpoint_stream(eng)
+    drop = rng.choice(len(pids), size=N_POINTS // 4, replace=False)
+    retire_blocks = [[pids[j] for j in drop[i : i + BLOCK]] for i in range(0, len(drop), BLOCK)]
+    retire_s, published = 0.0, {}
+    for block in retire_blocks:
+        v0 = eng.snapshot.version
+        off0 = eng.stats["offline_seconds_total"]
+        t0 = time.perf_counter()
+        eng.retire(block)
+        retire_s += time.perf_counter() - t0 - (eng.stats["offline_seconds_total"] - off0)
+        parity.append(flat_parity(eng))
+        note_pass(v0)
+        published[eng.snapshot.version] = eng.snapshot
+    v0 = eng.snapshot.version
+    snap_last = eng.flush()
+    note_pass(v0)
+    published[snap_last.version] = snap_last
+    served = [eng.query_detailed(Qs[i : i + QUERY_CHUNK]) for i in range(0, N_QUERIES, QUERY_CHUNK)]
+    launches = dict(read_counts(), flat_scatter=k_fs.launches)
+
+    say(f"[online] {N_POINTS} points d={DIM} in blocks of {BLOCK}, device_online=True, {len(drop)} retired, "
+        f"{N_QUERIES} queries, on {card}: {eng.stats['device_online_blocks']} blocks on the device, flat_loads "
+        f"{eng.stats['flat_loads']}, flat Lp {f.Lp}; launches {json.dumps(launches)}")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} never launched in [online]")
+    n_passes = eng.stats["recluster_count"]
+    check(all(launches[k] == n_passes for k in PATH_KERNELS[1:]),
+          f"[online] pass kernels not launched once per offline pass ({n_passes} passes): {launches}")
+    check(eng.stats["device_online_blocks"] >= len(retire_blocks) + N_POINTS // BLOCK - 1,
+          "[online] blocks left the device path")
+    say(f"[online] ingest {ingest_s / N_POINTS * 1e6:.3f} ms per 1k points, retire {retire_s / len(drop) * 1e6:.3f} "
+        f"ms per 1k points (offline passes excluded); [stream]'s default engine in this run: ingest "
+        f"{run['ingest_ms']:.3f}, retire {run['retire_ms']:.3f}")
+    say(f"[online] CF parity against the host tree after all {len(parity)} blocks: N exact, LS and SS within "
+        f"{max(parity):.3e} of their scale (limit 1e-6); the host's populated slots equal the device's each time")
+    say(f"[online] {len(passes)} offline passes from the device table (L, Lp, ms): "
+        f"{[(a, b, round(c, 1)) for a, b, c in passes]}; each partition equal to the card's host-table pass on "
+        f"the same tree, MST weight rel diff max {max(weights):.3e}")
+    check(len(passes) >= 3, "[online] fewer than three offline passes")
+
+    # the final snapshot against the CPU plain pipeline on the same capture
+    cap = f.capture(eng.tree.n_points)
+    cpu_cap = FlatTableCapture(view=tuple(t.cpu() for t in cap.view), origin=cap.origin, n_points=cap.n_points,
+                               slots=cap.slots)
+    t0 = time.perf_counter()
+    res_cpu, rep_cpu, nb_cpu, _ = cpu_cap.recluster(ops.get_backend("cpu"), min_pts=MIN_PTS,
+                                                    min_cluster_size=float(MIN_PTS))
+    w_gpu, w_cpu = snap_last.total_mst_weight, float(np.sum(res_cpu.mst[2]))
+    rel = abs(w_gpu - w_cpu) / w_cpu
+    check(np.array_equal(nb_cpu, snap_last.bubble_n), "[online] final: the CPU pass's masses differ")
+    check(_same_partition(snap_last.bubble_labels, res_cpu.labels), "[online] final: partition differs from CPU")
+    check(rel <= RTOL, f"[online] final: MST weight differs from the CPU plain pass by {rel:.3e}")
+    rep_rel = float(np.max(np.abs(rep_cpu - snap_last.bubble_rep)) / np.max(np.abs(snap_last.bubble_rep)))
+    say(f"[online] final snapshot (L={snap_last.n_bubbles}) against the CPU plain pipeline on the same capture "
+        f"({time.perf_counter() - t0:.2f} s): partition equal, {res_cpu.n_clusters} clusters, MST weight rel diff "
+        f"{rel:.3e}, reps within {rep_rel:.3e} of their largest magnitude")
+    check_served("online", snap_last, Qs, served)
+
+    # no host synchronisation from the capture to the unwrap
+    def no_sync(name, fn, *args, **kwargs):
+        if name == "unwrap":
+            return fn(*args, **kwargs)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    torch.cuda.synchronize()
+    cap = no_sync("capture", f.capture, eng.tree.n_points)
+    res = ops.offline_recluster_from_device_table(*cap.view, cap.origin, MIN_PTS, float(MIN_PTS), slots=cap.slots,
+                                                  stage=no_sync)[0]
+    check(np.array_equal(res.labels, snap_last.bubble_labels), "[online] the pass under the sync debug mode differs")
+    say("[online] capture and pass with torch.cuda.set_sync_debug_mode('error') from the capture to the unwrap: "
+        "no host synchronisation raised; labels identical to the published snapshot's")
+
+    online_stages(dev, cap_full, table_full, snap_full)
+    numbers = online_scatter(dev, eng, Qs)
+    online_drill(dev, card, ckpt, kw, f, retire_blocks, published, snap_last)
+    del eng, f, cap, cap_full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def stage_timer(times: dict):
+    """A ``stage`` hook that times each stage between synchronisations."""
+    import torch
+
+    def timed(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    return timed
+
+
+def online_stages(dev, cap, table, snap):
+    """The device-table pass over the full table's capture, stage by stage
+    and end to end, beside the host-table pass over the same tree."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    rep, extent, n_b, _ = table
+    L = len(cap.slots)
+
+    def device_pass(stage=ops._run_stage):
+        return ops.offline_recluster_from_device_table(*cap.view, cap.origin, MIN_PTS, float(MIN_PTS),
+                                                       slots=cap.slots, stage=stage)[0]
+
+    def host_pass(stage=ops._run_stage):
+        return ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=stage)
+
+    t_dev, t_host = {}, {}
+    for _ in range(2):  # the second round is the one reported (warm caches)
+        res_d = device_pass(stage_timer(t_dev))
+        res_h = host_pass(stage_timer(t_host))
+    check(np.array_equal(res_d.labels, snap.bubble_labels), "[online] the timed device-table pass differs")
+    check(res_h.n_bubbles == L, "[online] the host table's L differs from the flat table's")
+    walls = {"device": [], "host": []}
+    for _ in range(3):  # end to end, in turns
+        for name, fn in (("device", device_pass), ("host", host_pass)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    for name, times in (("device-table", t_dev), ("host-table", t_host)):
+        say(f"[online] {name} pass at L={L}, Lp={ops._pow2_rows(L)} (ms): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) + f"; total {sum(times.values()):.2f}")
+    say(f"[online] end to end (ms, in turns): device-table {', '.join(f'{w:.2f}' for w in walls['device'])}; "
+        f"host-table {', '.join(f'{w:.2f}' for w in walls['host'])}")
+
+
+def online_scatter(dev, eng, Qs):
+    """flat_scatter against its plain version on the card at the stream's
+    shapes (Bp = BLOCK rows of the query mixture, the run's flat Lp,
+    d = 16): slots from the assign kernel as the insert path takes them,
+    and a duplicate-heavy block over ONLINE_DUP_SLOTS slots; insert and
+    delete, bit for bit, two runs bit for bit; then its time, the plain
+    version's, the library call's and the bound."""
+    import torch
+
+    from repro_torch.kernels import assign as k_assign
+    from repro_torch.kernels import flat_scatter as k_fs
+    from repro_torch.kernels import ref
+
+    f = eng._flat
+    Lp, d = f.LS.shape
+    xc = torch.as_tensor((Qs[:BLOCK] - f.origin).astype(np.float32), device=dev)
+    valid = torch.ones(BLOCK, dtype=torch.bool, device=dev)
+    live = f.alive & (f.N > 0)
+    reps = torch.where(live[:, None], f.LS / torch.clamp_min(f.N, 1.0)[:, None], 1e6).contiguous()
+    slot_stream = k_assign.assign(xc, reps)
+    live_slots = torch.nonzero(live).squeeze(1)
+    pick = np.random.default_rng(SEED + 21).integers(0, ONLINE_DUP_SLOTS, BLOCK)
+    slot_dup = live_slots[torch.as_tensor(pick, device=dev)].to(torch.int32)
+    state = [t.clone() for t in (f.LS, f.LSe, f.SS, f.SSe, f.N)]
+    thresh = float(eng.tree._leaf_cap_at(eng.tree.n_points + BLOCK))
+    names = ("LS", "LSe", "SS", "SSe", "N", "flags")
+    err = 0.0
+    for label, slot in (("stream", slot_stream), ("duplicate-heavy", slot_dup)):
+        for sign in (1, -1):
+            want = ref.flat_scatter(*state, f.alive, xc, slot, valid, thresh, sign)
+            runs = []
+            for _ in range(2):
+                got = [t.clone() for t in state]
+                flags = k_fs.flat_scatter(*got, f.alive, xc, slot, valid, thresh, sign=sign)
+                runs.append(got + [flags])
+            torch.cuda.synchronize()
+            bad = [n for n, g, w in zip(names, runs[0], want) if not torch.equal(g, w)]
+            check(not bad, f"flat_scatter {label} sign {sign}: differs from the plain version in {bad}")
+            err = max([err] + [abs_diff(g, w) for g, w in zip(runs[0], want)])
+            check(all(torch.equal(a, b) for a, b in zip(*runs)), f"flat_scatter {label} sign {sign}: runs differ")
+        per_slot = int(torch.bincount(slot.long()).max())
+        say(f"[online] flat_scatter {label} block (Bp={BLOCK}, Lp={Lp}, d={d}, up to {per_slot} rows in one slot), "
+            f"insert and delete: identical to the plain version (LS, LSe, SS, SSe, N, flags), a second run identical")
+    work = [t.clone() for t in state]
+    ms = time_ms(lambda: k_fs.flat_scatter(*work, f.alive, xc, slot_stream, valid, thresh, sign=1), reps=50)
+    host = host_ms(lambda: k_fs.flat_scatter(*work, f.alive, xc, slot_stream, valid, thresh, sign=1))
+    plain = time_ms(lambda: ref.flat_scatter(*state, f.alive, xc, slot_stream, valid, thresh, 1), reps=3, warm=1)
+    at = (slot_stream.long(),)
+
+    def library():  # index_put_ with accumulate (float atomics) and the compensated adds
+        dLS = torch.zeros_like(work[0]).index_put_(at, xc, accumulate=True)
+        dSS = torch.zeros_like(work[2]).index_put_(at, (xc * xc).sum(1), accumulate=True)
+        dN = torch.zeros_like(work[4]).index_put_(at, torch.ones_like(xc[:, 0]), accumulate=True)
+        ref.kahan_add(work[0], work[1], dLS)
+        ref.kahan_add(work[2], work[3], dSS)
+        return f.alive & (work[4] + dN > thresh)
+
+    lib = time_ms(library, reps=20)
+    one = torch.empty(1, device=dev)
+    launch = time_ms(lambda: one.fill_(0.0), reps=200)
+    nbytes = 4.0 * (2 * 2 * Lp * d + 2 * 3 * Lp + BLOCK * d + BLOCK) + 2.0 * Lp + BLOCK
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    b, by = max(t_bytes, launch), ("bytes" if t_bytes >= launch else "operations")
+    say(f"[online] flat_scatter Bp={BLOCK} Lp={Lp} d={d}: kernel {ms:.4f} ms (host enqueue {host:.4f} ms per call), "
+        f"plain {plain:.2f} ms, index_put_(accumulate) + Kahan {lib:.4f} ms, bound {b:.4f} ms (the larger of "
+        f"{nbytes / 1e6:.3f} MB at 3.35 TB/s {t_bytes:.4f} ms and one launch, a one-element fill_ back to back, "
+        f"{launch:.4f} ms)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                launch_ms=launch, host_ms=host)
+
+
+def online_drill(dev, card, ckpt, kw, flat, retire_blocks, published, snap_last):
+    """[online]'s checkpoint (taken after the full flush) restored into a
+    fresh card engine, which replays the retire blocks: every version
+    published on the way and the final flat table bit for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch import CheckpointStore, StreamingClusterEngine
+
+    store = CheckpointStore(ckpt["root"])
+    fresh = StreamingClusterEngine(DIM, device=dev, **kw)
+    t0 = time.perf_counter()
+    fresh.restore(store)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    store.close()
+    check(not fresh._flat.stale, "[online] the restored flat table is stale")
+    compared = 0
+    for block in retire_blocks:
+        v0 = fresh.snapshot.version
+        fresh.retire(block)
+        if fresh.snapshot.version != v0:
+            same_snapshot(f"[online] version {fresh.snapshot.version}", fresh.snapshot,
+                          published[fresh.snapshot.version])
+            compared += 1
+    same_snapshot("[online] final", fresh.flush(), snap_last)
+    compared += 1
+    g = fresh._flat
+    for name in ("LS", "LSe", "SS", "SSe", "N", "alive"):
+        check(bool(torch.equal(getattr(g, name), getattr(flat, name))), f"[online] restored flat {name} differs")
+    check(g._free == flat._free and g._hi == flat._hi, "[online] restored free list differs")
+    shutil.rmtree(ckpt["root"], ignore_errors=True)
+    say(f"[online] checkpoint after the full flush ({ckpt['leaves']} leaves, {ckpt['disk']} bytes on disk, "
+        f"checkpoint_state {ckpt['state_ms']:.1f} ms, restore {restore_ms:.1f} ms on {card}): the restored card "
+        f"engine replayed {len(retire_blocks)} retire blocks, {compared} published versions bit for bit and the "
+        f"final flat table (LS, LSe, SS, SSe, N, alive, free list) identical")
+
+
 def tenant_data(rng, i, n):
     """benchmarks/fig9_service.py's tenant: 4 blobs around a centre 12·i
     apart per coordinate."""
@@ -1230,11 +1599,18 @@ def hierarchy_bound(nbytes: float, steps: int):
     return max(t_bytes, t_lat), ("bytes" if t_bytes >= t_lat else "operations"), t_lat
 
 
-def same_arrays(name, got, want):
+def abs_diff(got, want) -> float:
+    """The largest absolute difference of two same-shape tensors (of any
+    dtype, read in f64): the max_abs_err a kernel's row reports."""
+    return float((got.double() - want.double()).abs().max()) if want.numel() else 0.0
+
+
+def same_arrays(name, got, want) -> float:
     """Every field of two hierarchy NamedTuples bit for bit, stabilities
-    within RTOL."""
+    within RTOL; returns the largest absolute difference over the fields."""
     import torch
 
+    err = 0.0
     for field in want._fields:
         g, w = getattr(got, field), getattr(want, field)
         check(g.shape == w.shape and g.dtype == w.dtype, f"{name}.{field}: shape or dtype differs")
@@ -1242,6 +1618,8 @@ def same_arrays(name, got, want):
             check(bool(torch.allclose(g, w, rtol=RTOL, atol=0)), f"{name}.{field}: beyond {RTOL} relative")
         else:
             check(bool(torch.equal(g, w)), f"{name}.{field}: differs")
+        err = max(err, abs_diff(g, w))
+    return err
 
 
 def phase_hierarchy(dev, table):
@@ -1281,10 +1659,9 @@ def phase_hierarchy(dev, table):
     p_ct = th.condense_fixed(p_slt, nb, mcs)
     p_sel, p_kids = th.eom_loop(stab, ct.cluster_parent, ct.n_labels)
     p_ex = th.extract_fixed(p_ct)
-    same_arrays("single_linkage", slt, p_slt)
-    same_arrays("condense", ct, p_ct)
+    errs = dict(single_linkage=same_arrays("single_linkage", slt, p_slt), condense=same_arrays("condense", ct, p_ct))
     check(bool(torch.equal(sel, p_sel)) and bool(torch.equal(kids.long(), p_kids)), "eom: selection or child counts")
-    same_arrays("extract", ex, p_ex)
+    errs["eom"] = max(abs_diff(sel, p_sel), abs_diff(kids, p_kids), same_arrays("extract", ex, p_ex))
     again = kernels()
     for name, a, b in (("single_linkage", slt, again[1]), ("condense", ct, again[2]), ("extract", ex, again[5])):
         for field in a._fields:
@@ -1321,7 +1698,7 @@ def phase_hierarchy(dev, table):
             f"per call), plain loop {plain_ms:.2f} ms, bound {b:.4f} ms ({'latency floor of ' if by == 'operations' else ''}"
             f"{steps} dependent steps x 30 cycles at 1.98 GHz {floor:.4f} ms; {nbytes / 1e6:.3f} MB at 3.35 TB/s "
             f"{nbytes / PEAK_BYTES * 1e3:.5f} ms); library none")
-        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+        out[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
                          stage_ms=stage_ms, latency_floor_ms=floor)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1343,17 +1720,8 @@ def phase_stages(dev, table):
     rep, extent, n_b, _ = table
     L = rep.shape[0]
     times = {}
-
-    def timed(name, fn, *args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn(*args, **kw)
-        torch.cuda.synchronize()
-        times[name] = (time.perf_counter() - t0) * 1e3
-        return r
-
     for _ in range(2):  # the second round is the one reported (warm caches)
-        res = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=timed)
+        res = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=stage_timer(times))
     check(res.n_bubbles == L and res.n_clusters > 0, "the timed pass gave no clustering")
     total = sum(times.values())
     say(f"[stages] one offline pass at L={L}, Lp={ops._pow2_rows(L)} (ms): "
@@ -2054,6 +2422,7 @@ def main() -> int:
     phase_cpu_check(run)
     phase_serve(dev, run, card)
     phase_recover(dev, run, card)
+    online_launches, online_numbers = phase_online(dev, run, card)
     numbers.update(phase_hierarchy(dev, run["table_full"]))
     phase_stages(dev, run["table_full"])
     phase_min_pts(dev, run["table_full"])
@@ -2062,9 +2431,9 @@ def main() -> int:
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
     launches = dict(run["launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
-                    **attn_launches)
+                    flat_scatter=online_launches["flat_scatter"], **attn_launches)
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
-                   flash_attention_mma=attn_numbers[ATTENTION[0][0]])
+                   flash_attention_mma=attn_numbers[ATTENTION[0][0]], flat_scatter=online_numbers)
     sources = {"assign": ("assign_ws.cu", "src/repro/kernels/assign.py:21"),
                "bubble_cd": ("bubble_cd_ws.cu", "src/repro/kernels/bubble_cd.py:41"),
                "mutual_reach": ("dist_panel.cu", "src/repro/kernels/mutual_reach.py:23"),
@@ -2075,7 +2444,9 @@ def main() -> int:
                # no Pallas kernel: the JAX package's lax.scan sweeps of the hierarchy
                "single_linkage": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:195"),
                "condense": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:265"),
-               "eom": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:336")}
+               "eom": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:336"),
+               # no Pallas kernel: the JAX package's segment sums + _kahan_add of device-online ingest
+               "flat_scatter": ("flat_scatter.cu", "src/repro/core/bubble_flat.py:93")}
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

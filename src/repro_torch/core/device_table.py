@@ -1,10 +1,22 @@
-"""The offline plane's source of bubble tables (DESIGN.md §12).
+"""The offline plane's sources of bubble tables (DESIGN.md §12).
 
-The PyTorch counterpart of the host-tree half of the JAX package's
-``core/device_table.py``: ``SnapshotDeviceTable`` over the host
-``BubbleTree`` (the source of truth) hands out ``HostTableCapture``s — isolation copies of the alive-leaf CF
-rows, O(L·d), safe for a background pass while the ingest thread keeps
-editing the tree.  A capture runs the pass itself:
+The PyTorch counterpart of the JAX package's ``core/device_table.py``
+(the exact-dynamic ``DynamicStateCapture`` comes with ROADMAP.md queue 1,
+item 6).  Every source the engine's offline plane reads has
+
+  ``ready``        the source can serve a capture right now, without a
+                   host reload;
+  ``sync(tree)``   reconcile with the host tree (patch dirty rows, reload
+                   when stale; a no-op when the tree itself is the source);
+  ``capture(n)``   an isolation copy of the summary for ONE pass over a
+                   population of ``n`` points, safe for a background pass
+                   while the ingest thread keeps editing.
+
+Two sources: ``SnapshotDeviceTable`` over the host ``BubbleTree`` hands out
+``HostTableCapture``s (the alive-leaf CF rows, O(L·d)), and
+``core.bubble_flat.BubbleFlat`` (device-online ingest) hands out
+``FlatTableCapture``s (its device tensors cloned on the card).  A capture
+runs the pass itself:
 
   ``capture.recluster(backend, min_pts=…, min_cluster_size=…)``
       → ``(OfflineClusterResult, rep, n_b, center)``
@@ -20,7 +32,7 @@ import numpy as np
 
 from ..kernels import ops
 
-__all__ = ["HostTableCapture", "SnapshotDeviceTable"]
+__all__ = ["HostTableCapture", "FlatTableCapture", "SnapshotDeviceTable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,14 +57,41 @@ class HostTableCapture:
         return res, rep, n_b, center
 
 
+@dataclasses.dataclass(frozen=True)
+class FlatTableCapture:
+    """Offline capture of a `BubbleFlat`: its six device tensors cloned on
+    the card, the f64 origin, and ``slots``, the populated slots in
+    ascending order as the host knows them — so the pass uploads nothing
+    of the summary and reads nothing of the device before its unwrap.
+    ``n_points`` clamps ``min_pts`` (the flat table's mass equals the
+    population by construction)."""
+
+    view: tuple
+    origin: np.ndarray
+    n_points: int
+    slots: np.ndarray
+
+    def recluster(self, backend, *, min_pts: int, min_cluster_size: float):
+        mp = max(1, min(int(min_pts), int(self.n_points)))
+        return backend.offline_recluster_from_device_table(
+            *self.view, self.origin, mp, min_cluster_size=min_cluster_size, slots=self.slots)
+
+
 class SnapshotDeviceTable:
-    """The host `BubbleTree` as an offline source: capture gathers the
+    """The host `BubbleTree` as an offline source: always ready (the tree
+    IS the source of truth), ``sync`` a no-op, and capture gathers the
     alive-leaf CF rows as isolation copies (the summary, never the raw
-    points).  The device-resident sources of the JAX package (and their
-    ready/sync protocol) come with ROADMAP queue 1, item 8."""
+    points)."""
 
     def __init__(self, tree):
         self.tree = tree
+
+    @property
+    def ready(self) -> bool:
+        return True
+
+    def sync(self, tree=None) -> None:
+        return None
 
     def capture(self, n_points: int) -> HostTableCapture:
         ids, LS, SS, N = self.tree.leaf_cf_buffers()

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "to_numpy"]
+__all__ = ["resolve_device", "to_numpy", "to_device"]
 
 
 def _set_numerics() -> None:
@@ -52,3 +52,14 @@ def to_numpy(*tensors: torch.Tensor):
     for dev in cuda:
         torch.cuda.synchronize(dev)
     return [h.numpy() for h in host]
+
+
+def to_device(a, dev: torch.device, dtype=None) -> torch.Tensor:
+    """A copy of a host array on ``dev`` (never an alias of it), made with
+    no device synchronisation: on ``cuda`` it goes through pinned memory as
+    a non-blocking copy, ordered on the current stream before whatever
+    reads it."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if dev.type != "cuda":
+        return t.to(dev, copy=True)
+    return t.pin_memory().to(dev, non_blocking=True)

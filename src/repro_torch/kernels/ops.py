@@ -16,6 +16,10 @@ dense branch only:
   Borůvka → single-linkage → condense → extract — and one unwrap into an
   ``OfflineClusterResult``.  Each stage runs through a ``stage`` hook, so
   a caller can time the very calls the engine makes (chip_smoke.py);
+* ``offline_recluster_from_device_table``: the same pass straight from the
+  device-online flat leaf-CF table (core/bubble_flat.py) — the populated
+  slots compacted in ascending order and the bubble table derived on the
+  device (``_device_table_prepare``), no upload of the summary;
 * ``ClusterBackend``: the device, resolved once by the engine.
 
 There is no feature padding to 128 lanes (a TPU tiling) and no L or m
@@ -36,7 +40,7 @@ import torch
 from ..core.cf import cf_extent, cf_rep
 from ..core.hdbscan import CondensedTree
 from ..core.mst import boruvka
-from ..device import resolve_device, to_numpy
+from ..device import resolve_device, to_device, to_numpy
 from . import assign as _assign_k
 from . import bubble_cd as _bcd_k
 from . import flash_attention as _fa_k
@@ -57,6 +61,7 @@ __all__ = [
     "bubble_table",
     "OfflineClusterResult",
     "offline_recluster_from_table",
+    "offline_recluster_from_device_table",
     "ClusterBackend",
     "get_backend",
 ]
@@ -259,8 +264,16 @@ class OfflineClusterResult:
         )
 
 
+def _to_host(out: dict) -> dict:
+    return dict(zip(out, to_numpy(*out.values())))  # ONE host sync
+
+
 def _unwrap_result(out: dict, L: int, mcs: float, weights: np.ndarray) -> OfflineClusterResult:
-    out = dict(zip(out, to_numpy(*out.values())))  # ONE host sync
+    return _result(_to_host(out), L, mcs, weights)
+
+
+def _result(out: dict, L: int, mcs: float, weights: np.ndarray) -> OfflineClusterResult:
+    """The pipeline's fixed-size host buffers → OfflineClusterResult."""
     keep = out["valid"]
     edges = (
         out["eu"].astype(np.int64)[keep],
@@ -348,6 +361,95 @@ def offline_recluster_from_table(
     return result
 
 
+def _device_table_prepare(LS, LSe, SS, SSe, N, slots):
+    """Device side of the flat-table pass (Eqs. 3–4 on the card): gather
+    the populated ``slots`` (host int array, ascending) of the compensated
+    sums ``LS − LSe``, ``SS − SSe`` and ``N``, derive rep and extent in
+    f32 on the origin-centred sums, re-centre the reps at the mass
+    centroid ``mu`` and pad to ``_pow2_rows(L)`` rows (far and massless:
+    isolated at +inf in W, so the partition and the MST are those of the
+    L rows).  Returns (rep_c, nb, extent) padded, and (rep, mu) in the
+    origin frame.  The slot ids go up as a non-blocking copy: nothing here
+    waits on the device."""
+    L, d = len(slots), LS.shape[1]
+    if L > 46340:
+        raise ValueError("the offline pass supports L <= 46340 (int32 edge ids)")
+    pad = _pow2_rows(L) - L
+    idx = to_device(np.asarray(slots, dtype=np.int64), LS.device)
+    LSs = LS.index_select(0, idx) - LSe.index_select(0, idx)
+    SSs = SS.index_select(0, idx) - SSe.index_select(0, idx)
+    Ns = N.index_select(0, idx)
+    safe_n = torch.clamp_min(Ns, 1.0)
+    rep = LSs / safe_n[:, None]
+    mu = (Ns[:, None] * rep).sum(0) / torch.clamp_min(Ns.sum(), 1.0)
+    # extent = sqrt((2 n SS - 2 ||LS||^2) / (n (n-1)))  (Eq. 4, f32 on the
+    # origin-centred sums)
+    lsq = (LSs * LSs).sum(-1)
+    rad = (2.0 * Ns * SSs - 2.0 * lsq) / torch.clamp_min(Ns * (safe_n - 1.0), 1.0)
+    extent = torch.where(Ns > 1.0, torch.sqrt(torch.clamp_min(rad, 0.0)), 0.0)
+    rep_c = torch.cat([rep - mu, rep.new_full((pad, d), _PAD_COORD)])
+    return rep_c, torch.cat([Ns, Ns.new_zeros(pad)]), torch.cat([extent, extent.new_zeros(pad)]), rep, mu
+
+
+def _device_table_pipeline(LS, LSe, SS, SSe, N, slots, mcs: float, min_pts: int,
+                           method: str = "eom", allow_single: bool = False, *, stage=_run_stage):
+    """The flat-table pass up to its unwrap: ``_device_table_prepare`` then
+    ``_offline_pipeline`` over the compacted table; rep, nb and mu ride in
+    the output dict so the unwrap reads everything in ONE host sync.
+    Returns (out, n_valid)."""
+    L = len(slots)
+    rep_c, nb, extent, rep, mu = stage("prepare", _device_table_prepare, LS, LSe, SS, SSe, N, slots)
+    out = _offline_pipeline(rep_c, nb, extent, L, mcs, min_pts, method, allow_single, stage=stage)
+    out.update(rep=rep, nb=nb, mu=mu)
+    return out, L
+
+
+def _unwrap_device_table(out: dict, L: int, mcs: float, origin):
+    """ONE host sync for the result and the serve-plane table; the f64
+    origin goes back onto rep and mu on the host."""
+    host = _to_host(out)
+    origin = np.asarray(origin, dtype=np.float64)
+    rep = host.pop("rep").astype(np.float64) + origin[None, :]
+    nb = host.pop("nb").astype(np.float64)[:L]
+    center = host.pop("mu").astype(np.float64) + origin
+    return _result(host, L, mcs, nb), rep, nb, center
+
+
+def offline_recluster_from_device_table(
+    LS, LSe, SS, SSe, N, alive, origin, min_pts: int, min_cluster_size: float | None = None, *,
+    slots, method: str = "eom", allow_single_cluster: bool = False, stage=_run_stage,
+):
+    """The streaming engine's offline pass over a device-online flat table
+    (``BubbleFlat.device_view()`` or a capture's clones): no upload of the
+    summary, the stages on the table's device, one unwrap.
+
+    Args:
+      LS, LSe, SS, SSe, N, alive: (Lp, d)/(Lp,) origin-centred compensated
+        sums, masses and the alive mask, on one device (``alive`` is not
+        read: ``slots`` names the populated rows; it is taken so that a
+        ``device_view()`` unpacks into the call as in the reference).
+      origin: (d,) f64 frame of the table.
+      min_pts: HDBSCAN density parameter, already clamped by the caller to
+        the population (the flat table's mass equals it).
+      min_cluster_size: None → the clamped ``min_pts``.
+      slots: the populated slots in ascending order, from the host
+        (``BubbleFlat.alive_slots()``), so the pass reads nothing of the
+        device before its unwrap.
+      method, allow_single_cluster: flat-extraction policy.
+      stage: as in ``offline_recluster_from_table`` ("prepare" is the
+        device derivation here).
+
+    Returns:
+      (OfflineClusterResult, rep, n_b, center): ``rep`` the (L, d) f64
+      uncentred serve-plane representatives in ascending-slot order,
+      ``center`` the f64 mass centroid every f32 assignment subtracts.
+    """
+    mcs = float(min_pts if min_cluster_size is None else min_cluster_size)
+    out, L = _device_table_pipeline(LS, LSe, SS, SSe, N, slots, mcs, int(min_pts), method,
+                                    bool(allow_single_cluster), stage=stage)
+    return stage("unwrap", _unwrap_device_table, out, L, mcs, origin)
+
+
 class ClusterBackend:
     """Kernel dispatch resolved ONCE at engine construction: the device
     every call moves its inputs to.  On ``cuda`` the wrappers launch the
@@ -397,8 +499,17 @@ class ClusterBackend:
             rep, n_b, extent, min_pts, min_cluster_size, device=self.device,
             return_w=return_w, **kw)
 
-    def make_flat(self, *args, **kw):
-        raise NotImplementedError("device-resident flat ingest is not ported yet (ROADMAP.md queue 1, item 4)")
+    def offline_recluster_from_device_table(self, LS, LSe, SS, SSe, N, alive, origin, min_pts: int,
+                                            min_cluster_size: float | None = None, **kw):
+        return offline_recluster_from_device_table(
+            LS, LSe, SS, SSe, N, alive, origin, min_pts, min_cluster_size, **kw)
+
+    def make_flat(self, dim: int, capacity: int = 64):
+        """Device-resident flat leaf-CF table (core/bubble_flat.py) on this
+        backend's device: device-online ingest (DESIGN.md §8)."""
+        from ..core.bubble_flat import BubbleFlat  # the table's captures import this module
+
+        return BubbleFlat(dim, device=self.device, capacity=capacity)
 
     def make_dynamic(self, *args, **kw):
         raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP.md queue 1, item 6)")

@@ -18,7 +18,10 @@ flash_attention}.py``):
 * the k nearest by a stable ascending sort (ties at the lowest index, as
   ``jax.lax.top_k`` orders them);
 * attention with f32 scores scaled by 1/√D, masked with the finite
-  ``-1e30`` (a fully masked row is the uniform mean of V, not NaN).
+  ``-1e30`` (a fully masked row is the uniform mean of V, not NaN);
+* the flat leaf-CF table's block scatter (the JAX package's segment sums
+  and ``_kahan_add`` in ``repro/core/bubble_flat.py``, no Pallas kernel):
+  each slot's rows summed in ascending row order, then the compensated add.
 
 Dense ``(L, L)`` work is allowed in this file only (repro-lint RPL402).
 """
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -43,6 +47,8 @@ __all__ = [
     "knn",
     "flash_attention",
     "gqa_flash_attention",
+    "kahan_add",
+    "flat_scatter",
 ]
 
 
@@ -181,3 +187,50 @@ def gqa_flash_attention(q, k, v, qpos, kpos, causal: bool = True, window: int | 
     out = flash_attention(q.reshape(B * H, Sq, D), kx, vx, qpos.repeat_interleave(H, dim=0),
                           kpos.repeat_interleave(H, dim=0), causal=causal, window=window)
     return out.reshape(B, H, Sq, D)
+
+
+def kahan_add(hi, err, delta):
+    """Compensated accumulate: (hi, err) += delta with the running f32
+    rounding error carried in err (the true sum is ``hi - err``)."""
+    y = delta - err
+    t = hi + y
+    return t, (t - hi) - y
+
+
+def flat_scatter(LS, LSe, SS, SSe, N, alive, x, slot, valid, thresh: float, sign: int):
+    """The flat table's block scatter, out of place: for every slot s, the
+    rows with ``slot == s`` (valid, slot in [0, Lp)) summed in ascending row
+    order from 0 — x, ``‖x‖²`` (one rounded product per feature, added in
+    ascending feature order) and the count — then ``kahan_add`` of
+    ``sign`` × those sums on every slot, a zero delta included, and the
+    count added to N.  Returns (LS, LSe, SS, SSe, N, flags) with flags
+    ``alive & (N > thresh)`` for sign +1 (insert), ``alive & (N < thresh)``
+    for -1 (delete).  The fixed order makes it bit for bit the CUDA kernel:
+    rows that share a slot are added one rank at a time, each rank a
+    scatter with no repeated index."""
+    Lp, d = LS.shape
+    x = x.float()
+    sq = x[:, 0] * x[:, 0]
+    for j in range(1, d):
+        sq = sq + x[:, j] * x[:, j]
+    seg = slot.long()
+    rows = torch.nonzero(valid & (seg >= 0) & (seg < Lp)).squeeze(1)
+    s, order = torch.sort(seg[rows], stable=True)
+    rows = rows[order]
+    cnt = torch.bincount(s, minlength=Lp)
+    rank = torch.arange(s.numel(), device=s.device) - (torch.cumsum(cnt, 0) - cnt)[s]
+    dLS, dSS = torch.zeros_like(LS), torch.zeros_like(SS)
+    for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+        at = rank == k
+        r, t = rows[at], s[at]
+        dLS[t] = dLS[t] + x[r]
+        dSS[t] = dSS[t] + sq[r]
+    dN = cnt.to(N.dtype)
+    if sign < 0:
+        dLS, dSS, dN = -dLS, -dSS, -dN
+    LS, LSe = kahan_add(LS, LSe, dLS)
+    SS, SSe = kahan_add(SS, SSe, dSS)
+    N = N + dN
+    thresh = float(np.float32(thresh))
+    flags = alive & ((N > thresh) if sign > 0 else (N < thresh))
+    return LS, LSe, SS, SSe, N, flags

@@ -27,10 +27,15 @@ The PyTorch counterpart of the JAX package's ``serving/stream.py``:
                   `CheckpointStore` (repro_torch/checkpoint) — the two
                   packages restore each other's checkpoints.
 
-The options ``spatial_index``, ``device_online``, ``exact`` and ``mesh``
-are not ported yet (ROADMAP.md, queue 1, items 4 to 7): each raises
-``NotImplementedError``, and so does restoring a checkpoint of an
-``exact`` engine or one with a live device-online flat table.
+  device-online   with ``device_online=True`` the leaf CF table also lives
+                  on the card (core/bubble_flat.py): each block runs the
+                  assign kernel and the ``flat_scatter`` kernel there, the
+                  host tree applies the assignment and its maintenance is
+                  patched back, and ε-passes read the table straight from
+                  the card (``ops.offline_recluster_from_device_table``).
+
+The options ``spatial_index``, ``exact`` and ``mesh`` are not ported yet
+(ROADMAP.md, queue 1, items 5 to 7): each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,9 +45,12 @@ import threading
 import time
 
 import numpy as np
+import torch
 
+from ..core.bubble_flat import FlatFrameError
 from ..core.bubble_tree import BubbleTree
 from ..core.device_table import SnapshotDeviceTable
+from ..device import to_numpy
 from ..kernels import ops
 from .batcher import HostBatcher
 from .query import QueryEngine, QueryResult
@@ -58,7 +66,6 @@ __all__ = [
 # options of the JAX engine that this port does not carry yet, and the
 # ROADMAP.md queue-1 item that will
 _NOT_PORTED = {
-    "device_online": "queue 1, item 4 (device-online ingest)",
     "spatial_index": "queue 1, item 5 (grid pruning)",
     "exact": "queue 1, item 6 (exact-dynamic path)",
     "mesh": "queue 1, item 7 (multi-device offline pass)",
@@ -80,9 +87,6 @@ def _refuse_unported(d: dict):
     if bool(d["cfg/exact"]):
         raise NotImplementedError(
             "exact=True engines are not ported yet (ROADMAP.md queue 1, item 6)")
-    if bool(d.get("flat/has", False)):
-        raise NotImplementedError(
-            "a live device-online flat table is not ported yet (ROADMAP.md queue 1, item 4)")
 
 
 def _ragged_pack(lists):
@@ -193,6 +197,10 @@ class StreamingClusterEngine:
         GPU), ``"cpu"`` = the plain PyTorch versions.
       async_offline: run offline passes in a background thread; `query`
         keeps serving the previous snapshot meanwhile.
+      device_online: keep the leaf CF table on the device too (a flat
+        slot table with compensated sums): block inserts and deletes run
+        there as one assignment and one scatter, and ε-passes read it
+        with no upload of the summary.  Incompatible with ``exact``.
       query_cache, query_scope: a shared `SnapshotDeviceCache` and this
         engine's scope in it — a `TenantRouter` pools one cache across
         engines with ``(tenant, version)`` keys.
@@ -219,8 +227,12 @@ class StreamingClusterEngine:
         query_scope=None,
         **tree_kw,
     ):
-        for name, on in (("spatial_index", spatial_index), ("device_online", device_online),
-                         ("exact", exact), ("mesh", mesh is not None)):
+        if device_online and exact:
+            raise ValueError(
+                "device_online summarizes into the flat leaf-CF state; "
+                "exact=True bypasses bubble summarization entirely"
+            )
+        for name, on in (("spatial_index", spatial_index), ("exact", exact), ("mesh", mesh is not None)):
             if on:
                 raise NotImplementedError(
                     f"{name} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[name]}")
@@ -254,7 +266,13 @@ class StreamingClusterEngine:
         # unsynchronized: single reference swap (GIL-atomic); the worker
         # writes once on failure, the ingest thread reads-and-clears
         self._offline_error: BaseException | None = None
-        self._table = SnapshotDeviceTable(self.tree)
+        self._flat = (  # owner: ingest thread (workers read captures)
+            self.backend.make_flat(dim) if device_online else None
+        )
+        # offline plane sources (core.device_table): the host tree is the
+        # always-ready fallback; device_online prefers the flat table
+        self._host_table = SnapshotDeviceTable(self.tree)  # owner: ingest thread
+        self._table = self._flat if device_online else self._host_table  # owner: ingest thread
         self._query_engine = QueryEngine(self.backend, dim, cache=query_cache, scope=query_scope)
         # unsynchronized: single-reference swap; readers take ONE read of
         # the (key, payload) tuple (see labels()) so entries never mix
@@ -269,6 +287,8 @@ class StreamingClusterEngine:
             "recluster_skipped_busy": 0,
             "recluster_failures": 0,
             "offline_seconds_total": 0.0,
+            "device_online_blocks": 0,
+            "flat_loads": 0,
             "label_cache_hits": 0,
         }
 
@@ -304,7 +324,7 @@ class StreamingClusterEngine:
             kind, items = self.batcher.next_block(size=self._point_count)
             if kind == "insert":
                 X = np.concatenate([x for x, _ in items], axis=0)
-                pids = self.tree.insert_block(X)
+                pids = self._apply_insert_block(X)
                 off = 0
                 for x, ticket in items:  # requests are never split: one fill
                     take = x.shape[0]
@@ -315,7 +335,7 @@ class StreamingClusterEngine:
             else:
                 flat_pids = [p for chunk in items for p in chunk]
                 try:
-                    self.tree.delete_block(flat_pids)
+                    self._apply_delete_block(flat_pids)
                 except KeyError:
                     # a bad request (dead/duplicate pid) must not take its
                     # coalesced siblings down: delete_block is atomic per
@@ -324,7 +344,7 @@ class StreamingClusterEngine:
                     done, err = 0, None
                     for chunk in items:
                         try:
-                            self.tree.delete_block(chunk)
+                            self._apply_delete_block(chunk)
                             done += len(chunk)
                         except KeyError as e:
                             if err is None:
@@ -357,6 +377,69 @@ class StreamingClusterEngine:
         self.submit_delete(pids)
         self.poll()
 
+    # -- device-online ingestion (core.bubble_flat, DESIGN.md §8) ----------
+
+    def _apply_insert_block(self, X) -> list:
+        """Apply one coalesced insert block: the device-online path runs
+        the assignment and the CF scatter on the device, hands the tree the
+        assignment and the overfull work-list, and patches the rows its
+        maintenance touched back; otherwise the host `insert_block`."""
+        if self._flat is None or self.tree.num_leaves <= 1:
+            pids = self.tree.insert_block(X)
+            if self._flat is not None:
+                if self.tree.num_leaves > 1:
+                    # bootstrap done: load eagerly so this poll's ε-pass
+                    # already reads the device table
+                    self._flat.load(self.tree)
+                    self.stats["flat_loads"] = self._flat.loads
+                else:
+                    self._flat.stale = True
+            return pids
+        if self._flat.stale:
+            self._flat.load(self.tree)
+        cap = self.tree._leaf_cap_at(self.tree.n_points + X.shape[0])
+        try:
+            leaf_ids, work = self._flat.insert_block(X, cap)
+        except FlatFrameError:
+            # the dead-slot guard: the stream drifted outside the centred
+            # frame, the table is stale (reloads at a fresh origin before
+            # the next scatter or ε-pass) and the block takes the host path
+            return self.tree.insert_block(X)
+        except BaseException:
+            # a kernel that failed to build or launch is the caller's to
+            # see, never bypassed; the table may hold part of the block,
+            # so it reloads from the tree before its next use
+            self._flat.stale = True
+            raise
+        pids = self.tree.apply_assigned_block(X, leaf_ids, overfull_hint=work)
+        self._flat.sync_struct(self.tree)
+        self.stats["device_online_blocks"] += 1
+        self.stats["flat_loads"] = self._flat.loads
+        return pids
+
+    def _apply_delete_block(self, pids):
+        """Apply one coalesced delete block; the device-online path mirrors
+        the per-leaf CF subtraction as a scatter (victim leaves are read
+        from `point_leaf` BEFORE the tree mutates, and the device table is
+        touched only after the tree's atomic validation passed)."""
+        if self._flat is None or self._flat.stale:
+            self.tree.delete_block(pids)
+            return
+        arr = np.asarray(pids, dtype=np.int64)
+        ok = arr.size > 0 and bool(((arr >= 0) & (arr < self.tree.point_alive.shape[0])).all())
+        leaves = self.tree.point_leaf[arr].copy() if ok else None
+        Xv = self.tree.PX[arr].copy() if ok else None
+        self.tree.delete_block(pids)  # raises before any mutation on bad pids
+        if leaves is not None and len(leaves):
+            try:
+                self._flat.delete_block(leaves, Xv, self.tree.m)
+            except BaseException:
+                self._flat.stale = True  # reloads from the tree; the error is the caller's
+                raise
+        self._flat.sync_struct(self.tree)
+        self.stats["device_online_blocks"] += 1
+        self.stats["flat_loads"] = self._flat.loads
+
     # -- offline plane -----------------------------------------------------
 
     def _settle(self):
@@ -387,11 +470,15 @@ class StreamingClusterEngine:
         if busy:
             self.stats["recluster_skipped_busy"] += 1
             return False
-        # capture: the dirty mass this pass consumes + isolation copies of
-        # the summary rows, so an async worker is immune to tree edits
+        # capture: the dirty mass this pass consumes + an isolation copy of
+        # the summary, through whichever source is ready — the flat table
+        # when device_online and fresh (its tensors cloned on the card, no
+        # upload of the summary), the host tree otherwise (the L gathered
+        # CF rows) — so an async worker is immune to later blocks
         dirty_captured = self.tree.dirty_mass
         n_points = self.tree.n_points
-        cap = self._table.capture(n_points)
+        src = self._table if self._table.ready else self._host_table
+        cap = src.capture(n_points)
         if self.async_offline:
             self._inflight_consumed = dirty_captured
             th = threading.Thread(
@@ -494,7 +581,7 @@ class StreamingClusterEngine:
             "cfg/compression": np.float64(t.compression),
             "cfg/epsilon": np.float64(self.policy.epsilon),
             "cfg/exact": np.bool_(False),
-            "cfg/device_online": np.bool_(False),
+            "cfg/device_online": np.bool_(self._flat is not None),
             "tree/LS": t.LS.copy(),
             "tree/SS": t.SS.copy(),
             "tree/N": t.N.copy(),
@@ -537,7 +624,24 @@ class StreamingClusterEngine:
             for f in _RESULT_FIELDS:
                 state[f"snap/res_{f}"] = np.asarray(getattr(snap.result, f))
             state["snap/res_min_cluster_size"] = np.float64(snap.result.min_cluster_size)
-        state["flat/has"] = np.bool_(False)
+        flat_live = self._flat is not None and not self._flat.stale
+        state["flat/has"] = np.bool_(flat_live)
+        if flat_live:
+            f = self._flat
+            LS, LSe, SS, SSe, N, alive = (a.copy() for a in to_numpy(*f.device_view()))
+            state.update({
+                "flat/LS": LS,
+                "flat/LSe": LSe,
+                "flat/SS": SS,
+                "flat/SSe": SSe,
+                "flat/N": N,
+                "flat/alive": alive,
+                "flat/origin": f.origin.copy(),
+                "flat/leaf_of_slot": f.leaf_of_slot.copy(),
+                "flat/free": np.asarray(f._free, dtype=np.int64),
+                "flat/hi": np.int64(f._hi),
+                "flat/loads": np.int64(f.loads),
+            })
         return state
 
     def save(self, store, step: int | None = None, *, blocking: bool = True) -> int:
@@ -563,19 +667,23 @@ class StreamingClusterEngine:
     def _load_state(self, d: dict, *, same_mode: bool = False):
         """Install a format-1 state dict field by field: the tree (free-list
         order and struct_dirty included), the ε accounting, the version
-        counter and the published snapshot.  Raises as the JAX engine's
-        restore does on an unknown format, a wrong dim or queued requests,
-        and with ``same_mode`` on a device-online checkpoint; raises
-        NotImplementedError for state this port does not carry yet."""
+        counter, the published snapshot and, device-online, the flat table.
+        Raises as the JAX engine's restore does on an unknown format, a
+        wrong dim or queued requests, and with ``same_mode`` on a
+        checkpoint whose ``cfg/exact`` or ``cfg/device_online`` differs
+        from this engine's (ValueError); raises NotImplementedError for an
+        exact-mode state, which this port does not carry yet."""
         if int(d["cfg/format"]) != _CKPT_FORMAT:
             raise ValueError(f"unknown checkpoint format {int(d['cfg/format'])}")
         if int(d["cfg/dim"]) != self.tree.dim:
             raise ValueError(f"checkpoint dim {int(d['cfg/dim'])} != engine dim {self.tree.dim}")
+        if same_mode:
+            for key, mine in (("cfg/exact", False), ("cfg/device_online", self._flat is not None)):
+                if bool(d[key]) != mine:
+                    raise ValueError(
+                        f"checkpoint {key}={bool(d[key])} does not match this engine ({mine}) — "
+                        "construct the replacement worker with the same mode")
         _refuse_unported(d)
-        if same_mode and bool(d["cfg/device_online"]):
-            raise ValueError(
-                "checkpoint cfg/device_online=True does not match this engine (False) — "
-                "construct the replacement worker with the same mode")
         if self.batcher:
             raise RuntimeError("restore() into an engine with queued requests")
         t = self.tree
@@ -627,6 +735,31 @@ class StreamingClusterEngine:
         with self._snapshot_lock:
             self._version = int(d["eng/version"])
             self._snapshot = snap
+        if self._flat is not None:
+            if bool(d["flat/has"]):
+                self._restore_flat(d)
+            else:
+                self._flat.stale = True
+
+    def _restore_flat(self, d: dict):
+        """Rebuild the device-resident flat table bit for bit: origin, slot
+        order, free-list order and Kahan compensations all round-trip, so
+        the next ε-pass compacts the same rows in the same order as the
+        uninterrupted worker would have."""
+        f = self._flat
+        f._alloc(int(d["flat/LS"].shape[0]))
+        for name in ("LS", "LSe", "SS", "SSe", "N"):  # torch.tensor copies: never alias the dict
+            setattr(f, name, torch.tensor(np.asarray(d[f"flat/{name}"]), dtype=torch.float32, device=f.device))
+        f.alive = torch.tensor(np.asarray(d["flat/alive"]), dtype=torch.bool, device=f.device)
+        f.origin = np.array(d["flat/origin"], dtype=np.float64)
+        f.leaf_of_slot = np.array(d["flat/leaf_of_slot"], dtype=np.int64)
+        f.slot_of_leaf = {int(leaf): s for s, leaf in enumerate(f.leaf_of_slot) if leaf >= 0}
+        f._free = d["flat/free"].astype(int).tolist()
+        f._alive_host = np.array(d["flat/alive"], dtype=bool)
+        f._hi = int(d["flat/hi"])
+        f.loads = int(d["flat/loads"])
+        f._tree = self.tree
+        f.stale = False
 
     # -- serve plane -------------------------------------------------------
 

@@ -346,18 +346,38 @@ class TestEngineRoundTrip:
             busy.restore(store)
         store.close()
 
-    @pytest.mark.parametrize("field,item", [("cfg/exact", "item 6"), ("flat/has", "item 4")])
+    @pytest.mark.parametrize("field,item", [("cfg/exact", "item 6")])
     def test_unported_state_is_refused(self, field, item):
+        """An exact-mode state: restore checks the mode first and raises the
+        reference's ValueError; the carry, which takes its modes from the
+        state, refuses it as not ported."""
+        from repro_torch import engine_from_reference_state
+
         eng = _port()
         _drive(eng, _blocks(5, 2))
         state = eng.checkpoint_state()
         state[field] = np.bool_(True)
-        if field == "flat/has":
-            state["cfg/device_online"] = np.bool_(True)
         fresh = _port()
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=field):
             fresh.restore(_DictStore(state))
+        with pytest.raises(NotImplementedError, match=item):
+            engine_from_reference_state(state, device="cpu")
         assert fresh.snapshot is None and fresh.tree.n_points == 0
+
+    def test_device_online_state_restores(self):
+        """A live flat table (``flat/has``) restores into a device-online
+        engine, which then stays in lockstep with the engine it came from."""
+        blocks = _blocks(5, 4)
+        eng = _port(device_online=True)
+        _drive(eng, blocks[:2])
+        state = eng.checkpoint_state()
+        assert state["flat/has"] and state["cfg/device_online"]
+        fresh = _port(device_online=True)
+        fresh.restore(_DictStore(state))
+        assert not fresh._flat.stale and fresh._flat._free == eng._flat._free
+        for e in (eng, fresh):
+            _drive(e, blocks[2:])
+        _assert_lockstep(eng, fresh)
 
     def test_versions_keep_rising_after_a_restore(self, rng):
         eng = _port(min_pts=4)

@@ -897,3 +897,93 @@ class TestCudaServing:
         alone = tops.bubble_mutual_reachability(*(torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
                                                   for a in (c, n_b, extent)), 10)
         np.testing.assert_allclose(W, alone.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _flat_case(rng, Lp, Bp, d, slots, err_scale=1e-6):
+    """A flat table with nonzero compensation words and a block of rows."""
+    dev = torch.device("cuda")
+    state = [rng.normal(size=(Lp, d)) * 50.0, rng.normal(size=(Lp, d)) * err_scale,
+             rng.random(Lp) * 1e3, rng.normal(size=Lp) * err_scale, rng.integers(0, 60, size=Lp)]
+    state = [torch.tensor(a, dtype=torch.float32, device=dev) for a in state]
+    alive = torch.tensor(rng.random(Lp) < 0.9, device=dev)
+    X = torch.tensor(rng.normal(size=(Bp, d)), dtype=torch.float32, device=dev)
+    valid = torch.tensor(rng.random(Bp) < 0.95, device=dev)
+    return state, alive, X, torch.tensor(slots, dtype=torch.int32, device=dev), valid
+
+
+@pytest.mark.cuda
+class TestCudaFlat:
+    """The flat table's block scatter (``csrc/flat_scatter.cu``) bit for bit
+    its plain version (the same ascending row order, no contraction), and
+    device-online ingest on the card."""
+
+    @pytest.mark.parametrize("case", ["spread", "ties", "ragged", "small", "wide", "zero"])
+    @pytest.mark.parametrize("sign", [1, -1])
+    def test_scatter_matches_plain(self, cuda_device, case, sign):
+        from repro_torch.kernels import flat_scatter as t_fs
+
+        rng = np.random.default_rng(7)
+        Lp, Bp, d = {"spread": (16384, 8192, 16), "ties": (1024, 8192, 16), "ragged": (4096, 8192 + 1000, 16),
+                     "small": (64, 300, 3), "wide": (256, 2000, 200), "zero": (2048, 8192, 16)}[case]
+        slots = {"ties": rng.integers(0, 4, Bp), "zero": rng.integers(0, Lp // 8, Bp)}.get(case, rng.integers(0, Lp, Bp))
+        state, alive, X, slot, valid = _flat_case(rng, Lp, Bp, d, slots)
+        thresh = 40.0 if sign > 0 else 20.0
+        want = tref.flat_scatter(*state, alive, X, slot, valid, thresh, sign)
+        runs = []
+        for _ in range(2):
+            got = [t.clone() for t in state]
+            flags = t_fs.flat_scatter(*got, alive, X, slot, valid, thresh, sign=sign)
+            torch.cuda.synchronize()
+            runs.append((got, flags))
+        for got, flags in runs:
+            for name, g, w in zip(("LS", "LSe", "SS", "SSe", "N"), got, want[:5]):
+                assert torch.equal(g, w), name
+            assert torch.equal(flags, want[5])
+        if case == "zero":  # slots no row reached still took the compensated add
+            untouched = torch.ones(Lp, dtype=torch.bool, device=cuda_device)
+            untouched[slot[valid].long()] = False
+            assert not torch.equal(runs[0][0][0][untouched], state[0][untouched])
+
+    def test_device_online_engine_replays(self, cuda_device, tmp_path):
+        """A device-online engine on the card: CF parity against its host
+        tree after every block, every pass's partition equal to the
+        host-table pass on the same tree, and a kill-and-recover drill bit
+        for bit."""
+        from conftest import assert_same_partition
+        from repro_torch import CheckpointStore
+
+        blocks = _serving_blocks(8, 8)
+        oracle, victim = (_card_engine(cuda_device, device_online=True) for _ in range(2))
+        for i, b in enumerate(blocks[:4]):
+            for eng in (oracle, victim):
+                pids = eng.ingest(b)
+                if i % 3 == 2:
+                    eng.retire(pids[::4])
+            leaf_ids, LS, SS, N = oracle._flat.host_cfs()
+            order, srt = np.argsort(leaf_ids), np.sort(leaf_ids)
+            np.testing.assert_array_equal(N[order], oracle.tree.N[srt])
+            np.testing.assert_allclose(LS[order], oracle.tree.LS[srt], rtol=1e-6,
+                                       atol=1e-6 * np.abs(oracle.tree.LS[srt]).max())
+            if not oracle._flat.stale and oracle.snapshot is not None:
+                ids, tLS, tSS, tN = oracle.tree.leaf_cf_buffers()
+                host = oracle.backend.offline_recluster(tLS, tSS, tN, ids, 8)
+                cap = oracle._flat.capture(oracle.tree.n_points)
+                res, _, _, _ = cap.recluster(oracle.backend, min_pts=8, min_cluster_size=8.0)
+                pos = {int(leaf): k for k, leaf in enumerate(ids)}
+                rows = [pos[int(leaf)] for leaf in oracle._flat.leaf_of_slot[cap.slots]]
+                assert_same_partition(res.labels, host.labels[rows])
+        assert oracle.stats["device_online_blocks"] > 0
+        store = CheckpointStore(str(tmp_path), keep=2)
+        victim.save(store)
+        recovered = _card_engine(cuda_device, device_online=True)
+        recovered.restore(store)
+        store.close()
+        for eng in (oracle, recovered):
+            _drive_card(eng, blocks[4:])
+        a, b = oracle.snapshot, recovered.snapshot
+        assert a.version == b.version > 1
+        for u, v in zip(a.mst, b.mst):
+            np.testing.assert_array_equal(u, v)
+        for f in ("bubble_rep", "bubble_n", "center"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        np.testing.assert_array_equal(a.result.labels, b.result.labels)

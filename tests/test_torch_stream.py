@@ -169,11 +169,21 @@ class TestCarry:
 
 
 class TestEngineOptions:
-    @pytest.mark.parametrize("opt", [{"spatial_index": True}, {"device_online": True},
-                                     {"exact": True}, {"mesh": True}])
+    @pytest.mark.parametrize("opt", [{"spatial_index": True}, {"exact": True}, {"mesh": True}])
     def test_options_not_ported_raise(self, opt):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             StreamingClusterEngine(DIM, device="cpu", **opt)
+
+    def test_device_online_runs_the_stream(self):
+        """``device_online=True`` builds, ingests, retires, reclusters and
+        serves, in step with the reference engine of the same mode (the
+        flat table's own parity cases are tests/test_torch_flat.py)."""
+        port = StreamingClusterEngine(DIM, device="cpu", device_online=True, **ENGINE_KW)
+        ref = RefEngine(DIM, backend="jnp", device_online=True, **ENGINE_KW)
+        _drive([port, ref], _stream(7), check_each_poll=True)
+        assert port.stats["recluster_count"] == ref.stats["recluster_count"] >= 3
+        assert port.stats["device_online_blocks"] == ref.stats["device_online_blocks"] > 0
+        assert not port._flat.stale and port._table is port._flat
 
 
 class TestSnapshotCache:

@@ -3,10 +3,9 @@
 The six cases of tests/test_tenants.py on the port (``device="cpu"``):
 one shared ``SnapshotDeviceCache`` keyed ``(tenant, version)``, one
 ``QueryBatcher`` whose blocks never mix tenants, lifecycle errors,
-per-tenant overrides, and ``save_all`` / ``recover`` replaying the fleet
-bit for bit.  ``device_online`` is not ported (ROADMAP.md queue 1,
-item 4), so the overrides case asks for it and expects the engine's
-``NotImplementedError``.  Then per-tenant labels against a reference
+per-tenant overrides (a ``device_online`` tenant among them, which
+ingests and serves beside the others), and ``save_all`` / ``recover``
+replaying the fleet bit for bit.  Then per-tenant labels against a reference
 ``TenantRouter`` fed the same traffic (same versions, same partition per
 tenant, served labels identical).
 """
@@ -100,9 +99,17 @@ class TestRouting:
         assert a.policy.epsilon == 0.5 and b.policy.epsilon == 0.1 and b.tree.dim == 3
         assert a._query_engine.cache is r.cache is b._query_engine.cache
         assert a._query_engine.scope == "small"
-        with pytest.raises(NotImplementedError, match="item 4"):
-            r.create("online", device_online=True)
-        assert "online" not in r
+        online = r.create("online", device_online=True)
+        assert "online" in r and online._flat is not None
+        X = np.concatenate([rng.normal(size=(40, 2)) * 0.3 + c for c in ([0, 0], [5, 0], [0, 5])])
+        for i in range(0, len(X), 40):  # the first block bootstraps on the host, the rest on the device
+            r.ingest("online", X[i : i + 40])
+        r.flush()
+        assert online.stats["device_online_blocks"] >= 1 and not online._flat.stale
+        assert online.snapshot is not None and online.snapshot.n_clusters >= 2
+        want = online.query(X[:30])
+        np.testing.assert_array_equal(r.query("online", X[:30]), want)
+        assert set(want.tolist()) - {-1}
 
 
 class TestFleetRecovery:
