@@ -88,6 +88,26 @@ Phases, each printing its own lines:
               beside the plain version and index_put_(accumulate) with the
               Kahan adds; a checkpoint drill replaying the retires bit for
               bit;
+     grid     the [stream] configuration with spatial_index=True (the same
+              data, blocks, retires and queries): every published snapshot
+              with the dense engine's partition (and counted bit for bit),
+              the served chunks bit for bit the dense engine's, the grid
+              kernels launched and the dense distance kernels not; on the
+              full table (L = 5,243, Lp = 8192) grid_core_distances bit for
+              bit bubble_cd at min_pts 10, 100 and 2000 (the strip route),
+              grid_assign bit for bit assign at the ingest and query
+              shapes, boruvka_grid's buffers bit for bit dense Borůvka on
+              the panel's W; each kernel against its plain version, timed
+              beside it (and assign beside cdist+min) with the visited
+              share of rows x tiles and the bound from the visited tiles;
+              the grid pass and the dense pass stage by stage, end to end
+              in turns, peak device memory, launches per pass, a
+              torch.profiler pass, and the grid pass under
+              set_sync_debug_mode("error"); a device_online=True grid
+              stream, every flat-table pass against the host-table grid
+              pass on the same tree; the d = 200 point ([wide]'s data): each
+              snapshot's partition the dense card pass's, the kernels bit
+              for bit the feature-sliced dense routes;
   5. wide     a default StreamingClusterEngine at d = 200 (past the
               register tiles' 128): 65,536 points in blocks of 8192
               (L ~ 1,300, Lp = 2048), then 8192 queries; every snapshot and
@@ -144,7 +164,10 @@ Phases, each printing its own lines:
      for the JAX package's three hierarchy scans, with the stage's time
      as stage_ms and the latency floor as latency_floor_ms; flat_scatter,
      which stands for the segment sums of device-online ingest, with its
-     launches from [online] and one launch's time as launch_ms);
+     launches from [online] and one launch's time as launch_ms;
+     grid_assign, grid_core_distances and grid_round_minima, which stand
+     for the JAX package's grid-pruned jnp searches, with their launches
+     from [grid] and the visited share as visited_share);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -211,7 +234,8 @@ EPS32 = float(np.finfo(np.float32).eps)
 # each (D in {16, 32, 64, 128} x K in {32, ..., 1024}); assign_ws.cu, 4 (D) + the wide kernel + its combine;
 # dist_panel.cu, the panel for pairwise (D = 0) and mutual_reach (D = 1) + the norm pass;
 # flash_attention_panel.cu, 8 (head-dim bucket D in {32, 64, 128, 256} x element bits K in {32, 16})
-WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu", "flash_attention_panel.cu")
+WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu", "flash_attention_panel.cu",
+              "grid.cu")  # grid.cu's kernels are listed by name, not checked
 WS_INSTANTIATIONS = 48 + 6 + 3 + 8
 FLASH_BUCKETS = (32, 64, 128, 256)
 # [attention]: bf16 on the CUDA-core route at qwen2-1.5b's widths with Dh past the tensor-core kernel's 128
@@ -383,14 +407,39 @@ def ptxas_ws(log: str) -> dict:
     the element's bits, 32 for f32 and 16 for bf16)."""
     import re
 
-    out, cur, stack = {}, None, None
-    for line in log.splitlines():
+    def entry(line):
         m = re.search(r"Compiling entry function '\S*?(knn_ws|bubble_cd_ws|assign_ws|assign_wide|assign_combine"
                       r"|dist_panel|dist_norms)_kernel(?:IL[ib](\d+)E(?:Li(\d+)E)?)?", line)
         f = re.search(r"Compiling entry function '\S*?flash_panel_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
-        if m or f:
-            cur = (m.group(1), int(m.group(2) or 0), int(m.group(3) or 0)) if m else \
-                ("flash_panel", int(f.group(2)), 32 if f.group(1) == "f" else 16)
+        if m:
+            return m.group(1), int(m.group(2) or 0), int(m.group(3) or 0)
+        return ("flash_panel", int(f.group(2)), 32 if f.group(1) == "f" else 16) if f else None
+
+    return ptxas_entries(log, entry)
+
+
+def ptxas_grid(log: str) -> dict:
+    """{(kernel, K): (registers, stack bytes, spill stores, spill loads)} of
+    csrc/grid.cu's kernels (K the Eq. 6 kernel's queue length, else 0)."""
+    import re
+
+    def entry(line):
+        m = re.search(r"Compiling entry function '\S*?(grid_assign|grid_round|grid_cd)_kernel(?:ILi(\d+)E)?", line)
+        return (m.group(1), int(m.group(2) or 0)) if m else None
+
+    return ptxas_entries(log, entry)
+
+
+def ptxas_entries(log: str, entry) -> dict:
+    """{key: (registers, stack bytes, spill stores, spill loads)} of the
+    entry functions for which ``entry(line)`` gives a key."""
+    import re
+
+    out, cur, stack = {}, None, None
+    for line in log.splitlines():
+        key = entry(line) if "Compiling entry function" in line else None
+        if key:
+            cur = key
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur:
@@ -443,6 +492,8 @@ def phase_build():
               f"{len(ws)} register-tile instantiations in the ptxas report, not {WS_INSTANTIATIONS}")
         bad = [key for key, v in ws.items() if v[1:] != (0, 0, 0)]
         check(not bad, f"register-tile instantiations with a stack frame or spills: {bad}")
+        for (kern, K), (regs, stack, st, ld) in sorted(ptxas_grid(info["log"]).items()):
+            say(f"[build] grid.cu {kern} K={K}: {regs} registers, {stack} bytes stack, spill stores {st} loads {ld}")
     lib = _build.load()
     for dtype, name in ((0, "f32"), (1, "bf16")):
         plans = []
@@ -684,13 +735,14 @@ def phase_stream(dev):
     X, Qs = data[:N_POINTS], data[N_POINTS:]
     eng = StreamingClusterEngine(
         DIM, min_pts=MIN_PTS, compression=COMPRESSION, epsilon=EPSILON, max_block=BLOCK, device=dev)
-    passes = []
+    passes, history = [], {}
 
     def note_pass(before):
         snap = eng.snapshot
         if snap is not None and snap.version != before:
             passes.append((snap.n_bubbles, max(8, 1 << (snap.n_bubbles - 1).bit_length()),
                            snap.wall_seconds * 1e3))
+            history[snap.version] = snap
 
     reset_counts()
     k_bcd.launches_lane = k_mr.launches_tile = 0
@@ -779,7 +831,8 @@ def phase_stream(dev):
     return dict(eng=eng, snap_full=snap_full, table_full=table_full, snap_last=snap_last,
                 table_last=table_last, Qs=Qs, served=served, launches=launches, ckpt=ckpt,
                 retire_blocks=retire_blocks, published=published, retire_versions=retire_versions,
-                ingest_ms=ingest_s / N_POINTS * 1e6, retire_ms=retire_s / len(drop) * 1e6)
+                ingest_ms=ingest_s / N_POINTS * 1e6, retire_ms=retire_s / len(drop) * 1e6, history=history,
+                wall_s=stream_s)
 
 
 def assign_at_query_shape(dev, run):
@@ -1581,6 +1634,468 @@ def phase_tenants(dev, card):
     shutil.rmtree(root, ignore_errors=True)
     say(f"[tenants] save_all {save_ms:.1f} ms, a cold router's recover() {recover_ms:.1f} ms; every tenant's "
         f"served labels identical after the recovery")
+
+
+GRID_KERNELS = ("grid_assign", "grid_core_distances", "grid_round_minima")
+
+
+def grid_counts(reset: bool = False) -> dict:
+    """The grid kernels' launch counts (set to 0 first with ``reset``)."""
+    from repro_torch.kernels import grid as k_grid
+
+    if reset:
+        for name in GRID_KERNELS:
+            k_grid.launches[name] = 0
+    return dict(k_grid.launches)
+
+
+def drive_stream(eng, X, Qs, drop):
+    """[stream]'s operations on ``eng``: the blocks, a flush, the retires
+    in blocks (by insert position), a flush, the queries in chunks.
+    Returns every published snapshot by version, the served chunks, and
+    ingest and retire ms per 1k points (offline passes excluded) and the
+    query chunks' latencies (ms)."""
+    history, pids, lat = {}, [], []
+    ingest_s = retire_s = 0.0
+
+    def note(before):
+        snap = eng.snapshot
+        if snap is not None and snap.version != before:
+            history[snap.version] = snap
+
+    def timed(fn, *args):
+        off0 = eng.stats["offline_seconds_total"]
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0 - (eng.stats["offline_seconds_total"] - off0)
+
+    for i in range(0, X.shape[0], BLOCK):
+        v0 = 0 if eng.snapshot is None else eng.snapshot.version
+        got, s = timed(eng.ingest, X[i : i + BLOCK])
+        pids.extend(got)
+        ingest_s += s
+        note(v0)
+    v0 = eng.snapshot.version
+    eng.flush()
+    note(v0)
+    for i in range(0, len(drop), BLOCK):
+        v0 = eng.snapshot.version
+        retire_s += timed(eng.retire, [pids[j] for j in drop[i : i + BLOCK]])[1]
+        note(v0)
+    v0 = eng.snapshot.version
+    eng.flush()
+    note(v0)
+    served = []
+    for i in range(0, Qs.shape[0], QUERY_CHUNK):
+        t0 = time.perf_counter()
+        served.append(eng.query_detailed(Qs[i : i + QUERY_CHUNK]))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return history, served, ingest_s / X.shape[0] * 1e6, retire_s / len(drop) * 1e6, lat
+
+
+def same_history(tag, got, want) -> int:
+    """Every version published by both runs: the same versions, the same
+    partition; returns how many are also bit for bit (labels and MST)."""
+    check(sorted(got) == sorted(want), f"[{tag}] published versions {sorted(got)} != {sorted(want)}")
+    exact = 0
+    for v in sorted(want):
+        a, b = got[v], want[v]
+        check(a.n_bubbles == b.n_bubbles and np.array_equal(a.bubble_rep, b.bubble_rep),
+              f"[{tag}] version {v}: the summaries differ")
+        check(_same_partition(a.bubble_labels, b.bubble_labels), f"[{tag}] version {v}: partition differs")
+        exact += bool(np.array_equal(a.bubble_labels, b.bubble_labels)
+                      and all(np.array_equal(u, w) for u, w in zip(a.mst, b.mst)))
+    return exact
+
+
+def same_served(tag, got, want):
+    """Served chunks bit for bit: labels, bubble_index, distance, strength."""
+    for a, b in zip(got, want, strict=True):
+        for f in ("labels", "bubble_index", "distance", "strength"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)), f"[{tag}] served {f} differ from the dense engine's")
+
+
+def phase_grid(dev, run, card):
+    """``spatial_index=True`` on the card: the [stream] configuration (the
+    same data, blocks, retires and queries) through the grid engine, every
+    published snapshot against the dense engine's and the served rows bit
+    for bit; the three grid kernels bit for bit their dense counterparts
+    and within tolerance of their plain versions on the full table, timed;
+    the grid pass's stages, memory and host reads beside the dense pass's;
+    a device-online grid stream against the host-table grid pass; and a
+    d = 200 point.  Returns (launches, numbers) for the kernels line."""
+    import torch
+
+    from repro_torch import StreamingClusterEngine
+
+    rng = np.random.default_rng(SEED + 1)  # [stream]'s data and retires
+    data = mixture(rng, N_POINTS + N_QUERIES) + 50.0
+    X, Qs = data[:N_POINTS], data[N_POINTS:]
+    drop = rng.choice(N_POINTS, size=N_POINTS // 4, replace=False)
+    kw = dict(min_pts=MIN_PTS, compression=COMPRESSION, epsilon=EPSILON, max_block=BLOCK, device=dev)
+    eng = StreamingClusterEngine(DIM, spatial_index=True, **kw)
+    reset_counts()
+    grid_counts(reset=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history, served, ingest_ms, retire_ms, lat = drive_stream(eng, X, Qs, drop)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = grid_counts()
+    dense = read_counts()
+    say(f"[grid] {N_POINTS} points d={DIM} in blocks of {BLOCK}, {len(drop)} retired, {N_QUERIES} queries, "
+        f"spatial_index=True, on {card}: {wall:.2f} s wall ([stream] {run['wall_s']:.2f} s, its checkpoint "
+        f"excluded), peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; {len(history)} "
+        f"passes; launches {json.dumps(launches)}; dense kernels {json.dumps(dense)}")
+    for name, n in launches.items():
+        check(n > 0, f"[grid] kernel {name} never launched on the spatial stream")
+    check(dense["assign"] == dense["bubble_cd"] == dense["mutual_reach"] == 0,
+          f"[grid] the spatial stream ran dense kernels: {dense}")
+    n_passes = eng.stats["recluster_count"]
+    check(launches["grid_core_distances"] == n_passes, "[grid] not one Eq. 6 launch per pass")
+    say(f"[grid] ingest {ingest_ms:.3f} ms per 1k points, retire {retire_ms:.3f} (offline passes excluded; "
+        f"[stream]'s {run['ingest_ms']:.3f}, {run['retire_ms']:.3f}); query latency per {QUERY_CHUNK}-row chunk: "
+        f"p50 {np.median(lat):.3f} ms, min {min(lat):.3f} ms, max {max(lat):.3f} ms")
+    exact = same_history("grid", history, run["history"])
+    same_served("grid", served, run["served"])
+    say(f"[grid] every one of the {len(history)} published snapshots has the dense engine's partition "
+        f"({exact} also bit for bit in labels and MST); the {len(served)} served chunks are bit for bit the "
+        f"dense engine's (labels, bubble_index, distance, strength)")
+    del eng, history, served
+    numbers = grid_kernels(dev, run, X)
+    grid_pass(dev, run["table_full"])
+    grid_online(dev, X, drop, kw, card)
+    grid_wide(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def grid_bitwise(tag, dev, table, q_ingest, snap, Qs, min_pts_list):
+    """The grid kernels bit for bit their dense counterparts on ``table``
+    padded as the offline pass pads it: Eq. 6 at each min_pts against
+    bubble_cd's route for it, assign at the ingest shape (``q_ingest``
+    against the table's reps, centred as the engine's ingest centres them)
+    and at the query shape (a chunk of ``Qs`` against ``snap``'s serve
+    entry), boruvka_grid against dense Borůvka on the panel's W of the same
+    core distances.  Returns the padded table, its grid and visit lists."""
+    import torch
+
+    from repro_torch.core.mst import boruvka, boruvka_grid
+    from repro_torch.kernels import assign as k_assign
+    from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import grid as k_grid
+    from repro_torch.kernels import mutual_reach as k_mr
+    from repro_torch.kernels import ops
+    from repro_torch.serving.query import _build_entry
+
+    rep, extent, n_b, _ = table
+    L, d = rep.shape
+    (rep_t, nb_t, ext_t), mp, _ = ops._prepare_table(rep, n_b, extent, MIN_PTS, dev)
+    grid, views = ops._grid_table(rep_t, L)
+    routes = []
+    for m in min_pts_list:
+        mpc = ops._clamp_min_pts(m, float(n_b.sum()))
+        got = k_grid.grid_core_distances(grid, nb_t, ext_t, mpc, d, views)
+        want = k_bcd.bubble_core_distances(rep_t, nb_t, ext_t, min_pts=mpc, dim=d)
+        check(bool(torch.equal(got[:L], want[:L])), f"[{tag}] grid_core_distances at min_pts {mpc} differs from "
+              f"bubble_cd ({int((got[:L] != want[:L]).sum())} of {L} rows)")
+        routes.append(f"{mpc} ({k_bcd.route(d, mpc)})")
+    mu = rep.mean(axis=0)
+    q = torch.as_tensor((q_ingest - mu).astype(np.float32), device=dev)
+    r = torch.as_tensor((rep - mu).astype(np.float32), device=dev)
+    gi, gd = ops.assign(q, r, with_dist=True, spatial_index=True)
+    di, dd = k_assign.assign(q, r, with_dist=True)
+    check(bool(torch.equal(gi, di)) and bool(torch.equal(gd, dd)),
+          f"[{tag}] grid_assign at the ingest shape differs from assign ({int((gi != di).sum())} indices)")
+    entry = _build_entry(snap, dev, spatial=True)
+    qq = torch.as_tensor((Qs[:QUERY_CHUNK] - entry.center[None, :]).astype(np.float32), device=dev)
+    gi, gd = k_grid.grid_assign(entry.grid, qq)
+    di, dd = k_assign.assign(qq, entry.reps, with_dist=True)
+    check(bool(torch.equal(gi, di)) and bool(torch.equal(gd, dd)),
+          f"[{tag}] grid_assign at the query shape differs from assign ({int((gi != di).sum())} indices)")
+    cd = k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views)
+    W = k_mr.mutual_reachability(rep_t, rep_t, cd, cd, zero_diag=True, n_valid=L)
+    want = boruvka(W)
+    del W
+    got = boruvka_grid(grid, cd, views)
+    for name, a, b in zip(("eu", "ev", "ew", "valid"), got, want):
+        check(bool(torch.equal(a, b)), f"[{tag}] boruvka_grid's {name} differs from dense Borůvka's")
+    say(f"[{tag}] L={L}, Lp={rep_t.shape[0]}, d={d}: grid_core_distances bit for bit bubble_cd at min_pts "
+        f"{', '.join(routes)}; grid_assign bit for bit assign at the ingest shape ({q.shape[0]} rows x {L} reps) "
+        f"and the query shape ({qq.shape[0]} rows x the final snapshot's {snap.n_bubbles} in its bucket "
+        f"{entry.bucket}); boruvka_grid's (eu, ev, ew, valid) bit for bit dense Borůvka on the panel's W "
+        f"({int(got[3].sum())} edges)")
+    return (rep_t, nb_t, ext_t, mp, L), grid, views, q, r, qq, entry
+
+
+def visits_of(fn):
+    """Row-tile visits of the grid kernels during one call of ``fn``."""
+    import torch
+
+    from repro_torch.kernels import grid as k_grid
+
+    k_grid.track_visits(True, torch.device("cuda", torch.cuda.current_device()))
+    try:
+        fn()
+        return k_grid.visit_counts()
+    finally:
+        k_grid.track_visits(False)
+
+
+def grid_kernels(dev, run, X):
+    """The three kernels on the full table (L = 5,243, Lp = 8192): bit for
+    bit their dense counterparts, within tolerance of their plain
+    versions; kernel, plain and library times; the visited share of the
+    (rows, tiles) pairs; the bound from the visited tiles."""
+    import torch
+
+    from repro_torch.kernels import grid as k_grid
+    from repro_torch.kernels import ref
+
+    (rep_t, nb_t, ext_t, mp, L), grid, views, q, r, qq, entry = grid_bitwise(
+        "grid", dev, run["table_full"], X[:BLOCK], run["snap_last"], run["Qs"], (MIN_PTS, 100, K_STRIP))
+    Lp, d = rep_t.shape
+    NT = grid.tile_lo.shape[0]
+    counts = grid_counts()
+    out = {}
+
+    def report(name, n_rows, visits, ms, plain, lib, err, extra=""):
+        flops = 2.0 * d * grid.tile * visits
+        nbytes = 4.0 * (Lp * d + 2 * views.order.numel() + n_rows * (d + 2))
+        b, by = bound_ms(flops, nbytes)
+        share = visits / (n_rows * NT)
+        say(f"[grid] {name}: kernel {ms:.4f} ms, plain {plain:.2f} ms, library {lib if lib is None else f'{lib:.4f}'}"
+            f" ms, bound {b:.4f} ms ({by}: {visits} row-tile visits, {share:.4f} of {n_rows} rows x {NT} tiles); "
+            f"max abs err {err:.3e} against the plain version{extra}")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                         visited_share=share)
+
+    # grid_assign at the ingest shape, against its plain version on the same sorted queries
+    g = k_grid.build_grid(torch.cat([r, r.new_full((Lp - L, d), 1e6)]), torch.arange(Lp, device=dev) < L)
+    qt, _ = tie_free_rows(q, r)
+    xs, qperm, qviews = k_grid._query_views(g, qt)
+    pidx, psq = ref.grid_assign(g, xs, qviews)
+    gidx, gdist = k_grid.grid_assign(g, qt)
+    check(bool(torch.equal(gidx[qperm], pidx)), "[grid] grid_assign: indices differ from the plain version")
+    err, _ = compare("grid_assign", gdist[qperm], psq.sqrt(), dist_tol(qt, r, psq.sqrt()))
+    # the kernel alone on Morton-sorted queries; the call adds the queries' sort, visit lists and scatter
+    xs_i, _, v_i = k_grid._query_views(g, q)
+    ms = time_ms(lambda: k_grid._assign_sorted(g, xs_i, v_i), reps=20)
+    call = time_ms(lambda: k_grid.grid_assign(g, q), reps=20)
+    host = host_ms(lambda: k_grid.grid_assign(g, q))
+    plain = time_ms(lambda: ref.grid_assign(g, xs_i, v_i), reps=1, warm=1)
+    lib = time_ms(lambda: torch.cdist(q, r).min(dim=1))
+    v = visits_of(lambda: k_grid._assign_sorted(g, xs_i, v_i))["grid_assign"]
+    xs_q, _, v_q = k_grid._query_views(entry.grid, qq)
+    qms = time_ms(lambda: k_grid._assign_sorted(entry.grid, xs_q, v_q), reps=50)
+    qcall = time_ms(lambda: k_grid.grid_assign(entry.grid, qq), reps=50)
+    qv = visits_of(lambda: k_grid._assign_sorted(entry.grid, xs_q, v_q))["grid_assign"]
+    report("grid_assign", q.shape[0], v, ms, plain, lib, err,
+           f" ({q.shape[0]} rows x {L} reps, the ingest shape; the whole call with the queries' Morton sort and "
+           f"visit lists {call:.4f} ms, host enqueue {host:.4f} ms; at the query shape, {qq.shape[0]} rows x "
+           f"{entry.n_bubbles} reps in {entry.bucket}: kernel {qms:.4f} ms, call {qcall:.4f} ms, "
+           f"{qv / (qq.shape[0] * entry.grid.tile_lo.shape[0]):.4f} of the pairs visited, "
+           f"{-(-qq.shape[0] // 64)} blocks)")
+
+    # grid_core_distances at MIN_PTS, against the plain version on the rows whose crossing is clear
+    cd = k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views)
+    pcd = ref.grid_core_distances(grid, views, nb_t, ext_t, mp, d)
+    keep = clear_crossings(rep_t[:L], nb_t[:L], mp)
+    err, _ = compare("grid_core_distances", cd[:L][keep], pcd[:L][keep], dist_tol(rep_t[:L], rep_t[:L], pcd[:L][keep]))
+    ms = time_ms(lambda: k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views), reps=20)
+    plain = time_ms(lambda: ref.grid_core_distances(grid, views, nb_t, ext_t, mp, d), reps=1, warm=1)
+    v = visits_of(lambda: k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views))["grid_core_distances"]
+    sweep = []
+    for m in (100, K_STRIP):
+        sweep.append(f"min_pts {m} {time_ms(lambda: k_grid.grid_core_distances(grid, nb_t, ext_t, m, d, views)):.4f} ms")
+    report("grid_core_distances", Lp, v, ms, plain, None, err,
+           f" on the {int(keep.sum())} of {L} rows with a clear crossing; " + ", ".join(sweep))
+
+    # grid_round_minima: Borůvka's first round (every row its own component)
+    labels = torch.arange(Lp, device=dev)
+    hopeless = torch.zeros(Lp, dtype=torch.bool, device=dev)
+    rw, re = k_grid.grid_round_minima(grid, views, cd, labels, hopeless)
+    pw, pe = ref.grid_round_minima(grid, views, cd, labels, hopeless)
+    err, _ = compare("grid_round_minima", rw[:L], pw[:L], dist_tol(rep_t[:L], rep_t[:L], pw[:L]))
+    same_e = float((re[:L] == pe[:L]).double().mean())
+    check(same_e >= 0.99, f"[grid] grid_round_minima: only {same_e:.4f} of the edge ids equal the plain version's")
+    ms = time_ms(lambda: k_grid.grid_round_minima(grid, views, cd, labels, hopeless), reps=20)
+    plain = time_ms(lambda: ref.grid_round_minima(grid, views, cd, labels, hopeless), reps=1, warm=1)
+    v = visits_of(lambda: k_grid.grid_round_minima(grid, views, cd, labels, hopeless))["grid_round_minima"]
+    report("grid_round_minima", Lp, v, ms, plain, None, err,
+           f"; {same_e:.4f} of the rows' edge ids equal")
+    grid_counts()  # the checks' launches are not the path's: the caller's counts were read before
+    for name in GRID_KERNELS:
+        k_grid.launches[name] = counts[name]
+    return out
+
+
+def grid_pass(dev, table):
+    """One offline pass at Lp = 8192 through offline_recluster_from_table,
+    spatial and dense: stage by stage, end to end in turns, peak device
+    memory above what was allocated before, launches per pass, the visited
+    share per kernel, a torch.profiler pass, and the grid pass with no
+    host synchronisation allowed from build_grid to extract."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import grid as k_grid
+    from repro_torch.kernels import ops
+
+    rep, extent, n_b, _ = table
+    L = rep.shape[0]
+
+    def run(spatial, stage=ops._run_stage):
+        return ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=stage,
+                                                spatial_index=spatial)
+
+    t = {True: {}, False: {}}
+    for _ in range(2):  # the second round is the one reported (warm caches)
+        res = {sp: run(sp, stage_timer(t[sp])) for sp in (False, True)}
+    check(_same_partition(res[True].labels, res[False].labels), "[grid] the grid pass's partition differs")
+    for sp, name in ((False, "dense"), (True, "grid")):
+        say(f"[grid] {name} pass at L={L}, Lp={ops._pow2_rows(L)} (ms): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in t[sp].items()) + f"; total {sum(t[sp].values()):.2f}")
+    walls = {False: [], True: []}
+    for sp in (False, True, True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(sp)
+        walls[sp].append((time.perf_counter() - t0) * 1e3)
+    peak = {}
+    for sp in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run(sp)
+        peak[sp] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    before = grid_counts()
+    v = visits_of(lambda: run(True))
+    after = grid_counts()
+    per_pass = {k: after[k] - before[k] for k in GRID_KERNELS}
+    NT = ops._pow2_rows(L) // k_grid.DEFAULT_TILE
+    Lp = ops._pow2_rows(L)
+    say(f"[grid] end to end, in turns (ms): dense {', '.join(f'{w:.2f}' for w in walls[False])}; grid "
+        f"{', '.join(f'{w:.2f}' for w in walls[True])}; peak device memory above the table: dense "
+        f"{peak[False]:.1f} MiB, grid {peak[True]:.1f} MiB; grid launches per pass {json.dumps(per_pass)}; visited "
+        f"share of rows x tiles: Eq. 6 {v['grid_core_distances'] / (Lp * NT):.4f}, Borůvka rounds "
+        f"{v['grid_round_minima'] / (Lp * NT * max(per_pass['grid_round_minima'], 1)):.4f} per round")
+    check(per_pass["grid_core_distances"] == 1 and per_pass["grid_assign"] == 0
+          and per_pass["grid_round_minima"] == ops._pow2_rows(L).bit_length(),
+          f"[grid] launches in one pass: {per_pass}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(True)
+        traced = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    wall = float(np.median(walls[True]))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    if busy > 0:
+        say(f"[grid] torch.profiler, one grid pass: {sum(e.count for e in events)} launches, device busy "
+            f"{busy:.3f} ms (traced wall {traced:.2f} ms); against the untraced wall {wall:.2f} ms: idle share "
+            f"{1 - busy / wall:.3f}; top device time (ms): "
+            + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
+    else:
+        say(f"[grid] torch.profiler: no device time in the trace; idle share not measured")
+
+    def no_sync(name, fn, *args, **kw):
+        if name in ("prepare", "unwrap"):
+            return fn(*args, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    torch.cuda.synchronize()
+    res2 = run(True, no_sync)
+    check(np.array_equal(res2.labels, res[True].labels), "[grid] the pass under the sync debug mode differs")
+    say("[grid] the grid pass with torch.cuda.set_sync_debug_mode('error') from build_grid to extract: no host "
+        "synchronisation raised")
+
+
+def grid_online(dev, X, drop, kw, card):
+    """``device_online=True`` with ``spatial_index=True``: [stream]'s
+    ingests and retires; every pass from the flat table with the partition
+    of the host-table grid pass on the same tree."""
+    import torch
+
+    from repro_torch import StreamingClusterEngine
+
+    eng = StreamingClusterEngine(DIM, spatial_index=True, device_online=True, **kw)
+    parity, history, pids = [], {}, []
+
+    def note(before):
+        snap = eng.snapshot
+        if snap is not None and snap.version != before:
+            history[snap.version] = snap
+            if not eng._flat.stale:
+                parity.append(online_pass_parity(eng))
+
+    t0 = time.perf_counter()
+    for i in range(0, N_POINTS, BLOCK):
+        v0 = 0 if eng.snapshot is None else eng.snapshot.version
+        pids.extend(eng.ingest(X[i : i + BLOCK]))
+        note(v0)
+    v0 = eng.snapshot.version
+    eng.flush()
+    note(v0)
+    for i in range(0, len(drop), BLOCK):
+        v0 = eng.snapshot.version
+        eng.retire([pids[j] for j in drop[i : i + BLOCK]])
+        note(v0)
+    v0 = eng.snapshot.version
+    eng.flush()
+    note(v0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(eng.stats["device_online_blocks"] > 0 and parity, "[grid] the device-online grid stream ran no flat pass")
+    say(f"[grid] device_online=True with spatial_index=True on {card}: {wall:.2f} s wall, "
+        f"{eng.stats['device_online_blocks']} blocks on the device, {len(history)} snapshots; {len(parity)} passes "
+        f"from the flat table, each with the partition of the host-table grid pass on the same tree (MST weight "
+        f"rel diff max {max(parity):.3e})")
+    del eng
+
+
+def grid_wide(dev):
+    """The d = 200 point: [wide]'s data through a grid engine, each
+    snapshot's partition against the dense card pass on its table, and the
+    kernels bit for bit the feature-sliced dense routes on the last one."""
+    import torch
+
+    from repro_torch import StreamingClusterEngine
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED + 3)  # [wide]'s data
+    data = mixture(rng, N_WIDE + N_WIDE_QUERIES, dim=WIDE_DIM) + 50.0
+    X, Qs = data[:N_WIDE], data[N_WIDE:]
+    eng = StreamingClusterEngine(WIDE_DIM, spatial_index=True, min_pts=MIN_PTS, compression=COMPRESSION,
+                                 epsilon=EPSILON, max_block=BLOCK, device=dev)
+    snaps = []
+    for i in range(0, N_WIDE, BLOCK):
+        v0 = 0 if eng.snapshot is None else eng.snapshot.version
+        eng.ingest(X[i : i + BLOCK])
+        if eng.snapshot is not None and eng.snapshot.version != v0:
+            snaps.append((eng.snapshot, eng._table.capture(eng.tree.n_points).table()))
+    v0 = eng.snapshot.version
+    eng.flush()
+    if eng.snapshot.version != v0:
+        snaps.append((eng.snapshot, eng._table.capture(eng.tree.n_points).table()))
+    for snap, (rep, extent, n_b, _) in snaps:
+        dense = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev)
+        check(_same_partition(snap.bubble_labels, dense.labels),
+              f"[grid] d={WIDE_DIM} version {snap.version}: partition differs from the dense card pass")
+    snap, table = snaps[-1]
+    grid_bitwise("grid", dev, table, X[:BLOCK], snap, Qs, (MIN_PTS,))
+    say(f"[grid] d={WIDE_DIM}: {len(snaps)} snapshots of the grid engine each with the dense card pass's partition")
+    del eng
+    torch.cuda.synchronize()
 
 
 def phase_cpu_check(run):
@@ -2423,6 +2938,7 @@ def main() -> int:
     phase_serve(dev, run, card)
     phase_recover(dev, run, card)
     online_launches, online_numbers = phase_online(dev, run, card)
+    grid_launches, grid_numbers = phase_grid(dev, run, card)
     numbers.update(phase_hierarchy(dev, run["table_full"]))
     phase_stages(dev, run["table_full"])
     phase_min_pts(dev, run["table_full"])
@@ -2431,9 +2947,9 @@ def main() -> int:
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
     launches = dict(run["launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
-                    flat_scatter=online_launches["flat_scatter"], **attn_launches)
+                    flat_scatter=online_launches["flat_scatter"], **grid_launches, **attn_launches)
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
-                   flash_attention_mma=attn_numbers[ATTENTION[0][0]], flat_scatter=online_numbers)
+                   flash_attention_mma=attn_numbers[ATTENTION[0][0]], flat_scatter=online_numbers, **grid_numbers)
     sources = {"assign": ("assign_ws.cu", "src/repro/kernels/assign.py:21"),
                "bubble_cd": ("bubble_cd_ws.cu", "src/repro/kernels/bubble_cd.py:41"),
                "mutual_reach": ("dist_panel.cu", "src/repro/kernels/mutual_reach.py:23"),
@@ -2446,7 +2962,11 @@ def main() -> int:
                "condense": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:265"),
                "eom": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:336"),
                # no Pallas kernel: the JAX package's segment sums + _kahan_add of device-online ingest
-               "flat_scatter": ("flat_scatter.cu", "src/repro/core/bubble_flat.py:93")}
+               "flat_scatter": ("flat_scatter.cu", "src/repro/core/bubble_flat.py:93"),
+               # no Pallas kernel: the JAX package's grid-pruned jnp searches (spatial_index=True)
+               "grid_assign": ("grid.cu", "src/repro/kernels/grid.py:355"),
+               "grid_core_distances": ("grid.cu", "src/repro/kernels/grid.py:222"),
+               "grid_round_minima": ("grid.cu", "src/repro/core/mst.py:392")}
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

@@ -11,7 +11,8 @@ accumulation — and that is what this table keeps on the card:
     never see off-origin cancellation (§2); dead slots sit at zero and are
     parked at ``_PAD_COORD`` for the assignment;
   * ``insert_block`` runs the assign kernel over the ``_pow2(_hi)`` prefix
-    of live slots, then the ``flat_scatter`` kernel folds the block into
+    of live slots (with ``spatial_index``, the grid's assign with the
+    live slots as its valid rows, so a dead slot is never a candidate), then the ``flat_scatter`` kernel folds the block into
     the whole bucket: per slot, the rows summed in ascending row order and
     added to compensated (Kahan hi/err) accumulators, no float atomics;
     ``delete_block`` subtracts with the same kernel at slots the host
@@ -38,6 +39,7 @@ import torch
 from ..device import resolve_device, to_device, to_numpy
 from ..kernels import assign as _assign_k
 from ..kernels import flat_scatter as _fs_k
+from ..kernels import grid as _grid_k
 from .device_table import FlatTableCapture
 
 __all__ = ["BubbleFlat", "FlatFrameError"]
@@ -69,9 +71,10 @@ class BubbleFlat:
     copy; `host_cfs()` reconstructs uncentred f64 CFs from the device for
     the differential tests."""
 
-    def __init__(self, dim: int, device=None, capacity: int = 64):
+    def __init__(self, dim: int, device=None, capacity: int = 64, spatial_index: bool = False):
         self.dim = int(dim)
         self.device = resolve_device(device)
+        self.spatial_index = bool(spatial_index)
         self.stale = True  # needs a full load before first use
         self.loads = 0  # full host -> device uploads (bootstrap + re-buckets)
         self.origin = np.zeros(self.dim, dtype=np.float64)
@@ -167,7 +170,11 @@ class BubbleFlat:
         reps = self.LS[:hp] / torch.clamp_min(n, 1.0)[:, None]
         live = self.alive[:hp] & (n > 0)
         reps = torch.where(live[:, None], reps, _PAD_COORD).contiguous()
-        a = _assign_k.assign(xc, reps)
+        if self.spatial_index:
+            a, _ = _grid_k.grid_assign(_grid_k.build_grid(reps, live), xc)
+            a = torch.clamp_max(a, hp - 1)  # no live slot at all: a dead row, refused below
+        else:
+            a = _assign_k.assign(xc, reps)
         over = _fs_k.flat_scatter(self.LS, self.LSe, self.SS, self.SSe, self.N, self.alive,
                                   xc, a, valid, float(cap), sign=1)
         slots, over = to_numpy(a[:B], over)  # the block's one read of the device

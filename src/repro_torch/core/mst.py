@@ -1,8 +1,10 @@
-"""Borůvka MST over the dense (n, n) mutual-reachability matrix.
+"""Borůvka MST over the dense (n, n) mutual-reachability matrix, or over
+the grid (``spatial_index=True``).
 
-The PyTorch counterpart of the JAX package's ``core/mst.py::boruvka_jax``
-and ``_boruvka_round_tail``: the offline pass's L×L bubble W in, fixed
-``(n,)`` edge buffers out.  Union-find is label propagation by pointer
+The PyTorch counterpart of the JAX package's ``core/mst.py::boruvka_jax``,
+``boruvka_grid_jax`` and ``_boruvka_round_tail``: the offline pass's L×L
+bubble W (or the Morton grid and the core distances) in, fixed ``(n,)``
+edge buffers out.  Union-find is label propagation by pointer
 jumping; each round every component picks its lightest outgoing edge by
 the composite key (w, canonical edge id), with ``eid = min·n + max`` in
 int32 so the hook graph has only mirrored 2-cycles even with tied weights.
@@ -10,6 +12,12 @@ Component minima are ``scatter_reduce`` "amin" (order-independent, so the
 buffers do not depend on the device's reduction order).  A fixed round
 count runs with no host sync inside; rounds that finish early append
 nothing.
+
+``boruvka_grid`` finds each round's row minima by the grid's tile search
+(``kernels/grid.py::grid_round_minima``, a CUDA kernel on the card) and
+never builds W; the rest of the round is the dense tail verbatim, so the
+buffers are bitwise those of ``boruvka`` on the W of the same core
+distances (pad rows at +inf).
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["boruvka", "mst_total_weight"]
+from ..kernels import grid as _grid_k
+
+__all__ = ["boruvka", "boruvka_grid", "mst_total_weight"]
 
 _BIGID = np.iinfo(np.int32).max
 
@@ -69,6 +79,20 @@ def _boruvka_round_tail(labels, row_w, row_eid, row_j, row_has,
     return new_labels, eu, ev, ew, valid, n_edges + keep.sum()
 
 
+def _rounds(n: int) -> tuple[int, int]:
+    """(Borůvka rounds, pointer jumps per round) for n rows."""
+    if n * n >= _BIGID:
+        raise ValueError("boruvka supports n <= 46340 (int32 edge ids)")
+    steps = math.ceil(math.log2(max(n, 2))) + 1
+    return max(1, steps - 1) + 1, steps
+
+
+def _buffers(n: int, dev, dtype):
+    return (torch.zeros(n + 1, dtype=torch.int32, device=dev), torch.zeros(n + 1, dtype=torch.int32, device=dev),
+            torch.zeros(n + 1, dtype=dtype, device=dev), torch.zeros(n + 1, dtype=torch.bool, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+
+
 def boruvka(W: torch.Tensor):
     """Borůvka MST of a dense symmetric (n, n) weight matrix (+inf entries
     allowed) on W's device.  Returns ``(eu, ev, ew, valid)``: (n,) int32,
@@ -76,10 +100,7 @@ def boruvka(W: torch.Tensor):
     With duplicate weights the (w, eid) key makes every choice
     deterministic (lowest canonical edge id)."""
     n = W.shape[0]
-    if n * n >= _BIGID:
-        raise ValueError("boruvka supports n <= 46340 (int32 edge ids)")
-    max_rounds = max(1, math.ceil(math.log2(max(n, 2)))) + 1
-    jumps = math.ceil(math.log2(max(n, 2))) + 1
+    max_rounds, jumps = _rounds(n)
     dev = W.device
     inf = float("inf")
     iota32 = torch.arange(n, dtype=torch.int32, device=dev)
@@ -87,11 +108,7 @@ def boruvka(W: torch.Tensor):
     eid = torch.minimum(iota32[:, None], iota32[None, :]) * n + torch.maximum(iota32[:, None], iota32[None, :])
 
     labels = iota.clone()
-    eu = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    ev = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    ew = torch.zeros(n + 1, dtype=W.dtype, device=dev)
-    valid = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-    n_edges = torch.zeros((), dtype=torch.int64, device=dev)
+    eu, ev, ew, valid, n_edges = _buffers(n, dev, W.dtype)
     for _ in range(max_rounds):
         same = labels[:, None] == labels[None, :]
         same.fill_diagonal_(True)
@@ -108,4 +125,37 @@ def boruvka(W: torch.Tensor):
         row_has = torch.isfinite(row_w)
         labels, eu, ev, ew, valid, n_edges = _boruvka_round_tail(
             labels, row_w, row_eid, row_j, row_has, eu, ev, ew, valid, n_edges, n, jumps)
+    return eu[:-1], ev[:-1], ew[:-1], valid[:-1]
+
+
+def boruvka_grid(grid, cd: torch.Tensor, views=None):
+    """Borůvka MST of the grid's valid rows under Eq. 7 weights
+    ``max(d, cd_r, cd_c)`` (``cd`` (n,) in ORIGINAL row order), with no
+    (n, n) matrix: each round's row minima come from
+    ``grid_round_minima`` over the block visit lists ``views`` (computed
+    once, ``grid._block_views`` by default).  A row whose component already
+    holds every valid row is hopeless and skips its search.  Fixed round
+    count, no host read.  Returns the ``boruvka`` buffers."""
+    n = grid.pts.shape[0]
+    max_rounds, jumps = _rounds(n)
+    dev = grid.pts.device
+    views = _grid_k._block_views(grid) if views is None else views
+    iota = torch.arange(n, device=dev)
+    rows = grid.orig.long()
+    valid_orig = torch.zeros(n, dtype=torch.int64, device=dev)
+    valid_orig[rows] = grid.valid.long()
+    total_valid = grid.n_valid.long()
+    labels = iota.clone()
+    eu, ev, ew, valid, n_edges = _buffers(n, dev, torch.float32)
+    for _ in range(max_rounds):
+        cnt = torch.zeros(n, dtype=torch.int64, device=dev).scatter_add_(0, labels, valid_orig)
+        hopeless = cnt[labels] >= total_valid
+        row_w, row_eid = _grid_k.grid_round_minima(grid, views, cd, labels, hopeless)
+        row_eid = row_eid.long()
+        lo = row_eid // n
+        # the column of the chosen canonical edge; rows with no edge are
+        # gated by row_has in the tail, the clamp keeps their gathers in range
+        row_j = torch.clamp(torch.where(lo == iota, row_eid - lo * n, lo), 0, n - 1)
+        labels, eu, ev, ew, valid, n_edges = _boruvka_round_tail(
+            labels, row_w, row_eid, row_j, torch.isfinite(row_w), eu, ev, ew, valid, n_edges, n, jumps)
     return eu[:-1], ev[:-1], ew[:-1], valid[:-1]

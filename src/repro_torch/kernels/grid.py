@@ -1,0 +1,401 @@
+"""Grid-pruned exact neighbour engine (DESIGN.md §10): the Morton grid and
+the launch wrappers of its three CUDA kernels.
+
+The PyTorch counterpart of the JAX package's ``repro/kernels/grid.py``
+and of the per-round search of ``core/mst.py::boruvka_grid_jax``.  A
+bubble table is bucketed into fixed-shape, Morton-ordered tiles of
+``DEFAULT_TILE`` rows with an axis-aligned box each; a query block of
+``DEFAULT_BLOCK`` rows visits the tiles in ascending order of a lower
+bound on their distance and stops at the first tile that cannot beat the
+block's current answers.  Pruning is exact, not approximate:
+
+  * a tile is skipped only when its bound, less ``_slack`` (a generous
+    f32 forward-error budget), is STRICTLY above every answer the block
+    still needs, so ties are always visited;
+  * candidate distances carry the dense kernels' bits: every norm and
+    dot product is one ascending ``__fmaf_rn`` chain inside the kernel
+    (``csrc/common.cuh::dot_chain``), then ``expanded_sq``;
+  * answers merge on (value, ORIGINAL row index), the lexicographic order
+    of the dense kernels' tie-breaks.
+
+Invalid rows (size-bucket padding, dead slots) are never candidates: the
+dense path instead parks them at ``_PAD_COORD``, so the two agree for data
+well inside that envelope.
+
+The grid itself (``build_grid``, ``_block_views``, ``_query_views``) is
+O(L·d) torch code on the table's device plus one (NB, NT) sort; nothing
+reads the device.  The three searches are hand-written CUDA kernels
+(``csrc/grid.cu``), one block per 64 query rows:
+
+  ``grid_assign``          nearest valid rep per query row (ingest and
+                           serve), replacing ``grid.py:355``;
+  ``grid_core_distances``  Eq. 6 over each row's (distance, index) walk,
+                           replacing ``grid.py:222`` / ``:255``;
+  ``grid_round_minima``    one Borůvka round's lightest outgoing
+                           (w, edge id) per row, replacing ``mst.py:392``.
+
+Bound on the H100: operations.  Each visited tile costs 64 × 32 × d FMAs
+of dot product; the table and the visit lists are a few MB.  The tile is
+staged in shared memory once per visit for all 64 rows of the block, the
+rows' features are read by broadcast, and lane j of each warp owns column
+j of the tile, so a visit is 8 rows × d FMAs per thread with no (rows, L)
+buffer anywhere.  A tensor on the CPU takes the plain version in
+``kernels/ref.py``; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import _build
+from . import ref as _ref
+
+__all__ = [
+    "GridIndex",
+    "GridViews",
+    "build_grid",
+    "morton_codes",
+    "tile_gap_sq",
+    "grid_assign",
+    "grid_core_distances",
+    "grid_round_minima",
+    "track_visits",
+    "visit_counts",
+    "DEFAULT_TILE",
+    "DEFAULT_BLOCK",
+]
+
+# quantisation bits per grid dimension; with <= 3 interleaved dims the
+# Morton code stays inside int32 (3 * 10 = 30 bits)
+_BITS = 10
+_MAX_GDIMS = 3
+_EPS32 = 2.0 ** -23
+
+DEFAULT_TILE = 32  # candidate-tile rows (contiguous in Morton order); the kernels' warp width
+DEFAULT_BLOCK = 64  # query rows per block: csrc/grid.cu kRows
+_LB_CHUNK = 1 << 24  # floats of one (blocks, tiles, d) gap chunk in _lower_bounds
+_INT32_MAX = 2**31 - 1
+
+launches = {"grid_assign": 0, "grid_core_distances": 0, "grid_round_minima": 0}
+_visits: torch.Tensor | None = None  # (3,) int64 on the card while track_visits is on
+
+
+@dataclasses.dataclass(frozen=True)
+class GridIndex:
+    """Morton-sorted copy of a rep table with per-tile bounding boxes.
+
+    The tile size is ``pts.shape[0] // tile_lo.shape[0]``."""
+
+    pts: torch.Tensor  # (Lp, d) f32 rows in Morton order (invalid rows last)
+    orig: torch.Tensor  # (Lp,) int32 original row of each sorted position
+    valid: torch.Tensor  # (Lp,) bool per sorted position
+    tile_lo: torch.Tensor  # (NT, d) per-tile box over valid rows (+inf if none)
+    tile_hi: torch.Tensor  # (NT, d) (-inf if none)
+    lo: torch.Tensor  # (d,) quantisation lower corner
+    inv_w: torch.Tensor  # (d,) inverse cell width per dim (0: dim unused)
+    gdims: torch.Tensor  # (g,) int32 dims interleaved into the Morton code
+    r2: torch.Tensor  # () f32 largest squared norm over valid rows
+    n_valid: torch.Tensor  # () int32 number of valid rows
+
+    @property
+    def tile(self) -> int:
+        return self.pts.shape[0] // self.tile_lo.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class GridViews:
+    """A set of query blocks' tile visit lists: ``order[b]`` the tiles in
+    ascending lower bound, ``lbs[b]`` those bounds (slack subtracted), each
+    block ``block`` query rows."""
+
+    order: torch.Tensor  # (NB, NT) int32
+    lbs: torch.Tensor  # (NB, NT) f32
+    block: int
+
+
+def _slack(dim: int, r2a: torch.Tensor, r2b: torch.Tensor) -> torch.Tensor:
+    """Conservative absolute error budget of computed SQUARED distances
+    and box bounds at magnitude r2a + r2b: a forward analysis of
+    ``(xx + yy) - 2·xy`` gives ~(2d+4)·eps·(r2a + r2b); 64·(d+8) leaves
+    more than 10× headroom.  Over-estimating only costs tile visits."""
+    return (64.0 * (dim + 8) * _EPS32) * (r2a.float() + r2b.float()) + 1e-30
+
+
+def morton_codes(x: torch.Tensor, lo: torch.Tensor, inv_w: torch.Tensor, gdims: torch.Tensor) -> torch.Tensor:
+    """Interleaved grid codes: the ``gdims`` columns of ``x`` quantised to
+    ``2**_BITS`` cells each and bit-interleaved.  A visit-order heuristic
+    only: no result depends on it."""
+    cells = float(1 << _BITS)
+    q = torch.clamp(torch.floor((x.float() - lo[None, :]) * inv_w[None, :]), 0.0, cells - 1.0).to(torch.int32)
+    qg = q[:, gdims.long()]  # (n, g)
+    g = qg.shape[1]
+    b = torch.arange(_BITS, dtype=torch.int32, device=x.device)
+    # bit b of dim k goes to position b·g + k; the positions are distinct, so the sum is the OR
+    at = b[None, :] * g + torch.arange(g, dtype=torch.int32, device=x.device)[:, None]  # (g, BITS)
+    return (((qg[:, :, None] >> b) & 1) << at).sum((1, 2), dtype=torch.int32)
+
+
+def tile_gap_sq(blo, bhi, tlo, thi) -> torch.Tensor:
+    """Squared-distance lower bound between query boxes (blo, bhi), (..., d),
+    and every tile box, (NT, d): the per-dim gap ``max(tlo - bhi, blo - thi,
+    0)``, squared and summed, (..., NT).  Empty boxes (lo = +inf, hi = -inf)
+    give +inf."""
+    gap = torch.clamp_min(torch.maximum(tlo - bhi[..., None, :], blo[..., None, :] - thi), 0.0)
+    return (gap * gap).sum(-1)
+
+
+def build_grid(pts: torch.Tensor, valid: torch.Tensor, tile: int = DEFAULT_TILE) -> GridIndex:
+    """Bucket ``pts`` rows into Morton-ordered tiles of ``tile`` rows on
+    their device.  ``valid`` masks the real rows: the others are excluded
+    from every candidate set and from the quantisation frame.  The row
+    count must be a multiple of the (clamped) tile: the callers' power-of-
+    two buckets are."""
+    if pts.dim() != 2 or valid.shape != (pts.shape[0],):
+        raise ValueError(f"build_grid wants (L, d) and (L,), got {tuple(pts.shape)} and {tuple(valid.shape)}")
+    pts = pts.float().contiguous()
+    valid = valid.to(device=pts.device, dtype=torch.bool).contiguous()
+    Lp, d = pts.shape
+    T = min(int(tile), Lp)
+    if T < 1 or Lp % T:
+        raise ValueError(f"build_grid needs a row count that the tile divides, got {Lp} rows and tile {T}")
+    inf = float("inf")
+    vlo = torch.where(valid[:, None], pts, inf).amin(0)
+    vhi = torch.where(valid[:, None], pts, -inf).amax(0)
+    vlo = torch.where(torch.isfinite(vlo), vlo, 0.0)
+    vhi = torch.where(torch.isfinite(vhi), vhi, 0.0)
+    rng = vhi - vlo
+    inv_w = torch.where(rng > 0, float(1 << _BITS) / rng, 0.0)
+    # interleave the widest dims (stable: range ties break by dim index)
+    gdims = torch.argsort(-rng, stable=True)[: min(d, _MAX_GDIMS)].to(torch.int32)
+    code = morton_codes(pts, vlo, inv_w, gdims)
+    code = torch.where(valid, code, _INT32_MAX)  # invalid rows last
+    perm = torch.argsort(code, stable=True)
+    pts_s = pts[perm].contiguous()
+    valid_s = valid[perm].contiguous()
+    NT = Lp // T
+    p3 = pts_s.view(NT, T, d)
+    v3 = valid_s.view(NT, T, 1)
+    sq = (pts_s * pts_s).sum(-1)
+    return GridIndex(
+        pts=pts_s, orig=perm.to(torch.int32), valid=valid_s,
+        tile_lo=torch.where(v3, p3, inf).amin(1), tile_hi=torch.where(v3, p3, -inf).amax(1),
+        lo=vlo, inv_w=inv_w, gdims=gdims, r2=torch.where(valid_s, sq, 0.0).amax(),
+        n_valid=valid.sum(dtype=torch.int32),
+    )
+
+
+def _lower_bounds(blo, bhi, grid: GridIndex) -> torch.Tensor:
+    """(NB, NT) squared-distance lower bounds between each block box and
+    each tile box, in chunks of blocks so no (NB, NT, d) tensor grows past
+    ``_LB_CHUNK`` floats."""
+    NB, d = blo.shape
+    NT = grid.tile_lo.shape[0]
+    step = max(1, _LB_CHUNK // max(NT * d, 1))
+    return torch.cat([tile_gap_sq(blo[b0 : b0 + step], bhi[b0 : b0 + step], grid.tile_lo, grid.tile_hi)
+                      for b0 in range(0, NB, step)])
+
+
+def _sorted_views(lb: torch.Tensor, block: int) -> GridViews:
+    order = torch.argsort(lb, dim=1, stable=True)
+    return GridViews(order=order.to(torch.int32).contiguous(), lbs=torch.gather(lb, 1, order).contiguous(),
+                     block=block)
+
+
+def _block_views(grid: GridIndex, block: int = DEFAULT_BLOCK) -> GridViews:
+    """The table's own rows as query blocks (Eq. 6 and Borůvka): blocks of
+    ``min(block, Lp)`` sorted rows, each with its tiles in ascending lower
+    bound in DISTANCE space, slack already subtracted."""
+    Lp, d = grid.pts.shape
+    bn = min(int(block), Lp)
+    NB = Lp // bn
+    xb = grid.pts.view(NB, bn, d)
+    xv = grid.valid.view(NB, bn, 1)
+    blo = torch.where(xv, xb, float("inf")).amin(1)
+    bhi = torch.where(xv, xb, float("-inf")).amax(1)
+    lb_sq = _lower_bounds(blo, bhi, grid)
+    lb_d = torch.sqrt(torch.clamp_min(lb_sq - _slack(d, grid.r2, grid.r2), 0.0))
+    return _sorted_views(torch.where(torch.isfinite(lb_sq), lb_d, float("inf")), bn)
+
+
+def _query_views(grid: GridIndex, x: torch.Tensor, block: int = DEFAULT_BLOCK):
+    """Morton-sort the queries in the grid's frame and cut them into
+    blocks of ``block`` rows (the last one ragged): returns the sorted
+    queries, the permutation, and each block's tiles in ascending lower
+    bound in SQUARED space, ``lb_sq - slack``."""
+    B, d = x.shape
+    qperm = torch.argsort(morton_codes(x, grid.lo, grid.inv_w, grid.gdims), stable=True)
+    xs = x[qperm].contiguous()
+    NB = -(-B // block)
+    # the ragged block's box is over its real rows: pad with copies of the last row
+    xp = torch.cat([xs, xs[-1:].expand(NB * block - B, d)]).view(NB, block, d)
+    lb = _lower_bounds(xp.amin(1), xp.amax(1), grid)
+    slack = _slack(d, (xs * xs).sum(-1).amax(), grid.r2)
+    return xs, qperm, _sorted_views(lb - slack, block)
+
+
+def track_visits(on: bool, device=None) -> None:
+    """Start (zeroed) or stop counting the kernels' row-tile visits on the
+    card: each visit of a tile adds the rows of the block that visit it.
+    ``visit_counts()`` reads them (a host sync): for measurement only."""
+    global _visits
+    _visits = torch.zeros(3, dtype=torch.int64, device=device) if on else None
+
+
+def visit_counts() -> dict:
+    if _visits is None:
+        return {}
+    a, c, r = (int(v) for v in _visits.cpu())
+    return {"grid_assign": a, "grid_core_distances": c, "grid_round_minima": r}
+
+
+def _visit_ptr(slot: int, device):
+    if _visits is None or _visits.device != device:
+        return None
+    return _visits[slot:].data_ptr()
+
+
+def _checked_grid(grid: GridIndex, what: str, *tensors) -> bool:
+    """Validate the grid and the per-row ``tensors`` that go with it; True
+    for the card, False for the CPU."""
+    Lp, d = grid.pts.shape
+    if (grid.pts.dtype != torch.float32 or grid.orig.dtype != torch.int32 or grid.valid.dtype != torch.bool
+            or grid.orig.shape != (Lp,) or grid.valid.shape != (Lp,)
+            or not all(t.is_contiguous() for t in (grid.pts, grid.orig, grid.valid))):
+        raise ValueError(f"{what}: malformed grid (pts {tuple(grid.pts.shape)} {grid.pts.dtype})")
+    if any(t.device != grid.pts.device for t in (grid.orig, grid.valid, *tensors)):
+        raise ValueError(f"{what}: inputs on another device than the grid's {grid.pts.device}")
+    if Lp * Lp >= 2**31 - 1:
+        raise ValueError(f"{what} takes Lp <= 46340 (int32 edge ids and indices), got {Lp}")
+    if grid.tile > 32:
+        raise ValueError(f"{what} kernels take tiles of at most 32 rows, got {grid.tile}")
+    dev = grid.pts.device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {dev}")
+    return True
+
+
+def _views_ok(grid: GridIndex, views: GridViews, n_rows: int, what: str) -> None:
+    NT = grid.tile_lo.shape[0]
+    NB = -(-n_rows // views.block)
+    if (views.order.dtype != torch.int32 or views.lbs.dtype != torch.float32
+            or not (views.order.is_contiguous() and views.lbs.is_contiguous())
+            or views.order.device != grid.pts.device or views.lbs.device != grid.pts.device):
+        raise ValueError(f"{what}: visit lists must be contiguous int32 / float32 on {grid.pts.device}")
+    if views.block != DEFAULT_BLOCK and NB != 1:
+        raise ValueError(f"{what} kernels take blocks of {DEFAULT_BLOCK} rows, got {views.block}")
+    if views.order.shape != (NB, NT) or views.lbs.shape != (NB, NT):
+        raise ValueError(f"{what}: visit lists {tuple(views.order.shape)} for {NB} blocks x {NT} tiles")
+
+
+def grid_assign(grid: GridIndex, x: torch.Tensor):
+    """(B, d) f32 queries → (idx int32 (B,), dist f32 (B,)): the nearest
+    VALID rep by (clamped squared distance, original index) and the square
+    root of that distance, bitwise the dense assign kernel on the valid
+    rows.  ``idx`` is the original row, ``Lp`` where the table has no valid
+    row at all."""
+    _checked_grid(grid, "grid_assign", x)
+    x = x.float().contiguous()
+    if x.dim() != 2 or x.shape[1] != grid.pts.shape[1] or x.device != grid.pts.device:
+        raise ValueError(f"grid_assign wants (B, {grid.pts.shape[1]}) queries on {grid.pts.device}, "
+                         f"got {tuple(x.shape)} on {x.device}")
+    B = x.shape[0]
+    if B == 0:
+        return (torch.empty(0, dtype=torch.int32, device=x.device),
+                torch.empty(0, dtype=torch.float32, device=x.device))
+    xs, qperm, views = _query_views(grid, x)
+    idx_s, dist_s = _assign_sorted(grid, xs, views)
+    idx = torch.empty_like(idx_s)
+    dist = torch.empty_like(dist_s)
+    idx[qperm] = idx_s
+    dist[qperm] = dist_s
+    return idx, dist
+
+
+def _assign_sorted(grid: GridIndex, xs: torch.Tensor, views: GridViews):
+    """``grid_assign``'s search over queries already in Morton order, with
+    their blocks' visit lists: (idx, dist) in that order."""
+    B = xs.shape[0]
+    if grid.pts.device.type == "cpu":
+        idx_s, sq_s = _ref.grid_assign(grid, xs, views)
+        return idx_s, torch.sqrt(sq_s)
+    _views_ok(grid, views, B, "grid_assign")
+    idx_s = torch.empty(B, dtype=torch.int32, device=xs.device)
+    dist_s = torch.empty(B, dtype=torch.float32, device=xs.device)
+    _launch("grid_assign", "repro_grid_assign_f32", xs.device,
+            xs.data_ptr(), B, *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(),
+            views.order.shape[1], idx_s.data_ptr(), dist_s.data_ptr(), _visit_ptr(0, xs.device))
+    return idx_s, dist_s
+
+
+def grid_core_distances(grid: GridIndex, n_b, extent, min_pts: int, dim: int,
+                        views: GridViews | None = None) -> torch.Tensor:
+    """Eq. 6 bubble core distances over the grid: ``n_b``/``extent`` (Lp,)
+    in ORIGINAL row order, the result too (0 on invalid rows).  Bitwise the
+    dense Eq. 6 kernels on the valid rows, for a pre-clamped ``min_pts``
+    (at most the valid rows' mass)."""
+    on_card = _checked_grid(grid, "grid_core_distances", n_b, extent)
+    Lp, d = grid.pts.shape
+    n_b, extent = n_b.float().contiguous(), extent.float().contiguous()
+    if n_b.shape != (Lp,) or extent.shape != (Lp,):
+        raise ValueError(f"grid_core_distances wants ({Lp},) masses and extents, got "
+                         f"{tuple(n_b.shape)} and {tuple(extent.shape)}")
+    min_pts, dim = int(min_pts), int(dim)
+    if min_pts < 1 or dim < 1:
+        raise ValueError(f"min_pts and dim must be >= 1, got {min_pts}, {dim}")
+    views = _block_views(grid) if views is None else views
+    _views_ok(grid, views, Lp, "grid_core_distances")
+    if not on_card:
+        return _ref.grid_core_distances(grid, views, n_b, extent, min_pts, dim)
+    out = torch.empty(Lp, dtype=torch.float32, device=grid.pts.device)
+    _launch("grid_core_distances", "repro_grid_core_distances_f32", out.device,
+            *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
+            n_b.data_ptr(), extent.data_ptr(), min(min_pts, Lp), min_pts, dim, out.data_ptr(),
+            _visit_ptr(1, out.device))
+    return out
+
+
+def grid_round_minima(grid: GridIndex, views: GridViews, cd, labels, hopeless):
+    """One Borůvka round's search: per row (ORIGINAL order), the lightest
+    edge to another component by (w, canonical edge id), with
+    ``w = max(d, cd_r, cd_c)`` and ``eid = min(o_r, o_c)·n + max(o_r, o_c)``.
+    Invalid and ``hopeless`` rows find nothing: (+inf, int32 max).  Returns
+    (row_w f32 (n,), row_eid int32 (n,))."""
+    on_card = _checked_grid(grid, "grid_round_minima", cd, labels, hopeless)
+    n = grid.pts.shape[0]
+    cd = cd.float().contiguous()
+    labels = labels.long().contiguous()
+    hopeless = hopeless.bool().contiguous()
+    if cd.shape != (n,) or labels.shape != (n,) or hopeless.shape != (n,):
+        raise ValueError(f"grid_round_minima wants ({n},) cd, labels and hopeless")
+    _views_ok(grid, views, n, "grid_round_minima")
+    if not on_card:
+        return _ref.grid_round_minima(grid, views, cd, labels, hopeless)
+    w_s = torch.empty(n, dtype=torch.float32, device=cd.device)
+    e_s = torch.empty(n, dtype=torch.int32, device=cd.device)
+    _launch("grid_round_minima", "repro_grid_round_minima_f32", cd.device,
+            *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
+            cd.data_ptr(), labels.data_ptr(), hopeless.data_ptr(), w_s.data_ptr(), e_s.data_ptr(),
+            _visit_ptr(2, cd.device))
+    rows = grid.orig.long()
+    row_w = torch.empty_like(w_s)
+    row_eid = torch.empty_like(e_s)
+    row_w[rows] = w_s
+    row_eid[rows] = e_s
+    return row_w, row_eid
+
+
+def _grid_args(grid: GridIndex):
+    Lp, d = grid.pts.shape
+    return (grid.pts.data_ptr(), grid.orig.data_ptr(), grid.valid.data_ptr(), Lp, d, grid.tile)
+
+
+def _launch(name: str, entry: str, device, *args) -> None:
+    lib = _build.load()
+    with torch.cuda.device(device):
+        code = getattr(lib, entry)(*args, _build.current_stream(device))
+    _build.check(code, name)
+    launches[name] += 1

@@ -1,7 +1,7 @@
 """The kernel API and the offline pass.
 
 The PyTorch counterpart of the JAX package's ``repro/kernels/ops.py``,
-dense branch only:
+without its sharded (``mesh=``) and exact-dynamic branches:
 
 * the point-level functions ``pairwise_sqdist``, ``mutual_reachability``,
   ``knn`` and ``core_distances`` (Def. 1, self-inclusive), the
@@ -20,7 +20,13 @@ dense branch only:
   device-online flat leaf-CF table (core/bubble_flat.py) — the populated
   slots compacted in ascending order and the bubble table derived on the
   device (``_device_table_prepare``), no upload of the summary;
-* ``ClusterBackend``: the device, resolved once by the engine.
+* ``ClusterBackend``: the device, resolved once by the engine, and the
+  ``spatial_index`` switch.
+
+With ``spatial_index=True`` (DESIGN.md §10) assignment, Eq. 6 and Borůvka
+go through the Morton grid of ``kernels/grid.py`` instead: tile-pruned
+exact searches, bitwise the dense kernels on the valid rows, and the
+offline pass never builds the (Lp, Lp) W unless ``return_w`` asks for it.
 
 There is no feature padding to 128 lanes (a TPU tiling) and no L or m
 cap on the Eq. 6 and knn kernels (TPU VMEM sizings): the CUDA kernels
@@ -39,11 +45,12 @@ import torch
 
 from ..core.cf import cf_extent, cf_rep
 from ..core.hdbscan import CondensedTree
-from ..core.mst import boruvka
+from ..core.mst import boruvka, boruvka_grid
 from ..device import resolve_device, to_device, to_numpy
 from . import assign as _assign_k
 from . import bubble_cd as _bcd_k
 from . import flash_attention as _fa_k
+from . import grid as _grid_k
 from . import hierarchy as _h_k
 from . import knn as _knn_k
 from . import mutual_reach as _mr_k
@@ -132,10 +139,28 @@ def flash_attention(q, k, v, qpos=None, kpos=None, *, causal: bool = True,
     return out
 
 
-def assign(x: torch.Tensor, reps: torch.Tensor, with_dist: bool = False):
+def assign(x: torch.Tensor, reps: torch.Tensor, with_dist: bool = False,
+           spatial_index: bool = False, valid=None):
     """Nearest-representative index per row (lowest index on ties); with
-    ``with_dist=True`` also the euclidean distance to it."""
-    return _assign_k.assign(*_contig_f32(x, reps), with_dist=with_dist)
+    ``with_dist=True`` also the euclidean distance to it.
+
+    ``spatial_index=True`` routes through the grid (``kernels/grid.py``):
+    the reps padded to a power of two with far invalid rows, one grid,
+    ``grid_assign``.  ``valid`` (spatial only) masks rep rows out of the
+    candidate set; where no row is valid the index is L − 1."""
+    x, reps = _contig_f32(x, reps)
+    if not spatial_index:
+        return _assign_k.assign(x, reps, with_dist=with_dist)
+    L, d = reps.shape
+    valid = (torch.ones(L, dtype=torch.bool, device=reps.device) if valid is None
+             else torch.as_tensor(valid, device=reps.device).bool())
+    Lp = _pow2_rows(L)
+    if Lp != L:
+        reps = torch.cat([reps, reps.new_full((Lp - L, d), _PAD_COORD)])
+        valid = torch.cat([valid, valid.new_zeros(Lp - L)])
+    idx, dist = _grid_k.grid_assign(_grid_k.build_grid(reps, valid), x)
+    idx = torch.clamp_max(idx, L - 1)
+    return (idx, dist) if with_dist else idx
 
 
 def _clamp_min_pts(min_pts: int, total_mass: float) -> int:
@@ -144,16 +169,35 @@ def _clamp_min_pts(min_pts: int, total_mass: float) -> int:
     return max(1, min(int(min_pts), int(total_mass)))
 
 
-def bubble_core_distances(rep, n_b, extent, min_pts: int) -> torch.Tensor:
-    """Eq. 6 bubble core distances, ``min_pts`` clamped to the mass."""
+def _grid_table(rep, n_valid: int):
+    """The grid over a padded table whose first ``n_valid`` rows are real,
+    and its own rows' visit lists."""
+    valid = torch.arange(rep.shape[0], device=rep.device) < n_valid
+    grid = _grid_k.build_grid(rep, valid)
+    return grid, _grid_k._block_views(grid)
+
+
+def bubble_core_distances(rep, n_b, extent, min_pts: int, spatial_index: bool = False) -> torch.Tensor:
+    """Eq. 6 bubble core distances, ``min_pts`` clamped to the mass; with
+    ``spatial_index`` through the grid (the table padded to a power of two
+    with far, massless, invalid rows)."""
     rep, n_b, extent = _contig_f32(rep, n_b, extent)
     min_pts = _clamp_min_pts(min_pts, float(n_b.sum()))
-    return _bcd_k.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=rep.shape[1])
+    L, d = rep.shape
+    if not spatial_index:
+        return _bcd_k.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=d)
+    pad = _pow2_rows(L) - L
+    rep = torch.cat([rep, rep.new_full((pad, d), _PAD_COORD)])
+    n_b, extent = (torch.cat([t, t.new_zeros(pad)]) for t in (n_b, extent))
+    grid, views = _grid_table(rep, L)
+    return _grid_k.grid_core_distances(grid, n_b, extent, min_pts, d, views)[:L]
 
 
-def bubble_mutual_reachability(rep, n_b, extent, min_pts: int) -> torch.Tensor:
-    """The (L, L) bubble d_m matrix (Eqs. 6–7), diagonal 0."""
-    cd = bubble_core_distances(rep, n_b, extent, min_pts)
+def bubble_mutual_reachability(rep, n_b, extent, min_pts: int, spatial_index: bool = False) -> torch.Tensor:
+    """The (L, L) bubble d_m matrix (Eqs. 6–7), diagonal 0; with
+    ``spatial_index`` the core distances come from the grid (the matrix
+    itself is dense by definition)."""
+    cd = bubble_core_distances(rep, n_b, extent, min_pts, spatial_index)
     (rep,) = _contig_f32(rep)
     return _mr_k.mutual_reachability(rep, rep, cd, cd, zero_diag=True)
 
@@ -178,22 +222,30 @@ def _run_stage(name: str, fn, *args, **kw):
 
 def _offline_pipeline(rep, n_b, extent, n_valid: int, mcs: float, min_pts: int,
                       method: str = "eom", allow_single: bool = False, *,
-                      stage=_run_stage, with_w: bool = False) -> dict:
+                      stage=_run_stage, with_w: bool = False, spatial: bool = False) -> dict:
     """Device offline pass over a size-bucketed, mean-centred bubble table:
     Eq. 6 → (Lp, Lp) W (Eq. 7, pad rows/cols at +inf so they stay isolated
-    in the MST) → Borůvka → hierarchy, on a pre-clamped ``min_pts``.  On
-    ``cuda`` no stage reads the host (the hierarchy sweeps are kernels,
-    ``kernels/hierarchy.py``); on the CPU the plain EOM loop reads the label
-    count once.  Returns the fixed-size buffers, with the device W under
-    ``"W"`` when ``with_w``; ``stage(name, fn, *args, **kw)`` runs each
-    step."""
-    cd = stage("bubble_cd", _bcd_k.bubble_core_distances, rep, n_b, extent,
-               min_pts=min_pts, dim=rep.shape[1])
-    W = stage("mutual_reach", _mr_k.mutual_reachability, rep, rep, cd, cd,
-              zero_diag=True, n_valid=n_valid)
-    eu, ev, ew, valid = stage("boruvka", boruvka, W)
-    if not with_w:
-        del W
+    in the MST) → Borůvka → hierarchy, on a pre-clamped ``min_pts``.  With
+    ``spatial`` the pass is "build_grid" → Eq. 6 and Borůvka over the grid
+    (pad rows invalid, so isolated) → hierarchy, and W is built only when
+    ``with_w`` asks for it.  On ``cuda`` no stage reads the host (the
+    hierarchy sweeps are kernels, ``kernels/hierarchy.py``); on the CPU the
+    plain EOM loop reads the label count once.  Returns the fixed-size
+    buffers, with the device W under ``"W"`` when ``with_w``;
+    ``stage(name, fn, *args, **kw)`` runs each step."""
+    if spatial:
+        grid, views = stage("build_grid", _grid_table, rep, n_valid)
+        cd = stage("bubble_cd", _grid_k.grid_core_distances, grid, n_b, extent, min_pts, rep.shape[1], views)
+        eu, ev, ew, valid = stage("boruvka", boruvka_grid, grid, cd, views)
+        W = _mr_k.mutual_reachability(rep, rep, cd, cd, zero_diag=True, n_valid=n_valid) if with_w else None
+    else:
+        cd = stage("bubble_cd", _bcd_k.bubble_core_distances, rep, n_b, extent,
+                   min_pts=min_pts, dim=rep.shape[1])
+        W = stage("mutual_reach", _mr_k.mutual_reachability, rep, rep, cd, cd,
+                  zero_diag=True, n_valid=n_valid)
+        eu, ev, ew, valid = stage("boruvka", boruvka, W)
+        if not with_w:
+            del W
     slt = stage("single_linkage", _h_k.single_linkage, eu, ev, ew, valid, n_valid, n_b)
     ct = stage("condense", _h_k.condense, slt, n_b, mcs)
     ex = stage("extract", _h_k.extract, ct, method=method, allow_single_cluster=allow_single)
@@ -327,7 +379,7 @@ def _prepare_table(rep, n_b, extent, min_pts: int, dev: torch.device):
 def offline_recluster_from_table(
     rep, n_b, extent, min_pts: int, min_cluster_size: float | None = None, *,
     device=None, method: str = "eom", allow_single_cluster: bool = False,
-    return_w: bool = False, stage=_run_stage,
+    return_w: bool = False, stage=_run_stage, spatial_index: bool = False,
 ):
     """The streaming engine's offline pass, from a derived bubble table:
     ``_prepare_table`` on the host, the stages on ``device`` (None →
@@ -344,6 +396,7 @@ def offline_recluster_from_table(
       stage: ``stage(name, fn, *args, **kw)`` runs each step — "prepare",
         the device stages of ``_offline_pipeline``, "unwrap"; the default
         just calls ``fn``.
+      spatial_index: the grid pass (no (Lp, Lp) W unless ``return_w``).
 
     Returns:
       OfflineClusterResult; with ``return_w=True``, ``(W, result)``.
@@ -353,7 +406,8 @@ def offline_recluster_from_table(
     mcs = float(min_pts if min_cluster_size is None else min_cluster_size)
     (rep_t, nb_t, ext_t), min_pts, Ng = stage("prepare", _prepare_table, rep, n_b, extent, min_pts, dev)
     out = _offline_pipeline(rep_t, nb_t, ext_t, L, mcs, min_pts, method,
-                            bool(allow_single_cluster), stage=stage, with_w=return_w)
+                            bool(allow_single_cluster), stage=stage, with_w=return_w,
+                            spatial=bool(spatial_index))
     W = out.pop("W", None)
     result = stage("unwrap", _unwrap_result, out, L, mcs, Ng)
     if return_w:
@@ -392,14 +446,16 @@ def _device_table_prepare(LS, LSe, SS, SSe, N, slots):
 
 
 def _device_table_pipeline(LS, LSe, SS, SSe, N, slots, mcs: float, min_pts: int,
-                           method: str = "eom", allow_single: bool = False, *, stage=_run_stage):
+                           method: str = "eom", allow_single: bool = False, *, stage=_run_stage,
+                           spatial: bool = False):
     """The flat-table pass up to its unwrap: ``_device_table_prepare`` then
     ``_offline_pipeline`` over the compacted table; rep, nb and mu ride in
     the output dict so the unwrap reads everything in ONE host sync.
     Returns (out, n_valid)."""
     L = len(slots)
     rep_c, nb, extent, rep, mu = stage("prepare", _device_table_prepare, LS, LSe, SS, SSe, N, slots)
-    out = _offline_pipeline(rep_c, nb, extent, L, mcs, min_pts, method, allow_single, stage=stage)
+    out = _offline_pipeline(rep_c, nb, extent, L, mcs, min_pts, method, allow_single, stage=stage,
+                            spatial=spatial)
     out.update(rep=rep, nb=nb, mu=mu)
     return out, L
 
@@ -418,6 +474,7 @@ def _unwrap_device_table(out: dict, L: int, mcs: float, origin):
 def offline_recluster_from_device_table(
     LS, LSe, SS, SSe, N, alive, origin, min_pts: int, min_cluster_size: float | None = None, *,
     slots, method: str = "eom", allow_single_cluster: bool = False, stage=_run_stage,
+    spatial_index: bool = False,
 ):
     """The streaming engine's offline pass over a device-online flat table
     (``BubbleFlat.device_view()`` or a capture's clones): no upload of the
@@ -438,6 +495,7 @@ def offline_recluster_from_device_table(
       method, allow_single_cluster: flat-extraction policy.
       stage: as in ``offline_recluster_from_table`` ("prepare" is the
         device derivation here).
+      spatial_index: the grid pass.
 
     Returns:
       (OfflineClusterResult, rep, n_b, center): ``rep`` the (L, d) f64
@@ -446,7 +504,7 @@ def offline_recluster_from_device_table(
     """
     mcs = float(min_pts if min_cluster_size is None else min_cluster_size)
     out, L = _device_table_pipeline(LS, LSe, SS, SSe, N, slots, mcs, int(min_pts), method,
-                                    bool(allow_single_cluster), stage=stage)
+                                    bool(allow_single_cluster), stage=stage, spatial=bool(spatial_index))
     return stage("unwrap", _unwrap_device_table, out, L, mcs, origin)
 
 
@@ -455,12 +513,17 @@ class ClusterBackend:
     every call moves its inputs to.  On ``cuda`` the wrappers launch the
     hand-written kernels; on ``cpu`` they run the plain versions.  The
     engine uses it for ingest assignment and the offline pass; the other
-    methods are the JAX backend's kernel API over the same device."""
+    methods are the JAX backend's kernel API over the same device.
+    ``spatial_index=True`` routes assignment, Eq. 6 and Borůvka through the
+    grid (``kernels/grid.py``): the same answers, no (L, L) matrix."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, spatial_index: bool = False):
         self.device = resolve_device(device)
+        self.spatial_index = bool(spatial_index)
 
     def __repr__(self):
+        if self.spatial_index:
+            return f"ClusterBackend({str(self.device)!r}, spatial_index=True)"
         return f"ClusterBackend({str(self.device)!r})"
 
     def _f32(self, a) -> torch.Tensor:
@@ -473,43 +536,54 @@ class ClusterBackend:
     def knn(self, x, y, k: int):
         return knn(self._f32(x), self._f32(y), k)
 
-    def assign(self, x, reps) -> torch.Tensor:
-        return assign(self._f32(x), self._f32(reps))
+    def _mask(self, valid):
+        if valid is None:
+            return None
+        return torch.as_tensor(np.asarray(valid) if not torch.is_tensor(valid) else valid,
+                               dtype=torch.bool).to(self.device)
 
-    def assign_with_dist(self, x, reps):
-        return assign(self._f32(x), self._f32(reps), with_dist=True)
+    def assign(self, x, reps, valid=None) -> torch.Tensor:
+        return assign(self._f32(x), self._f32(reps), spatial_index=self.spatial_index, valid=self._mask(valid))
+
+    def assign_with_dist(self, x, reps, valid=None):
+        return assign(self._f32(x), self._f32(reps), with_dist=True, spatial_index=self.spatial_index,
+                      valid=self._mask(valid))
 
     def bubble_core_distances(self, rep, n_b, extent, min_pts: int) -> torch.Tensor:
-        return bubble_core_distances(self._f32(rep), self._f32(n_b), self._f32(extent), min_pts)
+        return bubble_core_distances(self._f32(rep), self._f32(n_b), self._f32(extent), min_pts,
+                                     spatial_index=self.spatial_index)
 
     def bubble_mutual_reachability(self, rep, n_b, extent, min_pts: int) -> torch.Tensor:
-        return bubble_mutual_reachability(self._f32(rep), self._f32(n_b), self._f32(extent), min_pts)
+        return bubble_mutual_reachability(self._f32(rep), self._f32(n_b), self._f32(extent), min_pts,
+                                          spatial_index=self.spatial_index)
 
     def offline_recluster(self, LS, SS, N, ids, min_pts: int,
                           min_cluster_size: float | None = None) -> OfflineClusterResult:
         """Offline re-clustering over leaf CF buffers: ``bubble_table``
         (host f64, Eqs. 3–4) then ``offline_recluster_from_table``."""
         rep, extent, Ng, _ = bubble_table(LS, SS, N, ids)
-        return offline_recluster_from_table(rep, Ng, extent, min_pts, min_cluster_size, device=self.device)
+        return offline_recluster_from_table(rep, Ng, extent, min_pts, min_cluster_size, device=self.device,
+                                            spatial_index=self.spatial_index)
 
     def offline_recluster_from_table(self, rep, n_b, extent, min_pts: int,
                                      min_cluster_size: float | None = None,
                                      return_w: bool = False, **kw):
         return offline_recluster_from_table(
             rep, n_b, extent, min_pts, min_cluster_size, device=self.device,
-            return_w=return_w, **kw)
+            return_w=return_w, spatial_index=self.spatial_index, **kw)
 
     def offline_recluster_from_device_table(self, LS, LSe, SS, SSe, N, alive, origin, min_pts: int,
                                             min_cluster_size: float | None = None, **kw):
         return offline_recluster_from_device_table(
-            LS, LSe, SS, SSe, N, alive, origin, min_pts, min_cluster_size, **kw)
+            LS, LSe, SS, SSe, N, alive, origin, min_pts, min_cluster_size,
+            spatial_index=self.spatial_index, **kw)
 
     def make_flat(self, dim: int, capacity: int = 64):
         """Device-resident flat leaf-CF table (core/bubble_flat.py) on this
         backend's device: device-online ingest (DESIGN.md §8)."""
         from ..core.bubble_flat import BubbleFlat  # the table's captures import this module
 
-        return BubbleFlat(dim, device=self.device, capacity=capacity)
+        return BubbleFlat(dim, device=self.device, capacity=capacity, spatial_index=self.spatial_index)
 
     def make_dynamic(self, *args, **kw):
         raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP.md queue 1, item 6)")
@@ -518,5 +592,5 @@ class ClusterBackend:
         raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP.md queue 1, item 6)")
 
 
-def get_backend(device=None) -> ClusterBackend:
-    return ClusterBackend(device)
+def get_backend(device=None, spatial_index: bool = False) -> ClusterBackend:
+    return ClusterBackend(device, spatial_index=spatial_index)

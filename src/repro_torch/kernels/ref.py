@@ -21,7 +21,13 @@ flash_attention}.py``):
   ``-1e30`` (a fully masked row is the uniform mean of V, not NaN);
 * the flat leaf-CF table's block scatter (the JAX package's segment sums
   and ``_kahan_add`` in ``repro/core/bubble_flat.py``, no Pallas kernel):
-  each slot's rows summed in ascending row order, then the compensated add.
+  each slot's rows summed in ascending row order, then the compensated add;
+* the grid-pruned searches (the JAX package's ``repro/kernels/grid.py``
+  and ``core/mst.py::_grid_round_minima``, jnp programs): the block loop
+  (all blocks at once, each masked out once it stops), the tile loop in
+  ascending lower bound, the strict skip rule and the lexicographic merges
+  on original indices, with the tile distances in the plain
+  ``(xx + yy) − 2·x@yᵀ`` form above.
 
 Dense ``(L, L)`` work is allowed in this file only (repro-lint RPL402).
 """
@@ -49,7 +55,12 @@ __all__ = [
     "gqa_flash_attention",
     "kahan_add",
     "flat_scatter",
+    "grid_assign",
+    "grid_core_distances",
+    "grid_round_minima",
 ]
+
+_INT32_MAX = 2**31 - 1
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -234,3 +245,162 @@ def flat_scatter(LS, LSe, SS, SSe, N, alive, x, slot, valid, thresh: float, sign
     thresh = float(np.float32(thresh))
     flags = alive & ((N > thresh) if sign > 0 else (N < thresh))
     return LS, LSe, SS, SSe, N, flags
+
+
+def _grid_tiles(grid, order_t):
+    """The tiles ``order_t`` (NB,) of the sorted table, one per block:
+    rows (NB, T, d), squared norms, valid mask and original rows."""
+    Lp, d = grid.pts.shape
+    T = grid.tile
+    cols = order_t.long()[:, None] * T + torch.arange(T, device=order_t.device)[None, :]
+    ys = grid.pts[cols]
+    return ys, (ys * ys).sum(-1), grid.valid[cols], grid.orig.long()[cols]
+
+
+def _tile_sq(xb, xx, ys, yy):
+    """(NB, bn, T) clamped squared distances, ``(xx + yy) − 2·x@yᵀ``."""
+    xy = torch.bmm(xb, ys.transpose(1, 2))
+    return torch.clamp_min((xx[:, :, None] + yy[:, None, :]) - 2.0 * xy, 0.0)
+
+
+def grid_assign(grid, xs, views):
+    """Plain ``grid_assign`` over Morton-sorted queries ``xs`` (B, d) and
+    their blocks' visit lists: the nearest VALID rep by (clamped squared
+    distance, original index) per row, in the queries' sorted order.
+    Returns (idx int32 (B,), the squared distance (B,)); idx = Lp where no
+    valid rep exists.  A block stops before the first tile whose bound
+    (``lb_sq − slack``) exceeds every one of its rows' best, or is +inf."""
+    B, d = xs.shape
+    Lp = grid.pts.shape[0]
+    NB, NT = views.order.shape
+    bn = views.block
+    dev = xs.device
+    live = (torch.arange(NB * bn, device=dev) < B).view(NB, bn)
+    xb = torch.cat([xs, xs.new_zeros(NB * bn - B, d)]).view(NB, bn, d)
+    xx = (xb * xb).sum(-1)
+    best = torch.full((NB, bn), float("inf"), device=dev)
+    bidx = torch.full((NB, bn), Lp, dtype=torch.int64, device=dev)
+    active = torch.ones(NB, dtype=torch.bool, device=dev)
+    for t in range(NT):
+        lb = views.lbs[:, t]
+        active = active & torch.isfinite(lb) & (live & (lb[:, None] <= best)).any(1)
+        if not bool(active.any()):
+            break
+        ys, yy, yv, yo = _grid_tiles(grid, views.order[:, t])
+        sq = torch.where(yv[:, None, :], _tile_sq(xb, xx, ys, yy), float("inf"))
+        m = sq.amin(2)
+        cols = torch.where(yv, yo, Lp)[:, None, :]
+        j = torch.where(sq == m[..., None], cols, Lp).amin(2)
+        better = active[:, None] & ((m < best) | ((m == best) & (j < bidx)))
+        best = torch.where(better, m, best)
+        bidx = torch.where(better, j, bidx)
+    return bidx.reshape(-1)[:B].to(torch.int32), best.reshape(-1)[:B]
+
+
+def _lex_topk(d, i, K: int):
+    """The K smallest (d, i) pairs of each row, ascending lexicographically."""
+    by_i = torch.argsort(i, dim=-1, stable=True)
+    d, i = torch.gather(d, -1, by_i), torch.gather(i, -1, by_i)
+    by_d = torch.argsort(d, dim=-1, stable=True)[..., :K]
+    return torch.gather(d, -1, by_d), torch.gather(i, -1, by_d)
+
+
+def grid_core_distances(grid, views, n_b, extent, min_pts: int, dim: int):
+    """Plain ``grid_core_distances``: per row of the sorted table, the
+    first K = min(min_pts, Lp) VALID rows of the (distance, original index)
+    order — self at exactly 0 — kept by a lexicographic top-K merge tile
+    after tile, then Eq. 6 over that prefix.  A block stops before the
+    first tile whose bound exceeds its valid rows' K-th distance, or is
+    +inf.  ``n_b``/``extent`` and the result are in ORIGINAL row order
+    (0 on invalid rows)."""
+    Lp, d = grid.pts.shape
+    NB, NT = views.order.shape
+    bn = views.block
+    dev = grid.pts.device
+    K = min(int(min_pts), Lp)
+    mp = float(min_pts)
+    xb = grid.pts.view(NB, bn, d)
+    xv = grid.valid.view(NB, bn)
+    xo = grid.orig.long().view(NB, bn)
+    xx = (xb * xb).sum(-1)
+    inf = float("inf")
+    bd = torch.full((NB, bn, K), inf, device=dev)
+    bi = torch.full((NB, bn, K), Lp, dtype=torch.int64, device=dev)
+    active = torch.ones(NB, dtype=torch.bool, device=dev)
+    for t in range(NT):
+        lb = views.lbs[:, t]
+        kth = torch.where(xv, bd[:, :, K - 1], -inf).amax(1)
+        active = active & torch.isfinite(lb) & (lb <= kth)
+        if not bool(active.any()):
+            break
+        ys, yy, yv, yo = _grid_tiles(grid, views.order[:, t])
+        dm = torch.sqrt(_tile_sq(xb, xx, ys, yy))
+        dm = torch.where(yo[:, None, :] == xo[:, :, None], 0.0, dm)  # self at exactly 0
+        dm = torch.where(yv[:, None, :], dm, inf)
+        ci = torch.where(yv, yo, Lp)[:, None, :].expand(NB, bn, -1)
+        nd, ni = _lex_topk(torch.cat([bd, dm], -1), torch.cat([bi, ci], -1), K)
+        bd = torch.where(active[:, None, None], nd, bd)
+        bi = torch.where(active[:, None, None], ni, bi)
+    nb = n_b.float()
+    safe_i = torch.clamp_max(bi, Lp - 1)
+    n_sorted = torch.where(bi < Lp, nb[safe_i], 0.0)
+    csum = torch.cumsum(n_sorted, -1)
+    reach = csum >= mp
+    idx = torch.where(reach.any(-1), torch.argmax(reach.to(torch.int8), -1), K - 1)[..., None]
+    before = torch.where(idx > 0, torch.gather(csum, -1, torch.clamp_min(idx - 1, 0)), 0.0)
+    k_resid = torch.clamp_min(mp - before, 1.0)
+    C = torch.gather(safe_i, -1, idx)
+    nC = torch.clamp_min(nb[C], 1.0)
+    k_resid = torch.minimum(torch.clamp_min(k_resid, 0.0), nC)
+    cdb = torch.gather(bd, -1, idx) + dim_root(k_resid / nC, dim) * extent.float()[C]
+    out = torch.zeros(Lp, device=dev)
+    out[xo.reshape(-1)] = torch.where(xv, cdb[..., 0], 0.0).reshape(-1)
+    return out
+
+
+def grid_round_minima(grid, views, cd, labels, hopeless):
+    """Plain ``grid_round_minima``: per row, the lightest edge to another
+    component by (w, canonical edge id), ``w = max(d, cd_r, cd_c)`` and
+    ``eid = min(o_r, o_c)·n + max(o_r, o_c)``, over valid columns with
+    another label.  A block stops before the first tile where
+    ``max(lb, cd_r) > best_w`` for all its live rows (valid, not
+    ``hopeless``), or whose bound is +inf.  ``cd``/``labels``/``hopeless``
+    and the result (row_w f32, row_eid int32; +inf and int32 max where no
+    edge) are in ORIGINAL row order."""
+    n, d = grid.pts.shape
+    NB, NT = views.order.shape
+    bn = views.block
+    dev = grid.pts.device
+    xb = grid.pts.view(NB, bn, d)
+    xv = grid.valid.view(NB, bn)
+    xo = grid.orig.long().view(NB, bn)
+    xx = (xb * xb).sum(-1)
+    lab_r, cd_r = labels[xo], cd[xo]
+    alive = xv & ~hopeless[xo]
+    bw = torch.full((NB, bn), float("inf"), device=dev)
+    be = torch.full((NB, bn), _INT32_MAX, dtype=torch.int64, device=dev)
+    active = torch.ones(NB, dtype=torch.bool, device=dev)
+    for t in range(NT):
+        lb = views.lbs[:, t]
+        thr = torch.maximum(lb[:, None], cd_r)
+        active = active & torch.isfinite(lb) & (alive & (thr <= bw)).any(1)
+        if not bool(active.any()):
+            break
+        ys, yy, yv, yo = _grid_tiles(grid, views.order[:, t])
+        dm = torch.sqrt(_tile_sq(xb, xx, ys, yy))
+        w = torch.maximum(dm, torch.maximum(cd_r[:, :, None], cd[yo][:, None, :]))
+        ok = alive[:, :, None] & yv[:, None, :] & (labels[yo][:, None, :] != lab_r[:, :, None])
+        w = torch.where(ok, w, float("inf"))
+        eid = torch.minimum(xo[:, :, None], yo[:, None, :]) * n + torch.maximum(xo[:, :, None], yo[:, None, :])
+        eid = torch.where(ok, eid, _INT32_MAX)
+        rw = w.amin(2)
+        re = torch.where(w == rw[..., None], eid, _INT32_MAX).amin(2)
+        better = active[:, None] & ((rw < bw) | ((rw == bw) & (re < be)))
+        bw = torch.where(better, rw, bw)
+        be = torch.where(better, re, be)
+    rows = xo.reshape(-1)
+    row_w = torch.empty(n, device=dev)
+    row_eid = torch.empty(n, dtype=torch.int32, device=dev)
+    row_w[rows] = bw.reshape(-1)
+    row_eid[rows] = be.reshape(-1).to(torch.int32)
+    return row_w, row_eid

@@ -1,7 +1,6 @@
 """Versioned, device-cached batched queries (serve plane, DESIGN.md §9).
 
-The PyTorch counterpart of the JAX package's ``serving/query.py``,
-dense path:
+The PyTorch counterpart of the JAX package's ``serving/query.py``:
 
   snapshot entry   `SnapshotDeviceCache` builds one immutable
                    `DeviceSnapshotEntry` per snapshot *version*: the
@@ -20,6 +19,10 @@ dense path:
                    for a query at distance r from bubble b of cluster c,
                    with λ_b the bubble's condensed-tree departure λ and
                    λ_max(c) the largest finite λ among c's members.
+                   `_fused_query_grid` is the same epilogue after the
+                   grid's assign (``spatial_index=True``): the entry then
+                   carries a `GridIndex` built once per version over its
+                   L real rows.
 
   micro-batching   `QueryBatcher` generalizes the request plane's
                    `HostBatcher` to the serve plane: concurrent callers
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ..device import to_numpy
+from ..kernels import grid as _grid_k
 from ..kernels import ops
 from .batcher import HostBatcher
 
@@ -88,6 +92,20 @@ def _fused_query(xc, reps, labels, lam, lam_max):
     """assign (with distance) → label gather → membership strength.  ``xc``
     rows are mean-centred in the snapshot's frame."""
     idx, dist = ops.assign(xc, reps, with_dist=True)
+    return _serve_epilogue(idx, dist, labels, lam, lam_max)
+
+
+def _fused_query_grid(xc, grid, labels, lam, lam_max):
+    """`_fused_query` with the grid's assign over the entry's `GridIndex`:
+    each batch pays its own Morton sort and the tiles that can still beat
+    its rows' nearest.  The grid excludes the bucket's pad rows, so the
+    pad-hit guard of the caller never fires here."""
+    idx, dist = _grid_k.grid_assign(grid, xc)
+    idx = torch.clamp_max(idx, labels.shape[0] - 1)  # an empty grid answers Lp
+    return _serve_epilogue(idx, dist, labels, lam, lam_max)
+
+
+def _serve_epilogue(idx, dist, labels, lam, lam_max):
     i = idx.long()
     lbl = labels[i]
     lam_b = lam[i]
@@ -111,10 +129,12 @@ class DeviceSnapshotEntry:
     labels: torch.Tensor  # (Lp,) int32 flat labels, -1 noise/pad
     lam: torch.Tensor  # (Lp,) f32 per-bubble condensed-tree λ
     lam_max: torch.Tensor  # (Lp,) f32 λ_max of the bubble's cluster
+    grid: _grid_k.GridIndex | None = None  # spatial index over the L real rows
 
 
-def _build_entry(snap, device) -> DeviceSnapshotEntry:
-    """Host-side O(L·d) derivation + ONE upload per published snapshot."""
+def _build_entry(snap, device, spatial: bool = False) -> DeviceSnapshotEntry:
+    """Host-side O(L·d) derivation + ONE upload per published snapshot
+    (and, with ``spatial``, one grid build on the device)."""
     L = snap.n_bubbles
     d = int(snap.bubble_rep.shape[1])
     Lp = _bucket(L)
@@ -142,15 +162,18 @@ def _build_entry(snap, device) -> DeviceSnapshotEntry:
         lmx = np.ones(L, dtype=np.float64)
         lmx[member] = np.maximum(acc[lbl[:L][member]], _EPS)
         lam_max[:L] = lmx
+    reps = torch.from_numpy(rep_c).to(device)
+    grid = _grid_k.build_grid(reps, torch.arange(Lp, device=device) < L) if spatial else None
     return DeviceSnapshotEntry(
         version=int(snap.version),
         n_bubbles=L,
         bucket=Lp,
         center=np.asarray(snap.center, dtype=np.float64),
-        reps=torch.from_numpy(rep_c).to(device),
+        reps=reps,
         labels=torch.from_numpy(lbl).to(device),
         lam=torch.from_numpy(lam).to(device),
         lam_max=torch.from_numpy(lam_max).to(device),
+        grid=grid,
     )
 
 
@@ -165,11 +188,13 @@ class SnapshotDeviceCache:
 
     ``key`` scopes entries for shared use: the multi-tenant router passes
     ``(tenant, version)`` so independent engines pool ONE cache (and one
-    device-memory budget) without their version counters colliding."""
+    device-memory budget) without their version counters colliding.
+    ``spatial`` entries carry the grid of their table."""
 
-    def __init__(self, device, keep: int = 4):
+    def __init__(self, device, keep: int = 4, spatial: bool = False):
         self.device = device
         self.keep = int(keep)
+        self.spatial = bool(spatial)
         self._entries: dict = {}  # guarded-by: _lock
         self._order: list = []  # guarded-by: _lock
         # key -> Event of the in-flight build
@@ -197,7 +222,7 @@ class SnapshotDeviceCache:
             # installed, or the build failed and the key is free)
             ev.wait()
         try:
-            e = _build_entry(snap, self.device)  # unlocked: O(L·d) + upload
+            e = _build_entry(snap, self.device, self.spatial)  # unlocked: O(L·d) + upload
         except BaseException:
             with self._lock:
                 del self._building[k]
@@ -252,7 +277,7 @@ class QueryEngine:
         self.dim = int(dim)
         self.scope = scope
         self.cache = cache if cache is not None else SnapshotDeviceCache(
-            backend.device, keep=cache_keep)
+            backend.device, keep=cache_keep, spatial=getattr(backend, "spatial_index", False))
 
     def _cache_key(self, version: int):
         v = int(version)
@@ -268,8 +293,11 @@ class QueryEngine:
         for c0 in range(0, n, _MAX_CHUNK):
             Xr = X[c0 : c0 + _MAX_CHUNK]
             xc = torch.from_numpy((Xr - entry.center[None, :]).astype(np.float32))
-            out = _fused_query(xc.to(self.backend.device), entry.reps, entry.labels,
-                               entry.lam, entry.lam_max)
+            xc = xc.to(self.backend.device)
+            if entry.grid is not None:
+                out = _fused_query_grid(xc, entry.grid, entry.labels, entry.lam, entry.lam_max)
+            else:
+                out = _fused_query(xc, entry.reps, entry.labels, entry.lam, entry.lam_max)
             idx, lbl, dist, strength = to_numpy(*out)  # ONE host sync
             # a query out past _PAD_COORD can land on an L-bucket pad row:
             # it surfaces as "no bubble", never as a row ≥ n_bubbles

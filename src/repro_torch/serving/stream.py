@@ -34,8 +34,14 @@ The PyTorch counterpart of the JAX package's ``serving/stream.py``:
                   patched back, and ε-passes read the table straight from
                   the card (``ops.offline_recluster_from_device_table``).
 
-The options ``spatial_index``, ``exact`` and ``mesh`` are not ported yet
-(ROADMAP.md, queue 1, items 5 to 7): each raises ``NotImplementedError``.
+  spatial index   with ``spatial_index=True`` ingest assignment, the
+                  offline pass's Eq. 6 and Borůvka, and served queries go
+                  through the Morton grid (kernels/grid.py): tile-pruned
+                  exact searches, CUDA kernels on the card, the same
+                  answers as the dense path and no (L, L) matrix.
+
+The options ``exact`` and ``mesh`` are not ported yet (ROADMAP.md, queue
+1, items 6 and 7): each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,7 +72,6 @@ __all__ = [
 # options of the JAX engine that this port does not carry yet, and the
 # ROADMAP.md queue-1 item that will
 _NOT_PORTED = {
-    "spatial_index": "queue 1, item 5 (grid pruning)",
     "exact": "queue 1, item 6 (exact-dynamic path)",
     "mesh": "queue 1, item 7 (multi-device offline pass)",
 }
@@ -197,6 +202,10 @@ class StreamingClusterEngine:
         GPU), ``"cpu"`` = the plain PyTorch versions.
       async_offline: run offline passes in a background thread; `query`
         keeps serving the previous snapshot meanwhile.
+      spatial_index: route ingest assignment, the offline pass's Eq. 6
+        and Borůvka, and served queries through the Morton grid
+        (kernels/grid.py): the same answers as the dense path, no (L, L)
+        matrix; composes with ``device_online``.
       device_online: keep the leaf CF table on the device too (a flat
         slot table with compensated sums): block inserts and deletes run
         there as one assignment and one scatter, and ε-passes read it
@@ -232,11 +241,11 @@ class StreamingClusterEngine:
                 "device_online summarizes into the flat leaf-CF state; "
                 "exact=True bypasses bubble summarization entirely"
             )
-        for name, on in (("spatial_index", spatial_index), ("exact", exact), ("mesh", mesh is not None)):
+        for name, on in (("exact", exact), ("mesh", mesh is not None)):
             if on:
                 raise NotImplementedError(
                     f"{name} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[name]}")
-        self.backend = ops.get_backend(device)
+        self.backend = ops.get_backend(device, spatial_index=spatial_index)
         assign_fn = None
         if self.backend.device.type == "cuda":
             # the ingest point→leaf argmin runs on the assign kernel (on the

@@ -42,7 +42,7 @@ import numpy as np
 from ..checkpoint import CheckpointStore
 from ..device import resolve_device
 from .query import QueryBatcher, QueryResult, SnapshotDeviceCache
-from .stream import _NOT_PORTED, StreamingClusterEngine
+from .stream import StreamingClusterEngine
 
 __all__ = ["TenantRouter"]
 
@@ -64,8 +64,9 @@ class TenantRouter:
       checkpoint_root: directory for per-tenant checkpoint stores
         (``root/<name>/``); None disables `save`/`recover`.
       keep: checkpoints retained per tenant.
-      spatial_index: not ported yet (ROADMAP.md queue 1, item 5); True
-        raises NotImplementedError, as the engine does.
+      spatial_index: every tenant's engine and the shared cache use the
+        Morton grid (kernels/grid.py) for assignment, the offline pass and
+        served queries; a tenant may override it at ``create``.
       **engine_kw: defaults for every tenant's engine constructor
         (compression, epsilon, min_pts, …).
     """
@@ -80,15 +81,14 @@ class TenantRouter:
         poll_s: float = 0.002,
         checkpoint_root: str | None = None,
         keep: int = 3,
+        spatial_index: bool = False,
         **engine_kw,
     ):
-        if engine_kw.get("spatial_index"):
-            raise NotImplementedError(
-                f"spatial_index is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED['spatial_index']}")
         self.dim = int(dim)
         self.device = resolve_device(device)
+        self.spatial_index = bool(spatial_index)
         self.engine_kw = dict(engine_kw)
-        self.cache = SnapshotDeviceCache(self.device, keep=cache_keep)
+        self.cache = SnapshotDeviceCache(self.device, keep=cache_keep, spatial=self.spatial_index)
         self.batcher = QueryBatcher(resolve=self.engine, max_batch=max_batch, poll_s=poll_s)
         self.checkpoint_root = checkpoint_root
         self.keep = int(keep)
@@ -106,6 +106,7 @@ class TenantRouter:
             raise ValueError(f"tenant name {name!r} must match {_NAME_RE.pattern}")
         kw = {**self.engine_kw, **overrides}
         dim = int(kw.pop("dim", self.dim))
+        kw.setdefault("spatial_index", self.spatial_index)
         eng = StreamingClusterEngine(dim, device=self.device, query_cache=self.cache,
                                      query_scope=name, **kw)
         with self._lock:

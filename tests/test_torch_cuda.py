@@ -16,7 +16,11 @@ mutual_reach against the tile kernels it replaced (``pairwise_tile``,
 bubble_cd against the warp-select kernels at their bounds (k = min_pts =
 1024, d = 128).  A d = 300 table whose features from 128 on are zero gives
 results ``torch.equal`` to the same table cut to d = 128 in every distance
-kernel: the feature slices keep one ascending FMA chain.
+kernel: the feature slices keep one ascending FMA chain.  The grid's
+three kernels (``csrc/grid.cu``) are held bit for bit to their dense
+counterparts on the valid rows: ``grid_assign`` to assign,
+``grid_core_distances`` to bubble_cd on either route, ``boruvka_grid`` to
+dense Borůvka on the panel's W of the same core distances.
 Tolerances: indices identical on tie-free centred data; values within
 1e-5 relative plus the f32 cancellation allowance of the expanded
 distance form, which the kernel and the plain version round in different
@@ -987,3 +991,165 @@ class TestCudaFlat:
         for f in ("bubble_rep", "bubble_n", "center"):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
         np.testing.assert_array_equal(a.result.labels, b.result.labels)
+
+
+def _grid_case(case, rng, L, d):
+    """A centred table for the grid's bitwise cases: random rows, copies of
+    40 sites (distance ties everywhere), rank-1 rows, or all zeros (every
+    row in one cell)."""
+    if case == "dup":
+        return _centred(rng, 40, d)[rng.integers(0, 40, size=L)]
+    if case == "collinear":
+        X = rng.uniform(-1.5, 1.5, size=(L, 1)) * rng.normal(size=(1, d))
+        return (X - X.mean(axis=0)).astype(np.float32)
+    if case == "zeros":
+        return np.zeros((L, d), np.float32)
+    return _centred(rng, L, d)
+
+
+def _padded_grid(rep, *cols):
+    """The table padded to a power of two with far invalid rows (as the
+    offline pass pads it), its grid, and each of ``cols`` padded with 0."""
+    from repro_torch.kernels import grid as t_grid
+
+    L, d = rep.shape
+    Lp = max(8, 1 << (L - 1).bit_length())
+    rep_p = torch.cat([rep, torch.full((Lp - L, d), 1e6, device=rep.device)])
+    valid = torch.arange(Lp, device=rep.device) < L
+    padded = [torch.cat([c, torch.zeros(Lp - L, device=c.device)]) for c in cols]
+    return rep_p, t_grid.build_grid(rep_p, valid), padded
+
+
+@pytest.mark.cuda
+class TestCudaGrid:
+    """The grid's three kernels (``csrc/grid.cu``) bit for bit their dense
+    counterparts on the valid rows: ``grid_assign`` the assign kernel,
+    ``grid_core_distances`` the Eq. 6 kernels (warp-select and strip
+    routes), ``boruvka_grid`` dense Borůvka on the panel's W of the same
+    core distances.  L = 1001 is a multiple of no tile or block."""
+
+    @pytest.mark.parametrize("case", ["spread", "dup", "collinear", "zeros"])
+    @pytest.mark.parametrize("d", [2, 16, 200])
+    def test_assign_equals_dense(self, cuda_device, case, d):
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(31)
+        rep = _t(_grid_case(case, rng, 1001, d)).to(cuda_device)
+        on = rep[torch.as_tensor(rng.integers(0, 1001, size=350), device=cuda_device)]
+        q = torch.cat([on, _t(_centred(rng, 350, d)).to(cuda_device)])
+        _, g, _ = _padded_grid(rep)
+        t_grid.launches["grid_assign"] = 0
+        idx, dist = t_grid.grid_assign(g, q)
+        assert t_grid.launches["grid_assign"] == 1
+        didx, ddist = t_assign.assign(q, rep, with_dist=True)
+        assert torch.equal(idx, didx), int((idx != didx).sum())
+        assert torch.equal(dist, ddist)
+
+    @pytest.mark.parametrize("case", ["spread", "dup", "collinear"])
+    @pytest.mark.parametrize("d", [2, 16, 200])
+    @pytest.mark.parametrize("min_pts", [10, 100])
+    def test_core_distances_equal_dense(self, cuda_device, case, d, min_pts):
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(32)
+        rep = _t(_grid_case(case, rng, 1001, d)).to(cuda_device)
+        n_b = _t(rng.integers(1, 6, size=1001).astype(np.float32)).to(cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=1001).astype(np.float32)).to(cuda_device)
+        _, g, (nb_p, ext_p) = _padded_grid(rep, n_b, extent)
+        got = t_grid.grid_core_distances(g, nb_p, ext_p, min_pts, d)
+        want = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=d)
+        assert torch.equal(got[:1001], want)
+        assert bool((got[1001:] == 0).all())
+
+    @pytest.mark.parametrize("d,min_pts", [(16, 1024), (16, 2000), (200, 2000), (3, 1500)])
+    def test_core_distances_large_min_pts(self, cuda_device, d, min_pts):
+        """Unit masses: the crossing is the min_pts-th row, so above 1024 the
+        kernel's second round of selection carries the walk (the dense side
+        is the strip route there)."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(33)
+        rep = _t(_centred(rng, 3001, d)).to(cuda_device)
+        ones = torch.ones(3001, device=cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=3001).astype(np.float32)).to(cuda_device)
+        _, g, (nb_p, ext_p) = _padded_grid(rep, ones, extent)
+        got = t_grid.grid_core_distances(g, nb_p, ext_p, min_pts, d)
+        want = t_bcd.bubble_core_distances(rep, ones, extent, min_pts=min_pts, dim=d)
+        assert torch.equal(got[:3001], want)
+
+    @pytest.mark.parametrize("case", ["spread", "dup", "collinear", "zeros"])
+    @pytest.mark.parametrize("d", [2, 16, 200])
+    def test_boruvka_equals_dense(self, cuda_device, case, d):
+        from repro_torch.core.mst import boruvka, boruvka_grid
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(34)
+        rep = _t(_grid_case(case, rng, 1001, d)).to(cuda_device)
+        n_b = _t(rng.integers(1, 6, size=1001).astype(np.float32)).to(cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=1001).astype(np.float32)).to(cuda_device)
+        cd = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=5, dim=d)
+        rep_p, g, (cd_p,) = _padded_grid(rep, cd)
+        W = t_mr.mutual_reachability(rep_p, rep_p, cd_p, cd_p, zero_diag=True, n_valid=1001)
+        want = boruvka(W)
+        t_grid.launches["grid_round_minima"] = 0
+        got = boruvka_grid(g, cd_p)
+        assert t_grid.launches["grid_round_minima"] == 11  # ceil(log2 1024) + 1 rounds
+        for name, a, b in zip(("eu", "ev", "ew", "valid"), got, want):
+            assert torch.equal(a, b), name
+        assert int(got[3].sum()) == 1000
+
+    @pytest.mark.parametrize("L", [1, 5, 20, 33])
+    def test_small_tables(self, cuda_device, L):
+        """Tiles of fewer than 32 rows (Lp = 8, 16, 32) and a lone row: all
+        three kernels bit for bit their dense counterparts."""
+        from repro_torch.core.mst import boruvka, boruvka_grid
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(35)
+        rep = _t(_centred(rng, L, 3)).to(cuda_device)
+        n_b = torch.full((L,), 4.0, device=cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=L).astype(np.float32)).to(cuda_device)
+        q = _t(_centred(rng, 70, 3)).to(cuda_device)
+        rep_p, g, (nb_p, ext_p) = _padded_grid(rep, n_b, extent)
+        idx, dist = t_grid.grid_assign(g, q)
+        didx, ddist = t_assign.assign(q, rep, with_dist=True)
+        assert torch.equal(idx, didx) and torch.equal(dist, ddist)
+        cd = t_grid.grid_core_distances(g, nb_p, ext_p, 3, 3)
+        assert torch.equal(cd[:L], t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=3, dim=3))
+        W = t_mr.mutual_reachability(rep_p, rep_p, cd, cd, zero_diag=True, n_valid=L)
+        for a, b in zip(boruvka_grid(g, cd), boruvka(W)):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("kernel", ["grid_assign", "grid_core_distances", "grid_round_minima"])
+    def test_tf32_probe(self, cuda_device, kernel):
+        """Fails if a grid kernel drops IEEE f32 products."""
+        from repro_torch.kernels import grid as t_grid
+
+        x, y, sq = _tf32_probe(np.random.default_rng(9), 256, 300)
+        xt, yt = _t(x).to(cuda_device), _t(y).to(cuda_device)
+        rep = torch.cat([xt, yt])
+        r64 = rep.double().cpu().numpy()
+        self_sq = ((r64[:, None, :] - r64[None, :, :]) ** 2).sum(-1)
+        np.fill_diagonal(self_sq, np.inf)
+        if kernel == "grid_assign":
+            _, g, _ = _padded_grid(yt)
+            idx, dist = t_grid.grid_assign(g, xt)
+            got = dist.double().cpu().numpy() ** 2
+            want = sq[np.arange(256), idx.cpu().numpy()]
+            assert (want <= sq.min(1) + 2e-5).all()
+        elif kernel == "grid_core_distances":
+            L = rep.shape[0]
+            _, g, (ones, zeros) = _padded_grid(rep, torch.ones(L, device=cuda_device),
+                                               torch.zeros(L, device=cuda_device))
+            got = t_grid.grid_core_distances(g, ones, zeros, 2, 4)[:L].double().cpu().numpy() ** 2
+            want = self_sq.min(1)
+        else:
+            L = rep.shape[0]
+            _, g, (cd,) = _padded_grid(rep, torch.zeros(L, device=cuda_device))
+            Lp = cd.shape[0]
+            labels = torch.arange(Lp, device=cuda_device)
+            hopeless = torch.zeros(Lp, dtype=torch.bool, device=cuda_device)
+            w, _ = t_grid.grid_round_minima(g, t_grid._block_views(g), cd, labels, hopeless)
+            got = w[:L].double().cpu().numpy() ** 2
+            want = self_sq.min(1)
+        assert np.abs(got - want).max() < 2e-5

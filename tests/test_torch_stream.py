@@ -169,10 +169,25 @@ class TestCarry:
 
 
 class TestEngineOptions:
-    @pytest.mark.parametrize("opt", [{"spatial_index": True}, {"exact": True}, {"mesh": True}])
+    @pytest.mark.parametrize("opt", [{"exact": True}, {"mesh": True}])
     def test_options_not_ported_raise(self, opt):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             StreamingClusterEngine(DIM, device="cpu", **opt)
+
+    @pytest.mark.parametrize("device_online", [False, True], ids=["host_table", "device_online"])
+    def test_spatial_index_runs_the_stream(self, device_online):
+        """``spatial_index=True`` (the grid, kernels/grid.py) builds,
+        ingests, retires, reclusters and serves in step with the reference
+        engine of the same mode: the same partition at every snapshot and
+        the same ``query_detailed`` labels and bubble rows."""
+        kw = dict(ENGINE_KW, spatial_index=True, device_online=device_online)
+        port = StreamingClusterEngine(DIM, device="cpu", **kw)
+        ref = RefEngine(DIM, backend="jnp", **kw)
+        assert repr(port.backend).endswith("spatial_index=True)")
+        _drive([port, ref], _stream(7), check_each_poll=True)
+        assert port.stats["recluster_count"] == ref.stats["recluster_count"] >= 3
+        assert port.stats["device_online_blocks"] == ref.stats["device_online_blocks"]
+        assert (port.stats["device_online_blocks"] > 0) == device_online
 
     def test_device_online_runs_the_stream(self):
         """``device_online=True`` builds, ingests, retires, reclusters and

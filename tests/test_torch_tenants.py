@@ -7,7 +7,7 @@ per-tenant overrides (a ``device_online`` tenant among them, which
 ingests and serves beside the others), and ``save_all`` / ``recover``
 replaying the fleet bit for bit.  Then per-tenant labels against a reference
 ``TenantRouter`` fed the same traffic (same versions, same partition per
-tenant, served labels identical).
+tenant, served labels identical), with and without ``spatial_index``.
 """
 
 import threading
@@ -186,9 +186,30 @@ class TestAgainstReference:
 
 
 class TestOptions:
-    def test_spatial_index_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            TenantRouter(2, device="cpu", spatial_index=True)
+    def test_spatial_index_is_not_ported(self, rng):
+        """``spatial_index=True`` reaches every tenant's engine and the
+        shared cache (whose entries then carry their grid), and the router
+        serves the reference router's partitions and labels."""
+        data = _tenant_data(rng, 2, n=150)
+        port = _router(spatial_index=True)
+        ref = RefRouter(2, backend="jnp", spatial_index=True, **ROUTER_KW)
+        for r in (port, ref):
+            for name, X in data.items():
+                r.create(name)
+                r.ingest(name, X)
+            r.flush()
+        assert port.cache.spatial
+        for name, X in data.items():
+            eng = port.engine(name)
+            assert eng.backend.spatial_index
+            ps, rs = eng.snapshot, ref.engine(name).snapshot
+            assert ps.version == rs.version
+            assert_same_partition(ps.bubble_labels, rs.bubble_labels)
+            Q = X[::3] + 0.05
+            a, b = port.query_detailed(name, Q), ref.query_detailed(name, Q)
+            np.testing.assert_array_equal(a.bubble_index, b.bubble_index)
+            np.testing.assert_array_equal(a.labels, b.labels)
+            assert port.cache._entries[(name, ps.version)].grid is not None
 
     def test_default_device_raises_without_a_gpu(self):
         if torch.cuda.is_available():
