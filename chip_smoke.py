@@ -155,6 +155,27 @@ Phases, each printing its own lines:
               it; then bf16 at qwen2-1.5b widths with Dh = 256, which the
               tensor cores refuse, through the CUDA-core kernel, held to
               the plain version and to the earlier kernel, both timed;
+     exact    the exact-dynamic engine (exact=True) at a deployment's size:
+              16,384 points of the [stream] mixture (d = 16, min_pts 10),
+              the first rebuild's shrink to Np = 32,768 slots, then 48
+              alternating insert and delete blocks of 256 (1.6 % of n,
+              incremental): after every block the maintained state against
+              a rebuild from scratch (knn_dst and cd bit for bit, knn_idx
+              but for ties at the K-th distance, MST weight within 1e-6,
+              the partition), every eighth block the update also through
+              the plain versions on the card (bit for bit), every fourth a
+              4096-row query_detailed chunk against the rebuilt snapshot;
+              one insert block of 1024 (routed full), an overflow drill
+              (rk_cap = s_cap = 8); the stream replayed at 2048 points in
+              blocks of 32 on the card and on the CPU (versions,
+              partitions, MST weight, bitwise cd / knn_dst rows); insert
+              and delete ms at blocks of 64, 256, 819 and 1638 against a
+              rebuild (the crossover), the hierarchy-only refresh, the
+              query p50, peak memory, no host read in an update body or a
+              refresh before its unwrap (set_sync_debug_mode); the three
+              strip kernels bit for bit their plain versions at the
+              stream's shapes (tie-free, an integer grid, a ragged Np, K =
+              10, 100, 2000), timed beside them, cdist and topk;
   8. the kernels JSON line (launches on each kernel's own path, errors,
      times, bounds; assign with the per-lane kernel's time as lane_ms,
      mutual_reach and pairwise with the tile kernel's as tile_ms;
@@ -167,7 +188,10 @@ Phases, each printing its own lines:
      launches from [online] and one launch's time as launch_ms;
      grid_assign, grid_core_distances and grid_round_minima, which stand
      for the JAX package's grid-pruned jnp searches, with their launches
-     from [grid] and the visited share as visited_share);
+     from [grid] and the visited share as visited_share; strip_dists,
+     strip_topk and strip_round_minima, which stand for the JAX package's
+     jnp strip programs of the exact-dynamic path, with their launches from
+     [exact]);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -240,6 +264,21 @@ WS_INSTANTIATIONS = 48 + 6 + 3 + 8
 FLASH_BUCKETS = (32, 64, 128, 256)
 # [attention]: bf16 on the CUDA-core route at qwen2-1.5b's widths with Dh past the tensor-core kernel's 128
 SIMT_BF16 = ("qwen2-1.5b Dh256 bf16", 1, 4096, 12, 2, 256)
+# [exact]: the exact-dynamic engine (exact=True) at a deployment's size: the [stream] mixture at d = 16, min_pts 10,
+# EXACT_N live points (the first rebuild's shrink gives Np = 32,768 slots), EXACT_BLOCKS alternating insert and
+# delete blocks of EXACT_BLOCK points (1.6 % of n: incremental), one insert block of EXACT_FULL_BLOCK (6.25 %: full)
+EXACT_N = 16_384
+EXACT_BLOCK = 256
+EXACT_BLOCKS = 48
+EXACT_FULL_BLOCK = 1024
+EXACT_SMALL_DELETES = (4, 16)  # delete blocks small enough (0.1 % of n) that S' stays within s_cap: the
+# incremental delete rule itself (blocks of 256 strand more than s_cap = Np/4 survivors and rebuild)
+EXACT_QUERY_EVERY = 4  # a QUERY_CHUNK-row query_detailed chunk after every fourth block
+EXACT_PLAIN_EVERY = 8  # the update also through the plain versions on the card, bit for bit
+EXACT_CPU = (2048, 32, 12)  # the CPU replay: points, block, blocks (engines, then handles with s_cap = Np)
+EXACT_TIMED_BLOCKS = (16, 64, 256, 819, 1638)  # 0.1 %, 0.4 %, 1.6 %, 5 % and 10 % of EXACT_N
+EXACT_TOPK = (MIN_PTS, 100, K_STRIP)  # strip_topk's K: the path's, and past the 1024 queue
+EXACT_KERNELS = ("strip_dists", "strip_topk", "strip_round_minima")
 
 
 def say(*parts):
@@ -2916,6 +2955,516 @@ def attention_simt_bf16(dev, gen, plain):
     torch.cuda.empty_cache()
 
 
+def plain_strips():
+    """A context in which kernels/dynamic.py's three wrappers run their
+    plain versions whatever the device (the update's plain replay on the
+    card)."""
+    import contextlib
+
+    from repro_torch.kernels import dynamic as k_dyn
+    from repro_torch.kernels import ref
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (k_dyn.strip_dists, k_dyn.strip_topk, k_dyn.strip_round_minima)
+
+        def dists(rows, X, out=None):
+            r = ref.strip_dists(rows, X)
+            return r if out is None else out.copy_(r)
+
+        k_dyn.strip_dists = dists
+        k_dyn.strip_topk = lambda D, ids, valid, alive, K: ref.strip_topk(D, ids, valid.bool(), alive.bool(), K)
+        k_dyn.strip_round_minima = lambda SW, sm, si, lab, E=0: ref.strip_round_minima(SW, sm.bool(), si, lab, E)
+        try:
+            yield
+        finally:
+            k_dyn.strip_dists, k_dyn.strip_topk, k_dyn.strip_round_minima = saved
+
+    return ctx()
+
+
+def exact_counts(reset: bool = False) -> dict:
+    from repro_torch.kernels import dynamic as k_dyn
+
+    out = dict(k_dyn.launches)
+    if reset:
+        for k in k_dyn.launches:
+            k_dyn.launches[k] = 0
+    return out
+
+
+def state_equal(a, b) -> list:
+    """The DynState fields on which two states differ (torch.equal, on the
+    host when their devices differ)."""
+    return [f for f in a._fields if not torch_equal(getattr(a, f), getattr(b, f))]
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return x.dtype == y.dtype and bool(torch.equal(x.cpu(), y.cpu()) if x.device != y.device else torch.equal(x, y))
+
+
+def mst_weight(state) -> float:
+    from repro_torch.core import dynamic_torch as dt
+
+    return float(dt.state_mst_weights(state).double().sum())
+
+
+def against_rebuild(tag, state, min_pts):
+    """The maintained state against a rebuild from scratch of the same X and
+    alive mask: knn_dst and cd bit for bit, knn_idx identical but where a
+    row's differing entries all sit at its K-th distance (a new point at
+    exactly the horizon leaves the row alone: the insert rule's strict
+    <), MST weight within 1e-6 relative, the same partition.  Returns the
+    rebuilt state and the count of rows with such ties."""
+    import torch
+
+    from repro_torch.core import dynamic_torch as dt
+    from repro_torch.kernels import dynamic as k_dyn
+    from repro_torch.kernels import ops
+
+    counts = exact_counts()
+    fresh = dt.rebuild(state, min_pts=min_pts)
+    k_dyn.launches.update(counts)  # the check's launches are not the path's
+    check(bool(torch.equal(state.knn_dst, fresh.knn_dst)), f"{tag}: knn_dst differs from a rebuild")
+    check(bool(torch.equal(state.cd, fresh.cd)), f"{tag}: cd differs from a rebuild")
+    differ = state.knn_idx != fresh.knn_idx
+    at_kth = state.knn_dst == state.knn_dst[:, -1:]
+    check(not bool((differ & ~at_kth).any()), f"{tag}: knn_idx differs from a rebuild off the K-th distance")
+    tied = int(differ.any(1).sum())
+    w, wf = mst_weight(state), mst_weight(fresh)
+    check(abs(w - wf) <= 1e-6 * abs(wf), f"{tag}: MST weight {w} against the rebuild's {wf}")
+    a, _, _ = ops.incremental_recluster(state, float(min_pts))
+    b, _, _ = ops.incremental_recluster(fresh, float(min_pts))
+    check(_same_partition(a.labels, b.labels), f"{tag}: the partition differs from the rebuild's")
+    return fresh, b, tied
+
+
+def phase_exact(dev, card):
+    """The exact-dynamic engine on the card (see the module docstring)."""
+    import copy
+
+    import torch
+
+    from repro_torch import StreamingClusterEngine
+    from repro_torch.serving.stream import ClusterSnapshot
+
+    rng = np.random.default_rng(SEED + 23)
+    n_new = EXACT_BLOCKS // 2 * EXACT_BLOCK + EXACT_FULL_BLOCK
+    data = mixture(rng, EXACT_N + n_new + EXACT_BLOCKS * QUERY_CHUNK // EXACT_QUERY_EVERY) + 50.0
+    X0, Xnew, Qs = data[:EXACT_N], data[EXACT_N : EXACT_N + n_new], data[EXACT_N + n_new :]
+    eng = StreamingClusterEngine(DIM, min_pts=MIN_PTS, exact=True, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pids = list(eng.ingest(X0))
+    torch.cuda.synchronize()
+    h = eng._dyn
+    say(f"[exact] build: {EXACT_N} points ingested and the first rebuild in {time.perf_counter() - t0:.2f} s; "
+        f"Np = {h.capacity} slots, rk_cap {h._eff_cap(EXACT_BLOCK)}, s_cap {h._eff_s_cap(EXACT_BLOCK)} at blocks of "
+        f"{EXACT_BLOCK}; snapshot v{eng.snapshot.version} with {eng.snapshot.n_clusters} clusters")
+    Np = 1 << (int(1.5 * EXACT_N) - 1).bit_length()  # the shrink's bucket: 32,768 at 16,384 points
+    check(h.capacity == Np and eng.stats["exact_rebuilds"] == 1 and eng.snapshot.n_points == EXACT_N,
+          f"[exact] build: capacity {h.capacity}, rebuilds {eng.stats['exact_rebuilds']}")
+    against_rebuild("[exact] build", h.state, MIN_PTS)
+
+    exact_counts(reset=True)
+    tally = dict(tied=0, plain=0, served=0)
+    overflows = {"insert": 0, "delete": 0, "small delete": 0}
+    walls = {"insert": [], "delete": []}
+    off = 0
+
+    def block(b, kind, size, plain):
+        """One checked block through the engine: incremental, against a
+        rebuild from scratch, optionally against its plain replay."""
+        nonlocal off
+        before = (h.state, list(h._free), dict(h.stats))
+        inc0, ov0 = eng.stats["incremental_blocks"], h.stats["overflow_rebuilds"]
+        if kind == "insert":
+            Xb = Xnew[off : off + size]
+            off += size
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pids.extend(eng.ingest(Xb))
+        else:
+            pos = sorted(rng.choice(len(pids), size=size, replace=False).tolist(), reverse=True)
+            gone = [pids.pop(i) for i in pos]
+            slots = [eng._pid2slot[p] for p in gone]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.retire(gone)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        check(eng.stats["incremental_blocks"] == inc0 + 1 and h.ok, f"[exact] block {b} did not run incrementally")
+        overflowed = h.stats["overflow_rebuilds"] > ov0
+        _, fresh_res, tied = against_rebuild(f"[exact] block {b}", h.state, MIN_PTS)
+        tally["tied"] += tied
+        if plain:  # the same update from the same state through the plain versions, on the card
+            twin = copy.copy(h)
+            twin._free, twin.stats = before[1], before[2]
+            twin.state = before[0]
+            with plain_strips():
+                if kind == "insert":
+                    twin.insert_block(Xb)
+                else:
+                    twin.delete_block(slots)
+            bad = state_equal(twin.state, h.state)
+            check(not bad, f"[exact] block {b}: the plain replay differs in {bad}")
+            tally["plain"] += 1
+        return wall, overflowed, fresh_res
+
+    stream_t0 = time.perf_counter()
+    for b in range(EXACT_BLOCKS):
+        kind = "insert" if b % 2 == 0 else "delete"
+        wall, overflowed, fresh_res = block(b, kind, EXACT_BLOCK, b == 0 or b % EXACT_PLAIN_EVERY == EXACT_PLAIN_EVERY - 1)
+        walls[kind].append(wall)
+        overflows[kind] += overflowed
+        if b % EXACT_QUERY_EVERY == EXACT_QUERY_EVERY - 1:
+            Q = Qs[tally["served"] * QUERY_CHUNK : (tally["served"] + 1) * QUERY_CHUNK]
+            got = eng.query_detailed(Q)
+            snap = eng.snapshot
+            rebuilt = ClusterSnapshot(version=10**9 + b, n_points=snap.n_points, bubble_rep=snap.bubble_rep,
+                                      bubble_n=snap.bubble_n, center=snap.center, result=fresh_res,
+                                      wall_seconds=0.0)
+            want = eng.query_detailed(Q, snapshot=rebuilt)
+            check(np.array_equal(got.bubble_index, want.bubble_index), f"[exact] block {b}: served rows differ")
+            lab = dict(zip(snap.bubble_labels.tolist(), fresh_res.labels.tolist()))
+            mapped = np.array([lab.get(int(x), -1) if x != -1 else -1 for x in got.labels])
+            check(np.array_equal(mapped, want.labels), f"[exact] block {b}: served labels differ from the rebuild's")
+            tally["served"] += 1
+    n_small, small = EXACT_SMALL_DELETES
+    small_walls = []
+    for j in range(n_small):
+        wall, overflowed, _ = block(EXACT_BLOCKS + j, "delete", small, j == 0)
+        small_walls.append(wall)
+        overflows["small delete"] += overflowed
+    check(overflows["small delete"] == 0, f"[exact] a delete block of {small} overflowed: the delete rule never ran")
+    stream_s = time.perf_counter() - stream_t0
+    launches = exact_counts()
+    check(all(launches[k] > 0 for k in EXACT_KERNELS), f"[exact] stream launches {launches}")
+    say(f"[exact] stream: {EXACT_BLOCKS} alternating blocks of {EXACT_BLOCK} ({EXACT_BLOCK / EXACT_N:.2%} of n) and "
+        f"{n_small} delete blocks of {small}, every one routed incremental and checked against a rebuild from "
+        f"scratch (knn_dst, cd bit for bit; {tally['tied']} rows whose knn_idx differ only at the K-th distance; MST "
+        f"weight within 1e-6; partition equal); overflow rebuilds (RkNN or S' past its bucket) {overflows}; "
+        f"{tally['plain']} updates bit for bit their plain replay on the card; {tally['served']} served chunks of "
+        f"{QUERY_CHUNK} rows equal to the rebuilt snapshot's; {stream_s:.2f} s with the checks; block wall (update + "
+        f"refresh, ms) insert p50 {np.median(walls['insert']):.2f}, delete p50 {np.median(walls['delete']):.2f}, "
+        f"delete of {small} p50 {np.median(small_walls):.2f}; launches {launches}")
+
+    # one block past the policy's crossover: routed full, rebuilt at the refresh
+    full0, reb0 = eng.stats["exact_full_blocks"], eng.stats["exact_rebuilds"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pids += eng.ingest(Xnew[off : off + EXACT_FULL_BLOCK])
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    check(eng.stats["exact_full_blocks"] == full0 + 1 and eng.stats["exact_rebuilds"] == reb0 + 1,
+          f"[exact] a {EXACT_FULL_BLOCK}-point block did not route full: {eng.stats}")
+    against_rebuild("[exact] full block", h.state, MIN_PTS)
+    say(f"[exact] one insert block of {EXACT_FULL_BLOCK} ({EXACT_FULL_BLOCK / eng.tree.n_points:.2%}): routed full "
+        f"and rebuilt at the refresh, {full_ms:.1f} ms; exact_full_blocks {eng.stats['exact_full_blocks']}, "
+        f"exact_rebuilds {eng.stats['exact_rebuilds']}")
+
+    # an overflow drill: a handle with RkNN and S' buckets of 8
+    live = eng.tree.alive_points()[1]
+    drill = eng.backend.make_dynamic(MIN_PTS, DIM, capacity=h.capacity, rk_cap=8, s_cap=8)
+    drill.load(live)
+    drill.insert_block(Xnew[:EXACT_BLOCK] + 0.01)
+    check(drill.stats["overflow_rebuilds"] >= 1 and drill.ok, f"[exact] overflow drill: {drill.stats}")
+    against_rebuild("[exact] overflow drill", drill.state, MIN_PTS)
+    say(f"[exact] overflow drill: rk_cap = s_cap = 8, an insert block of {EXACT_BLOCK} flipped ok and the handle "
+        f"rebuilt ({drill.stats['overflow_rebuilds']} overflow rebuilds); the state equals a rebuild's")
+    del drill
+
+    exact_cpu_replay(dev)
+    exact_times(dev, eng, rng)
+    numbers = exact_kernels(dev, h.state, EXACT_BLOCK + h._eff_cap(EXACT_BLOCK))
+    return launches, numbers
+
+
+def exact_cpu_replay(dev):
+    """The same kind of stream at reduced depth on the card and through the
+    port's CPU engine: versions and partitions at every snapshot, MST
+    weight within 1e-6; the cd / knn_dst rows that differ bitwise; then
+    the update rules on two handles (card, CPU) whose S' bucket holds
+    every slot, every field equal."""
+    from repro_torch import StreamingClusterEngine
+    from repro_torch.kernels import ops
+
+    n, blk, blocks = EXACT_CPU
+    rng = np.random.default_rng(SEED + 24)
+    data = mixture(rng, n + blocks * blk) + 50.0
+    card = StreamingClusterEngine(DIM, min_pts=MIN_PTS, exact=True, device=dev)
+    host = StreamingClusterEngine(DIM, min_pts=MIN_PTS, exact=True, device="cpu")
+    t0 = time.perf_counter()
+    pids = [card.ingest(data[:n]), host.ingest(data[:n])]
+    check(pids[0] == pids[1], "[exact] cpu replay: point ids differ")
+    pids = pids[0]
+    diff_rows, snaps, off = 0, 0, n
+    for b in range(blocks + 1):
+        if b:
+            if b % 2:
+                got = [e.ingest(data[off : off + blk]) for e in (card, host)]
+                check(got[0] == got[1], f"[exact] cpu replay block {b}: point ids differ")
+                pids += got[0]
+                off += blk
+            else:
+                pos = sorted(rng.choice(len(pids), size=blk, replace=False).tolist(), reverse=True)
+                gone = [pids.pop(i) for i in pos]
+                for e in (card, host):
+                    e.retire(gone)
+        a, c = card.snapshot, host.snapshot
+        check(a.version == c.version, f"[exact] cpu replay block {b}: versions {a.version} / {c.version}")
+        check(_same_partition(a.bubble_labels, c.bubble_labels), f"[exact] cpu replay block {b}: partitions differ")
+        wa, wc = float(np.sum(a.mst[2])), float(np.sum(c.mst[2]))
+        check(abs(wa - wc) <= 1e-6 * abs(wc), f"[exact] cpu replay block {b}: MST weight {wa} / {wc}")
+        sa, sc = card._dyn.state, host._dyn.state
+        rows = (sa.cd.cpu() != sc.cd) | (sa.knn_dst.cpu() != sc.knn_dst).any(1)
+        diff_rows += int(rows.sum())
+        snaps += 1
+    check(card.stats["incremental_blocks"] == host.stats["incremental_blocks"] > 0,
+          f"[exact] cpu replay: incremental blocks {card.stats['incremental_blocks']} / {host.stats['incremental_blocks']}")
+    ovf = [e._dyn.stats["overflow_rebuilds"] for e in (card, host)]
+    check(ovf[0] == ovf[1], f"[exact] cpu replay: overflow rebuilds {ovf}")
+    say(f"[exact] cpu replay: {n} points, {blocks} alternating blocks of {blk} on the card and through the CPU engine "
+        f"({ovf[0]} overflow rebuilds on each, the same blocks): "
+        f"{snaps} snapshots with equal versions and partitions, MST weight within 1e-6; cd / knn_dst rows that "
+        f"differ bitwise, summed over the snapshots: {diff_rows}; {time.perf_counter() - t0:.1f} s")
+    check(diff_rows == 0, f"[exact] cpu replay: {diff_rows} cd / knn_dst rows differ from the CPU's")
+    # the update rules themselves on both devices: handles whose S' bucket holds every slot never overflow
+    hs = [ops.get_backend(d).make_dynamic(MIN_PTS, DIM, capacity=2 * n, s_cap=2 * n) for d in (dev, "cpu")]
+    for hh in hs:
+        hh.load(data[:n])
+    alive = list(range(n))
+    for b in range(4):
+        if b % 2 == 0:
+            for hh in hs:
+                slots = hh.insert_block(data[n + b * blk : n + (b + 1) * blk])
+            alive += slots
+        else:
+            drop = [alive.pop(i) for i in sorted(rng.choice(len(alive), size=blk, replace=False).tolist(), reverse=True)]
+            for hh in hs:
+                hh.delete_block(drop)
+        check(all(hh.stats["overflow_rebuilds"] == 0 for hh in hs), f"[exact] handle replay block {b} overflowed")
+        bad = state_equal(hs[0].state, hs[1].state)
+        check(not bad, f"[exact] handle replay block {b}: the card's state differs from the CPU's in {bad}")
+    say(f"[exact] handle replay: {n} points, two insert and two delete blocks of {blk} with s_cap = Np (no overflow) "
+        "on the card and the CPU: every state field equal after every block")
+
+
+def exact_times(dev, eng, rng):
+    """Incremental insert and delete against a rebuild at n = EXACT_N, by
+    block size (the card's Fig. 3); the hierarchy-only refresh; the query
+    p50; peak memory of a rebuild and an update; host reads in an update
+    body and in a refresh (set_sync_debug_mode)."""
+    import torch
+
+    from repro_torch.core import dynamic_torch as dt
+    from repro_torch.kernels import ops
+
+    h = eng.backend.make_dynamic(MIN_PTS, DIM)
+    live = eng.tree.alive_points()[1][:EXACT_N]
+    h.load(live, shrink=True)
+    fresh = mixture(rng, max(EXACT_TIMED_BLOCKS)) + 50.0
+
+    def wall(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            saved = (h.state, list(h._free), dict(h.stats))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            h.state, h._free, h.stats = saved[0], saved[1], saved[2]
+        return float(np.median(out)), h.stats
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rebuild_ms, _ = wall(h.rebuild)
+    peak_rebuild = (torch.cuda.max_memory_allocated() - base) / 2**20
+    rows, peak_update = [], 0.0
+    for B in EXACT_TIMED_BLOCKS:
+        ov = []
+
+        def ins():
+            h.insert_block(fresh[:B])
+            ov.append(h.stats["overflow_rebuilds"])
+
+        drop = rng.choice(h.alive_slots(), size=B, replace=False).tolist()
+
+        def dele():
+            h.delete_block(drop)
+            ov.append(h.stats["overflow_rebuilds"])
+
+        torch.cuda.reset_peak_memory_stats()
+        ins_ms, _ = wall(ins)
+        if B == EXACT_BLOCK:
+            peak_update = (torch.cuda.max_memory_allocated() - base) / 2**20
+        del_ms, _ = wall(dele)
+        rows.append((B, B / EXACT_N, ins_ms, del_ms, max(ov)))
+    say(f"[exact] times at n = {EXACT_N}, Np = {h.capacity}: rebuild {rebuild_ms:.1f} ms; by block (ms, incremental "
+        "update with its one read of ok; an overflowed update includes its rebuild): " + "; ".join(
+            f"{B} ({f:.2%}) insert {i:.1f}, delete {d:.1f}{' (overflowed)' if o else ''}" for B, f, i, d, o in rows))
+
+    def crossing(col):
+        """The block fraction where the update's time reaches the rebuild's,
+        interpolated between the measured blocks."""
+        prev = None
+        for r in rows:
+            if r[col] >= rebuild_ms:
+                if prev is None:
+                    return f"below {r[1]:.2%}"
+                (f0, t0_), (f1, t1) = prev, (r[1], r[col])
+                return f"at {f0 + (rebuild_ms - t0_) * (f1 - f0) / (t1 - t0_):.2%} (interpolated)"
+            prev = (r[1], r[col])
+        return f"beyond {rows[-1][1]:.2%}"
+
+    cross = {"insert": crossing(2), "delete": crossing(3)}
+    say("[exact] crossover (the card's Fig. 3): " + ", ".join(f"{k} {v}" for k, v in cross.items())
+        + " of n, against UpdatePolicy.max_update_frac = 0.05 (left as it is)")
+
+    s = h.state
+    refresh = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, slots, rep = ops.incremental_recluster(s, float(MIN_PTS))
+        refresh.append((time.perf_counter() - t0) * 1e3)
+    lat = []
+    Q = mixture(rng, QUERY_CHUNK * 20) + 50.0
+    for i in range(20):
+        t0 = time.perf_counter()
+        eng.query_detailed(Q[i * QUERY_CHUNK : (i + 1) * QUERY_CHUNK])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    say(f"[exact] hierarchy-only refresh (ops.incremental_recluster, n = {len(slots)}, Lp = {h.capacity}): "
+        + ", ".join(f"{t:.2f}" for t in refresh) + f" ms; query p50 {np.median(lat):.3f} ms per {QUERY_CHUNK}-row "
+        f"chunk over the engine's {eng.snapshot.n_bubbles}-row snapshot; peak device memory above the state: "
+        f"rebuild {peak_rebuild:.0f} MiB, update (insert of {EXACT_BLOCK}) {peak_update:.0f} MiB")
+
+    # host reads: none in an update body, one (the unwrap) in a refresh
+    P = torch.as_tensor(fresh[:EXACT_BLOCK], dtype=torch.float32, device=dev)
+    free = torch.as_tensor(h._free[-EXACT_BLOCK:][::-1], device=dev)
+    valid = torch.ones(EXACT_BLOCK, dtype=torch.bool, device=dev)
+    small = EXACT_SMALL_DELETES[1]  # a delete that stays within its buckets: the whole rule runs
+    alive = torch.as_tensor(rng.choice(h.alive_slots(), size=small, replace=False), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = dt.insert_batch(s, P, free, valid, min_pts=MIN_PTS, rk_cap=h._eff_cap(EXACT_BLOCK))
+        st = dt.delete_batch(st, alive, valid[:small], min_pts=MIN_PTS, rk_cap=h._eff_cap(small),
+                             s_cap=h._eff_s_cap(small))
+        out = ops._incremental_pipeline(st.X, st.mst_u, st.mst_v, st.mst_raw, st.mst_valid, st.cd, st.alive,
+                                        st.n_alive, float(MIN_PTS))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ops._to_host(out)
+    say(f"[exact] an insert body of {EXACT_BLOCK}, a delete body of {small} (ok: {bool(st.ok)}) and a refresh up to its unwrap "
+        "under torch.cuda.set_sync_debug_mode('error'): no host synchronisation raised")
+    return cross
+
+
+def exact_kernels(dev, state, U):
+    """The three kernels at the stream's shapes (U = Bp + rk_cap = 5,376 and
+    the rebuild's 32,768 rows, Np = 32,768), bit for bit their plain
+    versions on tie-free (the stream's state) and duplicate-heavy (an
+    integer grid) data, with an Np that is no multiple of the tile, K = 10,
+    100 and 2000; kernel, plain and library times and the bounds."""
+    import torch
+
+    from repro_torch.kernels import dynamic as k_dyn
+    from repro_torch.kernels import ref
+
+    counts = exact_counts()
+    X, alive, cd = state.X, state.alive, state.cd
+    Np, d = X.shape
+    gen = np.random.default_rng(SEED + 25)
+    ids = torch.as_tensor(gen.choice(Np, size=U, replace=False), device=dev)
+    rows = X[ids]
+    valid = torch.ones(U, dtype=torch.bool, device=dev)
+    out = {}
+
+    errs = dict.fromkeys(EXACT_KERNELS, 0.0)
+
+    def same(name, got, want):
+        """Every output bit for bit; the largest absolute difference (equal
+        infinities masked) goes into the kernel's max_abs_err."""
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            check(bool(torch.equal(g, w)), f"[exact] {name}: differs from the plain version")
+            kernel = name.split()[0]
+            g, w = g.reshape(-1), w.reshape(-1)
+            for i in range(0, w.numel(), 1 << 26):  # in chunks: the rebuild's square is 2^30 entries
+                a, b = g[i : i + (1 << 26)], w[i : i + (1 << 26)]
+                if b.is_floating_point():
+                    both = torch.isinf(a) & (a == b)
+                    a, b = a.masked_fill(both, 0.0), b.masked_fill(both, 0.0)
+                errs[kernel] = max(errs[kernel], abs_diff(a, b))
+
+    # strip_dists: the insert strip and the rebuild's square, tie-free and grid, and a ragged Np
+    grid = torch.as_tensor(gen.integers(-6, 7, size=(Np - 13, d)), dtype=torch.float32, device=dev)
+    D = k_dyn.strip_dists(rows, X)
+    same("strip_dists", D, ref.strip_dists(rows, X))
+    same("strip_dists grid", k_dyn.strip_dists(grid[:777], grid), ref.strip_dists(grid[:777], grid))
+    full = k_dyn.strip_dists(X, X)
+    same("strip_dists square", full, ref.strip_dists(X, X))
+    del full
+    ms = time_ms(lambda: k_dyn.strip_dists(rows, X), reps=10)
+    ms_sq = time_ms(lambda: k_dyn.strip_dists(X, X), reps=3, warm=1)
+    plain = time_ms(lambda: ref.strip_dists(rows, X), reps=1, warm=1)
+    lib = time_ms(lambda: torch.cdist(rows, X), reps=10)
+    b, by = bound_ms(3.0 * U * Np * d, 4.0 * (U * Np + (U + Np) * d))
+    b_sq, by_sq = bound_ms(3.0 * Np * Np * d, 4.0 * (Np * Np + 2 * Np * d))
+    out["strip_dists"] = dict(max_abs_err=errs["strip_dists"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+    say(f"[exact] strip_dists ({U} x {Np}, d = {d}): kernel {ms:.4f} ms, plain {plain:.2f}, cdist {lib:.4f}, "
+        f"bound {b:.4f} ({by}); the rebuild's {Np} x {Np}: kernel {ms_sq:.3f} ms, bound {b_sq:.3f} ({by_sq}); bit "
+        f"for bit the plain version (also a {777} x {Np - 13} integer grid)")
+
+    # strip_topk at K = 10 (the path's), 100 and 2000, tie-free and grid
+    sw = []
+    for K in EXACT_TOPK:
+        same(f"strip_topk K={K}", k_dyn.strip_topk(D, ids, valid, alive, K), ref.strip_topk(D, ids, valid, alive, K))
+        sw.append(f"K = {K} {time_ms(lambda: k_dyn.strip_topk(D, ids, valid, alive, K), reps=5):.4f} ms")
+    Dg = ref.strip_dists(grid[:777], grid)
+    g_alive = torch.ones(Np - 13, dtype=torch.bool, device=dev)
+    g_ids = torch.arange(777, device=dev)
+    g_valid = torch.ones(777, dtype=torch.bool, device=dev)
+    for K in EXACT_TOPK:
+        same(f"strip_topk grid K={K}", k_dyn.strip_topk(Dg, g_ids, g_valid, g_alive, K),
+             ref.strip_topk(Dg, g_ids, g_valid, g_alive, K))
+    ms = time_ms(lambda: k_dyn.strip_topk(D, ids, valid, alive, MIN_PTS), reps=10)
+    plain = time_ms(lambda: ref.strip_topk(D, ids, valid, alive, MIN_PTS), reps=1, warm=1)
+    iota = torch.arange(Np, device=dev)
+    Dm = torch.where(alive[None, :] & (iota[None, :] != ids[:, None]), D, float("inf"))
+    lib = time_ms(lambda: torch.topk(Dm, MIN_PTS, dim=1, largest=False), reps=10)
+    b, by = bound_ms(0.0, 4.0 * U * Np + Np + U * (4 + 1 + 8 * MIN_PTS))
+    out["strip_topk"] = dict(max_abs_err=errs["strip_topk"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
+    say(f"[exact] strip_topk ({U} x {Np}, K = {MIN_PTS}): kernel {ms:.4f} ms, plain {plain:.2f}, torch.topk on the "
+        f"masked strip {lib:.4f}, bound {b:.4f} ({by}); " + ", ".join(sw) + "; bit for bit the plain version at "
+        f"every K, also on a 777 x {Np - 13} integer grid")
+    del Dm, Dg
+
+    # strip_round_minima on the insert strip's weights: round 1 (every slot alone) and a round of ~1000-slot
+    # components
+    SW = torch.maximum(torch.maximum(D, cd[ids][:, None]), cd[None, :])
+    smask = alive[None, :] & (iota[None, :] != ids[:, None])
+    SW.masked_fill_(~smask, float("inf"))
+    E = Np
+    for lab in (iota, iota // 1000):
+        same("strip_round_minima", k_dyn.strip_round_minima(SW, smask, ids, lab, E),
+             ref.strip_round_minima(SW, smask, ids, lab, E))
+    lab = iota // 1000
+    ms = time_ms(lambda: k_dyn.strip_round_minima(SW, smask, ids, lab, E), reps=10)
+    plain = time_ms(lambda: ref.strip_round_minima(SW, smask, ids, lab, E), reps=1, warm=1)
+    b, by = bound_ms(0.0, 5.0 * U * Np + 8.0 * Np + 4.0 * U + 12.0 * (U + Np))
+    out["strip_round_minima"] = dict(max_abs_err=errs["strip_round_minima"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                                     library_ms=None)
+    say(f"[exact] strip_round_minima ({U} x {Np}, one launch = the row and the column pass): kernel {ms:.4f} ms, "
+        f"plain {plain:.2f}, bound {b:.4f} ({by}, SW and smask read once); bit for bit the plain version in round 1 "
+        "and at ~1000-slot components; no single library call computes it")
+    k_dyn.launches.update(counts)  # the checks' launches are not the path's
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2944,12 +3493,15 @@ def main() -> int:
     phase_min_pts(dev, run["table_full"])
     phase_wide(dev)
     phase_tenants(dev, card)
+    exact_launches, exact_numbers = phase_exact(dev, card)
+    torch.cuda.empty_cache()
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
     launches = dict(run["launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
-                    flat_scatter=online_launches["flat_scatter"], **grid_launches, **attn_launches)
+                    flat_scatter=online_launches["flat_scatter"], **grid_launches, **attn_launches, **exact_launches)
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
-                   flash_attention_mma=attn_numbers[ATTENTION[0][0]], flat_scatter=online_numbers, **grid_numbers)
+                   flash_attention_mma=attn_numbers[ATTENTION[0][0]], flat_scatter=online_numbers, **grid_numbers,
+                   **exact_numbers)
     sources = {"assign": ("assign_ws.cu", "src/repro/kernels/assign.py:21"),
                "bubble_cd": ("bubble_cd_ws.cu", "src/repro/kernels/bubble_cd.py:41"),
                "mutual_reach": ("dist_panel.cu", "src/repro/kernels/mutual_reach.py:23"),
@@ -2966,7 +3518,11 @@ def main() -> int:
                # no Pallas kernel: the JAX package's grid-pruned jnp searches (spatial_index=True)
                "grid_assign": ("grid.cu", "src/repro/kernels/grid.py:355"),
                "grid_core_distances": ("grid.cu", "src/repro/kernels/grid.py:222"),
-               "grid_round_minima": ("grid.cu", "src/repro/core/mst.py:392")}
+               "grid_round_minima": ("grid.cu", "src/repro/core/mst.py:392"),
+               # no Pallas kernel: the jnp strip programs of the exact-dynamic path (exact=True)
+               "strip_dists": ("dynamic.cu", "src/repro/core/dynamic_jax.py:145"),
+               "strip_topk": ("dynamic.cu", "src/repro/core/dynamic_jax.py:187"),
+               "strip_round_minima": ("dynamic.cu", "src/repro/core/mst.py:777")}
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

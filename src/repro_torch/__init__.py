@@ -6,16 +6,18 @@ the card unless the caller asks for the CPU (``device="cpu"``), where the
 hand-written kernels give way to their plain PyTorch versions.
 """
 
-from .carry import engine_from_reference_state
+from .carry import dyn_state_from_reference, engine_from_reference_state
 from .checkpoint import CheckpointStore
 from .kernels.ops import get_backend
-from .serving import QueryBatcher, StreamingClusterEngine, TenantRouter
+from .serving import QueryBatcher, StreamingClusterEngine, TenantRouter, UpdatePolicy
 
 __all__ = [
     "StreamingClusterEngine",
     "QueryBatcher",
     "TenantRouter",
+    "UpdatePolicy",
     "CheckpointStore",
     "get_backend",
     "engine_from_reference_state",
+    "dyn_state_from_reference",
 ]

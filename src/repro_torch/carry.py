@@ -7,17 +7,32 @@ engine, ``flat/*`` — and returns a port engine with the same Bubble-tree
 (free-list order included, so point ids keep replaying identically), the
 same ε accounting, the same version counter, the same published snapshot
 and, device-online, the same flat leaf-CF table (origin, slot order, free
-list and Kahan compensations).
-It is this system's counterpart of carrying a model's weights across:
-it reads only numpy and never imports the JAX package.  The fields load
-through the engine's own loader, the one ``restore`` uses.
+list and Kahan compensations).  An exact-mode engine (``cfg/exact``)
+comes across in exact mode; its dynamic state is rebuilt from the tree at
+the next refresh, as the reference's restore does.
+``dyn_state_from_reference`` carries the reference's exact-dynamic
+``DynState`` itself, as a dict of numpy arrays, into the port's.
+These are this system's counterpart of carrying a model's weights across:
+they read only numpy and never import the JAX package.  The engine's
+fields load through its own loader, the one ``restore`` uses.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from .core.dynamic_torch import DynState
+from .device import resolve_device
 from .serving.stream import StreamingClusterEngine
 
-__all__ = ["engine_from_reference_state"]
+__all__ = ["engine_from_reference_state", "dyn_state_from_reference"]
+
+_DYN_DTYPES = {
+    "X": torch.float32, "alive": torch.bool, "knn_idx": torch.int32, "knn_dst": torch.float32,
+    "cd": torch.float32, "mst_u": torch.int32, "mst_v": torch.int32, "mst_raw": torch.float32,
+    "mst_valid": torch.bool, "n_alive": torch.int32, "ok": torch.bool,
+}
 
 
 def engine_from_reference_state(state: dict, *, device=None, **engine_kw) -> StreamingClusterEngine:
@@ -26,19 +41,28 @@ def engine_from_reference_state(state: dict, *, device=None, **engine_kw) -> Str
     ``engine_kw`` sets what the checkpoint does not record (``max_block``,
     ``async_offline``, ``min_offline_points``, the tree's fan-out …); the
     configuration it does record (dim, min_pts, min_cluster_size,
-    compression, epsilon, device_online) comes from ``cfg/*``.  Raises
-    ``ValueError`` on an unknown format, and ``NotImplementedError`` on an
-    exact-mode engine, which the port does not carry yet (ROADMAP.md
-    queue 1, item 6)."""
+    compression, epsilon, exact, device_online) comes from ``cfg/*``.
+    Raises ``ValueError`` on an unknown format."""
     eng = StreamingClusterEngine(
         int(state["cfg/dim"]),
         min_pts=int(state["cfg/min_pts"]),
         min_cluster_size=float(state["cfg/min_cluster_size"]),
         compression=float(state["cfg/compression"]),
         epsilon=float(state["cfg/epsilon"]),
+        exact=bool(state["cfg/exact"]),
         device_online=bool(state["cfg/device_online"]),
         device=device,
         **engine_kw,
     )
     eng._load_state(state)
     return eng
+
+
+def dyn_state_from_reference(arrays, device=None) -> DynState:
+    """The port's ``DynState`` from the reference's, given as a mapping of
+    its eleven field names to numpy arrays (``state._asdict()`` through
+    ``np.asarray``): the same values in the same dtypes, on ``device``
+    (None → cuda)."""
+    dev = resolve_device(device)
+    return DynState(**{f: torch.as_tensor(np.array(arrays[f]), dtype=_DYN_DTYPES[f]).to(dev)
+                       for f in DynState._fields})

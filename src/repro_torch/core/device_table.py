@@ -1,8 +1,8 @@
 """The offline plane's sources of bubble tables (DESIGN.md §12).
 
-The PyTorch counterpart of the JAX package's ``core/device_table.py``
-(the exact-dynamic ``DynamicStateCapture`` comes with ROADMAP.md queue 1,
-item 6).  Every source the engine's offline plane reads has
+The PyTorch counterpart of the JAX package's ``core/device_table.py``,
+``DynamicStateCapture`` of the exact-dynamic path included.  Every source
+the engine's offline plane reads has
 
   ``ready``        the source can serve a capture right now, without a
                    host reload;
@@ -15,8 +15,10 @@ item 6).  Every source the engine's offline plane reads has
 Two sources: ``SnapshotDeviceTable`` over the host ``BubbleTree`` hands out
 ``HostTableCapture``s (the alive-leaf CF rows, O(L·d)), and
 ``core.bubble_flat.BubbleFlat`` (device-online ingest) hands out
-``FlatTableCapture``s (its device tensors cloned on the card).  A capture
-runs the pass itself:
+``FlatTableCapture``s (its device tensors cloned on the card).  The
+exact-dynamic engine hands ``DynamicStateCapture``s of its maintained
+point-level state to the same publish step.  A capture runs the pass
+itself:
 
   ``capture.recluster(backend, min_pts=…, min_cluster_size=…)``
       → ``(OfflineClusterResult, rep, n_b, center)``
@@ -27,12 +29,13 @@ with ``rep``/``n_b``/``center`` the f64 serve-plane table.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 
 from ..kernels import ops
 
-__all__ = ["HostTableCapture", "FlatTableCapture", "SnapshotDeviceTable"]
+__all__ = ["HostTableCapture", "FlatTableCapture", "DynamicStateCapture", "SnapshotDeviceTable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +78,28 @@ class FlatTableCapture:
         mp = max(1, min(int(min_pts), int(self.n_points)))
         return backend.offline_recluster_from_device_table(
             *self.view, self.origin, mp, min_cluster_size=min_cluster_size, slots=self.slots)
+
+
+@dataclasses.dataclass(frozen=True)
+class DynamicStateCapture:
+    """Capture of the exact-dynamic device state (core/dynamic_torch.py):
+    labels come from the maintained point-level MST through the hierarchy
+    stages alone.  There is no O(L²) stage, so a ``mesh`` has nothing to
+    shard and is refused."""
+
+    state: Any
+    dim: int
+
+    def recluster(self, backend, *, min_pts: int, min_cluster_size: float, mesh=None):
+        if mesh is not None:
+            raise ValueError(
+                "the exact-dynamic path maintains the point-level MST "
+                "incrementally — there is no O(L²) stage for mesh= to shard")
+        res, _, rep32 = backend.incremental_recluster(self.state, float(min_cluster_size))
+        rep = np.asarray(rep32, dtype=np.float64)
+        n_b = np.ones(rep.shape[0], dtype=np.float64)
+        center = rep.mean(axis=0) if rep.size else np.zeros(self.dim)
+        return res, rep, n_b, center
 
 
 class SnapshotDeviceTable:

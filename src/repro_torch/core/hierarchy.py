@@ -92,14 +92,15 @@ class ExtractionArrays(NamedTuple):
 def sorted_edges(eu, ev, ew, valid, n_valid: int):
     """The merge order: pad merges synthesized (the j-th invalid slot joins
     pad leaf ``n_valid + j`` to node 0 at ``PAD_DIST``, surplus slots park
-    at +inf), then a stable sort on weight.  Returns the (Lp,) int64 ends
-    and f32 weights; no host sync."""
+    at +inf), then a stable sort on weight.  ``n_valid`` is an int or a 0-d
+    device tensor (the exact-dynamic pass keeps its count on the device).
+    Returns the (Lp,) int64 ends and f32 weights; no host sync."""
     Lp = eu.shape[0]
     eu, ev = eu.long(), ev.long()
     ew = ew.float()
     valid = valid.bool()
     inv_rank = torch.cumsum((~valid).long(), 0) - 1
-    pad_leaf = int(n_valid) + inv_rank
+    pad_leaf = inv_rank + n_valid
     is_pad = (~valid) & (pad_leaf < Lp)
     u_e = torch.where(valid, eu, torch.where(is_pad, pad_leaf, 0))
     v_e = torch.where(valid, ev, 0)

@@ -18,6 +18,14 @@ nothing.
 never builds W; the rest of the round is the dense tail verbatim, so the
 buffers are bitwise those of ``boruvka`` on the W of the same core
 distances (pad rows at +inf).
+
+The exact-dynamic engine (core/dynamic_torch.py) adds two forests over
+explicit candidates, the counterparts of ``boruvka_edges_jax`` and
+``boruvka_strip_jax``: ``boruvka_edges`` over a padded edge list, and
+``boruvka_strip`` over an edge list plus dense (U, n) row strips, whose
+per-round strip minima come from ``kernels/dynamic.py::strip_round_minima``
+(a CUDA kernel on the card).  Both run the reference's fixed round count
+with its (w, pair id, index or payload) tie rules and no host read.
 """
 
 from __future__ import annotations
@@ -27,9 +35,10 @@ import math
 import numpy as np
 import torch
 
+from ..kernels import dynamic as _dyn_k
 from ..kernels import grid as _grid_k
 
-__all__ = ["boruvka", "boruvka_grid", "mst_total_weight"]
+__all__ = ["boruvka", "boruvka_grid", "boruvka_edges", "boruvka_strip", "mst_total_weight"]
 
 _BIGID = np.iinfo(np.int32).max
 
@@ -43,11 +52,32 @@ def _segment_min(labels: torch.Tensor, values: torch.Tensor, init) -> torch.Tens
     return out.scatter_reduce_(0, labels, values, reduce="amin", include_self=True)
 
 
+def _hook_and_append(labels, comp_key, has, tgt, n_edges, n: int, jumps: int, valid, *writes):
+    """The back half of every round: hook each component that has an edge
+    on its target ``tgt`` (a mirrored 2-cycle, both components choosing the
+    same ``comp_key``, roots at the lower label), jump pointers, and append
+    the kept edges at cumsum slots (rejects land in the trash slot ``n``):
+    ``valid`` gets the keep mask and each ``(buffer, values)`` of
+    ``writes`` its values.  Returns the new labels and edge count."""
+    iota = torch.arange(n, device=labels.device)
+    mirror = has & (comp_key[tgt] == comp_key)
+    keep = has & ~(mirror & (iota > tgt))
+    parent = torch.where(has, tgt, iota)
+    parent = torch.where(mirror & (iota < tgt), iota, parent)
+    for _ in range(jumps):
+        parent = parent[parent]
+    slot = n_edges + torch.cumsum(keep.long(), 0) - 1
+    slot = torch.where(keep, torch.clamp_max(slot, n - 1), n)
+    for buf, val in writes:
+        buf[slot] = val
+    valid[slot] = keep
+    return parent[labels], n_edges + keep.sum()
+
+
 def _boruvka_round_tail(labels, row_w, row_eid, row_j, row_has,
                         eu, ev, ew, valid, n_edges, n: int, jumps: int):
-    """Back half of one round: per-component (w, eid) minimum, hooking,
-    pointer jumping and edge append (slot via cumsum; rejects land in the
-    trash slot ``n``).  ``labels`` and ``row_j`` are int64, ``row_eid``
+    """Per-component (w, eid) minimum of the rows' choices, then
+    ``_hook_and_append``.  ``labels`` and ``row_j`` are int64, ``row_eid``
     int64; returns the updated (labels, eu, ev, ew, valid, n_edges)."""
     dev = row_w.device
     iota = torch.arange(n, device=dev)
@@ -59,24 +89,9 @@ def _boruvka_round_tail(labels, row_w, row_eid, row_j, row_has,
     has_edge = comp_row < n
     safe_row = torch.clamp_max(comp_row, n - 1)
     comp_v = row_j[safe_row]
-    comp_wt = row_w[safe_row]
-    comp_tgt = labels[comp_v]
-    # mirrored 2-cycle iff both components chose the same canonical edge
-    is_mirror = has_edge & (comp_eid[comp_tgt] == comp_eid)
-    keep = has_edge & ~(is_mirror & (iota > comp_tgt))
-    # hook: parent = target label; mirror pairs root at the lower label
-    parent = torch.where(has_edge, comp_tgt, iota)
-    parent = torch.where(is_mirror & (iota < comp_tgt), iota, parent)
-    for _ in range(jumps):
-        parent = parent[parent]
-    new_labels = parent[labels]
-    slot = n_edges + torch.cumsum(keep.long(), 0) - 1
-    slot = torch.where(keep, torch.clamp_max(slot, n - 1), n)
-    eu[slot] = safe_row.int()
-    ev[slot] = comp_v.int()
-    ew[slot] = comp_wt
-    valid[slot] = keep
-    return new_labels, eu, ev, ew, valid, n_edges + keep.sum()
+    labels, n_edges = _hook_and_append(labels, comp_eid, has_edge, labels[comp_v], n_edges, n, jumps, valid,
+                                       (eu, safe_row.int()), (ev, comp_v.int()), (ew, row_w[safe_row]))
+    return labels, eu, ev, ew, valid, n_edges
 
 
 def _rounds(n: int) -> tuple[int, int]:
@@ -159,3 +174,108 @@ def boruvka_grid(grid, cd: torch.Tensor, views=None):
         labels, eu, ev, ew, valid, n_edges = _boruvka_round_tail(
             labels, row_w, row_eid, row_j, torch.isfinite(row_w), eu, ev, ew, valid, n_edges, n, jumps)
     return eu[:-1], ev[:-1], ew[:-1], valid[:-1]
+
+
+def _segment_min_of(n: int, init, dtype, device, pairs) -> torch.Tensor:
+    """(n,) ``init`` lowered by ``scatter_reduce("amin")`` of each
+    ``(index, values)`` pair in turn (order-independent)."""
+    out = torch.full((n,), init, dtype=dtype, device=device)
+    for idx, val in pairs:
+        out = out.scatter_reduce(0, idx, val, "amin")
+    return out
+
+
+def boruvka_edges(eu, ev, ew, valid, n: int):
+    """Borůvka minimum spanning forest over an explicit padded edge list:
+    ``boruvka_edges_jax``.  (E,) ends, weights and validity; every node of
+    ``[0, n)`` starts as a singleton.  Ties break on the edge index.
+    Returns ``(sel_idx, sel_valid, labels)``: (n,) int64 indices of the
+    chosen edges, (n,) bool, and the (n,) int64 final labels."""
+    dev = ew.device
+    E = eu.shape[0]
+    rounds, jumps = _rounds(n)
+    inf = float("inf")
+    iota = torch.arange(n, device=dev)
+    idx_e = torch.arange(E, device=dev)
+    eu, ev = eu.long(), ev.long()
+    valid = valid.bool()
+    lab = iota.clone()
+    out_idx = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    out_ok = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    n_edges = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(rounds):
+        lu, lv = lab[eu], lab[ev]
+        active = valid & (lu != lv)
+        w_act = torch.where(active, ew, inf)
+        comp_w = _segment_min_of(n, inf, ew.dtype, dev, ((lu, w_act), (lv, w_act)))
+        hit_u = active & (ew == comp_w[lu])
+        hit_v = active & (ew == comp_w[lv])
+        comp_e = _segment_min_of(n, _BIGID, torch.int64, dev, (
+            (lu, torch.where(hit_u, idx_e, _BIGID)), (lv, torch.where(hit_v, idx_e, _BIGID))))
+        has = comp_e < _BIGID
+        e = torch.clamp_max(comp_e, max(E - 1, 0))
+        a, b = lab[eu[e]], lab[ev[e]]
+        tgt = torch.where(a == iota, b, a)
+        lab, n_edges = _hook_and_append(lab, comp_e, has, tgt, n_edges, n, jumps, out_ok, (out_idx, e))
+    return out_idx[:-1], out_ok[:-1], lab
+
+
+def boruvka_strip(eu, ev, ew, evalid, sids, SW, smask, n: int):
+    """Borůvka MSF over an explicit edge list PLUS dense row strips:
+    ``boruvka_strip_jax``.  (E,) edges (masked slots inert); ``sids`` (U,)
+    the node of each strip row, ``SW`` (U, n) its weights to every node,
+    ``smask`` (U, n) the usable entries.  Each round, the strip's per-row
+    and per-column lexicographic (w, pair id, payload) minima come from
+    ``strip_round_minima`` (a CUDA kernel on the card); the component
+    minima over the edge list and those minima, the hook, the pointer
+    jumping and the append are torch operations.  A row's (column's) pair
+    id counts only where its weight is its component's minimum, its
+    payload only where its pair id is too, which is the reference's three
+    passes.  Returns ``(pay, pay_valid, labels)``: (n,) int64 payloads
+    (``< E`` an edge index, else ``E + row·n + col``), (n,) bool, (n,)
+    int64 labels."""
+    dev = SW.device
+    E = eu.shape[0]
+    U = SW.shape[0]
+    rounds, jumps = _rounds(n)
+    inf = float("inf")
+    iota = torch.arange(n, device=dev)
+    eu, ev = eu.long(), ev.long()
+    sids = sids.long()
+    evalid = evalid.bool()
+    eid_tree = torch.minimum(eu, ev) * n + torch.maximum(eu, ev)
+    pay_tree = torch.arange(E, device=dev)
+    lab = iota.clone()
+    out_pay = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    out_ok = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    n_edges = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(rounds):
+        lu, lv = lab[eu], lab[ev]
+        eact = evalid & (lu != lv)
+        ewa = torch.where(eact, ew, inf)
+        slab = lab[sids]
+        rw, re, rp, cw, ce, cp = _dyn_k.strip_round_minima(SW, smask, sids, lab, E)
+        comp_w = _segment_min_of(n, inf, SW.dtype, dev, ((lu, ewa), (lv, ewa), (slab, rw), (lab, cw)))
+        e_hit_u = eact & (ew == comp_w[lu])
+        e_hit_v = eact & (ew == comp_w[lv])
+        r_hit = rw == comp_w[slab]
+        c_hit = cw == comp_w[lab]
+        comp_eid = _segment_min_of(n, _BIGID, torch.int64, dev, (
+            (lu, torch.where(e_hit_u, eid_tree, _BIGID)), (lv, torch.where(e_hit_v, eid_tree, _BIGID)),
+            (slab, torch.where(r_hit, re, _BIGID)), (lab, torch.where(c_hit, ce, _BIGID))))
+        comp_pay = _segment_min_of(n, _BIGID, torch.int64, dev, (
+            (lu, torch.where(e_hit_u & (eid_tree == comp_eid[lu]), pay_tree, _BIGID)),
+            (lv, torch.where(e_hit_v & (eid_tree == comp_eid[lv]), pay_tree, _BIGID)),
+            (slab, torch.where(r_hit & (re == comp_eid[slab]), rp, _BIGID)),
+            (lab, torch.where(c_hit & (ce == comp_eid[lab]), cp, _BIGID))))
+        has = comp_eid < _BIGID
+        pay = torch.clamp_max(comp_pay, E + U * n - 1)
+        is_strip = pay >= E
+        t_idx = torch.clamp_max(pay, max(E - 1, 0))
+        s_flat = torch.clamp_min(pay - E, 0)
+        pu = torch.where(is_strip, sids[torch.div(s_flat, n, rounding_mode="floor")], eu[t_idx])
+        pv = torch.where(is_strip, s_flat % n, ev[t_idx])
+        a, b = lab[pu], lab[pv]
+        tgt = torch.where(a == iota, b, a)
+        lab, n_edges = _hook_and_append(lab, comp_eid, has, tgt, n_edges, n, jumps, out_ok, (out_pay, pay))
+    return out_pay[:-1], out_ok[:-1], lab

@@ -140,6 +140,17 @@ struct WarpSelect {
     }
   }
 
+  // A ready-made key (valid: the candidate counts).  For callers that
+  // select over stored distances (csrc/dynamic.cu); offer above is untouched.
+  __device__ __forceinline__ void offer_key(Key key, bool valid) {
+    if (valid && key < kth) {
+#pragma unroll
+      for (int t = T - 1; t > 0; --t) tq[t] = tq[t - 1];
+      tq[0] = key;
+      ++nv;
+    }
+  }
+
   // Merge the thread queues into the warp queue when any lane asks.
   __device__ __forceinline__ void merge_if(bool mine, int lane, int k) {
     if (__any_sync(kFull, mine)) merge(lane, k);

@@ -1,0 +1,126 @@
+"""The exact-dynamic engine's strip work: launch wrappers of the three CUDA
+kernels of ``csrc/dynamic.cu``.
+
+The PyTorch counterpart of the jnp strip programs of the JAX package's
+exact-dynamic path (``repro/core/dynamic_jax.py`` and
+``core/mst.py::boruvka_strip_jax``), which have no Pallas kernel:
+
+  ``strip_dists``         (U, Np) diff-form distances of U gathered rows to
+                          every slot, replacing ``dynamic_jax.py:145``
+                          (``_strip_dists``) and ``:126`` (``_dense_dists``);
+  ``strip_topk``          the masked, ascending K smallest of each strip
+                          row, replacing the ``lax.top_k`` calls at
+                          ``dynamic_jax.py:187``, ``:207``, ``:287``, ``:429``;
+  ``strip_round_minima``  one Borůvka round's lexicographic (w, pair id,
+                          payload) row and column minima of a strip,
+                          replacing ``mst.py:777-819``.
+
+Each is bit for bit its plain version in ``kernels/ref.py``: a tensor on
+the CPU takes the plain version, a CUDA tensor launches the kernel, and any
+other device raises.  Bounds on the H100: bytes, in every case (the
+source's header says why and what the design does about it).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import ref as _ref
+from .hierarchy import _on_card
+
+__all__ = ["strip_dists", "strip_topk", "strip_round_minima", "launches"]
+
+_INT32_MAX = 2**31 - 1
+
+launches = {"strip_dists": 0, "strip_topk": 0, "strip_round_minima": 0}
+
+
+def _launch(name: str, entry: str, device, *args) -> None:
+    lib = _build.load()
+    with torch.cuda.device(device):
+        code = getattr(lib, entry)(*args, _build.current_stream(device))
+    _build.check(code, name)
+    launches[name] += 1
+
+
+def strip_dists(rows: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """(U, d) rows and (Np, d) slots → (U, Np) f32 diff-form distances
+    ``sqrt(Σ_k (rows[u, k] − X[j, k])²)``, the sum in ascending k with no
+    FMA.  ``out``: a contiguous (U, Np) f32 buffer to write into (a row
+    slice of a larger strip)."""
+    on_card = _on_card("strip_dists", rows, X)
+    if rows.dim() != 2 or X.dim() != 2 or rows.shape[1] != X.shape[1]:
+        raise ValueError(f"strip_dists wants (U, d) rows and (Np, d) slots, got {tuple(rows.shape)} "
+                         f"and {tuple(X.shape)}")
+    U, Np = rows.shape[0], X.shape[0]
+    if out is not None and (out.shape != (U, Np) or out.dtype != torch.float32 or not out.is_contiguous()
+                            or out.device != X.device):
+        raise ValueError(f"strip_dists writes a contiguous ({U}, {Np}) f32 buffer on {X.device}")
+    if not on_card:
+        res = _ref.strip_dists(rows, X)
+        return res if out is None else out.copy_(res)
+    rows, X = rows.float().contiguous(), X.float().contiguous()
+    out = torch.empty((U, Np), dtype=torch.float32, device=X.device) if out is None else out
+    if U * Np:
+        _launch("strip_dists", "repro_strip_dists_f32", X.device,
+                rows.data_ptr(), U, X.data_ptr(), Np, rows.shape[1], out.data_ptr())
+    return out
+
+
+def strip_topk(D: torch.Tensor, row_ids, row_valid, alive, K: int):
+    """Per row u of the (U, Np) strip ``D`` (distances ≥ 0), the K smallest
+    (distance, column) pairs over the columns j with ``row_valid[u] &
+    alive[j] & (j != row_ids[u])``, ascending with ties at the lowest
+    column, padded with (+inf, −1).  Returns ((U, K) f32, (U, K) int32)."""
+    on_card = _on_card("strip_topk", D, row_ids, row_valid, alive)
+    if D.dim() != 2:
+        raise ValueError(f"strip_topk wants a (U, Np) strip, got {tuple(D.shape)}")
+    U, Np = D.shape
+    K = int(K)
+    if row_ids.shape != (U,) or row_valid.shape != (U,) or alive.shape != (Np,) or K < 1:
+        raise ValueError(f"strip_topk wants ({U},) row ids and validity, ({Np},) alive and K >= 1")
+    if not on_card:
+        return _ref.strip_topk(D, row_ids, row_valid.bool(), alive.bool(), K)
+    D = D.float().contiguous()
+    row_ids = row_ids.to(torch.int32).contiguous()
+    row_valid, alive = row_valid.bool().contiguous(), alive.bool().contiguous()
+    out_d = torch.empty((U, K), dtype=torch.float32, device=D.device)
+    out_i = torch.empty((U, K), dtype=torch.int32, device=D.device)
+    if U:
+        _launch("strip_topk", "repro_strip_topk_f32", D.device, D.data_ptr(), U, Np, row_ids.data_ptr(),
+                row_valid.data_ptr(), alive.data_ptr(), K, out_d.data_ptr(), out_i.data_ptr())
+    return out_d, out_i
+
+
+def strip_round_minima(SW: torch.Tensor, smask, sids, lab, E: int = 0):
+    """One Borůvka round's strip reductions: per strip row and per column
+    of the (U, n) weights ``SW``, the lexicographic minimum of (w, pair id
+    ``min(s, c)·n + max(s, c)``, payload ``E + row·n + col``) over the
+    entries ``smask & (lab[sids[row]] != lab[col])``; (+inf, int32 max,
+    int32 max) where none.  Returns (row_w, row_eid, row_pay, col_w,
+    col_eid, col_pay): f32 weights, int64 ids."""
+    on_card = _on_card("strip_round_minima", SW, smask, sids, lab)
+    if SW.dim() != 2:
+        raise ValueError(f"strip_round_minima wants a (U, n) strip, got {tuple(SW.shape)}")
+    U, n = SW.shape
+    E = int(E)
+    if smask.shape != (U, n) or sids.shape != (U,) or lab.shape != (n,):
+        raise ValueError(f"strip_round_minima wants a ({U}, {n}) mask, ({U},) strip ids and ({n},) labels")
+    if n * n > _INT32_MAX or E < 0 or E + U * n > _INT32_MAX:
+        raise ValueError(f"strip_round_minima: pair ids and payloads must stay int32 (n = {n}, E = {E}, U = {U})")
+    if not on_card:
+        return _ref.strip_round_minima(SW, smask.bool(), sids, lab, E)
+    dev = SW.device
+    SW, smask = SW.float().contiguous(), smask.bool().contiguous()
+    sids, lab = sids.to(torch.int32).contiguous(), lab.long().contiguous()
+    rw = torch.empty(U, dtype=torch.float32, device=dev)
+    re = torch.empty(U, dtype=torch.int32, device=dev)
+    rp = torch.empty(U, dtype=torch.int32, device=dev)
+    cw = torch.empty(n, dtype=torch.float32, device=dev)
+    ce = torch.empty(n, dtype=torch.int32, device=dev)
+    cp = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch("strip_round_minima", "repro_strip_round_minima_f32", dev, SW.data_ptr(), smask.data_ptr(),
+            sids.data_ptr(), lab.data_ptr(), U, n, E, rw.data_ptr(), re.data_ptr(), rp.data_ptr(),
+            cw.data_ptr(), ce.data_ptr(), cp.data_ptr())
+    return rw, re.long(), rp.long(), cw, ce.long(), cp.long()

@@ -1,7 +1,7 @@
 """The kernel API and the offline pass.
 
 The PyTorch counterpart of the JAX package's ``repro/kernels/ops.py``,
-without its sharded (``mesh=``) and exact-dynamic branches:
+without its sharded (``mesh=``) branch:
 
 * the point-level functions ``pairwise_sqdist``, ``mutual_reachability``,
   ``knn`` and ``core_distances`` (Def. 1, self-inclusive), the
@@ -20,6 +20,10 @@ without its sharded (``mesh=``) and exact-dynamic branches:
   device-online flat leaf-CF table (core/bubble_flat.py) — the populated
   slots compacted in ascending order and the bubble table derived on the
   device (``_device_table_prepare``), no upload of the summary;
+* ``incremental_update`` / ``incremental_recluster``: the exact-dynamic
+  path (core/dynamic_torch.py) — one update step over a ``DynState``, and
+  labels straight from the maintained point-level MST through the
+  hierarchy stages alone (no Eq. 6, no W, no Borůvka), one host read;
 * ``ClusterBackend``: the device, resolved once by the engine, and the
   ``spatial_index`` switch.
 
@@ -45,6 +49,7 @@ import torch
 
 from ..core.cf import cf_extent, cf_rep
 from ..core.hdbscan import CondensedTree
+from ..core.hierarchy import hierarchy_fixed
 from ..core.mst import boruvka, boruvka_grid
 from ..device import resolve_device, to_device, to_numpy
 from . import assign as _assign_k
@@ -69,6 +74,8 @@ __all__ = [
     "OfflineClusterResult",
     "offline_recluster_from_table",
     "offline_recluster_from_device_table",
+    "incremental_update",
+    "incremental_recluster",
     "ClusterBackend",
     "get_backend",
 ]
@@ -508,6 +515,84 @@ def offline_recluster_from_device_table(
     return stage("unwrap", _unwrap_device_table, out, L, mcs, origin)
 
 
+def incremental_update(state, *, insert=None, slots=None, delete=None, valid=None, min_pts: int,
+                       rk_cap: int = 64, s_cap: int = 64):
+    """One incremental-maintenance step over a padded block (Eqs. 11–12,
+    core/dynamic_torch.py): EITHER ``insert`` ((Bp, d) rows + ``slots``) OR
+    ``delete`` ((Bp,) slot ids); ``valid`` masks padding rows.  Returns the
+    updated ``DynState``; ``state.ok`` False means a strip overflowed its
+    bucket and the caller must rebuild."""
+    from ..core import dynamic_torch as dt
+
+    if (insert is None) == (delete is None):
+        raise ValueError("pass exactly one of insert= / delete=")
+    dev = state.X.device
+
+    def on_dev(x, dtype):  # a tensor moves (no host trip when it is on dev already); host arrays go through numpy
+        return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x), dtype=dtype, device=dev)
+
+    valid = on_dev(valid, torch.bool)
+    if insert is not None:
+        return dt.insert_batch(state, on_dev(insert, torch.float32), on_dev(slots, torch.int64), valid,
+                               min_pts=int(min_pts), rk_cap=int(rk_cap))
+    return dt.delete_batch(state, on_dev(delete, torch.int64), valid,
+                           min_pts=int(min_pts), rk_cap=int(rk_cap), s_cap=int(s_cap))
+
+
+def _incremental_pipeline(X, mst_u, mst_v, mst_raw, mst_valid, cd, alive, n_alive, mcs: float,
+                          method: str = "eom", allow_single: bool = False) -> dict:
+    """Maintained MST buffers → flat labels, skipping Eq. 6 → W → Borůvka:
+    compact the alive slots to leaf ids 0..n−1 by rank (ascending slot),
+    re-derive the mutual-reachability weights from the raw lengths and the
+    current core distances, and run the hierarchy stages at Lp = Np with
+    ``n_valid = n_alive`` (a device scalar) and unit weights.  The
+    compacted coordinates, the slot order and the count ride in the output
+    so the unwrap reads everything in ONE host sync."""
+    Np = alive.shape[0]
+    rank = torch.cumsum(alive.long(), 0) - 1
+    perm = torch.argsort(torch.where(alive, 0, 1), stable=True)
+    mu, mv = mst_u.long(), mst_v.long()
+    eu = torch.where(mst_valid, rank[mu], 0)
+    ev = torch.where(mst_valid, rank[mv], 0)
+    ew = torch.maximum(mst_raw, torch.maximum(cd[mu], cd[mv])).float()
+    ew = torch.where(mst_valid, ew, 0.0)
+    weights = (torch.arange(Np, device=alive.device) < n_alive).float()
+    slt, ct, ex = hierarchy_fixed(eu, ev, ew, mst_valid, n_alive, weights, mcs, method=method,
+                                  allow_single_cluster=allow_single)
+    return {
+        "rep": X[perm], "slots": perm, "n": n_alive,
+        "eu": eu, "ev": ev, "ew": ew, "valid": mst_valid,
+        "labels": ex.labels,
+        "stability": ex.stability,
+        "selected": ex.selected,
+        "point_parent": ct.point_parent,
+        "point_lambda": ct.point_lambda,
+        "cluster_parent": ct.cluster_parent,
+        "cluster_birth": ct.cluster_birth,
+        "cluster_weight": ct.cluster_weight,
+        "n_labels": ct.n_labels,
+    }
+
+
+def incremental_recluster(state, min_cluster_size: float, method: str = "eom",
+                          allow_single_cluster: bool = False):
+    """Labels straight from an incrementally maintained MST (``DynState``).
+
+    Returns (OfflineClusterResult, alive_slots, rep): result rows in
+    ascending-slot order, ``alive_slots[i]`` the state slot of row i, and
+    ``rep`` the (n, d) f32 coordinates per row (gathered on the device).
+    The hierarchy stages only — O(Np) sweeps, no O(Np²) stage — and ONE
+    host read, the unwrap."""
+    mcs = float(min_cluster_size)
+    out = _incremental_pipeline(state.X, state.mst_u, state.mst_v, state.mst_raw, state.mst_valid, state.cd,
+                                state.alive, state.n_alive, mcs, method, bool(allow_single_cluster))
+    host = _to_host(out)  # ONE host sync: labels, arrays, serve reps
+    n = int(host.pop("n"))
+    rep = host.pop("rep")[:n]
+    slots = host.pop("slots")[:n]
+    return _result(host, n, mcs, np.ones(n, dtype=np.float64)), slots, rep
+
+
 class ClusterBackend:
     """Kernel dispatch resolved ONCE at engine construction: the device
     every call moves its inputs to.  On ``cuda`` the wrappers launch the
@@ -585,11 +670,15 @@ class ClusterBackend:
 
         return BubbleFlat(dim, device=self.device, capacity=capacity, spatial_index=self.spatial_index)
 
-    def make_dynamic(self, *args, **kw):
-        raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP.md queue 1, item 6)")
+    def make_dynamic(self, min_pts: int, dim: int, capacity: int = 256, **kw):
+        """Exact-dynamic handle (core/dynamic_torch.py) on this backend's
+        device: its strips run on the kernels of ``kernels/dynamic.py``."""
+        from ..core.dynamic_torch import DynamicTorchHDBSCAN
 
-    def incremental_recluster(self, *args, **kw):
-        raise NotImplementedError("the exact-dynamic path is not ported yet (ROADMAP.md queue 1, item 6)")
+        return DynamicTorchHDBSCAN(min_pts, dim, capacity=capacity, device=self.device, **kw)
+
+    def incremental_recluster(self, state, min_cluster_size: float, **kw):
+        return incremental_recluster(state, min_cluster_size, **kw)
 
 
 def get_backend(device=None, spatial_index: bool = False) -> ClusterBackend:

@@ -27,7 +27,14 @@ flash_attention}.py``):
   (all blocks at once, each masked out once it stops), the tile loop in
   ascending lower bound, the strict skip rule and the lexicographic merges
   on original indices, with the tile distances in the plain
-  ``(xx + yy) − 2·x@yᵀ`` form above.
+  ``(xx + yy) − 2·x@yᵀ`` form above;
+* the exact-dynamic engine's strip work (the JAX package's
+  ``core/dynamic_jax.py`` and ``core/mst.py::boruvka_strip_jax``, jnp
+  programs): distances in the DIFF form ``sqrt(Σ_k (r_k − x_k)²)``, summed
+  over k in ascending order one IEEE operation at a time (never the
+  expansion: the dynamic state holds uncentred coordinates), the masked
+  K smallest of each strip row by a stable sort, and one Borůvka round's
+  lexicographic (w, pair id, payload) row and column minima of a strip.
 
 Dense ``(L, L)`` work is allowed in this file only (repro-lint RPL402).
 """
@@ -58,6 +65,9 @@ __all__ = [
     "grid_assign",
     "grid_core_distances",
     "grid_round_minima",
+    "strip_dists",
+    "strip_topk",
+    "strip_round_minima",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -404,3 +414,100 @@ def grid_round_minima(grid, views, cd, labels, hopeless):
     row_w[rows] = bw.reshape(-1)
     row_eid[rows] = be.reshape(-1).to(torch.int32)
     return row_w, row_eid
+
+
+_STRIP_ELEMS = 1 << 22  # (rows, Np) elements per row block of the strip functions
+
+
+def _row_blocks(U: int, Np: int):
+    step = max(1, _STRIP_ELEMS // max(Np, 1))
+    return ((r0, min(U, r0 + step)) for r0 in range(0, U, step))
+
+
+def strip_dists(rows: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """(U, Np) f32 diff-form distances ``sqrt(Σ_k (rows[u, k] − X[j, k])²)``,
+    the sum over k in ascending order (``acc = acc + diff * diff``), in row
+    blocks of at most ``_STRIP_ELEMS`` elements.  The root is taken in f64
+    and rounded once to f32, which is the correctly rounded f32 root (as
+    the kernel's ``__fsqrt_rn``) on any device: PyTorch's vectorised f32
+    ``sqrt`` on the CPU is not correctly rounded."""
+    rows, X = rows.float(), X.float()
+    U, d = rows.shape
+    out = torch.empty((U, X.shape[0]), dtype=torch.float32, device=X.device)
+    for r0, r1 in _row_blocks(U, X.shape[0]):
+        acc = torch.zeros((r1 - r0, X.shape[0]), dtype=torch.float32, device=X.device)
+        for k in range(d):
+            diff = rows[r0:r1, k : k + 1] - X[None, :, k]
+            acc = acc + diff * diff
+        out[r0:r1] = torch.sqrt(acc.double()).float()
+    return out
+
+
+def strip_topk(D, row_ids, row_valid, alive, K: int):
+    """Per strip row u, the K smallest (distance, column) pairs of ``D[u]``
+    over the columns j with ``row_valid[u] & alive[j] & (j != row_ids[u])``,
+    ascending, ties at the lowest column (a stable sort), padded with
+    (+inf, −1); a non-finite distance also gets index −1.  Returns
+    ((U, K) f32, (U, K) int32)."""
+    U, Np = D.shape
+    dev = D.device
+    iota = torch.arange(Np, device=dev)
+    out_d = torch.empty((U, K), dtype=torch.float32, device=dev)
+    out_i = torch.empty((U, K), dtype=torch.int32, device=dev)
+    for r0, r1 in _row_blocks(U, Np):
+        m = row_valid[r0:r1, None] & alive[None, :] & (iota[None, :] != row_ids[r0:r1, None].long())
+        dm = torch.where(m, D[r0:r1].float(), float("inf"))
+        vals, idx = torch.sort(dm, dim=1, stable=True)
+        vals, idx = vals[:, :K], idx[:, :K]
+        out_d[r0:r1] = vals
+        out_i[r0:r1] = torch.where(torch.isfinite(vals), idx, -1).to(torch.int32)
+    return out_d, out_i
+
+
+def _lex_better(w, e, p, bw, be, bp):
+    """Where (w, e, p) is lexicographically below (bw, be, bp)."""
+    return (w < bw) | ((w == bw) & ((e < be) | ((e == be) & (p < bp))))
+
+
+def strip_round_minima(SW, smask, sids, lab, E: int = 0):
+    """One ``boruvka_strip_jax`` round's strip reductions: per strip row and
+    per column, the lexicographic minimum of (w, canonical pair id
+    ``min(s, c)·n + max(s, c)``, payload ``E + row·n + col``) over the
+    active entries ``smask & (lab[sids[row]] != lab[col])``.  Rows and
+    columns with no active entry get (+inf, int32 max, int32 max).
+    Returns (row_w f32 (U,), row_eid, row_pay int64 (U,), col_w f32 (n,),
+    col_eid, col_pay int64 (n,))."""
+    U, n = SW.shape
+    dev = SW.device
+    inf = float("inf")
+    lab = lab.long()
+    sids = sids.long()
+    slab = lab[sids]
+    iota = torch.arange(n, device=dev)
+    rw = torch.full((U,), inf, device=dev)
+    re = torch.full((U,), _INT32_MAX, dtype=torch.int64, device=dev)
+    rp = torch.full((U,), _INT32_MAX, dtype=torch.int64, device=dev)
+    cw = torch.full((n,), inf, device=dev)
+    ce = torch.full((n,), _INT32_MAX, dtype=torch.int64, device=dev)
+    cp = torch.full((n,), _INT32_MAX, dtype=torch.int64, device=dev)
+    for r0, r1 in _row_blocks(U, n):
+        act = smask[r0:r1] & (slab[r0:r1, None] != lab[None, :])
+        w = torch.where(act, SW[r0:r1].float(), inf)
+        s = sids[r0:r1, None]
+        eid = torch.where(act, torch.minimum(s, iota[None, :]) * n + torch.maximum(s, iota[None, :]), _INT32_MAX)
+        pay = torch.where(act, E + torch.arange(r0, r1, device=dev)[:, None] * n + iota[None, :], _INT32_MAX)
+        # rows: weight, then pair id among the weight's hits, then payload
+        bw = w.amin(1)
+        hit = w == bw[:, None]
+        be = torch.where(hit, eid, _INT32_MAX).amin(1)
+        hit &= eid == be[:, None]
+        rw[r0:r1], re[r0:r1], rp[r0:r1] = bw, be, torch.where(hit, pay, _INT32_MAX).amin(1)
+        # columns: this block's minima, merged into the running ones
+        bw = w.amin(0)
+        hit = w == bw[None, :]
+        be = torch.where(hit, eid, _INT32_MAX).amin(0)
+        hit &= eid == be[None, :]
+        bp = torch.where(hit, pay, _INT32_MAX).amin(0)
+        better = _lex_better(bw, be, bp, cw, ce, cp)
+        cw, ce, cp = torch.where(better, bw, cw), torch.where(better, be, ce), torch.where(better, bp, cp)
+    return rw, re, rp, cw, ce, cp

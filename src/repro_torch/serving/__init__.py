@@ -9,7 +9,7 @@ populate the version-keyed device cache — never the reverse.
 # lock-order: QueryBatcher._dispatch -> TenantRouter._lock -> StreamingClusterEngine._snapshot_lock -> SnapshotDeviceCache._lock
 
 from .query import QueryBatcher, QueryEngine, QueryResult, SnapshotDeviceCache
-from .stream import ClusterSnapshot, StalenessPolicy, StreamingClusterEngine, Ticket
+from .stream import ClusterSnapshot, StalenessPolicy, StreamingClusterEngine, Ticket, UpdatePolicy
 from .tenants import TenantRouter
 
 __all__ = [
@@ -22,4 +22,5 @@ __all__ = [
     "StreamingClusterEngine",
     "TenantRouter",
     "Ticket",
+    "UpdatePolicy",
 ]

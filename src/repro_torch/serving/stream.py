@@ -40,8 +40,16 @@ The PyTorch counterpart of the JAX package's ``serving/stream.py``:
                   exact searches, CUDA kernels on the card, the same
                   answers as the dense path and no (L, L) matrix.
 
-The options ``exact`` and ``mesh`` are not ported yet (ROADMAP.md, queue
-1, items 6 and 7): each raises ``NotImplementedError``.
+  exact-dynamic   with ``exact=True`` (DESIGN.md §7) the engine maintains
+                  the point-level MST itself (core/dynamic_torch.py): each
+                  applied block goes through the paper's update rules
+                  (Eqs. 11–12) on the card or, past the `UpdatePolicy`
+                  crossover, marks the state for a rebuild; every poll
+                  publishes labels from the maintained tree through the
+                  hierarchy stages alone (``ops.incremental_recluster``).
+
+The ``mesh`` option is not ported yet (ROADMAP.md queue 1, item 7): it
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ import torch
 
 from ..core.bubble_flat import FlatFrameError
 from ..core.bubble_tree import BubbleTree
-from ..core.device_table import SnapshotDeviceTable
+from ..core.device_table import DynamicStateCapture, SnapshotDeviceTable
 from ..device import to_numpy
 from ..kernels import ops
 from .batcher import HostBatcher
@@ -64,6 +72,7 @@ from .query import QueryEngine, QueryResult
 __all__ = [
     "Ticket",
     "StalenessPolicy",
+    "UpdatePolicy",
     "ClusterSnapshot",
     "QueryResult",
     "StreamingClusterEngine",
@@ -72,7 +81,6 @@ __all__ = [
 # options of the JAX engine that this port does not carry yet, and the
 # ROADMAP.md queue-1 item that will
 _NOT_PORTED = {
-    "exact": "queue 1, item 6 (exact-dynamic path)",
     "mesh": "queue 1, item 7 (multi-device offline pass)",
 }
 
@@ -84,14 +92,6 @@ _RESULT_FIELDS = (
     "cluster_parent", "cluster_birth", "cluster_weight", "selected",
     "all_stabilities",
 )
-
-
-def _refuse_unported(d: dict):
-    """Refuse, rather than silently drop, checkpointed state of a mode
-    this port does not carry yet."""
-    if bool(d["cfg/exact"]):
-        raise NotImplementedError(
-            "exact=True engines are not ported yet (ROADMAP.md queue 1, item 6)")
 
 
 def _ragged_pack(lists):
@@ -137,6 +137,34 @@ class StalenessPolicy:
             return True
         eff = max(0.0, tree.dirty_mass - pending)
         return eff / max(float(tree.n_points), 1.0) >= self.epsilon
+
+
+@dataclasses.dataclass
+class UpdatePolicy:
+    """Crossover heuristic of the exact-dynamic path: where incremental
+    maintenance stops beating a from-scratch pass (the paper's Fig. 3).
+    Each applied block is routed
+
+      * ``incremental`` — block points ≤ ``max_update_frac`` × current
+        population: Eqs. 11–12 on the device, then labels through the
+        hierarchy stages alone;
+      * ``full`` — big blocks, small populations, or blocks that would grow
+        the capacity bucket: the state is marked stale and the next refresh
+        rebuilds it from the tree.
+
+    A third, retroactive fallback lives in core/dynamic_torch.py: an
+    RkNN/S' strip overflow flips the state's ``ok`` bit and the handle
+    rebuilds."""
+
+    max_update_frac: float = 0.05
+    min_incremental_points: int = 64
+
+    def route(self, n_before: int, block_points: int, grows: bool) -> str:
+        if grows or n_before < self.min_incremental_points:
+            return "full"
+        if block_points > self.max_update_frac * max(n_before, 1):
+            return "full"
+        return "incremental"
 
 
 @dataclasses.dataclass
@@ -210,6 +238,12 @@ class StreamingClusterEngine:
         slot table with compensated sums): block inserts and deletes run
         there as one assignment and one scatter, and ε-passes read it
         with no upload of the summary.  Incompatible with ``exact``.
+      exact: the exact-dynamic path — maintain the point-level MST
+        incrementally on the device (core/dynamic_torch.py) and refresh
+        exact labels every poll through the hierarchy stages alone.
+        Incompatible with ``device_online`` and ``async_offline``.
+      update_policy: incremental-vs-full routing (exact mode only).
+      exact_capacity: initial slot-capacity bucket of the dynamic state.
       query_cache, query_scope: a shared `SnapshotDeviceCache` and this
         engine's scope in it — a `TenantRouter` pools one cache across
         engines with ``(tenant, version)`` keys.
@@ -231,6 +265,8 @@ class StreamingClusterEngine:
         spatial_index: bool = False,
         device_online: bool | None = None,
         exact: bool = False,
+        update_policy: UpdatePolicy | None = None,
+        exact_capacity: int = 256,
         mesh=None,
         query_cache=None,
         query_scope=None,
@@ -241,10 +277,10 @@ class StreamingClusterEngine:
                 "device_online summarizes into the flat leaf-CF state; "
                 "exact=True bypasses bubble summarization entirely"
             )
-        for name, on in (("exact", exact), ("mesh", mesh is not None)):
-            if on:
-                raise NotImplementedError(
-                    f"{name} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[name]}")
+        if mesh is not None:
+            raise NotImplementedError(f"mesh is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED['mesh']}")
+        if exact and async_offline:
+            raise ValueError("exact=True refreshes labels synchronously per poll; async_offline is not supported")
         self.backend = ops.get_backend(device, spatial_index=spatial_index)
         assign_fn = None
         if self.backend.device.type == "cuda":
@@ -282,6 +318,14 @@ class StreamingClusterEngine:
         # always-ready fallback; device_online prefers the flat table
         self._host_table = SnapshotDeviceTable(self.tree)  # owner: ingest thread
         self._table = self._flat if device_online else self._host_table  # owner: ingest thread
+        self.exact = bool(exact)
+        self.update_policy = update_policy if update_policy is not None else UpdatePolicy()
+        self._dyn = (  # owner: ingest thread (exact mode is synchronous)
+            self.backend.make_dynamic(self.min_pts, dim, capacity=int(exact_capacity)) if self.exact else None
+        )
+        # no incremental state until the first rebuild
+        self._dyn_stale = True  # owner: ingest thread
+        self._pid2slot: dict[int, int] = {}  # owner: ingest thread
         self._query_engine = QueryEngine(self.backend, dim, cache=query_cache, scope=query_scope)
         # unsynchronized: single-reference swap; readers take ONE read of
         # the (key, payload) tuple (see labels()) so entries never mix
@@ -296,6 +340,9 @@ class StreamingClusterEngine:
             "recluster_skipped_busy": 0,
             "recluster_failures": 0,
             "offline_seconds_total": 0.0,
+            "incremental_blocks": 0,
+            "exact_full_blocks": 0,
+            "exact_rebuilds": 0,
             "device_online_blocks": 0,
             "flat_loads": 0,
             "label_cache_hits": 0,
@@ -334,6 +381,7 @@ class StreamingClusterEngine:
             if kind == "insert":
                 X = np.concatenate([x for x, _ in items], axis=0)
                 pids = self._apply_insert_block(X)
+                self._exact_apply_insert(X, pids)
                 off = 0
                 for x, ticket in items:  # requests are never split: one fill
                     take = x.shape[0]
@@ -358,10 +406,13 @@ class StreamingClusterEngine:
                         except KeyError as e:
                             if err is None:
                                 err = e
+                        else:
+                            self._exact_apply_delete(chunk)
                     self.stats["deletes"] += done
                     if err is not None:
                         raise err from None
                 else:
+                    self._exact_apply_delete(flat_pids)
                     self.stats["deletes"] += len(flat_pids)
                     applied += len(flat_pids)
             self.stats["blocks_applied"] += 1
@@ -449,6 +500,71 @@ class StreamingClusterEngine:
         self.stats["device_online_blocks"] += 1
         self.stats["flat_loads"] = self._flat.loads
 
+    # -- exact-dynamic path (core/dynamic_torch.py, DESIGN.md §7) -----------
+
+    def _exact_apply_insert(self, X, pids):
+        """Route one applied insert block through the incremental rules
+        (Eq. 11), or mark the device state stale for a rebuild at the next
+        refresh — the UpdatePolicy crossover."""
+        if not self.exact:
+            return
+        route = self.update_policy.route(self._dyn.n, len(pids), self._dyn.would_grow(len(pids)))
+        if self._dyn_stale or route == "full":
+            self._dyn_stale = True
+            self.stats["exact_full_blocks"] += 1
+            return
+        slots = self._dyn.insert_block(X)
+        for p, s in zip(pids, slots):
+            self._pid2slot[int(p)] = s
+        self.stats["incremental_blocks"] += 1
+
+    def _exact_apply_delete(self, pids):
+        """Same, for deletions (Eq. 12).  An RkNN/S' overflow inside the
+        update rebuilds the state in place (slots survive), so the mapping
+        stays valid either way."""
+        if not self.exact:
+            return
+        route = self.update_policy.route(self._dyn.n, len(pids), False)
+        if self._dyn_stale or route == "full":
+            self._dyn_stale = True
+            self.stats["exact_full_blocks"] += 1
+            for p in pids:
+                self._pid2slot.pop(int(p), None)
+            return
+        self._dyn.delete_block([self._pid2slot.pop(int(p)) for p in pids])
+        self.stats["incremental_blocks"] += 1
+
+    def _rebuild_dyn(self):
+        """Full pass: reload the device state from the tree's alive points
+        (the authoritative store) and rebuild kNN, cd and MST from scratch."""
+        pids, X = self.tree.alive_points()
+        slots = self._dyn.load(X, slots=list(range(len(pids))), shrink=True)
+        self._pid2slot = {int(p): s for p, s in zip(pids, slots)}
+        self._dyn_stale = False
+        self.stats["exact_rebuilds"] += 1
+
+    def _exact_refresh(self, force: bool = False) -> bool:
+        """The exact-mode maybe_recluster: every poll that left the tree
+        dirty publishes a snapshot — incremental states pay the hierarchy
+        stages only, stale or overflowed ones one rebuild first.  Snapshot
+        rows are the alive slots in ascending order, their coordinates
+        gathered on the device: ONE host read per refresh."""
+        n = self.tree.n_points
+        if n < 2 or (n < self.policy.min_points and not force):
+            return False
+        if self.tree.dirty_mass <= 0 and self.snapshot is not None and not force:
+            return False
+        t0 = time.perf_counter()
+        dirty_captured = self.tree.dirty_mass
+        if self._dyn_stale or not self._dyn.ok or self._dyn.n != n:
+            self._rebuild_dyn()
+        cap = DynamicStateCapture(state=self._dyn.state, dim=self.tree.dim)
+        res, rep, n_b, center = cap.recluster(
+            self.backend, min_pts=self.min_pts, min_cluster_size=self.min_cluster_size)
+        self._publish_snapshot(res, rep, n_b, center, n, dirty_captured, t0)
+        self._settle()
+        return True
+
     # -- offline plane -----------------------------------------------------
 
     def _settle(self):
@@ -464,7 +580,10 @@ class StreamingClusterEngine:
     def maybe_recluster(self, force: bool = False) -> bool:
         """Trigger an offline pass if the policy says the hierarchy is
         stale (or `force`).  Async mode returns immediately; a pass
-        already in flight absorbs the trigger."""
+        already in flight absorbs the trigger.  Exact mode refreshes from
+        the maintained MST instead (every poll, never ε-deferred)."""
+        if self.exact:
+            return self._exact_refresh(force)
         self._raise_pending_offline_error()
         # liveness BEFORE settle: a pass landing in between is still
         # settled before any capture below, never double-settled
@@ -522,6 +641,12 @@ class StreamingClusterEngine:
         t0 = time.perf_counter()
         res, rep, n_b, center = capture.recluster(
             self.backend, min_pts=self.min_pts, min_cluster_size=self.min_cluster_size)
+        return self._publish_snapshot(res, rep, n_b, center, n_points, dirty_captured, t0)
+
+    def _publish_snapshot(self, res, rep, n_b, center, n_points, dirty_captured, t0):
+        """Version bump and swap in ONE place: the ε-triggered offline
+        plane and the exact path both publish here.  Settling the dirty
+        mass is the main thread's (``_settle``)."""
         wall = time.perf_counter() - t0
         # version bump + swap under ONE lock hold
         with self._snapshot_lock:
@@ -570,8 +695,9 @@ class StreamingClusterEngine:
         bit), the ε accounting and the last PUBLISHED snapshot.  Not
         captured: an in-flight async pass (recovery replays to the last
         published version and the pass re-triggers off the kept dirty
-        mass), queued requests and the counters.  Call from the ingest
-        thread, as `poll()`."""
+        mass), the exact-mode dynamic MST state (rebuilt from the tree at
+        the next refresh), queued requests and the counters.  Call from the
+        ingest thread, as `poll()`."""
         # ONE lock hold for (version, snapshot): separate reads could pair
         # version N with a version-N+1 snapshot, and the restored engine
         # would issue N+1 a second time
@@ -589,7 +715,7 @@ class StreamingClusterEngine:
             "cfg/min_cluster_size": np.float64(self.min_cluster_size),
             "cfg/compression": np.float64(t.compression),
             "cfg/epsilon": np.float64(self.policy.epsilon),
-            "cfg/exact": np.bool_(False),
+            "cfg/exact": np.bool_(self.exact),
             "cfg/device_online": np.bool_(self._flat is not None),
             "tree/LS": t.LS.copy(),
             "tree/SS": t.SS.copy(),
@@ -680,19 +806,19 @@ class StreamingClusterEngine:
         Raises as the JAX engine's restore does on an unknown format, a
         wrong dim or queued requests, and with ``same_mode`` on a
         checkpoint whose ``cfg/exact`` or ``cfg/device_online`` differs
-        from this engine's (ValueError); raises NotImplementedError for an
-        exact-mode state, which this port does not carry yet."""
+        from this engine's (ValueError).  An exact-mode engine's dynamic
+        state is not in the checkpoint: it is rebuilt from the restored
+        tree at the next refresh."""
         if int(d["cfg/format"]) != _CKPT_FORMAT:
             raise ValueError(f"unknown checkpoint format {int(d['cfg/format'])}")
         if int(d["cfg/dim"]) != self.tree.dim:
             raise ValueError(f"checkpoint dim {int(d['cfg/dim'])} != engine dim {self.tree.dim}")
         if same_mode:
-            for key, mine in (("cfg/exact", False), ("cfg/device_online", self._flat is not None)):
+            for key, mine in (("cfg/exact", self.exact), ("cfg/device_online", self._flat is not None)):
                 if bool(d[key]) != mine:
                     raise ValueError(
                         f"checkpoint {key}={bool(d[key])} does not match this engine ({mine}) — "
                         "construct the replacement worker with the same mode")
-        _refuse_unported(d)
         if self.batcher:
             raise RuntimeError("restore() into an engine with queued requests")
         t = self.tree
@@ -749,6 +875,12 @@ class StreamingClusterEngine:
                 self._restore_flat(d)
             else:
                 self._flat.stale = True
+        if self.exact:
+            # the dynamic MST state is not serialized: one rebuild from the
+            # restored tree (the authoritative point store) at the next
+            # refresh reproduces it
+            self._dyn_stale = True
+            self._pid2slot = {}
 
     def _restore_flat(self, d: dict):
         """Rebuild the device-resident flat table bit for bit: origin, slot

@@ -348,21 +348,28 @@ class TestEngineRoundTrip:
 
     @pytest.mark.parametrize("field,item", [("cfg/exact", "item 6")])
     def test_unported_state_is_refused(self, field, item):
-        """An exact-mode state: restore checks the mode first and raises the
-        reference's ValueError; the carry, which takes its modes from the
-        state, refuses it as not ported."""
+        """An exact-mode state (ROADMAP queue 1, item 6, once refused as not
+        ported): restore into a default engine checks the mode first and
+        raises the reference's ValueError; the carry, which takes its modes
+        from the state, now builds an exact-mode engine that rebuilds its
+        dynamic state from the restored tree and stays in lockstep."""
         from repro_torch import engine_from_reference_state
 
-        eng = _port()
+        eng = _port(exact=True)
         _drive(eng, _blocks(5, 2))
         state = eng.checkpoint_state()
-        state[field] = np.bool_(True)
+        assert bool(state[field]) and item == "item 6"
         fresh = _port()
         with pytest.raises(ValueError, match=field):
             fresh.restore(_DictStore(state))
-        with pytest.raises(NotImplementedError, match=item):
-            engine_from_reference_state(state, device="cpu")
         assert fresh.snapshot is None and fresh.tree.n_points == 0
+        carried = engine_from_reference_state(state, device="cpu")
+        assert carried.exact and carried.snapshot.version == eng.snapshot.version
+        extra = _blocks(6, 1)[0]
+        for e in (eng, carried):
+            e.ingest(extra)
+        _assert_lockstep(carried, eng)
+        assert carried.stats["exact_rebuilds"] == 1
 
     def test_device_online_state_restores(self):
         """A live flat table (``flat/has``) restores into a device-online
@@ -489,3 +496,32 @@ class TestAcrossPackages:
             _drive(eng, blocks[cut:])
         _assert_milestone(port, ref)
         _assert_milestone(port, ref_twin)
+
+
+class TestExactModeCheckpoints:
+    @pytest.mark.parametrize("direction", ["reference_to_port", "port_to_reference"])
+    def test_exact_mode_roundtrip(self, tmp_path, direction):
+        """An ``exact=True`` engine saved by one package restores into the
+        other's (``cfg/exact`` carried; the dynamic state rebuilt from the
+        tree at the next refresh), and the next refreshes give the
+        reference's versions and partitions."""
+        blocks = _blocks(23, 6)
+        cut = 3
+        to_port = direction == "reference_to_port"
+        src = _ref(exact=True) if to_port else _port(exact=True)
+        twin = _ref(exact=True)
+        for eng in (src, twin):
+            _drive(eng, blocks[:cut])
+        store = (RefStore if to_port else CheckpointStore)(str(tmp_path), keep=2)
+        src.save(store)
+        store.close()
+        dst = _port(exact=True) if to_port else _ref(exact=True)
+        rstore = (CheckpointStore if to_port else RefStore)(str(tmp_path))
+        dst.restore(rstore)
+        rstore.close()
+        port, ref = (dst, twin) if to_port else (src, dst)
+        _assert_milestone(port, ref)
+        for eng in (port, ref):
+            _drive(eng, blocks[cut:])
+        _assert_milestone(port, ref)
+        assert dst.exact and dst.stats["exact_rebuilds"] >= 1

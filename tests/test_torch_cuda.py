@@ -1153,3 +1153,137 @@ class TestCudaGrid:
             got = w[:L].double().cpu().numpy() ** 2
             want = self_sq.min(1)
         assert np.abs(got - want).max() < 2e-5
+
+
+def _fma_probe_rows(rng, d=4):
+    """Two f32 rows whose diff-form squared sum rounds differently when the
+    last ``acc + diff * diff`` is contracted into one fused multiply-add:
+    the kernel must give the unfused bits of the plain version."""
+    for _ in range(100_000):
+        a = rng.normal(size=(2, d)).astype(np.float32)
+        diff = (a[0] - a[1]).astype(np.float32)
+        acc = np.float32(0.0)
+        for k in range(d - 1):
+            acc = np.float32(acc + np.float32(diff[k] * diff[k]))
+        unfused = np.float32(acc + np.float32(diff[-1] * diff[-1]))
+        fused = np.float32(np.float64(acc) + np.float64(diff[-1]) * np.float64(diff[-1]))
+        if unfused != fused:
+            return a
+    raise AssertionError("no FMA probe found")
+
+
+@pytest.mark.cuda
+class TestCudaDynamic:
+    """The exact-dynamic engine's three kernels (``csrc/dynamic.cu``) bit for
+    bit their plain versions: ragged U and Np (multiples of no tile), tie
+    heavy integer grids, K not a multiple of 32 and past the 1024 queue, an
+    FMA probe; then a small engine on the card against the same engine on
+    the CPU, state for state."""
+
+    @pytest.mark.parametrize("case", ["spread", "grid", "offset"])
+    @pytest.mark.parametrize("shape", [(37, 1001, 3), (64, 128, 16), (5, 77, 40)])
+    def test_strip_dists_bitwise(self, cuda_device, case, shape):
+        from repro_torch.kernels import dynamic as t_dyn
+
+        U, Np, d = shape
+        rng = np.random.default_rng(41)
+        if case == "grid":
+            X = rng.integers(-4, 5, size=(Np, d)).astype(np.float32)
+        else:
+            X = (rng.normal(size=(Np, d)) * 3 + (1e3 if case == "offset" else 0)).astype(np.float32)
+        rows = X[rng.integers(0, Np, size=U)]
+        x, r = _t(X).to(cuda_device), _t(rows).to(cuda_device)
+        t_dyn.launches["strip_dists"] = 0
+        got = t_dyn.strip_dists(r, x)
+        assert t_dyn.launches["strip_dists"] == 1
+        assert torch.equal(got, tref.strip_dists(r, x))
+        assert torch.equal(got.cpu(), tref.strip_dists(r.cpu(), x.cpu()))
+
+    @pytest.mark.parametrize("d", [4, 16])
+    def test_strip_dists_fma_probe(self, cuda_device, d):
+        from repro_torch.kernels import dynamic as t_dyn
+
+        a = _t(_fma_probe_rows(np.random.default_rng(d), d)).to(cuda_device)
+        got = t_dyn.strip_dists(a[:1], a)
+        assert torch.equal(got, tref.strip_dists(a[:1], a))
+        assert torch.equal(got.cpu(), tref.strip_dists(a[:1].cpu(), a.cpu()))
+
+    @pytest.mark.parametrize("case", ["spread", "grid"])
+    @pytest.mark.parametrize("K", [1, 10, 33, 100, 1024, 1500])
+    def test_strip_topk_bitwise(self, cuda_device, case, K):
+        from repro_torch.kernels import dynamic as t_dyn
+
+        rng = np.random.default_rng(K)
+        U, Np = 45, 2051
+        X = (rng.integers(-3, 4, size=(Np, 3)) if case == "grid" else rng.normal(size=(Np, 3))).astype(np.float32)
+        ids = rng.integers(0, Np, size=U)
+        x = _t(X).to(cuda_device)
+        D = tref.strip_dists(x[torch.as_tensor(ids, device=cuda_device)], x)
+        row_ids = torch.as_tensor(ids, device=cuda_device)
+        valid = torch.as_tensor(rng.random(U) < 0.9, device=cuda_device)
+        alive = torch.as_tensor(rng.random(Np) < 0.8, device=cuda_device)
+        t_dyn.launches["strip_topk"] = 0
+        gd, gi = t_dyn.strip_topk(D, row_ids, valid, alive, K)
+        assert t_dyn.launches["strip_topk"] == 1
+        wd, wi = tref.strip_topk(D, row_ids, valid, alive, K)
+        assert torch.equal(gd, wd) and torch.equal(gi, wi)
+
+    @pytest.mark.parametrize("ties", [False, True], ids=["tie_free", "ties"])
+    @pytest.mark.parametrize("shape", [(10, 48), (333, 1001)])
+    def test_strip_round_minima_bitwise(self, cuda_device, ties, shape):
+        from repro_torch.kernels import dynamic as t_dyn
+
+        U, n = shape
+        rng = np.random.default_rng(U)
+        SW = (rng.integers(1, 5, size=(U, n)) if ties else rng.random((U, n))).astype(np.float32)
+        sids = rng.permutation(n)[:U]
+        smask = (rng.random((U, n)) < 0.5) & (np.arange(n)[None, :] != sids[:, None])
+        SW = np.where(smask, SW, np.inf).astype(np.float32)
+        lab = rng.integers(0, max(2, n // 7), size=n)
+        args = [_t(a).to(cuda_device) for a in (SW, smask, sids, lab)]
+        t_dyn.launches["strip_round_minima"] = 0
+        got = t_dyn.strip_round_minima(*args, E=n)
+        assert t_dyn.launches["strip_round_minima"] == 1
+        want = tref.strip_round_minima(args[0], args[1], args[2], args[3], n)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+    def test_engine_on_the_card_equals_the_cpu(self, cuda_device):
+        """A DynamicTorchHDBSCAN on the card and one on the CPU through the
+        same inserts, deletes and a rebuild: every state field equal."""
+        from repro_torch.core.dynamic_torch import DynamicTorchHDBSCAN
+        from repro_torch.kernels import dynamic as t_dyn
+
+        rng = np.random.default_rng(5)
+        X0, X = rng.normal(size=(300, 16)), rng.normal(size=(12, 16))
+        card = DynamicTorchHDBSCAN(10, 16, capacity=512, device=cuda_device)
+        host = DynamicTorchHDBSCAN(10, 16, capacity=512, device="cpu")
+        for k in t_dyn.launches:
+            t_dyn.launches[k] = 0
+        for h in (card, host):
+            h.load(X0)
+        for h in (card, host):
+            h.insert_block(X)
+            h.delete_block(list(range(0, 24, 2)))
+        assert all(v > 0 for v in t_dyn.launches.values()), t_dyn.launches
+        for f in card.state._fields:
+            assert torch.equal(getattr(card.state, f).cpu(), getattr(host.state, f)), f
+
+    def test_incremental_update_takes_card_tensors(self, cuda_device):
+        """ops.incremental_update with the block already on the card: the
+        same state as the CPU's from host arrays."""
+        from repro_torch.core.dynamic_torch import DynamicTorchHDBSCAN
+
+        rng = np.random.default_rng(6)
+        X0, P = rng.normal(size=(200, 16)), rng.normal(size=(8, 16)).astype(np.float32)
+        card = DynamicTorchHDBSCAN(10, 16, capacity=256, device=cuda_device)
+        host = DynamicTorchHDBSCAN(10, 16, capacity=256, device="cpu")
+        for h in (card, host):
+            h.load(X0)
+        slots, valid = np.arange(200, 208), np.ones(8, bool)
+        got = tops.incremental_update(card.state, insert=_t(P).to(cuda_device),
+                                      slots=torch.as_tensor(slots, device=cuda_device),
+                                      valid=torch.as_tensor(valid, device=cuda_device), min_pts=10)
+        want = tops.incremental_update(host.state, insert=P, slots=slots, valid=valid, min_pts=10)
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

@@ -420,10 +420,13 @@ class TestFlatState:
 
 class TestEngineModes:
     def test_rejects_exact_mode(self):
+        """exact=True with device_online is refused (the reference's
+        ValueError); exact=True alone now runs, with no flat table."""
         with pytest.raises(ValueError, match="exact"):
             StreamingClusterEngine(dim=2, device="cpu", exact=True, device_online=True)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            StreamingClusterEngine(dim=2, device="cpu", exact=True)
+        eng = StreamingClusterEngine(dim=2, device="cpu", exact=True, min_offline_points=8)
+        eng.ingest(np.random.default_rng(0).normal(size=(40, 2)))
+        assert eng._flat is None and eng.snapshot.n_points == 40 and eng.stats["exact_rebuilds"] == 1
 
     def test_backend_hands_out_flat_tables(self):
         flat = tops.get_backend("cpu").make_flat(3, capacity=20)

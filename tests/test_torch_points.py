@@ -363,9 +363,27 @@ class TestBackend:
         assert float(np.sum(got.mst[2])) == pytest.approx(float(np.sum(want.mst[2])), rel=1e-6)
 
     @pytest.mark.parametrize("method", ["make_dynamic", "incremental_recluster"])
-    def test_unported_paths_raise(self, method):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            getattr(tops.get_backend("cpu"), method)(4)
+    def test_unported_paths_raise(self, method, rng):
+        """Once refused as not ported, the exact-dynamic backend methods now
+        run: ``make_dynamic`` hands out a handle on the backend's device and
+        ``incremental_recluster`` labels its state like static HDBSCAN."""
+        from repro.core.hdbscan import hdbscan
+        from repro_torch.core.dynamic_torch import DynamicTorchHDBSCAN
+
+        be = tops.get_backend("cpu")
+        dev = be.make_dynamic(4, 3, capacity=32)
+        assert isinstance(dev, DynamicTorchHDBSCAN) and dev.state.X.device == be.device
+        X, _ = make_blobs(rng, n_per=20, d=3)
+        slots = dev.insert_block(X)
+        if method == "make_dynamic":
+            assert dev.ok and dev.n == len(X)
+            assert dev.total_weight() == pytest.approx(hdbscan(X, min_pts=4).total_mst_weight, rel=1e-6)
+        else:
+            res, got_slots, rep = be.incremental_recluster(dev.state, 4.0)
+            np.testing.assert_array_equal(got_slots, np.sort(slots))
+            np.testing.assert_array_equal(rep, X[np.argsort(slots)].astype(np.float32))
+            assert_same_partition(res.labels, hdbscan(X[np.argsort(slots)], min_pts=4,
+                                                       min_cluster_size=4.0).labels)
 
     def test_make_flat_feeds_the_device_table_pass(self, rng):
         """``make_flat`` hands out a flat table on the backend's device, and

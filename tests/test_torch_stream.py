@@ -13,6 +13,12 @@ passes depend on timing.
 
 The carry test starts the port from the reference's
 ``checkpoint_state()`` mid-stream and feeds both the same further blocks.
+
+The exact-dynamic cases (``-k exact``) drive an interleaved insert /
+delete / query stream, as tests/test_hybrid_fuzz.py does, through both
+``exact=True`` engines: every poll the same version, the same partition,
+MST weight within 1e-6 relative, the same served rows, and the same
+``incremental_blocks`` / ``exact_full_blocks`` / ``exact_rebuilds``.
 """
 
 import numpy as np
@@ -20,7 +26,8 @@ import pytest
 
 from conftest import assert_same_partition, make_blobs
 from repro.serving.stream import StreamingClusterEngine as RefEngine
-from repro_torch import StreamingClusterEngine, engine_from_reference_state
+from repro.serving.stream import UpdatePolicy as RefPolicy
+from repro_torch import StreamingClusterEngine, UpdatePolicy, engine_from_reference_state
 
 DIM = 3
 CENTERS = ((0.0, 0.0, 0.0), (3.0, 0.0, 0.0), (0.0, 3.0, 0.0))
@@ -161,18 +168,45 @@ class TestCarry:
         port.tree.check_invariants()
 
     def test_rejects_modes_not_ported(self):
-        ref = RefEngine(DIM, backend="jnp", **ENGINE_KW)
-        state = ref.checkpoint_state()
-        state["cfg/exact"] = np.bool_(True)
-        with pytest.raises(NotImplementedError):
-            engine_from_reference_state(state, device="cpu")
+        """An exact-mode reference checkpoint (once refused) carries across
+        as an exact-mode engine that resumes in step with the reference;
+        ``mesh``, still not ported, is refused."""
+        ops = _stream(5)
+        head, tail = ops[:6], ops[6:10]
+        ref = RefEngine(DIM, backend="jnp", exact=True, **ENGINE_KW)
+        pids = [p for kind, payload in head if kind == "insert" for p in ref.ingest(payload)]
+        port = engine_from_reference_state(
+            ref.checkpoint_state(), device="cpu",
+            max_block=ENGINE_KW["max_block"], min_offline_points=ENGINE_KW["min_offline_points"])
+        assert port.exact and port.snapshot.version == ref.snapshot.version
+        for kind, payload in tail:
+            if kind == "insert":
+                pids.extend(port.ingest(payload))
+                assert ref.ingest(payload) == pids[-len(payload):]
+            elif kind == "delete":
+                port.retire([pids[i] for i in payload])
+                ref.retire([pids[i] for i in payload])
+            else:
+                _assert_same_queries(port, ref, payload)
+            assert port.snapshot.version == ref.snapshot.version
+            _assert_same_snapshot(port.snapshot, ref.snapshot)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            engine_from_reference_state(ref.checkpoint_state(), device="cpu", mesh=object())
 
 
 class TestEngineOptions:
     @pytest.mark.parametrize("opt", [{"exact": True}, {"mesh": True}])
     def test_options_not_ported_raise(self, opt):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            StreamingClusterEngine(DIM, device="cpu", **opt)
+        """``mesh`` is not ported and raises; ``exact`` (once refused too)
+        constructs and polls."""
+        if "mesh" in opt:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                StreamingClusterEngine(DIM, device="cpu", **opt)
+            return
+        eng = StreamingClusterEngine(DIM, device="cpu", **opt, **ENGINE_KW)
+        eng.submit_insert(_stream(3)[0][1])
+        assert eng.poll() == 150
+        assert eng.snapshot.n_points == 150 and eng.snapshot.n_bubbles == 150
 
     @pytest.mark.parametrize("device_online", [False, True], ids=["host_table", "device_online"])
     def test_spatial_index_runs_the_stream(self, device_online):
@@ -233,3 +267,90 @@ class TestSnapshotCache:
         assert not any(t.is_alive() for t in threads)
         assert len(got) == 16 and all(e is got[0] for e in got)
         assert cache.builds == 1 and cache.hits == 15
+
+
+EXACT_KW = dict(exact=True, min_pts=5, min_cluster_size=5.0, exact_capacity=64, min_offline_points=10)
+EXACT_COUNTERS = ("incremental_blocks", "exact_full_blocks", "exact_rebuilds")
+
+
+def _exact_stream(seed: int, steps: int):
+    """Interleaved ops in the manner of tests/test_hybrid_fuzz.py: inserts
+    of 1–11 points around three centres, deletes of 1–5 live points (by
+    insert position), query batches."""
+    rng = np.random.default_rng(seed)
+    centres = np.array([[0.0, 0.0, 0.0], [6.0, 6.0, 0.0], [-6.0, 5.0, 1.0]])
+    ops, live, n_ins = [], [], 0
+    for step in range(steps):
+        r = rng.random()
+        if step < 4 or len(live) < 30 or r < 0.5:
+            k = int(rng.integers(1, 12))
+            ops.append(("insert", centres[rng.integers(3, size=k)] + rng.normal(size=(k, 3))))
+            live += range(n_ins, n_ins + k)
+            n_ins += k
+        elif r < 0.85:
+            pos = set(rng.choice(len(live), size=int(rng.integers(1, 6)), replace=False).tolist())
+            ops.append(("delete", [a for i, a in enumerate(live) if i in pos]))
+            live = [a for i, a in enumerate(live) if i not in pos]
+        else:
+            ops.append(("query", rng.normal(size=(30, 3)) * 4.0))
+    return ops
+
+
+def _drive_exact(port, ref, ops):
+    pids = []
+    for kind, payload in ops:
+        if kind == "insert":
+            a, b = port.ingest(payload), ref.ingest(payload)
+            assert a == b
+            pids.extend(a)
+        elif kind == "delete":
+            port.retire([pids[i] for i in payload])
+            ref.retire([pids[i] for i in payload])
+        else:
+            _assert_same_queries(port, ref, payload)
+        assert (port.snapshot is None) == (ref.snapshot is None)
+        if ref.snapshot is not None:
+            assert port.snapshot.version == ref.snapshot.version
+            _assert_same_snapshot(port.snapshot, ref.snapshot)
+            np.testing.assert_allclose(port.snapshot.total_mst_weight, ref.snapshot.total_mst_weight, rtol=1e-6)
+        assert [port.stats[k] for k in EXACT_COUNTERS] == [ref.stats[k] for k in EXACT_COUNTERS]
+    pa, la = port.labels()
+    pb, lb = ref.labels()
+    np.testing.assert_array_equal(pa, pb)
+    np.testing.assert_array_equal(la, lb)
+
+
+class TestExactMode:
+    @pytest.mark.parametrize("spatial", [False, True], ids=["dense", "spatial"])
+    def test_exact_stream_matches_reference(self, spatial):
+        kw = dict(EXACT_KW, spatial_index=spatial)
+        port = StreamingClusterEngine(DIM, device="cpu", update_policy=UpdatePolicy(0.25, 24), **kw)
+        ref = RefEngine(DIM, backend="jnp", update_policy=RefPolicy(0.25, 24), **kw)
+        _drive_exact(port, ref, _exact_stream(3, 30))
+        assert port.stats["incremental_blocks"] > 0 and port.stats["exact_rebuilds"] > 1
+        assert port._dyn.state.X.device.type == "cpu"
+
+    def test_exact_fallback_only_policy(self):
+        """``max_update_frac=0``: every block routes full, every refresh
+        rebuilds — still the reference's snapshots."""
+        port = StreamingClusterEngine(DIM, device="cpu", update_policy=UpdatePolicy(0.0, 24), **EXACT_KW)
+        ref = RefEngine(DIM, backend="jnp", update_policy=RefPolicy(0.0, 24), **EXACT_KW)
+        _drive_exact(port, ref, _exact_stream(4, 14))
+        assert port.stats["incremental_blocks"] == 0 < port.stats["exact_full_blocks"]
+
+    @pytest.mark.parametrize("opt", ["async_offline", "device_online"])
+    def test_exact_refuses_incompatible_modes(self, opt):
+        with pytest.raises(ValueError, match=opt.split("_")[0]):
+            StreamingClusterEngine(DIM, device="cpu", exact=True, **{opt: True})
+
+    def test_exact_runs_on_the_card_by_default(self):
+        """Without ``device`` the engine resolves ``cuda``: on a machine
+        with no GPU that raises and says how to ask for the CPU."""
+        import torch
+
+        if torch.cuda.is_available():
+            eng = StreamingClusterEngine(16, exact=True)
+            assert eng._dyn.state.X.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                StreamingClusterEngine(16, exact=True)

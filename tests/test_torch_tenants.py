@@ -7,7 +7,8 @@ per-tenant overrides (a ``device_online`` tenant among them, which
 ingests and serves beside the others), and ``save_all`` / ``recover``
 replaying the fleet bit for bit.  Then per-tenant labels against a reference
 ``TenantRouter`` fed the same traffic (same versions, same partition per
-tenant, served labels identical), with and without ``spatial_index``.
+tenant, served labels identical), with and without ``spatial_index``,
+and with ``exact=True`` reaching every tenant's engine.
 """
 
 import threading
@@ -210,6 +211,38 @@ class TestOptions:
             np.testing.assert_array_equal(a.bubble_index, b.bubble_index)
             np.testing.assert_array_equal(a.labels, b.labels)
             assert port.cache._entries[(name, ps.version)].grid is not None
+
+    def test_exact_mode_reaches_every_engine(self, rng):
+        """``exact=True`` (and its update policy) pass through the router to
+        every tenant's engine, which serves the reference router's
+        versions, partitions and labels, with the same exact-mode counters."""
+        from repro.serving.stream import UpdatePolicy as RefPolicy
+        from repro_torch import UpdatePolicy
+
+        data = _tenant_data(rng, 2, n=150)
+        port = _router(exact=True, update_policy=UpdatePolicy(0.5, 24))
+        ref = RefRouter(2, backend="jnp", exact=True, update_policy=RefPolicy(0.5, 24), **ROUTER_KW)
+        for r in (port, ref):
+            for name in data:
+                r.create(name)
+            for i in range(0, 150, 30):  # interleaved blocks, incremental past the first
+                for name, X in data.items():
+                    r.submit_insert(name, X[i : i + 30])
+                r.poll()
+            r.flush()
+        for name, X in data.items():
+            pe, re_ = port.engine(name), ref.engine(name)
+            assert pe.exact and pe._dyn is not None
+            counters = ("incremental_blocks", "exact_full_blocks", "exact_rebuilds")
+            assert [pe.stats[k] for k in counters] == [re_.stats[k] for k in counters]
+            assert pe.stats["incremental_blocks"] > 0
+            ps, rs = pe.snapshot, re_.snapshot
+            assert ps.version == rs.version and ps.n_bubbles == 150
+            assert_same_partition(ps.bubble_labels, rs.bubble_labels)
+            Q = X[::3] + 0.05
+            a, b = port.query_detailed(name, Q), ref.query_detailed(name, Q)
+            np.testing.assert_array_equal(a.bubble_index, b.bubble_index)
+            np.testing.assert_array_equal(a.labels, b.labels)
 
     def test_default_device_raises_without_a_gpu(self):
         if torch.cuda.is_available():
