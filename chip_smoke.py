@@ -108,6 +108,23 @@ Phases, each printing its own lines:
               pass on the same tree; the d = 200 point ([wide]'s data): each
               snapshot's partition the dense card pass's, the kernels bit
               for bit the feature-sliced dense routes;
+     mesh     the sharded offline pass (mesh=) on cuda:0 named k = 1, 2, 4
+              and 8 times (and mesh=True over every card where there are
+              several): on the [stream] table (L = 5,243, Lp = 8192) each
+              k's pass, dense and grid, from the host table and from a
+              device-online capture of the stream's final tree, bit for bit
+              the unsharded pass, with no host synchronisation from prepare
+              to unwrap; its stages, Borůvka's gathers, end to end in turns
+              beside the unsharded pass, launches per pass and peak device
+              memory; each shard's strip launches (bubble_cd, mutual_reach,
+              grid_core_distances, grid_round_minima) bit for bit the same
+              rows of the whole launch, timed one by one beside it, and each
+              shard's peak memory; the same dense at k = 4 and 8 on a table
+              of L = 20,000 bubbles (Lp = 32,768, one W 4 GiB) with the
+              per-shard W bytes; then the [stream] configuration cut to
+              65,536 points with a mesh of 4, dense and spatial, every
+              snapshot and served chunk bit for bit the unsharded engine's,
+              the four kernels' launches counted over the mesh engines;
   5. wide     a default StreamingClusterEngine at d = 200 (past the
               register tiles' 128): 65,536 points in blocks of 8192
               (L ~ 1,300, Lp = 2048), then 8192 queries; every snapshot and
@@ -191,7 +208,9 @@ Phases, each printing its own lines:
      from [grid] and the visited share as visited_share; strip_dists,
      strip_topk and strip_round_minima, which stand for the JAX package's
      jnp strip programs of the exact-dynamic path, with their launches from
-     [exact]);
+     [exact]; bubble_cd, mutual_reach, grid_core_distances and
+     grid_round_minima also with launches_mesh, their launches on [mesh]'s
+     mesh engines);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -1809,6 +1828,326 @@ def phase_grid(dev, run, card):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return launches, numbers
+
+
+MESH_KS = (1, 2, 4, 8)  # [mesh]: shards of one card (cuda:0 named k times)
+MESH_BIG_L, MESH_BIG_KS = 20_000, (4, 8)  # [mesh]: L = 20,000 bubbles, Lp = 32,768 (one dense W is 4 GiB)
+MESH_N, MESH_ENGINE_K = 65_536, 4  # [mesh]: the [stream] configuration cut to 65,536 points, mesh of 4
+MESH_KERNELS = ("bubble_cd", "mutual_reach", "grid_core_distances", "grid_round_minima")
+
+
+def mesh_counts(reset: bool = False) -> dict:
+    """The launch counts of the four kernels the sharded pass runs per
+    shard (set to 0 first with ``reset``)."""
+    from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import grid as k_grid
+    from repro_torch.kernels import mutual_reach as k_mr
+
+    if reset:
+        k_bcd.launches = k_mr.launches = 0
+        for name in GRID_KERNELS:
+            k_grid.launches[name] = 0
+    return {"bubble_cd": k_bcd.launches, "mutual_reach": k_mr.launches,
+            "grid_core_distances": k_grid.launches["grid_core_distances"],
+            "grid_round_minima": k_grid.launches["grid_round_minima"]}
+
+
+def same_result(name, got, want):
+    """Two passes' results bit for bit: labels, MST u/v/w, stabilities and
+    every condensed field."""
+    for f in ("labels", "stabilities", "weights", "point_parent", "point_lambda", "cluster_parent",
+              "cluster_birth", "cluster_weight", "selected", "all_stabilities"):
+        check(np.array_equal(getattr(got, f), getattr(want, f)), f"{name}: {f} differs from the unsharded pass")
+    check(all(np.array_equal(a, b) for a, b in zip(got.mst, want.mst)), f"{name}: the MST differs")
+
+
+def no_sync_stage(name, fn, *args, **kw):
+    """A ``stage`` hook under which any host synchronisation between
+    prepare and unwrap raises."""
+    import torch
+
+    if name in ("prepare", "unwrap"):
+        return fn(*args, **kw)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def sync_all():
+    """Wait for every card (a sharded pass's strips may sit on several)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def peak_mib(fn, cards: int = 1) -> list:
+    """Peak device memory allocated by ``fn`` above what was allocated
+    before, on each of the first ``cards`` cards (MiB)."""
+    import torch
+
+    sync_all()
+    torch.cuda.empty_cache()
+    base = [torch.cuda.memory_allocated(i) for i in range(cards)]
+    for i in range(cards):
+        torch.cuda.reset_peak_memory_stats(i)
+    fn()
+    sync_all()
+    return [(torch.cuda.max_memory_allocated(i) - base[i]) / 2**20 for i in range(cards)]
+
+
+def stage_timer_all(times: dict):
+    """``stage_timer`` with every card synchronised around each stage."""
+
+    def timed(name, fn, *args, **kw):
+        sync_all()
+        t0 = time.perf_counter()
+        r = fn(*args, **kw)
+        sync_all()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    return timed
+
+
+def mesh_strips(tag, dev, rep, nb, ext, k, spatial: bool):
+    """Each shard's strip launches at this k: bit for bit the same rows of
+    the whole launch, timed one by one (their sum beside the whole
+    launch); each shard's peak device memory for its Eq. 6 and Eq. 7
+    strips and one Borůvka round's minima; the dense strips' W bytes."""
+    import torch
+
+    from repro_torch.core import mst as t_mst
+    from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import grid as k_grid
+    from repro_torch.kernels import mutual_reach as k_mr
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import shard_ranges
+
+    Lp, d = rep.shape
+    L = int((nb > 0).sum())
+    mp = MIN_PTS
+    if not spatial:
+        cd = k_bcd.bubble_core_distances(rep, nb, ext, min_pts=mp, dim=d)
+        W = k_mr.mutual_reachability(rep, rep, cd, cd, zero_diag=True, n_valid=L)
+        whole = {"bubble_cd": time_ms(lambda: k_bcd.bubble_core_distances(rep, nb, ext, min_pts=mp, dim=d)),
+                 "mutual_reach": time_ms(lambda: k_mr.mutual_reachability(rep, rep, cd, cd, zero_diag=True,
+                                                                          n_valid=L))}
+        times, peaks = {"bubble_cd": [], "mutual_reach": []}, []
+        labels = torch.arange(Lp, device=dev)
+        for a, b in shard_ranges(Lp, k):
+            s_cd = k_bcd.bubble_core_distances(rep, nb, ext, min_pts=mp, dim=d, rows=(a, b))
+            s_w = k_mr.mutual_reachability(rep[a:b], rep, cd[a:b], cd, zero_diag=True, n_valid=L, row0=a)
+            check(bool(torch.equal(s_cd, cd[a:b])), f"[{tag}] bubble_cd rows [{a}, {b}) differ from the whole launch")
+            check(bool(torch.equal(s_w, W[a:b])), f"[{tag}] mutual_reach rows [{a}, {b}) differ from the whole launch")
+            times["bubble_cd"].append(time_ms(
+                lambda: k_bcd.bubble_core_distances(rep, nb, ext, min_pts=mp, dim=d, rows=(a, b))))
+            times["mutual_reach"].append(time_ms(
+                lambda: k_mr.mutual_reachability(rep[a:b], rep, cd[a:b], cd, zero_diag=True, n_valid=L, row0=a)))
+            del s_w
+
+            def shard_work():
+                c = k_bcd.bubble_core_distances(rep, nb, ext, min_pts=mp, dim=d, rows=(a, b))
+                w = k_mr.mutual_reachability(rep[a:b], rep, c, cd, zero_diag=True, n_valid=L, row0=a)
+                t_mst._strip_minima(w, t_mst._strip_eid(a, b - a, Lp, dev), labels, a)
+
+            peaks.append(peak_mib(shard_work)[0])
+        del W
+        strip_mib = -(-Lp // k) * Lp * 4 / 2**20
+    else:
+        grid, views = ops._grid_table(rep, L)
+        cd = k_grid.grid_core_distances(grid, nb, ext, mp, d, views)
+        labels = torch.arange(Lp, device=dev)
+        hopeless = torch.zeros(Lp, dtype=torch.bool, device=dev)
+        w, e = k_grid.grid_round_minima(grid, views, cd, labels, hopeless)
+        rows = grid.orig.long()
+        cd_s, w_s, e_s = cd[rows], w[rows], e[rows]
+        whole = {"grid_core_distances": time_ms(lambda: k_grid.grid_core_distances(grid, nb, ext, mp, d, views)),
+                 "grid_round_minima": time_ms(lambda: k_grid.grid_round_minima(grid, views, cd, labels, hopeless))}
+        times, peaks = {"grid_core_distances": [], "grid_round_minima": []}, []
+        bn = views.block
+        for b0, b1 in shard_ranges(views.order.shape[0], k):
+            g_cd = k_grid.grid_core_distances(grid, nb, ext, mp, d, views, blocks=(b0, b1))
+            g_w, g_e = k_grid.grid_round_minima(grid, views, cd, labels, hopeless, blocks=(b0, b1))
+            r = slice(b0 * bn, b1 * bn)
+            check(bool(torch.equal(g_cd, cd_s[r])), f"[{tag}] grid_core_distances blocks [{b0}, {b1}) differ")
+            check(bool(torch.equal(g_w, w_s[r])) and bool(torch.equal(g_e, e_s[r])),
+                  f"[{tag}] grid_round_minima blocks [{b0}, {b1}) differ")
+            times["grid_core_distances"].append(time_ms(
+                lambda: k_grid.grid_core_distances(grid, nb, ext, mp, d, views, blocks=(b0, b1))))
+            times["grid_round_minima"].append(time_ms(
+                lambda: k_grid.grid_round_minima(grid, views, cd, labels, hopeless, blocks=(b0, b1))))
+            peaks.append(peak_mib(lambda: (k_grid.grid_core_distances(grid, nb, ext, mp, d, views, blocks=(b0, b1)),
+                                           k_grid.grid_round_minima(grid, views, cd, labels, hopeless,
+                                                                    blocks=(b0, b1))))[0])
+        strip_mib = 0.0
+    say(f"[{tag}] k={k} {'grid' if spatial else 'dense'} strips bit for bit the whole launches; per shard (ms): "
+        + "; ".join(f"{n} {', '.join(f'{t:.4f}' for t in ts)} (sum {sum(ts):.4f}, whole launch {whole[n]:.4f})"
+                    for n, ts in times.items())
+        + f"; peak per shard (MiB) {', '.join(f'{p:.1f}' for p in peaks)}"
+        + (f"; W strip {strip_mib:.1f} MiB per shard (Lp/k x Lp x 4)" if not spatial else ""))
+    return {n: sum(ts) for n, ts in times.items()}
+
+
+def mesh_table(tag, dev, table, meshes, spatial_modes, cap=None):
+    """The sharded pass over one host table for each of ``meshes`` (k, the
+    number of times ``dev`` is named, or True for every card): dense and
+    grid, bit for bit the unsharded pass (also from the device-online
+    capture ``cap`` when given); its stages, Borůvka's gathers, the pass
+    end to end in turns beside the unsharded one, launches per pass, peak
+    device memory per card, no host read from prepare to unwrap; and, on
+    one card, ``mesh_strips``."""
+    import torch
+
+    from repro_torch.core import mst as t_mst
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import resolve_mesh, shard_ranges
+
+    rep, extent, n_b, _ = table
+    L = rep.shape[0]
+    Lp = ops._pow2_rows(L)
+
+    def run(mesh, sp, stage=ops._run_stage):
+        return ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=stage,
+                                                spatial_index=sp, mesh=mesh)
+
+    (rep_t, nb_t, ext_t), _, _ = ops._prepare_table(rep, n_b, extent, MIN_PTS, dev)
+    rounds = t_mst._rounds(Lp)[0]
+    for sp in spatial_modes:
+        name = "grid" if sp else "dense"
+        base_t = {}
+        for _ in range(2):
+            want = run(None, sp, stage_timer_all(base_t))
+        base_peak = peak_mib(lambda: run(None, sp))[0]
+        say(f"[{tag}] unsharded {name} pass at L={L}, Lp={Lp} (ms): "
+            + ", ".join(f"{s} {v:.2f}" for s, v in base_t.items())
+            + f"; total {sum(base_t.values()):.2f}; peak {base_peak:.1f} MiB above the table")
+        for m in meshes:
+            mesh = (dev,) * m if m is not True else True
+            resolved = resolve_mesh(mesh, dev)
+            k = len(resolved.devices)
+            cards = len(set(resolved.devices))
+            label = f"k={k}" + (f" over {cards} cards (mesh=True)" if m is True else "")
+            t = {}
+            for _ in range(2):
+                got = run(mesh, sp, stage_timer_all(t))
+            same_result(f"[{tag}] {label} {name}", got, want)
+            walls = {None: [], m: []}
+            for mm in (None, m, m, None):
+                sync_all()
+                t0 = time.perf_counter()
+                run(None if mm is None else mesh, sp)
+                walls[mm].append((time.perf_counter() - t0) * 1e3)
+            before = mesh_counts()
+            run(mesh, sp)
+            after = mesh_counts()
+            per_pass = {n: after[n] - before[n] for n in MESH_KERNELS}
+            peak = peak_mib(lambda: run(mesh, sp), cards)
+            sync_all()
+            same_result(f"[{tag}] {label} {name} under the sync debug mode", run(mesh, sp, no_sync_stage), want)
+            if cap is not None:
+                dt_want = ops.offline_recluster_from_device_table(*cap.view, cap.origin, MIN_PTS, float(MIN_PTS),
+                                                                  slots=cap.slots, spatial_index=sp)
+                dt_got = ops.offline_recluster_from_device_table(*cap.view, cap.origin, MIN_PTS, float(MIN_PTS),
+                                                                 slots=cap.slots, spatial_index=sp, mesh=mesh,
+                                                                 stage=no_sync_stage)
+                same_result(f"[{tag}] {label} {name} device table", dt_got[0], dt_want[0])
+                check(all(np.array_equal(a, b) for a, b in zip(dt_got[1:], dt_want[1:])),
+                      f"[{tag}] {label} device table: the serve-plane table differs")
+            pieces = [torch.zeros(b - a, device=dev) for a, b in shard_ranges(Lp, k)]
+            gather_ms = time_ms(lambda: torch.cat(pieces), reps=50)
+            say(f"[{tag}] {label} sharded {name} pass bit for bit the unsharded one"
+                + (" (and from the device-online table)" if cap is not None else "")
+                + ", no host synchronisation from prepare to unwrap; stages (ms): "
+                + ", ".join(f"{s} {v:.2f}" for s, v in t.items()) + f"; total {sum(t.values()):.2f}; "
+                f"Borůvka {t['boruvka']:.2f} against {base_t['boruvka']:.2f} unsharded, with {2 * rounds} gathers a "
+                f"pass (row w and eid, {rounds} rounds; one gather of {k} pieces on one card {gather_ms:.4f} ms); "
+                f"end to end in turns (ms) unsharded {', '.join(f'{w:.2f}' for w in walls[None])}, sharded "
+                f"{', '.join(f'{w:.2f}' for w in walls[m])}; launches per pass {json.dumps(per_pass)}; peak "
+                f"{', '.join(f'{p:.1f}' for p in peak)} MiB above the table per card (unsharded {base_peak:.1f})")
+            n_shards = sum(b > a for a, b in shard_ranges(Lp // min(64, Lp) if sp else Lp, k))
+            launched = (per_pass["grid_core_distances"],) if sp else (per_pass["bubble_cd"], per_pass["mutual_reach"])
+            check(all(n == n_shards for n in launched),
+                  f"[{tag}] {label} {name}: launches per pass {per_pass} for {n_shards} non-empty shards")
+            if m is not True:
+                mesh_strips(tag, dev, rep_t, nb_t, ext_t, k, sp)
+            torch.cuda.empty_cache()
+
+
+def mesh_engine(dev, card):
+    """The [stream] configuration cut to MESH_N points, with
+    ``mesh=("cuda:0",) * MESH_ENGINE_K`` beside the unsharded engine, dense
+    and spatial: every snapshot and the served rows bit for bit.  The four
+    kernels' launches are counted over the mesh engines' runs alone."""
+    from repro_torch import StreamingClusterEngine
+
+    rng = np.random.default_rng(SEED + 7)
+    data = mixture(rng, MESH_N + 8 * QUERY_CHUNK) + 50.0
+    X, Qs = data[:MESH_N], data[MESH_N:]
+    drop = rng.choice(MESH_N, size=MESH_N // 4, replace=False)
+    kw = dict(min_pts=MIN_PTS, compression=COMPRESSION, epsilon=EPSILON, max_block=BLOCK, device=dev)
+    launches = {}
+    for sp in (False, True):
+        name = "grid" if sp else "dense"
+        plain_hist, plain_served, *_ = drive_stream(StreamingClusterEngine(DIM, spatial_index=sp, **kw), X, Qs, drop)
+        eng = StreamingClusterEngine(DIM, spatial_index=sp, mesh=(dev,) * MESH_ENGINE_K, **kw)
+        mesh_counts(reset=True)
+        t0 = time.perf_counter()
+        hist, served, ingest_ms, retire_ms, lat = drive_stream(eng, X, Qs, drop)
+        wall = time.perf_counter() - t0
+        counts = mesh_counts()
+        check(sorted(hist) == sorted(plain_hist), f"[mesh] {name} engine: published versions differ")
+        for v in sorted(hist):
+            same_result(f"[mesh] {name} engine version {v}", hist[v].result, plain_hist[v].result)
+            check(np.array_equal(hist[v].bubble_rep, plain_hist[v].bubble_rep), f"[mesh] version {v}: reps differ")
+        same_served(f"mesh {name}", served, plain_served)
+        n_passes = eng.stats["recluster_count"]
+        say(f"[mesh] {name} engine, {MESH_N} points d={DIM} in blocks of {BLOCK}, {len(drop)} retired, mesh of "
+            f"{MESH_ENGINE_K} x {dev} on {card}: {wall:.2f} s wall, {n_passes} passes; every one of the {len(hist)} "
+            f"snapshots and the {len(served)} served chunks bit for bit the unsharded engine's; launches "
+            f"{json.dumps(counts)}")
+        keys = ("grid_core_distances", "grid_round_minima") if sp else ("bubble_cd", "mutual_reach")
+        for k in keys:
+            check(counts[k] > 0, f"[mesh] kernel {k} never launched on the {name} mesh engine")
+            launches[k] = counts[k]
+        if not sp:
+            check(counts["bubble_cd"] == counts["mutual_reach"] == MESH_ENGINE_K * n_passes,
+                  f"[mesh] not one Eq. 6 and one Eq. 7 launch per shard per pass: {counts}, {n_passes} passes")
+    return launches
+
+
+def phase_mesh(dev, run, card):
+    """``mesh=`` on the card (DESIGN.md §12): the sharded offline pass on
+    ``cuda:0`` named k = 1, 2, 4 and 8 times over the [stream] table, dense
+    and grid, host-table and device-online, bit for bit the unsharded pass;
+    a table at Lp = 32,768; ``mesh=True`` over every card where there are
+    several; the [stream] engine cut to 65,536 points with a mesh of 4.
+    Returns the four kernels' launches on the mesh engines."""
+    import torch
+
+    from repro_torch.core.bubble_flat import BubbleFlat
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    eng = run["eng"]
+    flat = BubbleFlat(DIM, device=dev)
+    flat.load(eng.tree)
+    cap = flat.capture(eng.tree.n_points)
+    meshes = list(MESH_KS) + ([True] if torch.cuda.device_count() > 1 else [])
+    mesh_table("mesh", dev, run["table_full"], meshes, (False, True), cap)
+    del flat, cap
+    rng = np.random.default_rng(SEED + 8)
+    big_rep = mixture(rng, MESH_BIG_L) + 50.0
+    big = (big_rep, rng.uniform(0.5, 1.5, size=MESH_BIG_L), rng.integers(10, 90, size=MESH_BIG_L).astype(float), None)
+    say(f"[mesh] a table of L={MESH_BIG_L} bubbles (reps from the stream's mixture, masses 10-89, extents 0.5-1.5), "
+        f"Lp={ops._pow2_rows(MESH_BIG_L)}: one dense W is {ops._pow2_rows(MESH_BIG_L) ** 2 * 4 / 2**30:.0f} GiB")
+    mesh_table("mesh big", dev, big, list(MESH_BIG_KS) + meshes[len(MESH_KS):], (False,))
+    torch.cuda.empty_cache()
+    launches = mesh_engine(dev, card)
+    say(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def grid_bitwise(tag, dev, table, q_ingest, snap, Qs, min_pts_list):
@@ -3488,6 +3827,7 @@ def main() -> int:
     phase_recover(dev, run, card)
     online_launches, online_numbers = phase_online(dev, run, card)
     grid_launches, grid_numbers = phase_grid(dev, run, card)
+    mesh_launches = phase_mesh(dev, run, card)
     numbers.update(phase_hierarchy(dev, run["table_full"]))
     phase_stages(dev, run["table_full"])
     phase_min_pts(dev, run["table_full"])
@@ -3523,6 +3863,8 @@ def main() -> int:
                "strip_dists": ("dynamic.cu", "src/repro/core/dynamic_jax.py:145"),
                "strip_topk": ("dynamic.cu", "src/repro/core/dynamic_jax.py:187"),
                "strip_round_minima": ("dynamic.cu", "src/repro/core/mst.py:777")}
+    for name, n in mesh_launches.items():  # the sharded pass's launches on [mesh]'s engines
+        numbers[name]["launches_mesh"] = n
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

@@ -35,10 +35,12 @@ _DYN_DTYPES = {
 }
 
 
-def engine_from_reference_state(state: dict, *, device=None, **engine_kw) -> StreamingClusterEngine:
+def engine_from_reference_state(state: dict, *, device=None, mesh=None, **engine_kw) -> StreamingClusterEngine:
     """A port engine resuming the reference engine's checkpointed state.
 
-    ``engine_kw`` sets what the checkpoint does not record (``max_block``,
+    ``mesh`` shards its offline passes (the checkpoint does not record one;
+    the passes are bit for bit the unsharded ones).  ``engine_kw`` sets
+    what the checkpoint does not record either (``max_block``,
     ``async_offline``, ``min_offline_points``, the tree's fan-out …); the
     configuration it does record (dim, min_pts, min_cluster_size,
     compression, epsilon, exact, device_online) comes from ``cfg/*``.
@@ -52,6 +54,7 @@ def engine_from_reference_state(state: dict, *, device=None, **engine_kw) -> Str
         exact=bool(state["cfg/exact"]),
         device_online=bool(state["cfg/device_online"]),
         device=device,
+        mesh=mesh,
         **engine_kw,
     )
     eng._load_state(state)

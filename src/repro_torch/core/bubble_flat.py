@@ -40,6 +40,7 @@ from ..device import resolve_device, to_device, to_numpy
 from ..kernels import assign as _assign_k
 from ..kernels import flat_scatter as _fs_k
 from ..kernels import grid as _grid_k
+from ..launch.mesh import resolve_mesh
 from .device_table import FlatTableCapture
 
 __all__ = ["BubbleFlat", "FlatFrameError"]
@@ -71,10 +72,13 @@ class BubbleFlat:
     copy; `host_cfs()` reconstructs uncentred f64 CFs from the device for
     the differential tests."""
 
-    def __init__(self, dim: int, device=None, capacity: int = 64, spatial_index: bool = False):
+    def __init__(self, dim: int, device=None, capacity: int = 64, spatial_index: bool = False, mesh=None):
         self.dim = int(dim)
         self.device = resolve_device(device)
         self.spatial_index = bool(spatial_index)
+        # baked into every capture(): offline passes over this table run
+        # the O(L²) stage sharded over the mesh (DESIGN.md §12)
+        self.mesh = resolve_mesh(mesh, self.device)
         self.stale = True  # needs a full load before first use
         self.loads = 0  # full host -> device uploads (bootstrap + re-buckets)
         self.origin = np.zeros(self.dim, dtype=np.float64)
@@ -305,10 +309,10 @@ class BubbleFlat:
         """An offline pass's isolation copy: the six tensors cloned on the
         device (later in-place scatters on the same stream cannot reach
         it), the f64 origin, and the populated slots in ascending order
-        from the host."""
+        from the host, with the table's mesh."""
         return FlatTableCapture(
             view=tuple(t.clone() for t in self.device_view()), origin=self.origin.copy(),
-            n_points=int(n_points), slots=self.alive_slots(),
+            n_points=int(n_points), slots=self.alive_slots(), mesh=self.mesh,
         )
 
     def device_view(self):

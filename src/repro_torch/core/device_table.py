@@ -23,7 +23,10 @@ itself:
   ``capture.recluster(backend, min_pts=…, min_cluster_size=…)``
       → ``(OfflineClusterResult, rep, n_b, center)``
 
-with ``rep``/``n_b``/``center`` the f64 serve-plane table.
+with ``rep``/``n_b``/``center`` the f64 serve-plane table.  ``mesh=``
+(a ``launch/mesh.py::Mesh``) runs the pass's O(L²) stage sharded over it;
+a flat table's captures carry the table's mesh, which a ``mesh`` given to
+``recluster`` overrides.
 """
 
 from __future__ import annotations
@@ -53,10 +56,10 @@ class HostTableCapture:
         """(rep, extent, n_b, center): the f64 bubble table of Eqs. 3–4."""
         return ops.bubble_table(self.LS, self.SS, self.N, self.ids)
 
-    def recluster(self, backend, *, min_pts: int, min_cluster_size: float):
+    def recluster(self, backend, *, min_pts: int, min_cluster_size: float, mesh=None):
         rep, extent, n_b, center = self.table()
         res = backend.offline_recluster_from_table(
-            rep, n_b, extent, min_pts, min_cluster_size=min_cluster_size)
+            rep, n_b, extent, min_pts, min_cluster_size=min_cluster_size, mesh=mesh)
         return res, rep, n_b, center
 
 
@@ -73,11 +76,13 @@ class FlatTableCapture:
     origin: np.ndarray
     n_points: int
     slots: np.ndarray
+    mesh: Any = None
 
-    def recluster(self, backend, *, min_pts: int, min_cluster_size: float):
+    def recluster(self, backend, *, min_pts: int, min_cluster_size: float, mesh=None):
         mp = max(1, min(int(min_pts), int(self.n_points)))
         return backend.offline_recluster_from_device_table(
-            *self.view, self.origin, mp, min_cluster_size=min_cluster_size, slots=self.slots)
+            *self.view, self.origin, mp, min_cluster_size=min_cluster_size, slots=self.slots,
+            mesh=self.mesh if mesh is None else mesh)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,14 @@ never builds W; the rest of the round is the dense tail verbatim, so the
 buffers are bitwise those of ``boruvka`` on the W of the same core
 distances (pad rows at +inf).
 
+``boruvka_shard`` and ``boruvka_grid_shard`` are the counterparts of
+``boruvka_shard_jax`` and ``boruvka_grid_shard_jax`` for the sharded
+offline pass (``mesh=``, DESIGN.md §12): each round every shard reduces
+its own row strip (or query-block range) on its own device, the minima
+are gathered on the lead device in row order, and the same round tail
+runs there, so the buffers are bit for bit the unsharded ones on any
+mesh.  ``boruvka`` and ``boruvka_grid`` are their one-shard case.
+
 The exact-dynamic engine (core/dynamic_torch.py) adds two forests over
 explicit candidates, the counterparts of ``boruvka_edges_jax`` and
 ``boruvka_strip_jax``: ``boruvka_edges`` over a padded edge list, and
@@ -37,8 +45,10 @@ import torch
 
 from ..kernels import dynamic as _dyn_k
 from ..kernels import grid as _grid_k
+from ..launch.mesh import Mesh, gather, shard_ranges
 
-__all__ = ["boruvka", "boruvka_grid", "boruvka_edges", "boruvka_strip", "mst_total_weight"]
+__all__ = ["boruvka", "boruvka_shard", "boruvka_grid", "boruvka_grid_shard", "boruvka_edges", "boruvka_strip",
+           "mst_total_weight"]
 
 _BIGID = np.iinfo(np.int32).max
 
@@ -108,38 +118,64 @@ def _buffers(n: int, dev, dtype):
             torch.zeros((), dtype=torch.int64, device=dev))
 
 
+def _strip_eid(row0: int, m: int, n: int, dev) -> torch.Tensor:
+    """(m, n) int32 canonical edge ids ``min·n + max`` of rows row0 .. row0 + m."""
+    rows = torch.arange(row0, row0 + m, dtype=torch.int32, device=dev)[:, None]
+    cols = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    return torch.minimum(rows, cols) * n + torch.maximum(rows, cols)
+
+
+def _strip_minima(W: torch.Tensor, eid: torch.Tensor, labels: torch.Tensor, row0: int):
+    """The (w, eid) minima of a strip holding rows ``row0 ..`` of the
+    weight matrix, over columns of another component (each row's own entry,
+    at column ``row0 + r``, excluded): a row's minimum reads only that row,
+    so a strip's are bit for bit the same rows' of the whole matrix."""
+    inf = float("inf")
+    same = labels[row0 : row0 + W.shape[0], None] == labels[None, :]
+    same.diagonal(row0).fill_(True)
+    masked = torch.where(same, inf, W)
+    del same
+    row_w = masked.amin(dim=1)
+    at_min = masked == row_w[:, None]
+    del masked
+    return row_w, torch.where(at_min, eid, _BIGID).amin(dim=1)
+
+
 def boruvka(W: torch.Tensor):
     """Borůvka MST of a dense symmetric (n, n) weight matrix (+inf entries
     allowed) on W's device.  Returns ``(eu, ev, ew, valid)``: (n,) int32,
     int32, W-dtype and bool buffers, ``valid`` marking the written edges.
     With duplicate weights the (w, eid) key makes every choice
     deterministic (lowest canonical edge id)."""
-    n = W.shape[0]
-    max_rounds, jumps = _rounds(n)
-    dev = W.device
-    inf = float("inf")
-    iota32 = torch.arange(n, dtype=torch.int32, device=dev)
-    iota = iota32.long()
-    eid = torch.minimum(iota32[:, None], iota32[None, :]) * n + torch.maximum(iota32[:, None], iota32[None, :])
+    return boruvka_shard([W], [0], W.shape[0])
 
+
+def boruvka_shard(strips, row0s, n: int, mesh=None):
+    """``boruvka`` over a row-sharded weight matrix: ``strips[i]`` holds rows
+    ``row0s[i] ..`` (all n columns) on shard i's device, the strips in row
+    order covering [0, n).  Each round copies the labels to each shard, each
+    shard reduces its strip's (w, eid) row minima with global rows, the
+    minima are gathered on the lead device (``mesh.lead``, else the first
+    strip's) in row order, and the round tail runs there, unchanged.  The
+    buffers are bit for bit ``boruvka`` of the whole matrix on any mesh, on
+    the lead device."""
+    max_rounds, jumps = _rounds(n)  # before the eid strips: it enforces n <= 46,340
+    dev = mesh.lead if mesh is not None else strips[0].device
+    eids = [_strip_eid(r0, W.shape[0], n, W.device) for W, r0 in zip(strips, row0s)]
+    iota = torch.arange(n, device=dev)
     labels = iota.clone()
-    eu, ev, ew, valid, n_edges = _buffers(n, dev, W.dtype)
+    eu, ev, ew, valid, n_edges = _buffers(n, dev, strips[0].dtype)
     for _ in range(max_rounds):
-        same = labels[:, None] == labels[None, :]
-        same.fill_diagonal_(True)
-        masked = torch.where(same, inf, W)
-        del same
-        row_w = masked.amin(dim=1)
-        at_min = masked == row_w[:, None]
-        del masked
-        row_eid = torch.where(at_min, eid, _BIGID).amin(dim=1).long()
-        del at_min
+        parts = [_strip_minima(W, eid, labels.to(W.device, non_blocking=True), r0)
+                 for W, eid, r0 in zip(strips, eids, row0s)]
+        row_w = gather([w for w, _ in parts], dev)
+        row_eid = gather([e for _, e in parts], dev).long()
+        del parts
         # the column holding the row's chosen canonical edge
         lo, hi = row_eid // n, row_eid % n
         row_j = torch.where(lo == iota, hi, lo)
-        row_has = torch.isfinite(row_w)
         labels, eu, ev, ew, valid, n_edges = _boruvka_round_tail(
-            labels, row_w, row_eid, row_j, row_has, eu, ev, ew, valid, n_edges, n, jumps)
+            labels, row_w, row_eid, row_j, torch.isfinite(row_w), eu, ev, ew, valid, n_edges, n, jumps)
     return eu[:-1], ev[:-1], ew[:-1], valid[:-1]
 
 
@@ -151,21 +187,38 @@ def boruvka_grid(grid, cd: torch.Tensor, views=None):
     once, ``grid._block_views`` by default).  A row whose component already
     holds every valid row is hopeless and skips its search.  Fixed round
     count, no host read.  Returns the ``boruvka`` buffers."""
+    return boruvka_grid_shard(grid, cd, views, Mesh((grid.pts.device,)))
+
+
+def boruvka_grid_shard(grid, cd: torch.Tensor, views, mesh):
+    """``boruvka_grid`` with each round's search split over ``mesh``: shard
+    i searches its contiguous range of ⌈NB/k⌉ query blocks (the last ranges
+    shorter or empty) on its own device with the round's labels and
+    hopeless mask copied there, the ranges' sorted-order minima are
+    gathered on the lead device (the grid's) in block order, scattered back
+    to original order, and the round tail runs there: bit for bit
+    ``boruvka_grid`` on any mesh."""
     n = grid.pts.shape[0]
     max_rounds, jumps = _rounds(n)
     dev = grid.pts.device
     views = _grid_k._block_views(grid) if views is None else views
+    shards = list(zip(_grid_k._replicas(grid, views, mesh), mesh.devices,
+                      shard_ranges(views.order.shape[0], len(mesh.devices))))
+    cds = {d: cd.to(d, non_blocking=True) for d in mesh.devices}
     iota = torch.arange(n, device=dev)
-    rows = grid.orig.long()
     valid_orig = torch.zeros(n, dtype=torch.int64, device=dev)
-    valid_orig[rows] = grid.valid.long()
+    valid_orig[grid.orig.long()] = grid.valid.long()
     total_valid = grid.n_valid.long()
     labels = iota.clone()
     eu, ev, ew, valid, n_edges = _buffers(n, dev, torch.float32)
     for _ in range(max_rounds):
         cnt = torch.zeros(n, dtype=torch.int64, device=dev).scatter_add_(0, labels, valid_orig)
         hopeless = cnt[labels] >= total_valid
-        row_w, row_eid = _grid_k.grid_round_minima(grid, views, cd, labels, hopeless)
+        parts = [_grid_k.grid_round_minima(g, v, cds[d], labels.to(d, non_blocking=True),
+                                           hopeless.to(d, non_blocking=True), blocks=blocks)
+                 for (g, v), d, blocks in shards]
+        row_w, row_eid = _grid_k._scatter(grid, gather([w for w, _ in parts], dev),
+                                          gather([e for _, e in parts], dev))
         row_eid = row_eid.long()
         lo = row_eid // n
         # the column of the chosen canonical edge; rows with no edge are

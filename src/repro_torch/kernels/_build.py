@@ -106,9 +106,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_assign_ws_plan.argtypes = [I, P, P]
     lib.repro_bubble_cd_walk_f32.argtypes = [P, P, I, I, I, P, P, I, I, P, P]
     lib.repro_bubble_cd_f32.argtypes = [P, P, P, I, I, I, I, P, P]
-    lib.repro_bubble_cd_ws_f32.argtypes = [P, P, P, I, I, I, I, P, P]
+    lib.repro_bubble_cd_ws_f32.argtypes = [P, P, P, I, I, I, I, I, I, P, P]
     lib.repro_dist_panel_plan.argtypes = [I, P]
-    lib.repro_mutual_reach_panel_f32.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P, P, P]
+    lib.repro_mutual_reach_panel_f32.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P]
     lib.repro_mutual_reach_tile_f32.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
     lib.repro_knn_f32.argtypes = [P, P, I, I, I, I, P, P, P]
     lib.repro_knn_ws_f32.argtypes = [P, P, I, I, I, I, P, P, P]
@@ -124,8 +124,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_eom_f32.argtypes = [P, P, P, I, I, P, P, P, P]
     lib.repro_flat_scatter_f32.argtypes = [P] * 9 + [I, I, I, ctypes.c_float, I, P, P]
     lib.repro_grid_assign_f32.argtypes = [P, I, P, P, P, I, I, I, P, P, I, P, P, P, P]
-    lib.repro_grid_core_distances_f32.argtypes = [P, P, P, I, I, I, P, P, I, P, P, I, I, I, P, P, P]
-    lib.repro_grid_round_minima_f32.argtypes = [P, P, P, I, I, I, P, P, I, P, P, P, P, P, P, P]
+    lib.repro_grid_core_distances_f32.argtypes = [P, P, P, I, I, I, P, P, I, P, P, I, I, I, I, I, P, P, P]
+    lib.repro_grid_round_minima_f32.argtypes = [P, P, P, I, I, I, P, P, I, P, P, P, I, I, P, P, P, P]
     lib.repro_strip_dists_f32.argtypes = [P, I, P, I, I, P, P]
     lib.repro_strip_topk_f32.argtypes = [P, I, I, P, P, P, I, P, P, P]
     lib.repro_strip_round_minima_f32.argtypes = [P, P, P, P, I, I, I, P, P, P, P, P, P, P]

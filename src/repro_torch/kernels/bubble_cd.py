@@ -30,6 +30,11 @@ the launch:
   k entries by ``csrc/bubble_cd_walk.cu``, one warp per row adding the
   masses one ``__fadd_rn`` at a time as the warp-select kernel does.
 
+Both routes take a row range ``rows = (a, b)``: Eq. 6 for the table's
+rows ``[a, b)`` against all L bubbles, the sharded offline pass's strip
+(``kernels/ops.py::_sharded_mst_stage``).  Rows keep their global index,
+so a strip's values are bit for bit the same rows of the whole launch.
+
 The route is a pure function of the shapes: it is never taken because a
 kernel failed, and a failure raises.  ``launches`` counts both routes,
 ``launches_ws`` and ``launches_strip`` each.  A tensor on the CPU takes
@@ -91,62 +96,81 @@ def _checked(rep, n_b, extent, min_pts: int, dim: int) -> tuple[int, int]:
     return min_pts, dim
 
 
-def _launch(entry: str, rep, n_b, extent, min_pts: int, dim: int) -> torch.Tensor:
+def _row_range(rows, L: int) -> tuple[int, int]:
+    a, b = (0, L) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= a <= b <= L:
+        raise ValueError(f"bubble_core_distances: rows [{a}, {b}) outside a table of {L}")
+    return a, b
+
+
+def _plain(rep, n_b, extent, min_pts: int, dim: int, a: int, b: int) -> torch.Tensor:
+    ids = torch.arange(a, b, device=rep.device)
+    return _ref.bubble_core_distances_rows(rep[a:b], ids, rep, n_b, extent, min_pts, dim)
+
+
+def _launch(entry: str, rep, n_b, extent, min_pts: int, dim: int, *rows) -> torch.Tensor:
+    """One launch of ``entry`` over the table; ``rows`` = (a, b) passes the
+    row range (the warp-select kernel), and the output has b − a rows."""
     L, d = rep.shape
-    out = torch.empty(L, dtype=torch.float32, device=rep.device)
-    if L:
+    a, b = rows or (0, L)
+    out = torch.empty(b - a, dtype=torch.float32, device=rep.device)
+    if b > a:
         lib = _build.load()
+        span = (a, b - a) if rows else ()
         with torch.cuda.device(rep.device):
             code = getattr(lib, entry)(
-                rep.data_ptr(), n_b.data_ptr(), extent.data_ptr(), L, d, min_pts, dim,
+                rep.data_ptr(), n_b.data_ptr(), extent.data_ptr(), L, d, *span, min_pts, dim,
                 out.data_ptr(), _build.current_stream(rep.device),
             )
         _build.check(code, "bubble_cd")
     return out
 
 
-def bubble_core_distances(rep, n_b, extent, *, min_pts: int, dim: int) -> torch.Tensor:
-    """(L, d), (L,), (L,) f32 → (L,) f32 Eq. 6 core distances.  ``dim`` is
-    the exponent's dimensionality; callers clamp ``min_pts`` to the
-    represented mass (see kernels/ops.py)."""
+def bubble_core_distances(rep, n_b, extent, *, min_pts: int, dim: int, rows=None) -> torch.Tensor:
+    """(L, d), (L,), (L,) f32 → (L,) f32 Eq. 6 core distances; with
+    ``rows = (a, b)`` only the rows ``[a, b)``, (b − a,).  ``dim`` is the
+    exponent's dimensionality; callers clamp ``min_pts`` to the represented
+    mass (see kernels/ops.py)."""
     global launches, launches_ws
     min_pts, dim = _checked(rep, n_b, extent, min_pts, dim)
+    a, b = _row_range(rows, rep.shape[0])
     if rep.device.type == "cpu":
-        return _ref.bubble_core_distances(rep, n_b, extent, min_pts, dim)
+        return _plain(rep, n_b, extent, min_pts, dim, a, b)
     if route(rep.shape[1], min_pts) == "strip":
-        return bubble_cd_strip(rep, n_b, extent, min_pts=min_pts, dim=dim)
-    out = _launch("repro_bubble_cd_ws_f32", rep, n_b, extent, min_pts, dim)
-    if rep.shape[0]:
+        return bubble_cd_strip(rep, n_b, extent, min_pts=min_pts, dim=dim, rows=(a, b))
+    out = _launch("repro_bubble_cd_ws_f32", rep, n_b, extent, min_pts, dim, a, b)
+    if b > a:
         launches += 1
         launches_ws += 1
     return out
 
 
-def bubble_cd_strip(rep, n_b, extent, *, min_pts: int, dim: int) -> torch.Tensor:
+def bubble_cd_strip(rep, n_b, extent, *, min_pts: int, dim: int, rows=None) -> torch.Tensor:
     """``bubble_core_distances`` through the strip route at any d and
     min_pts (``bubble_core_distances`` takes it where ``route`` says so;
     the card's tests also call it at the warp-select kernel's bounds, where
     the two agree bit for bit)."""
     global launches, launches_strip
     min_pts, dim = _checked(rep, n_b, extent, min_pts, dim)
-    if rep.device.type == "cpu":
-        return _ref.bubble_core_distances(rep, n_b, extent, min_pts, dim)
     L = rep.shape[0]
-    out = torch.empty(L, dtype=torch.float32, device=rep.device)
-    if not L:
+    a, b = _row_range(rows, L)
+    if rep.device.type == "cpu":
+        return _plain(rep, n_b, extent, min_pts, dim, a, b)
+    out = torch.empty(b - a, dtype=torch.float32, device=rep.device)
+    if b == a:
         return out
     k = min(min_pts, L)
-    rows = min(_pw_k.strip_rows(L), L)
-    strip = torch.empty((rows, L), dtype=torch.float32, device=rep.device)
+    step = min(_pw_k.strip_rows(L), b - a)
+    strip = torch.empty((step, L), dtype=torch.float32, device=rep.device)
     lib = _build.load()
-    for i in range(0, L, rows):
-        sq = _pw_k.sq_into(rep[i : i + rows], rep, strip[: min(rows, L - i)]).sqrt_()
+    for i in range(a, b, step):
+        sq = _pw_k.sq_into(rep[i : i + step], rep, strip[: min(step, b - i)]).sqrt_()
         sq.diagonal(i).zero_()  # each row's own entry, (r, i + r)
         vals, order = torch.sort(sq, dim=1, stable=True)
         with torch.cuda.device(rep.device):
             code = lib.repro_bubble_cd_walk_f32(
                 vals.data_ptr(), order.data_ptr(), vals.shape[0], L, k, n_b.data_ptr(), extent.data_ptr(),
-                min_pts, dim, out[i:].data_ptr(), _build.current_stream(rep.device))
+                min_pts, dim, out[i - a :].data_ptr(), _build.current_stream(rep.device))
         _build.check(code, "bubble_cd walk")
     launches += 1
     launches_strip += 1

@@ -20,6 +20,12 @@
 // by the lanes in parallel.  So the f32 sum order, the crossing bubble and
 // the output are bitwise that kernel's, which bounds min_pts by 64 where
 // this one takes min_pts <= 1024.
+//
+// A launch covers the rows [row0, row0 + rows) against all L columns (the
+// sharded offline pass gives each shard its strip): rows are indexed
+// globally, so the self pair and every element's arithmetic are those of
+// the launch over all rows, and a strip's outputs are bit for bit the same
+// rows of it.
 #include "warp_select.cuh"
 
 namespace {
@@ -29,20 +35,20 @@ namespace ws = repro::ws;
 template <int D, int K, typename C = ws::Config<D, K, true>>
 __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
 bubble_cd_ws_kernel(const float* __restrict__ rep, const float* __restrict__ nb, const float* __restrict__ ext,
-                    int L, int d, int min_pts, int dim, bool vec4, float* __restrict__ out) {
+                    int L, int d, int first, int end, int min_pts, int dim, bool vec4, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   constexpr int R = C::R;
-  const int row0 = (blockIdx.x * C::kWarps + (threadIdx.x >> 5)) * R;
+  const int row0 = first + (blockIdx.x * C::kWarps + (threadIdx.x >> 5)) * R;
   const int k = min(min_pts, L);
   ws::WarpSelect<K, C::T> sel[R];
-  ws::select_rows<C, D, true>(sel, rep, L, rep, L, d, k, vec4, row0, smem);
+  ws::select_rows<C, D, true>(sel, rep, end, rep, L, d, k, vec4, row0, smem);
 
   const float mp = static_cast<float>(min_pts);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
-    if (row >= L) break;
+    if (row >= end) break;
     float csum = 0.f, dstar = 0.f, before = 0.f, nb_c = 1.f, ext_c = 0.f;
     float m_last = 0.f, nb_last = 0.f, ext_last = 0.f;
     bool done = false;
@@ -84,7 +90,7 @@ bubble_cd_ws_kernel(const float* __restrict__ rep, const float* __restrict__ nb,
       nb_c = nb_last;
       ext_c = ext_last;
     }
-    if (lane == 0) out[row] = repro::eq6_core_distance(dstar, before, nb_c, ext_c, mp, dim);
+    if (lane == 0) out[row - first] = repro::eq6_core_distance(dstar, before, nb_c, ext_c, mp, dim);
   }
 }
 
@@ -92,7 +98,7 @@ struct Args {
   const float* rep;
   const float* nb;
   const float* ext;
-  int L, d, min_pts, dim;
+  int L, d, row0, rows, min_pts, dim;
   float* out;
   cudaStream_t stream;
 };
@@ -107,21 +113,24 @@ struct Launch {
     if (err != cudaSuccess) return static_cast<int>(err);
     const int rows = C::kWarps * C::R;
     const bool vec4 = a.d % 4 == 0 && reinterpret_cast<uintptr_t>(a.rep) % 16 == 0;
-    kernel<<<(a.L + rows - 1) / rows, C::kThreads, smem, a.stream>>>(a.rep, a.nb, a.ext, a.L, a.d, a.min_pts,
-                                                                       a.dim, vec4, a.out);
+    kernel<<<(a.rows + rows - 1) / rows, C::kThreads, smem, a.stream>>>(
+        a.rep, a.nb, a.ext, a.L, a.d, a.row0, a.row0 + a.rows, a.min_pts, a.dim, vec4, a.out);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
 }  // namespace
 
-// rep (L, d), nb (L,), ext (L,) f32 on the device; out (L,) f32.
-// 1 <= min_pts <= 1024, d <= 128.  Returns cudaGetLastError() after the launch.
-extern "C" int repro_bubble_cd_ws_f32(const void* rep, const void* nb, const void* ext, int L, int d,
-                                      int min_pts, int dim, void* out, void* stream) {
-  if (L <= 0 || d <= 0 || d > repro::kMaxDim || min_pts < 1 || min_pts > ws::kMaxK || dim < 1)
+// rep (L, d), nb (L,), ext (L,) f32 on the device; out (rows,) f32, the
+// rows [row0, row0 + rows) of the table (0 <= row0, 1 <= rows, row0 + rows
+// <= L).  1 <= min_pts <= 1024, d <= 128.  Returns cudaGetLastError() after
+// the launch.
+extern "C" int repro_bubble_cd_ws_f32(const void* rep, const void* nb, const void* ext, int L, int d, int row0,
+                                      int rows, int min_pts, int dim, void* out, void* stream) {
+  if (L <= 0 || d <= 0 || d > repro::kMaxDim || min_pts < 1 || min_pts > ws::kMaxK || dim < 1 || row0 < 0 ||
+      rows < 1 || row0 > L - rows)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(rep), static_cast<const float*>(nb), static_cast<const float*>(ext),
-               L, d, min_pts, dim, static_cast<float*>(out), static_cast<cudaStream_t>(stream)};
+               L, d, row0, rows, min_pts, dim, static_cast<float*>(out), static_cast<cudaStream_t>(stream)};
   return ws::dispatch<Launch>(d, min(min_pts, L), a);
 }

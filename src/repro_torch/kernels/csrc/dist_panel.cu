@@ -8,7 +8,12 @@
 //   pairwise:     out[r, c] = max(|x_r|^2 + |y_c|^2 - 2 x_r.y_c, 0)
 //   mutual_reach: out[r, c] = max(sqrt(that), cd_x[r], cd_y[c]), the global
 //                 diagonal 0 when zero_diag, and +inf on every row and
-//                 column at or past n_valid (the offline pass's pad mask)
+//                 column at or past n_valid (the offline pass's pad mask);
+//                 x may be the rows row0 .. of the table (a shard's strip of
+//                 the sharded offline pass): the diagonal and the row mask
+//                 read the global row row0 + r, every element's arithmetic
+//                 is the same in any launch, so a strip is bit for bit the
+//                 same rows of the whole matrix
 //
 // Bound on the H100: the n·m·4 output bytes at the main path's d = 16, the
 // n·m·d FMAs from d ~ 64 on.  The 64 x 64 tile issued 10 shared loads per
@@ -153,7 +158,7 @@ struct Args {
   const float* norms;  // x's rows, then y's from rows_pad on (set by launch)
   const float* cdx;    // mutual_reach only
   const float* cdy;
-  int n, m, d, zero_diag, n_valid, rows_pad;
+  int n, m, d, zero_diag, n_valid, row0, rows_pad;
   bool vec;
   float* out;
 };
@@ -175,9 +180,10 @@ __device__ __forceinline__ void epilogue(const Args& a, const Tiles& T, int t, i
       cc[j] = c < a.m ? a.cdy[c] : 0.f;
     }
   }
-  // only tiles that cross n_valid or the diagonal compare per element
-  const bool edge = kMutual && (r0 + kBM > a.n_valid || c0 + kBN > a.n_valid ||
-                                (a.zero_diag && r0 < c0 + kBN && c0 < r0 + kBM));
+  // only tiles that cross n_valid or the diagonal compare per element (global rows)
+  const int g0 = a.row0 + r0;
+  const bool edge = kMutual && (g0 + kBM > a.n_valid || c0 + kBN > a.n_valid ||
+                                (a.zero_diag && g0 < c0 + kBN && c0 < g0 + kBM));
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = r0 + lane_row(ty, i);
@@ -194,8 +200,8 @@ __device__ __forceinline__ void epilogue(const Args& a, const Tiles& T, int t, i
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = c0 + lane_row(tx, j);
-          if (a.zero_diag && r == c) v[j] = 0.f;
-          if (r >= a.n_valid || c >= a.n_valid) v[j] = inf();
+          if (a.zero_diag && a.row0 + r == c) v[j] = 0.f;
+          if (a.row0 + r >= a.n_valid || c >= a.n_valid) v[j] = inf();
         }
       }
     }
@@ -212,7 +218,7 @@ __global__ void __launch_bounds__(kThreads, 2) dist_panel_kernel(const Args a) {
   const Tiles T{a.n, a.m, cols, (a.n + kBM - 1) / kBM * cols};
   const int slices = (a.d + kKS - 1) / kKS;
   // a mutual_reach tile wholly at or past n_valid is only written
-  auto pad = [&](int t) { return kMutual && (T.r0(t) >= a.n_valid || T.c0(t) >= a.n_valid); };
+  auto pad = [&](int t) { return kMutual && (a.row0 + T.r0(t) >= a.n_valid || T.c0(t) >= a.n_valid); };
 
   int t = blockIdx.x;
   for (; t < T.count && pad(t); t += gridDim.x) store_inf(a.out, T, t, tx, ty, a.vec);
@@ -295,18 +301,20 @@ extern "C" int repro_dist_panel_plan(int mutual, int* blocks_per_sm) {
 extern "C" int repro_pairwise_panel_f32(const void* x, const void* y, int n, int m, int d, int grid, int vec,
                                         void* norms, void* out, void* stream) {
   const Args a{static_cast<const float*>(x), static_cast<const float*>(y), nullptr, nullptr, nullptr,
-               n, m, d, 0, 0, 0, vec != 0, static_cast<float*>(out)};
+               n, m, d, 0, 0, 0, 0, vec != 0, static_cast<float*>(out)};
   return launch(false, a, grid, norms, static_cast<cudaStream_t>(stream));
 }
 
 // As repro_pairwise_panel_f32, with cdx (n,), cdy (m,) f32: Eq. 7, the
 // diagonal 0 when zero_diag, rows and columns >= n_valid +inf (pass
-// n_valid >= max(n, m) for no mask).
+// n_valid >= max(row0 + n, m) for no mask); x's row r is the table's row
+// row0 + r (row0 >= 0).
 extern "C" int repro_mutual_reach_panel_f32(const void* x, const void* y, const void* cdx, const void* cdy, int n,
-                                            int m, int d, int zero_diag, int n_valid, int grid, int vec,
+                                            int m, int d, int zero_diag, int n_valid, int row0, int grid, int vec,
                                             void* norms, void* out, void* stream) {
+  if (row0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(x), static_cast<const float*>(y), nullptr,
-               static_cast<const float*>(cdx), static_cast<const float*>(cdy), n, m, d, zero_diag, n_valid, 0,
-               vec != 0, static_cast<float*>(out)};
+               static_cast<const float*>(cdx), static_cast<const float*>(cdy), n, m, d, zero_diag, n_valid, row0,
+               0, vec != 0, static_cast<float*>(out)};
   return launch(true, a, grid, norms, static_cast<cudaStream_t>(stream));
 }

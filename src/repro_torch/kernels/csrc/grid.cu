@@ -235,18 +235,19 @@ __global__ void __launch_bounds__(kThreads)
 grid_round_kernel(const float* __restrict__ pts, const int* __restrict__ orig, const bool* __restrict__ valid, int Lp,
                   int d, int T, const int* __restrict__ order, const float* __restrict__ lbs, int NT,
                   const float* __restrict__ cd, const long long* __restrict__ labels,
-                  const bool* __restrict__ hopeless, float* __restrict__ w_out, int* __restrict__ eid_out,
-                  unsigned long long* __restrict__ visits) {
+                  const bool* __restrict__ hopeless, int block0, float* __restrict__ w_out,
+                  int* __restrict__ eid_out, unsigned long long* __restrict__ visits) {
   extern __shared__ __align__(16) float smem[];
   constexpr int R = kWarpRows;
   const Slices s(d);
   float* xs = smem;
   float* ys = smem + kRows * s.sd;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int x0 = blockIdx.x * kRows, row_off = warp * R;
+  const int blk = block0 + blockIdx.x;
+  const int x0 = blk * kRows, row_off = warp * R;
   const bool vec4 = d % 4 == 0 && aligned16(pts);
-  const int* ord = order + (size_t)blockIdx.x * NT;
-  const float* lb = lbs + (size_t)blockIdx.x * NT;
+  const int* ord = order + (size_t)blk * NT;
+  const float* lb = lbs + (size_t)blk * NT;
   if (s.n == 1) stage(xs, pts, x0, kRows, Lp, d, 0, s.dp, s.sd, vec4);
 
   float xx[R], cd_r[R], bw[R];
@@ -318,8 +319,8 @@ grid_round_kernel(const float* __restrict__ pts, const int* __restrict__ orig, c
     }
     const int row = x0 + row_off + r;
     if (lane == 0 && row < Lp) {
-      w_out[row] = v;
-      eid_out[row] = e;
+      w_out[row - block0 * kRows] = v;
+      eid_out[row - block0 * kRows] = e;
     }
   }
   if (visits != nullptr && threadIdx.x == 0) atomicAdd(visits, (unsigned long long)visited * min(kRows, Lp - x0));
@@ -412,7 +413,7 @@ __global__ void __launch_bounds__(kThreads)
 grid_cd_kernel(const float* __restrict__ pts, const int* __restrict__ orig, const bool* __restrict__ valid, int Lp,
                int d, int T, const int* __restrict__ order, const float* __restrict__ lbs, int NT,
                const float* __restrict__ nb, const float* __restrict__ ext, int k, int min_pts, int dim,
-               float* __restrict__ out, unsigned long long* __restrict__ visits) {
+               int block0, float* __restrict__ out, unsigned long long* __restrict__ visits) {
   extern __shared__ __align__(16) float smem[];
   using S = CdShape<K>;
   constexpr int R = S::R, TQ = S::T;
@@ -420,10 +421,11 @@ grid_cd_kernel(const float* __restrict__ pts, const int* __restrict__ orig, cons
   float* xs = smem;
   float* ys = smem + kRows * s.sd;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int x0 = blockIdx.x * kRows;
+  const int blk = block0 + blockIdx.x;
+  const int x0 = blk * kRows;
   const bool vec4 = d % 4 == 0 && aligned16(pts);
-  const int* ord = order + (size_t)blockIdx.x * NT;
-  const float* lb = lbs + (size_t)blockIdx.x * NT;
+  const int* ord = order + (size_t)blk * NT;
+  const float* lb = lbs + (size_t)blk * NT;
   const float mp = static_cast<float>(min_pts);
   if (s.n == 1) stage(xs, pts, x0, kRows, Lp, d, 0, s.dp, s.sd, vec4);
   unsigned long long visited = 0;
@@ -524,7 +526,7 @@ grid_cd_kernel(const float* __restrict__ pts, const int* __restrict__ orig, cons
           }
           v = repro::eq6_core_distance(w.dstar, w.before, w.nb_c, w.ext_c, mp, dim);
         }
-        out[o_r[r]] = v;
+        out[p - block0 * kRows] = v;
       }
     }
   }
@@ -546,7 +548,7 @@ struct CdArgs {
   int NT;
   const float* nb;
   const float* ext;
-  int k, min_pts, dim;
+  int k, min_pts, dim, block0, nblocks;
   float* out;
   unsigned long long* visits;
   cudaStream_t stream;
@@ -558,15 +560,20 @@ int launch_cd(const CdArgs& a) {
   const auto kernel = grid_cd_kernel<K>;
   const int err = prepare(kernel, s);
   if (err != 0) return err;
-  kernel<<<(a.Lp + kRows - 1) / kRows, kThreads, s.smem_bytes(), a.stream>>>(
-      a.pts, a.orig, a.valid, a.Lp, a.d, a.T, a.order, a.lbs, a.NT, a.nb, a.ext, a.k, a.min_pts, a.dim, a.out,
-      a.visits);
+  kernel<<<a.nblocks, kThreads, s.smem_bytes(), a.stream>>>(
+      a.pts, a.orig, a.valid, a.Lp, a.d, a.T, a.order, a.lbs, a.NT, a.nb, a.ext, a.k, a.min_pts, a.dim, a.block0,
+      a.out, a.visits);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_grid(int Lp, int d, int T, int NT) {
   return Lp <= 0 || d <= 0 || T <= 0 || T > kMaxTile || NT <= 0 || (long long)T * NT != Lp ||
          (long long)Lp * Lp >= INT_MAX;
+}
+
+// [block0, block0 + nblocks) within the table's ceil(Lp / 64) query blocks
+bool bad_blocks(int Lp, int block0, int nblocks) {
+  return block0 < 0 || nblocks < 1 || block0 > (Lp + kRows - 1) / kRows - nblocks;
 }
 
 }  // namespace
@@ -592,17 +599,20 @@ extern "C" int repro_grid_assign_f32(const void* x, int n, const void* pts, cons
 }
 
 // The sorted table as above, its own rows as queries in ceil(Lp / 64)
-// blocks; nb, ext (Lp,) f32 in original order; 1 <= k = min(min_pts, Lp);
-// out (Lp,) f32 in original order.
+// blocks, of which this launch runs [block0, block0 + nblocks) (a shard's
+// range in the sharded offline pass; each block's values do not depend on
+// which blocks share the launch); nb, ext (Lp,) f32 in original order;
+// 1 <= k = min(min_pts, Lp); out (nblocks * 64,) f32: the blocks' rows in
+// sorted order (0 on invalid rows).
 extern "C" int repro_grid_core_distances_f32(const void* pts, const void* orig, const void* valid, int Lp, int d,
                                              int T, const void* order, const void* lbs, int NT, const void* nb,
-                                             const void* ext, int k, int min_pts, int dim, void* out,
-                                             void* visits, void* stream) {
-  if (bad_grid(Lp, d, T, NT) || k < 1 || k > Lp || min_pts < 1 || dim < 1)
+                                             const void* ext, int k, int min_pts, int dim, int block0, int nblocks,
+                                             void* out, void* visits, void* stream) {
+  if (bad_grid(Lp, d, T, NT) || bad_blocks(Lp, block0, nblocks) || k < 1 || k > Lp || min_pts < 1 || dim < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const CdArgs a{static_cast<const float*>(pts), static_cast<const int*>(orig), static_cast<const bool*>(valid),
                  Lp, d, T, static_cast<const int*>(order), static_cast<const float*>(lbs), NT,
-                 static_cast<const float*>(nb), static_cast<const float*>(ext), k, min_pts, dim,
+                 static_cast<const float*>(nb), static_cast<const float*>(ext), k, min_pts, dim, block0, nblocks,
                  static_cast<float*>(out), static_cast<unsigned long long*>(visits),
                  static_cast<cudaStream_t>(stream)};
   switch (ws::queue_for(min(k, ws::kMaxK))) {
@@ -615,21 +625,22 @@ extern "C" int repro_grid_core_distances_f32(const void* pts, const void* orig, 
   }
 }
 
-// The sorted table as above; cd (Lp,) f32, labels (Lp,) int64 and hopeless
-// (Lp,) bool in original order; w_out (Lp,) f32 and eid_out (Lp,) int32 in
-// sorted order.
+// The sorted table as above, the query blocks [block0, block0 + nblocks);
+// cd (Lp,) f32, labels (Lp,) int64 and hopeless (Lp,) bool in original
+// order; w_out (nblocks * 64,) f32 and eid_out (nblocks * 64,) int32: the
+// blocks' rows in sorted order.
 extern "C" int repro_grid_round_minima_f32(const void* pts, const void* orig, const void* valid, int Lp, int d, int T,
                                            const void* order, const void* lbs, int NT, const void* cd,
-                                           const void* labels, const void* hopeless, void* w_out, void* eid_out,
-                                           void* visits, void* stream) {
-  if (bad_grid(Lp, d, T, NT)) return static_cast<int>(cudaErrorInvalidValue);
+                                           const void* labels, const void* hopeless, int block0, int nblocks,
+                                           void* w_out, void* eid_out, void* visits, void* stream) {
+  if (bad_grid(Lp, d, T, NT) || bad_blocks(Lp, block0, nblocks)) return static_cast<int>(cudaErrorInvalidValue);
   const Slices s(d);
   const int err = prepare(grid_round_kernel, s);
   if (err != 0) return err;
-  grid_round_kernel<<<(Lp + kRows - 1) / kRows, kThreads, s.smem_bytes(), static_cast<cudaStream_t>(stream)>>>(
+  grid_round_kernel<<<nblocks, kThreads, s.smem_bytes(), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), static_cast<const int*>(orig), static_cast<const bool*>(valid), Lp, d, T,
       static_cast<const int*>(order), static_cast<const float*>(lbs), NT, static_cast<const float*>(cd),
-      static_cast<const long long*>(labels), static_cast<const bool*>(hopeless), static_cast<float*>(w_out),
+      static_cast<const long long*>(labels), static_cast<const bool*>(hopeless), block0, static_cast<float*>(w_out),
       static_cast<int*>(eid_out), static_cast<unsigned long long*>(visits));
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,12 @@ reads the device.  The three searches are hand-written CUDA kernels
   ``grid_round_minima``    one Borůvka round's lightest outgoing
                            (w, edge id) per row, replacing ``mst.py:392``.
 
+The Eq. 6 and Borůvka searches take a range of query blocks: the
+sharded offline pass (``mesh=``) gives each shard a contiguous range
+(``grid_core_distances_shard``, ``core/mst.py::boruvka_grid_shard``), each
+block's answers do not depend on which blocks share a launch, and the
+range's rows come back in sorted order for the lead device to scatter.
+
 Bound on the H100: operations.  Each visited tile costs 64 × 32 × d FMAs
 of dot product; the table and the visit lists are a few MB.  The tile is
 staged in shared memory once per visit for all 64 rows of the block, the
@@ -49,6 +55,7 @@ import dataclasses
 
 import torch
 
+from ..launch.mesh import gather, on_devices, shard_ranges
 from . import _build
 from . import ref as _ref
 
@@ -61,6 +68,7 @@ __all__ = [
     "grid_assign",
     "grid_core_distances",
     "grid_round_minima",
+    "grid_core_distances_shard",
     "track_visits",
     "visit_counts",
     "DEFAULT_TILE",
@@ -331,12 +339,33 @@ def _assign_sorted(grid: GridIndex, xs: torch.Tensor, views: GridViews):
     return idx_s, dist_s
 
 
+def _block_range(grid: GridIndex, views: GridViews, blocks) -> tuple[int, int, int]:
+    """(b0, b1, rows) of a query-block range, all blocks by default; rows
+    is the number of table rows the range covers."""
+    NB, bn = views.order.shape[0], views.block
+    b0, b1 = (0, NB) if blocks is None else (int(blocks[0]), int(blocks[1]))
+    if not 0 <= b0 <= b1 <= NB:
+        raise ValueError(f"query blocks [{b0}, {b1}) outside the grid's {NB}")
+    return b0, b1, min(b1 * bn, grid.pts.shape[0]) - b0 * bn
+
+
+def _scatter(grid: GridIndex, *sorted_vals):
+    """Sorted-order values of every row → original row order."""
+    rows = grid.orig.long()
+    out = tuple(torch.empty_like(v) for v in sorted_vals)
+    for o, v in zip(out, sorted_vals):
+        o[rows] = v
+    return out
+
+
 def grid_core_distances(grid: GridIndex, n_b, extent, min_pts: int, dim: int,
-                        views: GridViews | None = None) -> torch.Tensor:
+                        views: GridViews | None = None, blocks=None) -> torch.Tensor:
     """Eq. 6 bubble core distances over the grid: ``n_b``/``extent`` (Lp,)
     in ORIGINAL row order, the result too (0 on invalid rows).  Bitwise the
     dense Eq. 6 kernels on the valid rows, for a pre-clamped ``min_pts``
-    (at most the valid rows' mass)."""
+    (at most the valid rows' mass).  With ``blocks = (b0, b1)`` only those
+    query blocks run, and the result is their rows' values in SORTED
+    order."""
     on_card = _checked_grid(grid, "grid_core_distances", n_b, extent)
     Lp, d = grid.pts.shape
     n_b, extent = n_b.float().contiguous(), extent.float().contiguous()
@@ -348,22 +377,50 @@ def grid_core_distances(grid: GridIndex, n_b, extent, min_pts: int, dim: int,
         raise ValueError(f"min_pts and dim must be >= 1, got {min_pts}, {dim}")
     views = _block_views(grid) if views is None else views
     _views_ok(grid, views, Lp, "grid_core_distances")
+    b0, b1, rows = _block_range(grid, views, blocks)
     if not on_card:
-        return _ref.grid_core_distances(grid, views, n_b, extent, min_pts, dim)
-    out = torch.empty(Lp, dtype=torch.float32, device=grid.pts.device)
-    _launch("grid_core_distances", "repro_grid_core_distances_f32", out.device,
-            *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
-            n_b.data_ptr(), extent.data_ptr(), min(min_pts, Lp), min_pts, dim, out.data_ptr(),
-            _visit_ptr(1, out.device))
-    return out
+        return _ref.grid_core_distances(grid, views, n_b, extent, min_pts, dim, blocks=blocks)
+    out = torch.empty(rows, dtype=torch.float32, device=grid.pts.device)
+    if rows:
+        _launch("grid_core_distances", "repro_grid_core_distances_f32", out.device,
+                *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
+                n_b.data_ptr(), extent.data_ptr(), min(min_pts, Lp), min_pts, dim, b0, b1 - b0, out.data_ptr(),
+                _visit_ptr(1, out.device))
+    return out if blocks is not None else _scatter(grid, out)[0]
 
 
-def grid_round_minima(grid: GridIndex, views: GridViews, cd, labels, hopeless):
+def _replicas(grid: GridIndex, views: GridViews, mesh) -> list:
+    """(grid, views) on each shard's device, copied once per distinct
+    device (non-blocking peer copies; none on the lead)."""
+    names = [f.name for f in dataclasses.fields(GridIndex)]
+    copies = on_devices(mesh, *(getattr(grid, n) for n in names), views.order, views.lbs)
+    return [(GridIndex(**dict(zip(names, copies[dev]))),
+             GridViews(order=copies[dev][-2], lbs=copies[dev][-1], block=views.block)) for dev in mesh.devices]
+
+
+def grid_core_distances_shard(grid: GridIndex, n_b, extent, min_pts: int, dim: int, mesh,
+                              views: GridViews | None = None) -> torch.Tensor:
+    """``grid_core_distances`` with the query blocks split over ``mesh``:
+    shard i runs its contiguous range of ⌈NB/k⌉ blocks (the last ranges
+    shorter or empty) on its own device, the ranges' sorted-order values
+    are gathered on the lead device (the grid's) in block order, and one
+    scatter puts them back in original row order: bitwise
+    ``grid_core_distances`` on any mesh."""
+    views = _block_views(grid) if views is None else views
+    cols = on_devices(mesh, n_b, extent)
+    parts = [grid_core_distances(g, *cols[dev], min_pts, dim, v, blocks=blocks)
+             for (g, v), dev, blocks in zip(_replicas(grid, views, mesh), mesh.devices,
+                                            shard_ranges(views.order.shape[0], len(mesh.devices)))]
+    return _scatter(grid, gather(parts, grid.pts.device))[0]
+
+
+def grid_round_minima(grid: GridIndex, views: GridViews, cd, labels, hopeless, blocks=None):
     """One Borůvka round's search: per row (ORIGINAL order), the lightest
     edge to another component by (w, canonical edge id), with
     ``w = max(d, cd_r, cd_c)`` and ``eid = min(o_r, o_c)·n + max(o_r, o_c)``.
     Invalid and ``hopeless`` rows find nothing: (+inf, int32 max).  Returns
-    (row_w f32 (n,), row_eid int32 (n,))."""
+    (row_w f32 (n,), row_eid int32 (n,)); with ``blocks = (b0, b1)`` only
+    those query blocks run, and the two are their rows' in SORTED order."""
     on_card = _checked_grid(grid, "grid_round_minima", cd, labels, hopeless)
     n = grid.pts.shape[0]
     cd = cd.float().contiguous()
@@ -372,20 +429,17 @@ def grid_round_minima(grid: GridIndex, views: GridViews, cd, labels, hopeless):
     if cd.shape != (n,) or labels.shape != (n,) or hopeless.shape != (n,):
         raise ValueError(f"grid_round_minima wants ({n},) cd, labels and hopeless")
     _views_ok(grid, views, n, "grid_round_minima")
+    b0, b1, rows = _block_range(grid, views, blocks)
     if not on_card:
-        return _ref.grid_round_minima(grid, views, cd, labels, hopeless)
-    w_s = torch.empty(n, dtype=torch.float32, device=cd.device)
-    e_s = torch.empty(n, dtype=torch.int32, device=cd.device)
-    _launch("grid_round_minima", "repro_grid_round_minima_f32", cd.device,
-            *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
-            cd.data_ptr(), labels.data_ptr(), hopeless.data_ptr(), w_s.data_ptr(), e_s.data_ptr(),
-            _visit_ptr(2, cd.device))
-    rows = grid.orig.long()
-    row_w = torch.empty_like(w_s)
-    row_eid = torch.empty_like(e_s)
-    row_w[rows] = w_s
-    row_eid[rows] = e_s
-    return row_w, row_eid
+        return _ref.grid_round_minima(grid, views, cd, labels, hopeless, blocks=blocks)
+    w_s = torch.empty(rows, dtype=torch.float32, device=cd.device)
+    e_s = torch.empty(rows, dtype=torch.int32, device=cd.device)
+    if rows:
+        _launch("grid_round_minima", "repro_grid_round_minima_f32", cd.device,
+                *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
+                cd.data_ptr(), labels.data_ptr(), hopeless.data_ptr(), b0, b1 - b0, w_s.data_ptr(), e_s.data_ptr(),
+                _visit_ptr(2, cd.device))
+    return (w_s, e_s) if blocks is not None else _scatter(grid, w_s, e_s)
 
 
 def _grid_args(grid: GridIndex):

@@ -15,7 +15,10 @@ d), and fuses the offline pass's pad mask (rows/columns ≥ ``n_valid`` at
 +inf) into its stores: a tile wholly past ``n_valid`` is written +inf
 with nothing computed, and only tiles that cross ``n_valid`` or the
 diagonal compare per element — the JAX package applies the mask as a
-second full pass over W.  A tensor on the CPU takes the plain version.
+second full pass over W.  ``row0`` makes x the rows ``row0 ..`` of the
+table (a shard's strip in the sharded offline pass): the diagonal and the
+row mask read global rows, so a strip is bit for bit the same rows of the
+whole matrix.  A tensor on the CPU takes the plain version.
 
 ``mutual_reach_tile`` runs the earlier kernel (``csrc/mutual_reach.cu``,
 one 64 × 64 tile per block).  Its output is bitwise the new kernel's, so
@@ -58,14 +61,21 @@ def _checked(x, y, cd_x, cd_y) -> bool:
     return True
 
 
-def mutual_reachability(x, y, cd_x, cd_y, *, zero_diag: bool = True, n_valid: int | None = None):
-    """(n, d), (m, d), (n,), (m,) f32 → (n, m) f32 Eq. 7 matrix; rows and
-    columns ≥ ``n_valid`` (when given) are +inf."""
+def mutual_reachability(x, y, cd_x, cd_y, *, zero_diag: bool = True, n_valid: int | None = None,
+                        row0: int = 0):
+    """(n, d), (m, d), (n,), (m,) f32 → (n, m) f32 Eq. 7 matrix; global rows
+    (``row0 + r``) and columns ≥ ``n_valid`` (when given) are +inf."""
     global launches
+    row0 = int(row0)
+    if row0 < 0:
+        raise ValueError(f"mutual_reachability: row0 must be >= 0, got {row0}")
     if not _checked(x, y, cd_x, cd_y):
-        return _ref.mutual_reachability(x, y, cd_x, cd_y, zero_diag=zero_diag, n_valid=n_valid)
+        return _ref.mutual_reachability(x, y, cd_x, cd_y, zero_diag=zero_diag, n_valid=n_valid, row0=row0)
     (n, d), m = x.shape, y.shape[0]
-    nv = max(n, m) if n_valid is None else max(0, min(int(n_valid), max(n, m)))
+    if row0 + n >= 2**31:
+        raise ValueError(f"mutual_reach kernel takes int32 rows, got row0={row0} n={n}")
+    top = max(row0 + n, m)
+    nv = top if n_valid is None else max(0, min(int(n_valid), top))
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     if n and m:
         grid, vec, floats = _pw.panel_plan(n, m, out.data_ptr(), _pw.resident_blocks(True, x.device.index))
@@ -73,7 +83,7 @@ def mutual_reachability(x, y, cd_x, cd_y, *, zero_diag: bool = True, n_valid: in
         with torch.cuda.device(x.device):
             code = _build.load().repro_mutual_reach_panel_f32(
                 x.data_ptr(), y.data_ptr(), cd_x.data_ptr(), cd_y.data_ptr(), n, m, d, int(bool(zero_diag)), nv,
-                grid, int(vec), norms.data_ptr(), out.data_ptr(), _build.current_stream(x.device))
+                row0, grid, int(vec), norms.data_ptr(), out.data_ptr(), _build.current_stream(x.device))
         _build.check(code, "mutual_reach")
         launches += 1
     return out

@@ -1,7 +1,6 @@
 """The kernel API and the offline pass.
 
-The PyTorch counterpart of the JAX package's ``repro/kernels/ops.py``,
-without its sharded (``mesh=``) branch:
+The PyTorch counterpart of the JAX package's ``repro/kernels/ops.py``:
 
 * the point-level functions ``pairwise_sqdist``, ``mutual_reachability``,
   ``knn`` and ``core_distances`` (Def. 1, self-inclusive), the
@@ -32,6 +31,17 @@ go through the Morton grid of ``kernels/grid.py`` instead: tile-pruned
 exact searches, bitwise the dense kernels on the valid rows, and the
 offline pass never builds the (Lp, Lp) W unless ``return_w`` asks for it.
 
+With ``mesh=`` (DESIGN.md §12; a ``launch/mesh.py::Mesh``, ``True`` or a
+list of devices, one process) both offline passes run their O(L²) heart
+in row strips, one per shard on its own device (``_sharded_mst_stage``):
+Eq. 6 over the shard's rows, one gather of the core distances on the lead
+device, the Eq. 7 strip, and Borůvka's per-row minima per strip with one
+gather a round; the round tail and the hierarchy run on the lead.  Each
+strip kernel computes every element as the whole launch does, so the
+sharded pass is bit for bit the unsharded one on any mesh, and no shard
+holds more than an (Lp/k, Lp) strip of W.  ``bubble_mutual_reachability_
+sharded`` is the same decomposition of the d_m matrix.
+
 There is no feature padding to 128 lanes (a TPU tiling) and no L or m
 cap on the Eq. 6 and knn kernels (TPU VMEM sizings): the CUDA kernels
 stream over the table.  Nor is there a cap on d, on k or on ``min_pts``:
@@ -50,8 +60,9 @@ import torch
 from ..core.cf import cf_extent, cf_rep
 from ..core.hdbscan import CondensedTree
 from ..core.hierarchy import hierarchy_fixed
-from ..core.mst import boruvka, boruvka_grid
+from ..core.mst import boruvka, boruvka_grid, boruvka_grid_shard, boruvka_shard
 from ..device import resolve_device, to_device, to_numpy
+from ..launch.mesh import gather, on_devices, resolve_mesh, shard_ranges
 from . import assign as _assign_k
 from . import bubble_cd as _bcd_k
 from . import flash_attention as _fa_k
@@ -70,6 +81,7 @@ __all__ = [
     "assign",
     "bubble_core_distances",
     "bubble_mutual_reachability",
+    "bubble_mutual_reachability_sharded",
     "bubble_table",
     "OfflineClusterResult",
     "offline_recluster_from_table",
@@ -209,6 +221,84 @@ def bubble_mutual_reachability(rep, n_b, extent, min_pts: int, spatial_index: bo
     return _mr_k.mutual_reachability(rep, rep, cd, cd, zero_diag=True)
 
 
+def _run_stage(name: str, fn, *args, **kw):
+    return fn(*args, **kw)
+
+
+def _sharded_core_distances(tables, ranges, min_pts: int, lead) -> torch.Tensor:
+    """Eq. 6 over each shard's rows on its device (``tables[i]`` the shard's
+    (rep, n_b, extent)), gathered on the lead in row order."""
+    return gather([_bcd_k.bubble_core_distances(rep, nb, ext, min_pts=min_pts, dim=rep.shape[1], rows=(a, b))
+                    for (rep, nb, ext), (a, b) in zip(tables, ranges)], lead)
+
+
+def _sharded_mutual_reach(tables, ranges, cds, n_valid) -> list:
+    """Each shard's (b − a, Lp) Eq. 7 strip on its device, its rows global
+    (``row0 = a``): diagonal 0, rows and columns ≥ ``n_valid`` at +inf.
+    ``cds`` maps each device to its copy of the gathered core distances."""
+    strips = []
+    for (rep, _, _), (a, b) in zip(tables, ranges):
+        cd = cds[rep.device][0]
+        strips.append(_mr_k.mutual_reachability(rep[a:b], rep, cd[a:b], cd, zero_diag=True, n_valid=n_valid,
+                                                row0=a))
+    return strips
+
+
+def _dense_shards(rep, n_b, extent, n_valid, min_pts: int, mesh, stage=_run_stage):
+    """Eq. 6 per shard → the core distances gathered on the lead and copied
+    to every shard → each shard's Eq. 7 strip.  Returns the strips and the
+    row ranges: shard i holds rows [i·⌈Lp/k⌉, ...), the last strips shorter
+    or empty.
+
+    On the CPU (the plain versions) Eq. 6 and W are each computed once,
+    whole, on the lead and the strips are slices of W: a CPU BLAS blocks a
+    strip's product ``x @ y.T``, and the vectorised ``pow``/``sqrt`` the
+    tail of a shorter row, otherwise than the whole call, so a strip
+    computed on its own may differ from the same rows in the last bit.
+    The CUDA kernels compute every element the same way in any launch, so
+    on the card each shard computes its own strip."""
+    lead = rep.device
+    ranges = shard_ranges(rep.shape[0], len(mesh.devices))
+    if lead.type == "cpu":
+        cd = stage("bubble_cd", _bcd_k.bubble_core_distances, rep, n_b, extent, min_pts=min_pts, dim=rep.shape[1])
+        W = stage("mutual_reach", _mr_k.mutual_reachability, rep, rep, cd, cd, zero_diag=True, n_valid=n_valid)
+        return [W[a:b] for a, b in ranges], ranges
+    copies = on_devices(mesh, rep, n_b, extent)
+    tables = [copies[dev] for dev in mesh.devices]
+    cd = stage("bubble_cd", _sharded_core_distances, tables, ranges, min_pts, lead)
+    return stage("mutual_reach", _sharded_mutual_reach, tables, ranges, on_devices(mesh, cd), n_valid), ranges
+
+
+def _sharded_mst_stage(rep, n_b, extent, n_valid: int, min_pts: int, mesh, spatial: bool, stage=_run_stage):
+    """The offline pass's O(L²) heart over the mesh (DESIGN.md §12): Eq. 6
+    core distances, Eq. 7 weights and Borůvka's per-row minima in row
+    strips (or, with ``spatial``, ranges of the grid's query blocks), one
+    shard each on its own device; one gather of the core distances and one
+    of the row minima a round on the lead device (the table's), where the
+    round tail runs.  Returns Borůvka's (Lp,) buffers on the lead, bit for
+    bit the unsharded pass's on any mesh."""
+    if spatial:
+        grid, views = stage("build_grid", _grid_table, rep, n_valid)
+        cd = stage("bubble_cd", _grid_k.grid_core_distances_shard, grid, n_b, extent, min_pts, rep.shape[1],
+                   mesh, views)
+        return stage("boruvka", boruvka_grid_shard, grid, cd, views, mesh)
+    strips, ranges = _dense_shards(rep, n_b, extent, n_valid, min_pts, mesh, stage)
+    return stage("boruvka", boruvka_shard, strips, [a for a, _ in ranges], rep.shape[0], mesh)
+
+
+def bubble_mutual_reachability_sharded(rep, n_b, extent, min_pts: int, mesh) -> torch.Tensor:
+    """``bubble_mutual_reachability`` with Eq. 6 and the Eq. 7 rows split
+    over ``mesh`` (DESIGN.md §12): each shard computes its rows' core
+    distances and its (L/k, L) strip on its own device, with one gather of
+    the core distances between.  Returns the strips concatenated on the
+    lead device (rep's), bit for bit ``bubble_mutual_reachability``."""
+    rep, n_b, extent = _contig_f32(rep, n_b, extent)
+    mesh = resolve_mesh(mesh, rep.device)
+    min_pts = _clamp_min_pts(min_pts, float(n_b.sum()))
+    strips, _ = _dense_shards(rep, n_b, extent, None, min_pts, mesh)
+    return gather(strips, rep.device)
+
+
 def bubble_table(LS, SS, N, ids):
     """Host-side f64 bubble derivation: gather the alive-leaf rows and
     apply Eqs. 3–4.  Returns (rep, extent, n, center) — ``center`` is the
@@ -223,13 +313,9 @@ def bubble_table(LS, SS, N, ids):
     return rep, extent, Ng, center
 
 
-def _run_stage(name: str, fn, *args, **kw):
-    return fn(*args, **kw)
-
-
 def _offline_pipeline(rep, n_b, extent, n_valid: int, mcs: float, min_pts: int,
                       method: str = "eom", allow_single: bool = False, *,
-                      stage=_run_stage, with_w: bool = False, spatial: bool = False) -> dict:
+                      stage=_run_stage, with_w: bool = False, spatial: bool = False, mesh=None) -> dict:
     """Device offline pass over a size-bucketed, mean-centred bubble table:
     Eq. 6 → (Lp, Lp) W (Eq. 7, pad rows/cols at +inf so they stay isolated
     in the MST) → Borůvka → hierarchy, on a pre-clamped ``min_pts``.  With
@@ -237,10 +323,16 @@ def _offline_pipeline(rep, n_b, extent, n_valid: int, mcs: float, min_pts: int,
     (pad rows invalid, so isolated) → hierarchy, and W is built only when
     ``with_w`` asks for it.  On ``cuda`` no stage reads the host (the
     hierarchy sweeps are kernels, ``kernels/hierarchy.py``); on the CPU the
-    plain EOM loop reads the label count once.  Returns the fixed-size
+    plain EOM loop reads the label count once.  With ``mesh`` (a resolved
+    ``Mesh`` led by rep's device) Eq. 6, W and Borůvka's row minima run
+    sharded (``_sharded_mst_stage``) and the hierarchy on the lead; W is
+    never whole, so ``with_w`` must be off.  Returns the fixed-size
     buffers, with the device W under ``"W"`` when ``with_w``;
     ``stage(name, fn, *args, **kw)`` runs each step."""
-    if spatial:
+    W = None
+    if mesh is not None:
+        eu, ev, ew, valid = _sharded_mst_stage(rep, n_b, extent, n_valid, min_pts, mesh, spatial, stage)
+    elif spatial:
         grid, views = stage("build_grid", _grid_table, rep, n_valid)
         cd = stage("bubble_cd", _grid_k.grid_core_distances, grid, n_b, extent, min_pts, rep.shape[1], views)
         eu, ev, ew, valid = stage("boruvka", boruvka_grid, grid, cd, views)
@@ -252,7 +344,7 @@ def _offline_pipeline(rep, n_b, extent, n_valid: int, mcs: float, min_pts: int,
                   zero_diag=True, n_valid=n_valid)
         eu, ev, ew, valid = stage("boruvka", boruvka, W)
         if not with_w:
-            del W
+            W = None
     slt = stage("single_linkage", _h_k.single_linkage, eu, ev, ew, valid, n_valid, n_b)
     ct = stage("condense", _h_k.condense, slt, n_b, mcs)
     ex = stage("extract", _h_k.extract, ct, method=method, allow_single_cluster=allow_single)
@@ -386,7 +478,7 @@ def _prepare_table(rep, n_b, extent, min_pts: int, dev: torch.device):
 def offline_recluster_from_table(
     rep, n_b, extent, min_pts: int, min_cluster_size: float | None = None, *,
     device=None, method: str = "eom", allow_single_cluster: bool = False,
-    return_w: bool = False, stage=_run_stage, spatial_index: bool = False,
+    return_w: bool = False, stage=_run_stage, spatial_index: bool = False, mesh=None,
 ):
     """The streaming engine's offline pass, from a derived bubble table:
     ``_prepare_table`` on the host, the stages on ``device`` (None →
@@ -404,17 +496,24 @@ def offline_recluster_from_table(
         the device stages of ``_offline_pipeline``, "unwrap"; the default
         just calls ``fn``.
       spatial_index: the grid pass (no (Lp, Lp) W unless ``return_w``).
+      mesh: ``True``, a ``Mesh`` or a list of devices led by ``device``:
+        the O(L²) stage row-sharded over it, bit for bit the unsharded
+        result; incompatible with ``return_w`` (the matrix the sharded
+        pass never builds whole).
 
     Returns:
       OfflineClusterResult; with ``return_w=True``, ``(W, result)``.
     """
     dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, dev)
+    if mesh is not None and return_w:
+        raise ValueError("return_w is unsupported on the sharded (mesh=) path")
     L = int(np.shape(rep)[0])
     mcs = float(min_pts if min_cluster_size is None else min_cluster_size)
     (rep_t, nb_t, ext_t), min_pts, Ng = stage("prepare", _prepare_table, rep, n_b, extent, min_pts, dev)
     out = _offline_pipeline(rep_t, nb_t, ext_t, L, mcs, min_pts, method,
                             bool(allow_single_cluster), stage=stage, with_w=return_w,
-                            spatial=bool(spatial_index))
+                            spatial=bool(spatial_index), mesh=mesh)
     W = out.pop("W", None)
     result = stage("unwrap", _unwrap_result, out, L, mcs, Ng)
     if return_w:
@@ -454,7 +553,7 @@ def _device_table_prepare(LS, LSe, SS, SSe, N, slots):
 
 def _device_table_pipeline(LS, LSe, SS, SSe, N, slots, mcs: float, min_pts: int,
                            method: str = "eom", allow_single: bool = False, *, stage=_run_stage,
-                           spatial: bool = False):
+                           spatial: bool = False, mesh=None):
     """The flat-table pass up to its unwrap: ``_device_table_prepare`` then
     ``_offline_pipeline`` over the compacted table; rep, nb and mu ride in
     the output dict so the unwrap reads everything in ONE host sync.
@@ -462,7 +561,7 @@ def _device_table_pipeline(LS, LSe, SS, SSe, N, slots, mcs: float, min_pts: int,
     L = len(slots)
     rep_c, nb, extent, rep, mu = stage("prepare", _device_table_prepare, LS, LSe, SS, SSe, N, slots)
     out = _offline_pipeline(rep_c, nb, extent, L, mcs, min_pts, method, allow_single, stage=stage,
-                            spatial=spatial)
+                            spatial=spatial, mesh=mesh)
     out.update(rep=rep, nb=nb, mu=mu)
     return out, L
 
@@ -481,7 +580,7 @@ def _unwrap_device_table(out: dict, L: int, mcs: float, origin):
 def offline_recluster_from_device_table(
     LS, LSe, SS, SSe, N, alive, origin, min_pts: int, min_cluster_size: float | None = None, *,
     slots, method: str = "eom", allow_single_cluster: bool = False, stage=_run_stage,
-    spatial_index: bool = False,
+    spatial_index: bool = False, mesh=None,
 ):
     """The streaming engine's offline pass over a device-online flat table
     (``BubbleFlat.device_view()`` or a capture's clones): no upload of the
@@ -503,6 +602,8 @@ def offline_recluster_from_device_table(
       stage: as in ``offline_recluster_from_table`` ("prepare" is the
         device derivation here).
       spatial_index: the grid pass.
+      mesh: as in ``offline_recluster_from_table``, led by the table's
+        device.
 
     Returns:
       (OfflineClusterResult, rep, n_b, center): ``rep`` the (L, d) f64
@@ -510,8 +611,10 @@ def offline_recluster_from_device_table(
       ``center`` the f64 mass centroid every f32 assignment subtracts.
     """
     mcs = float(min_pts if min_cluster_size is None else min_cluster_size)
+    mesh = resolve_mesh(mesh, LS.device)
     out, L = _device_table_pipeline(LS, LSe, SS, SSe, N, slots, mcs, int(min_pts), method,
-                                    bool(allow_single_cluster), stage=stage, spatial=bool(spatial_index))
+                                    bool(allow_single_cluster), stage=stage, spatial=bool(spatial_index),
+                                    mesh=mesh)
     return stage("unwrap", _unwrap_device_table, out, L, mcs, origin)
 
 
@@ -663,12 +766,13 @@ class ClusterBackend:
             LS, LSe, SS, SSe, N, alive, origin, min_pts, min_cluster_size,
             spatial_index=self.spatial_index, **kw)
 
-    def make_flat(self, dim: int, capacity: int = 64):
+    def make_flat(self, dim: int, capacity: int = 64, mesh=None):
         """Device-resident flat leaf-CF table (core/bubble_flat.py) on this
-        backend's device: device-online ingest (DESIGN.md §8)."""
+        backend's device: device-online ingest (DESIGN.md §8).  ``mesh``
+        bakes the sharded offline pass into every capture (§12)."""
         from ..core.bubble_flat import BubbleFlat  # the table's captures import this module
 
-        return BubbleFlat(dim, device=self.device, capacity=capacity, spatial_index=self.spatial_index)
+        return BubbleFlat(dim, device=self.device, capacity=capacity, spatial_index=self.spatial_index, mesh=mesh)
 
     def make_dynamic(self, min_pts: int, dim: int, capacity: int = 256, **kw):
         """Exact-dynamic handle (core/dynamic_torch.py) on this backend's

@@ -81,14 +81,16 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(xx + yy - 2.0 * (x @ y.T), 0.0)
 
 
-def mutual_reachability(x, y, cd_x, cd_y, zero_diag: bool = True, n_valid: int | None = None):
+def mutual_reachability(x, y, cd_x, cd_y, zero_diag: bool = True, n_valid: int | None = None, row0: int = 0):
     """Eq. 7 tiles ``max(d(x, y), cd_x, cd_y)``; the global diagonal is 0
     with ``zero_diag``, and rows/columns ≥ ``n_valid`` are +inf (the
-    offline pass's pad rows, which Borůvka must never connect)."""
+    offline pass's pad rows, which Borůvka must never connect).  ``x`` is
+    rows ``row0 ..`` of the table: the diagonal and the row mask read
+    global row indices."""
     d = torch.sqrt(pairwise_sqdist(x, y))
     m = torch.maximum(d, torch.maximum(cd_x.float()[:, None], cd_y.float()[None, :]))
     n, mm = m.shape
-    rows = torch.arange(n, device=m.device)[:, None]
+    rows = row0 + torch.arange(n, device=m.device)[:, None]
     cols = torch.arange(mm, device=m.device)[None, :]
     if zero_diag:
         m = torch.where(rows == cols, 0.0, m)
@@ -315,35 +317,46 @@ def _lex_topk(d, i, K: int):
     return torch.gather(d, -1, by_d), torch.gather(i, -1, by_d)
 
 
-def grid_core_distances(grid, views, n_b, extent, min_pts: int, dim: int):
+def _query_blocks(grid, views, blocks):
+    """The sorted table's query blocks ``[b0, b1)`` (all by default): rows
+    (NB, bn, d), valid mask, original rows, and their visit lists."""
+    d = grid.pts.shape[1]
+    bn = views.block
+    b0, b1 = (0, views.order.shape[0]) if blocks is None else blocks
+    rows = slice(b0 * bn, b1 * bn)
+    return (grid.pts[rows].view(-1, bn, d), grid.valid[rows].view(-1, bn), grid.orig[rows].long().view(-1, bn),
+            views.order[b0:b1], views.lbs[b0:b1])
+
+
+def grid_core_distances(grid, views, n_b, extent, min_pts: int, dim: int, blocks=None):
     """Plain ``grid_core_distances``: per row of the sorted table, the
     first K = min(min_pts, Lp) VALID rows of the (distance, original index)
     order — self at exactly 0 — kept by a lexicographic top-K merge tile
     after tile, then Eq. 6 over that prefix.  A block stops before the
     first tile whose bound exceeds its valid rows' K-th distance, or is
     +inf.  ``n_b``/``extent`` and the result are in ORIGINAL row order
-    (0 on invalid rows)."""
+    (0 on invalid rows); with ``blocks = (b0, b1)`` only those query
+    blocks run and the result is their rows' values in SORTED order."""
     Lp, d = grid.pts.shape
-    NB, NT = views.order.shape
+    NT = views.order.shape[1]
     bn = views.block
     dev = grid.pts.device
     K = min(int(min_pts), Lp)
     mp = float(min_pts)
-    xb = grid.pts.view(NB, bn, d)
-    xv = grid.valid.view(NB, bn)
-    xo = grid.orig.long().view(NB, bn)
+    xb, xv, xo, v_order, v_lbs = _query_blocks(grid, views, blocks)
+    NB = xb.shape[0]
     xx = (xb * xb).sum(-1)
     inf = float("inf")
     bd = torch.full((NB, bn, K), inf, device=dev)
     bi = torch.full((NB, bn, K), Lp, dtype=torch.int64, device=dev)
     active = torch.ones(NB, dtype=torch.bool, device=dev)
     for t in range(NT):
-        lb = views.lbs[:, t]
+        lb = v_lbs[:, t]
         kth = torch.where(xv, bd[:, :, K - 1], -inf).amax(1)
         active = active & torch.isfinite(lb) & (lb <= kth)
         if not bool(active.any()):
             break
-        ys, yy, yv, yo = _grid_tiles(grid, views.order[:, t])
+        ys, yy, yv, yo = _grid_tiles(grid, v_order[:, t])
         dm = torch.sqrt(_tile_sq(xb, xx, ys, yy))
         dm = torch.where(yo[:, None, :] == xo[:, :, None], 0.0, dm)  # self at exactly 0
         dm = torch.where(yv[:, None, :], dm, inf)
@@ -363,12 +376,15 @@ def grid_core_distances(grid, views, n_b, extent, min_pts: int, dim: int):
     nC = torch.clamp_min(nb[C], 1.0)
     k_resid = torch.minimum(torch.clamp_min(k_resid, 0.0), nC)
     cdb = torch.gather(bd, -1, idx) + dim_root(k_resid / nC, dim) * extent.float()[C]
+    vals = torch.where(xv, cdb[..., 0], 0.0).reshape(-1)
+    if blocks is not None:
+        return vals
     out = torch.zeros(Lp, device=dev)
-    out[xo.reshape(-1)] = torch.where(xv, cdb[..., 0], 0.0).reshape(-1)
+    out[xo.reshape(-1)] = vals
     return out
 
 
-def grid_round_minima(grid, views, cd, labels, hopeless):
+def grid_round_minima(grid, views, cd, labels, hopeless, blocks=None):
     """Plain ``grid_round_minima``: per row, the lightest edge to another
     component by (w, canonical edge id), ``w = max(d, cd_r, cd_c)`` and
     ``eid = min(o_r, o_c)·n + max(o_r, o_c)``, over valid columns with
@@ -376,14 +392,13 @@ def grid_round_minima(grid, views, cd, labels, hopeless):
     ``max(lb, cd_r) > best_w`` for all its live rows (valid, not
     ``hopeless``), or whose bound is +inf.  ``cd``/``labels``/``hopeless``
     and the result (row_w f32, row_eid int32; +inf and int32 max where no
-    edge) are in ORIGINAL row order."""
+    edge) are in ORIGINAL row order; with ``blocks = (b0, b1)`` only those
+    query blocks run and the result is their rows' in SORTED order."""
     n, d = grid.pts.shape
-    NB, NT = views.order.shape
-    bn = views.block
+    NT = views.order.shape[1]
     dev = grid.pts.device
-    xb = grid.pts.view(NB, bn, d)
-    xv = grid.valid.view(NB, bn)
-    xo = grid.orig.long().view(NB, bn)
+    xb, xv, xo, v_order, v_lbs = _query_blocks(grid, views, blocks)
+    NB, bn = xv.shape
     xx = (xb * xb).sum(-1)
     lab_r, cd_r = labels[xo], cd[xo]
     alive = xv & ~hopeless[xo]
@@ -391,12 +406,12 @@ def grid_round_minima(grid, views, cd, labels, hopeless):
     be = torch.full((NB, bn), _INT32_MAX, dtype=torch.int64, device=dev)
     active = torch.ones(NB, dtype=torch.bool, device=dev)
     for t in range(NT):
-        lb = views.lbs[:, t]
+        lb = v_lbs[:, t]
         thr = torch.maximum(lb[:, None], cd_r)
         active = active & torch.isfinite(lb) & (alive & (thr <= bw)).any(1)
         if not bool(active.any()):
             break
-        ys, yy, yv, yo = _grid_tiles(grid, views.order[:, t])
+        ys, yy, yv, yo = _grid_tiles(grid, v_order[:, t])
         dm = torch.sqrt(_tile_sq(xb, xx, ys, yy))
         w = torch.maximum(dm, torch.maximum(cd_r[:, :, None], cd[yo][:, None, :]))
         ok = alive[:, :, None] & yv[:, None, :] & (labels[yo][:, None, :] != lab_r[:, :, None])
@@ -408,6 +423,8 @@ def grid_round_minima(grid, views, cd, labels, hopeless):
         better = active[:, None] & ((rw < bw) | ((rw == bw) & (re < be)))
         bw = torch.where(better, rw, bw)
         be = torch.where(better, re, be)
+    if blocks is not None:
+        return bw.reshape(-1), be.reshape(-1).to(torch.int32)
     rows = xo.reshape(-1)
     row_w = torch.empty(n, device=dev)
     row_eid = torch.empty(n, dtype=torch.int32, device=dev)

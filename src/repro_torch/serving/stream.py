@@ -48,8 +48,13 @@ The PyTorch counterpart of the JAX package's ``serving/stream.py``:
                   publishes labels from the maintained tree through the
                   hierarchy stages alone (``ops.incremental_recluster``).
 
-The ``mesh`` option is not ported yet (ROADMAP.md queue 1, item 7): it
-raises ``NotImplementedError``.
+  mesh            with ``mesh=`` (DESIGN.md §12: ``True`` for every visible
+                  card, or a list of devices in this process) each
+                  ε-pass runs its O(L²) stage — Eq. 6, the Eq. 7 strips,
+                  Borůvka's row minima — in row strips, one shard per
+                  device, gathered on the engine's device
+                  (``ops._sharded_mst_stage``): bit for bit the unsharded
+                  pass, host-table and device-online alike.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from ..core.bubble_tree import BubbleTree
 from ..core.device_table import DynamicStateCapture, SnapshotDeviceTable
 from ..device import to_numpy
 from ..kernels import ops
+from ..launch.mesh import resolve_mesh
 from .batcher import HostBatcher
 from .query import QueryEngine, QueryResult
 
@@ -77,12 +83,6 @@ __all__ = [
     "QueryResult",
     "StreamingClusterEngine",
 ]
-
-# options of the JAX engine that this port does not carry yet, and the
-# ROADMAP.md queue-1 item that will
-_NOT_PORTED = {
-    "mesh": "queue 1, item 7 (multi-device offline pass)",
-}
 
 _CKPT_FORMAT = 1  # the JAX engine's checkpoint format, key for key
 
@@ -244,6 +244,14 @@ class StreamingClusterEngine:
         Incompatible with ``device_online`` and ``async_offline``.
       update_policy: incremental-vs-full routing (exact mode only).
       exact_capacity: initial slot-capacity bucket of the dynamic state.
+      mesh: the offline plane's devices (DESIGN.md §12): ``True`` = every
+        visible device of the engine's type, led by ``device``; or a
+        ``Mesh`` or a list of devices, the first of them ``device``, one
+        may repeat.  ε-passes then run the O(L²) stage row-sharded over
+        it, bit for bit the unsharded pass; snapshots, queries,
+        checkpoints and ingest are untouched.  Incompatible with
+        ``exact`` (the incremental path has no O(L²) stage).
+      mesh_axis: the name of the mesh's axis.
       query_cache, query_scope: a shared `SnapshotDeviceCache` and this
         engine's scope in it — a `TenantRouter` pools one cache across
         engines with ``(tenant, version)`` keys.
@@ -268,6 +276,7 @@ class StreamingClusterEngine:
         update_policy: UpdatePolicy | None = None,
         exact_capacity: int = 256,
         mesh=None,
+        mesh_axis: str = "data",
         query_cache=None,
         query_scope=None,
         **tree_kw,
@@ -277,11 +286,15 @@ class StreamingClusterEngine:
                 "device_online summarizes into the flat leaf-CF state; "
                 "exact=True bypasses bubble summarization entirely"
             )
-        if mesh is not None:
-            raise NotImplementedError(f"mesh is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED['mesh']}")
         if exact and async_offline:
             raise ValueError("exact=True refreshes labels synchronously per poll; async_offline is not supported")
         self.backend = ops.get_backend(device, spatial_index=spatial_index)
+        self.mesh = resolve_mesh(mesh, self.backend.device, str(mesh_axis))
+        if self.mesh is not None and exact:
+            raise ValueError(
+                "mesh= shards the offline pass's O(L²) stage; exact=True "
+                "maintains the point-level MST incrementally and has none"
+            )
         assign_fn = None
         if self.backend.device.type == "cuda":
             # the ingest point→leaf argmin runs on the assign kernel (on the
@@ -312,7 +325,7 @@ class StreamingClusterEngine:
         # writes once on failure, the ingest thread reads-and-clears
         self._offline_error: BaseException | None = None
         self._flat = (  # owner: ingest thread (workers read captures)
-            self.backend.make_flat(dim) if device_online else None
+            self.backend.make_flat(dim, mesh=self.mesh) if device_online else None
         )
         # offline plane sources (core.device_table): the host tree is the
         # always-ready fallback; device_online prefers the flat table
@@ -637,10 +650,11 @@ class StreamingClusterEngine:
             raise RuntimeError("async offline re-cluster pass failed") from err
 
     def _offline_pass(self, capture, n_points, dirty_captured):
-        """One offline pass over a capture, published as ONE snapshot."""
+        """One offline pass over a capture (through the mesh when the engine
+        has one), published as ONE snapshot."""
         t0 = time.perf_counter()
         res, rep, n_b, center = capture.recluster(
-            self.backend, min_pts=self.min_pts, min_cluster_size=self.min_cluster_size)
+            self.backend, min_pts=self.min_pts, min_cluster_size=self.min_cluster_size, mesh=self.mesh)
         return self._publish_snapshot(res, rep, n_b, center, n_points, dirty_captured, t0)
 
     def _publish_snapshot(self, res, rep, n_b, center, n_points, dirty_captured, t0):

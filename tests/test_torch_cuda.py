@@ -20,7 +20,11 @@ kernel: the feature slices keep one ascending FMA chain.  The grid's
 three kernels (``csrc/grid.cu``) are held bit for bit to their dense
 counterparts on the valid rows: ``grid_assign`` to assign,
 ``grid_core_distances`` to bubble_cd on either route, ``boruvka_grid`` to
-dense Borůvka on the panel's W of the same core distances.
+dense Borůvka on the panel's W of the same core distances.  The sharded
+offline pass's strip launches (``-k Mesh``: bubble_cd over row ranges on
+both routes, the panel with a global ``row0``, the grid kernels over
+block ranges) are held bit for bit to the same rows of the whole launch,
+and the pass on ``("cuda:0",) * k`` to the unsharded pass.
 Tolerances: indices identical on tie-free centred data; values within
 1e-5 relative plus the f32 cancellation allowance of the expanded
 distance form, which the kernel and the plain version round in different
@@ -1287,3 +1291,97 @@ class TestCudaDynamic:
         want = tops.incremental_update(host.state, insert=P, slots=slots, valid=valid, min_pts=10)
         for f in want._fields:
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+class TestCudaMesh:
+    """The sharded offline pass's strip launches (``mesh=``) bit for bit
+    the same rows of the whole launch: bubble_cd on both routes over row
+    ranges, the distance panel with a global ``row0`` (aligned and
+    unaligned strips, so both store plans), the grid's Eq. 6 and Borůvka
+    round over block ranges (a tie-heavy table too); then the sharded pass
+    on ``("cuda:0",) * k`` bit for bit the unsharded one, dense and
+    spatial, and ``boruvka_shard``'s buffers ``boruvka``'s."""
+
+    @staticmethod
+    def _ranges(n):
+        from repro_torch.launch.mesh import shard_ranges
+
+        return [r for k in (2, 3, 8) for r in shard_ranges(n, k)] + [(5, 6), (1, n - 3)]
+
+    @pytest.mark.parametrize("d,min_pts", [(16, 10), (16, 2000), (200, 10)])
+    def test_bubble_cd_rows(self, cuda_device, d, min_pts):
+        rng = np.random.default_rng(41)
+        rep, n_b, extent = (_t(a).to(cuda_device) for a in _bubble_table(rng, 3001, d))
+        full = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=d)
+        strip_full = t_bcd.bubble_cd_strip(rep, n_b, extent, min_pts=min_pts, dim=d)
+        for a, b in self._ranges(3001):
+            got = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=d, rows=(a, b))
+            assert torch.equal(got, full[a:b]), (a, b)
+            got = t_bcd.bubble_cd_strip(rep, n_b, extent, min_pts=min_pts, dim=d, rows=(a, b))
+            assert torch.equal(got, strip_full[a:b]), (a, b)
+
+    @pytest.mark.parametrize("m", [3001, 3004])
+    def test_mutual_reach_row0(self, cuda_device, m):
+        rng = np.random.default_rng(42)
+        X = _t(_centred(rng, m, 16)).to(cuda_device)
+        cd = _t(rng.uniform(0.1, 1.0, size=m).astype(np.float32)).to(cuda_device)
+        full = t_mr.mutual_reachability(X, X, cd, cd, zero_diag=True, n_valid=m - 300)
+        for a, b in self._ranges(m):
+            got = t_mr.mutual_reachability(X[a:b], X, cd[a:b], cd, zero_diag=True, n_valid=m - 300, row0=a)
+            assert torch.equal(got, full[a:b]), (a, b)
+
+    @pytest.mark.parametrize("case", ["spread", "dup"])
+    def test_grid_block_ranges(self, cuda_device, case):
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(43)
+        rep = _t(_grid_case(case, rng, 3001, 16)).to(cuda_device)
+        n_b = _t(rng.integers(1, 6, size=3001).astype(np.float32)).to(cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=3001).astype(np.float32)).to(cuda_device)
+        _, g, (nb_p, ext_p) = _padded_grid(rep, n_b, extent)
+        views = t_grid._block_views(g)
+        cd = t_grid.grid_core_distances(g, nb_p, ext_p, 10, 16, views)
+        labels = torch.as_tensor(rng.integers(0, 500, size=4096), device=cuda_device)
+        hopeless = torch.zeros(4096, dtype=torch.bool, device=cuda_device)
+        w, e = t_grid.grid_round_minima(g, views, cd, labels, hopeless)
+        rows = g.orig.long()
+        cd_s, w_s, e_s = cd[rows], w[rows], e[rows]  # sorted order
+        NB = views.order.shape[0]
+        for b0, b1 in self._ranges(NB):
+            got = t_grid.grid_core_distances(g, nb_p, ext_p, 10, 16, views, blocks=(b0, b1))
+            assert torch.equal(got, cd_s[b0 * 64 : b1 * 64]), (b0, b1)
+            gw, ge = t_grid.grid_round_minima(g, views, cd, labels, hopeless, blocks=(b0, b1))
+            assert torch.equal(gw, w_s[b0 * 64 : b1 * 64]) and torch.equal(ge, e_s[b0 * 64 : b1 * 64]), (b0, b1)
+
+    @pytest.mark.parametrize("spatial", [False, True], ids=["dense", "spatial"])
+    def test_sharded_pass(self, cuda_device, spatial):
+        rng = np.random.default_rng(44)
+        rep = rng.normal(size=(3001, 16)) * 3.0 + 40.0
+        n_b = rng.integers(1, 9, size=3001).astype(np.float64)
+        extent = rng.uniform(0.1, 1.0, size=3001)
+        want = tops.offline_recluster_from_table(rep, n_b, extent, 10, device=cuda_device, spatial_index=spatial)
+        for k in (1, 2, 3, 4, 8):
+            got = tops.offline_recluster_from_table(rep, n_b, extent, 10, device=cuda_device, spatial_index=spatial,
+                                                    mesh=(cuda_device,) * k)
+            for f in ("labels", "stabilities", "point_parent", "point_lambda", "cluster_parent", "cluster_birth",
+                      "cluster_weight", "selected", "all_stabilities"):
+                np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f"k={k} {f}")
+            for a, b in zip(got.mst, want.mst, strict=True):
+                np.testing.assert_array_equal(a, b)
+
+    def test_boruvka_shard_buffers(self, cuda_device):
+        from repro_torch.core import mst as t_mst
+        from repro_torch.launch.mesh import resolve_mesh, shard_ranges
+
+        rng = np.random.default_rng(45)
+        rep, n_b, extent = (_t(a).to(cuda_device) for a in _bubble_table(rng, 2048, 16))
+        cd = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=10, dim=16)
+        W = t_mr.mutual_reachability(rep, rep, cd, cd, zero_diag=True, n_valid=2000)
+        want = t_mst.boruvka(W)
+        for k in (1, 2, 3, 4, 8):
+            ranges = shard_ranges(2048, k)
+            got = t_mst.boruvka_shard([W[a:b] for a, b in ranges], [a for a, _ in ranges], 2048,
+                                      resolve_mesh((cuda_device,) * k))
+            for g, w in zip(got, want, strict=True):
+                assert torch.equal(g, w), k

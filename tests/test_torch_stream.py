@@ -168,9 +168,11 @@ class TestCarry:
         port.tree.check_invariants()
 
     def test_rejects_modes_not_ported(self):
-        """An exact-mode reference checkpoint (once refused) carries across
-        as an exact-mode engine that resumes in step with the reference;
-        ``mesh``, still not ported, is refused."""
+        """Both modes once refused carry across: an exact-mode reference
+        checkpoint as an exact-mode engine, and a default-mode one into a
+        mesh engine (``mesh=("cpu",) * 2``, once refused too), each resuming
+        in step with the reference; an exact checkpoint with a mesh is
+        refused as the reference refuses it."""
         ops = _stream(5)
         head, tail = ops[:6], ops[6:10]
         ref = RefEngine(DIM, backend="jnp", exact=True, **ENGINE_KW)
@@ -190,23 +192,48 @@ class TestCarry:
                 _assert_same_queries(port, ref, payload)
             assert port.snapshot.version == ref.snapshot.version
             _assert_same_snapshot(port.snapshot, ref.snapshot)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            engine_from_reference_state(ref.checkpoint_state(), device="cpu", mesh=object())
+        with pytest.raises(ValueError, match="exact=True"):
+            engine_from_reference_state(ref.checkpoint_state(), device="cpu", mesh=("cpu",) * 2)
+        ref = RefEngine(DIM, backend="jnp", **ENGINE_KW)
+        pids = [p for kind, payload in head if kind == "insert" for p in ref.ingest(payload)]
+        port = engine_from_reference_state(
+            ref.checkpoint_state(), device="cpu", mesh=("cpu",) * 2,
+            max_block=ENGINE_KW["max_block"], min_offline_points=ENGINE_KW["min_offline_points"])
+        assert len(port.mesh.devices) == 2 and port.snapshot.version == ref.snapshot.version
+        for kind, payload in tail:
+            if kind == "insert":
+                pids.extend(port.ingest(payload))
+                assert ref.ingest(payload) == pids[-len(payload):]
+            elif kind == "delete":
+                port.retire([pids[i] for i in payload])
+                ref.retire([pids[i] for i in payload])
+            else:
+                _assert_same_queries(port, ref, payload)
+            assert port.snapshot.version == ref.snapshot.version
+            _assert_same_snapshot(port.snapshot, ref.snapshot)
+        assert port.stats["recluster_count"] >= 1
 
 
 class TestEngineOptions:
-    @pytest.mark.parametrize("opt", [{"exact": True}, {"mesh": True}])
+    @pytest.mark.parametrize("opt", [{"exact": True}, {"mesh": ("cpu",) * 2}])
     def test_options_not_ported_raise(self, opt):
-        """``mesh`` is not ported and raises; ``exact`` (once refused too)
-        constructs and polls."""
-        if "mesh" in opt:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                StreamingClusterEngine(DIM, device="cpu", **opt)
-            return
+        """The options once refused as not ported, ``exact`` and ``mesh``,
+        construct and poll: exact mode publishes every point as a bubble,
+        the mesh engine the unsharded engine's snapshot bit for bit."""
+        X = _stream(3)[0][1]
         eng = StreamingClusterEngine(DIM, device="cpu", **opt, **ENGINE_KW)
-        eng.submit_insert(_stream(3)[0][1])
+        eng.submit_insert(X)
         assert eng.poll() == 150
-        assert eng.snapshot.n_points == 150 and eng.snapshot.n_bubbles == 150
+        assert eng.snapshot.n_points == 150
+        if "exact" in opt:
+            assert eng.snapshot.n_bubbles == 150
+            return
+        plain = StreamingClusterEngine(DIM, device="cpu", **ENGINE_KW)
+        plain.submit_insert(X)
+        plain.poll()
+        np.testing.assert_array_equal(eng.snapshot.bubble_labels, plain.snapshot.bubble_labels)
+        for a, b in zip(eng.snapshot.mst, plain.snapshot.mst, strict=True):
+            np.testing.assert_array_equal(a, b)
 
     @pytest.mark.parametrize("device_online", [False, True], ids=["host_table", "device_online"])
     def test_spatial_index_runs_the_stream(self, device_online):
