@@ -38,10 +38,15 @@ Phases, each printing its own lines:
               kernels (single-linkage, condense, EOM) against the plain
               loops on the card on the full table's own Borůvka buffers
               (Lp = 8192: integer fields, λ and weights bit for bit,
-              stabilities within 1e-5, a second run bit for bit), timed
+              stabilities within 1e-5, a second run bit for bit), and
+              single-linkage and condense (csrc/hierarchy_par.cu) also
+              against their first versions (csrc/hierarchy.cu) and the CPU
+              models of their algorithms there and on a 32,768-leaf chain
+              (a dendrogram 32,767 deep, with the plain loops on the CPU),
+              timed in turns with the first versions at both sizes and
               beside the plain loops, with their bound (the larger of the
-              bytes and a latency floor of one shared-memory round trip per
-              dependent step); one offline pass at Lp = 8192 timed stage by
+              bytes and, for the sweeps that walk, a latency floor of one
+              shared-memory round trip per dependent step); one offline pass at Lp = 8192 timed stage by
               stage, end to end, under torch.profiler (device busy share),
               and once more with no host synchronisation allowed between
               prepare and unwrap (torch.cuda.set_sync_debug_mode); and
@@ -187,7 +192,8 @@ Phases, each printing its own lines:
               blocks of 32 on the card and on the CPU (versions,
               partitions, MST weight, bitwise cd / knn_dst rows); insert
               and delete ms at blocks of 64, 256, 819 and 1638 against a
-              rebuild (the crossover), the hierarchy-only refresh, the
+              rebuild (the crossover), the hierarchy-only refresh and its
+              stage split (single_linkage, condense, extract), the
               query p50, peak memory, no host read in an update body or a
               refresh before its unwrap (set_sync_debug_mode); the three
               strip kernels bit for bit their plain versions at the
@@ -200,7 +206,10 @@ Phases, each printing its own lines:
      CUDA-core kernel's time as scalar_ms, flash_attention_mma with the
      qwen2-1.5b bf16 case; single_linkage, condense and eom, which stand
      for the JAX package's three hierarchy scans, with the stage's time
-     as stage_ms and the latency floor as latency_floor_ms; flat_scatter,
+     as stage_ms and the latency floor as latency_floor_ms (null for
+     condense, which has no chain of dependent steps), single_linkage and
+     condense with the first version's time as v1_ms and both times at
+     the 32,768 chain as chain; flat_scatter,
      which stands for the segment sums of device-online ingest, with its
      launches from [online] and one launch's time as launch_ms;
      grid_assign, grid_core_distances and grid_round_minima, which stand
@@ -238,6 +247,7 @@ EPSILON = 0.2
 N_QUERIES = 65_536
 QUERY_CHUNK = 4096
 LP = 8192  # the offline bucket the stream reaches, and the kernels' check size
+CHAIN_LP = 32_768  # [kernels] hierarchy: a chain this long, the exact refresh's bucket (state in scratch)
 RTOL = 1e-5
 N_KNN = 65_536  # [points]: knn and core distances at n = m
 N_PAIR = 16_384  # [points]: pairwise and point mutual reachability (1 GiB each)
@@ -2515,11 +2525,47 @@ def same_arrays(name, got, want) -> float:
     return err
 
 
+def chain_buffers(Lp: int, seed: int):
+    """Borůvka-shaped (eu, ev, ew, valid, weights) numpy buffers of a chain
+    over Lp leaves: a path whose weights rise along it (distinct in f32:
+    multiples of 2^-10 in [1, 1025)), in random slots, one slot left
+    invalid; leaf weights 1–5.  Every merge takes in one leaf: a dendrogram
+    Lp − 1 deep, as a large cluster that absorbs points one at a time
+    gives."""
+    rng = np.random.default_rng(seed)
+    perm, n_e = rng.permutation(Lp), Lp - 1
+    slots = rng.permutation(Lp)[:n_e]
+    eu, ev = np.zeros(Lp, np.int32), np.zeros(Lp, np.int32)
+    ew, valid = np.zeros(Lp, np.float32), np.zeros(Lp, bool)
+    eu[slots], ev[slots], valid[slots] = perm[1:], perm[:-1], True
+    ew[slots] = 1.0 + np.sort(rng.choice(1 << 20, n_e, replace=False)) / 1024.0
+    return eu, ev, ew, valid, rng.integers(1, 6, Lp).astype(np.float32)
+
+
+def on_cpu(arrays):
+    """A hierarchy NamedTuple with every field copied to the CPU."""
+    return type(arrays)(*(t.cpu() for t in arrays))
+
+
+def in_turns(new, old, reps=20):
+    """Device ms of two versions timed in turns (new, old, old, new): the
+    means of each version's two timings."""
+    a, b, c, d = time_ms(new, reps), time_ms(old, reps), time_ms(old, reps), time_ms(new, reps)
+    return (a + d) / 2, (b + c) / 2
+
+
 def phase_hierarchy(dev, table):
-    """The three hierarchy kernels against the plain loops on the card, on
-    the offline pass's own Borůvka buffers for the stream's full table
-    (Lp = 8192), with kernel, stage and plain times and the bound; returns
-    the per-kernel numbers for the JSON line."""
+    """The hierarchy kernels on the card.  Single-linkage and condense
+    (csrc/hierarchy_par.cu) against their first versions
+    (csrc/hierarchy.cu), the plain loops and the CPU models of their
+    algorithms (core/hierarchy.py: single_linkage_chunked, condense_jump),
+    every field bit for bit, on the offline pass's own Borůvka buffers for
+    the stream's full table (Lp = 8192, the state in shared memory) and on a
+    chain at CHAIN_LP (a dendrogram CHAIN_LP − 1 deep, the state in
+    scratch); EOM against its plain loop; a second run bit for bit; the new
+    and first versions timed in turns at both sizes, with stage and plain
+    times and the bound.  Returns the per-kernel numbers for the JSON
+    line."""
     import torch
 
     from repro_torch.core import hierarchy as th
@@ -2560,39 +2606,92 @@ def phase_hierarchy(dev, table):
         for field in a._fields:
             check(bool(torch.equal(getattr(a, field), getattr(b, field))), f"{name}.{field}: a second run differs")
     check(bool(torch.equal(stab, again[3])) and bool(torch.equal(sel, again[4][0])), "eom: a second run differs")
+
+    def against_oracles(tag, bufs, n_valid, slt, ct, cpu_plain):
+        """slt, ct (the new kernels' on the card) bit for bit the first
+        versions on the same inputs, the CPU models and, with
+        ``cpu_plain``, the plain loops on the CPU."""
+        edges = th.sorted_edges(*bufs[:4], n_valid)
+        same_arrays(f"{tag} single_linkage v1", slt, k_h.single_linkage_sorted_v1(*edges, bufs[4]))
+        same_arrays(f"{tag} condense v1", ct, k_h.condense_v1(slt, bufs[4], mcs))
+        cpu = [b.cpu() for b in bufs]
+        c_slt, c_ct = on_cpu(slt), on_cpu(ct)
+        same_arrays(f"{tag} single_linkage model", c_slt,
+                    th.single_linkage_chunked(*cpu[:4], n_valid, cpu[4], chunk=k_h.CHUNK))
+        same_arrays(f"{tag} condense model", c_ct, th.condense_jump(c_slt, cpu[4], mcs, chunk=k_h.CHUNK))
+        if cpu_plain:
+            pc_slt = th.single_linkage_fixed(*cpu[:4], n_valid, cpu[4])
+            same_arrays(f"{tag} single_linkage plain (CPU)", c_slt, pc_slt)
+            same_arrays(f"{tag} condense plain (CPU)", c_ct, th.condense_fixed(pc_slt, cpu[4], mcs))
+
+    v1_launches = (k_h.launches_single_linkage_v1, k_h.launches_condense_v1)
+    against_oracles(f"Lp={Lp}", (eu, ev, ew, valid, nb), L, slt, ct, cpu_plain=False)
+    chain = [torch.from_numpy(a).to(dev) for a in chain_buffers(CHAIN_LP, SEED + 7)]
+    ch_edges = th.sorted_edges(*chain[:4], CHAIN_LP)
+    ch_slt = k_h.single_linkage_sorted(*ch_edges, chain[4])
+    ch_ct = k_h.condense(ch_slt, chain[4], mcs)
+    t0 = time.perf_counter()
+    against_oracles(f"chain Lp={CHAIN_LP}", chain, CHAIN_LP, ch_slt, ch_ct, cpu_plain=True)
+    check((k_h.launches_single_linkage_v1, k_h.launches_condense_v1) == tuple(n + 2 for n in v1_launches),
+          "the first versions' launches")
     n_labels = int(ct.n_labels)
     n_skipped = int((slt.left == 2 * Lp - 1).sum())
     say(f"[kernels] hierarchy at Lp={Lp} (L={L}, the stream's full table, min_cluster_size {mcs:g}): "
         f"{n_labels} condensed labels, {int(ex.n_clusters)} clusters, {n_skipped} skipped merges; every field of "
         f"single-linkage, condense and extract identical to the plain loops on the card (stabilities within "
         f"{RTOL}: identical as well: {bool(torch.equal(ex.stability, p_ex.stability))}), and EOM's selection and "
-        f"child counts; a second run identical")
+        f"child counts; a second run identical; single-linkage and condense (csrc/hierarchy_par.cu) identical to "
+        f"their first versions (csrc/hierarchy.cu) and to the CPU models of their algorithms (chunk {k_h.CHUNK})")
+    say(f"[kernels] hierarchy on a chain at Lp={CHAIN_LP} (a dendrogram {CHAIN_LP - 1} deep; state in shared memory: "
+        f"single_linkage {k_h.plan('single_linkage', CHAIN_LP)[0]}, condense {k_h.plan('condense', CHAIN_LP)[0]}; "
+        f"{int(ch_ct.n_labels)} labels): the new kernels identical to the first versions, the CPU models and the "
+        f"plain loops on the CPU in every field ({time.perf_counter() - t0:.1f} s with the CPU loops)")
 
     u_s, v_s, w_s = edges
     n_slots = 2 * Lp + 1
-    runs = {
+    sl_bytes, cd_bytes = (lambda n: 24.0 * n + 16.0 * (n - 1)), (lambda n: 12.0 * (n - 1) + 16.0 * n + 12.0 * (2 * n + 1) + 4)
+    runs = {  # new, first version, stage, plain, bytes at Lp, dependent steps of the latency floor, chain calls
         "single_linkage": (lambda: k_h.single_linkage_sorted(u_s, v_s, w_s, nb),
+                           lambda: k_h.single_linkage_sorted_v1(u_s, v_s, w_s, nb),
                            lambda: k_h.single_linkage(eu, ev, ew, valid, L, nb),
-                           lambda: th.single_linkage_fixed(eu, ev, ew, valid, L, nb),
-                           24.0 * Lp + 16.0 * M, M),
-        "condense": (lambda: k_h.condense(slt, nb, mcs), lambda: k_h.condense(slt, nb, mcs),
-                     lambda: th.condense_fixed(slt, nb, mcs), 12.0 * M + 16.0 * Lp + 12.0 * n_slots + 4, M),
-        "eom": (lambda: k_h.eom_sweep(stab, ct.cluster_parent, ct.n_labels), lambda: k_h.extract(ct),
-                lambda: th.eom_loop(stab, ct.cluster_parent, ct.n_labels), 13.0 * n_slots + 4, n_labels),
+                           lambda: th.single_linkage_fixed(eu, ev, ew, valid, L, nb), sl_bytes, lambda n: n - 1,
+                           (lambda: k_h.single_linkage_sorted(*ch_edges, chain[4]),
+                            lambda: k_h.single_linkage_sorted_v1(*ch_edges, chain[4]))),
+        "condense": (lambda: k_h.condense(slt, nb, mcs), lambda: k_h.condense_v1(slt, nb, mcs),
+                     lambda: k_h.condense(slt, nb, mcs), lambda: th.condense_fixed(slt, nb, mcs), cd_bytes,
+                     lambda n: 0,
+                     (lambda: k_h.condense(ch_slt, chain[4], mcs), lambda: k_h.condense_v1(ch_slt, chain[4], mcs))),
+        "eom": (lambda: k_h.eom_sweep(stab, ct.cluster_parent, ct.n_labels), None, lambda: k_h.extract(ct),
+                lambda: th.eom_loop(stab, ct.cluster_parent, ct.n_labels), lambda n: 13.0 * n_slots + 4,
+                lambda n: n_labels, None),
     }
+    counts = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom, k_h.launches_single_linkage_v1,
+              k_h.launches_condense_v1)
     out = {}
-    for name, (kernel, stage_fn, plain, nbytes, steps) in runs.items():
-        ms = time_ms(kernel, reps=20)
+    for name, (kernel, first, stage_fn, plain, nbytes, steps, on_chain) in runs.items():
+        ms, v1_ms = in_turns(kernel, first) if first else (time_ms(kernel, reps=20), None)
         stage_ms = time_ms(stage_fn, reps=20)
         host = host_ms(stage_fn)
         plain_ms = time_ms(plain, reps=1, warm=0)
-        b, by, floor = hierarchy_bound(nbytes, steps)
-        say(f"[kernels] hierarchy {name}: kernel {ms:.4f} ms, stage {stage_ms:.4f} ms (host enqueue {host:.4f} ms "
-            f"per call), plain loop {plain_ms:.2f} ms, bound {b:.4f} ms ({'latency floor of ' if by == 'operations' else ''}"
-            f"{steps} dependent steps x 30 cycles at 1.98 GHz {floor:.4f} ms; {nbytes / 1e6:.3f} MB at 3.35 TB/s "
-            f"{nbytes / PEAK_BYTES * 1e3:.5f} ms); library none")
+        b, by, floor = hierarchy_bound(nbytes(Lp), steps(Lp))
+        what = (f"latency floor of {steps(Lp)} dependent steps x 30 cycles at 1.98 GHz {floor:.4f} ms" if by ==
+                "operations" else "its bytes: no chain of dependent steps" if name == "condense" else "")
+        say(f"[kernels] hierarchy {name} at Lp={Lp}: kernel {ms:.4f} ms"
+            + (f" (first version, in turns: {v1_ms:.4f} ms, {v1_ms / ms:.2f}x)" if first else "")
+            + f", stage {stage_ms:.4f} ms (host enqueue {host:.4f} ms per call), plain loop {plain_ms:.2f} ms, bound "
+            f"{b:.4f} ms ({what}; {nbytes(Lp) / 1e6:.3f} MB at 3.35 TB/s {nbytes(Lp) / PEAK_BYTES * 1e3:.5f} ms); "
+            "library none")
         out[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
-                         stage_ms=stage_ms, latency_floor_ms=floor)
+                         stage_ms=stage_ms, latency_floor_ms=floor if steps(Lp) else None)
+        if first:
+            c_ms, c_v1 = in_turns(*on_chain, reps=5)
+            c_b, c_by, c_floor = hierarchy_bound(nbytes(CHAIN_LP), steps(CHAIN_LP))
+            out[name].update(v1_ms=v1_ms, chain=dict(Lp=CHAIN_LP, ms=c_ms, v1_ms=c_v1, bound_ms=c_b, bound_by=c_by))
+            say(f"[kernels] hierarchy {name} on the chain at Lp={CHAIN_LP}: kernel {c_ms:.4f} ms, first version "
+                f"{c_v1:.4f} ms ({c_v1 / c_ms:.2f}x, in turns), bound {c_b:.4f} ms ({c_by}"
+                + (f": {steps(CHAIN_LP)} steps {c_floor:.4f} ms" if c_by == "operations" else "") + ")")
+    (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom, k_h.launches_single_linkage_v1,
+     k_h.launches_condense_v1) = counts  # the timing's launches are not the path's
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -3591,6 +3690,47 @@ def exact_cpu_replay(dev):
         "on the card and the CPU: every state field equal after every block")
 
 
+def refresh_split(state, wall_ms: float):
+    """The hierarchy-only refresh's stages on its own inputs (captured from
+    one ops.incremental_recluster): single_linkage (the sort and the
+    kernel; the kernel alone), condense and extract, each by CUDA events,
+    beside the refresh's wall on the host clock (``wall_ms``)."""
+    import torch
+
+    from repro_torch.core import hierarchy as th
+    from repro_torch.kernels import hierarchy as k_h
+    from repro_torch.kernels import ops
+
+    seen, real = {}, ops.hierarchy_fixed
+
+    def capture(*args, **kw):
+        seen["args"] = args
+        return real(*args, **kw)
+
+    ops.hierarchy_fixed = capture
+    try:
+        ops.incremental_recluster(state, float(MIN_PTS))
+    finally:
+        ops.hierarchy_fixed = real
+    eu, ev, ew, valid, n_valid, weights, mcs = seen["args"]
+    counts = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom)
+    edges = th.sorted_edges(eu, ev, ew, valid, n_valid)
+    slt = k_h.single_linkage_sorted(*edges, weights)
+    ct = k_h.condense(slt, weights, mcs)
+    split = {"single_linkage": time_ms(lambda: k_h.single_linkage(eu, ev, ew, valid, n_valid, weights), reps=10),
+             "condense": time_ms(lambda: k_h.condense(slt, weights, mcs), reps=10),
+             "extract": time_ms(lambda: k_h.extract(ct), reps=10)}
+    kernel = time_ms(lambda: k_h.single_linkage_sorted(*edges, weights), reps=10)
+    host = host_ms(lambda: k_h.extract(ct), reps=10)
+    k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom = counts
+    torch.cuda.synchronize()
+    say(f"[exact] the refresh's stage split at Lp = {eu.shape[0]} (device ms by CUDA events, each stage alone): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f" (single_linkage's kernel alone {kernel:.4f}; extract's host enqueue {host:.4f} ms per call); the rest of "
+          f"the {wall_ms:.2f} ms refresh (compaction, weights, the unwrap's one read) "
+          f"{wall_ms - sum(split.values()):.2f} ms")
+
+
 def exact_times(dev, eng, rng):
     """Incremental insert and delete against a rebuild at n = EXACT_N, by
     block size (the card's Fig. 3); the hierarchy-only refresh; the query
@@ -3680,6 +3820,8 @@ def exact_times(dev, eng, rng):
         + ", ".join(f"{t:.2f}" for t in refresh) + f" ms; query p50 {np.median(lat):.3f} ms per {QUERY_CHUNK}-row "
         f"chunk over the engine's {eng.snapshot.n_bubbles}-row snapshot; peak device memory above the state: "
         f"rebuild {peak_rebuild:.0f} MiB, update (insert of {EXACT_BLOCK}) {peak_update:.0f} MiB")
+
+    refresh_split(s, float(np.median(refresh)))
 
     # host reads: none in an update body, one (the unwrap) in a refresh
     P = torch.as_tensor(fresh[:EXACT_BLOCK], dtype=torch.float32, device=dev)
@@ -3850,8 +3992,8 @@ def main() -> int:
                "flash_attention": ("flash_attention_panel.cu", "src/repro/kernels/flash_attention.py:38"),
                "flash_attention_mma": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38"),
                # no Pallas kernel: the JAX package's lax.scan sweeps of the hierarchy
-               "single_linkage": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:195"),
-               "condense": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:265"),
+               "single_linkage": ("hierarchy_par.cu", "src/repro/core/hierarchy_jax.py:195"),
+               "condense": ("hierarchy_par.cu", "src/repro/core/hierarchy_jax.py:265"),
                "eom": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:336"),
                # no Pallas kernel: the JAX package's segment sums + _kahan_add of device-online ingest
                "flat_scatter": ("flat_scatter.cu", "src/repro/core/bubble_flat.py:93"),

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -39,6 +40,8 @@ __all__ = [
     "sorted_edges",
     "single_linkage_fixed",
     "condense_fixed",
+    "single_linkage_chunked",
+    "condense_jump",
     "stabilities",
     "eom_loop",
     "flat_labels",
@@ -204,6 +207,174 @@ def condense_fixed(slt: SingleLinkageArrays, weights, min_cluster_size: float) -
         cluster_weight=cw,
         n_labels=nxt[0].int(),
     )
+
+
+def _find_halving(parent, x):
+    """Root of x in a numpy union-find whose roots point at themselves,
+    halving the path."""
+    while parent[x] != x:
+        parent[x] = parent[parent[x]]
+        x = parent[x]
+    return x
+
+
+def single_linkage_chunked(eu, ev, ew, valid, n_valid: int, weights, chunk: int = 1024) -> SingleLinkageArrays:
+    """``single_linkage_fixed`` by the card kernel's algorithm
+    (``csrc/hierarchy_par.cu``), in numpy: per chunk of ``chunk`` merges,
+    the roots of both ends against the state at the chunk's start, then
+    one walk over the chunk in edge order with a small union-find over
+    those roots (slot 2t for edge t's u, 2t + 1 for its v; a root's record
+    is its node, weight and slot count), then the merged roots linked to
+    the chunk's final roots.  Tests and ``chip_smoke.py`` hold the kernel
+    to it; the main path never calls it."""
+    Lp = eu.shape[0]
+    M, trash = Lp - 1, 2 * Lp - 1
+    u_s, v_s, w_s = (t.cpu().numpy() for t in sorted_edges(eu, ev, ew, valid, n_valid))
+    parent = np.full(Lp, -1, np.int64)  # a root holds -1 - (its slot in the current chunk)
+    node_of = np.arange(Lp)
+    node_weight = np.zeros(2 * Lp, np.float32)
+    node_weight[:Lp] = weights.cpu().numpy()
+    left, right = np.full(M, trash, np.int32), np.full(M, trash, np.int32)
+    dist, weight = np.zeros(M, np.float32), np.zeros(M, np.float32)
+    trash_w = None
+    for k0 in range(0, M, chunk):
+        cnt = min(chunk, M - k0)
+        ends = np.stack([u_s[k0 : k0 + cnt], v_s[k0 : k0 + cnt]], 1).ravel()
+        roots = ends.copy()
+        while (parent[roots] >= 0).any():
+            roots = np.where(parent[roots] >= 0, parent[roots], roots)
+        parent[ends] = np.where(parent[ends] >= 0, roots, parent[ends])  # flatten the ends' paths
+        slots = np.arange(2 * cnt)
+        parent[roots] = -1 - slots  # any writer wins: every end of one root reads the same slot
+        local = -1 - parent[roots]
+        canon = local == slots
+        lpar, lsize = slots.copy(), np.ones(2 * cnt, np.int64)
+        lnode, lw = np.zeros(2 * cnt, np.int64), np.zeros(2 * cnt, np.float32)
+        lnode[canon] = node_of[roots[canon]]
+        lw[canon] = node_weight[lnode[canon]]
+        for t in range(cnt):
+            k = k0 + t
+            a, b = _find_halving(lpar, local[2 * t]), _find_halving(lpar, local[2 * t + 1])
+            wsum = lw[a] + lw[b]  # one f32 add, u's side first
+            if a == b:
+                trash_w = wsum
+                continue
+            left[k], right[k], dist[k], weight[k] = lnode[a], lnode[b], w_s[k], wsum
+            node_weight[Lp + k] = wsum
+            root, other = (a, b) if lsize[a] >= lsize[b] else (b, a)
+            lpar[other] = root
+            lsize[root] += lsize[other]
+            lnode[root], lw[root] = Lp + k, wsum
+        for s in np.flatnonzero(canon):
+            f = _find_halving(lpar, s)
+            if f != s:
+                parent[roots[s]] = roots[f]
+            else:
+                node_of[roots[s]] = lnode[s]
+    if trash_w is not None:
+        node_weight[trash] = trash_w
+    dev = eu.device
+    return SingleLinkageArrays(*(torch.from_numpy(a).to(dev) for a in (left, right, dist, weight, node_weight)))
+
+
+def condense_jump(slt: SingleLinkageArrays, weights, min_cluster_size: float, chunk: int = 1024) -> CondensedArrays:
+    """``condense_fixed`` by the card kernel's algorithm
+    (``csrc/hierarchy_par.cu``), in numpy, with no sequential walk.  A
+    node's parent merge has the larger id, so over the path from the top
+    down to node x:
+
+      * fallen(x) is the OR of a per-edge drop flag the merge constants
+        fix, ``~((hl & hr) | alone[side])``;
+      * entry λ(x) is the λ of the merge above the topmost drop, else of
+        x's parent merge (0 at a top node);
+      * label P(x) is the label that x's nearest ancestor split
+        (``hl & hr`` at a node that has not fallen) gave its side, else 0;
+      * split i takes labels 1 + 2·#{splits j > i} and that plus 1.
+
+    The merges go in chunks of ``chunk`` from the top id down; inside a
+    chunk, fallen / topmost-drop λ and then P come by pointer jumping (a
+    parent outside the chunk is already final), and the labels by a
+    suffix count.  Every value is a copy or a comparison of the loop's.
+    Tests and ``chip_smoke.py`` hold the kernel to it; the main path
+    never calls it."""
+    M = slt.left.shape[0]
+    Lp = M + 1
+    C = 2 * Lp
+    left, right = slt.left.cpu().numpy().astype(np.int64), slt.right.cpu().numpy().astype(np.int64)
+    dist, nw = slt.dist.cpu().numpy(), slt.node_weight.cpu().numpy()
+    mcs = np.float32(min_cluster_size)
+    with np.errstate(divide="ignore"):
+        lam = np.where(dist > 0, np.minimum(np.float32(1) / dist, np.float32(MAX_LAMBDA)),
+                       np.float32(MAX_LAMBDA)).astype(np.float32)
+    wl, wr = nw[left], nw[right]
+    hl, hr = (wl >= mcs) & (left >= Lp), (wr >= mcs) & (right >= Lp)
+    hh = hl & hr
+    ids = np.arange(M)
+    par = np.full(M, -1, np.int64)  # the parent merge of node Lp + i
+    elam = np.zeros(M, np.float32)  # that merge's λ
+    edrop, eside = np.zeros(M, bool), np.zeros(M, np.int64)
+    for side, kids, drop in ((0, left, ~(hh | (hl & ~hr))), (1, right, ~(hh | (hr & ~hl)))):
+        m = (kids >= Lp) & (kids < 2 * Lp - 1)  # internal, not the trash node
+        y = kids[m] - Lp
+        par[y], elam[y], edrop[y], eside[y] = ids[m], lam[m], drop[m], side
+    fT = np.zeros(M, np.float32)  # topmost-drop λ, -1 where node Lp + i has not fallen
+    fP = np.zeros(M, np.int64)  # P(node Lp + i)
+    flab = np.full(M, -1, np.int64)  # split i's first label, -1 if no split
+
+    def jump(val, ptr, up_wins):
+        while (ptr >= 0).any():
+            m = ptr >= 0
+            q = np.where(m, ptr, 0)
+            if up_wins:
+                new = np.where(val[q] >= 0, val[q], val)
+            else:
+                new = np.where(val >= 0, val, val[q])
+            val = np.where(m, new, val)
+            ptr = np.where(m, ptr[q], -1)
+            if not up_wins:  # the nearest split wins: a node that has one is final
+                ptr = np.where(val >= 0, -1, ptr)
+        return val
+
+    above = 0
+    for hi in range(M, 0, -chunk):
+        lo = max(0, hi - chunk)
+        p = par[lo:hi]
+        top, inside = p < 0, (p >= lo) & (p < hi)
+        pc = np.where(top, 0, p)
+        edge_t = np.where(edrop[lo:hi], elam[lo:hi], np.float32(-1))
+        aT = np.where(top, np.float32(-1), np.where(inside, edge_t, np.where(fT[pc] >= 0, fT[pc], edge_t)))
+        ptr = np.where(inside, p - lo, -1)
+        aT = jump(aT.astype(np.float32), ptr, up_wins=True)
+        fT[lo:hi] = aT
+        split = hh[lo:hi] & ~(aT >= 0)
+        after = np.cumsum(split[::-1])[::-1] - split  # splits of this chunk with a larger id
+        flab[lo:hi] = np.where(split, 1 + 2 * (above + after), -1)
+        above += int(split.sum())
+        lab_p = np.where(flab[pc] >= 0, flab[pc] + eside[lo:hi], -1)
+        aP = np.where(top, 0, np.where(inside | (lab_p >= 0), lab_p, fP[pc]))
+        fP[lo:hi] = jump(aP, np.where(inside & (aP < 0), p - lo, -1), up_wins=False)
+
+    cp = np.full(C + 1, C, np.int64)
+    cb, cw = np.zeros(C + 1, np.float32), np.zeros(C + 1, np.float32)
+    cw[0] = nw[2 * Lp - 2]
+    s = flab >= 0
+    for off, w in ((0, wl), (1, wr)):
+        cp[flab[s] + off], cb[flab[s] + off], cw[flab[s] + off] = fP[s], lam[s], w[s]
+    point_parent, point_lambda = np.zeros(Lp, np.int64), np.zeros(Lp, np.float32)
+    for kids in (left, right):
+        m = kids < Lp
+        point_parent[kids[m]] = fP[m]
+        point_lambda[kids[m]] = np.where(fT[m] >= 0, fT[m], lam[m])
+    dev = slt.left.device
+
+    def as_t(a, dtype):
+        return torch.from_numpy(a).to(dev, dtype)
+
+    return CondensedArrays(
+        point_parent=as_t(point_parent, torch.int32), point_lambda=as_t(point_lambda, torch.float32),
+        point_weight=weights.float(), cluster_parent=as_t(cp, torch.int32),
+        cluster_birth=as_t(cb, torch.float32), cluster_weight=as_t(cw, torch.float32),
+        n_labels=torch.tensor(1 + 2 * above, dtype=torch.int32, device=dev))
 
 
 def extract_fixed(ct: CondensedArrays, method: str = "eom",

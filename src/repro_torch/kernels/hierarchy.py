@@ -12,10 +12,13 @@ On the card each sweep is one launch of one thread block, and nothing
 between the Borůvka buffers and the outputs reads the host:
 
 * ``single_linkage``: the pad-merge synthesis and the stable sort stay
-  torch ops (``core.hierarchy.sorted_edges``), then the kernel runs the
-  Lp − 1 merges as a union-find;
-* ``condense``: the kernel computes the per-merge constants (λ, child
-  weights) and walks the merges from the root down;
+  torch ops (``core.hierarchy.sorted_edges``), then the kernel of
+  ``csrc/hierarchy_par.cu`` runs the Lp − 1 merges: per chunk of 1024
+  edges, the ends' roots found in parallel, one walk over a union-find of
+  those roots in shared memory, the records written out coalesced;
+* ``condense``: the kernel of ``csrc/hierarchy_par.cu`` computes the
+  per-merge constants and settles every node's label, entry λ and fallen
+  flag by pointer jumping over chunks of merges, with no sequential walk;
 * ``extract``: the two stability scatter-adds stay
   ``index_put_(accumulate=True)`` on the device (a sorted, fixed-order
   sum: no float atomics, so two runs give the same bits), the kernel runs
@@ -23,8 +26,13 @@ between the Borůvka buffers and the outputs reads the host:
   memory, and selection blocking and label resolution stay the plain
   version's pointer-doubling vector steps.
 
+The first versions of single-linkage and condense (``csrc/hierarchy.cu``,
+one thread walking every step) stay as the new kernels' bitwise oracle on
+the card: ``single_linkage_sorted_v1`` and ``condense_v1``, CUDA tensors
+only, never on the main path.
+
 Bound on the H100: latency, a chain of dependent steps per sweep (see the
-source).  The state a sweep reads back lives in shared memory where
+sources).  The state a sweep reads back lives in shared memory where
 ``plan`` says it fits, else in a scratch buffer allocated here.
 """
 
@@ -35,33 +43,46 @@ import torch
 from ..core import hierarchy as _plain
 from . import _build
 
-__all__ = ["single_linkage", "single_linkage_sorted", "condense", "extract", "eom_sweep", "plan"]
+__all__ = ["single_linkage", "single_linkage_sorted", "single_linkage_sorted_v1", "condense", "condense_v1",
+           "extract", "eom_sweep", "plan"]
 
 launches_single_linkage = 0  # kernel launches since the last reset (chip_smoke.py reads them)
 launches_condense = 0
 launches_eom = 0
+launches_single_linkage_v1 = 0  # the first versions', launched only to check the new kernels
+launches_condense_v1 = 0
 
 SMEM_BYTES = 232_448  # dynamic shared memory one block may opt in to on sm_90
-CHUNK = 1024  # steps per staged chunk of csrc/hierarchy.cu; its ring holds two
-_RING = {"single_linkage": 2 * CHUNK * 12, "condense": 2 * CHUNK * 20, "eom": 0}
+CHUNK = 1024  # edges or merges per chunk of csrc/hierarchy_par.cu; steps per staged chunk of csrc/hierarchy.cu
+# shared bytes besides the state: csrc/hierarchy_par.cu's chunk buffers, csrc/hierarchy.cu's staging rings
+_BUFFERS = {"single_linkage": (3 * CHUNK + 1) * 16 + 2 * CHUNK * 4 + 2 * (CHUNK + 2) * 4,
+            "condense": 4 * CHUNK * 4 + (CHUNK // 32) * 4, "eom": 0,
+            "single_linkage_v1": 2 * CHUNK * 12, "condense_v1": 2 * CHUNK * 20}
 MAX_LP = 1 << 29  # node ids 0 .. 2·Lp and label slots 0 .. 2·Lp in int32
 
 
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
 def _state_bytes(kind: str, Lp: int) -> int:
-    if kind == "single_linkage":
-        return 12 * Lp  # parent, node of root, weight of root
-    if kind == "condense":
-        return 8 * Lp + (Lp + 3) // 4 * 4  # label, entry λ, fallen flag per internal node
-    return 8 * (2 * Lp + 1)  # EOM: sum and child count per label slot
+    return {"single_linkage": 8 * Lp,  # parent, node of root
+            # parent merge, its λ, topmost-drop λ, P, split label; edge flags, split flag per merge
+            "condense": 20 * Lp + _round4(2 * Lp),
+            "eom": 8 * (2 * Lp + 1),  # sum and child count per label slot
+            "single_linkage_v1": 12 * Lp,  # parent, node of root, weight of root
+            "condense_v1": 8 * Lp + _round4(Lp)}[kind]  # label, entry λ, fallen flag per internal node
 
 
 def plan(kind: str, Lp: int) -> tuple[bool, int]:
     """(state in shared memory?, scratch bytes) of one sweep's kernel at
-    bucket Lp: the state goes to shared memory when it and the staging
-    ring fit one block's ``SMEM_BYTES``, else to a device scratch buffer
-    of the returned size (0 with shared memory)."""
+    bucket Lp: the state goes to shared memory when it and the kernel's
+    other shared buffers fit one block's ``SMEM_BYTES``, else to a device
+    scratch buffer of the returned size (0 with shared memory).  ``kind``
+    is "single_linkage", "condense", "eom", or "single_linkage_v1" /
+    "condense_v1" for the first versions."""
     state = _state_bytes(kind, Lp)
-    if state + _RING[kind] <= SMEM_BYTES:
+    if state + _BUFFERS[kind] <= SMEM_BYTES:
         return True, 0
     return False, state
 
@@ -108,11 +129,27 @@ def single_linkage_sorted(u_s, v_s, w_s, weights) -> _plain.SingleLinkageArrays:
     """The single-linkage kernel alone, CUDA tensors only: the Lp − 1
     merges over ``core.hierarchy.sorted_edges``'s (Lp,) ends and weights."""
     global launches_single_linkage
+    out = _single_linkage_launch("single_linkage", "repro_single_linkage_par_f32", u_s, v_s, w_s, weights)
+    launches_single_linkage += 1
+    return out
+
+
+def single_linkage_sorted_v1(u_s, v_s, w_s, weights) -> _plain.SingleLinkageArrays:
+    """``single_linkage_sorted`` by the first version's kernel
+    (``csrc/hierarchy.cu``, one thread walking every merge): the new
+    kernel's oracle on the card, CUDA tensors only."""
+    global launches_single_linkage_v1
+    out = _single_linkage_launch("single_linkage_v1", "repro_single_linkage_f32", u_s, v_s, w_s, weights)
+    launches_single_linkage_v1 += 1
+    return out
+
+
+def _single_linkage_launch(kind: str, entry: str, u_s, v_s, w_s, weights) -> _plain.SingleLinkageArrays:
     Lp = u_s.shape[0]
-    if any(t.shape != (Lp,) for t in (v_s, w_s, weights)) or not _on_card("single_linkage", u_s, v_s, w_s, weights):
-        raise ValueError("single_linkage_sorted runs the kernel: it takes (Lp,) CUDA tensors only")
+    if any(t.shape != (Lp,) for t in (v_s, w_s, weights)) or not _on_card(kind, u_s, v_s, w_s, weights):
+        raise ValueError(f"{kind} runs the kernel: it takes (Lp,) CUDA tensors only")
     if not 2 <= Lp <= MAX_LP:
-        raise ValueError(f"the single_linkage kernel takes 2 <= Lp <= {MAX_LP}, got {Lp}")
+        raise ValueError(f"the {kind} kernel takes 2 <= Lp <= {MAX_LP}, got {Lp}")
     dev, M = u_s.device, Lp - 1
     u_s, v_s, w_s, weights = _i32(u_s), _i32(v_s), _f32(w_s), _f32(weights)
     left = torch.empty(M, dtype=torch.int32, device=dev)
@@ -120,29 +157,52 @@ def single_linkage_sorted(u_s, v_s, w_s, weights) -> _plain.SingleLinkageArrays:
     dist = torch.empty(M, dtype=torch.float32, device=dev)
     weight = torch.empty(M, dtype=torch.float32, device=dev)
     node_weight = torch.empty(2 * Lp, dtype=torch.float32, device=dev)
-    smem, scratch = _scratch("single_linkage", Lp, dev)
+    smem, scratch = _scratch(kind, Lp, dev)
     with torch.cuda.device(dev):
-        code = _build.load().repro_single_linkage_f32(
+        code = getattr(_build.load(), entry)(
             u_s.data_ptr(), v_s.data_ptr(), w_s.data_ptr(), weights.data_ptr(), Lp, int(smem), scratch.data_ptr(),
             left.data_ptr(), right.data_ptr(), dist.data_ptr(), weight.data_ptr(), node_weight.data_ptr(),
             _build.current_stream(dev))
-    _build.check(code, "single_linkage")
-    launches_single_linkage += 1
+    _build.check(code, kind)
     return _plain.SingleLinkageArrays(left, right, dist, weight, node_weight)
 
 
 def condense(slt: _plain.SingleLinkageArrays, weights, min_cluster_size: float) -> _plain.CondensedArrays:
     """Merge records → the array-form condensed tree (``CondensedArrays``)."""
     global launches_condense
+    _check_condense_inputs(slt, weights)
+    if not _on_card("condense", slt.left, slt.right, slt.dist, slt.node_weight, weights):
+        return _plain.condense_fixed(slt, weights, min_cluster_size)
+    out = _condense_launch("condense", "repro_condense_par_f32", slt, weights, min_cluster_size)
+    launches_condense += 1
+    return out
+
+
+def condense_v1(slt: _plain.SingleLinkageArrays, weights, min_cluster_size: float) -> _plain.CondensedArrays:
+    """``condense`` by the first version's kernel (``csrc/hierarchy.cu``,
+    one thread walking the merges from the root down): the new kernel's
+    oracle on the card, CUDA tensors only."""
+    global launches_condense_v1
+    _check_condense_inputs(slt, weights)
+    if not _on_card("condense_v1", slt.left, slt.right, slt.dist, slt.node_weight, weights):
+        raise ValueError("condense_v1 runs the kernel: it takes CUDA tensors only")
+    out = _condense_launch("condense_v1", "repro_condense_f32", slt, weights, min_cluster_size)
+    launches_condense_v1 += 1
+    return out
+
+
+def _check_condense_inputs(slt, weights) -> None:
     M = slt.left.shape[0]
     Lp = M + 1
     if (any(t.shape != (M,) for t in (slt.left, slt.right, slt.dist))
             or slt.node_weight.shape != (2 * Lp,) or weights.shape != (Lp,)):
         raise ValueError("condense wants (Lp-1,) merge records, (2·Lp,) node weights and (Lp,) weights")
-    if not _on_card("condense", slt.left, slt.right, slt.dist, slt.node_weight, weights):
-        return _plain.condense_fixed(slt, weights, min_cluster_size)
+
+
+def _condense_launch(kind: str, entry: str, slt, weights, min_cluster_size: float) -> _plain.CondensedArrays:
+    Lp = slt.left.shape[0] + 1
     if not 2 <= Lp <= MAX_LP:
-        raise ValueError(f"the condense kernel takes 2 <= Lp <= {MAX_LP}, got {Lp}")
+        raise ValueError(f"the {kind} kernel takes 2 <= Lp <= {MAX_LP}, got {Lp}")
     dev, C = slt.left.device, 2 * Lp
     left, right, dist, node_weight = _i32(slt.left), _i32(slt.right), _f32(slt.dist), _f32(slt.node_weight)
     point_parent = torch.empty(Lp, dtype=torch.int32, device=dev)
@@ -151,15 +211,14 @@ def condense(slt: _plain.SingleLinkageArrays, weights, min_cluster_size: float) 
     cluster_birth = torch.empty(C + 1, dtype=torch.float32, device=dev)
     cluster_weight = torch.empty(C + 1, dtype=torch.float32, device=dev)
     n_labels = torch.empty((), dtype=torch.int32, device=dev)
-    smem, scratch = _scratch("condense", Lp, dev)
+    smem, scratch = _scratch(kind, Lp, dev)
     with torch.cuda.device(dev):
-        code = _build.load().repro_condense_f32(
+        code = getattr(_build.load(), entry)(
             left.data_ptr(), right.data_ptr(), dist.data_ptr(), node_weight.data_ptr(), Lp,
             float(min_cluster_size), int(smem), scratch.data_ptr(), point_parent.data_ptr(),
             point_lambda.data_ptr(), cluster_parent.data_ptr(), cluster_birth.data_ptr(), cluster_weight.data_ptr(),
             n_labels.data_ptr(), _build.current_stream(dev))
-    _build.check(code, "condense")
-    launches_condense += 1
+    _build.check(code, kind)
     return _plain.CondensedArrays(
         point_parent=point_parent, point_lambda=point_lambda, point_weight=weights.float(),
         cluster_parent=cluster_parent, cluster_birth=cluster_birth, cluster_weight=cluster_weight,

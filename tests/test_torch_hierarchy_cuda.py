@@ -16,6 +16,10 @@ on one card, but the contract is 1e-5).  The largest bucket, Lp = 65,536,
 is held against the plain loops on the CPU.  Two runs of the kernels give
 the same bits, and an offline pass on the card reads nothing back from
 the device before its unwrap (``torch.cuda.set_sync_debug_mode``).
+``-k HierarchyPar``: the redesigned single-linkage and condense kernels
+(``csrc/hierarchy_par.cu``) bit for bit against their first versions
+(``csrc/hierarchy.cu``) and the plain loops on the CPU, on deep
+dendrograms (chain, star, comb) as well, at every bucket.
 """
 
 import numpy as np
@@ -29,23 +33,34 @@ from repro_torch.kernels import ops as tops
 INT_FIELDS = {"left", "right", "point_parent", "cluster_parent", "n_labels", "selected", "labels", "n_clusters"}
 
 
-def edge_buffers(Lp, n_valid, seed, *, masses="int", ties=False, zeros=0.0, drop=0):
+def edge_buffers(Lp, n_valid, seed, *, masses="int", ties=False, zeros=0.0, drop=0, shape="random"):
     """(eu, ev, ew, valid, weights) numpy buffers as Borůvka leaves them
     for a bucket of Lp leaves, the first ``n_valid`` real: the n_valid − 1
-    edges of a seeded random spanning tree in random slots (``drop`` of
-    them left out: a disconnected buffer), the other slots invalid with
-    zero ends.  ``masses``: "int" (1–5) or "frac" (uniform 0.5–3) weights,
-    0 past n_valid; ``ties``: every edge weight 1; ``zeros``: that share of
-    the edges at weight 0."""
+    edges of a seeded spanning tree in random slots (``drop`` of them left
+    out: a disconnected buffer), the other slots invalid with zero ends.
+    ``shape``: "random" (a random recursive tree, a dendrogram ~ln n
+    deep), "chain" (a path whose weights rise along it: every merge takes
+    in one leaf, a dendrogram n_valid − 1 deep), "star" (every leaf
+    joined to one hub, as deep) or "comb" (groups of 6 leaves on light
+    edges, their heads on a path whose weights rise above them: every
+    path merge splits two heavy subtrees, a dendrogram ~n_valid / 6 deep
+    in splits).  ``masses``: "int" (1–5) or "frac"
+    (uniform 0.5–3) weights, 0 past n_valid; ``ties``: every edge weight
+    1; ``zeros``: that share of the edges at weight 0."""
     rng = np.random.default_rng(seed)
     n_e = n_valid - 1
     child = np.arange(1, n_valid)
-    par = (rng.random(n_e) * child).astype(np.int64)
+    head = child % 6 == 0
+    par = {"random": (rng.random(n_e) * child).astype(np.int64), "chain": child - 1,
+           "star": np.zeros(n_e, np.int64), "comb": np.where(head, child - 6, child - 1)}[shape]
     perm = rng.permutation(n_valid)
     u, v = perm[child], perm[par]
     swap = rng.random(n_e) < 0.5
     u, v = np.where(swap, v, u), np.where(swap, u, v)
     w = np.ones(n_e) if ties else rng.uniform(0.1, 10.0, n_e)
+    if shape in ("chain", "comb"):  # rising weights, distinct in f32: multiples of 2^-10 in [1, 1025)
+        rise = 1.0 + np.sort(rng.choice(1 << 20, n_e, replace=False)) / 1024.0
+        w = rise if shape == "chain" else np.where(head, 10.0 + rise, w / 10.0)
     w[rng.random(n_e) < zeros] = 0.0
     keep = np.sort(rng.permutation(n_e)[: n_e - drop])
     slots = rng.permutation(Lp)[: keep.size]
@@ -68,6 +83,13 @@ CORNERS = {
     "fractional masses": (4096, 3000, {"masses": "frac"}, 12.0),
 }
 CUDA_LPS = (8, 64, 1024, 4096, 8192, 16384, 32768, 65536)
+DEEP = ("chain", "star", "comb")
+# the new kernels' cases: GRID, CORNERS, the deep shapes at every bucket, merge counts at the
+# 1024-merge chunk's borders (Lp − 1 = 1023, 1024, 1025, 2048) and the smallest buckets
+PAR_CASES = ([(f"grid-Lp{c[0]}-nvalid{c[1]}", c) for c in GRID] + list(CORNERS.items())
+             + [(f"{shape}-Lp{Lp}", (Lp, Lp - Lp // 8, {"shape": shape}, 5.0)) for shape in DEEP for Lp in CUDA_LPS]
+             + [(f"chain-Lp{Lp}", (Lp, Lp, {"shape": "chain"}, 5.0)) for Lp in (1024, 1025, 1026, 2049)]
+             + [(f"tiny-Lp{Lp}-nvalid{nv}", (Lp, nv, {}, 1.0)) for Lp, nv in ((2, 2), (2, 1), (3, 3), (3, 2))])
 
 
 def _to(dev, arrays):
@@ -171,10 +193,58 @@ class TestHierarchyKernels:
             assert torch.equal(out[key].cpu(), want), key
 
 
+@pytest.mark.cuda
+class TestHierarchyPar:
+    @pytest.mark.parametrize("name,case", PAR_CASES, ids=[n for n, _ in PAR_CASES])
+    def test_equal_first_versions_and_plain(self, cuda_device, name, case):
+        """single_linkage_sorted and condense (one launch each) bit for bit
+        against single_linkage_sorted_v1 / condense_v1 on the same inputs
+        and against the plain loops on the CPU."""
+        Lp, nv, opts, mcs = case
+        bufs = edge_buffers(Lp, nv, 5, **opts)
+        eu, ev, ew, valid, w = _to(cuda_device, bufs)
+        edges = th.sorted_edges(eu, ev, ew, valid, nv)
+        counts = (t_h.launches_single_linkage, t_h.launches_condense)
+        slt = t_h.single_linkage_sorted(*edges, w)
+        ct = t_h.condense(slt, w, mcs)
+        assert (t_h.launches_single_linkage, t_h.launches_condense) == (counts[0] + 1, counts[1] + 1)
+        assert_same_hierarchy((slt, ct), (t_h.single_linkage_sorted_v1(*edges, w), t_h.condense_v1(slt, w, mcs)))
+        c = _to(torch.device("cpu"), bufs)
+        p_slt = th.single_linkage_fixed(*c[:4], nv, c[4])
+        assert_same_hierarchy((slt, ct), (p_slt, th.condense_fixed(p_slt, c[4], mcs)))
+
+    @pytest.mark.parametrize("Lp", [8192, 32768])
+    def test_replay(self, cuda_device, Lp):
+        """Two runs of the new kernels give the same bits (shared-memory
+        state at 8192, scratch at 32,768)."""
+        eu, ev, ew, valid, w = _to(cuda_device, edge_buffers(Lp, Lp - 100, 13, shape="comb", masses="frac"))
+        edges = th.sorted_edges(eu, ev, ew, valid, Lp - 100)
+        runs = []
+        for _ in range(2):
+            slt = t_h.single_linkage_sorted(*edges, w)
+            runs.append((slt, t_h.condense(slt, w, 8.0)))
+        for x, y in zip(*runs):
+            for field in x._fields:
+                assert torch.equal(getattr(x, field), getattr(y, field)), field
+
+
 @pytest.mark.parametrize("Lp", [8, 1024, 8192, 16384, 65536])
 def test_cuda_cases_are_well_formed(Lp):
-    """The generator's buffers are what Borůvka leaves (runs anywhere)."""
-    eu, ev, ew, valid, w = edge_buffers(Lp, Lp // 2 + 1, 1, drop=0)
-    assert int(valid.sum()) == Lp // 2 and (eu[~valid] == 0).all() and (ew[~valid] == 0).all()
-    assert (w[Lp // 2 + 1 :] == 0).all() and (w[: Lp // 2 + 1] >= 1).all()
-    assert eu.dtype == ev.dtype == np.int32 and ew.dtype == w.dtype == np.float32
+    """The generator's buffers are what Borůvka leaves (runs anywhere), in
+    every shape: a chain is one path whose weights rise along it, a star
+    one hub, a comb groups of 6 below a path."""
+    nv = Lp // 2 + 1
+    for shape in ("random",) + DEEP:
+        eu, ev, ew, valid, w = edge_buffers(Lp, nv, 1, drop=0, shape=shape)
+        assert int(valid.sum()) == Lp // 2 and (eu[~valid] == 0).all() and (ew[~valid] == 0).all()
+        assert (w[nv:] == 0).all() and (w[:nv] >= 1).all()
+        assert eu.dtype == ev.dtype == np.int32 and ew.dtype == w.dtype == np.float32
+        u, v = eu[valid], ev[valid]
+        deg = np.bincount(np.concatenate([u, v]), minlength=Lp)
+        assert deg[:nv].min() >= 1 and deg[nv:].max(initial=0) == 0
+        if shape == "chain":  # consecutive edges by weight share an end: each merge takes in one leaf
+            o = np.argsort(ew[valid], kind="stable")
+            ends = np.stack([u[o], v[o]], 1)
+            assert deg.max() <= 2 and all(set(a) & set(b) for a, b in zip(ends[:-1], ends[1:]))
+        if shape == "star":
+            assert deg.max() == nv - 1

@@ -196,22 +196,33 @@ def test_hierarchy_extract_checks_the_method_first():
 
 
 @pytest.mark.parametrize("Lp", [8, 64, 1024, 4096, 8192, 16384, 32768, 65536])
-@pytest.mark.parametrize("kind", ["single_linkage", "condense", "eom"])
+@pytest.mark.parametrize("kind", ["single_linkage", "condense", "eom", "single_linkage_v1", "condense_v1"])
 def test_hierarchy_plan(kind, Lp):
     """A sweep's state goes to shared memory exactly when it and the
-    staging ring fit one block's opt-in limit, else to a scratch buffer
-    of the state's size."""
+    kernel's other shared buffers fit one block's opt-in limit, else to a
+    scratch buffer of the state's size.  csrc/hierarchy_par.cu:
+    single-linkage keeps a parent and a node per leaf beside its chunk's
+    slot and merge records, slot roots and slot pairs; condense five words
+    and two flags per merge beside its chunk's four arrays and a count per
+    warp.  csrc/hierarchy.cu: EOM a sum and a count per label slot, the
+    first versions their walk's state beside a staging ring of two
+    chunks."""
+    C = t_h.CHUNK
     smem, scratch = t_h.plan(kind, Lp)
-    state = {"single_linkage": 12 * Lp, "condense": 9 * Lp, "eom": 8 * (2 * Lp + 1)}[kind]
-    ring = {"single_linkage": 24 * t_h.CHUNK, "condense": 40 * t_h.CHUNK, "eom": 0}[kind]
-    assert smem == (state + ring <= t_h.SMEM_BYTES)
+    state = {"single_linkage": 8 * Lp, "condense": 22 * Lp, "eom": 8 * (2 * Lp + 1),
+             "single_linkage_v1": 12 * Lp, "condense_v1": 9 * Lp}[kind]
+    buffers = {"single_linkage": (3 * C + 1) * 16 + 2 * C * 4 + 2 * (C + 2) * 4, "condense": 4 * C * 4 + C // 32 * 4,
+               "eom": 0, "single_linkage_v1": 24 * C, "condense_v1": 40 * C}[kind]
+    assert smem == (state + buffers <= t_h.SMEM_BYTES)
     assert scratch == (0 if smem else state) and scratch % 4 == 0
 
 
 def test_hierarchy_plan_at_the_stream_bucket():
     """At the stream's Lp = 8192 all three sweeps keep their state in
-    shared memory; single-linkage and condense do up to Lp = 16384."""
+    shared memory; single-linkage does up to Lp = 16384 (and so do both
+    first versions)."""
     kinds = ("single_linkage", "condense", "eom")
     assert all(t_h.plan(kind, 8192)[0] for kind in kinds)
-    assert [t_h.plan(kind, 16384)[0] for kind in kinds] == [True, True, False]
+    assert [t_h.plan(kind, 16384)[0] for kind in kinds] == [True, False, False]
     assert not any(t_h.plan(kind, 32768)[0] for kind in kinds)
+    assert all(t_h.plan(kind, 16384)[0] for kind in ("single_linkage_v1", "condense_v1"))
