@@ -35,18 +35,25 @@ Phases, each printing its own lines:
               per offline pass and the plain hierarchy loops never on the
               card; then the snapshots and the served rows held against the
               port's own plain pipeline on the CPU; the three hierarchy
-              kernels (single-linkage, condense, EOM) against the plain
-              loops on the card on the full table's own Borůvka buffers
-              (Lp = 8192: integer fields, λ and weights bit for bit,
-              stabilities within 1e-5, a second run bit for bit), and
-              single-linkage and condense (csrc/hierarchy_par.cu) also
-              against their first versions (csrc/hierarchy.cu) and the CPU
-              models of their algorithms there and on a 32,768-leaf chain
-              (a dendrogram 32,767 deep, with the plain loops on the CPU),
-              timed in turns with the first versions at both sizes and
-              beside the plain loops, with their bound (the larger of the
-              bytes and, for the sweeps that walk, a latency floor of one
-              shared-memory round trip per dependent step); one offline pass at Lp = 8192 timed stage by
+              kernels (single-linkage, condense, extract) against the
+              plain loops on the card on the full table's own Borůvka
+              buffers (Lp = 8192: every field bit for bit, a second run
+              bit for bit), and single-linkage and condense
+              (csrc/hierarchy_par.cu) also against their first versions
+              (csrc/hierarchy.cu) and the CPU models of their algorithms
+              there and on a 32,768-leaf chain (a dendrogram 32,767 deep,
+              with the plain loops on the CPU); extract
+              (csrc/hierarchy_extract.cu) also bit for bit the plain
+              extract_fixed on the CPU, and against the earlier
+              composition extract_v1 (index_put_ stabilities, the EOM
+              kernel, flat_labels: integer fields equal, stabilities
+              within 1e-5, or 2 (k - 1) 2^-24 for a label of k terms
+              where that is larger) there and on a 32,768-leaf comb of ~11,000
+              labels (its arrays past shared memory); each timed in turns
+              with its first version at both sizes and beside the plain
+              loops, with their bound (the larger of the bytes and, for
+              the sweeps that walk, a latency floor of one shared-memory
+              round trip per dependent step); one offline pass at Lp = 8192 timed stage by
               stage, end to end, under torch.profiler (device busy share),
               and once more with no host synchronisation allowed between
               prepare and unwrap (torch.cuda.set_sync_debug_mode); and
@@ -204,8 +211,9 @@ Phases, each printing its own lines:
      mutual_reach and pairwise with the tile kernel's as tile_ms;
      flash_attention with the qwen2-1.5b f32 case and the earlier
      CUDA-core kernel's time as scalar_ms, flash_attention_mma with the
-     qwen2-1.5b bf16 case; single_linkage, condense and eom, which stand
-     for the JAX package's three hierarchy scans, with the stage's time
+     qwen2-1.5b bf16 case; single_linkage, condense and extract, which stand
+     for the JAX package's three hierarchy scans, and eom, extract_v1's EOM
+     kernel (launched on no path since extract took its place), with the stage's time
      as stage_ms and the latency floor as latency_floor_ms (null for
      condense, which has no chain of dependent steps), single_linkage and
      condense with the first version's time as v1_ms and both times at
@@ -247,7 +255,7 @@ EPSILON = 0.2
 N_QUERIES = 65_536
 QUERY_CHUNK = 4096
 LP = 8192  # the offline bucket the stream reaches, and the kernels' check size
-CHAIN_LP = 32_768  # [kernels] hierarchy: a chain this long, the exact refresh's bucket (state in scratch)
+CHAIN_LP = 32_768  # [kernels] hierarchy: a chain and a comb this long, the exact refresh's bucket (state in scratch)
 RTOL = 1e-5
 N_KNN = 65_536  # [points]: knn and core distances at n = m
 N_PAIR = 16_384  # [points]: pairwise and point mutual reachability (1 GiB each)
@@ -796,6 +804,7 @@ def phase_stream(dev):
     from repro_torch import StreamingClusterEngine
     from repro_torch.core import hierarchy as th
     from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import hierarchy as k_h
     from repro_torch.kernels import mutual_reach as k_mr
 
     rng = np.random.default_rng(SEED + 1)
@@ -814,7 +823,9 @@ def phase_stream(dev):
 
     reset_counts()
     k_bcd.launches_lane = k_mr.launches_tile = 0
-    plain = {name: getattr(th, name) for name in ("single_linkage_fixed", "condense_fixed", "eom_loop")}
+    eom_before = k_h.launches_eom
+    plain = {name: getattr(th, name) for name in ("single_linkage_fixed", "condense_fixed", "extract_fixed",
+                                                  "stabilities", "eom_loop", "flat_labels")}
     plain_on_card = []
 
     def watched(name, fn):  # counts the plain hierarchy loops' calls on CUDA tensors
@@ -881,10 +892,12 @@ def phase_stream(dev):
     check(k_bcd.launches_lane == 0, "the per-lane bubble_cd kernel ran on the stream")
     check(k_mr.launches_tile == 0, "the mutual_reach tile kernel ran on the stream")
     say(f"[stream] {n_passes} offline passes; hierarchy kernel launches per pass: single_linkage "
-        f"{launches['single_linkage'] / n_passes:g}, condense {launches['condense'] / n_passes:g}, eom "
-        f"{launches['eom'] / n_passes:g}; plain hierarchy loops on the card: {len(plain_on_card)}")
-    check(all(launches[k] == n_passes for k in ("single_linkage", "condense", "eom")),
+        f"{launches['single_linkage'] / n_passes:g}, condense {launches['condense'] / n_passes:g}, extract "
+        f"{launches['extract'] / n_passes:g} (eom {k_h.launches_eom - eom_before}); plain hierarchy loops on the card: "
+        f"{len(plain_on_card)}")
+    check(all(launches[k] == n_passes for k in ("single_linkage", "condense", "extract")),
           f"hierarchy kernels not launched once per offline pass ({n_passes} passes): {launches}")
+    check(k_h.launches_eom == eom_before, "the EOM kernel of extract_v1 ran on the stream")
     check(not plain_on_card, f"the plain hierarchy loops ran on the card: {sorted(set(plain_on_card))}")
     say(f"[stream] ingest {ingest_s / N_POINTS * 1e6:.3f} ms per 1k points (host tree + assign kernel, "
         f"offline passes excluded); retire {retire_s / len(drop) * 1e6:.3f} ms per 1k points")
@@ -900,7 +913,7 @@ def phase_stream(dev):
                 table_last=table_last, Qs=Qs, served=served, launches=launches, ckpt=ckpt,
                 retire_blocks=retire_blocks, published=published, retire_versions=retire_versions,
                 ingest_ms=ingest_s / N_POINTS * 1e6, retire_ms=retire_s / len(drop) * 1e6, history=history,
-                wall_s=stream_s)
+                wall_s=stream_s, eom_launches=k_h.launches_eom - eom_before)
 
 
 def assign_at_query_shape(dev, run):
@@ -984,7 +997,7 @@ def check_served(tag, snap, X, served):
     check(np.array_equal(got_lbl[~near_tie], lbl[~near_tie]), "served labels differ")
 
 
-PATH_KERNELS = ("assign", "bubble_cd", "mutual_reach", "single_linkage", "condense", "eom")
+PATH_KERNELS = ("assign", "bubble_cd", "mutual_reach", "single_linkage", "condense", "extract")
 
 
 def reset_counts(counts=None):
@@ -997,8 +1010,8 @@ def reset_counts(counts=None):
 
     c = counts or dict.fromkeys(PATH_KERNELS, 0)
     k_assign.launches, k_bcd.launches, k_mr.launches = c["assign"], c["bubble_cd"], c["mutual_reach"]
-    k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom = (
-        c["single_linkage"], c["condense"], c["eom"])
+    k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_extract = (
+        c["single_linkage"], c["condense"], c["extract"])
 
 
 def read_counts() -> dict:
@@ -1009,7 +1022,7 @@ def read_counts() -> dict:
 
     return {"assign": k_assign.launches, "bubble_cd": k_bcd.launches, "mutual_reach": k_mr.launches,
             "single_linkage": k_h.launches_single_linkage, "condense": k_h.launches_condense,
-            "eom": k_h.launches_eom}
+            "extract": k_h.launches_extract}
 
 
 def checkpoint_stream(eng) -> dict:
@@ -2508,17 +2521,32 @@ def abs_diff(got, want) -> float:
     return float((got.double() - want.double()).abs().max()) if want.numel() else 0.0
 
 
-def same_arrays(name, got, want) -> float:
+def order_rtol(ct):
+    """Per label slot of condensed arrays ``ct``, how far two f32 sums of
+    its stability terms in different orders may lie apart, relative: RTOL,
+    or the worst case 2·(k − 1)·2⁻²⁴ of its k non-negative terms where that
+    is larger."""
+    import torch
+
+    n_slots, n = ct.cluster_parent.shape[0], int(ct.n_labels)
+    k = torch.bincount(ct.point_parent.long(), minlength=n_slots)[:n_slots]
+    k = k + torch.bincount(ct.cluster_parent[1:n].long(), minlength=n_slots)[:n_slots]
+    return torch.clamp(2.0 * (k - 1).clamp(min=0).double() * 2.0 ** -24, min=RTOL)
+
+
+def same_arrays(name, got, want, stab_rtol=None) -> float:
     """Every field of two hierarchy NamedTuples bit for bit, stabilities
-    within RTOL; returns the largest absolute difference over the fields."""
+    within ``stab_rtol`` (a number or one per slot) when one is given;
+    returns the largest absolute difference over the fields."""
     import torch
 
     err = 0.0
     for field in want._fields:
         g, w = getattr(got, field), getattr(want, field)
         check(g.shape == w.shape and g.dtype == w.dtype, f"{name}.{field}: shape or dtype differs")
-        if field == "stability":
-            check(bool(torch.allclose(g, w, rtol=RTOL, atol=0)), f"{name}.{field}: beyond {RTOL} relative")
+        if field == "stability" and stab_rtol is not None:
+            ok = bool(((g.double() - w.double()).abs() <= stab_rtol * w.double().abs()).all())
+            check(ok, f"{name}.{field}: beyond the order tolerance")
         else:
             check(bool(torch.equal(g, w)), f"{name}.{field}: differs")
         err = max(err, abs_diff(g, w))
@@ -2542,6 +2570,27 @@ def chain_buffers(Lp: int, seed: int):
     return eu, ev, ew, valid, rng.integers(1, 6, Lp).astype(np.float32)
 
 
+def comb_buffers(Lp: int, seed: int):
+    """Borůvka-shaped buffers of a comb over Lp leaves: groups of 6 leaves
+    on light edges (0.01–1), their heads on a path whose weights rise above
+    them (10 + multiples of 2^-10), in random slots, one slot invalid;
+    leaf weights 1–5.  At min_cluster_size 10 every path merge splits two
+    heavy subtrees: ~Lp / 3 condensed labels, a label tree ~Lp / 6 deep."""
+    rng = np.random.default_rng(seed)
+    n_e = Lp - 1
+    child = np.arange(1, Lp)
+    head = child % 6 == 0
+    par = np.where(head, child - 6, child - 1)
+    perm = rng.permutation(Lp)
+    rise = 1.0 + np.sort(rng.choice(1 << 20, n_e, replace=False)) / 1024.0
+    slots = rng.permutation(Lp)[:n_e]
+    eu, ev = np.zeros(Lp, np.int32), np.zeros(Lp, np.int32)
+    ew, valid = np.zeros(Lp, np.float32), np.zeros(Lp, bool)
+    eu[slots], ev[slots], valid[slots] = perm[child], perm[par], True
+    ew[slots] = np.where(head, 10.0 + rise, rng.uniform(0.01, 1.0, n_e))
+    return eu, ev, ew, valid, rng.integers(1, 6, Lp).astype(np.float32)
+
+
 def on_cpu(arrays):
     """A hierarchy NamedTuple with every field copied to the CPU."""
     return type(arrays)(*(t.cpu() for t in arrays))
@@ -2562,9 +2611,14 @@ def phase_hierarchy(dev, table):
     every field bit for bit, on the offline pass's own Borůvka buffers for
     the stream's full table (Lp = 8192, the state in shared memory) and on a
     chain at CHAIN_LP (a dendrogram CHAIN_LP − 1 deep, the state in
-    scratch); EOM against its plain loop; a second run bit for bit; the new
-    and first versions timed in turns at both sizes, with stage and plain
-    times and the bound.  Returns the per-kernel numbers for the JSON
+    scratch).  Extract (csrc/hierarchy_extract.cu) bit for bit the plain
+    extract_fixed on the card and on the CPU, stabilities included, both
+    methods with and without allow_single_cluster, and against extract_v1
+    (integer fields equal, stabilities within RTOL), there and on a comb at
+    CHAIN_LP (~11,000 labels, its arrays past shared memory); the EOM
+    kernel of extract_v1 against its plain loop; a second run bit for bit;
+    the new and first versions timed in turns at both sizes, with stage and
+    plain times and the bound.  Returns the per-kernel numbers for the JSON
     line."""
     import torch
 
@@ -2590,22 +2644,40 @@ def phase_hierarchy(dev, table):
         u_s, v_s, w_s = th.sorted_edges(eu, ev, ew, valid, L)
         slt = k_h.single_linkage_sorted(u_s, v_s, w_s, nb)
         ct = k_h.condense(slt, nb, mcs)
-        stab = th.stabilities(ct)
-        return (u_s, v_s, w_s), slt, ct, stab, k_h.eom_sweep(stab, ct.cluster_parent, ct.n_labels), k_h.extract(ct)
+        return (u_s, v_s, w_s), slt, ct, k_h.extract(ct)
 
-    edges, slt, ct, stab, (sel, kids), ex = kernels()
+    def against_plain_extract(tag, ct, ex):
+        """ex (the kernel's, eom without allow_single) and the kernel's other
+        three policies bit for bit the plain version on the CPU; all four
+        against extract_v1; returns the largest difference from the plain
+        version."""
+        c_ct, err, rtol = on_cpu(ct), 0.0, order_rtol(ct)
+        for method in ("eom", "leaf"):
+            for single in (False, True):
+                got = ex if (method, single) == ("eom", False) else k_h.extract(ct, method, single)
+                what = f"{tag} extract {method}{' allow_single' if single else ''}"
+                err = max(err, same_arrays(f"{what} vs plain (CPU)", on_cpu(got),
+                                           th.extract_fixed(c_ct, method=method, allow_single_cluster=single)))
+                same_arrays(f"{what} vs extract_v1", got, k_h.extract_v1(ct, method, single), stab_rtol=rtol)
+        return err
+
+    edges, slt, ct, ex = kernels()
     p_slt = th.single_linkage_fixed(eu, ev, ew, valid, L, nb)
     p_ct = th.condense_fixed(p_slt, nb, mcs)
-    p_sel, p_kids = th.eom_loop(stab, ct.cluster_parent, ct.n_labels)
     p_ex = th.extract_fixed(p_ct)
-    errs = dict(single_linkage=same_arrays("single_linkage", slt, p_slt), condense=same_arrays("condense", ct, p_ct))
+    errs = dict(single_linkage=same_arrays("single_linkage", slt, p_slt), condense=same_arrays("condense", ct, p_ct),
+                extract=same_arrays("extract", ex, p_ex))
+    errs["extract"] = max(errs["extract"], against_plain_extract(f"Lp={Lp}", ct, ex))
+    sel, kids = k_h.eom_sweep(ex.stability, ct.cluster_parent, ct.n_labels)
+    p_sel, p_kids = th.eom_loop(ex.stability, ct.cluster_parent, ct.n_labels)
     check(bool(torch.equal(sel, p_sel)) and bool(torch.equal(kids.long(), p_kids)), "eom: selection or child counts")
-    errs["eom"] = max(abs_diff(sel, p_sel), abs_diff(kids, p_kids), same_arrays("extract", ex, p_ex))
+    errs["eom"] = max(abs_diff(sel, p_sel), abs_diff(kids, p_kids))
     again = kernels()
-    for name, a, b in (("single_linkage", slt, again[1]), ("condense", ct, again[2]), ("extract", ex, again[5])):
+    for name, a, b in (("single_linkage", slt, again[1]), ("condense", ct, again[2]), ("extract", ex, again[3])):
         for field in a._fields:
             check(bool(torch.equal(getattr(a, field), getattr(b, field))), f"{name}.{field}: a second run differs")
-    check(bool(torch.equal(stab, again[3])) and bool(torch.equal(sel, again[4][0])), "eom: a second run differs")
+    check(bool(torch.equal(sel, k_h.eom_sweep(ex.stability, ct.cluster_parent, ct.n_labels)[0])),
+          "eom: a second run differs")
 
     def against_oracles(tag, bufs, n_valid, slt, ct, cpu_plain):
         """slt, ct (the new kernels' on the card) bit for bit the first
@@ -2634,64 +2706,103 @@ def phase_hierarchy(dev, table):
     against_oracles(f"chain Lp={CHAIN_LP}", chain, CHAIN_LP, ch_slt, ch_ct, cpu_plain=True)
     check((k_h.launches_single_linkage_v1, k_h.launches_condense_v1) == tuple(n + 2 for n in v1_launches),
           "the first versions' launches")
+    t_chain = time.perf_counter() - t0
+    comb = [torch.from_numpy(a).to(dev) for a in comb_buffers(CHAIN_LP, SEED + 8)]
+    cb_slt = k_h.single_linkage(*comb[:4], CHAIN_LP, comb[4])
+    cb_ct = k_h.condense(cb_slt, comb[4], mcs)
+    cb_ex = k_h.extract(cb_ct)
+    cb_labels = int(cb_ct.n_labels)
+    labels_fit = 26 * cb_labels + k_h._BUFFERS["extract"] <= k_h.SMEM_BYTES  # 6 words and 2 flags a label
+    check(not labels_fit, f"the comb's {cb_labels} labels' arrays fit shared memory together")
+    t0 = time.perf_counter()
+    errs["extract"] = max(errs["extract"], against_plain_extract(f"comb Lp={CHAIN_LP}", cb_ct, cb_ex))
+    check(all(bool(torch.equal(getattr(cb_ex, f), getattr(k_h.extract(cb_ct), f))) for f in cb_ex._fields),
+          "extract on the comb: a second run differs")
+    t_comb = time.perf_counter() - t0
     n_labels = int(ct.n_labels)
     n_skipped = int((slt.left == 2 * Lp - 1).sum())
     say(f"[kernels] hierarchy at Lp={Lp} (L={L}, the stream's full table, min_cluster_size {mcs:g}): "
         f"{n_labels} condensed labels, {int(ex.n_clusters)} clusters, {n_skipped} skipped merges; every field of "
-        f"single-linkage, condense and extract identical to the plain loops on the card (stabilities within "
-        f"{RTOL}: identical as well: {bool(torch.equal(ex.stability, p_ex.stability))}), and EOM's selection and "
-        f"child counts; a second run identical; single-linkage and condense (csrc/hierarchy_par.cu) identical to "
-        f"their first versions (csrc/hierarchy.cu) and to the CPU models of their algorithms (chunk {k_h.CHUNK})")
+        "single-linkage, condense and extract identical to the plain loops on the card, stabilities included; "
+        "extract also identical to the plain extract_fixed on the CPU for both methods with and without "
+        f"allow_single_cluster, and to extract_v1 but for the stabilities (within {RTOL}, or 2(k - 1) 2^-24 for a "
+        "label of k terms where that is larger: index_put_'s own order); "
+        "EOM's selection and child counts identical to eom_loop; a second run identical; single-linkage and condense "
+        "(csrc/hierarchy_par.cu) identical to their first versions (csrc/hierarchy.cu) and to the CPU models of "
+        f"their algorithms (chunk {k_h.CHUNK})")
     say(f"[kernels] hierarchy on a chain at Lp={CHAIN_LP} (a dendrogram {CHAIN_LP - 1} deep; state in shared memory: "
         f"single_linkage {k_h.plan('single_linkage', CHAIN_LP)[0]}, condense {k_h.plan('condense', CHAIN_LP)[0]}; "
         f"{int(ch_ct.n_labels)} labels): the new kernels identical to the first versions, the CPU models and the "
-        f"plain loops on the CPU in every field ({time.perf_counter() - t0:.1f} s with the CPU loops)")
+        f"plain loops on the CPU in every field ({t_chain:.1f} s with the CPU loops)")
+    say(f"[kernels] hierarchy extract on a comb at Lp={CHAIN_LP} ({cb_labels} labels, {int(cb_ex.n_clusters)} "
+        f"clusters; the per-label arrays, 26 bytes a label, past shared memory together: some in scratch): identical "
+        "to the plain extract_fixed on the "
+        f"CPU for both methods with and without allow_single_cluster, to extract_v1 but for the stabilities, and to a "
+        f"second run ({t_comb:.1f} s with the CPU loops)")
 
     u_s, v_s, w_s = edges
     n_slots = 2 * Lp + 1
     sl_bytes, cd_bytes = (lambda n: 24.0 * n + 16.0 * (n - 1)), (lambda n: 12.0 * (n - 1) + 16.0 * n + 12.0 * (2 * n + 1) + 4)
-    runs = {  # new, first version, stage, plain, bytes at Lp, dependent steps of the latency floor, chain calls
-        "single_linkage": (lambda: k_h.single_linkage_sorted(u_s, v_s, w_s, nb),
-                           lambda: k_h.single_linkage_sorted_v1(u_s, v_s, w_s, nb),
-                           lambda: k_h.single_linkage(eu, ev, ew, valid, L, nb),
-                           lambda: th.single_linkage_fixed(eu, ev, ew, valid, L, nb), sl_bytes, lambda n: n - 1,
-                           (lambda: k_h.single_linkage_sorted(*ch_edges, chain[4]),
-                            lambda: k_h.single_linkage_sorted_v1(*ch_edges, chain[4]))),
-        "condense": (lambda: k_h.condense(slt, nb, mcs), lambda: k_h.condense_v1(slt, nb, mcs),
-                     lambda: k_h.condense(slt, nb, mcs), lambda: th.condense_fixed(slt, nb, mcs), cd_bytes,
-                     lambda n: 0,
-                     (lambda: k_h.condense(ch_slt, chain[4], mcs), lambda: k_h.condense_v1(ch_slt, chain[4], mcs))),
-        "eom": (lambda: k_h.eom_sweep(stab, ct.cluster_parent, ct.n_labels), None, lambda: k_h.extract(ct),
-                lambda: th.eom_loop(stab, ct.cluster_parent, ct.n_labels), lambda n: 13.0 * n_slots + 4,
-                lambda n: n_labels, None),
+
+    def ex_bytes(n):  # extract reads 3 leaf and 3 label arrays and the count, writes stability, selected, labels, count
+        return 16.0 * n + 17.0 * (2 * n + 1) + 8
+
+    runs = {  # new, first version, stage, plain, bytes at Lp, dependent steps at Lp, then the CHAIN_LP case's
+        "single_linkage": dict(
+            kernel=lambda: k_h.single_linkage_sorted(u_s, v_s, w_s, nb),
+            first=lambda: k_h.single_linkage_sorted_v1(u_s, v_s, w_s, nb),
+            stage=lambda: k_h.single_linkage(eu, ev, ew, valid, L, nb),
+            plain=lambda: th.single_linkage_fixed(eu, ev, ew, valid, L, nb), nbytes=sl_bytes, steps=Lp - 1,
+            big=("chain", CHAIN_LP - 1, lambda: k_h.single_linkage_sorted(*ch_edges, chain[4]),
+                 lambda: k_h.single_linkage_sorted_v1(*ch_edges, chain[4]))),
+        "condense": dict(
+            kernel=lambda: k_h.condense(slt, nb, mcs), first=lambda: k_h.condense_v1(slt, nb, mcs),
+            stage=lambda: k_h.condense(slt, nb, mcs), plain=lambda: th.condense_fixed(slt, nb, mcs),
+            nbytes=cd_bytes, steps=0,
+            big=("chain", 0, lambda: k_h.condense(ch_slt, chain[4], mcs),
+                 lambda: k_h.condense_v1(ch_slt, chain[4], mcs))),
+        "extract": dict(
+            kernel=lambda: k_h.extract(ct), first=lambda: k_h.extract_v1(ct), stage=lambda: k_h.extract(ct),
+            plain=lambda: th.extract_fixed(ct), nbytes=ex_bytes, steps=n_labels,
+            big=("comb", cb_labels, lambda: k_h.extract(cb_ct), lambda: k_h.extract_v1(cb_ct))),
+        "eom": dict(
+            kernel=lambda: k_h.eom_sweep(ex.stability, ct.cluster_parent, ct.n_labels), first=None,
+            stage=lambda: k_h.extract_v1(ct), plain=lambda: th.eom_loop(ex.stability, ct.cluster_parent, ct.n_labels),
+            nbytes=lambda n: 13.0 * n_slots + 4, steps=n_labels, big=None),
     }
-    counts = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom, k_h.launches_single_linkage_v1,
-              k_h.launches_condense_v1)
+    counts = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_extract, k_h.launches_eom,
+              k_h.launches_single_linkage_v1, k_h.launches_condense_v1)
     out = {}
-    for name, (kernel, first, stage_fn, plain, nbytes, steps, on_chain) in runs.items():
-        ms, v1_ms = in_turns(kernel, first) if first else (time_ms(kernel, reps=20), None)
-        stage_ms = time_ms(stage_fn, reps=20)
-        host = host_ms(stage_fn)
-        plain_ms = time_ms(plain, reps=1, warm=0)
-        b, by, floor = hierarchy_bound(nbytes(Lp), steps(Lp))
-        what = (f"latency floor of {steps(Lp)} dependent steps x 30 cycles at 1.98 GHz {floor:.4f} ms" if by ==
+    for name, r in runs.items():
+        ms, v1_ms = in_turns(r["kernel"], r["first"]) if r["first"] else (time_ms(r["kernel"], reps=20), None)
+        stage_ms = time_ms(r["stage"], reps=20)
+        host = host_ms(r["stage"])
+        plain_ms = time_ms(r["plain"], reps=1, warm=0)
+        b, by, floor = hierarchy_bound(r["nbytes"](Lp), r["steps"])
+        what = (f"latency floor of {r['steps']} dependent steps x 30 cycles at 1.98 GHz {floor:.4f} ms" if by ==
                 "operations" else "its bytes: no chain of dependent steps" if name == "condense" else "")
+        first_name = {"extract": "extract_v1"}.get(name, "first version")
+        stage_name = {"eom": "extract_v1's stage"}.get(name, "stage")
         say(f"[kernels] hierarchy {name} at Lp={Lp}: kernel {ms:.4f} ms"
-            + (f" (first version, in turns: {v1_ms:.4f} ms, {v1_ms / ms:.2f}x)" if first else "")
-            + f", stage {stage_ms:.4f} ms (host enqueue {host:.4f} ms per call), plain loop {plain_ms:.2f} ms, bound "
-            f"{b:.4f} ms ({what}; {nbytes(Lp) / 1e6:.3f} MB at 3.35 TB/s {nbytes(Lp) / PEAK_BYTES * 1e3:.5f} ms); "
-            "library none")
+            + (f" ({first_name}, in turns: {v1_ms:.4f} ms, {v1_ms / ms:.2f}x)" if r["first"] else "")
+            + f", {stage_name} {stage_ms:.4f} ms (host enqueue {host:.4f} ms per call), plain {plain_ms:.2f} ms, bound "
+            f"{b:.4f} ms ({what}; {r['nbytes'](Lp) / 1e6:.3f} MB at 3.35 TB/s {r['nbytes'](Lp) / PEAK_BYTES * 1e3:.5f} "
+            "ms); library none")
         out[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
-                         stage_ms=stage_ms, latency_floor_ms=floor if steps(Lp) else None)
-        if first:
-            c_ms, c_v1 = in_turns(*on_chain, reps=5)
-            c_b, c_by, c_floor = hierarchy_bound(nbytes(CHAIN_LP), steps(CHAIN_LP))
-            out[name].update(v1_ms=v1_ms, chain=dict(Lp=CHAIN_LP, ms=c_ms, v1_ms=c_v1, bound_ms=c_b, bound_by=c_by))
-            say(f"[kernels] hierarchy {name} on the chain at Lp={CHAIN_LP}: kernel {c_ms:.4f} ms, first version "
+                         stage_ms=stage_ms, host_ms=host, latency_floor_ms=floor if r["steps"] else None)
+        if r["first"]:
+            tag, steps, new, old = r["big"]
+            c_ms, c_v1 = in_turns(new, old, reps=5)
+            c_b, c_by, c_floor = hierarchy_bound(r["nbytes"](CHAIN_LP), steps)
+            out[name].update(v1_ms=v1_ms, **{tag: dict(Lp=CHAIN_LP, ms=c_ms, v1_ms=c_v1, bound_ms=c_b, bound_by=c_by)})
+            if name == "extract":
+                out[name][tag].update(n_labels=cb_labels, host_ms=host_ms(new))
+            say(f"[kernels] hierarchy {name} on the {tag} at Lp={CHAIN_LP}: kernel {c_ms:.4f} ms, {first_name} "
                 f"{c_v1:.4f} ms ({c_v1 / c_ms:.2f}x, in turns), bound {c_b:.4f} ms ({c_by}"
-                + (f": {steps(CHAIN_LP)} steps {c_floor:.4f} ms" if c_by == "operations" else "") + ")")
-    (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom, k_h.launches_single_linkage_v1,
-     k_h.launches_condense_v1) = counts  # the timing's launches are not the path's
+                + (f": {steps} steps {c_floor:.4f} ms" if c_by == "operations" else "") + ")"
+                + (f"; host enqueue {out[name][tag]['host_ms']:.4f} ms per call" if name == "extract" else ""))
+    (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_extract, k_h.launches_eom,
+     k_h.launches_single_linkage_v1, k_h.launches_condense_v1) = counts  # the timing's launches are not the path's
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -2737,12 +2848,13 @@ def phase_stages(dev, table):
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    before = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom)
+    before = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_extract, k_h.launches_eom)
     torch.cuda.synchronize()
     res2 = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=no_sync)
-    after = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom)
+    after = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_extract, k_h.launches_eom)
     check(_same_partition(res2.labels, res.labels), "the pass under the sync debug mode differs")
-    check(all(a - b == 1 for a, b in zip(after, before)), f"hierarchy launches in one pass: {before} -> {after}")
+    check([a - b for a, b in zip(after, before)] == [1, 1, 1, 0],
+          f"hierarchy launches (single_linkage, condense, extract, eom) in one pass: {before} -> {after}")
     say("[stages] the same pass with torch.cuda.set_sync_debug_mode('error') from bubble_cd to extract: no host "
         "synchronisation raised; the hierarchy kernels launched once each")
 
@@ -2801,7 +2913,7 @@ def phase_wide(dev):
     for mod in (k_assign, k_bcd, k_mr):
         mod.launches = 0
     k_bcd.launches_ws = k_bcd.launches_strip = 0
-    k_h.launches_single_linkage = k_h.launches_condense = k_h.launches_eom = 0
+    k_h.launches_single_linkage = k_h.launches_condense = k_h.launches_extract = k_h.launches_eom = 0
     snaps = []
 
     def note_pass(before):
@@ -2822,11 +2934,13 @@ def phase_wide(dev):
     wall = time.perf_counter() - t0
     launches = {"assign": k_assign.launches, "bubble_cd ws": k_bcd.launches_ws,
                 "bubble_cd strip": k_bcd.launches_strip, "mutual_reach": k_mr.launches,
-                "hierarchy": [k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom]}
+                "hierarchy": [k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_extract],
+                "eom": k_h.launches_eom}
     say(f"[wide] {N_WIDE} points d={WIDE_DIM} in blocks of {BLOCK}, {N_WIDE_QUERIES} queries: {wall:.2f} s wall, "
         f"{len(snaps)} offline passes at L = {[sn.n_bubbles for sn, _ in snaps]}; launches {json.dumps(launches)}")
     check(launches["assign"] > 0 and launches["mutual_reach"] == len(snaps) and launches["bubble_cd ws"] == 0
-          and launches["bubble_cd strip"] == len(snaps) and launches["hierarchy"] == [len(snaps)] * 3,
+          and launches["bubble_cd strip"] == len(snaps) and launches["hierarchy"] == [len(snaps)] * 3
+          and launches["eom"] == 0,
           f"d={WIDE_DIM} stream: launches {launches}")
     check(len(snaps) > 0, f"d={WIDE_DIM} stream: no offline pass")
     for k, (snap, table) in enumerate(snaps):
@@ -3692,9 +3806,11 @@ def exact_cpu_replay(dev):
 
 def refresh_split(state, wall_ms: float):
     """The hierarchy-only refresh's stages on its own inputs (captured from
-    one ops.incremental_recluster): single_linkage (the sort and the
-    kernel; the kernel alone), condense and extract, each by CUDA events,
-    beside the refresh's wall on the host clock (``wall_ms``)."""
+    one ops.incremental_recluster, which must launch the extract kernel
+    once and the EOM kernel never): single_linkage (the sort and the
+    kernel; the kernel alone), condense and extract (and extract_v1, the
+    composition it replaced), each by CUDA events, beside the refresh's
+    wall on the host clock (``wall_ms``)."""
     import torch
 
     from repro_torch.core import hierarchy as th
@@ -3707,13 +3823,16 @@ def refresh_split(state, wall_ms: float):
         seen["args"] = args
         return real(*args, **kw)
 
+    before = (k_h.launches_extract, k_h.launches_eom)
     ops.hierarchy_fixed = capture
     try:
         ops.incremental_recluster(state, float(MIN_PTS))
     finally:
         ops.hierarchy_fixed = real
+    check((k_h.launches_extract - before[0], k_h.launches_eom - before[1]) == (1, 0),
+          "[exact] a refresh did not launch the extract kernel once and the EOM kernel never")
     eu, ev, ew, valid, n_valid, weights, mcs = seen["args"]
-    counts = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom)
+    counts = (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_extract, k_h.launches_eom)
     edges = th.sorted_edges(eu, ev, ew, valid, n_valid)
     slt = k_h.single_linkage_sorted(*edges, weights)
     ct = k_h.condense(slt, weights, mcs)
@@ -3722,11 +3841,13 @@ def refresh_split(state, wall_ms: float):
              "extract": time_ms(lambda: k_h.extract(ct), reps=10)}
     kernel = time_ms(lambda: k_h.single_linkage_sorted(*edges, weights), reps=10)
     host = host_ms(lambda: k_h.extract(ct), reps=10)
-    k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_eom = counts
+    v1_ms, v1_host = time_ms(lambda: k_h.extract_v1(ct), reps=10), host_ms(lambda: k_h.extract_v1(ct), reps=10)
+    (k_h.launches_single_linkage, k_h.launches_condense, k_h.launches_extract, k_h.launches_eom) = counts
     torch.cuda.synchronize()
-    say(f"[exact] the refresh's stage split at Lp = {eu.shape[0]} (device ms by CUDA events, each stage alone): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-        + f" (single_linkage's kernel alone {kernel:.4f}; extract's host enqueue {host:.4f} ms per call); the rest of "
+    say(f"[exact] the refresh's stage split at Lp = {eu.shape[0]} ({int(ct.n_labels)} labels; device ms by CUDA events, "
+        "each stage alone): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f" (single_linkage's kernel alone {kernel:.4f}; extract's host enqueue {host:.4f} ms per call; extract_v1, "
+          f"the composition it replaced, {v1_ms:.4f}, host enqueue {v1_host:.4f}); the rest of "
           f"the {wall_ms:.2f} ms refresh (compaction, weights, the unwrap's one read) "
           f"{wall_ms - sum(split.values()):.2f} ms")
 
@@ -3979,7 +4100,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
-    launches = dict(run["launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
+    launches = dict(run["launches"], eom=run["eom_launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
                     flat_scatter=online_launches["flat_scatter"], **grid_launches, **attn_launches, **exact_launches)
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
                    flash_attention_mma=attn_numbers[ATTENTION[0][0]], flat_scatter=online_numbers, **grid_numbers,
@@ -3994,6 +4115,8 @@ def main() -> int:
                # no Pallas kernel: the JAX package's lax.scan sweeps of the hierarchy
                "single_linkage": ("hierarchy_par.cu", "src/repro/core/hierarchy_jax.py:195"),
                "condense": ("hierarchy_par.cu", "src/repro/core/hierarchy_jax.py:265"),
+               "extract": ("hierarchy_extract.cu", "src/repro/core/hierarchy_jax.py:288"),
+               # extract_v1's EOM kernel, the extract kernel's oracle: launched on no path
                "eom": ("hierarchy.cu", "src/repro/core/hierarchy_jax.py:336"),
                # no Pallas kernel: the JAX package's segment sums + _kahan_add of device-online ingest
                "flat_scatter": ("flat_scatter.cu", "src/repro/core/bubble_flat.py:93"),

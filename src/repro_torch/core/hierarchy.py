@@ -14,14 +14,18 @@ The O(Lp) scans of the reference (union-find single-linkage, the
 top-down condense sweep, bottom-up EOM) are Python loops of small tensor
 operations here: the plain versions, which CPU tensors run and the card's
 tests hold the CUDA kernels to.  On the card, ``kernels/hierarchy.py``
-runs the three sweeps as kernels around the same vector steps
-(``sorted_edges``, ``stabilities``, ``flat_labels``).  The EOM loop reads
+runs single-linkage (after ``sorted_edges``) and condense as one kernel
+each, and the whole of ``extract_fixed`` (stabilities, EOM, selection,
+flat labels) as one more.  The EOM loop reads
 the label count once before it starts and visits only the labels in use
 (the reference's fixed 2·Lp-step scan only writes trash slots past them).
 Selection blocking and label resolution are pointer-doubling sweeps of
-⌈log₂ C⌉ + 1 vector steps.  Scatter-adds use
-``index_put_(accumulate=True)``, which sums in a fixed order on each
-device.
+⌈log₂ C⌉ + 1 vector steps.  The stabilities are sums in one written-down
+order (``stabilities``): each label's leaves in ascending leaf index, then
+its child labels in ascending label, one f32 add each from +0.0, which
+the card's extract kernel gives bit for bit.  (PyTorch's CPU
+``index_put_(accumulate=True)`` keeps that order only below 32,768
+indices; past them it adds with parallel atomics, in no fixed order.)
 """
 
 from __future__ import annotations
@@ -380,7 +384,7 @@ def condense_jump(slt: SingleLinkageArrays, weights, min_cluster_size: float, ch
 def extract_fixed(ct: CondensedArrays, method: str = "eom",
                   allow_single_cluster: bool = False) -> ExtractionArrays:
     """Excess-of-mass (or leaf) extraction: stability(c) = Σ (λ_row −
-    λ_birth(c)) · w_row by two scatter-adds; EOM as one descending sweep
+    λ_birth(c)) · w_row in ``stabilities``' fixed order; EOM as one descending sweep
     over the labels in use (children are final when their parent is
     visited); selection blocking and label resolution by pointer
     doubling."""
@@ -420,20 +424,26 @@ def check_method(method: str) -> None:
 
 def stabilities(ct: CondensedArrays) -> torch.Tensor:
     """stability(c) = Σ (λ_row − λ_birth(c)) · w_row over the leaves and
-    the child labels of c, by two scatter-adds; (C+1,) f32."""
+    the child labels of c; (C+1,) f32.  Each term is one f32 subtract and
+    one multiply; a label's terms are added one f32 add at a time from
+    +0.0, its leaves in ascending leaf index, then its child labels in
+    ascending label (two ``np.add.at`` on the host, which applies its
+    terms unbuffered in index order).  Slots ≥ ``n_labels`` hold 0; slot
+    C takes the masked rows' 0.0 terms.  The sum reads the tensors on the
+    host: this plain version never runs on the card's main path."""
     dev = ct.cluster_parent.device
     C = ct.cluster_parent.shape[0] - 1
     ids = torch.arange(C + 1, device=dev)
     row_mask = (ids < ct.n_labels.long()) & (ids >= 1)
     pp = ct.point_parent.long()
     birth = ct.cluster_birth
-    stab = torch.zeros(C + 1, dtype=torch.float32, device=dev)
-    stab.index_put_((pp,), (ct.point_lambda - birth[pp]) * ct.point_weight, accumulate=True)
     par_of = torch.where(row_mask, ct.cluster_parent.long(), C)
-    stab.index_put_(
-        (par_of,), torch.where(row_mask, (birth - birth[par_of]) * ct.cluster_weight, 0.0),
-        accumulate=True)
-    return stab
+    leaf_terms = (ct.point_lambda - birth[pp]) * ct.point_weight
+    kid_terms = torch.where(row_mask, (birth - birth[par_of]) * ct.cluster_weight, 0.0)
+    stab = np.zeros(C + 1, np.float32)
+    np.add.at(stab, pp.cpu().numpy(), leaf_terms.cpu().numpy())
+    np.add.at(stab, par_of.cpu().numpy(), kid_terms.cpu().numpy())
+    return torch.from_numpy(stab).to(dev)
 
 
 def flat_labels(ct: CondensedArrays, stab, sel, kid_count, method: str,

@@ -30,7 +30,7 @@ __all__ = ["load", "check", "current_stream", "build_info"]
 _CSRC = Path(__file__).with_name("csrc")
 _BUILD = Path(__file__).with_name("build")
 _SOURCES = ("assign.cu", "assign_ws.cu", "bubble_cd.cu", "bubble_cd_ws.cu", "bubble_cd_walk.cu", "dist_panel.cu",
-            "dynamic.cu", "flat_scatter.cu", "grid.cu", "hierarchy.cu", "hierarchy_par.cu", "mutual_reach.cu", "knn.cu", "knn_ws.cu", "pairwise.cu", "flash_attention.cu", "flash_attention_mma.cu",
+            "dynamic.cu", "flat_scatter.cu", "grid.cu", "hierarchy.cu", "hierarchy_extract.cu", "hierarchy_par.cu", "mutual_reach.cu", "knn.cu", "knn_ws.cu", "pairwise.cu", "flash_attention.cu", "flash_attention_mma.cu",
             "flash_attention_panel.cu", "errors.cu")
 _HEADERS = ("common.cuh", "dist_tile.cuh", "warp_select.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -124,6 +124,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_single_linkage_par_f32.argtypes = lib.repro_single_linkage_f32.argtypes
     lib.repro_condense_par_f32.argtypes = lib.repro_condense_f32.argtypes
     lib.repro_eom_f32.argtypes = [P, P, P, I, I, P, P, P, P]
+    lib.repro_extract_f32.argtypes = [P] * 7 + [I] * 4 + [P] * 6
+    lib.repro_extract_scratch_bytes.argtypes = [I, I]
+    lib.repro_extract_scratch_bytes.restype = ctypes.c_size_t
     lib.repro_flat_scatter_f32.argtypes = [P] * 9 + [I, I, I, ctypes.c_float, I, P, P]
     lib.repro_grid_assign_f32.argtypes = [P, I, P, P, P, I, I, I, P, P, I, P, P, P, P]
     lib.repro_grid_core_distances_f32.argtypes = [P, P, P, I, I, I, P, P, I, P, P, I, I, I, I, I, P, P, P]
@@ -138,7 +141,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.repro_flash_attention, lib.repro_flash_attention_mma, lib.repro_flash_attention_panel,
                lib.repro_flash_attention_panel_plan, lib.repro_single_linkage_f32, lib.repro_condense_f32,
                lib.repro_single_linkage_par_f32, lib.repro_condense_par_f32,
-               lib.repro_eom_f32, lib.repro_flat_scatter_f32, lib.repro_grid_assign_f32,
+               lib.repro_eom_f32, lib.repro_extract_f32, lib.repro_flat_scatter_f32, lib.repro_grid_assign_f32,
                lib.repro_grid_core_distances_f32, lib.repro_grid_round_minima_f32, lib.repro_strip_dists_f32,
                lib.repro_strip_topk_f32, lib.repro_strip_round_minima_f32):
         fn.restype = I

@@ -8,18 +8,24 @@ kernel has no CPU mode).  On the card:
 This file imports no JAX.  The inputs are Borůvka-shaped edge buffers of
 a seeded random spanning tree (``edge_buffers``; no W is needed), which
 ``kernels/hierarchy.py`` takes through its kernels (single-linkage,
-condense, the EOM sweep) and ``core/hierarchy.py``'s plain loops take on
-the same card.  Every integer field, every λ and every weight must be
-bitwise equal, trash slots included; stabilities within 1e-5 relative
-(both sides sum them with the same ``index_put_``, so they agree exactly
-on one card, but the contract is 1e-5).  The largest bucket, Lp = 65,536,
-is held against the plain loops on the CPU.  Two runs of the kernels give
-the same bits, and an offline pass on the card reads nothing back from
-the device before its unwrap (``torch.cuda.set_sync_debug_mode``).
-``-k HierarchyPar``: the redesigned single-linkage and condense kernels
+condense, extract) and ``core/hierarchy.py``'s plain loops take on the
+same card.  Every field must be bitwise equal, trash slots included, the
+stabilities too: the extract kernel and the plain ``stabilities`` add in
+one fixed order.  The largest bucket, Lp = 65,536, is held against the
+plain loops on the CPU.  Two runs of the kernels give the same bits, and
+an offline pass on the card reads nothing back from the device before
+its unwrap (``torch.cuda.set_sync_debug_mode``).  ``-k HierarchyPar``:
+the redesigned single-linkage and condense kernels
 (``csrc/hierarchy_par.cu``) bit for bit against their first versions
 (``csrc/hierarchy.cu``) and the plain loops on the CPU, on deep
-dendrograms (chain, star, comb) as well, at every bucket.
+dendrograms (chain, star, comb) as well, at every bucket.  ``-k
+Extract``: the extract kernel (``csrc/hierarchy_extract.cu``) bit for
+bit the plain ``extract_fixed`` on the CPU on the same cases, both
+methods with and without ``allow_single_cluster``, and against
+``extract_v1``, the composition it replaced (integer fields equal,
+stabilities within 1e-5, or within the worst case of two orders of a
+label's k terms, 2·(k − 1)·2⁻²⁴, where that is larger: ``index_put_``
+sums in CUDA's own order), a label count past shared memory, two runs.
 """
 
 import numpy as np
@@ -109,17 +115,30 @@ def _run(route, dev, case, seed, method="eom", allow_single=False):
     return slt, ct, th.extract_fixed(ct, method=method, allow_single_cluster=allow_single)
 
 
-def assert_same_hierarchy(got, want):
-    """Integer fields, λ and weights bitwise; stabilities within 1e-5
-    relative."""
+def order_rtol(ct):
+    """Per label slot, how far two f32 sums of its stability terms in
+    different orders may lie apart, relative: 1e-5 (the reference's
+    contract), or the worst case 2·(k − 1)·2⁻²⁴ of k non-negative terms
+    where that is larger (a label that holds most of 65,536 leaves)."""
+    n_slots = ct.cluster_parent.shape[0]
+    n = int(ct.n_labels)
+    k = torch.bincount(ct.point_parent.long().cpu(), minlength=n_slots)[:n_slots]
+    k = k + torch.bincount(ct.cluster_parent[1:n].long().cpu(), minlength=n_slots)[:n_slots]
+    return torch.clamp(2.0 * (k - 1).clamp(min=0).double() * 2.0 ** -24, min=1e-5)
+
+
+def assert_same_hierarchy(got, want, stab_rtol=None):
+    """Every field bitwise, stabilities included (the kernel and the plain
+    version add in one fixed order); with ``stab_rtol`` (a number or one
+    per slot), stabilities within that relative tolerance instead."""
     for g_arr, w_arr in zip(got, want):
         for field in w_arr._fields:
             g, w = getattr(g_arr, field).cpu(), getattr(w_arr, field).cpu()
             assert g.shape == w.shape, field
             if field in INT_FIELDS:
                 assert torch.equal(g.long(), w.long()), field
-            elif field == "stability":
-                assert torch.allclose(g, w, rtol=1e-5, atol=0), field
+            elif field == "stability" and stab_rtol is not None:
+                assert bool(((g.double() - w.double()).abs() <= stab_rtol * w.double().abs()).all()), field
             else:
                 assert g.dtype == w.dtype and torch.equal(g, w), field
 
@@ -135,9 +154,10 @@ def cuda_device():
 class TestHierarchyKernels:
     @pytest.mark.parametrize("case", GRID, ids=lambda c: f"Lp{c[0]}-nvalid{c[1]}")
     def test_grid(self, cuda_device, case):
-        counts = (t_h.launches_single_linkage, t_h.launches_condense, t_h.launches_eom)
+        counts = (t_h.launches_single_linkage, t_h.launches_condense, t_h.launches_extract, t_h.launches_eom)
         got = _run(t_h, cuda_device, case, seed=case[0] + case[1])
-        assert (t_h.launches_single_linkage, t_h.launches_condense, t_h.launches_eom) == tuple(c + 1 for c in counts)
+        assert (t_h.launches_single_linkage, t_h.launches_condense, t_h.launches_extract,
+                t_h.launches_eom) == (counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3])
         assert_same_hierarchy(got, _run(th, cuda_device, case, seed=case[0] + case[1]))
 
     @pytest.mark.parametrize("name", list(CORNERS))
@@ -180,14 +200,17 @@ class TestHierarchyKernels:
         (rep_t, nb_t, ext_t), min_pts, _ = tops._prepare_table(
             rep, rng.integers(1, 4, L).astype(float), rng.uniform(0.01, 0.1, L), 10, cuda_device)
         torch.cuda.synchronize()
+        counts = (t_h.launches_extract, t_h.launches_eom)
         torch.cuda.set_sync_debug_mode("error")
         try:
             out = tops._offline_pipeline(rep_t, nb_t, ext_t, L, 10.0, min_pts)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        assert (t_h.launches_extract, t_h.launches_eom) == (counts[0] + 1, counts[1])
         # the plain loops on the CPU, fed the card's own Borůvka buffers
         _, ct, ex = th.hierarchy_fixed(*(out[k].cpu() for k in ("eu", "ev", "ew", "valid")), L, nb_t.cpu(), 10.0)
-        for key, want in (("labels", ex.labels), ("point_parent", ct.point_parent),
+        for key, want in (("labels", ex.labels), ("stability", ex.stability), ("selected", ex.selected),
+                          ("point_parent", ct.point_parent),
                           ("point_lambda", ct.point_lambda), ("cluster_parent", ct.cluster_parent),
                           ("n_labels", ct.n_labels)):
             assert torch.equal(out[key].cpu(), want), key
@@ -226,6 +249,63 @@ class TestHierarchyPar:
         for x, y in zip(*runs):
             for field in x._fields:
                 assert torch.equal(getattr(x, field), getattr(y, field)), field
+
+
+POLICIES = [("eom", False), ("eom", True), ("leaf", False), ("leaf", True)]
+
+
+def _condensed_on_card(dev, case, seed=5):
+    Lp, nv, opts, mcs = case
+    eu, ev, ew, valid, w = _to(dev, edge_buffers(Lp, nv, seed, **opts))
+    return t_h.condense(t_h.single_linkage(eu, ev, ew, valid, nv, w), w, mcs)
+
+
+@pytest.mark.cuda
+class TestExtract:
+    @pytest.mark.parametrize("name,case", PAR_CASES, ids=[n for n, _ in PAR_CASES])
+    def test_equal_plain_and_v1(self, cuda_device, name, case):
+        """One launch per call, every field bit for bit the plain
+        extract_fixed on the CPU, and the integer fields of extract_v1
+        (its index_put_ stabilities within ``order_rtol``), for each
+        policy."""
+        ct = _condensed_on_card(cuda_device, case)
+        c_ct = type(ct)(*(t.cpu() for t in ct))
+        for method, single in POLICIES:
+            n = t_h.launches_extract
+            got = t_h.extract(ct, method, single)
+            assert t_h.launches_extract == n + 1
+            assert_same_hierarchy([got], [th.extract_fixed(c_ct, method=method, allow_single_cluster=single)])
+            assert_same_hierarchy([got], [t_h.extract_v1(ct, method, single)], stab_rtol=order_rtol(c_ct))
+
+    def test_label_count_past_the_shared_memory_cap(self, cuda_device):
+        """A comb at Lp = 65,536 with ~34,000 labels: the per-label arrays
+        alone (sums, stabilities, offsets, parents, child terms, flags: 26
+        bytes a label) outgrow shared memory several times; most go to the
+        scratch buffer."""
+        ct = _condensed_on_card(cuda_device, (65536, 65536 - 8192, {"shape": "comb"}, 5.0))
+        n = int(ct.n_labels)
+        assert 26 * n + t_h._BUFFERS["extract"] > t_h.SMEM_BYTES, n
+        got = t_h.extract(ct)
+        assert_same_hierarchy([got], [th.extract_fixed(type(ct)(*(t.cpu() for t in ct)))])
+        assert int(got.n_clusters) > 1000
+
+    @pytest.mark.parametrize("Lp", [8192, 65536])
+    def test_replay(self, cuda_device, Lp):
+        """Two runs give the same bits (every array in shared memory at
+        8192's label count, most in scratch at 65,536)."""
+        ct = _condensed_on_card(cuda_device, (Lp, Lp - 100, {"shape": "comb", "masses": "frac"}, 8.0), seed=13)
+        for method, single in POLICIES:
+            a, b = (t_h.extract(ct, method, single) for _ in range(2))
+            for field in a._fields:
+                assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+    @pytest.mark.parametrize("Lp", CUDA_LPS)
+    def test_scratch_plan_is_the_kernels(self, cuda_device, Lp):
+        """kernels/hierarchy.py::plan sizes the scratch buffer as the
+        kernel's own layout does."""
+        from repro_torch.kernels import _build
+
+        assert t_h.plan("extract", Lp)[1] == _build.load().repro_extract_scratch_bytes(Lp, 2 * Lp + 1)
 
 
 @pytest.mark.parametrize("Lp", [8, 1024, 8192, 16384, 65536])

@@ -151,7 +151,7 @@ def test_hierarchy_cpu_takes_the_plain_loops(method, allow_single):
     """CPU tensors run core/hierarchy.py's loops through the kernel
     wrappers: the same arrays, and no kernel launch counted."""
     eu, ev, ew, valid, w = _hierarchy_inputs("cpu")
-    t_h.launches_single_linkage = t_h.launches_condense = t_h.launches_eom = 0
+    t_h.launches_single_linkage = t_h.launches_condense = t_h.launches_extract = t_h.launches_eom = 0
     got = t_plain.hierarchy_fixed(eu, ev, ew, valid, 16, w, 3.0, method=method, allow_single_cluster=allow_single)
     slt = t_plain.single_linkage_fixed(eu, ev, ew, valid, 16, w)
     ct = t_plain.condense_fixed(slt, w, 3.0)
@@ -159,7 +159,7 @@ def test_hierarchy_cpu_takes_the_plain_loops(method, allow_single):
     for g_arr, w_arr in zip(got, want):
         for field in w_arr._fields:
             assert torch.equal(getattr(g_arr, field), getattr(w_arr, field)), field
-    assert t_h.launches_single_linkage == t_h.launches_condense == t_h.launches_eom == 0
+    assert t_h.launches_single_linkage == t_h.launches_condense == t_h.launches_extract == t_h.launches_eom == 0
 
 
 def _to_meta(arrays):
@@ -188,6 +188,15 @@ def test_hierarchy_refuses_mixed_devices():
         t_h.single_linkage(eu, ev, ew, valid, 16, w.to("meta"))
 
 
+def test_hierarchy_extract_v1_takes_cuda_tensors_only():
+    """The earlier composition is the extract kernel's oracle on the card;
+    it has no CPU route."""
+    eu, ev, ew, valid, w = _hierarchy_inputs("cpu")
+    ct = t_plain.condense_fixed(t_plain.single_linkage_fixed(eu, ev, ew, valid, 16, w), w, 3.0)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        t_h.extract_v1(ct)
+
+
 def test_hierarchy_extract_checks_the_method_first():
     eu, ev, ew, valid, w = _hierarchy_inputs("cpu")
     ct = t_plain.condense_fixed(t_plain.single_linkage_fixed(eu, ev, ew, valid, 16, w), w, 3.0)
@@ -196,7 +205,7 @@ def test_hierarchy_extract_checks_the_method_first():
 
 
 @pytest.mark.parametrize("Lp", [8, 64, 1024, 4096, 8192, 16384, 32768, 65536])
-@pytest.mark.parametrize("kind", ["single_linkage", "condense", "eom", "single_linkage_v1", "condense_v1"])
+@pytest.mark.parametrize("kind", ["single_linkage", "condense", "eom", "single_linkage_v1", "condense_v1", "extract"])
 def test_hierarchy_plan(kind, Lp):
     """A sweep's state goes to shared memory exactly when it and the
     kernel's other shared buffers fit one block's opt-in limit, else to a
@@ -206,13 +215,18 @@ def test_hierarchy_plan(kind, Lp):
     and two flags per merge beside its chunk's four arrays and a count per
     warp.  csrc/hierarchy.cu: EOM a sum and a count per label slot, the
     first versions their walk's state beside a staging ring of two
-    chunks."""
+    chunks.  csrc/hierarchy_extract.cu, at the largest label count (2·Lp +
+    1 slots), each array rounded up to 16 bytes: six words and two flags
+    per label, 32 sort cells per label and a term per leaf, beside 256
+    bytes of block-scan partials."""
     C = t_h.CHUNK
     smem, scratch = t_h.plan(kind, Lp)
+    r16, n = (lambda b: -(-b // 16) * 16), 2 * Lp + 1
     state = {"single_linkage": 8 * Lp, "condense": 22 * Lp, "eom": 8 * (2 * Lp + 1),
-             "single_linkage_v1": 12 * Lp, "condense_v1": 9 * Lp}[kind]
+             "single_linkage_v1": 12 * Lp, "condense_v1": 9 * Lp,
+             "extract": 6 * r16(4 * n) + r16(2 * n) + r16(128 * n) + r16(4 * Lp)}[kind]
     buffers = {"single_linkage": (3 * C + 1) * 16 + 2 * C * 4 + 2 * (C + 2) * 4, "condense": 4 * C * 4 + C // 32 * 4,
-               "eom": 0, "single_linkage_v1": 24 * C, "condense_v1": 40 * C}[kind]
+               "eom": 0, "single_linkage_v1": 24 * C, "condense_v1": 40 * C, "extract": 256}[kind]
     assert smem == (state + buffers <= t_h.SMEM_BYTES)
     assert scratch == (0 if smem else state) and scratch % 4 == 0
 
