@@ -206,6 +206,22 @@ Phases, each printing its own lines:
               strip kernels bit for bit their plain versions at the
               stream's shapes (tie-free, an integer grid, a ragged Np, K =
               10, 100, 2000), timed beside them, cdist and topk;
+     summarizer the online–offline summarizer (core/summarizer.py) at the
+              [stream] configuration: the same 262,144 points inserted into
+              its host tree in blocks of 8192, a quarter deleted in blocks,
+              then cluster() three times on the card (the first split into
+              to_bubbles, the W kernels, W's copy home, the host hdbscan and
+              assign_points): bubble_cd and mutual_reach launched once per
+              cluster(), assign in every one, no plain version on the card;
+              the bubble partition and MST weight against the CPU backend's
+              on the same bubbles, assignment indices identical outside
+              near-ties, NMI >= 0.95 against the numpy route, NMI against
+              the mixture's ground truth printed; insert and delete ms per
+              1k points, peak device memory;
+     examples the port's three examples (examples/torch_quickstart.py,
+              torch_streaming_service.py, torch_dynamic_vs_static.py), on
+              the card, each in its own process, started together: each
+              must exit 0 with OK as its last line;
   8. the kernels JSON line (launches on each kernel's own path, errors,
      times, bounds; assign with the per-lane kernel's time as lane_ms,
      mutual_reach and pairwise with the tile kernel's as tile_ms;
@@ -227,7 +243,9 @@ Phases, each printing its own lines:
      jnp strip programs of the exact-dynamic path, with their launches from
      [exact]; bubble_cd, mutual_reach, grid_core_distances and
      grid_round_minima also with launches_mesh, their launches on [mesh]'s
-     mesh engines);
+     mesh engines; assign, bubble_cd and mutual_reach also with
+     launches_summarizer, their launches over [summarizer]'s cluster()
+     calls);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -316,6 +334,10 @@ EXACT_CPU = (2048, 32, 12)  # the CPU replay: points, block, blocks (engines, th
 EXACT_TIMED_BLOCKS = (16, 64, 256, 819, 1638)  # 0.1 %, 0.4 %, 1.6 %, 5 % and 10 % of EXACT_N
 EXACT_TOPK = (MIN_PTS, 100, K_STRIP)  # strip_topk's K: the path's, and past the 1024 queue
 EXACT_KERNELS = ("strip_dists", "strip_topk", "strip_round_minima")
+SUMMARIZER_KERNELS = ("assign", "bubble_cd", "mutual_reach")
+SUMMARIZER_NMI = 0.95  # [summarizer]: against the numpy route (tests/test_summarizer.py's contract)
+EXAMPLES = ("torch_quickstart.py", "torch_streaming_service.py", "torch_dynamic_vs_static.py")
+EXAMPLE_TIMEOUT_S = 300
 
 
 def say(*parts):
@@ -327,11 +349,14 @@ def check(cond: bool, msg: str):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def mixture(rng, n, k=20, spread=3.0, dim=DIM):
+def mixture(rng, n, k=20, spread=3.0, dim=DIM, labels=False):
     """A seeded Gaussian mixture (d = 16 by default): k unit-variance blobs
-    whose centres are N(0, spread²) per coordinate."""
+    whose centres are N(0, spread²) per coordinate; with ``labels`` also
+    each row's blob."""
     centres = rng.normal(scale=spread, size=(k, dim))
-    return centres[rng.integers(0, k, size=n)] + rng.normal(size=(n, dim))
+    blob = rng.integers(0, k, size=n)
+    X = centres[blob] + rng.normal(size=(n, dim))
+    return (X, blob) if labels else X
 
 
 def time_ms(fn, reps=10, warm=2):
@@ -4067,6 +4092,200 @@ def exact_kernels(dev, state, U):
     return out
 
 
+def watch_plain(names=("pairwise_sqdist", "nearest", "assign", "assign_with_dist", "bubble_core_distances",
+                       "bubble_core_distances_rows", "mutual_reachability")):
+    """Wrap the plain versions of ``kernels/ref.py`` so that each call with a
+    CUDA tensor is recorded; returns (the record, a function that unwraps)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    seen, saved = [], {name: getattr(ref, name) for name in names}
+
+    def watched(name, fn):
+        def call(*args, **kw):
+            if any(torch.is_tensor(a) and a.is_cuda for a in args):
+                seen.append(name)
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ref, name, watched(name, fn))
+    return seen, lambda: [setattr(ref, name, fn) for name, fn in saved.items()]
+
+
+def near_tie_rows(Xc, Rc, dev, rows=16384):
+    """Rows of the centred points Xc whose best and second-best distances
+    to the centred reps Rc are within RTOL relative (f64 on the card)."""
+    import torch
+
+    R = torch.as_tensor(Rc, dtype=torch.float64, device=dev)
+    out = []
+    for i in range(0, Xc.shape[0], rows):
+        x = torch.as_tensor(Xc[i : i + rows], dtype=torch.float64, device=dev)
+        two = torch.topk(torch.cdist(x, R), 2, dim=1, largest=False).values
+        out.append(((two[:, 1] - two[:, 0]) <= RTOL * two[:, 1]).cpu().numpy())
+    return np.concatenate(out)
+
+
+def summarizer_checks(tag, summ, res, truth):
+    """One ``cluster()`` result against the CPU backend on the same bubbles
+    (the partition, MST weight within RTOL, assignment indices identical
+    outside near-ties), the numpy route (NMI >= SUMMARIZER_NMI) and the
+    ground truth (NMI, printed).  ``truth`` maps point ids to blobs."""
+    from repro_torch import get_backend
+    from repro_torch.core import nmi
+    from repro_torch.core.summarizer import assign_points, cluster_bubbles
+
+    b, L = res.bubbles, res.bubbles.size
+    cpu = get_backend("cpu")
+    t0 = time.perf_counter()
+    res_cpu = cluster_bubbles(b, MIN_PTS, backend=cpu)
+    w_gpu, w_cpu = res.hdbscan.total_mst_weight, res_cpu.total_mst_weight
+    rel = abs(w_gpu - w_cpu) / abs(w_cpu)
+    check(_same_partition(res.bubble_labels, res_cpu.labels), f"{tag}: bubble partition differs from the CPU backend's")
+    check(rel <= RTOL, f"{tag}: MST weight differs from the CPU backend's by {rel:.3e}")
+    pids_alive, Xa = summ.tree.alive_points()
+    check(np.array_equal(pids_alive, res.point_ids), f"{tag}: the tree's live points are not the result's")
+    a_gpu = assign_points(Xa, b, backend=summ.backend)
+    a_cpu = np.concatenate([assign_points(Xa[i : i + 16384], b, backend=cpu) for i in range(0, len(Xa), 16384)])
+    mu = b.rep.mean(axis=0)
+    tie = near_tie_rows(Xa - mu, b.rep - mu, summ.backend.device)
+    differ = (a_gpu != a_cpu) & ~tie
+    say(f"[summarizer] {tag}: CPU backend on the same {L} bubbles ({time.perf_counter() - t0:.2f} s): "
+        f"{len(set(res_cpu.labels.tolist()) - {-1})} clusters, the same partition, MST weight rel diff {rel:.3e}; "
+        f"assignment indices: {int(differ.sum())} differ on {int((~tie).sum())} rows, {int(tie.sum())} "
+        f"near-ties (second-best within {RTOL:g}) left out")
+    check(not differ.any(), f"{tag}: assignment indices differ from the CPU backend's")
+    check(np.array_equal(res.point_labels, res.bubble_labels[a_gpu]),
+          f"{tag}: cluster()'s point labels are not the labels of the bubbles assign gives")
+    check(_same_partition(res.point_labels[~tie], res_cpu.labels[a_cpu][~tie]),
+          f"{tag}: point partition differs from the CPU backend's")
+    t0 = time.perf_counter()
+    res_np = cluster_bubbles(b, MIN_PTS)
+    a_np = np.concatenate([assign_points(Xa[i : i + 8192], b) for i in range(0, len(Xa), 8192)])
+    score_np = nmi(res.point_labels, res_np.labels[a_np])
+    score_truth = nmi(res.point_labels, truth[pids_alive])
+    say(f"[summarizer] {tag}: NMI against the numpy route {score_np:.4f} (f64 W and assign, "
+        f"{time.perf_counter() - t0:.2f} s), against the mixture's ground truth {score_truth:.4f}; "
+        f"{res.hdbscan.labels.max() + 1} clusters, noise share of points {float((res.point_labels < 0).mean()):.4f}")
+    check(score_np >= SUMMARIZER_NMI, f"{tag}: NMI {score_np:.4f} against the numpy route, below {SUMMARIZER_NMI}")
+
+
+def phase_summarizer(dev, card):
+    """The online–offline summarizer (core/summarizer.py) at the [stream]
+    configuration: the same 262,144 points inserted into the host tree in
+    blocks of BLOCK, ``cluster()`` on the card at the full table (L =
+    5,243: split stage by stage, then end to end), a quarter deleted in
+    blocks, ``cluster()`` twice more (L = 3,932).  The three kernels'
+    launches are counted over the four calls (the checks' own launches
+    left out) and every plain version is watched for CUDA calls; each
+    table's result goes through ``summarizer_checks``."""
+    import torch
+
+    from repro_torch import BubbleTreeSummarizer
+
+    rng = np.random.default_rng(SEED + 1)  # [stream]'s draws: the same points
+    data, blob = mixture(rng, N_POINTS + N_QUERIES, labels=True)
+    X = data[:N_POINTS] + 50.0
+    summ = BubbleTreeSummarizer(DIM, min_pts=MIN_PTS, compression=COMPRESSION, device=dev)
+    t0 = time.perf_counter()
+    pids = []
+    for i in range(0, N_POINTS, BLOCK):
+        pids.extend(summ.insert_block(X[i : i + BLOCK]))
+    insert_s = time.perf_counter() - t0
+    truth = np.full(max(pids) + 1, -1)
+    truth[pids] = blob[:N_POINTS]
+    drop = np.random.default_rng(SEED + 27).choice(N_POINTS, size=N_POINTS // 4, replace=False)
+
+    def timed_cluster():
+        t0 = time.perf_counter()
+        out = summ.cluster()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        calls.append(read_counts())
+        return out
+
+    def checked(tag, res):  # the checks' launches are not the path's
+        counts = read_counts()
+        summarizer_checks(tag, summ, res, truth)
+        reset_counts(counts)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    seen, unwatch = watch_plain()
+    reset_counts()
+    times, walls, calls = {}, [], []
+    try:
+        full = summ.cluster(stage=stage_timer(times))
+        calls.append(read_counts())
+        again = timed_cluster()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        L_full = full.bubbles.size
+        say(f"[summarizer] {N_POINTS} points d={DIM} inserted in blocks of {BLOCK}: {insert_s / N_POINTS * 1e6:.3f} "
+            f"ms per 1k points (host tree, host f64 assign) on {card}")
+        say(f"[summarizer] cluster() at L = {L_full}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+            + f"; split total {sum(times.values()):.1f} ms; end to end {walls[0]:.1f} ms; peak device memory "
+            f"{peak:.1f} MiB above the {base / 2**20:.0f} MiB held")
+        check(LP // 2 < L_full <= LP, f"the full summary has {L_full} bubbles, not the Lp = {LP} bucket's")
+        check(np.array_equal(again.point_labels, full.point_labels), "a repeated cluster() gave other labels")
+        checked(f"L = {L_full}", full)
+        t0 = time.perf_counter()
+        for i in range(0, len(drop), BLOCK):
+            summ.delete_block([pids[j] for j in drop[i : i + BLOCK]])
+        delete_s = time.perf_counter() - t0
+        last = timed_cluster()
+        again = timed_cluster()
+        launches = {k: calls[-1][k] for k in SUMMARIZER_KERNELS}
+    finally:
+        unwatch()
+    L_last = last.bubbles.size
+    say(f"[summarizer] {len(drop)} deleted in blocks of {BLOCK}: {delete_s / len(drop) * 1e6:.3f} ms per 1k points; "
+        f"cluster() at L = {L_last}: {walls[1]:.1f}, {walls[2]:.1f} ms end to end")
+    say(f"[summarizer] launches over {len(calls)} cluster() calls {json.dumps(launches)}; "
+        f"plain versions on the card: {len(seen)}")
+    for n, c in enumerate(calls, 1):
+        check(c["bubble_cd"] == c["mutual_reach"] == n and c["assign"] >= n,
+              f"cluster() call {n} did not launch bubble_cd and mutual_reach once and assign at least once: {c}")
+    check(not seen, f"plain versions ran on the card: {sorted(set(seen))}")
+    check(np.array_equal(again.point_labels, last.point_labels), "a repeated cluster() gave other labels")
+    summarizer_checks(f"L = {L_last}", summ, last, truth)
+    return launches
+
+
+def phase_examples():
+    """The port's three examples, on the card by default, each in its own
+    process (started together): exit 0 and ``OK`` as the last line."""
+    import os
+
+    import torch
+
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(root / "examples" / name)], cwd=root, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in EXAMPLES}
+    failed = []
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            raise
+        lines = out.strip().splitlines()
+        for line in lines:
+            say(f"[examples] {name}: {line}")
+        if proc.returncode != 0 or not lines or lines[-1] != "OK":
+            failed.append(name)
+            say(f"[examples] {name} exited {proc.returncode}; stderr tail: {err.strip()[-2000:]}")
+    say(f"[examples] {len(EXAMPLES) - len(failed)} of {len(EXAMPLES)} ended with OK in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(not failed, f"examples failed: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -4096,10 +4315,12 @@ def main() -> int:
     phase_min_pts(dev, run["table_full"])
     phase_wide(dev)
     phase_tenants(dev, card)
+    summarizer_launches = phase_summarizer(dev, card)
     exact_launches, exact_numbers = phase_exact(dev, card)
     torch.cuda.empty_cache()
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
+    phase_examples()
     launches = dict(run["launches"], eom=run["eom_launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
                     flat_scatter=online_launches["flat_scatter"], **grid_launches, **attn_launches, **exact_launches)
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
@@ -4130,6 +4351,8 @@ def main() -> int:
                "strip_round_minima": ("dynamic.cu", "src/repro/core/mst.py:777")}
     for name, n in mesh_launches.items():  # the sharded pass's launches on [mesh]'s engines
         numbers[name]["launches_mesh"] = n
+    for name, n in summarizer_launches.items():  # the summarizer's cluster() calls on [summarizer]
+        numbers[name]["launches_summarizer"] = n
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

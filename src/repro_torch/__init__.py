@@ -6,8 +6,15 @@ the card unless the caller asks for the CPU (``device="cpu"``), where the
 hand-written kernels give way to their plain PyTorch versions.
 """
 
-from .carry import dyn_state_from_reference, engine_from_reference_state
+from .carry import (
+    dyn_state_from_reference,
+    dynamic_hdbscan_from_reference,
+    engine_from_reference_state,
+    summarizer_from_reference_state,
+)
 from .checkpoint import CheckpointStore
+from .core.summarizer import BubbleTreeSummarizer
+from .data.curation import StreamCurator
 from .kernels.ops import get_backend
 from .serving import QueryBatcher, StreamingClusterEngine, TenantRouter, UpdatePolicy
 
@@ -17,7 +24,11 @@ __all__ = [
     "TenantRouter",
     "UpdatePolicy",
     "CheckpointStore",
+    "BubbleTreeSummarizer",
+    "StreamCurator",
     "get_backend",
     "engine_from_reference_state",
     "dyn_state_from_reference",
+    "dynamic_hdbscan_from_reference",
+    "summarizer_from_reference_state",
 ]

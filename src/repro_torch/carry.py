@@ -12,6 +12,10 @@ comes across in exact mode; its dynamic state is rebuilt from the tree at
 the next refresh, as the reference's restore does.
 ``dyn_state_from_reference`` carries the reference's exact-dynamic
 ``DynState`` itself, as a dict of numpy arrays, into the port's.
+``dynamic_hdbscan_from_reference`` carries the reference's host
+``DynamicHDBSCAN`` (core/dynamic.py), and ``summarizer_from_reference_state``
+puts a port ``BubbleTreeSummarizer`` over the Bubble-tree of a reference
+engine's checkpoint.
 These are this system's counterpart of carrying a model's weights across:
 they read only numpy and never import the JAX package.  The engine's
 fields load through its own loader, the one ``restore`` uses.
@@ -22,11 +26,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.dynamic import DynamicHDBSCAN
 from .core.dynamic_torch import DynState
+from .core.summarizer import BubbleTreeSummarizer
 from .device import resolve_device
-from .serving.stream import StreamingClusterEngine
+from .serving.stream import _CKPT_FORMAT, StreamingClusterEngine, load_tree_state
 
-__all__ = ["engine_from_reference_state", "dyn_state_from_reference"]
+__all__ = ["engine_from_reference_state", "dyn_state_from_reference", "dynamic_hdbscan_from_reference",
+           "summarizer_from_reference_state", "DYNAMIC_HDBSCAN_FIELDS"]
+
+# the array attributes of a host DynamicHDBSCAN, and their dtypes
+DYNAMIC_HDBSCAN_FIELDS = {
+    "X": np.float64, "alive": np.bool_, "knn_idx": np.int64, "knn_dst": np.float64, "cd": np.float64,
+    "mst_u": np.int64, "mst_v": np.int64, "mst_d": np.float64, "_free": np.int64,
+}
 
 _DYN_DTYPES = {
     "X": torch.float32, "alive": torch.bool, "knn_idx": torch.int32, "knn_dst": torch.float32,
@@ -69,3 +82,36 @@ def dyn_state_from_reference(arrays, device=None) -> DynState:
     dev = resolve_device(device)
     return DynState(**{f: torch.as_tensor(np.array(arrays[f]), dtype=_DYN_DTYPES[f]).to(dev)
                        for f in DynState._fields})
+
+
+def dynamic_hdbscan_from_reference(arrays) -> DynamicHDBSCAN:
+    """A port ``DynamicHDBSCAN`` resuming the reference's: ``arrays`` maps
+    each name of ``DYNAMIC_HDBSCAN_FIELDS`` to the reference object's
+    attribute as a numpy array (``np.asarray(getattr(dyn, name))``; ``_free``
+    is the free list, whose order decides the slots of later inserts).
+    The same values in the same dtypes; min_pts and dim come from the
+    shapes, the update statistics start empty."""
+    X = np.array(arrays["X"], dtype=np.float64)
+    knn_idx = np.array(arrays["knn_idx"], dtype=np.int64)
+    dyn = DynamicHDBSCAN(knn_idx.shape[1], X.shape[1], capacity=X.shape[0])
+    for name, dtype in DYNAMIC_HDBSCAN_FIELDS.items():
+        if name != "_free":
+            setattr(dyn, name, np.array(arrays[name], dtype=dtype))
+    dyn._free = np.asarray(arrays["_free"], dtype=np.int64).tolist()
+    dyn.n = int(dyn.alive.sum())
+    return dyn
+
+
+def summarizer_from_reference_state(state: dict, device=None, **kw) -> BubbleTreeSummarizer:
+    """A port summarizer over the Bubble-tree of a reference engine's
+    ``checkpoint_state()`` (its ``tree/*`` keys, through the loader that
+    ``engine_from_reference_state`` uses): dim, min_pts and compression
+    from ``cfg/*``, ``device`` for its offline pass (None → cuda), ``kw``
+    the summarizer's other arguments (the tree's fan-out …).  Raises
+    ``ValueError`` on an unknown format."""
+    if int(state["cfg/format"]) != _CKPT_FORMAT:
+        raise ValueError(f"unknown checkpoint format {int(state['cfg/format'])}")
+    summ = BubbleTreeSummarizer(int(state["cfg/dim"]), min_pts=int(state["cfg/min_pts"]),
+                                compression=float(state["cfg/compression"]), device=device, **kw)
+    load_tree_state(summ.tree, state)
+    return summ

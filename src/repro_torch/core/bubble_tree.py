@@ -2,7 +2,7 @@
 compression-factor-steered leaf count (Algorithm 1).
 
 The port's own copy of the JAX package's ``core/bubble_tree.py`` (numpy
-only; the data-bubble export ``to_bubbles`` is not carried over).
+only), the data-bubble export ``to_bubbles`` (core/bubbles.py) included.
 
 Layout: flat structure-of-arrays (DESIGN.md §2).  Node statistics
 (LS/SS/n) live in dense numpy arrays indexed by node id, so the offline
@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .bubbles import DataBubbles, bubbles_from_cf
 from .cf import CFTable
 
 __all__ = ["BubbleTree"]
@@ -211,6 +212,10 @@ class BubbleTree:
     def leaf_cfs(self) -> CFTable:
         ids = self.alive_leaf_ids()
         return CFTable(LS=self.LS[ids], SS=self.SS[ids], n=self.N[ids])
+
+    def to_bubbles(self) -> DataBubbles:
+        t = self.leaf_cfs()
+        return bubbles_from_cf(t.LS, t.SS, t.n)
 
     def alive_points(self):
         ids = np.nonzero(self.point_alive)[0]

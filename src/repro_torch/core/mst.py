@@ -34,6 +34,13 @@ explicit candidates, the counterparts of ``boruvka_edges_jax`` and
 per-round strip minima come from ``kernels/dynamic.py::strip_round_minima``
 (a CUDA kernel on the card).  Both run the reference's fixed round count
 with its (w, pair id, index or payload) tie rules and no host read.
+
+The host engines are the port's own copies of the JAX package's numpy
+ones, bit for bit: ``UnionFind``, ``kruskal_edges`` (Kruskal over an
+explicit edge list, the reduction rule Eq. 11) and ``boruvka_dense``
+(vectorized Borůvka over a dense f64 matrix, from a partial forest for the
+contraction rule Eq. 12).  The host HDBSCAN (core/hdbscan.py) and the
+host exact-dynamic oracle (core/dynamic.py) run on them.
 """
 
 from __future__ import annotations
@@ -47,10 +54,158 @@ from ..kernels import dynamic as _dyn_k
 from ..kernels import grid as _grid_k
 from ..launch.mesh import Mesh, gather, shard_ranges
 
-__all__ = ["boruvka", "boruvka_shard", "boruvka_grid", "boruvka_grid_shard", "boruvka_edges", "boruvka_strip",
-           "mst_total_weight"]
+__all__ = ["UnionFind", "kruskal_edges", "boruvka_dense", "boruvka", "boruvka_shard", "boruvka_grid",
+           "boruvka_grid_shard", "boruvka_edges", "boruvka_strip", "mst_total_weight"]
 
 _BIGID = np.iinfo(np.int32).max
+
+
+class UnionFind:
+    """Array-based union-find with path halving + union by size."""
+
+    def __init__(self, n: int):
+        self.parent = np.arange(n, dtype=np.int64)
+        self.size = np.ones(n, dtype=np.int64)
+        self.n_components = n
+
+    def find(self, x: int) -> int:
+        p = self.parent
+        while p[x] != x:
+            p[x] = p[p[x]]  # path halving
+            x = p[x]
+        return int(x)
+
+    def union(self, a: int, b: int) -> bool:
+        ra, rb = self.find(a), self.find(b)
+        if ra == rb:
+            return False
+        if self.size[ra] < self.size[rb]:
+            ra, rb = rb, ra
+        self.parent[rb] = ra
+        self.size[ra] += self.size[rb]
+        self.n_components -= 1
+        return True
+
+    def labels(self) -> np.ndarray:
+        """Root label for every element (fully compressed)."""
+        p = self.parent
+        # iterate to convergence (log-depth after halving)
+        while True:
+            pp = p[p]
+            if np.array_equal(pp, p):
+                break
+            p = pp
+        self.parent = p
+        return p.copy()
+
+
+def kruskal_edges(u, v, w, n, uf: UnionFind | None = None):
+    """MST (or forest completion) over an explicit edge list.
+
+    Args:
+      u, v: (E,) int endpoints.
+      w: (E,) float weights.
+      n: number of nodes.
+      uf: optionally a pre-seeded union-find (nodes already merged by a
+        partial forest — the contraction rule).  Mutated in place.
+
+    Returns:
+      (mu, mv, mw): MST edge arrays, in ascending weight order.
+    """
+    u = np.asarray(u, dtype=np.int64)
+    v = np.asarray(v, dtype=np.int64)
+    w = np.asarray(w, dtype=np.float64)
+    order = np.argsort(w, kind="stable")
+    if uf is None:
+        uf = UnionFind(n)
+    mu, mv, mw = [], [], []
+    for i in order:
+        a, b = int(u[i]), int(v[i])
+        if a == b:
+            continue
+        if uf.union(a, b):
+            mu.append(a)
+            mv.append(b)
+            mw.append(float(w[i]))
+            if uf.n_components == 1:
+                break
+    return (
+        np.asarray(mu, dtype=np.int64),
+        np.asarray(mv, dtype=np.int64),
+        np.asarray(mw, dtype=np.float64),
+    )
+
+
+def _component_min_outgoing(W: np.ndarray, labels: np.ndarray):
+    """For every component, the lightest edge leaving it (dense W).
+
+    Returns (src, dst, wt) arrays with one candidate per component.
+    Vectorized: mask same-component entries to +inf, row-argmin, then a
+    segmented min over rows by component label.
+    """
+    n = W.shape[0]
+    masked = np.where(labels[:, None] == labels[None, :], np.inf, W)
+    np.fill_diagonal(masked, np.inf)
+    row_min_j = np.argmin(masked, axis=1)
+    row_min_w = masked[np.arange(n), row_min_j]
+    # segmented min over component labels
+    uniq, inv = np.unique(labels, return_inverse=True)
+    best = np.full(uniq.shape[0], np.inf)
+    np.minimum.at(best, inv, row_min_w)
+    # pick one row achieving the per-component min
+    src = np.full(uniq.shape[0], -1, dtype=np.int64)
+    hit = row_min_w == best[inv]
+    # last writer wins; any row achieving the min is a valid Borůvka choice
+    src[inv[hit]] = np.nonzero(hit)[0]
+    ok = (src >= 0) & np.isfinite(best)
+    src = src[ok]
+    return src, row_min_j[src], row_min_w[src]
+
+
+def boruvka_dense(W: np.ndarray, forest=None, uf: UnionFind | None = None):
+    """Vectorized Borůvka MST over a dense symmetric weight matrix.
+
+    Args:
+      W: (n, n) float weights (np.inf on unusable entries is allowed).
+      forest: optional (u, v, w) arrays of an existing partial forest whose
+        edges are kept (contraction rule, Eq. 12).
+      uf: optional union-find pre-seeded consistently with `forest`.
+
+    Returns: (u, v, w) of the completed spanning forest edges *added or
+      kept*, i.e. the full MST edge set including the seed forest.
+    """
+    n = W.shape[0]
+    if uf is None:
+        uf = UnionFind(n)
+    eu, ev, ew = [], [], []
+    if forest is not None:
+        fu, fv, fw = forest
+        for a, b, c in zip(fu, fv, fw):
+            uf.union(int(a), int(b))
+            eu.append(int(a))
+            ev.append(int(b))
+            ew.append(float(c))
+    while uf.n_components > 1:
+        labels = uf.labels()
+        src, dst, wt = _component_min_outgoing(W, labels)
+        if src.size == 0:
+            break  # disconnected graph (inf-masked): return spanning forest
+        merged_any = False
+        order = np.argsort(wt, kind="stable")
+        for i in order:
+            a, b = int(src[i]), int(dst[i])
+            if uf.union(a, b):
+                eu.append(a)
+                ev.append(b)
+                ew.append(float(wt[i]))
+                merged_any = True
+        if not merged_any:
+            break
+    return (
+        np.asarray(eu, dtype=np.int64),
+        np.asarray(ev, dtype=np.int64),
+        np.asarray(ew, dtype=np.float64),
+    )
 
 
 def mst_total_weight(w) -> float:

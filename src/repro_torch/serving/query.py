@@ -55,6 +55,7 @@ __all__ = [
     "QueryEngine",
     "QueryBatcher",
     "validate_query",
+    "query_percall",
 ]
 
 _MIN_BUCKET = 8
@@ -319,6 +320,33 @@ class QueryEngine:
 
     def query(self, snap, X) -> np.ndarray:
         return self.query_detailed(snap, X).labels
+
+
+def _assign_pr4(x, reps, use_ref: bool):
+    """The per-call path's assignment, frozen as the A/B baseline: an eager
+    pairwise distance and a true argmin on the plain route, the assign
+    kernel otherwise.  It must not inherit later kernel changes."""
+    if not use_ref:
+        return ops.assign(x, reps)
+    from ..kernels import ref as _ref
+
+    sq = _ref.pairwise_sqdist(x, reps)  # repro-lint: disable=RPL402 — the frozen dense baseline leg
+    return torch.argmin(sq, dim=1).to(torch.int32)
+
+
+def query_percall(backend, snap, X) -> np.ndarray:
+    """The per-call serve path, kept as the A/B baseline and the parity
+    oracle of the cached path: re-centres AND re-uploads the full (L, d)
+    rep table on every call.  The plain route runs on a CPU backend, the
+    assign kernel on the card."""
+    X = np.atleast_2d(np.asarray(X, dtype=np.float64))
+    if snap is None or snap.n_bubbles == 0:
+        return np.full(X.shape[0], -1, dtype=np.int64)
+    dev = backend.device
+    x = torch.from_numpy((X - snap.center).astype(np.float32)).to(dev)
+    reps = torch.from_numpy((snap.bubble_rep - snap.center).astype(np.float32)).to(dev)
+    (a,) = to_numpy(_assign_pr4(x, reps, dev.type == "cpu"))
+    return snap.bubble_labels[a]
 
 
 class _QueryTicket:

@@ -215,6 +215,35 @@ class ClusterSnapshot:
         return float(np.sum(self.mst[2]))
 
 
+def load_tree_state(t: BubbleTree, d: dict):
+    """Install the ``tree/*`` fields of a format-1 state dict (the JAX
+    engine's ``checkpoint_state()`` or the port's) into the Bubble-tree
+    ``t`` field by field, free-list order and struct_dirty included.
+    Raises ValueError when the arrays disagree on the node capacity."""
+    t.LS = np.array(d["tree/LS"], dtype=np.float64)
+    t.SS = np.array(d["tree/SS"], dtype=np.float64)
+    t.N = np.array(d["tree/N"], dtype=np.float64)
+    t.parent = np.array(d["tree/parent"], dtype=np.int64)
+    t.height = np.array(d["tree/height"], dtype=np.int64)
+    t.node_alive = np.array(d["tree/node_alive"], dtype=bool)
+    t.is_leaf = np.array(d["tree/is_leaf"], dtype=bool)
+    t.children = _ragged_unpack(d["tree/children_flat"], d["tree/children_off"])
+    t.leaf_points = _ragged_unpack(d["tree/leaf_points_flat"], d["tree/leaf_points_off"])
+    if not (len(t.children) == len(t.leaf_points) == t.LS.shape[0]):
+        raise ValueError("checkpoint tree arrays disagree on the node capacity")
+    t._node_free = d["tree/node_free"].astype(int).tolist()
+    t.PX = np.array(d["tree/PX"], dtype=np.float64)
+    t.point_alive = np.array(d["tree/point_alive"], dtype=bool)
+    t.point_leaf = np.array(d["tree/point_leaf"], dtype=np.int64)
+    t._point_free = d["tree/point_free"].astype(int).tolist()
+    t._struct_dirty = set(d["tree/struct_dirty"].astype(int).tolist())
+    t.root = int(d["tree/root"])
+    t.n_points = int(d["tree/n_points"])
+    t.dirty_mass = float(d["tree/dirty_mass"])
+    t.mutations = int(d["tree/mutations"])
+    t._op_count = int(d["tree/op_count"])
+
+
 class StreamingClusterEngine:
     """Batched Bubble-tree ingestion + ε-triggered offline re-clustering.
 
@@ -835,29 +864,7 @@ class StreamingClusterEngine:
                         "construct the replacement worker with the same mode")
         if self.batcher:
             raise RuntimeError("restore() into an engine with queued requests")
-        t = self.tree
-        t.LS = np.array(d["tree/LS"], dtype=np.float64)
-        t.SS = np.array(d["tree/SS"], dtype=np.float64)
-        t.N = np.array(d["tree/N"], dtype=np.float64)
-        t.parent = np.array(d["tree/parent"], dtype=np.int64)
-        t.height = np.array(d["tree/height"], dtype=np.int64)
-        t.node_alive = np.array(d["tree/node_alive"], dtype=bool)
-        t.is_leaf = np.array(d["tree/is_leaf"], dtype=bool)
-        t.children = _ragged_unpack(d["tree/children_flat"], d["tree/children_off"])
-        t.leaf_points = _ragged_unpack(d["tree/leaf_points_flat"], d["tree/leaf_points_off"])
-        if not (len(t.children) == len(t.leaf_points) == t.LS.shape[0]):
-            raise ValueError("checkpoint tree arrays disagree on the node capacity")
-        t._node_free = d["tree/node_free"].astype(int).tolist()
-        t.PX = np.array(d["tree/PX"], dtype=np.float64)
-        t.point_alive = np.array(d["tree/point_alive"], dtype=bool)
-        t.point_leaf = np.array(d["tree/point_leaf"], dtype=np.int64)
-        t._point_free = d["tree/point_free"].astype(int).tolist()
-        t._struct_dirty = set(d["tree/struct_dirty"].astype(int).tolist())
-        t.root = int(d["tree/root"])
-        t.n_points = int(d["tree/n_points"])
-        t.dirty_mass = float(d["tree/dirty_mass"])
-        t.mutations = int(d["tree/mutations"])
-        t._op_count = int(d["tree/op_count"])
+        load_tree_state(self.tree, d)
         self._settled_version = int(d["eng/settled_version"])
         self._inflight_consumed = 0.0
         self._offline_thread = None

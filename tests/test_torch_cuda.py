@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import assert_same_partition
 from repro_torch.kernels import assign as t_assign
 from repro_torch.kernels import bubble_cd as t_bcd
 from repro_torch.kernels import flash_attention as t_fa
@@ -1385,3 +1386,49 @@ class TestCudaMesh:
                                       resolve_mesh((cuda_device,) * k))
             for g, w in zip(got, want, strict=True):
                 assert torch.equal(g, w), k
+
+
+@pytest.mark.cuda
+class TestCudaSummarizer:
+    """The online–offline summarizer on the card against the same summarizer
+    on the CPU (plain versions): the same bubbles, the same bubble and point
+    partitions, assignment indices identical on the tie-free rows, MST
+    weight within 1e-6 relative; bubble_cd and mutual_reach launched once
+    per ``cluster()``, assign once."""
+
+    @pytest.mark.parametrize("d,offset", [(2, 0.0), (16, 50.0)])
+    def test_summarizer_against_cpu(self, cuda_device, d, offset):
+        from repro_torch.core import BubbleTreeSummarizer, assign_points
+        from repro_torch.kernels import ops as t_ops
+
+        rng = np.random.default_rng(7 + d)
+        centres = rng.normal(scale=4.0, size=(6, d))
+        X = centres[rng.integers(0, 6, size=6000)] + rng.normal(size=(6000, d)) + offset
+        outs = []
+        for dev in (cuda_device, "cpu"):
+            s = BubbleTreeSummarizer(dim=d, min_pts=10, compression=0.03, device=dev)
+            ids = s.insert_block(X)
+            s.delete_block(ids[::4])
+            if dev != "cpu":
+                t_assign.launches = t_bcd.launches = t_mr.launches = 0
+            outs.append((s, s.cluster()))
+            if dev != "cpu":
+                assert (t_bcd.launches, t_mr.launches, t_assign.launches) == (1, 1, 1)
+        (gs, g), (cs, c) = outs
+        for f in ("rep", "n", "extent"):
+            assert np.array_equal(getattr(g.bubbles, f), getattr(c.bubbles, f))
+        assert np.array_equal(g.point_ids, c.point_ids)
+        assert_same_partition(g.bubble_labels, c.bubble_labels)
+        rel = abs(g.hdbscan.total_mst_weight - c.hdbscan.total_mst_weight) / c.hdbscan.total_mst_weight
+        assert rel <= 1e-6, rel
+        _, Xa = gs.tree.alive_points()
+        mu = g.bubbles.rep.mean(axis=0)
+        R64 = g.bubbles.rep - mu
+        sq = ((Xa - mu) ** 2).sum(1)[:, None] + (R64**2).sum(1)[None, :] - 2.0 * (Xa - mu) @ R64.T
+        two = np.sort(sq, axis=1)[:, :2]
+        keep = (two[:, 1] - two[:, 0]) > 1e-3 * two[:, 1]
+        a_gpu = assign_points(Xa, g.bubbles, backend=gs.backend)
+        a_cpu = assign_points(Xa, g.bubbles, backend=t_ops.get_backend("cpu"))
+        assert keep.mean() > 0.9
+        assert np.array_equal(a_gpu[keep], a_cpu[keep])
+        assert_same_partition(g.point_labels[keep], c.point_labels[keep])

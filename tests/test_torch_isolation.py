@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
-``repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor
-anything under ``repro`` — the port keeps its own copies of the numpy
+``repro_torch``, ``chip_smoke.py`` and the port's examples
+(``examples/torch_*.py``) must import neither ``jax`` nor anything under
+``repro`` — the port keeps its own copies of the numpy
 modules it needs — and the engine's default device is the card, so on a
 machine without one it raises instead of running on the CPU.
 """
@@ -20,7 +21,7 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def test_importing_every_module_pulls_in_no_jax():
