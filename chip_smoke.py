@@ -184,6 +184,24 @@ Phases, each printing its own lines:
               it; then bf16 at qwen2-1.5b widths with Dh = 256, which the
               tensor cores refuse, through the CUDA-core kernel, held to
               the plain version and to the earlier kernel, both timed;
+     lm       LM serving at published widths: qwen2-1.5b (28 layers,
+              d_model 1536, 12/2 heads of 128, d_ff 8960, vocab 151,936,
+              random weights from a seed; the parameter count held to the
+              reference's) through ServeEngine from its bf16 compute copy:
+              8 prompts of 4-16 tokens and one of 6144 (past the flash
+              threshold, 6144² > 4096²) on 4 slots of 8192 positions, 12
+              greedy tokens each, every request finished; the long prefill
+              launches the tensor-core flash kernel once per layer, the
+              short prefills and the decode steps none; the long prefill's
+              ms and the kernel's share of it, decode ms per step at 4
+              slots, tokens/s, peak device memory; layer 0's attention of
+              the long prefill through the kernel against the plain
+              version ([attention]'s readings); then 2 layers at full
+              width in f32 (the CUDA-core route) on 4 equal-length prompts
+              of 4160 tokens, the engine's tokens against a teacher-forced
+              full prefill; then the ragged case at SMOKE size in f32 on
+              the card and on the CPU (plain versions), tokens equal and
+              logits within 2e-3 of the largest;
      exact    the exact-dynamic engine (exact=True) at a deployment's size:
               16,384 points of the [stream] mixture (d = 16, min_pts 10),
               the first rebuild's shrink to Np = 32,768 slots, then 48
@@ -218,17 +236,19 @@ Phases, each printing its own lines:
               near-ties, NMI >= 0.95 against the numpy route, NMI against
               the mixture's ground truth printed; insert and delete ms per
               1k points, peak device memory;
-     examples the port's three examples (examples/torch_quickstart.py,
-              torch_streaming_service.py, torch_dynamic_vs_static.py), on
-              the card, each in its own process, started together: each
+     examples the port's four examples (examples/torch_quickstart.py,
+              torch_streaming_service.py, torch_dynamic_vs_static.py,
+              torch_serve_batched.py), on the card, each in its own process, started together: each
               must exit 0 with OK as its last line;
   8. the kernels JSON line (launches on each kernel's own path, errors,
      times, bounds; assign with the per-lane kernel's time as lane_ms,
      mutual_reach and pairwise with the tile kernel's as tile_ms;
      flash_attention with the qwen2-1.5b f32 case and the earlier
      CUDA-core kernel's time as scalar_ms, flash_attention_mma with the
-     qwen2-1.5b bf16 case; single_linkage, condense and extract, which stand
-     for the JAX package's three hierarchy scans, and eom, extract_v1's EOM
+     qwen2-1.5b bf16 case, both also with their [lm] launches as
+     launches_lm and layer 0's call there as lm_ms / lm_bound_ms;
+     single_linkage, condense and extract, which stand for the JAX
+     package's three hierarchy scans, and eom, extract_v1's EOM
      kernel (launched on no path since extract took its place), with the stage's time
      as stage_ms and the latency floor as latency_floor_ms (null for
      condense, which has no chain of dependent steps), single_linkage and
@@ -319,6 +339,16 @@ WS_INSTANTIATIONS = 48 + 6 + 3 + 8
 FLASH_BUCKETS = (32, 64, 128, 256)
 # [attention]: bf16 on the CUDA-core route at qwen2-1.5b's widths with Dh past the tensor-core kernel's 128
 SIMT_BF16 = ("qwen2-1.5b Dh256 bf16", 1, 4096, 12, 2, 256)
+# [lm]: qwen2-1.5b at its published widths (configs/qwen2_1_5b.py, random weights from a seed) through ServeEngine:
+# LM_SHORT ragged prompts of 4-16 tokens and one of LM_LONG tokens, past the flash threshold (6144² > 4096²), on
+# LM_SLOTS slots of LM_CACHE_LEN positions, LM_NEW greedy tokens each
+LM_ARCH = "qwen2-1.5b"
+LM_PARAMS = 1_543_714_304  # the reference's count_params(abstract_params(cfg)), run on a CPU
+LM_SLOTS, LM_CACHE_LEN, LM_NEW = 4, 8192, 12
+LM_SHORT, LM_LONG, LM_LONG_AT = 8, 6144, 2
+# [lm] the f32 route: LM_F32_LAYERS layers at full width in f32, equal-length prompts past the threshold
+LM_F32_LAYERS, LM_F32_BATCH, LM_F32_PROMPT, LM_F32_NEW = 2, 4, 4160, 4
+LM_LOGIT_RTOL = 2e-3  # f32 logits against another run, relative to the largest (tests/test_torch_lm.py's bound)
 # [exact]: the exact-dynamic engine (exact=True) at a deployment's size: the [stream] mixture at d = 16, min_pts 10,
 # EXACT_N live points (the first rebuild's shrink gives Np = 32,768 slots), EXACT_BLOCKS alternating insert and
 # delete blocks of EXACT_BLOCK points (1.6 % of n: incremental), one insert block of EXACT_FULL_BLOCK (6.25 %: full)
@@ -336,7 +366,7 @@ EXACT_TOPK = (MIN_PTS, 100, K_STRIP)  # strip_topk's K: the path's, and past the
 EXACT_KERNELS = ("strip_dists", "strip_topk", "strip_round_minima")
 SUMMARIZER_KERNELS = ("assign", "bubble_cd", "mutual_reach")
 SUMMARIZER_NMI = 0.95  # [summarizer]: against the numpy route (tests/test_summarizer.py's contract)
-EXAMPLES = ("torch_quickstart.py", "torch_streaming_service.py", "torch_dynamic_vs_static.py")
+EXAMPLES = ("torch_quickstart.py", "torch_streaming_service.py", "torch_dynamic_vs_static.py", "torch_serve_batched.py")
 EXAMPLE_TIMEOUT_S = 300
 
 
@@ -3532,6 +3562,309 @@ def attention_simt_bf16(dev, gen, plain):
     torch.cuda.empty_cache()
 
 
+def lm_configs():
+    """[lm]'s three configurations: qwen2-1.5b at its published widths (bf16
+    compute), the same with LM_F32_LAYERS layers in f32 compute (the
+    CUDA-core flash route), and its SMOKE size in f32 (the CPU replay)."""
+    import torch
+
+    from repro_torch import configs as C
+
+    cfg = C.get(LM_ARCH)
+    return (cfg, cfg.replace(n_layers=LM_F32_LAYERS, compute_dtype=torch.float32),
+            C.get_smoke(LM_ARCH).replace(compute_dtype=torch.float32))
+
+
+def lm_prompts(cfg, rng):
+    """The ragged case: LM_SHORT prompts of 4–16 tokens, the LM_LONG-token
+    one at LM_LONG_AT."""
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 17))).astype(np.int32)
+               for _ in range(LM_SHORT)]
+    prompts.insert(LM_LONG_AT, rng.integers(0, cfg.vocab_size, size=LM_LONG).astype(np.int32))
+    return prompts
+
+
+def lm_serve(eng, prompts, new: int):
+    """Greedy requests of ``new`` tokens through ``eng``; returns the
+    requests and the sampler's log, (rid, logits over the vocab, token) in
+    call order."""
+    from repro_torch.serving import Request
+
+    log, sample = [], eng._sample
+
+    def logged(logits, req):
+        tok = sample(logits, req)
+        log.append((req.rid, np.asarray(logits[: eng.cfg.vocab_size], np.float64), tok))
+        return tok
+
+    eng._sample = logged
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    eng._sample = sample
+    check(all(r.done and len(r.generated) == new for r in reqs), "a request did not finish with all its tokens")
+    check(all(0 <= t < eng.cfg.vocab_size for r in reqs for t in r.generated), "a token outside the vocab")
+    check(all(np.isfinite(lg).all() for _, lg, _ in log), "non-finite logits")
+    return reqs, log
+
+
+def lm_near_tie(logits, want: int, got: int) -> float:
+    """The reference-side margin between two greedy picks over the logit
+    bound: a pick may part from the other only where this is <= 2."""
+    return float(logits[want] - logits[got]) / (LM_LOGIT_RTOL * float(np.abs(logits).max()))
+
+
+def lm_capture(S: int):
+    """Wrap ``models.layers.attention_core`` to keep the first call's
+    inputs at query length S (layer 0 of that prefill); returns the record
+    and a function that unwraps."""
+    from repro_torch.models import layers as L
+
+    seen, core = {}, L.attention_core
+
+    def capture(q, k, v, **kw):
+        if q.shape[1] == S and not seen:
+            seen.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=kw)
+        return core(q, k, v, **kw)
+
+    L.attention_core = capture
+    return seen, core, lambda: setattr(L, "attention_core", core)
+
+
+def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None):
+    """The captured layer's attention through the kernel (outside any
+    counted run) against the plain version one kv head at a time, the
+    [attention] readings; its time, bound and share of the prefill."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    q, k, v, kw = cap["q"], cap["k"], cap["v"], cap["kw"]
+    B, S, H, Dh = q.shape
+    KV, Sk = k.shape[2], k.shape[1]
+    G = H // KV
+    got = core(q, k, v, **kw)
+    qp = torch.broadcast_to(torch.as_tensor(kw["qpos"]).to(torch.int32), (B, S)).contiguous()
+    kp = torch.broadcast_to(torch.as_tensor(kw["kpos"]).to(torch.int32), (B, Sk)).contiguous()
+    elem = row = err = 0.0
+    for g in range(KV):
+        want = ref.gqa_flash_attention(q[:, :, g * G : (g + 1) * G].transpose(1, 2), k[:, :, g : g + 1].transpose(1, 2),
+                                       v[:, :, g : g + 1].transpose(1, 2), qp, kp, True, kw["window"]).float()
+        o = got[:, :, g * G : (g + 1) * G].transpose(1, 2).float()
+        check(bool(torch.isfinite(o).all()), f"{tag}: non-finite attention")
+        e, r = flash_reading(o, want, dt)
+        elem, row, err = max(elem, e), max(row, r), max(err, float((o - want).abs().max()))
+    check(elem <= 1 and row <= 1, f"{tag}: layer 0's attention outside tolerance, readings {elem:.3f} (elements), "
+                                  f"{row:.3f} (rows)")
+    ms = time_ms(lambda: core(q, k, v, **kw), reps=5)
+    live = _live_pairs(qp, kp, kw["window"])
+    b, by = bound_ms(4.0 * Dh * live * H, q.element_size() * 2 * (q.numel() + k.numel()),
+                     PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS)
+    share = "" if prefill_ms is None else (f", x {n_layers} layers = {ms * n_layers:.3f} ms, "
+                                           f"{ms * n_layers / prefill_ms:.3f} of the prefill")
+    say(f"[lm] {tag}: layer 0's attention (S = {S}, {H}/{KV} heads, Dh {Dh}, {dt}) through the kernel against the "
+        f"plain version: max_abs_err {err:.3e}, readings {elem:.3f} (elements), {row:.3f} (rows) of limit 1 "
+        f"(rtol/atol/row {'1e-2/2e-3/1e-2' if dt == 'bf16' else '1e-4/2e-4/1e-3'}); kernel {ms:.4f} ms a layer"
+        f"{share}; bound {b:.4f} ms ({by})")
+    return dict(ms=ms, bound_ms=b, max_abs_err=err)
+
+
+def lm_profile(tag, fn, wall_ms: float):
+    """One call of ``fn`` under torch.profiler: the device's busy time (its
+    kernels', copies' and fills' times; one stream), the launches, the
+    flash kernel's share and the idle share against ``wall_ms``, the
+    untraced call's wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if busy <= 0:
+        say(f"[lm] {tag} under torch.profiler: no device time in the trace (traced wall {traced:.2f} ms); idle "
+            f"share not measured")
+        return
+    flash = sum(e.self_device_time_total for e in events if "flash" in e.key) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    say(f"[lm] {tag} under torch.profiler: {sum(e.count for e in events)} launches, device busy {busy:.3f} ms "
+        f"(traced wall {traced:.2f} ms), the flash kernel {flash:.3f} ms of it; against the untraced wall "
+        f"{wall_ms:.3f} ms: idle share {1 - busy / wall_ms:.3f}, flash {flash / wall_ms:.3f}; top device time (ms): "
+        + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
+
+
+def phase_lm(dev, card):
+    """LM serving at published widths: qwen2-1.5b through ServeEngine, the
+    long prefill on the tensor-core flash kernel; the f32 route against a
+    teacher-forced prefill; a SMOKE replay against the CPU.  Returns the
+    flash launches of the counted runs and the layer-0 kernel numbers."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg, cfg32, smoke = lm_configs()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    values = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 3), device=dev)
+    n_params = M.count_params(values)
+    eng = ServeEngine(cfg, values, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED, device=dev)
+    del values  # the engine serves from its bf16 compute copy
+    torch.cuda.synchronize()
+    peak_build = (torch.cuda.max_memory_allocated() - base) / 2**30
+    say(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params:,} parameters (the reference's "
+        f"count_params over abstract_params: {LM_PARAMS:,}); built from a seeded torch.Generator on the card, "
+        f"served from the bf16 compute copy; peak {peak_build:.2f} GiB with the f32 master")
+    check(n_params == LM_PARAMS, f"{cfg.name}: {n_params} parameters, the reference counts {LM_PARAMS}")
+    check(all(t.dtype == torch.bfloat16 for t in (eng.params["embed"]["table"], eng.params["blocks"]["mlp"]["up"]["w"])),
+          "the engine does not hold the bf16 compute copy")
+
+    prefills, steps = [], []
+    prefill_one, serve_step = eng._prefill_one, eng.serve_step
+
+    def timed_prefill(params, toks):
+        before = (k_fa.launches_mma, k_fa.launches_simt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill_one(params, toks)
+        torch.cuda.synchronize()
+        prefills.append((toks.shape[1], (time.perf_counter() - t0) * 1e3, k_fa.launches_mma - before[0],
+                         k_fa.launches_simt - before[1]))
+        return out
+
+    def timed_step(*args):
+        active = sum(r is not None for r in eng.slot_req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_step(*args)
+        torch.cuda.synchronize()
+        steps.append((active, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    eng._prefill_one, eng.serve_step = timed_prefill, timed_step
+    prompts = lm_prompts(cfg, np.random.default_rng(SEED + 4))
+    cap, core, uncapture = lm_capture(LM_LONG)
+    torch.cuda.reset_peak_memory_stats()
+    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = 0
+    t0 = time.perf_counter()
+    try:
+        reqs, _ = lm_serve(eng, prompts, LM_NEW)
+    finally:
+        uncapture()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt}
+    peak_serve = (torch.cuda.max_memory_allocated() - base) / 2**30
+    long_ms = [ms for S, ms, _, _ in prefills if S == LM_LONG]
+    short = [(S, mma, simt) for S, _, mma, simt in prefills if S != LM_LONG]
+    long_launches = [(mma, simt) for S, _, mma, simt in prefills if S == LM_LONG]
+    say(f"[lm] ragged serve: {len(reqs)} requests ({LM_SHORT} of 4-16 tokens, one of {LM_LONG}) on {LM_SLOTS} slots, "
+        f"cache_len {LM_CACHE_LEN}, {LM_NEW} greedy tokens each: all finished; {eng.tokens_out} tokens in "
+        f"{eng.steps} steps, {wall * 1e3:.1f} ms, {eng.tokens_out / wall:.1f} tokens/s; flash launches "
+        f"{json.dumps(launches)}: the long prefill (mma, simt) {long_launches}, the short prefills "
+        f"{sum(m + s for _, m, s in short)}, decode 0 (Sq = 1 takes the plain branch)")
+    check(long_launches == [(cfg.n_layers, 0)], f"the {LM_LONG}-token prefill did not launch the tensor-core "
+                                                f"kernel once per layer: {long_launches}")
+    check(all(m == s == 0 for _, m, s in short), "a short prefill launched a flash kernel")
+    check(launches == {"flash_attention_mma": cfg.n_layers, "flash_attention": 0},
+          f"flash launches over the run {launches}: a decode step launched the kernel")
+    full = sorted(ms for active, ms in steps if active == LM_SLOTS)
+    check(bool(full), "no decode step ran with every slot busy")
+    say(f"[lm] long prefill ({LM_LONG} tokens): {long_ms[0]:.3f} ms; decode at {LM_SLOTS} slots: "
+        f"{float(np.median(full)):.3f} ms per step (median of {len(full)}; min {full[0]:.3f}, max {full[-1]:.3f}); "
+        f"the short prefills {float(np.median([ms for S, ms, _, _ in prefills if S != LM_LONG])):.3f} ms (median); "
+        f"peak device memory {peak_serve:.2f} GiB serving, {peak_build:.2f} GiB while building (above the "
+        f"{base / 2**30:.2f} GiB that earlier phases hold)")
+    numbers = {"flash_attention_mma": lm_flash("bf16 route", core, cap, "bf16", cfg.n_layers, long_ms[0])}
+    long_toks = torch.as_tensor(prompts[LM_LONG_AT], dtype=torch.int64, device=dev)[None]
+    lm_profile(f"the {LM_LONG}-token prefill", lambda: eng.model.prefill(eng.params, long_toks), long_ms[0])
+    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    lm_profile(f"a decode step at {LM_SLOTS} slots",
+               lambda: eng.model.decode(eng.params, eng.caches, last, LM_LONG + LM_NEW), float(np.median(full)))
+    del eng, cap, reqs
+    torch.cuda.empty_cache()
+
+    # the f32 route: equal-length prompts (one position for every row) against a teacher-forced prefill
+    values = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED + 5), device=dev)
+    eng = ServeEngine(cfg32, values, slots=LM_F32_BATCH, cache_len=LM_F32_PROMPT + LM_F32_NEW + 8, seed=SEED,
+                      device=dev)
+    del values
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [rng.integers(0, cfg32.vocab_size, size=LM_F32_PROMPT).astype(np.int32) for _ in range(LM_F32_BATCH)]
+    cap, core, uncapture = lm_capture(LM_F32_PROMPT)
+    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = 0
+    try:
+        reqs, _ = lm_serve(eng, prompts, LM_F32_NEW)
+    finally:
+        uncapture()
+    f32_launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt}
+    check(f32_launches == {"flash_attention_mma": 0, "flash_attention": cfg32.n_layers * LM_F32_BATCH},
+          f"f32 route: flash launches {f32_launches}, want the CUDA-core kernel once per layer and prefill")
+    launches["flash_attention"] = f32_launches["flash_attention"]
+    parted, margins = 0, []
+    with torch.no_grad():
+        for r in reqs:
+            seq = list(r.prompt)
+            for i, got in enumerate(r.generated):
+                toks = torch.as_tensor(np.asarray(seq), dtype=torch.int64, device=dev)[None]
+                logits = eng.model.prefill(eng.params, toks)[0][0, -1].float().cpu().numpy()[: cfg32.vocab_size]
+                want = int(np.argmax(logits))
+                if want != got:
+                    margins.append(lm_near_tie(logits, want, got))
+                    check(margins[-1] <= 2, f"f32 route: request {r.rid} token {i} is {got}, the teacher-forced "
+                                            f"prefill gives {want} by a margin of {margins[-1]:.2f} logit bounds")
+                    parted += 1
+                    break
+                seq.append(want)
+    say(f"[lm] f32 route: {cfg32.name} at full width with {cfg32.n_layers} layers in f32, {LM_F32_BATCH} prompts of "
+        f"{LM_F32_PROMPT} tokens (one position for every row), {LM_F32_NEW} greedy tokens: flash launches "
+        f"{json.dumps(f32_launches)}; the engine's tokens against a teacher-forced full prefill: "
+        f"{len(reqs) - parted} of {len(reqs)} requests identical"
+        + (f", {parted} parting at a near-tie (margins {margins} of the logit bound)" if parted else ""))
+    numbers["flash_attention"] = lm_flash("f32 route", core, cap, "f32", cfg32.n_layers, None)
+    del eng, cap, reqs
+    torch.cuda.empty_cache()
+
+    # the ragged case replayed at SMOKE size in f32 on the card and on the CPU (plain versions)
+    values = M.init_params(smoke, torch.Generator().manual_seed(SEED + 7), device="cpu")
+    prompts = lm_prompts(smoke, np.random.default_rng(SEED + 8))
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        eng = ServeEngine(smoke, values, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED, device=where)
+        t0 = time.perf_counter()
+        runs.append(lm_serve(eng, prompts, LM_NEW))
+        say(f"[lm] CPU replay: {smoke.name} SMOKE in f32 on {where.type}: {time.perf_counter() - t0:.1f} s")
+    (card_reqs, card_log), (cpu_reqs, cpu_log) = runs
+    worst, parted = 0.0, None
+    for n, ((rid, want_l, want), (rid_c, got_l, got)) in enumerate(zip(cpu_log, card_log)):
+        check(rid == rid_c, f"CPU replay: sampler call {n} serves request {rid_c}, the CPU {rid}")
+        worst = max(worst, float(np.abs(got_l - want_l).max()) / float(np.abs(want_l).max()))
+        check(worst <= LM_LOGIT_RTOL, f"CPU replay: call {n}'s logits {worst:.3e} apart (relative to the largest)")
+        if want != got:
+            parted = (n, lm_near_tie(want_l, want, got))
+            check(parted[1] <= 2, f"CPU replay: request {rid} parts at call {n} by {parted[1]:.2f} logit bounds")
+            break
+    if parted is None:
+        check([r.generated for r in card_reqs] == [r.generated for r in cpu_reqs], "CPU replay: tokens differ")
+    say(f"[lm] CPU replay: {len(cpu_reqs)} requests (the ragged case: one prompt of {LM_LONG}, on the CUDA-core "
+        f"kernel on the card and the plain version on the CPU): "
+        + ("tokens identical" if parted is None else f"parting at sampler call {parted[0]}, a near-tie "
+                                                       f"({parted[1]:.2f} of the bound's 2)")
+        + f"; logits at most {worst:.3e} apart relative to the largest (limit {LM_LOGIT_RTOL:g}) over "
+        f"{len(card_log)} sampler calls")
+    say(f"[lm] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, numbers
+
+
 def plain_strips():
     """A context in which kernels/dynamic.py's three wrappers run their
     plain versions whatever the device (the update's plain replay on the
@@ -4254,7 +4587,7 @@ def phase_summarizer(dev, card):
 
 
 def phase_examples():
-    """The port's three examples, on the card by default, each in its own
+    """The port's four examples, on the card by default, each in its own
     process (started together): exit 0 and ``OK`` as the last line."""
     import os
 
@@ -4320,6 +4653,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
+    lm_launches, lm_numbers = phase_lm(dev, card)
     phase_examples()
     launches = dict(run["launches"], eom=run["eom_launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
                     flat_scatter=online_launches["flat_scatter"], **grid_launches, **attn_launches, **exact_launches)
@@ -4353,6 +4687,8 @@ def main() -> int:
         numbers[name]["launches_mesh"] = n
     for name, n in summarizer_launches.items():  # the summarizer's cluster() calls on [summarizer]
         numbers[name]["launches_summarizer"] = n
+    for name, n in lm_launches.items():  # the flash kernels on [lm]'s serving path, and layer 0's call there
+        numbers[name].update(launches_lm=n, lm_ms=lm_numbers[name]["ms"], lm_bound_ms=lm_numbers[name]["bound_ms"])
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

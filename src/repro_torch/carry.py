@@ -15,9 +15,12 @@ the next refresh, as the reference's restore does.
 ``dynamic_hdbscan_from_reference`` carries the reference's host
 ``DynamicHDBSCAN`` (core/dynamic.py), and ``summarizer_from_reference_state``
 puts a port ``BubbleTreeSummarizer`` over the Bubble-tree of a reference
-engine's checkpoint.
-These are this system's counterpart of carrying a model's weights across:
-they read only numpy and never import the JAX package.  The engine's
+engine's checkpoint.  ``lm_params_from_reference`` and
+``lm_cache_from_reference`` carry a dense LM's parameter tree and KV cache
+(the reference's ``init_params`` values and ``init_cache``/``prefill``
+caches, leaves as numpy) into the port's ``models`` and
+``ServeEngine``.
+These read only numpy and never import the JAX package.  The engine's
 fields load through its own loader, the one ``restore`` uses.
 """
 
@@ -30,10 +33,12 @@ from .core.dynamic import DynamicHDBSCAN
 from .core.dynamic_torch import DynState
 from .core.summarizer import BubbleTreeSummarizer
 from .device import resolve_device
+from .models import model as M
 from .serving.stream import _CKPT_FORMAT, StreamingClusterEngine, load_tree_state
 
 __all__ = ["engine_from_reference_state", "dyn_state_from_reference", "dynamic_hdbscan_from_reference",
-           "summarizer_from_reference_state", "DYNAMIC_HDBSCAN_FIELDS"]
+           "summarizer_from_reference_state", "lm_params_from_reference", "lm_cache_from_reference",
+           "DYNAMIC_HDBSCAN_FIELDS"]
 
 # the array attributes of a host DynamicHDBSCAN, and their dtypes
 DYNAMIC_HDBSCAN_FIELDS = {
@@ -115,3 +120,39 @@ def summarizer_from_reference_state(state: dict, device=None, **kw) -> BubbleTre
                                 compression=float(state["cfg/compression"]), device=device, **kw)
     load_tree_state(summ.tree, state)
     return summ
+
+
+def _leaf_tensor(a, dev) -> torch.Tensor:
+    """A numpy leaf (bf16 leaves come as ml_dtypes arrays, which torch
+    does not read: they cross as f32, exactly) on ``dev``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.as_tensor(np.array(a)).to(dev)
+
+
+def _tree_map(tree, fn):
+    return {k: _tree_map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def lm_params_from_reference(values, cfg, device=None) -> dict:
+    """The port's params tree from the reference's ``init_params(cfg,
+    key)[0]`` (a nested dict, leaves as numpy through ``np.asarray``,
+    layers stacked on axis 0): the same keys, shapes and values, on
+    ``device`` (None → cuda).  Raises ``ValueError`` when the tree is not
+    the port's layout for ``cfg`` (and ``NotImplementedError`` for a
+    family the port does not build yet)."""
+    dev = resolve_device(device)
+    want = _tree_map(M.init_params(cfg, device="meta"), lambda t: tuple(t.shape))
+    got = _tree_map(values, lambda a: tuple(np.shape(a)))
+    if got != want:
+        raise ValueError(f"{cfg.name}: the reference's params tree does not match the port's layout")
+    return _tree_map(values, lambda a: _leaf_tensor(a, dev))
+
+
+def lm_cache_from_reference(caches, device=None) -> dict:
+    """The port's KV cache from the reference's (``{"self": {"k", "v"},
+    "pos"}``, leaves as numpy): the same values and dtypes (bf16 K/V,
+    int32 write heads), on ``device`` (None → cuda)."""
+    dev = resolve_device(device)
+    return _tree_map(caches, lambda a: _leaf_tensor(a, dev))

@@ -1,4 +1,4 @@
-"""Serve plane and streaming engine of the PyTorch port.
+"""Serve plane, streaming engine and token serving engine of the PyTorch port.
 
 Deadlock freedom is by construction: every nested acquisition follows
 the declared total order below (checked by repro-lint RPL303), the same
@@ -8,6 +8,7 @@ populate the version-keyed device cache — never the reverse.
 """
 # lock-order: QueryBatcher._dispatch -> TenantRouter._lock -> StreamingClusterEngine._snapshot_lock -> SnapshotDeviceCache._lock
 
+from .engine import Request, ServeEngine
 from .query import QueryBatcher, QueryEngine, QueryResult, SnapshotDeviceCache
 from .stream import ClusterSnapshot, StalenessPolicy, StreamingClusterEngine, Ticket, UpdatePolicy
 from .tenants import TenantRouter
@@ -17,6 +18,8 @@ __all__ = [
     "QueryBatcher",
     "QueryEngine",
     "QueryResult",
+    "Request",
+    "ServeEngine",
     "SnapshotDeviceCache",
     "StalenessPolicy",
     "StreamingClusterEngine",

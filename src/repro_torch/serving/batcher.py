@@ -1,6 +1,6 @@
 """Host-side request coalescing: the port's own copy of the JAX
-package's ``serving/engine.py::HostBatcher`` (that module also holds the
-token-serving engine and imports JAX)."""
+package's ``serving/engine.py::HostBatcher`` (the port's
+``serving/engine.py`` holds the token-serving engine on top of it)."""
 
 from __future__ import annotations
 
@@ -10,19 +10,20 @@ __all__ = ["HostBatcher"]
 
 
 class HostBatcher:
-    """Host-side request coalescer of the streaming engine.
+    """Host-side request coalescer shared by the serving engines.
 
-    A FIFO of (kind, item) ops drained as contiguous same-kind blocks of
-    at most ``max_block`` items (the streaming engine's ingestion
-    scheduler, via the size-counted ``next_block``).  FIFO order is
+    A FIFO of (kind, item) ops drained either one at a time (slot-at-a-time
+    admission, ServeEngine) or as contiguous same-kind blocks of at most
+    ``max_block`` items (the streaming engine's ingestion scheduler, via
+    the size-counted ``next_block``).  FIFO order is
     preserved across kinds — an op never jumps an earlier op of a
     different kind — which is what makes batched ingestion equivalent to
     replaying the sequential stream (CF additivity does the rest).
 
     Threading contract: ``push`` is safe from any thread (a single
-    GIL-atomic deque append), but draining (``next_block``)
+    GIL-atomic deque append), but draining (``pop_one``/``next_block``)
     must be serialized by the caller — the streaming engine drains from
-    its poll thread only.
+    its poll thread only, ServeEngine from its serve thread.
     """
 
     def __init__(self, max_block: int = 512):
@@ -42,6 +43,11 @@ class HostBatcher:
 
     def __bool__(self) -> bool:
         return bool(self._q)
+
+    def pop_one(self):
+        """Oldest item (its kind is dropped — single-kind callers)."""
+        _, item = self._q.popleft()
+        return item
 
     def next_block(self, limit: int | None = None, size=None):
         """Pop the longest prefix run of same-kind ops whose total size
