@@ -202,6 +202,35 @@ Phases, each printing its own lines:
               full prefill; then the ragged case at SMOKE size in f32 on
               the card and on the CPU (plain versions), tokens equal and
               logits within 2e-3 of the largest;
+     moe      LM serving for the MoE family at published widths:
+              qwen2-moe-a2.7b (24 layers, d_model 2048, 16/16 heads of
+              128, 60 routed experts top-4 of width 1408, 4 shared fused
+              to 5632, vocab 151,936; the parameter count held to the
+              reference's), its bf16 compute copy drawn leaf by leaf
+              (models.init_compute_params: no f32 master on the card),
+              served as [lm] serves (24 tensor-core launches on the long
+              prefill, MHA with a group of 1, none elsewhere); the long
+              prefill twice more, bit for bit, with the dropped (token,
+              choice) pairs at C = 512 and the most and least loaded
+              experts per layer; then dbrx-132b at its published widths
+              (d_model 6144, 48/8 heads, 16 experts top-4 of width
+              10752) cut to 2 of its 40 layers (the whole model is 263
+              GB in bf16), one 6144-token prefill twice, bit for bit, 2
+              launches (GQA with a group of 6); layer 0's attention of
+              both against the plain version; profiles of a prefill and
+              a decode step; the ragged case at SMOKE size in f32 on the
+              card and the CPU, as [lm];
+     vlm      LM serving for the vision family at published widths:
+              llama-3.2-vision-11b (40 layers as 8 groups of 4 self
+              blocks and 1 cross block, d_model 4096, 32/8 heads, d_ff
+              14336, 1601 media tokens) built leaf by leaf, served as [lm]
+              serves with the engine's zero media (the gates start at 0:
+              the cross branch adds exactly 0); then one 12,288-token
+              prefill with seeded media and every gate at 0.5: 40 causal
+              and 8 non-causal tensor-core launches, twice bit for bit,
+              the cross branch moving the logits, and at the gates' 0 the
+              same bits as with zero media; layer 0's cross-attention
+              against the plain version; profiles; the SMOKE replay;
      exact    the exact-dynamic engine (exact=True) at a deployment's size:
               16,384 points of the [stream] mixture (d = 16, min_pts 10),
               the first rebuild's shrink to Np = 32,768 slots, then 48
@@ -246,7 +275,13 @@ Phases, each printing its own lines:
      flash_attention with the qwen2-1.5b f32 case and the earlier
      CUDA-core kernel's time as scalar_ms, flash_attention_mma with the
      qwen2-1.5b bf16 case, both also with their [lm] launches as
-     launches_lm and layer 0's call there as lm_ms / lm_bound_ms;
+     launches_lm and layer 0's call there as lm_ms / lm_bound_ms, their
+     launches on [moe]'s serve and dbrx prefill as launches_moe /
+     launches_dbrx and on [vlm]'s serve and 12,288-token prefill as
+     launches_vlm / launches_vlm_long, flash_attention_mma also with
+     layer 0's call on the three new routes as moe_ms / moe_bound_ms
+     (MHA), dbrx_ms / dbrx_bound_ms (GQA, a group of 6) and vlm_ms /
+     vlm_bound_ms (the non-causal cross-attention);
      single_linkage, condense and extract, which stand for the JAX
      package's three hierarchy scans, and eom, extract_v1's EOM
      kernel (launched on no path since extract took its place), with the stage's time
@@ -275,6 +310,7 @@ of the repository, or when any phase fails.  Imports nothing of JAX.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import subprocess
 import sys
@@ -349,6 +385,18 @@ LM_SHORT, LM_LONG, LM_LONG_AT = 8, 6144, 2
 # [lm] the f32 route: LM_F32_LAYERS layers at full width in f32, equal-length prompts past the threshold
 LM_F32_LAYERS, LM_F32_BATCH, LM_F32_PROMPT, LM_F32_NEW = 2, 4, 4160, 4
 LM_LOGIT_RTOL = 2e-3  # f32 logits against another run, relative to the largest (tests/test_torch_lm.py's bound)
+# [moe]: qwen2-moe-a2.7b at its published widths (configs/qwen2_moe_a2_7b.py: 24 layers, d 2048, 16/16 heads, 60
+# routed experts top-4 of width 1408, 4 shared fused to 5632), built leaf by leaf into its bf16 compute copy and
+# served as [lm] serves; then dbrx-132b at its published widths (d 6144, 48/8 heads, 16 experts top-4 of width
+# 10752) cut to DBRX_LAYERS of its 40 layers (a layer is ~3.3 G parameters, the whole model 263 GB in bf16: one
+# card holds 80), one DBRX_LONG-token prefill
+MOE_ARCH, MOE_PARAMS, MOE_CAPACITY = "qwen2-moe-a2.7b", 14_315_735_040, 512  # C at the 6144-token prefill
+DBRX_ARCH, DBRX_PARAMS, DBRX_LAYERS, DBRX_LONG = "dbrx-132b", 131_596_523_520, 2, 6144
+# [vlm]: llama-3.2-vision-11b (configs/llama_3_2_vision_11b.py: 8 groups of 4 self blocks and 1 cross block, d
+# 4096, 32/8 heads, d_ff 14336, 1601 media tokens) served as [lm] serves with the engine's zero media; then one
+# VLM_LONG-token prefill with seeded media and the cross-attention gates at VLM_GATE: self-attention 12,288² and
+# cross-attention 12,288 x 1601 = 19.7 M both past the flash threshold (4096² = 16.8 M)
+VLM_ARCH, VLM_PARAMS, VLM_LONG, VLM_GATE = "llama-3.2-vision-11b", 10_110_734_344, 12_288, 0.5
 # [exact]: the exact-dynamic engine (exact=True) at a deployment's size: the [stream] mixture at d = 16, min_pts 10,
 # EXACT_N live points (the first rebuild's shrink gives Np = 32,768 slots), EXACT_BLOCKS alternating insert and
 # delete blocks of EXACT_BLOCK points (1.6 % of n: incremental), one insert block of EXACT_FULL_BLOCK (6.25 %: full)
@@ -3377,11 +3425,11 @@ def points_wide(dev, rng):
     torch.cuda.empty_cache()
 
 
-def _live_pairs(qpos, kpos, window):
-    """Live causal (query, key) pairs of (B, S) position vectors."""
+def _live_pairs(qpos, kpos, window, causal=True):
+    """Live (query, key) pairs of (B, S) position vectors."""
     n = 0
     for qp, kp in zip(qpos, kpos):
-        live = (kp[None, :] >= 0) & (kp[None, :] <= qp[:, None])
+        live = (kp[None, :] >= 0) & ((kp[None, :] <= qp[:, None]) if causal else (qp[:, None] == qp[:, None]))
         if window is not None:
             live &= kp[None, :] > qp[:, None] - window
         n += int(live.sum())
@@ -3602,11 +3650,88 @@ def lm_serve(eng, prompts, new: int):
     for r in reqs:
         eng.submit(r)
     eng.run()
-    eng._sample = sample
+    del eng._sample  # back to the class's method, with no reference cycle through the engine
     check(all(r.done and len(r.generated) == new for r in reqs), "a request did not finish with all its tokens")
     check(all(0 <= t < eng.cfg.vocab_size for r in reqs for t in r.generated), "a token outside the vocab")
     check(all(np.isfinite(lg).all() for _, lg, _ in log), "non-finite logits")
     return reqs, log
+
+
+def lm_serve_timed(eng, prompts, base: int):
+    """The ragged case through ``eng`` with every prefill and decode step
+    timed (synchronised) and each prefill's flash launches per route
+    counted; the counters are set to 0 just before the run.  Returns the
+    requests, [(S, ms, mma, simt)] per prefill, [(active slots, ms)] per
+    step, the launches of the run, its wall (s) and peak memory (GiB above
+    ``base``)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as k_fa
+
+    prefills, steps = [], []
+    prefill_one, serve_step = eng._prefill_one, eng.serve_step
+
+    def timed_prefill(params, toks):
+        before = (k_fa.launches_mma, k_fa.launches_simt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill_one(params, toks)
+        torch.cuda.synchronize()
+        prefills.append((toks.shape[1], (time.perf_counter() - t0) * 1e3, k_fa.launches_mma - before[0],
+                         k_fa.launches_simt - before[1]))
+        return out
+
+    def timed_step(*args):
+        active = sum(r is not None for r in eng.slot_req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_step(*args)
+        torch.cuda.synchronize()
+        steps.append((active, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    eng._prefill_one, eng.serve_step = timed_prefill, timed_step
+    torch.cuda.reset_peak_memory_stats()
+    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = 0
+    t0 = time.perf_counter()
+    try:
+        reqs, _ = lm_serve(eng, prompts, LM_NEW)
+    finally:
+        del eng._prefill_one  # back to the class's method, with no reference cycle through the engine
+        eng.serve_step = serve_step
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt}
+    return dict(reqs=reqs, prefills=prefills, steps=steps, launches=launches, wall=wall,
+                peak=(torch.cuda.max_memory_allocated() - base) / 2**30)
+
+
+def lm_serve_report(phase: str, eng, run, long_len: int, n_layers: int, peak_build: float, base: int):
+    """Print and check a timed ragged serve: every request finished, the
+    long prefill launched the tensor-core kernel once per layer and
+    nothing else launched a flash kernel.  Returns (long prefill ms,
+    median decode ms per step at LM_SLOTS)."""
+    prefills, launches = run["prefills"], run["launches"]
+    long_ms = [ms for S, ms, _, _ in prefills if S == long_len]
+    short = [(S, mma, simt) for S, _, mma, simt in prefills if S != long_len]
+    long_launches = [(mma, simt) for S, _, mma, simt in prefills if S == long_len]
+    say(f"{phase} ragged serve: {len(run['reqs'])} requests ({LM_SHORT} of 4-16 tokens, one of {long_len}) on "
+        f"{LM_SLOTS} slots, cache_len {LM_CACHE_LEN}, {LM_NEW} greedy tokens each: all finished; {eng.tokens_out} "
+        f"tokens in {eng.steps} steps, {run['wall'] * 1e3:.1f} ms, {eng.tokens_out / run['wall']:.1f} tokens/s; "
+        f"flash launches {json.dumps(launches)}: the long prefill (mma, simt) {long_launches}, the short prefills "
+        f"{sum(m + s for _, m, s in short)}, decode 0 (Sq = 1 takes the plain branch)")
+    check(long_launches == [(n_layers, 0)], f"{phase} the {long_len}-token prefill did not launch the tensor-core "
+                                            f"kernel once per layer: {long_launches}")
+    check(all(m == s == 0 for _, m, s in short), f"{phase} a short prefill launched a flash kernel")
+    check(launches == {"flash_attention_mma": n_layers, "flash_attention": 0},
+          f"{phase} flash launches over the run {launches}: a decode step launched the kernel")
+    full = sorted(ms for active, ms in run["steps"] if active == LM_SLOTS)
+    check(bool(full), f"{phase} no decode step ran with every slot busy")
+    say(f"{phase} long prefill ({long_len} tokens): {long_ms[0]:.3f} ms; decode at {LM_SLOTS} slots: "
+        f"{float(np.median(full)):.3f} ms per step (median of {len(full)}; min {full[0]:.3f}, max {full[-1]:.3f}); "
+        f"the short prefills {float(np.median([ms for S, ms, _, _ in prefills if S != long_len])):.3f} ms (median); "
+        f"peak device memory {run['peak']:.2f} GiB serving, {peak_build:.2f} GiB while building (above the "
+        f"{base / 2**30:.2f} GiB that earlier phases hold)")
+    return long_ms[0], float(np.median(full))
 
 
 def lm_near_tie(logits, want: int, got: int) -> float:
@@ -3615,16 +3740,17 @@ def lm_near_tie(logits, want: int, got: int) -> float:
     return float(logits[want] - logits[got]) / (LM_LOGIT_RTOL * float(np.abs(logits).max()))
 
 
-def lm_capture(S: int):
+def lm_capture(S: int, Sk: int | None = None):
     """Wrap ``models.layers.attention_core`` to keep the first call's
-    inputs at query length S (layer 0 of that prefill); returns the record
-    and a function that unwraps."""
+    inputs at query length S (and key length Sk where given): layer 0's
+    call of that prefill.  Returns the record, the unwrapped function and
+    a function that unwraps."""
     from repro_torch.models import layers as L
 
     seen, core = {}, L.attention_core
 
     def capture(q, k, v, **kw):
-        if q.shape[1] == S and not seen:
+        if q.shape[1] == S and (Sk is None or k.shape[1] == Sk) and not seen:
             seen.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=kw)
         return core(q, k, v, **kw)
 
@@ -3632,7 +3758,7 @@ def lm_capture(S: int):
     return seen, core, lambda: setattr(L, "attention_core", core)
 
 
-def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None):
+def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None, phase: str = "[lm]"):
     """The captured layer's attention through the kernel (outside any
     counted run) against the plain version one kv head at a time, the
     [attention] readings; its time, bound and share of the prefill."""
@@ -3644,13 +3770,14 @@ def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None):
     B, S, H, Dh = q.shape
     KV, Sk = k.shape[2], k.shape[1]
     G = H // KV
+    causal = kw.get("causal", True)
     got = core(q, k, v, **kw)
     qp = torch.broadcast_to(torch.as_tensor(kw["qpos"]).to(torch.int32), (B, S)).contiguous()
     kp = torch.broadcast_to(torch.as_tensor(kw["kpos"]).to(torch.int32), (B, Sk)).contiguous()
     elem = row = err = 0.0
     for g in range(KV):
         want = ref.gqa_flash_attention(q[:, :, g * G : (g + 1) * G].transpose(1, 2), k[:, :, g : g + 1].transpose(1, 2),
-                                       v[:, :, g : g + 1].transpose(1, 2), qp, kp, True, kw["window"]).float()
+                                       v[:, :, g : g + 1].transpose(1, 2), qp, kp, causal, kw["window"]).float()
         o = got[:, :, g * G : (g + 1) * G].transpose(1, 2).float()
         check(bool(torch.isfinite(o).all()), f"{tag}: non-finite attention")
         e, r = flash_reading(o, want, dt)
@@ -3658,19 +3785,20 @@ def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None):
     check(elem <= 1 and row <= 1, f"{tag}: layer 0's attention outside tolerance, readings {elem:.3f} (elements), "
                                   f"{row:.3f} (rows)")
     ms = time_ms(lambda: core(q, k, v, **kw), reps=5)
-    live = _live_pairs(qp, kp, kw["window"])
+    live = _live_pairs(qp, kp, kw["window"], causal)
     b, by = bound_ms(4.0 * Dh * live * H, q.element_size() * 2 * (q.numel() + k.numel()),
                      PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS)
     share = "" if prefill_ms is None else (f", x {n_layers} layers = {ms * n_layers:.3f} ms, "
                                            f"{ms * n_layers / prefill_ms:.3f} of the prefill")
-    say(f"[lm] {tag}: layer 0's attention (S = {S}, {H}/{KV} heads, Dh {Dh}, {dt}) through the kernel against the "
-        f"plain version: max_abs_err {err:.3e}, readings {elem:.3f} (elements), {row:.3f} (rows) of limit 1 "
-        f"(rtol/atol/row {'1e-2/2e-3/1e-2' if dt == 'bf16' else '1e-4/2e-4/1e-3'}); kernel {ms:.4f} ms a layer"
-        f"{share}; bound {b:.4f} ms ({by})")
+    say(f"{phase} {tag}: layer 0's attention (S = {S}, Sk = {Sk}, {H}/{KV} heads, Dh {Dh}, {dt}, "
+        f"{'causal' if causal else 'non-causal'}) through the kernel against the plain version: max_abs_err "
+        f"{err:.3e}, readings {elem:.3f} (elements), {row:.3f} (rows) of limit 1 (rtol/atol/row "
+        f"{'1e-2/2e-3/1e-2' if dt == 'bf16' else '1e-4/2e-4/1e-3'}); kernel {ms:.4f} ms a layer{share}; bound "
+        f"{b:.4f} ms ({by})")
     return dict(ms=ms, bound_ms=b, max_abs_err=err)
 
 
-def lm_profile(tag, fn, wall_ms: float):
+def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]"):
     """One call of ``fn`` under torch.profiler: the device's busy time (its
     kernels', copies' and fills' times; one stream), the launches, the
     flash kernel's share and the idle share against ``wall_ms``, the
@@ -3688,15 +3816,56 @@ def lm_profile(tag, fn, wall_ms: float):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     if busy <= 0:
-        say(f"[lm] {tag} under torch.profiler: no device time in the trace (traced wall {traced:.2f} ms); idle "
+        say(f"{phase} {tag} under torch.profiler: no device time in the trace (traced wall {traced:.2f} ms); idle "
             f"share not measured")
         return
     flash = sum(e.self_device_time_total for e in events if "flash" in e.key) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    say(f"[lm] {tag} under torch.profiler: {sum(e.count for e in events)} launches, device busy {busy:.3f} ms "
+    say(f"{phase} {tag} under torch.profiler: {sum(e.count for e in events)} launches, device busy {busy:.3f} ms "
         f"(traced wall {traced:.2f} ms), the flash kernel {flash:.3f} ms of it; against the untraced wall "
         f"{wall_ms:.3f} ms: idle share {1 - busy / wall_ms:.3f}, flash {flash / wall_ms:.3f}; top device time (ms): "
         + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
+
+
+def lm_cpu_replay(phase: str, dev, smoke, seed: int):
+    """The ragged case at SMOKE size in f32 through ServeEngine on the card
+    and on the CPU (plain versions): the sampler's calls in the same
+    order, logits within LM_LOGIT_RTOL of the largest, tokens identical
+    (or parting only at a near-tie, after which nothing is compared)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine
+
+    values = M.init_params(smoke, torch.Generator().manual_seed(seed), device="cpu")
+    prompts = lm_prompts(smoke, np.random.default_rng(seed + 1))
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        eng = ServeEngine(smoke, values, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED, device=where)
+        t0 = time.perf_counter()
+        runs.append(lm_serve(eng, prompts, LM_NEW))
+        say(f"{phase} CPU replay: {smoke.name} SMOKE in f32 on {where.type}: {time.perf_counter() - t0:.1f} s")
+    (card_reqs, card_log), (cpu_reqs, cpu_log) = runs
+    worst, parted = 0.0, None
+    for n, ((rid, want_l, want), (rid_c, got_l, got)) in enumerate(zip(cpu_log, card_log)):
+        check(rid == rid_c, f"{phase} CPU replay: sampler call {n} serves request {rid_c}, the CPU {rid}")
+        worst = max(worst, float(np.abs(got_l - want_l).max()) / float(np.abs(want_l).max()))
+        check(worst <= LM_LOGIT_RTOL, f"{phase} CPU replay: call {n}'s logits {worst:.3e} apart (relative to the "
+                                      f"largest)")
+        if want != got:
+            parted = (n, lm_near_tie(want_l, want, got))
+            check(parted[1] <= 2, f"{phase} CPU replay: request {rid} parts at call {n} by {parted[1]:.2f} logit "
+                                  f"bounds")
+            break
+    if parted is None:
+        check([r.generated for r in card_reqs] == [r.generated for r in cpu_reqs],
+              f"{phase} CPU replay: tokens differ")
+    say(f"{phase} CPU replay: {len(cpu_reqs)} requests (the ragged case: one prompt of {LM_LONG}, on the CUDA-core "
+        f"kernel on the card and the plain version on the CPU): "
+        + ("tokens identical" if parted is None else f"parting at sampler call {parted[0]}, a near-tie "
+                                                       f"({parted[1]:.2f} of the bound's 2)")
+        + f"; logits at most {worst:.3e} apart relative to the largest (limit {LM_LOGIT_RTOL:g}) over "
+        f"{len(card_log)} sampler calls")
 
 
 def phase_lm(dev, card):
@@ -3729,68 +3898,21 @@ def phase_lm(dev, card):
     check(all(t.dtype == torch.bfloat16 for t in (eng.params["embed"]["table"], eng.params["blocks"]["mlp"]["up"]["w"])),
           "the engine does not hold the bf16 compute copy")
 
-    prefills, steps = [], []
-    prefill_one, serve_step = eng._prefill_one, eng.serve_step
-
-    def timed_prefill(params, toks):
-        before = (k_fa.launches_mma, k_fa.launches_simt)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = prefill_one(params, toks)
-        torch.cuda.synchronize()
-        prefills.append((toks.shape[1], (time.perf_counter() - t0) * 1e3, k_fa.launches_mma - before[0],
-                         k_fa.launches_simt - before[1]))
-        return out
-
-    def timed_step(*args):
-        active = sum(r is not None for r in eng.slot_req)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = serve_step(*args)
-        torch.cuda.synchronize()
-        steps.append((active, (time.perf_counter() - t0) * 1e3))
-        return out
-
-    eng._prefill_one, eng.serve_step = timed_prefill, timed_step
     prompts = lm_prompts(cfg, np.random.default_rng(SEED + 4))
     cap, core, uncapture = lm_capture(LM_LONG)
-    torch.cuda.reset_peak_memory_stats()
-    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = 0
-    t0 = time.perf_counter()
     try:
-        reqs, _ = lm_serve(eng, prompts, LM_NEW)
+        run = lm_serve_timed(eng, prompts, base)
     finally:
         uncapture()
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt}
-    peak_serve = (torch.cuda.max_memory_allocated() - base) / 2**30
-    long_ms = [ms for S, ms, _, _ in prefills if S == LM_LONG]
-    short = [(S, mma, simt) for S, _, mma, simt in prefills if S != LM_LONG]
-    long_launches = [(mma, simt) for S, _, mma, simt in prefills if S == LM_LONG]
-    say(f"[lm] ragged serve: {len(reqs)} requests ({LM_SHORT} of 4-16 tokens, one of {LM_LONG}) on {LM_SLOTS} slots, "
-        f"cache_len {LM_CACHE_LEN}, {LM_NEW} greedy tokens each: all finished; {eng.tokens_out} tokens in "
-        f"{eng.steps} steps, {wall * 1e3:.1f} ms, {eng.tokens_out / wall:.1f} tokens/s; flash launches "
-        f"{json.dumps(launches)}: the long prefill (mma, simt) {long_launches}, the short prefills "
-        f"{sum(m + s for _, m, s in short)}, decode 0 (Sq = 1 takes the plain branch)")
-    check(long_launches == [(cfg.n_layers, 0)], f"the {LM_LONG}-token prefill did not launch the tensor-core "
-                                                f"kernel once per layer: {long_launches}")
-    check(all(m == s == 0 for _, m, s in short), "a short prefill launched a flash kernel")
-    check(launches == {"flash_attention_mma": cfg.n_layers, "flash_attention": 0},
-          f"flash launches over the run {launches}: a decode step launched the kernel")
-    full = sorted(ms for active, ms in steps if active == LM_SLOTS)
-    check(bool(full), "no decode step ran with every slot busy")
-    say(f"[lm] long prefill ({LM_LONG} tokens): {long_ms[0]:.3f} ms; decode at {LM_SLOTS} slots: "
-        f"{float(np.median(full)):.3f} ms per step (median of {len(full)}; min {full[0]:.3f}, max {full[-1]:.3f}); "
-        f"the short prefills {float(np.median([ms for S, ms, _, _ in prefills if S != LM_LONG])):.3f} ms (median); "
-        f"peak device memory {peak_serve:.2f} GiB serving, {peak_build:.2f} GiB while building (above the "
-        f"{base / 2**30:.2f} GiB that earlier phases hold)")
-    numbers = {"flash_attention_mma": lm_flash("bf16 route", core, cap, "bf16", cfg.n_layers, long_ms[0])}
+    launches = run["launches"]
+    long_ms, decode_ms = lm_serve_report("[lm]", eng, run, LM_LONG, cfg.n_layers, peak_build, base)
+    numbers = {"flash_attention_mma": lm_flash("bf16 route", core, cap, "bf16", cfg.n_layers, long_ms)}
     long_toks = torch.as_tensor(prompts[LM_LONG_AT], dtype=torch.int64, device=dev)[None]
-    lm_profile(f"the {LM_LONG}-token prefill", lambda: eng.model.prefill(eng.params, long_toks), long_ms[0])
+    lm_profile(f"the {LM_LONG}-token prefill", lambda: eng.model.prefill(eng.params, long_toks), long_ms)
     last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
     lm_profile(f"a decode step at {LM_SLOTS} slots",
-               lambda: eng.model.decode(eng.params, eng.caches, last, LM_LONG + LM_NEW), float(np.median(full)))
-    del eng, cap, reqs
+               lambda: eng.model.decode(eng.params, eng.caches, last, LM_LONG + LM_NEW), decode_ms)
+    del eng, cap, run
     torch.cuda.empty_cache()
 
     # the f32 route: equal-length prompts (one position for every row) against a teacher-forced prefill
@@ -3834,34 +3956,251 @@ def phase_lm(dev, card):
     del eng, cap, reqs
     torch.cuda.empty_cache()
 
-    # the ragged case replayed at SMOKE size in f32 on the card and on the CPU (plain versions)
-    values = M.init_params(smoke, torch.Generator().manual_seed(SEED + 7), device="cpu")
-    prompts = lm_prompts(smoke, np.random.default_rng(SEED + 8))
-    runs = []
-    for where in (dev, torch.device("cpu")):
-        eng = ServeEngine(smoke, values, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED, device=where)
-        t0 = time.perf_counter()
-        runs.append(lm_serve(eng, prompts, LM_NEW))
-        say(f"[lm] CPU replay: {smoke.name} SMOKE in f32 on {where.type}: {time.perf_counter() - t0:.1f} s")
-    (card_reqs, card_log), (cpu_reqs, cpu_log) = runs
-    worst, parted = 0.0, None
-    for n, ((rid, want_l, want), (rid_c, got_l, got)) in enumerate(zip(cpu_log, card_log)):
-        check(rid == rid_c, f"CPU replay: sampler call {n} serves request {rid_c}, the CPU {rid}")
-        worst = max(worst, float(np.abs(got_l - want_l).max()) / float(np.abs(want_l).max()))
-        check(worst <= LM_LOGIT_RTOL, f"CPU replay: call {n}'s logits {worst:.3e} apart (relative to the largest)")
-        if want != got:
-            parted = (n, lm_near_tie(want_l, want, got))
-            check(parted[1] <= 2, f"CPU replay: request {rid} parts at call {n} by {parted[1]:.2f} logit bounds")
-            break
-    if parted is None:
-        check([r.generated for r in card_reqs] == [r.generated for r in cpu_reqs], "CPU replay: tokens differ")
-    say(f"[lm] CPU replay: {len(cpu_reqs)} requests (the ragged case: one prompt of {LM_LONG}, on the CUDA-core "
-        f"kernel on the card and the plain version on the CPU): "
-        + ("tokens identical" if parted is None else f"parting at sampler call {parted[0]}, a near-tie "
-                                                       f"({parted[1]:.2f} of the bound's 2)")
-        + f"; logits at most {worst:.3e} apart relative to the largest (limit {LM_LOGIT_RTOL:g}) over "
-        f"{len(card_log)} sampler calls")
+    lm_cpu_replay("[lm]", dev, smoke, SEED + 7)
     say(f"[lm] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, numbers
+
+
+def lm_build(cfg, dev, seed: int):
+    """``models.init_compute_params`` on the card: the bf16 compute copy
+    drawn leaf by leaf.  Returns the memory earlier phases hold, the
+    params and the build's peak (GiB above that)."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = M.init_compute_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    return base, params, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def lm_widths(cfg) -> str:
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+            f"vocab {cfg.vocab_size}")
+
+
+def timed_prefill(model, params, *args):
+    """One synchronised prefill: (last logits, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill(params, *args)
+    torch.cuda.synchronize()
+    return logits, (time.perf_counter() - t0) * 1e3
+
+
+def phase_moe(dev, card):
+    """LM serving for the MoE family at published widths: qwen2-moe-a2.7b
+    through ServeEngine as [lm] serves (the long prefill on the tensor-core
+    kernel, MHA), its long prefill repeated bit for bit with the capacity's
+    drops per layer; dbrx-132b's widths at 2 layers (GQA, a group of 6);
+    a SMOKE replay against the CPU.  Returns the flash launches of the
+    counted runs and the layer-0 kernel numbers."""
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serving import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = C.get(MOE_ARCH)
+    base, params, peak_build = lm_build(cfg, dev, SEED + 10)
+    n_params = M.count_params(params)
+    say(f"[moe] {cfg.name}: {lm_widths(cfg)}, {cfg.n_experts} routed experts top-{cfg.n_experts_per_tok} of width "
+        f"{cfg.moe_d_ff}, {cfg.n_shared_experts} shared fused to {cfg.n_shared_experts * cfg.moe_d_ff}; "
+        f"{n_params:,} parameters (the reference's count_params over abstract_params: {MOE_PARAMS:,}); the bf16 "
+        f"compute copy drawn leaf by leaf from a seeded torch.Generator on the card: peak {peak_build:.2f} GiB")
+    check(n_params == MOE_PARAMS, f"{cfg.name}: {n_params} parameters, the reference counts {MOE_PARAMS}")
+    moe = params["blocks"]["moe"]
+    check(all(moe[k].dtype == torch.bfloat16 for k in ("gate", "up", "down")), "the experts are not in bf16")
+    eng = ServeEngine(cfg, params, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED, device=dev)
+    check(eng.params["blocks"]["moe"]["gate"] is moe["gate"], "the engine copied a tree already in bf16")
+    del params, moe
+    prompts = lm_prompts(cfg, np.random.default_rng(SEED + 11))
+    cap, core, uncapture = lm_capture(LM_LONG)
+    try:
+        run = lm_serve_timed(eng, prompts, base)
+    finally:
+        uncapture()
+    launches = {name: {"moe": n} for name, n in run["launches"].items()}
+    long_ms, decode_ms = lm_serve_report("[moe]", eng, run, LM_LONG, cfg.n_layers, peak_build, base)
+    numbers = {"moe": lm_flash("MHA (a group of 1)", core, cap, "bf16", cfg.n_layers, long_ms, "[moe]")}
+    del cap
+
+    # the long prefill twice more, directly: the same bits (no atomics in the combine); the second also reads the
+    # router's choices per layer
+    long_toks = torch.as_tensor(prompts[LM_LONG_AT], dtype=torch.int64, device=dev)[None]
+    first, ms1 = timed_prefill(eng.model, eng.params, long_toks)
+    stats, apply = [], MOE.moe_apply
+
+    def observed(p, x, c):
+        _, cap_, top_e, _ = MOE.route(p, x, c)
+        stats.append((cap_, torch.stack([torch.bincount(e.reshape(-1), minlength=c.n_experts) for e in top_e]).cpu()))
+        return apply(p, x, c)
+
+    MOE.moe_apply = observed
+    try:
+        second, ms2 = timed_prefill(eng.model, eng.params, long_toks)
+    finally:
+        MOE.moe_apply = apply
+    check(bool(torch.isfinite(first).all()), "[moe] non-finite logits")
+    check(torch.equal(first, second), "[moe] the long prefill's logits differ between two runs")
+    check(len(stats) == cfg.n_layers and all(c == MOE_CAPACITY for c, _ in stats),
+          f"[moe] capacities {[c for c, _ in stats]}, want {MOE_CAPACITY} in each of {cfg.n_layers} layers")
+    pairs = LM_LONG * cfg.n_experts_per_tok
+    dropped = [int((n - c).clamp(min=0).sum()) for c, n in stats]
+    say(f"[moe] the {LM_LONG}-token prefill twice more, directly: {ms1:.3f} and {ms2:.3f} ms, logits bit for bit "
+        f"equal; C = {MOE_CAPACITY} slots per expert ({cfg.n_experts} x {MOE_CAPACITY} = "
+        f"{cfg.n_experts * MOE_CAPACITY} for {pairs} (token, choice) pairs); dropped pairs per layer {dropped} "
+        f"({sum(dropped)} of {pairs * cfg.n_layers}, {sum(dropped) / (pairs * cfg.n_layers):.4f}); per layer the most "
+        f"and least loaded experts (expert: pairs): "
+        + "; ".join(f"L{i} {int(n[0].argmax())}:{int(n[0].max())} {int(n[0].argmin())}:{int(n[0].min())}"
+                    for i, (_, n) in enumerate(stats)))
+    del first, second
+    lm_profile(f"the {LM_LONG}-token prefill", lambda: eng.model.prefill(eng.params, long_toks), long_ms, "[moe]")
+    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    lm_profile(f"a decode step at {LM_SLOTS} slots",
+               lambda: eng.model.decode(eng.params, eng.caches, last, LM_LONG + LM_NEW), decode_ms, "[moe]")
+    del eng, run
+    torch.cuda.empty_cache()
+
+    # dbrx-132b at its published widths, DBRX_LAYERS layers
+    cfg = C.get(DBRX_ARCH).replace(n_layers=DBRX_LAYERS)
+    full = M.count_params(M.init_params(C.get(DBRX_ARCH), device="meta"))
+    base, params, peak_build = lm_build(cfg, dev, SEED + 12)
+    model = M.build_model(cfg)
+    toks = torch.as_tensor(np.random.default_rng(SEED + 13).integers(0, cfg.vocab_size, size=DBRX_LONG),
+                           dtype=torch.int64, device=dev)[None]
+    cap, core, uncapture = lm_capture(DBRX_LONG)
+    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = 0
+    try:
+        first, ms1 = timed_prefill(model, params, toks)
+    finally:
+        uncapture()
+    d_launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt}
+    second, ms2 = timed_prefill(model, params, toks)
+    say(f"[moe] {cfg.name}: {lm_widths(cfg)} (cut from 40: {full:,} parameters, {full * 2 / 1e9:.1f} GB in bf16), "
+        f"{cfg.n_experts} experts top-{cfg.n_experts_per_tok} of width {cfg.d_ff}, C = "
+        f"{MOE.capacity(DBRX_LONG, cfg)}; {M.count_params(params):,} parameters built leaf by leaf, peak "
+        f"{peak_build:.2f} GiB; one {DBRX_LONG}-token prefill {ms1:.3f} ms, again {ms2:.3f} ms, logits bit for bit "
+        f"equal: {torch.equal(first, second)}; flash launches {json.dumps(d_launches)}")
+    check(d_launches == {"flash_attention_mma": DBRX_LAYERS, "flash_attention": 0},
+          f"[moe] {cfg.name}: flash launches {d_launches}, want the tensor-core kernel once per layer")
+    check(bool(torch.isfinite(first).all()) and torch.equal(first, second),
+          f"[moe] {cfg.name}: the prefill's logits are not finite or differ between two runs")
+    for name, n in d_launches.items():
+        launches[name]["dbrx"] = n
+    numbers["dbrx"] = lm_flash("dbrx-132b GQA (a group of 6)", core, cap, "bf16", DBRX_LAYERS, ms2, "[moe]")
+    del params, model, cap, first, second
+    torch.cuda.empty_cache()
+
+    lm_cpu_replay("[moe]", dev, C.get_smoke(MOE_ARCH).replace(compute_dtype=torch.float32), SEED + 14)
+    say(f"[moe] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, numbers
+
+
+def phase_vlm(dev, card):
+    """LM serving for the vision family at published widths:
+    llama-3.2-vision-11b through ServeEngine as [lm] serves, with the
+    engine's zero media; one 12,288-token prefill with seeded media and
+    open gates, every self- and cross-attention on the tensor-core kernel
+    (the cross-attention non-causal over 1601 keys), repeated bit for bit;
+    layer 0's cross-attention against the plain version; a SMOKE replay
+    against the CPU.  Returns the flash launches of the counted runs and
+    the layer-0 kernel numbers."""
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = C.get(VLM_ARCH)
+    base, params, peak_build = lm_build(cfg, dev, SEED + 20)
+    n_params = M.count_params(params)
+    n_cross = cfg.n_layers // cfg.cross_attn_period
+    say(f"[vlm] {cfg.name}: {lm_widths(cfg)} as {n_cross} groups of {cfg.cross_attn_period - 1} self blocks and 1 "
+        f"cross block, d_ff {cfg.d_ff}, {cfg.n_media_tokens} media tokens; {n_params:,} parameters (the reference's "
+        f"count_params over abstract_params: {VLM_PARAMS:,}); the bf16 compute copy drawn leaf by leaf: peak "
+        f"{peak_build:.2f} GiB")
+    check(n_params == VLM_PARAMS, f"{cfg.name}: {n_params} parameters, the reference counts {VLM_PARAMS}")
+    gates = params["cross_blocks"]["xattn_gate"]
+    check(gates.dtype == torch.float32 and bool((gates == 0).all()), "[vlm] the gates are not f32 zeros")
+    eng = ServeEngine(cfg, params, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED, device=dev)
+    del params
+    say("[vlm] the engine's media are bf16 zeros (the reference engine's) and every cross-attention gate starts at 0 "
+        "(tanh(0) = 0): in this serve the cross branch adds exactly 0")
+    prompts = lm_prompts(cfg, np.random.default_rng(SEED + 21))
+    run = lm_serve_timed(eng, prompts, base)
+    launches = {name: {"vlm": n} for name, n in run["launches"].items()}
+    long_ms, decode_ms = lm_serve_report("[vlm]", eng, run, LM_LONG, cfg.n_layers, peak_build, base)
+    long_toks = torch.as_tensor(prompts[LM_LONG_AT], dtype=torch.int64, device=dev)[None]
+    lm_profile(f"the {LM_LONG}-token prefill", lambda: eng._prefill_one(eng.params, long_toks), long_ms, "[vlm]")
+    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    lm_profile(f"a decode step at {LM_SLOTS} slots",
+               lambda: eng.model.decode(eng.params, eng.caches, last, LM_LONG + LM_NEW, eng._media(LM_SLOTS)),
+               decode_ms, "[vlm]")
+    del run
+
+    # the long prompt with media and open gates: every attention on the kernel
+    model, params = eng.model, eng.params
+    gated = dict(params, cross_blocks=dict(params["cross_blocks"], xattn_gate=torch.full_like(gates, VLM_GATE)))
+    toks = torch.as_tensor(np.random.default_rng(SEED + 22).integers(0, cfg.vocab_size, size=VLM_LONG),
+                           dtype=torch.int64, device=dev)[None]
+    media = torch.randn((1, cfg.n_media_tokens, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(
+        SEED + 23), device=dev).to(torch.bfloat16)
+    calls, fa = [], k_fa.flash_attention
+
+    def counted(*args, causal=True, **kw):
+        calls.append(bool(causal))
+        return fa(*args, causal=causal, **kw)
+
+    cap, core, uncapture = lm_capture(VLM_LONG, cfg.n_media_tokens)
+    k_fa.flash_attention = counted
+    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = 0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the weights, the serve's cache and the media
+    try:
+        first, ms1 = timed_prefill(model, gated, toks, media)
+    finally:
+        k_fa.flash_attention = fa
+        uncapture()
+    l_launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    second, ms2 = timed_prefill(model, gated, toks, media)
+    shut, _ = timed_prefill(model, params, toks, media)
+    zero, _ = timed_prefill(model, params, toks)
+    moved = float((first.float() - shut.float()).abs().max())
+    say(f"[vlm] one {VLM_LONG}-token prefill with seeded media and every gate at {VLM_GATE}: {ms1:.3f} ms, again "
+        f"{ms2:.3f} ms, logits bit for bit equal: {torch.equal(first, second)}; flash launches "
+        f"{json.dumps(l_launches)}: {sum(calls)} causal, {len(calls) - sum(calls)} non-causal; peak {peak:.2f} GiB above "
+        f"the {held / 2**30:.2f} GiB held (weights, the serve's cache, the media); "
+        f"the cross branch moves the logits by up to {moved:.4f} (against the gates at 0); at the gates' 0 the "
+        f"prefill with these media is bit for bit the one with zero media: {torch.equal(shut, zero)}")
+    check(l_launches == {"flash_attention_mma": cfg.n_layers + n_cross, "flash_attention": 0},
+          f"[vlm] flash launches {l_launches}, want the tensor-core kernel {cfg.n_layers} + {n_cross} times")
+    check(len(calls) - sum(calls) == n_cross and sum(calls) == cfg.n_layers,
+          f"[vlm] {sum(calls)} causal and {len(calls) - sum(calls)} non-causal flash calls")
+    check(bool(torch.isfinite(first).all()) and torch.equal(first, second),
+          "[vlm] the long prefill's logits are not finite or differ between two runs")
+    check(moved > 0, "[vlm] the cross branch did not move the logits")
+    check(torch.equal(shut, zero), "[vlm] with the gates at 0 the media moved the logits")
+    for name, n in l_launches.items():
+        launches[name]["vlm_long"] = n
+    numbers = {"vlm": lm_flash("cross-attention", core, cap, "bf16", n_cross, ms2, "[vlm]")}
+    del eng, model, params, gated, cap, first, second, shut, zero
+    torch.cuda.empty_cache()
+
+    lm_cpu_replay("[vlm]", dev, C.get_smoke(VLM_ARCH).replace(compute_dtype=torch.float32), SEED + 24)
+    say(f"[vlm] done in {time.perf_counter() - t_phase:.1f} s on {card}")
     return launches, numbers
 
 
@@ -4654,6 +4993,8 @@ def main() -> int:
     point_launches, point_numbers = phase_points(dev)
     attn_launches, attn_numbers = phase_attention(dev)
     lm_launches, lm_numbers = phase_lm(dev, card)
+    moe_launches, moe_numbers = phase_moe(dev, card)
+    vlm_launches, vlm_numbers = phase_vlm(dev, card)
     phase_examples()
     launches = dict(run["launches"], eom=run["eom_launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
                     flat_scatter=online_launches["flat_scatter"], **grid_launches, **attn_launches, **exact_launches)
@@ -4689,6 +5030,11 @@ def main() -> int:
         numbers[name]["launches_summarizer"] = n
     for name, n in lm_launches.items():  # the flash kernels on [lm]'s serving path, and layer 0's call there
         numbers[name].update(launches_lm=n, lm_ms=lm_numbers[name]["ms"], lm_bound_ms=lm_numbers[name]["bound_ms"])
+    for runs in (moe_launches, vlm_launches):  # their launches on [moe]'s and [vlm]'s runs, by run
+        for name, by_run in runs.items():
+            numbers[name].update({f"launches_{run}": n for run, n in by_run.items()})
+    for run, got in dict(moe_numbers, **vlm_numbers).items():  # layer 0's call on the new routes (tensor cores)
+        numbers["flash_attention_mma"].update({f"{run}_ms": got["ms"], f"{run}_bound_ms": got["bound_ms"]})
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

@@ -2,6 +2,7 @@
 zoo model, on the card by default.
 
   PYTHONPATH=src python examples/torch_serve_batched.py --arch qwen1.5-0.5b
+  PYTHONPATH=src python examples/torch_serve_batched.py --arch qwen2-moe-a2.7b   # or dbrx-132b, llama-3.2-vision-11b
   PYTHONPATH=src python examples/torch_serve_batched.py --device cpu   # plain versions on the CPU
 """
 

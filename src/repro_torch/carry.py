@@ -16,10 +16,10 @@ the next refresh, as the reference's restore does.
 ``DynamicHDBSCAN`` (core/dynamic.py), and ``summarizer_from_reference_state``
 puts a port ``BubbleTreeSummarizer`` over the Bubble-tree of a reference
 engine's checkpoint.  ``lm_params_from_reference`` and
-``lm_cache_from_reference`` carry a dense LM's parameter tree and KV cache
+``lm_cache_from_reference`` carry an LM's parameter tree and KV cache
 (the reference's ``init_params`` values and ``init_cache``/``prefill``
-caches, leaves as numpy) into the port's ``models`` and
-``ServeEngine``.
+caches, leaves as numpy; the dense, MoE and vision families) into the
+port's ``models`` and ``ServeEngine``.
 These read only numpy and never import the JAX package.  The engine's
 fields load through its own loader, the one ``restore`` uses.
 """
@@ -138,10 +138,12 @@ def _tree_map(tree, fn):
 def lm_params_from_reference(values, cfg, device=None) -> dict:
     """The port's params tree from the reference's ``init_params(cfg,
     key)[0]`` (a nested dict, leaves as numpy through ``np.asarray``,
-    layers stacked on axis 0): the same keys, shapes and values, on
-    ``device`` (None → cuda).  Raises ``ValueError`` when the tree is not
-    the port's layout for ``cfg`` (and ``NotImplementedError`` for a
-    family the port does not build yet)."""
+    layers stacked on axis 0; the MoE's experts as bare (E, …) arrays
+    under ``moe``, the vlm's ``self_blocks`` stacked (n_groups, n_self)
+    and its ``cross_blocks`` (n_groups,)): the same keys, shapes and
+    values, on ``device`` (None → cuda).  Raises ``ValueError`` when the
+    tree is not the port's layout for ``cfg`` (and
+    ``NotImplementedError`` for a family the port does not build yet)."""
     dev = resolve_device(device)
     want = _tree_map(M.init_params(cfg, device="meta"), lambda t: tuple(t.shape))
     got = _tree_map(values, lambda a: tuple(np.shape(a)))
@@ -152,7 +154,8 @@ def lm_params_from_reference(values, cfg, device=None) -> dict:
 
 def lm_cache_from_reference(caches, device=None) -> dict:
     """The port's KV cache from the reference's (``{"self": {"k", "v"},
-    "pos"}``, leaves as numpy): the same values and dtypes (bf16 K/V,
-    int32 write heads), on ``device`` (None → cuda)."""
+    "pos"}``, or the vlm's ``{"self_groups": …, "cross_groups": …}`` of
+    two such trees; leaves as numpy): the same values and dtypes (bf16
+    K/V, int32 write heads), on ``device`` (None → cuda)."""
     dev = resolve_device(device)
     return _tree_map(caches, lambda a: _leaf_tensor(a, dev))

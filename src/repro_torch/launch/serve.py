@@ -1,11 +1,16 @@
-"""Serving entry point: the continuous-batching engine over a dense zoo model.
+"""Serving entry point: the continuous-batching engine over a zoo model
+of the dense, MoE or vision family.
 
 The port's copy of the JAX package's ``launch/serve.py``, on the card by
 default (``--device cpu`` runs the plain versions on the CPU).  The
-params are drawn from a seeded ``torch.Generator`` on the device and
-served from their compute-dtype copy.
+params are drawn from a seeded ``torch.Generator`` on the device leaf by
+leaf into their compute-dtype copy (``models.init_compute_params``), so
+the f32 master is never whole on the card: qwen2-moe-a2.7b (28.6 GB in
+bf16) and llama-3.2-vision-11b (20.2 GB) fit one 80 GB card at full
+width; dbrx-132b (263 GB) does not.
 
   python -m repro_torch.launch.serve --arch qwen2-1.5b            # full width, on the card
+  python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --cache-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke --device cpu \\
       --requests 12 --slots 4 --max-new 12
 """
@@ -39,9 +44,8 @@ def main(argv=None):
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     dev = resolve_device(args.device)
-    values = M.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
-    engine = ServeEngine(cfg, values, slots=args.slots, cache_len=args.cache_len, seed=args.seed, device=dev)
-    del values  # the engine serves from its compute copy
+    params = M.init_compute_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    engine = ServeEngine(cfg, params, slots=args.slots, cache_len=args.cache_len, seed=args.seed, device=dev)
 
     rng = np.random.default_rng(args.seed)
     reqs = []

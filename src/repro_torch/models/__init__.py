@@ -1,6 +1,9 @@
-"""repro_torch.models — the LM zoo's dense family (the port's copy of the
-JAX package's ``models/``; the other families are later slices)."""
+"""repro_torch.models — the LM zoo's dense, MoE and vision families (the
+port's copy of the JAX package's ``models/``; the other families are
+later slices)."""
 
-from .model import build_model, compute_copy, count_params, init_params, make_prefill, make_serve_step
+from .model import (build_model, compute_copy, count_params, init_compute_params, init_params, make_prefill,
+                    make_serve_step)
 
-__all__ = ["build_model", "compute_copy", "count_params", "init_params", "make_prefill", "make_serve_step"]
+__all__ = ["build_model", "compute_copy", "count_params", "init_compute_params", "init_params", "make_prefill",
+           "make_serve_step"]

@@ -1,21 +1,22 @@
 """Shared model layers: plain functions over a params tree of tensors.
 
-The port's copy of the JAX package's ``models/layers.py`` for the dense
-family.  A params tree is a nested dict of tensors with the reference's
-keys, so a tree carried across from the reference (``carry.py``) drops
-in.  The reference's ``Leaf`` / ``split`` (logical sharding axes) and its
-``constrain`` calls are left out: the axes feed only the reference's
-``launch/sharding.py``, and ``constrain`` is a no-op without a mesh.
+The port's copy of the JAX package's ``models/layers.py`` for the dense,
+MoE and vision families.  A params tree is a nested dict of tensors with
+the reference's keys, so a tree carried across from the reference
+(``carry.py``) drops in.  The reference's ``Leaf`` / ``split`` (logical
+sharding axes) and its ``constrain`` calls are left out: the axes feed
+only the reference's ``launch/sharding.py``, and ``constrain`` is a
+no-op without a mesh.
 
 Attention supports GQA (n_kv < n_heads), QKV biases (qwen1.5/qwen2),
-qk-norm (qwen3), sliding windows (danube, a ring cache) and per-row cache
-write heads (the serving engine).  ``attention_core`` keeps the
-reference's dispatch by score-tile size: small tiles and single-token
-decode go through plain einsum-and-softmax (``_sdpa``); above
-``flash_threshold`` the call goes to the port's flash kernel
-(``kernels.ops.flash_attention``), where the reference runs its jnp
-online softmax (``_flash_sdpa``).  On a CPU tensor that call takes the
-kernel's plain version.
+qk-norm (qwen3), sliding windows (danube, a ring cache), per-row cache
+write heads (the serving engine) and cross-attention (llama-3.2-vision).
+``attention_core`` keeps the reference's dispatch by score-tile size:
+small tiles and single-token decode go through plain einsum-and-softmax
+(``_sdpa``); above ``flash_threshold`` the call goes to the port's flash
+kernel (``kernels.ops.flash_attention``), where the reference runs its
+jnp online softmax (``_flash_sdpa``).  On a CPU tensor that call takes
+the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -151,10 +152,16 @@ def _write_cache(buf, new, start):
     buf[rows, idx] = new.to(buf.dtype)
 
 
-def attn_apply(p, x, cfg, *, qpos, window=None, cache=None, cache_pos=None):
-    """Causal self-attention with RoPE (the reference's cross-attention
-    arguments, ``kv_src`` / ``kpos`` / ``use_rope``, come with the vlm and
-    audio families).
+def attn_apply(p, x, cfg, *, qpos, kv_src=None, kpos=None, causal=True, window=None, cache=None, cache_pos=None,
+               use_rope=True):
+    """Self- or cross-attention.
+
+    Cross-attention takes its K/V from ``kv_src`` (the vlm's media), at
+    key positions ``arange`` of its length unless ``kpos`` is given; RoPE
+    rotates q, and k where it has positions (``use_rope=False`` turns it
+    off).  K/V keep ``kv_src``'s dtype (``dense`` casts the weight to its
+    input's), and the three are promoted to one dtype as ``jnp`` promotes
+    them before ``attention_core`` picks a route.
 
     cache: optional dict {k: (B, Sc, KV, Dh), v: ...}; when given with
     ``cache_pos`` (a scalar or (B,) per-row write heads), the new K/V are
@@ -165,15 +172,19 @@ def attn_apply(p, x, cfg, *, qpos, window=None, cache=None, cache_pos=None):
     """
     B, S, d = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_src is None else kv_src
     q = dense(p["wq"], x).reshape(B, S, H, Dh)
-    k = dense(p["wk"], x).reshape(B, S, KV, Dh)
-    v = dense(p["wv"], x).reshape(B, S, KV, Dh)
+    k = dense(p["wk"], src).reshape(B, src.shape[1], KV, Dh)
+    v = dense(p["wv"], src).reshape(B, src.shape[1], KV, Dh)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
-    q = rope(q, qpos, cfg.rope_theta)
-    k = rope(k, qpos, cfg.rope_theta)
-    kpos = qpos
+    if use_rope:
+        q = rope(q, qpos, cfg.rope_theta)
+        if kpos is None and kv_src is None:
+            k = rope(k, qpos, cfg.rope_theta)
+        elif kpos is not None:
+            k = rope(k, kpos, cfg.rope_theta)
     new_cache = None
     if cache is not None:
         Sc = cache["k"].shape[1]
@@ -191,13 +202,13 @@ def attn_apply(p, x, cfg, *, qpos, window=None, cache=None, cache_pos=None):
             # ring buffer: key positions relative to the write head
             head = slot[:, None] if per_row else slot
             cp = cache_pos[:, None] if per_row else cache_pos
-            kpos_eff = cp + S - 1 - ((head + S - 1 - idx) % Sc)
+            kpos = cp + S - 1 - ((head + S - 1 - idx) % Sc)
         else:
-            kpos_eff = idx
-            if per_row:
-                kpos_eff = torch.broadcast_to(kpos_eff[None], (B, Sc))
-        kpos = kpos_eff
-    out = attention_core(q, k, v, qpos=qpos, kpos=kpos, causal=True, window=window,
+            kpos = torch.broadcast_to(idx[None], (B, Sc)) if per_row else idx
+    if kpos is None:
+        kpos = qpos if kv_src is None else torch.arange(src.shape[1], device=x.device)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = attention_core(q.to(dt), k.to(dt), v.to(dt), qpos=qpos, kpos=kpos, causal=causal, window=window,
                          flash_threshold=getattr(cfg, "flash_threshold", 8192 * 2048))
     y = dense(p["wo"], out.reshape(B, S, H * Dh))
     return y, new_cache

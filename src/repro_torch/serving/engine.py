@@ -1,11 +1,12 @@
 """Slot-based token serving engine with continuous batching.
 
 The port's copy of the JAX package's ``serving/engine.py`` (``Request``,
-``ServeEngine``) over the port's dense models: a fixed device batch of
-``slots``, each slot holding one request's KV state inside ONE batched
-cache tree (so a decode step is one call over every slot).  Continuous
-batching = admit new requests into free slots between decode steps;
-finished requests free their slot immediately.
+``ServeEngine``) over the port's dense, MoE and vision models (the vision
+model gets zero media, as the reference's engine gives it): a fixed
+device batch of ``slots``, each slot holding one request's KV state
+inside ONE batched cache tree (so a decode step is one call over every
+slot).  Continuous batching = admit new requests into free slots between
+decode steps; finished requests free their slot immediately.
 
   * prefill: per-request prefill produces a length-S cache whose first
     min(S, cache_len) positions are copied into the slot's rows of the
@@ -21,7 +22,8 @@ These are the reference's semantics, kept as they are so both engines
 give the same tokens: a row whose prompt is shorter than its neighbour's
 is decoded at the neighbour's position (RoPE angle and causal limit).
 The engine holds the compute-dtype copy of the params
-(``models.compute_copy``) on its device (None → cuda).
+(``models.compute_copy``; a tree already in the compute dtype is not
+copied) on its device (None → cuda).
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ class ServeEngine:
         self.params = M.compute_copy(params, cfg, self.device)
         self.slots = slots
         self.cache_len = cache_len
-        self.model = M.build_model(cfg)
+        self.model = M.build_model(cfg)  # raises for the families still to come, audio among them
         self.serve_step = M.make_serve_step(cfg)
         self.caches = self.model.init_cache(slots, cache_len, device=self.device)  # owner: serve thread
         self.slot_req: list[Request | None] = [None] * slots  # owner: serve thread
@@ -69,17 +71,45 @@ class ServeEngine:
 
     # -- internals ----------------------------------------------------------
 
+    def _media(self, batch: int):
+        """The vision model's media: bf16 zeros, as the reference's engine gives."""
+        cfg = self.cfg
+        return torch.zeros((batch, cfg.n_media_tokens, cfg.d_model), dtype=torch.bfloat16, device=self.device)
+
     def _prefill_one(self, params, tokens):
         """(1, S) prompt -> (last logits, cache of length S)."""
+        if self.cfg.family == "vlm":
+            return self.model.prefill(params, tokens, self._media(1))
         return self.model.prefill(params, tokens)
 
-    def _write_slot_cache(self, slot: int, cache, prompt_len: int):
-        """Copy a freshly prefilled cache into the batched slot cache: its
-        first min(prompt_len, cache_len) positions, and the write heads."""
-        take = min(prompt_len, self.cache_len)
-        for name in ("k", "v"):
-            self.caches["self"][name][:, slot, :take] = cache["self"][name][:, 0, :take]
-        self.caches["pos"][:, slot] = cache["pos"][:, 0]
+    def _write_slot_cache(self, slot: int, cache):
+        """Copy a freshly prefilled cache into the batched slot cache, leaf
+        by leaf as the reference's ``put`` does: the batch axis is the
+        first where the slot cache has ``slots`` and the prefill cache 1,
+        the sequence axis the first other axis whose lengths differ, of
+        which the first min(S, cache_len) positions are copied; the write
+        heads (no sequence axis) are copied whole."""
+
+        def put(slot_arr, new_arr):
+            if isinstance(slot_arr, dict):
+                for k in slot_arr:
+                    put(slot_arr[k], new_arr[k])
+                return
+            bdim = next((ax for ax in range(min(slot_arr.dim(), new_arr.dim()))
+                         if slot_arr.shape[ax] == self.slots and new_arr.shape[ax] == 1), None)
+            if bdim is None:
+                return
+            idx = [slice(None)] * slot_arr.dim()
+            idx[bdim] = slice(slot, slot + 1)
+            sdim = next((ax for ax in range(min(slot_arr.dim(), new_arr.dim()))
+                         if ax != bdim and new_arr.shape[ax] != slot_arr.shape[ax]), None)
+            if sdim is not None:
+                take = min(new_arr.shape[sdim], slot_arr.shape[sdim])
+                new_arr = new_arr.narrow(sdim, 0, take)
+                idx[sdim] = slice(0, take)
+            slot_arr[tuple(idx)] = new_arr.to(slot_arr.dtype)
+
+        put(self.caches, cache)
 
     # -- public API -----------------------------------------------------------
 
@@ -93,7 +123,7 @@ class ServeEngine:
                 req = self.queue.pop_one()
                 toks = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64, device=self.device)[None, :]
                 logits, cache = self._prefill_one(self.params, toks)
-                self._write_slot_cache(slot, cache, len(req.prompt))
+                self._write_slot_cache(slot, cache)
                 tok = self._sample(logits[0, -1].float().cpu().numpy(), req)
                 req.generated.append(int(tok))
                 self.tokens_out += 1
@@ -125,8 +155,9 @@ class ServeEngine:
         for s in active:
             last[s, 0] = self.slot_req[s].generated[-1]
         pos = int(max(self.slot_pos[s] for s in active))  # scalar step pos
+        extras = {"media": self._media(self.slots)} if self.cfg.family == "vlm" else None
         logits, self.caches = self.serve_step(self.params, self.caches,
-                                              torch.as_tensor(last, device=self.device), pos)
+                                              torch.as_tensor(last, device=self.device), pos, extras)
         logits = logits[:, -1].float().cpu().numpy()
         self.steps += 1
         for s in active:
