@@ -231,6 +231,31 @@ Phases, each printing its own lines:
               the cross branch moving the logits, and at the gates' 0 the
               same bits as with zero media; layer 0's cross-attention
               against the plain version; profiles; the SMOKE replay;
+     train    LM training at published widths: the flash backward kernel
+              (csrc/flash_attention_bwd.cu) at qwen2-1.5b's attention (S =
+              8192, 12/2 heads of 128, causal, bf16), danube's (32/8 of
+              120, window 4096, S = 8192), a ragged f32 case (dead keys,
+              Sq != Sk), llama-3.2-vision's cross-attention (32/8, 4096 x
+              1601, non-causal) and bf16 at Dh 256: against the plain
+              backward on the same saved output and log-sum-exp and
+              against autograd through the plain forward (allowing what Δ
+              from the saved bf16 output moves), bit for bit on repeat, a
+              causal mask off by one rejected, timed beside the plain
+              backward and SDPA's backward; then qwen2-1.5b (remat
+              "full", bf16 compute over the f32 master, random weights
+              from a seed) through make_train_step and AdamW: 4 steps at
+              (4, 2048) (the plain _sdpa branch) and 4 at (1, 8192) (the
+              flash branch in every layer), the first of each a warm-up,
+              then 5 on one constant batch, the loss falling; step ms
+              (median and range of 3), tokens/s, the 6N share of the
+              bf16 peak, peak memory, the flash launches against the
+              code's prediction (per 8192-token step and layer: forward
+              and remat recompute on the tensor-core kernel, one
+              backward), a profiled step (busy share, the backward's
+              share); SMOKE qwen2-1.5b in f32 with the threshold lowered,
+              3 steps on the card and the CPU; the trainer CLI's main
+              sent SIGTERM in step 6 of 10 and resumed, against an
+              uninterrupted run;
      exact    the exact-dynamic engine (exact=True) at a deployment's size:
               16,384 points of the [stream] mixture (d = 16, min_pts 10),
               the first rebuild's shrink to Np = 32,768 slots, then 48
@@ -265,9 +290,10 @@ Phases, each printing its own lines:
               near-ties, NMI >= 0.95 against the numpy route, NMI against
               the mixture's ground truth printed; insert and delete ms per
               1k points, peak device memory;
-     examples the port's four examples (examples/torch_quickstart.py,
+     examples the port's five examples (examples/torch_quickstart.py,
               torch_streaming_service.py, torch_dynamic_vs_static.py,
-              torch_serve_batched.py), on the card, each in its own process, started together: each
+              torch_serve_batched.py, torch_train_lm_with_curation.py), on
+              the card, each in its own process, started together: each
               must exit 0 with OK as its last line;
   8. the kernels JSON line (launches on each kernel's own path, errors,
      times, bounds; assign with the per-lane kernel's time as lane_ms,
@@ -300,7 +326,12 @@ Phases, each printing its own lines:
      grid_round_minima also with launches_mesh, their launches on [mesh]'s
      mesh engines; assign, bubble_cd and mutual_reach also with
      launches_summarizer, their launches over [summarizer]'s cluster()
-     calls);
+     calls; flash_attention_bwd, the backward kernel, which stands for
+     JAX's autodiff of its jnp online softmax, with [train]'s launches,
+     qwen2-1.5b's shape as its numbers, bound_f32_ms beside the bound at
+     the bf16 peak, train_step_ms (the median of the timed steps at
+     (1, 8192)) with train_step_ms_min and _max, and train_bwd_share; the
+     two forward flash entries also with launches_train);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -370,8 +401,10 @@ EPS32 = float(np.finfo(np.float32).eps)
 # dist_panel.cu, the panel for pairwise (D = 0) and mutual_reach (D = 1) + the norm pass;
 # flash_attention_panel.cu, 8 (head-dim bucket D in {32, 64, 128, 256} x element bits K in {32, 16})
 WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu", "flash_attention_panel.cu",
-              "grid.cu")  # grid.cu's kernels are listed by name, not checked
+              "grid.cu", "flash_attention_bwd.cu")  # grid.cu's kernels are listed by name, not checked
 WS_INSTANTIATIONS = 48 + 6 + 3 + 8
+# flash_attention_bwd.cu: {f32, bf16} x head-dim bucket {64, 128, 256} x {dK/dV, dQ}, and the pre-pass per dtype
+BWD_INSTANTIATIONS = 2 * 3 * 2 + 2
 FLASH_BUCKETS = (32, 64, 128, 256)
 # [attention]: bf16 on the CUDA-core route at qwen2-1.5b's widths with Dh past the tensor-core kernel's 128
 SIMT_BF16 = ("qwen2-1.5b Dh256 bf16", 1, 4096, 12, 2, 256)
@@ -397,6 +430,26 @@ DBRX_ARCH, DBRX_PARAMS, DBRX_LAYERS, DBRX_LONG = "dbrx-132b", 131_596_523_520, 2
 # VLM_LONG-token prefill with seeded media and the cross-attention gates at VLM_GATE: self-attention 12,288² and
 # cross-attention 12,288 x 1601 = 19.7 M both past the flash threshold (4096² = 16.8 M)
 VLM_ARCH, VLM_PARAMS, VLM_LONG, VLM_GATE = "llama-3.2-vision-11b", 10_110_734_344, 12_288, 0.5
+# [train]: qwen2-1.5b at its published widths (configs/qwen2_1_5b.py: remat "full", bf16 compute over the f32
+# master, random weights from a seed) trained through make_train_step and AdamW: TRAIN_TIMED_STEPS steps at
+# TRAIN_SHORT, the plain _sdpa branch (2048² <= 4096²), and at TRAIN_LONG, the flash branch in every layer, the first
+# of each a warm-up and the rest timed (median, min-max); then 1 + TRAIN_CONST_STEPS steps on one constant batch at
+# TRAIN_LR with no warmup, the loss falling
+TRAIN_SHORT, TRAIN_LONG = (4, 2048), (1, 8192)
+TRAIN_TIMED_STEPS, TRAIN_CONST_STEPS, TRAIN_LR = 4, 4, 1e-3
+# [train]: the backward kernel's checks: (label, B, Sq, Sk, H, KV, D, causal, window, dtype, dead keys at the head,
+# dead keys at the tail); with Sq < Sk and causal the queries are the last Sq positions
+TRAIN_BWD = (
+    ("qwen2-1.5b bf16", 1, 8192, 8192, 12, 2, 128, True, None, "bf16", 0, 0),
+    ("h2o-danube-3-4b bf16", 1, 8192, 8192, 32, 8, 120, True, 4096, "bf16", 0, 0),
+    ("ragged f32", 2, 3001, 3100, 12, 2, 128, True, None, "f32", 5, 37),
+    ("llama-3.2-vision-11b cross bf16", 1, 4096, 1601, 32, 8, 128, False, None, "bf16", 0, 0),
+    ("qwen2-1.5b Dh256 bf16", 1, 4096, 4096, 12, 2, 256, True, None, "bf16", 0, 0),
+)
+# [train] CPU replay: SMOKE qwen2-1.5b in f32 at (B, S), S² past the lowered threshold 64², steps on both devices
+TRAIN_SMOKE_SHAPE, TRAIN_SMOKE_STEPS = (2, 96), 3
+TRAIN_REPLAY_LOSS_RTOL = 1e-4  # f32 losses of the card and the CPU (grad norms 10x): summation order, then Adam
+TRAIN_CLI_RTOL = 1e-4  # the resumed CLI's losses against the uninterrupted run's, relative
 # [exact]: the exact-dynamic engine (exact=True) at a deployment's size: the [stream] mixture at d = 16, min_pts 10,
 # EXACT_N live points (the first rebuild's shrink gives Np = 32,768 slots), EXACT_BLOCKS alternating insert and
 # delete blocks of EXACT_BLOCK points (1.6 % of n: incremental), one insert block of EXACT_FULL_BLOCK (6.25 %: full)
@@ -414,7 +467,8 @@ EXACT_TOPK = (MIN_PTS, 100, K_STRIP)  # strip_topk's K: the path's, and past the
 EXACT_KERNELS = ("strip_dists", "strip_topk", "strip_round_minima")
 SUMMARIZER_KERNELS = ("assign", "bubble_cd", "mutual_reach")
 SUMMARIZER_NMI = 0.95  # [summarizer]: against the numpy route (tests/test_summarizer.py's contract)
-EXAMPLES = ("torch_quickstart.py", "torch_streaming_service.py", "torch_dynamic_vs_static.py", "torch_serve_batched.py")
+EXAMPLES = ("torch_quickstart.py", "torch_streaming_service.py", "torch_dynamic_vs_static.py", "torch_serve_batched.py",
+            "torch_train_lm_with_curation.py")
 EXAMPLE_TIMEOUT_S = 300
 
 
@@ -609,6 +663,23 @@ def ptxas_grid(log: str) -> dict:
     return ptxas_entries(log, entry)
 
 
+def ptxas_bwd(log: str) -> dict:
+    """{(kernel, element bits, head-dim bucket, part): (registers, stack
+    bytes, spill stores, spill loads)} of csrc/flash_attention_bwd.cu's
+    kernels (part "dkdv" or "dq"; the pre-pass has bucket 0, part "")."""
+    import re
+
+    def entry(line):
+        m = re.search(r"Compiling entry function '\S*?(flash_bwd_kernel|delta_kernel)I(f|13__nv_bfloat16)"
+                      r"(?:Li(\d+)ELi\d+ELi\d+ELb([01]))?", line)
+        if not m:
+            return None
+        part = {"1": "dkdv", "0": "dq", None: ""}[m.group(4)]
+        return m.group(1), 32 if m.group(2) == "f" else 16, int(m.group(3) or 0), part
+
+    return ptxas_entries(log, entry)
+
+
 def ptxas_entries(log: str, entry) -> dict:
     """{key: (registers, stack bytes, spill stores, spill loads)} of the
     entry functions for which ``entry(line)`` gives a key."""
@@ -673,6 +744,14 @@ def phase_build():
         check(not bad, f"register-tile instantiations with a stack frame or spills: {bad}")
         for (kern, K), (regs, stack, st, ld) in sorted(ptxas_grid(info["log"]).items()):
             say(f"[build] grid.cu {kern} K={K}: {regs} registers, {stack} bytes stack, spill stores {st} loads {ld}")
+        bwd = ptxas_bwd(info["log"])
+        for (kern, bits, D, part), (regs, stack, st, ld) in sorted(bwd.items()):
+            say(f"[build] flash_attention_bwd.cu {kern} {part} D={D} bits={bits}: {regs} registers, {stack} bytes "
+                f"stack, spill stores {st} loads {ld}")
+        check(len(bwd) == BWD_INSTANTIATIONS,
+              f"{len(bwd)} backward instantiations in the ptxas report, not {BWD_INSTANTIATIONS}")
+        bad = [key for key, v in bwd.items() if v[1:] != (0, 0, 0)]
+        check(not bad, f"backward instantiations with a stack frame or spills: {bad}")
     lib = _build.load()
     for dtype, name in ((0, "f32"), (1, "bf16")):
         plans = []
@@ -4204,6 +4283,424 @@ def phase_vlm(dev, card):
     return launches, numbers
 
 
+def grad_reading(got, want, dt, allow=None):
+    """The gradient check's reading of a backward output against a plain
+    one (passing while <= 1): the largest |got - want| / (rtol·|want| +
+    atol·rms(want) + allow), rms the root mean square of ``want``.  In
+    bf16, rtol = 2^-7 and atol = 1e-3: the kernel sums in f32 and rounds
+    each gradient once to bf16 (up to 2^-8 relative: 7 stored mantissa
+    bits), where the plain one stays f32; in f32, 1e-4 and 1e-4: the
+    sums' order.  ``allow`` (elementwise) adds what a known difference of
+    the inputs moves (see ``train_bwd_case``)."""
+    rtol, atol = (1e-4, 1e-4) if dt == "f32" else (2.0**-7, 1e-3)
+    got, want = got.float(), want.float()
+    rms = float(want.square().mean().sqrt())
+    lim = rtol * want.abs() + max(atol * rms, 1e-30)
+    if allow is not None:
+        lim = lim + allow
+    return float(((got - want).abs() / lim).max())
+
+
+def train_bwd_inputs(dev, gen, case):
+    import torch
+
+    label, B, Sq, Sk, H, KV, D, causal, window, dt, dead_head, dead_tail = case
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dtype)
+                   for S, h in ((Sq, H), (Sk, KV), (Sk, KV), (Sq, H)))
+    # causal with Sq < Sk: the queries are the last Sq positions
+    qpos = (torch.arange(Sq, device=dev, dtype=torch.int32) + (Sk - Sq if causal else 0)).expand(B, Sq).contiguous()
+    kpos = torch.arange(Sk, device=dev, dtype=torch.int32).expand(B, Sk).clone()
+    kpos[:, :dead_head] = -1
+    kpos[:, Sk - dead_tail:] = -1
+    return q, k, v, do, qpos, kpos
+
+
+def train_bwd_plain(q, k, v, do, qpos, kpos, causal, window):
+    """Autograd through the plain forward on f32 copies, one kv head (its
+    G query heads) at a time: [(g, dq (B, G, Sq, D), dk, dv (B, 1, Sk, D))]."""
+    from repro_torch.kernels import ref
+
+    H, KV = q.shape[2], k.shape[2]
+    G = H // KV
+    for g in range(KV):
+        leaves = [t.transpose(1, 2).float().clone().requires_grad_() for t in
+                  (q[:, :, g * G:(g + 1) * G], k[:, :, g:g + 1], v[:, :, g:g + 1])]
+        o = ref.gqa_flash_attention(*leaves, qpos, kpos, causal, window)
+        o.backward(do[:, :, g * G:(g + 1) * G].transpose(1, 2).float())
+        yield g, [t.grad for t in leaves]
+        del o, leaves
+
+
+def train_bwd_case(dev, gen, case):
+    """The backward kernel on one shape against autograd through the plain
+    version (the readings of ``grad_reading``), bit for bit on a second
+    run, rejecting a wrong mask; its time beside its bound, the plain
+    backward's and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.kernels import ref
+
+    label, B, Sq, Sk, H, KV, D, causal, window, dt, dead_head, dead_tail = case
+    q, k, v, do, qpos, kpos = train_bwd_inputs(dev, gen, case)
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    o = k_fa.flash_attention(qh, kh, vh, qpos, kpos, causal=causal, window=window, lse=lse)
+    # the serving call (no lse) gives the same bits; the lse is the plain one's (+inf on rows with no live key)
+    plain_out = k_fa.flash_attention(qh, kh, vh, qpos, kpos, causal=causal, window=window)
+    check(torch.equal(o, plain_out), f"[train] {label}: the forward's output moved when it wrote the lse")
+    want_lse = torch.cat([ref.gqa_flash_lse(qh[:, g * (H // KV):(g + 1) * (H // KV)], kh[:, g:g + 1], qpos, kpos,
+                                            causal, window) for g in range(KV)], dim=1)
+    fin = torch.isfinite(want_lse)
+    lse_err = float((lse[fin] - want_lse[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(torch.equal(torch.isinf(lse), ~fin) and lse_err <= 1e-5 * max(1.0, float(want_lse[fin].abs().max())),
+          f"[train] {label}: the forward's lse is {lse_err:.3e} from the plain one's")
+    del plain_out, want_lse, fin
+
+    def bwd(qp=qpos, c=causal):
+        return k_fa.flash_attention_backward(qh, kh, vh, o, lse, doh, qp, kpos, causal=c, window=window)
+
+    got = bwd()
+    again = bwd()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    # a wrong backward: the causal mask off by one (each row sees one more key); non-causal: the mask switched on
+    wrong = bwd(qpos + 1, True) if causal else bwd(qpos, True)
+    G = H // KV
+    own = exact = err = wrong_reading = 0.0
+    for g, want in train_bwd_plain(q, k, v, do, qpos, kpos, causal, window):
+        hs = slice(g * G, (g + 1) * G)
+        # the plain version of this kernel in f32 on the same saved output and log-sum-exp: Δ from the same O
+        plain = ref.gqa_flash_attention_backward(*(t.float() for t in (qh[:, hs], kh[:, g:g + 1], vh[:, g:g + 1],
+                                                                         o[:, hs])), lse[:, hs], doh[:, hs].float(),
+                                                 qpos, kpos, causal, window)
+        for i, (w, pl) in enumerate(zip(want, plain)):
+            sl = hs if i == 0 else slice(g, g + 1)
+            mine = got[i][:, sl]
+            check(bool(torch.isfinite(mine).all()), f"[train] {label}: non-finite gradient")
+            own = max(own, grad_reading(mine, pl, dt))
+            # against autograd's exact gradient, allowing twice what Δ = rowsum(dO ∘ O) from the saved (in bf16,
+            # rounded) O moves the plain version: |plain - exact|
+            exact = max(exact, grad_reading(mine, w, dt, allow=2 * (pl - w).abs()))
+            err = max(err, float((mine.float() - w).abs().max()))
+            wrong_reading = max(wrong_reading, grad_reading(wrong[i][:, sl], pl, dt))
+        del plain
+    check(same, f"[train] {label}: a second run of the backward gave other bits")
+    check(own <= 1 and exact <= 1, f"[train] {label}: outside tolerance, readings {own:.3f} (the plain backward), "
+                                   f"{exact:.3f} (autograd)")
+    check(wrong_reading > 1, f"[train] {label}: the check passes a wrong mask (reading {wrong_reading:.3f})")
+    del wrong, again
+    ms = time_ms(bwd, reps=3, warm=1)
+
+    def plain():
+        G_ = H // KV
+        for g in range(KV):
+            ref.gqa_flash_attention_backward(qh[:, g * G_:(g + 1) * G_], kh[:, g:g + 1], vh[:, g:g + 1],
+                                             o[:, g * G_:(g + 1) * G_], lse[:, g * G_:(g + 1) * G_],
+                                             doh[:, g * G_:(g + 1) * G_], qpos, kpos, causal, window)
+
+    p_ms = time_ms(plain, reps=1, warm=1)
+    live_pairs = kpos[:, None, :] >= 0
+    if causal:
+        live_pairs = live_pairs & (kpos[:, None, :] <= qpos[:, :, None])
+    if window is not None:
+        live_pairs = live_pairs & (kpos[:, None, :] > qpos[:, :, None] - window)
+    dead_rows = int((~live_pairs.any(-1)).sum())
+    del live_pairs
+    lib = None
+    if not dead_rows:
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
+        if causal and Sq == Sk and window is None and not dead_head and not dead_tail:
+            kw = dict(is_causal=True)
+        else:
+            p, kp = qpos[0], kpos[0]
+            mask = kp[None, :] >= 0
+            if causal:
+                mask = mask & (kp[None, :] <= p[:, None])
+            if window is not None:
+                mask = mask & (kp[None, :] > p[:, None] - window)
+            kw = dict(attn_mask=mask)
+
+        def fwd():
+            return F.scaled_dot_product_attention(lq, lk, lv, enable_gqa=True, **kw)
+
+        def fwd_bwd():
+            fwd().backward(doh)
+
+        lib = max(time_ms(fwd_bwd, reps=3, warm=1) - time_ms(fwd, reps=3, warm=1), 0.0)
+        del lq, lk, lv
+    live = _live_pairs(qpos, kpos, window, causal)
+    es = q.element_size()
+    # q, o, dO and dq at q's size, k, v, dk and dv at k's, the f32 lse read and Δ written and read
+    nbytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel() + 8 * lse.numel()
+    flops = 10.0 * D * live * H
+    peak = PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS
+    b, by = bound_ms(flops, nbytes, peak)
+    b32, _ = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+    say(f"[train] backward {label}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
+        f"{'causal' if causal else 'non-causal'} window={window} {dt}, {dead_rows} rows without a live key; "
+        f"the forward's output the same bits with and without lse, its lse {lse_err:.3e} from the plain one's; "
+        f"max_abs_err {err:.3e} (against autograd); readings {own:.3f} against the plain backward on the same "
+        f"saved tensors, {exact:.3f} against autograd through the plain forward, of limit 1; a wrong mask reads "
+        f"{wrong_reading:.3f}; a second run bit for bit: {same}; kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.2f} TFLOP/s), plain {p_ms:.4f} ms, sdpa backward "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms ({by}, at the {dt} peak; {b32:.4f} ms at "
+        f"the f32 peak), {live} live pairs per head")
+    del q, k, v, do, o, lse, got
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b, bound_by=by, library_ms=lib, bound_f32_ms=b32)
+
+
+def train_steps(step, params, state, batches, dev):
+    """``step`` over ``batches`` (numpy dicts): [(loss, grad_norm, ms)]."""
+    import torch
+
+    out = []
+    for batch in batches:
+        tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, tb)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        out.append((loss, float(m["grad_norm"]), (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def train_profile(step, params, state, batch, wall_ms: float, dev):
+    """One step under torch.profiler: the device's busy share against the
+    untraced wall, the backward kernel's and the forward kernel's shares."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, state, tb)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if busy <= 0:
+        say("[train] under torch.profiler: no device time in the trace; busy share not measured")
+        return None
+    bwd = sum(e.self_device_time_total for e in events if "flash_bwd" in e.key or "delta_kernel" in e.key) / 1e3
+    fwd = sum(e.self_device_time_total for e in events if "flash_mma" in e.key) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    say(f"[train] one (1, 8192) step under torch.profiler: device busy {busy:.1f} ms of the untraced wall "
+        f"{wall_ms:.1f} ms (busy share {busy / wall_ms:.3f}); the backward kernel {bwd:.1f} ms ({bwd / wall_ms:.3f} "
+        f"of the step), the forward kernel {fwd:.1f} ms ({fwd / wall_ms:.3f}, forward and remat recompute); top "
+        f"device time (ms): " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} x{e.count}"
+                                          for e in top))
+    return dict(busy_share=busy / wall_ms, bwd_share=bwd / wall_ms)
+
+
+def train_cpu_replay(dev):
+    """SMOKE qwen2-1.5b in f32 with the flash threshold lowered, three steps
+    on the card (the CUDA-core forward and the backward kernel) and on the
+    CPU (plain versions) from the same params and batches."""
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.models import model as M
+    from repro_torch.train import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = C.get_smoke(LM_ARCH).replace(compute_dtype=torch.float32, flash_threshold=64 * 64, remat="full")
+    B_, S_ = TRAIN_SMOKE_SHAPE
+    master = M.init_params(cfg, torch.Generator().manual_seed(SEED + 31), device="cpu")
+    pipe = TokenPipeline(cfg.vocab_size, B_, S_, seed=SEED + 32)
+    batches = [pipe.batch_at(i) for i in range(TRAIN_SMOKE_STEPS)]
+    pipe.close()
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=0)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        params = tree_map(lambda t: t.detach().to(where, copy=True), master)
+        state = adamw_init(params)
+        step = M.make_train_step(cfg, opt)
+        before = (k_fa.launches_simt, k_fa.launches_bwd)
+        losses = []
+        for batch in batches:
+            params, state, m = step(params, state, {k: torch.as_tensor(v).to(where) for k, v in batch.items()})
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[where.type] = (losses, tree_map(lambda t: t.detach().to("cpu", copy=True), params),
+                            (k_fa.launches_simt - before[0], k_fa.launches_bwd - before[1]))
+    (card_l, card_p, card_n), (cpu_l, cpu_p, _) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card_l, cpu_l))
+    gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(card_l, cpu_l))
+    dp = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+    n_moved = sum(int(((a - b).abs() > 1e-3 * TRAIN_LR).sum()) for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+    n_all = sum(a.numel() for a in tree_leaves(cpu_p))
+    layers = cfg.n_layers * TRAIN_SMOKE_STEPS
+    say(f"[train] CPU replay: {cfg.name} SMOKE in f32, flash_threshold 64², (B, S) = {TRAIN_SMOKE_SHAPE}, "
+        f"{TRAIN_SMOKE_STEPS} steps of AdamW (lr {TRAIN_LR:g}) on the card (CUDA-core forward {card_n[0]} launches, "
+        f"backward {card_n[1]}) and on the CPU (plain versions): losses {[round(x[0], 6) for x in card_l]} against "
+        f"{[round(x[0], 6) for x in cpu_l]}, at most {loss_rel:.2e} apart relative (limit {TRAIN_REPLAY_LOSS_RTOL:g}), "
+        f"grad_norm {gn_rel:.2e} (limit {TRAIN_REPLAY_LOSS_RTOL * 10:g}); params at most {dp:.3e} apart (limit "
+        f"{2 * TRAIN_LR * TRAIN_SMOKE_STEPS:g} = 2·lr a step, Adam's sign-like step on gradients at f32 noise), "
+        f"{n_moved} of {n_all} elements more than 1e-3·lr apart")
+    check(card_n == (2 * layers, layers), f"[train] CPU replay: the card's flash launches {card_n}, want "
+                                          f"{(2 * layers, layers)} (forward + remat recompute, backward)")
+    check(loss_rel <= TRAIN_REPLAY_LOSS_RTOL and gn_rel <= 10 * TRAIN_REPLAY_LOSS_RTOL,
+          "[train] CPU replay: losses or grad norms apart")
+    check(dp <= 2 * TRAIN_LR * TRAIN_SMOKE_STEPS, "[train] CPU replay: params apart")
+
+
+def train_cli(card):
+    """The port's trainer CLI on the card, its ``main`` in this process:
+    SIGTERM during step 6 of 10 (a preemption at a known step),
+    --resume auto to 10, against an uninterrupted 10-step run."""
+    import contextlib
+    import io
+    import signal
+    import tempfile
+
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+
+    def run(out, sigterm_in_step=None, *extra):
+        make, handler, stdout = M.make_train_step, signal.getsignal(signal.SIGTERM), io.StringIO()
+
+        def make_preempted(*a, **kw):
+            step, calls = make(*a, **kw), [0]
+
+            def preempted(*args):
+                calls[0] += 1
+                if calls[0] == sigterm_in_step:
+                    signal.raise_signal(signal.SIGTERM)
+                return step(*args)
+
+            return preempted
+
+        M.make_train_step = make_preempted
+        try:
+            with contextlib.redirect_stdout(stdout):
+                rc = T.main(["--arch", "qwen1.5-0.5b", "--smoke", "--batch", "2", "--seq", "16", "--ckpt-every", "3",
+                             "--lr", "1e-3", "--steps", "10", "--out", str(out), *extra])
+        finally:
+            M.make_train_step = make
+            signal.signal(signal.SIGTERM, handler)
+        check(rc == 0, f"[train] the CLI exited {rc}")
+        return stdout.getvalue()
+
+    def metrics(out):
+        with open(out / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = Path(tmp) / "a", Path(tmp) / "b"
+        run(b)
+        check("SIGTERM received" in run(a, 6), "[train] the CLI did not stop on SIGTERM")
+        check("restored step 6" in run(a, None, "--resume", "auto"), "[train] the CLI did not resume")
+        got, want = metrics(a), metrics(b)
+    check([r["step"] for r in got] == list(range(10)) == [r["step"] for r in want], "[train] the CLI's steps")
+    worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(got, want))
+    exact = all(a[k] == b[k] for a, b in zip(got, want) for k in ("loss", "grad_norm", "lr"))
+    say(f"[train] CLI: qwen1.5-0.5b SMOKE on the card, SIGTERM in step 6 of 10, --resume auto to 10: "
+        f"losses {[round(r['loss'], 5) for r in got]}; against an uninterrupted 10-step run at most {worst:.2e} apart "
+        f"relative (limit {TRAIN_CLI_RTOL:g}), bit for bit: {exact}; {time.perf_counter() - t0:.1f} s on {card}")
+    check(worst <= TRAIN_CLI_RTOL, "[train] the resumed loss stream leaves the uninterrupted run's")
+
+
+def phase_train(dev, card):
+    """Training for the dense family at published widths: the backward
+    kernel against the plain version on five shapes; qwen2-1.5b trained
+    through make_train_step and AdamW at (4, 2048) and (1, 8192), the loss
+    falling on a constant batch; the SMOKE replay against the CPU; the
+    CLI's resume.  Returns the flash launches of the counted run and the
+    backward kernel's numbers."""
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.models import model as M
+    from repro_torch.train import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    cases = {case[0]: train_bwd_case(dev, gen, case) for case in TRAIN_BWD}
+
+    cfg = C.get(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 33), device=dev)
+    state = adamw_init(params)
+    n_params = M.count_params(params)
+    check(n_params == LM_PARAMS, f"[train] {cfg.name}: {n_params} parameters, the reference counts {LM_PARAMS}")
+    fpt = M.model_flops_per_token(cfg)
+    step = M.make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+    say(f"[train] {cfg.name}: {lm_widths(cfg)}, d_ff {cfg.d_ff}, remat {cfg.remat!r}, bf16 compute over the f32 "
+        f"master; {n_params:,} parameters, model_flops_per_token {fpt:.4e} (6N); the master and AdamW's moments "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB")
+    check(cfg.remat == "full" and cfg.flash_threshold == 4096 * 4096, "[train] the published config changed")
+    batches = {}
+    for shape in (TRAIN_SHORT, TRAIN_LONG):
+        pipe = TokenPipeline(cfg.vocab_size, shape[0], shape[1], seed=SEED + 34)
+        batches[shape] = [pipe.batch_at(i) for i in range(TRAIN_TIMED_STEPS)]
+        pipe.close()
+    const = batches[TRAIN_LONG][0]
+    flash_steps = TRAIN_TIMED_STEPS + 1 + TRAIN_CONST_STEPS
+
+    # the counted run: the timed steps at both shapes, then the constant batch
+    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = k_fa.launches_bwd = 0
+    timed, peaks = {}, {}
+    for shape in (TRAIN_SHORT, TRAIN_LONG):
+        torch.cuda.reset_peak_memory_stats()
+        timed[shape] = train_steps(step, params, state, batches[shape], dev)
+        peaks[shape] = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r[0] for r in train_steps(step, params, state, [const] * (1 + TRAIN_CONST_STEPS), dev)]
+    torch.cuda.synchronize()
+    launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt,
+                "flash_attention_bwd": k_fa.launches_bwd}
+    want = {"flash_attention_mma": 2 * cfg.n_layers * flash_steps, "flash_attention": 0,
+            "flash_attention_bwd": cfg.n_layers * flash_steps}
+    step_ms = {}
+    for shape in (TRAIN_SHORT, TRAIN_LONG):
+        B_, S_ = shape
+        after_warmup = [r[2] for r in timed[shape][1:]]
+        ms = step_ms[shape] = float(np.median(after_warmup))
+        tok_s = B_ * S_ / (ms / 1e3)
+        share = fpt * tok_s / PEAK_BF16_FLOPS
+        branch = "the plain _sdpa branch" if S_ * S_ <= cfg.flash_threshold else "the flash branch in every layer"
+        say(f"[train] (B, S) = {shape}, {branch}: steps {[r[2] for r in timed[shape]]} ms, the first a warm-up; "
+            f"the other {len(after_warmup)}: median {ms} ms, min {min(after_warmup)}, max {max(after_warmup)} (losses "
+            f"{[round(r[0], 4) for r in timed[shape]]}, grad norms {[round(r[1], 4) for r in timed[shape]]}); at the "
+            f"median {tok_s:.0f} tokens/s, 6N FLOPs {share:.4f} of the 989 TFLOP/s bf16 peak; peak memory "
+            f"{peaks[shape]:.2f} GiB")
+        check(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in timed[shape]), "[train] a non-finite loss")
+    say(f"[train] {1 + TRAIN_CONST_STEPS} steps on one constant (1, 8192) batch (lr {TRAIN_LR:g}, no warmup): losses "
+        f"{[round(x, 4) for x in losses]}")
+    say(f"[train] flash launches over the counted run ({TRAIN_TIMED_STEPS} + {TRAIN_TIMED_STEPS} + "
+        f"{1 + TRAIN_CONST_STEPS} steps, {flash_steps} of them at S = 8192): {json.dumps(launches)}; the code "
+        f"predicts {json.dumps(want)} (per flash step and layer: the forward and the remat recompute on the "
+        f"tensor-core kernel, one backward)")
+    check(launches == want, "[train] flash launches differ from the prediction")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0], f"[train] the loss did not fall: {losses}")
+    prof = train_profile(step, params, state, batches[TRAIN_LONG][0], step_ms[TRAIN_LONG], dev)
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train_cpu_replay(dev)
+    train_cli(card)
+    numbers = dict(cases[TRAIN_BWD[0][0]])
+    numbers["train_step_ms"] = step_ms[TRAIN_LONG]  # the median of the steps after the warm-up, and their range
+    numbers["train_step_ms_min"] = min(r[2] for r in timed[TRAIN_LONG][1:])
+    numbers["train_step_ms_max"] = max(r[2] for r in timed[TRAIN_LONG][1:])
+    if prof:
+        numbers["train_bwd_share"] = prof["bwd_share"]
+    say(f"[train] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, numbers
+
+
 def plain_strips():
     """A context in which kernels/dynamic.py's three wrappers run their
     plain versions whatever the device (the update's plain replay on the
@@ -4995,12 +5492,14 @@ def main() -> int:
     lm_launches, lm_numbers = phase_lm(dev, card)
     moe_launches, moe_numbers = phase_moe(dev, card)
     vlm_launches, vlm_numbers = phase_vlm(dev, card)
+    train_launches, train_numbers = phase_train(dev, card)
     phase_examples()
     launches = dict(run["launches"], eom=run["eom_launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
                     flat_scatter=online_launches["flat_scatter"], **grid_launches, **attn_launches, **exact_launches)
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
                    flash_attention_mma=attn_numbers[ATTENTION[0][0]], flat_scatter=online_numbers, **grid_numbers,
-                   **exact_numbers)
+                   **exact_numbers, flash_attention_bwd=train_numbers)
     sources = {"assign": ("assign_ws.cu", "src/repro/kernels/assign.py:21"),
                "bubble_cd": ("bubble_cd_ws.cu", "src/repro/kernels/bubble_cd.py:41"),
                "mutual_reach": ("dist_panel.cu", "src/repro/kernels/mutual_reach.py:23"),
@@ -5008,6 +5507,9 @@ def main() -> int:
                "pairwise": ("dist_panel.cu", "src/repro/kernels/pairwise.py:30"),
                "flash_attention": ("flash_attention_panel.cu", "src/repro/kernels/flash_attention.py:38"),
                "flash_attention_mma": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38"),
+               # no Pallas kernel: the JAX package differentiates its jnp online softmax through lax.scan
+               "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                       "no Pallas kernel: autodiff of _flash_sdpa, src/repro/models/layers.py:171"),
                # no Pallas kernel: the JAX package's lax.scan sweeps of the hierarchy
                "single_linkage": ("hierarchy_par.cu", "src/repro/core/hierarchy_jax.py:195"),
                "condense": ("hierarchy_par.cu", "src/repro/core/hierarchy_jax.py:265"),
@@ -5033,6 +5535,8 @@ def main() -> int:
     for runs in (moe_launches, vlm_launches):  # their launches on [moe]'s and [vlm]'s runs, by run
         for name, by_run in runs.items():
             numbers[name].update({f"launches_{run}": n for run, n in by_run.items()})
+    for name in ("flash_attention_mma", "flash_attention"):  # the forward kernels' launches on [train]'s run
+        numbers[name]["launches_train"] = train_launches[name]
     for run, got in dict(moe_numbers, **vlm_numbers).items():  # layer 0's call on the new routes (tensor cores)
         numbers["flash_attention_mma"].update({f"{run}_ms": got["ms"], f"{run}_bound_ms": got["bound_ms"]})
     kernels = [

@@ -19,7 +19,10 @@ engine's checkpoint.  ``lm_params_from_reference`` and
 ``lm_cache_from_reference`` carry an LM's parameter tree and KV cache
 (the reference's ``init_params`` values and ``init_cache``/``prefill``
 caches, leaves as numpy; the dense, MoE and vision families) into the
-port's ``models`` and ``ServeEngine``.
+port's ``models`` and ``ServeEngine``; ``adamw_state_from_reference``
+carries the reference's ``adamw_init`` / ``adamw_update`` state (``mu``,
+``nu``, ``step``) beside them, so a port train step continues a reference
+run.
 These read only numpy and never import the JAX package.  The engine's
 fields load through its own loader, the one ``restore`` uses.
 """
@@ -35,10 +38,11 @@ from .core.summarizer import BubbleTreeSummarizer
 from .device import resolve_device
 from .models import model as M
 from .serving.stream import _CKPT_FORMAT, StreamingClusterEngine, load_tree_state
+from .tree import tree_map
 
 __all__ = ["engine_from_reference_state", "dyn_state_from_reference", "dynamic_hdbscan_from_reference",
            "summarizer_from_reference_state", "lm_params_from_reference", "lm_cache_from_reference",
-           "DYNAMIC_HDBSCAN_FIELDS"]
+           "adamw_state_from_reference", "DYNAMIC_HDBSCAN_FIELDS"]
 
 # the array attributes of a host DynamicHDBSCAN, and their dtypes
 DYNAMIC_HDBSCAN_FIELDS = {
@@ -131,10 +135,6 @@ def _leaf_tensor(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.array(a)).to(dev)
 
 
-def _tree_map(tree, fn):
-    return {k: _tree_map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
-
-
 def lm_params_from_reference(values, cfg, device=None) -> dict:
     """The port's params tree from the reference's ``init_params(cfg,
     key)[0]`` (a nested dict, leaves as numpy through ``np.asarray``,
@@ -145,11 +145,11 @@ def lm_params_from_reference(values, cfg, device=None) -> dict:
     tree is not the port's layout for ``cfg`` (and
     ``NotImplementedError`` for a family the port does not build yet)."""
     dev = resolve_device(device)
-    want = _tree_map(M.init_params(cfg, device="meta"), lambda t: tuple(t.shape))
-    got = _tree_map(values, lambda a: tuple(np.shape(a)))
+    want = tree_map(lambda t: tuple(t.shape), M.init_params(cfg, device="meta"))
+    got = tree_map(lambda a: tuple(np.shape(a)), values)
     if got != want:
         raise ValueError(f"{cfg.name}: the reference's params tree does not match the port's layout")
-    return _tree_map(values, lambda a: _leaf_tensor(a, dev))
+    return tree_map(lambda a: _leaf_tensor(a, dev), values)
 
 
 def lm_cache_from_reference(caches, device=None) -> dict:
@@ -158,4 +158,17 @@ def lm_cache_from_reference(caches, device=None) -> dict:
     two such trees; leaves as numpy): the same values and dtypes (bf16
     K/V, int32 write heads), on ``device`` (None → cuda)."""
     dev = resolve_device(device)
-    return _tree_map(caches, lambda a: _leaf_tensor(a, dev))
+    return tree_map(lambda a: _leaf_tensor(a, dev), caches)
+
+
+def adamw_state_from_reference(state, device=None) -> dict:
+    """The port's AdamW state from the reference's (``{"mu", "nu": trees
+    like the params, "step": int32 scalar}``, leaves as numpy): the same
+    keys, values and dtypes, ``step`` a 0-dim int32 tensor, on ``device``
+    (None → cuda)."""
+    dev = resolve_device(device)
+    if set(state) != {"mu", "nu", "step"}:
+        raise ValueError(f"an AdamW state has mu, nu and step, not {sorted(state)}")
+    return {"mu": tree_map(lambda a: _leaf_tensor(a, dev), state["mu"]),
+            "nu": tree_map(lambda a: _leaf_tensor(a, dev), state["nu"]),
+            "step": torch.as_tensor(np.array(state["step"], np.int32)).to(dev)}

@@ -21,12 +21,21 @@ layout, so each package restores the other's checkpoints:
     tmp/old directories a killed writer left, are collected after a
     successful write (never before).
 
-Differences from the JAX store: ``restore`` returns the flat dict only
-(the JAX-only ``like=`` and ``shardings=`` re-shaping arguments are not
-carried; the streaming engine never uses them), ``save`` accepts torch
-tensors (moved to the host), and a ``bfloat16`` or fp8 leaf is refused
-with a ``TypeError`` naming its key, since numpy has no such dtype
-without ``ml_dtypes``.
+``restore(step, like=None)`` returns the flat dict, or with ``like`` (a
+tree of nested dicts, lists and tuples whose leaves are tensors or
+arrays) that tree rebuilt from the flat keys: each tensor leaf on its
+``like`` leaf's device and in its dtype, each array leaf as an array of
+its dtype, as the JAX store's ``restore(like=)`` does; a leaf whose
+shape is not its ``like`` leaf's is refused, so a run resumes only from
+its own model's state.  A training state
+``(params, opt_state)`` saved by either package restores in the other.
+
+Differences from the JAX store: no ``shardings=`` (the port has no mesh
+for the LM), ``save`` accepts torch tensors (copied to the host before
+it returns, so a non-blocking save of tensors that are then updated in
+place writes the values of the call), and a ``bfloat16`` or fp8 leaf is
+refused with a ``TypeError`` naming its key, since numpy has no such
+dtype without ``ml_dtypes``.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ import threading
 
 import numpy as np
 import torch
+
+from ..tree import tree_unflatten
 
 __all__ = ["CheckpointStore", "save", "restore", "latest_step"]
 
@@ -58,7 +69,9 @@ def _host(key: str, v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         if v.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
             raise _refuse(key, v.dtype)
-        return v.detach().cpu().numpy()
+        t = v.detach()
+        arr = t.cpu().numpy()
+        return arr.copy() if t.device.type == "cpu" else arr  # never a view of a tensor updated later
     arr = np.asarray(v)
     if arr.dtype.kind == "V" or str(arr.dtype) in _CUSTOM_DTYPES:
         raise _refuse(key, arr.dtype)
@@ -92,12 +105,20 @@ def save(path: str, step: int, tree, *, blocking: bool = True, keep: int = 3):
     store.close()
 
 
-def restore(path: str, step: int | None = None):
+def restore(path: str, step: int | None = None, like=None):
     store = CheckpointStore(path)
     try:
-        return store.restore(step=step)
+        return store.restore(step=step, like=like)
     finally:
         store.close()
+
+
+def _leaf_like(arr: np.ndarray, like):
+    """``arr`` cast to the ``like`` leaf's dtype and, for a tensor, put on
+    its device."""
+    if isinstance(like, torch.Tensor):
+        return torch.as_tensor(np.array(arr)).to(device=like.device, dtype=like.dtype)
+    return np.asarray(arr).astype(np.asarray(like).dtype)
 
 
 def _published_steps(path: str) -> list[int]:
@@ -233,9 +254,12 @@ class CheckpointStore:
 
     # -- read -------------------------------------------------------------
 
-    def restore(self, step: int | None = None) -> tuple[int, dict]:
+    def restore(self, step: int | None = None, like=None) -> tuple[int, dict]:
         """Returns (step, {key: array}), the newest published step when
-        ``step`` is None.  Raises ``IOError`` on a checksum mismatch."""
+        ``step`` is None, or (step, tree) in ``like``'s structure (see the
+        module docstring).  Raises ``IOError`` on a checksum mismatch and
+        ``KeyError`` when the checkpoint lacks a leaf of ``like`` and
+        ``ValueError`` when a leaf's shape is not its ``like`` leaf's."""
         if step is None:
             step = latest_step(self.path)
         if step is None:
@@ -251,4 +275,14 @@ class CheckpointStore:
             if _crc(arr) != meta["crc"]:
                 raise IOError(f"checksum mismatch for {key} in step {step}")
             by_key[key] = arr
-        return step, by_key
+        if like is None:
+            return step, by_key
+        flat_like = _flatten(like)
+        missing = set(flat_like) - set(by_key)
+        if missing:
+            raise KeyError(f"checkpoint missing leaves: {sorted(missing)[:5]}")
+        wrong = [k for k, v in flat_like.items() if tuple(np.shape(v)) != by_key[k].shape]
+        if wrong:
+            raise ValueError(f"checkpoint leaves of another shape than like's: "
+                             f"{[(k, by_key[k].shape, tuple(np.shape(flat_like[k]))) for k in wrong[:5]]}")
+        return step, tree_unflatten(like, [_leaf_like(by_key[k], v) for k, v in flat_like.items()])

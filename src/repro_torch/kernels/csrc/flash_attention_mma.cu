@@ -9,6 +9,10 @@
 //   (kpos <= qpos - window);
 //   out_r = softmax(s) V, stored in bf16.
 // A row with no live key gets the uniform mean of V over the Sk keys.
+// Where the caller passes lse (training), the kernel also writes the row's
+// log-sum-exp of the scaled scores, lse_r = log sum_c exp(s), in f32 from the
+// (m, l) it keeps anyway; a row with no live key gets +inf there (the
+// backward's mark for such a row).  With a null lse nothing else changes.
 //
 // Bound on the H100: operations.  QK^T and PV take 4 D FLOPs per live
 // (query, key) pair and head, at 989 TFLOP/s dense bf16 (51.5 GFLOP, 52 us,
@@ -48,6 +52,7 @@
 #include <cuda_bf16.h>
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
@@ -63,6 +68,7 @@ constexpr int kBK = 64;           // keys per tile
 constexpr int kChunk = 512;       // tiles listed per pre-scan (32,768 keys)
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, s;  // batch, head and sequence strides in elements; features are contiguous
@@ -73,6 +79,7 @@ struct Geometry {
   Strides q, k, v, o;
   int causal, use_window, window;
   float scale;
+  float* lse;  // (B, H, Sq) contiguous f32, or null
 };
 
 template <int DP>
@@ -409,6 +416,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
     }
     __syncthreads();
   }
+  if (g.lse != nullptr && quad == 0) {  // m is in the log2 domain: lse = (m + log2 l) ln 2
+    float* lrow = g.lse + (size_t)bh * g.Sq + q0;
+    if (r0 < rows) lrow[r0] = live0 ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+    if (r1 < rows) lrow[r1] = live1 ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+  }
   const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
   bf16* orow0 = oh + (q0 + r0) * g.o.s;
   bf16* orow1 = oh + (q0 + r1) * g.o.s;
@@ -446,10 +458,10 @@ int launch(const void* q, const void* k, const void* v, const int* qpos, const i
 // features contiguous); qpos (B, Sq) and kpos (B, Sk) contiguous int32.
 // H = KV * G, D <= 128 and a multiple of 8, every pointer 16-byte aligned
 // and every stride a multiple of 8 elements (the caller checks those two:
-// the 16-byte copies need them).  Returns cudaGetLastError() after the
-// launch.
+// the 16-byte copies need them).  lse: null, or (B, H, Sq) contiguous f32
+// for the rows' log-sum-exp.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_mma(int dtype, const void* q, const void* k, const void* v,
-                                         const void* qpos, const void* kpos, void* out, int B, int H,
+                                         const void* qpos, const void* kpos, void* out, void* lse, int B, int H,
                                          int KV, int Sq, int Sk, int D, long long qsb, long long qsh,
                                          long long qss, long long ksb, long long ksh, long long kss,
                                          long long vsb, long long vsh, long long vss, long long osb,
@@ -460,7 +472,7 @@ extern "C" int repro_flash_attention_mma(int dtype, const void* q, const void* k
       D > 128 || D % 8 != 0 || n_qblocks * B * H > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   Geometry g{B * H, H, H / KV, Sq, Sk, D, static_cast<int>(n_qblocks), {qsb, qsh, qss}, {ksb, ksh, kss},
-             {vsb, vsh, vss}, {osb, osh, oss}, causal, use_window, window, scale};
+             {vsb, vsh, vss}, {osb, osh, oss}, causal, use_window, window, scale, static_cast<float*>(lse)};
   const auto* qp = static_cast<const int*>(qpos);
   const auto* kp = static_cast<const int*>(kpos);
   auto s = static_cast<cudaStream_t>(stream);

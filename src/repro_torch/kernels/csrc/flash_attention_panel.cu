@@ -12,7 +12,10 @@
 //   (kpos <= qpos - window);
 //   out_r = softmax(s) V, in q's dtype.
 // The masked score is the finite -1e30, as in the JAX kernel: a row with no
-// live key gets the uniform mean of V over the Sk keys, never NaN.
+// live key gets the uniform mean of V over the Sk keys, never NaN.  Where the
+// caller passes lse (training), the kernel also writes the row's
+// log-sum-exp of the scaled scores in f32 from the (m, l) it keeps anyway,
+// +inf on a row with no live key (the backward's mark for such a row).
 //
 // Bound on the H100: operations.  QK^T and PV take 4 D FLOPs per live
 // (query, key) pair and head, IEEE f32 FMAs (__fmaf_rn) on the CUDA cores
@@ -69,6 +72,7 @@
 #include <cuda_bf16.h>
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
@@ -81,6 +85,7 @@ constexpr int kBK = 32;      // keys per tile: 8 key lanes x 4 keys
 constexpr int kChunk = 512;  // tiles listed per pre-scan (16,384 keys)
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, s;  // batch, head and sequence strides in elements; features are contiguous
@@ -92,6 +97,7 @@ struct Geometry {
   int causal, use_window, window;
   float scale;
   int vec;  // every row of q, k and v starts 16-byte aligned and D fills whole 16 bytes: 16-byte copies
+  float* lse;  // (B, H, Sq) contiguous f32, or null
 };
 
 // Per head-dim bucket DP: 16 query rows per warp, one block per SM, and
@@ -451,6 +457,8 @@ flash_panel_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     const int r = warp * 16 + rg + 4 * a;
     if (r >= rows) continue;
     const bool live = m[a] > kMasked;
+    if (g.lse != nullptr && kg == 0)  // m is in the log2 domain: lse = (m + log2 l) ln 2
+      g.lse[(size_t)bh * g.Sq + q0 + r] = live ? (m[a] + log2f(l[a])) * kLn2 : INFINITY;
     const float lc = fmaxf(l[a], 1e-30f);
     T* orow = oh + (q0 + r) * g.o.s;
 #pragma unroll
@@ -524,10 +532,10 @@ int plan(int D, int* rows, int* blocks) {
 // sequence; features contiguous; no alignment beyond the element's), all
 // f32 (dtype 0) or all bf16 (dtype 1); qpos (B, Sq) and kpos (B, Sk)
 // contiguous int32.  H = KV * G, 1 <= D <= 256, Sk >= 1, B * H <= 65535.
-// window is used when use_window.  Returns cudaGetLastError() after the
-// launch.
+// window is used when use_window.  lse: null, or (B, H, Sq) contiguous f32
+// for the rows' log-sum-exp.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_panel(int dtype, const void* q, const void* k, const void* v,
-                                           const void* qpos, const void* kpos, void* out, int B, int H, int KV,
+                                           const void* qpos, const void* kpos, void* out, void* lse, int B, int H, int KV,
                                            int Sq, int Sk, int D, long long qsb, long long qsh, long long qss,
                                            long long ksb, long long ksh, long long kss, long long vsb,
                                            long long vsh, long long vss, long long osb, long long osh,
@@ -540,7 +548,7 @@ extern "C" int repro_flash_attention_panel(int dtype, const void* q, const void*
   const bool vec = D % (16 / elem) == 0 && rows_aligned16(q, elem, B, H, Sq, qsb, qsh, qss) &&
                    rows_aligned16(k, elem, B, KV, Sk, ksb, ksh, kss) && rows_aligned16(v, elem, B, KV, Sk, vsb, vsh, vss);
   const Geometry g{B * H, H, H / KV, Sq, Sk, D, 0, {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss},
-                   {osb, osh, oss}, causal, use_window, window, scale, vec ? 1 : 0};
+                   {osb, osh, oss}, causal, use_window, window, scale, vec ? 1 : 0, static_cast<float*>(lse)};
   const auto* qp = static_cast<const int*>(qpos);
   const auto* kp = static_cast<const int*>(kpos);
   auto s = static_cast<cudaStream_t>(stream);

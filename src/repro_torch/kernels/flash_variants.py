@@ -77,7 +77,7 @@ def build() -> dict[str, tuple[ctypes.CDLL, str]]:
         ptxas = f"{m.group(3)} registers, {m.group(1)} bytes stack, {m.group(2)} bytes spilled" if m else "?"
         lib = ctypes.CDLL(str(out / f"v{i}.so"))
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.repro_flash_attention_panel.argtypes = [I, P, P, P, P, P, P] + [I] * 6 + [LL] * 12 + [I, I, I,
+        lib.repro_flash_attention_panel.argtypes = [I, P, P, P, P, P, P, P] + [I] * 6 + [LL] * 12 + [I, I, I,
                                                                                           ctypes.c_float, P]
         libs[name] = (lib, ptxas)
     return libs
@@ -98,8 +98,8 @@ def main() -> int:
     def call(lib, out):
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
         code = lib.repro_flash_attention_panel(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                                               pos.data_ptr(), out.data_ptr(), B, H, KV, S, S, D, *strides, 1, 0, 0,
-                                               1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+                                               pos.data_ptr(), out.data_ptr(), None, B, H, KV, S, S, D, *strides, 1,
+                                               0, 0, 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
         _build.check(code, "flash_attention variant")
 
     def ms(lib, out, reps=5):

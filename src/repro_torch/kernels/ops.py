@@ -78,6 +78,7 @@ __all__ = [
     "knn",
     "core_distances",
     "flash_attention",
+    "FlashAttentionFn",
     "assign",
     "bubble_core_distances",
     "bubble_mutual_reachability",
@@ -132,6 +133,39 @@ def core_distances(x: torch.Tensor, min_pts: int) -> torch.Tensor:
     return d[:, min(int(min_pts), x.shape[0]) - 1].contiguous()
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its backward kernel, over model-layout
+    tensors: the forward kernel also writes each row's log-sum-exp, and
+    q, k, v, the output, the log-sum-exp and the positions are saved for
+    ``kernels/flash_attention.py::flash_attention_backward``.  The
+    gradients come back in the model layout (B, S, heads, Dh), contiguous.
+    ``flash_attention`` takes it for CUDA tensors when grad is enabled and
+    q, k or v requires it; on CPU tensors both wrappers take their plain
+    versions (the tests call it there directly)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal, window):
+        B, Sq, H, _ = q.shape
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        _fa_k.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), qpos, kpos, causal=causal,
+                              window=window, out=out.transpose(1, 2), lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse, qpos, kpos)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, qpos, kpos = ctx.saved_tensors
+        dout = dout if dout.stride(-1) == 1 else dout.contiguous()
+        grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v)]
+        _fa_k.flash_attention_backward(*(t.transpose(1, 2) for t in (q, k, v, out)), lse, dout.transpose(1, 2),
+                                       qpos, kpos, causal=ctx.causal, window=ctx.window,
+                                       dq=grads[0].transpose(1, 2), dk=grads[1].transpose(1, 2),
+                                       dv=grads[2].transpose(1, 2))
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(q, k, v, qpos=None, kpos=None, *, causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
     """Batched GQA attention over model-layout tensors.
@@ -141,7 +175,13 @@ def flash_attention(q, k, v, qpos=None, kpos=None, *, causal: bool = True,
     h attends with kv head h // (H / KV), batch × heads fold into the
     kernel's grid, and the kernel reads and writes the model layout
     through strides: nothing is copied per head.  Returns (B, Sq, H, Dh)
-    in q's dtype."""
+    in q's dtype.
+
+    Differentiable: on CUDA tensors with grad enabled and q, k or v
+    requiring it, the call goes through ``FlashAttentionFn`` (the forward
+    kernel with the log-sum-exp, the backward kernel); an inference call
+    launches the forward kernel alone, as before.  On CPU tensors autograd
+    runs through the plain version."""
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
     dev = q.device
@@ -151,6 +191,8 @@ def flash_attention(q, k, v, qpos=None, kpos=None, *, causal: bool = True,
         return torch.broadcast_to(p.to(torch.int32), (B, S)).contiguous()
 
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if dev.type == "cuda" and torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, positions(qpos, Sq), positions(kpos, Sk), causal, window)
     out = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=dev)
     _fa_k.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), positions(qpos, Sq),

@@ -212,6 +212,62 @@ def gqa_flash_attention(q, k, v, qpos, kpos, causal: bool = True, window: int | 
     return out.reshape(B, H, Sq, D)
 
 
+def _gqa_scores(q, k, qpos, kpos, causal: bool, window: int | None):
+    """f32 scores (B, KV, G, Sq, Sk) of (B, H, Sq, D) queries against
+    (B, KV, Sk, D) keys, scaled by 1/√D, and the mask (True where masked)
+    that broadcasts against them."""
+    B, H, Sq, D = q.shape
+    KV = k.shape[1]
+    qg = q.float().reshape(B, KV, H // KV, Sq, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) / math.sqrt(D)
+    kp, qp = kpos[:, None, None, None, :], qpos[:, None, None, :, None]
+    mask = kp < 0
+    if causal:
+        mask = mask | (kp > qp)
+    if window is not None:
+        mask = mask | (kp <= qp - window)
+    return s, mask
+
+
+def gqa_flash_lse(q, k, qpos, kpos, causal: bool = True, window: int | None = None):
+    """Each row's log-sum-exp of the scaled scores over its live keys, f32
+    (B, H, Sq), +inf on a row with no live key: what the forward kernels
+    write into ``lse``."""
+    B, H, Sq, _ = q.shape
+    s, mask = _gqa_scores(q, k, qpos, kpos, causal, window)
+    lse = torch.logsumexp(s.masked_fill(mask, -math.inf), dim=-1)
+    return torch.where(mask.all(-1), math.inf, lse).reshape(B, H, Sq)
+
+
+def gqa_flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal: bool = True, window: int | None = None):
+    """(dq, dk, dv) of ``gqa_flash_attention`` against ``do``, written
+    plainly in f32 from the saved output and log-sum-exp, as the backward
+    kernel computes them: P = exp(s − lse) on a live pair and 0 on a masked
+    one, Δ = rowsum(do ∘ o), dS = P (do·vᵀ − Δ) on a live pair, dv = Pᵀ do,
+    dk = dSᵀ q / √D and dq = dS k / √D, each summed over the G query heads
+    of a kv head.  A row with no live key (lse = +inf) is the uniform mean
+    of V: its weights are 1/Sk in dv and it adds nothing to dq or dk, as
+    autograd through ``gqa_flash_attention`` gives (masked scores pass no
+    gradient).  Returned in the inputs' dtypes."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    s, mask = _gqa_scores(q, k, qpos, kpos, causal, window)
+    mask = mask.expand(s.shape)
+    lse = lse.float().reshape(B, KV, G, Sq, 1)
+    dead = torch.isinf(lse)
+    p = torch.where(mask, 0.0, torch.exp(s - torch.where(dead, 0.0, lse)))
+    p = torch.where(dead, 1.0 / Sk, p)
+    dog = do.float().reshape(B, KV, G, Sq, D)
+    delta = (dog * o.float().reshape(B, KV, G, Sq, D)).sum(-1, keepdim=True)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.float())
+    ds = torch.where(mask, 0.0, p * (dp - delta))
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, q.float().reshape(B, KV, G, Sq, D)) / math.sqrt(D)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float()) / math.sqrt(D)
+    return dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def kahan_add(hi, err, delta):
     """Compensated accumulate: (hi, err) += delta with the running f32
     rounding error carried in err (the true sum is ``hi - err``)."""

@@ -1,8 +1,9 @@
 """Top-k routed Mixture-of-Experts with sort-based capacity dispatch.
 
 The port's copy of the JAX package's ``models/moe.py`` (``moe_apply`` and
-its group count; the params come from ``transformer.py``'s init, and the
-training loss ``aux_load_balance_loss`` waits for the training slice):
+its group count; the params come from ``transformer.py``'s init) and of
+its ``aux_load_balance_loss``, which the reference's train loss does not
+add either:
 
   1. router: (T, E) logits → top-k probabilities, renormalised;
   2. per dispatch group, a stable sort of the (token, choice) pairs by
@@ -35,7 +36,7 @@ import torch
 
 from . import layers as L
 
-__all__ = ["capacity", "moe_apply", "route"]
+__all__ = ["aux_load_balance_loss", "capacity", "moe_apply", "route"]
 
 
 def _group_count(T: int, target: int = 8192) -> int:
@@ -118,3 +119,13 @@ def moe_apply(p, x, cfg, act=torch.nn.functional.silu):
     if "shared" in p:
         out = out + L.mlp_apply(p["shared"], x, act="silu").reshape(T, D)
     return out.reshape(B, S, D)
+
+
+def aux_load_balance_loss(logits, top_e, E: int):
+    """Switch-style load-balance loss: E · Σ_e mean router probability of e
+    × the share of tokens whose first choice is e.  ``logits`` (T, E),
+    ``top_e`` (T, k) expert ids."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    me = probs.mean(dim=0)
+    ce = torch.nn.functional.one_hot(top_e[:, 0].long(), E).to(torch.float32).mean(dim=0)
+    return E * torch.sum(me * ce)

@@ -22,14 +22,27 @@ batch)`` → logits;  ``prefill(params, tokens)`` → (last logits, cache);
 ``decode(params, caches, token, pos)`` → (logits, caches); the vlm's
 ``prefill`` and ``decode`` also take ``media``.
 
+``forward`` (training) recomputes the blocks as ``cfg.remat`` says, where
+the reference wraps its scan bodies in ``jax.checkpoint``: ``"full"``
+saves each block's input alone and recomputes the block in the backward
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` also saves the
+outputs of the matrix products with no batch dimension (``mm`` /
+``addmm``: the dense layers; the reference's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest,
+``"none"`` saves everything.  The vlm's cross blocks are not recomputed,
+as in the reference.  It acts only while grad is enabled; serving
+(``prefill``, ``decode``) never recomputes.
+
 The RWKV and hybrid families are later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from . import layers as L
 from . import moe as MOE
@@ -118,6 +131,32 @@ def _embed_init(draw, cfg):
     return {"table": draw.normal((vp, cfg.d_model), 0.02)}
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of the 2-D products."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``fn`` recomputed in the backward as ``cfg.remat`` says (see the
+    module docstring); ``fn`` itself when grad is off or remat is "none"."""
+    mode = cfg.remat
+    if mode not in ("none", "full", "dots"):
+        raise ValueError(f"{cfg.name}: remat must be none, full or dots, not {mode!r}")
+    if mode == "none":
+        return fn
+    extra = {} if mode == "full" else {"context_fn": functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                                       _save_dots)}
+
+    def run(*args, **kw):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kw)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **extra, **kw)
+
+    return run
+
+
 def unstack(tree, n: int) -> list:
     """A tree of stacked leaves → n trees of per-layer views."""
     if isinstance(tree, dict):
@@ -194,8 +233,9 @@ class UniformDecoder:
         n = self.cfg.n_layers
         blocks = unstack(params["blocks"], n)
         if caches is None:
+            body = _remat(block_apply, self.cfg)
             for blk in blocks:
-                x, _ = block_apply(blk, x, self.cfg, pos=pos, window=window)
+                x, _ = body(blk, x, self.cfg, pos=pos, window=window)
             return x, None
         ks, vs, ps = (torch.unbind(t, 0) for t in (caches["self"]["k"], caches["self"]["v"], caches["pos"]))
         for blk, k, v, cp in zip(blocks, ks, vs, ps, strict=True):
@@ -276,9 +316,10 @@ class VisionDecoder(UniformDecoder):
         selfs = [unstack(t, n) for t in unstack(params["self_blocks"], G)]
         crosses = unstack(params["cross_blocks"], G)
         if caches is None:
+            inner = _remat(block_apply, cfg)
             for g in range(G):
                 for blk in selfs[g]:
-                    x, _ = block_apply(blk, x, cfg, pos=pos)
+                    x, _ = inner(blk, x, cfg, pos=pos)
                 x, _ = block_apply(crosses[g], x, cfg, pos=pos, media=media)
             return x, None
         sc, cc = caches["self_groups"], caches["cross_groups"]

@@ -525,3 +525,106 @@ class TestExactModeCheckpoints:
             _drive(eng, blocks[cut:])
         _assert_milestone(port, ref)
         assert dst.exact and dst.stats["exact_rebuilds"] >= 1
+
+
+class TestTrainingStateCheckpoints:
+    """A ``(params, opt_state)`` training state crosses between the
+    packages' stores: the JAX store's save (outside a mesh) restores into
+    the port with ``restore(like=)`` bit for bit, the next port step's
+    loss, grad_norm and lr are the next JAX step's (f32 compute: within
+    2e-6 relative, the sums' order), its params within 2·lr (Adam's step
+    on a gradient element at f32 noise can take either sign); the port's
+    save restores in the JAX store bit for bit."""
+
+    ARCH = "qwen2-1.5b"
+
+    def _setup(self):
+        import jax
+        import jax.numpy as jnp
+
+        import repro.configs as RC
+        import repro_torch.configs as PC
+        from repro.models import model as RM
+        from repro.train import optim as RO
+
+        rc = RC.get_smoke(self.ARCH).replace(compute_dtype=jnp.float32)
+        pc = PC.get_smoke(self.ARCH).replace(compute_dtype=torch.float32)
+        opt = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+        values, _ = RM.init_params(rc, jax.random.PRNGKey(0))
+        rng = np.random.default_rng(11)
+        batches = []
+        for _ in range(2):
+            toks = rng.integers(0, rc.vocab_size, size=(2, 25)).astype(np.int32)
+            batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        step = jax.jit(RM.make_train_step(rc, RO.AdamWConfig(**opt)))
+        values, state, _ = step(values, RO.adamw_init(values), {k: jnp.asarray(v) for k, v in batches[0].items()})
+        return rc, pc, opt, values, state, step, batches
+
+    def test_jax_training_state_into_the_port_and_back(self, tmp_path):
+        import jax
+        import jax.numpy as jnp
+
+        from repro_torch.models import model as M
+        from repro_torch.train import AdamWConfig, adamw_init
+        from repro_torch.tree import tree_leaves
+
+        rc, pc, opt, values, state, step, batches = self._setup()
+        ref = RefStore(str(tmp_path / "jax"), keep=2)
+        ref.save(1, (values, state), blocking=True)
+        ref.close()
+        like = M.init_params(pc, torch.Generator().manual_seed(3), device="cpu")
+        store = CheckpointStore(str(tmp_path / "jax"))
+        at, (params, pstate) = store.restore(like=(like, adamw_init(like)))
+        store.close()
+        assert at == 1 and pstate["step"].dtype == torch.int32 and int(pstate["step"]) == 1
+        want = jax.tree.map(np.asarray, (values, state))
+        got_leaves, want_leaves = tree_leaves((params, pstate)), jax.tree.leaves(want)
+        assert len(got_leaves) == len(want_leaves)
+        for g, w in zip(got_leaves, want_leaves):
+            assert g.dtype == torch.from_numpy(np.array(w)).dtype and np.array_equal(g.numpy(), w)
+        # the next step on both sides
+        values, state, rm = step(values, state, {k: jnp.asarray(v) for k, v in batches[1].items()})
+        params, pstate, pm = M.make_train_step(pc, AdamWConfig(**opt))(
+            params, pstate, {k: torch.as_tensor(v) for k, v in batches[1].items()})
+        for key in ("loss", "grad_norm", "lr"):
+            assert abs(float(pm[key]) - float(rm[key])) <= 2e-6 * abs(float(rm[key])), key
+        for g, w in zip(tree_leaves(params), jax.tree.leaves(jax.tree.map(np.asarray, values))):
+            assert float(np.abs(g.numpy() - w).max()) <= 2 * opt["lr"]
+        # the port's save, restored by the JAX store
+        out = CheckpointStore(str(tmp_path / "port"), keep=2)
+        out.save(2, (params, pstate), blocking=False)
+        out.close()
+        back = RefStore(str(tmp_path / "port"))
+        at, restored = back.restore(like=(values, state))
+        back.close()
+        assert at == 2
+        for g, w in zip(tree_leaves((params, pstate)), jax.tree.leaves(restored)):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+
+    def test_restore_like_refuses_a_missing_leaf(self, tmp_path):
+        store = CheckpointStore(str(tmp_path))
+        store.save(3, {"a": torch.ones(2), "b": {"c": torch.zeros(3, dtype=torch.int32)}})
+        at, tree = store.restore(like={"a": torch.empty(2, dtype=torch.float64), "b": {"c": np.zeros(3, np.int64)}})
+        assert at == 3 and tree["a"].dtype == torch.float64 and tree["b"]["c"].dtype == np.int64
+        with pytest.raises(KeyError):
+            store.restore(like={"a": torch.empty(2), "z": torch.empty(1)})
+        store.close()
+
+    def test_restore_like_refuses_another_shape(self, tmp_path):
+        store = CheckpointStore(str(tmp_path))
+        store.save(1, ({"w": torch.ones(2, 3)}, (torch.zeros(4), None)))
+        at, (w, (v, none)) = store.restore(like=({"w": torch.empty(2, 3)}, (torch.empty(4), None)))
+        assert at == 1 and torch.equal(w["w"], torch.ones(2, 3)) and torch.equal(v, torch.zeros(4)) and none is None
+        with pytest.raises(ValueError, match="another shape"):
+            store.restore(like=({"w": torch.empty(3, 2)}, (torch.empty(4), None)))
+        store.close()
+
+    def test_async_save_takes_its_copy_before_an_in_place_update(self, tmp_path):
+        store = CheckpointStore(str(tmp_path))
+        t = torch.arange(4, dtype=torch.float32)
+        store.save(1, {"t": t}, blocking=False)
+        t.add_(100.0)  # the optimizer's in-place update, before the writer runs
+        store.wait()
+        _, flat = store.restore(1)
+        store.close()
+        assert np.array_equal(flat["t"], np.arange(4, dtype=np.float32))

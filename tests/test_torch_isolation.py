@@ -42,7 +42,8 @@ def test_importing_every_module_pulls_in_no_jax():
     for name in ("knn", "pairwise", "flash_attention"):
         assert f"repro_torch.kernels.{name}" in modules
     for name in ("models.transformer", "models.model", "models.moe", "configs.qwen2_1_5b", "configs.whisper_tiny",
-                 "serving.engine", "launch.serve"):
+                 "serving.engine", "launch.serve", "launch.train", "train", "train.optim", "data.pipeline",
+                 "tree"):
         assert f"repro_torch.{name}" in modules
 
 
@@ -68,3 +69,10 @@ def test_default_device_raises_without_a_gpu():
         StreamingClusterEngine(dim=4)
     with pytest.raises(RuntimeError, match="GPU"):
         get_backend()
+
+
+def test_training_modules_are_covered():
+    files = _port_files()
+    for rel in ("src/repro_torch/train/optim.py", "src/repro_torch/launch/train.py", "src/repro_torch/data/pipeline.py",
+                "src/repro_torch/tree.py", "examples/torch_train_lm_with_curation.py"):
+        assert ROOT / rel in files, rel

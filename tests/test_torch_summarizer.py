@@ -309,7 +309,7 @@ def test_exported_names():
     assert want <= set(T_core.__all__), want - set(T_core.__all__)
     for name in T_core.__all__:
         assert getattr(T_core, name) is not None
-    assert set(R_data.__all__) - {"TokenPipeline"} <= set(T_data.__all__)
+    assert set(R_data.__all__) <= set(T_data.__all__)
     for name in T_data.__all__:
         assert name == "DATASET_SPECS" or getattr(T_data, name).__module__.startswith("repro_torch")
 
