@@ -12,8 +12,9 @@ Phases, each printing its own lines:
               registers, stack and spills of every register-tile
               instantiation (warp-select knn and bubble_cd, assign, the
               distance panel of pairwise and mutual_reach and its norm
-              pass, the CUDA-core flash kernel; each must have no stack
-              frame and no spills), and the flash kernel's query rows
+              pass, the CUDA-core flash kernel, both flash backward
+              kernels; each must have no stack frame and no spills), and
+              the flash kernel's query rows
               and blocks per SM for each head-dim bucket;
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes, on a tie-free mean-centred table
@@ -231,17 +232,21 @@ Phases, each printing its own lines:
               the cross branch moving the logits, and at the gates' 0 the
               same bits as with zero media; layer 0's cross-attention
               against the plain version; profiles; the SMOKE replay;
-     train    LM training at published widths: the flash backward kernel
-              (csrc/flash_attention_bwd.cu) at qwen2-1.5b's attention (S =
-              8192, 12/2 heads of 128, causal, bf16), danube's (32/8 of
-              120, window 4096, S = 8192), a ragged f32 case (dead keys,
-              Sq != Sk), llama-3.2-vision's cross-attention (32/8, 4096 x
-              1601, non-causal) and bf16 at Dh 256: against the plain
-              backward on the same saved output and log-sum-exp and
-              against autograd through the plain forward (allowing what Δ
-              from the saved bf16 output moves), bit for bit on repeat, a
-              causal mask off by one rejected, timed beside the plain
-              backward and SDPA's backward; then qwen2-1.5b (remat
+     train    LM training at published widths: the flash backward at
+              qwen2-1.5b's attention (S = 8192, 12/2 heads of 128,
+              causal, bf16), danube's (32/8 of 120, window 4096, S =
+              8192) and llama-3.2-vision's cross-attention (32/8, 4096 x
+              1601, non-causal) on the tensor cores
+              (csrc/flash_attention_bwd_mma.cu), a ragged f32 case (dead
+              keys, Sq != Sk) and bf16 at Dh 256 on the CUDA cores
+              (csrc/flash_attention_bwd.cu), each route checked: against
+              the plain backward on the same saved output and
+              log-sum-exp and against autograd through the plain forward
+              (allowing what Δ from the saved bf16 output moves), the
+              tensor-core cases also against the CUDA-core kernel, bit
+              for bit on repeat, a causal mask off by one rejected, timed
+              beside the plain backward and SDPA's backward (and the
+              CUDA-core kernel); then qwen2-1.5b (remat
               "full", bf16 compute over the f32 master, random weights
               from a seed) through make_train_step and AdamW: 4 steps at
               (4, 2048) (the plain _sdpa branch) and 4 at (1, 8192) (the
@@ -326,10 +331,15 @@ Phases, each printing its own lines:
      grid_round_minima also with launches_mesh, their launches on [mesh]'s
      mesh engines; assign, bubble_cd and mutual_reach also with
      launches_summarizer, their launches over [summarizer]'s cluster()
-     calls; flash_attention_bwd, the backward kernel, which stands for
-     JAX's autodiff of its jnp online softmax, with [train]'s launches,
-     qwen2-1.5b's shape as its numbers, bound_f32_ms beside the bound at
-     the bf16 peak, train_step_ms (the median of the timed steps at
+     calls; flash_attention_bwd, the backward, which stands for JAX's
+     autodiff of its jnp online softmax: its source the tensor-core
+     kernel and simt_source the CUDA-core one, with [train]'s launches in
+     all, launches_mma and launches_simt, qwen2-1.5b's shape as its
+     numbers (the tensor-core kernel's, backward_route "mma"; simt_ms and
+     simt_reading the CUDA-core kernel's time and its reading against it
+     on the same call),
+     bound_f32_ms beside the bound at the bf16 peak, train_step_ms (the
+     median of the timed steps at
      (1, 8192)) with train_step_ms_min and _max, and train_bwd_share; the
      two forward flash entries also with launches_train);
   9. the last line: {"ok": true, "device": {...}}.
@@ -401,10 +411,11 @@ EPS32 = float(np.finfo(np.float32).eps)
 # dist_panel.cu, the panel for pairwise (D = 0) and mutual_reach (D = 1) + the norm pass;
 # flash_attention_panel.cu, 8 (head-dim bucket D in {32, 64, 128, 256} x element bits K in {32, 16})
 WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu", "flash_attention_panel.cu",
-              "grid.cu", "flash_attention_bwd.cu")  # grid.cu's kernels are listed by name, not checked
+              "grid.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu")  # grid.cu's: by name, not checked
 WS_INSTANTIATIONS = 48 + 6 + 3 + 8
-# flash_attention_bwd.cu: {f32, bf16} x head-dim bucket {64, 128, 256} x {dK/dV, dQ}, and the pre-pass per dtype
-BWD_INSTANTIATIONS = 2 * 3 * 2 + 2
+# flash_attention_bwd.cu: {f32, bf16} x head-dim bucket {64, 128, 256} x {dK/dV, dQ}, and the pre-pass per dtype;
+# flash_attention_bwd_mma.cu: bf16 x head-dim bucket {64, 128} x {dK/dV, dQ}, and its pre-pass
+BWD_INSTANTIATIONS = 2 * 3 * 2 + 2 + 2 * 2 + 1
 FLASH_BUCKETS = (32, 64, 128, 256)
 # [attention]: bf16 on the CUDA-core route at qwen2-1.5b's widths with Dh past the tensor-core kernel's 128
 SIMT_BF16 = ("qwen2-1.5b Dh256 bf16", 1, 4096, 12, 2, 256)
@@ -665,17 +676,22 @@ def ptxas_grid(log: str) -> dict:
 
 def ptxas_bwd(log: str) -> dict:
     """{(kernel, element bits, head-dim bucket, part): (registers, stack
-    bytes, spill stores, spill loads)} of csrc/flash_attention_bwd.cu's
-    kernels (part "dkdv" or "dq"; the pre-pass has bucket 0, part "")."""
+    bytes, spill stores, spill loads)} of the kernels of
+    csrc/flash_attention_bwd.cu (flash_bwd_kernel, delta_kernel) and
+    csrc/flash_attention_bwd_mma.cu (flash_bwd_mma, bf16 only; part "dkdv"
+    or "dq"; the pre-passes have bucket 0, part "")."""
     import re
 
     def entry(line):
         m = re.search(r"Compiling entry function '\S*?(flash_bwd_kernel|delta_kernel)I(f|13__nv_bfloat16)"
                       r"(?:Li(\d+)ELi\d+ELi\d+ELb([01]))?", line)
-        if not m:
-            return None
-        part = {"1": "dkdv", "0": "dq", None: ""}[m.group(4)]
-        return m.group(1), 32 if m.group(2) == "f" else 16, int(m.group(3) or 0), part
+        if m:
+            part = {"1": "dkdv", "0": "dq", None: ""}[m.group(4)]
+            return m.group(1), 32 if m.group(2) == "f" else 16, int(m.group(3) or 0), part
+        m = re.search(r"Compiling entry function '\S*?flash_bwd_mma_(dkdv|dq|delta)_kernel(?:ILi(\d+)E)?", line)
+        if m:
+            return "flash_bwd_mma", 16, int(m.group(2) or 0), "" if m.group(1) == "delta" else m.group(1)
+        return None
 
     return ptxas_entries(log, entry)
 
@@ -746,7 +762,7 @@ def phase_build():
             say(f"[build] grid.cu {kern} K={K}: {regs} registers, {stack} bytes stack, spill stores {st} loads {ld}")
         bwd = ptxas_bwd(info["log"])
         for (kern, bits, D, part), (regs, stack, st, ld) in sorted(bwd.items()):
-            say(f"[build] flash_attention_bwd.cu {kern} {part} D={D} bits={bits}: {regs} registers, {stack} bytes "
+            say(f"[build] flash backward {kern} {part} D={D} bits={bits}: {regs} registers, {stack} bytes "
                 f"stack, spill stores {st} loads {ld}")
         check(len(bwd) == BWD_INSTANTIATIONS,
               f"{len(bwd)} backward instantiations in the ptxas report, not {BWD_INSTANTIATIONS}")
@@ -4333,10 +4349,13 @@ def train_bwd_plain(q, k, v, do, qpos, kpos, causal, window):
 
 
 def train_bwd_case(dev, gen, case):
-    """The backward kernel on one shape against autograd through the plain
-    version (the readings of ``grad_reading``), bit for bit on a second
-    run, rejecting a wrong mask; its time beside its bound, the plain
-    backward's and SDPA's backward."""
+    """The backward on one shape: the route it takes (the tensor cores for
+    bf16 with D <= 128, else the CUDA cores), against the plain backward
+    and autograd through the plain version (the readings of
+    ``grad_reading``), on the tensor-core route also against the CUDA-core
+    kernel, bit for bit on a second run, rejecting a wrong mask; its time
+    beside its bound, the plain backward's, SDPA's backward and (tensor
+    cores) the CUDA-core kernel's."""
     import torch
     import torch.nn.functional as F
 
@@ -4362,14 +4381,23 @@ def train_bwd_case(dev, gen, case):
     def bwd(qp=qpos, c=causal):
         return k_fa.flash_attention_backward(qh, kh, vh, o, lse, doh, qp, kpos, causal=c, window=window)
 
+    def simt_bwd():
+        return k_fa.flash_attention_backward_simt(qh, kh, vh, o, lse, doh, qpos, kpos, causal=causal, window=window)
+
+    before = k_fa.launches_bwd_mma, k_fa.launches_bwd_simt
     got = bwd()
+    route = {(1, 0): "mma", (0, 1): "simt"}.get((k_fa.launches_bwd_mma - before[0],
+                                                  k_fa.launches_bwd_simt - before[1]))
+    want_route = "mma" if dt == "bf16" and D <= 128 else "simt"
+    check(route == want_route, f"[train] {label}: the backward took the route {route}, not {want_route}")
     again = bwd()
+    simt = simt_bwd() if route == "mma" else None
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     # a wrong backward: the causal mask off by one (each row sees one more key); non-causal: the mask switched on
     wrong = bwd(qpos + 1, True) if causal else bwd(qpos, True)
     G = H // KV
-    own = exact = err = wrong_reading = 0.0
+    own = exact = err = wrong_reading = simt_reading = 0.0
     for g, want in train_bwd_plain(q, k, v, do, qpos, kpos, causal, window):
         hs = slice(g * G, (g + 1) * G)
         # the plain version of this kernel in f32 on the same saved output and log-sum-exp: Δ from the same O
@@ -4386,13 +4414,17 @@ def train_bwd_case(dev, gen, case):
             exact = max(exact, grad_reading(mine, w, dt, allow=2 * (pl - w).abs()))
             err = max(err, float((mine.float() - w).abs().max()))
             wrong_reading = max(wrong_reading, grad_reading(wrong[i][:, sl], pl, dt))
+            if simt is not None:  # the CUDA-core kernel on the same inputs, under the same limits
+                simt_reading = max(simt_reading, grad_reading(mine, simt[i][:, sl], dt))
         del plain
     check(same, f"[train] {label}: a second run of the backward gave other bits")
-    check(own <= 1 and exact <= 1, f"[train] {label}: outside tolerance, readings {own:.3f} (the plain backward), "
-                                   f"{exact:.3f} (autograd)")
+    check(own <= 1 and exact <= 1 and simt_reading <= 1,
+          f"[train] {label}: outside tolerance, readings {own:.3f} (the plain backward), {exact:.3f} (autograd), "
+          f"{simt_reading:.3f} (the CUDA-core kernel)")
     check(wrong_reading > 1, f"[train] {label}: the check passes a wrong mask (reading {wrong_reading:.3f})")
-    del wrong, again
+    del wrong, again, simt
     ms = time_ms(bwd, reps=3, warm=1)
+    simt_ms = time_ms(simt_bwd, reps=3, warm=1) if route == "mma" else None
 
     def plain():
         G_ = H // KV
@@ -4439,18 +4471,25 @@ def train_bwd_case(dev, gen, case):
     peak = PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS
     b, by = bound_ms(flops, nbytes, peak)
     b32, _ = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
-    say(f"[train] backward {label}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
+    # the tensor-core kernel executes 20 FLOPs per live pair and padded feature (DP = 64 or 128): S and dP twice,
+    # the dV, dK and dQ products on the hi and lo terms
+    executed = 20.0 * (64 if D <= 64 else 128) * live * H
+    simt_txt = (f", the CUDA-core kernel {simt_ms:.4f} ms on the same call (reading {simt_reading:.3f}); executed "
+                f"{executed / ms / 1e9:.2f} TFLOP/s at 20·DP per live pair" if route == "mma" else "")
+    say(f"[train] backward {label}: route {route}; B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
         f"{'causal' if causal else 'non-causal'} window={window} {dt}, {dead_rows} rows without a live key; "
         f"the forward's output the same bits with and without lse, its lse {lse_err:.3e} from the plain one's; "
         f"max_abs_err {err:.3e} (against autograd); readings {own:.3f} against the plain backward on the same "
         f"saved tensors, {exact:.3f} against autograd through the plain forward, of limit 1; a wrong mask reads "
         f"{wrong_reading:.3f}; a second run bit for bit: {same}; kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.2f} TFLOP/s), plain {p_ms:.4f} ms, sdpa backward "
+        f"({flops / ms / 1e9:.2f} TFLOP/s of the 10·D products), plain {p_ms:.4f} ms, sdpa backward "
         f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms ({by}, at the {dt} peak; {b32:.4f} ms at "
-        f"the f32 peak), {live} live pairs per head")
+        f"the f32 peak), {live} live pairs per head{simt_txt}")
     del q, k, v, do, o, lse, got
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b, bound_by=by, library_ms=lib, bound_f32_ms=b32)
+    return dict(backward_route=route, max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b, bound_by=by,
+                library_ms=lib, bound_f32_ms=b32, simt_ms=simt_ms,
+                simt_reading=simt_reading if route == "mma" else None)
 
 
 def train_steps(step, params, state, batches, dev):
@@ -4469,9 +4508,24 @@ def train_steps(step, params, state, batches, dev):
     return out
 
 
+def union_ms(intervals) -> float:
+    """The length in ms of the union of (start, end) intervals in µs: the
+    time at least one of them covers (kernels on two streams overlap)."""
+    total, lo, hi = 0.0, None, None
+    for start, end in sorted(intervals):
+        if hi is None or start > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return (total + (0.0 if hi is None else hi - lo)) / 1e3
+
+
 def train_profile(step, params, state, batch, wall_ms: float, dev):
     """One step under torch.profiler: the device's busy share against the
-    untraced wall, the backward kernel's and the forward kernel's shares."""
+    untraced wall (the union of the kernels' intervals: the backward's dQ
+    kernel runs on a second stream beside its dK/dV kernel), the backward's
+    share (the union of its kernels' intervals) and the forward kernel's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4482,16 +4536,26 @@ def train_profile(step, params, state, batch, wall_ms: float, dev):
         step(params, state, tb)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    if busy <= 0:
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_sum = sum(e.self_device_time_total for e in events) / 1e3
+    if device_sum <= 0 or not kernels:
         say("[train] under torch.profiler: no device time in the trace; busy share not measured")
         return None
-    bwd = sum(e.self_device_time_total for e in events if "flash_bwd" in e.key or "delta_kernel" in e.key) / 1e3
+
+    def is_bwd(name):
+        return "flash_bwd" in name or "delta_kernel" in name
+
+    busy = union_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    bwd = union_ms((e.time_range.start, e.time_range.end) for e in kernels if is_bwd(e.name))
+    bwd_events = [e for e in events if is_bwd(e.key)]
     fwd = sum(e.self_device_time_total for e in events if "flash_mma" in e.key) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     say(f"[train] one (1, 8192) step under torch.profiler: device busy {busy:.1f} ms of the untraced wall "
-        f"{wall_ms:.1f} ms (busy share {busy / wall_ms:.3f}); the backward kernel {bwd:.1f} ms ({bwd / wall_ms:.3f} "
-        f"of the step), the forward kernel {fwd:.1f} ms ({fwd / wall_ms:.3f}, forward and remat recompute); top "
+        f"{wall_ms:.1f} ms (busy share {busy / wall_ms:.3f}; the kernels' times sum to {device_sum:.1f} ms, two "
+        f"streams overlapping); the backward {bwd:.1f} ms of the step's time ({bwd / wall_ms:.3f}; its kernels: "
+        + ", ".join(f"{e.key.replace('(anonymous namespace)::', '').split('(')[0][-48:]} "
+                    f"{e.self_device_time_total / 1e3:.1f} x{e.count}" for e in bwd_events) +
+        f"), the forward kernel {fwd:.1f} ms ({fwd / wall_ms:.3f}, forward and remat recompute); top "
         f"device time (ms): " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} x{e.count}"
                                           for e in top))
     return dict(busy_share=busy / wall_ms, bwd_share=bwd / wall_ms)
@@ -4651,6 +4715,7 @@ def phase_train(dev, card):
 
     # the counted run: the timed steps at both shapes, then the constant batch
     k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = k_fa.launches_bwd = 0
+    k_fa.launches_bwd_mma = k_fa.launches_bwd_simt = 0
     timed, peaks = {}, {}
     for shape in (TRAIN_SHORT, TRAIN_LONG):
         torch.cuda.reset_peak_memory_stats()
@@ -4659,9 +4724,11 @@ def phase_train(dev, card):
     losses = [r[0] for r in train_steps(step, params, state, [const] * (1 + TRAIN_CONST_STEPS), dev)]
     torch.cuda.synchronize()
     launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt,
-                "flash_attention_bwd": k_fa.launches_bwd}
+                "flash_attention_bwd": k_fa.launches_bwd, "flash_attention_bwd_mma": k_fa.launches_bwd_mma,
+                "flash_attention_bwd_simt": k_fa.launches_bwd_simt}
     want = {"flash_attention_mma": 2 * cfg.n_layers * flash_steps, "flash_attention": 0,
-            "flash_attention_bwd": cfg.n_layers * flash_steps}
+            "flash_attention_bwd": cfg.n_layers * flash_steps, "flash_attention_bwd_mma": cfg.n_layers * flash_steps,
+            "flash_attention_bwd_simt": 0}
     step_ms = {}
     for shape in (TRAIN_SHORT, TRAIN_LONG):
         B_, S_ = shape
@@ -4681,7 +4748,7 @@ def phase_train(dev, card):
     say(f"[train] flash launches over the counted run ({TRAIN_TIMED_STEPS} + {TRAIN_TIMED_STEPS} + "
         f"{1 + TRAIN_CONST_STEPS} steps, {flash_steps} of them at S = 8192): {json.dumps(launches)}; the code "
         f"predicts {json.dumps(want)} (per flash step and layer: the forward and the remat recompute on the "
-        f"tensor-core kernel, one backward)")
+        f"tensor-core kernel, one backward on the tensor cores)")
     check(launches == want, "[train] flash launches differ from the prediction")
     check(np.isfinite(losses).all() and losses[-1] < losses[0], f"[train] the loss did not fall: {losses}")
     prof = train_profile(step, params, state, batches[TRAIN_LONG][0], step_ms[TRAIN_LONG], dev)
@@ -5497,6 +5564,10 @@ def main() -> int:
     launches = dict(run["launches"], eom=run["eom_launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
                     flat_scatter=online_launches["flat_scatter"], **grid_launches, **attn_launches, **exact_launches)
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    # the backward's two sources: the tensor-core kernel (source, the qwen2-1.5b numbers) and the CUDA-core one
+    train_numbers.update(launches_mma=train_launches["flash_attention_bwd_mma"],
+                         launches_simt=train_launches["flash_attention_bwd_simt"],
+                         simt_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu")
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
                    flash_attention_mma=attn_numbers[ATTENTION[0][0]], flat_scatter=online_numbers, **grid_numbers,
                    **exact_numbers, flash_attention_bwd=train_numbers)
@@ -5508,7 +5579,7 @@ def main() -> int:
                "flash_attention": ("flash_attention_panel.cu", "src/repro/kernels/flash_attention.py:38"),
                "flash_attention_mma": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38"),
                # no Pallas kernel: the JAX package differentiates its jnp online softmax through lax.scan
-               "flash_attention_bwd": ("flash_attention_bwd.cu",
+               "flash_attention_bwd": ("flash_attention_bwd_mma.cu",
                                        "no Pallas kernel: autodiff of _flash_sdpa, src/repro/models/layers.py:171"),
                # no Pallas kernel: the JAX package's lax.scan sweeps of the hierarchy
                "single_linkage": ("hierarchy_par.cu", "src/repro/core/hierarchy_jax.py:195"),

@@ -53,16 +53,28 @@ Training (``flash_attention(..., lse=)`` and ``flash_attention_backward``).
 Given an f32 (B, H, Sq) ``lse``, both forward kernels also write each
 row's log-sum-exp of the scaled scores from the (m, l) they keep anyway;
 a row with no live key gets +inf there.  Without it their output is bit
-for bit what it was.  ``flash_attention_backward`` runs
-``csrc/flash_attention_bwd.cu`` (the FlashAttention-2 backward on the
-CUDA cores in f32: a pre-pass for D = rowsum(dO ∘ O), a dK/dV kernel per
-key block looping over the group's query heads, a dQ kernel per query
-block, no atomic adds), for every dtype, head width and view the forward
-takes.  Its bound on the H100 is operations: 10·D FLOPs per live pair
-and head, 515.5 GFLOP for qwen2-1.5b's attention at S = 8192 (7.69 ms at
-the f32 peak, 0.52 ms at the bf16 tensor-core peak).  A row with no live
-key adds dO / Sk to every key's dV and nothing to dQ or dK, as autograd
-through the plain version gives.
+for bit what it was.  ``flash_attention_backward`` is FlashAttention-2's
+backward (a pre-pass for D = rowsum(dO ∘ O), a dK/dV kernel per key block
+looping over the group's query heads, a dQ kernel per query block, no
+atomic adds) on two routes, chosen by ``backward_route``: ``route`` over
+all eight views (q, k, v, o, dO, dq, dk, dv).
+
+- ``"mma"`` (``csrc/flash_attention_bwd_mma.cu``): bf16 on the tensor
+  cores, ``mma.sync`` with f32 sums; P and dS stay in registers as the A
+  operands of the dV, dK and dQ products, as two bf16 terms (hi + lo, the
+  forward's PV split); Q/dO or K/V tiles through a two-stage ``cp.async``
+  ring; the dK/dV and dQ blocks in one grid.
+- ``"simt"`` (``csrc/flash_attention_bwd.cu``): the CUDA cores in f32
+  arithmetic, for every f32 call, bf16 with D in (128, 256] and the views
+  the 16-byte copies refuse.
+
+Its bound on the H100 is operations: 10·D FLOPs per live pair and head,
+515.5 GFLOP for qwen2-1.5b's attention at S = 8192 (0.52 ms at the bf16
+tensor-core peak, 7.69 ms at the f32 peak).  A row with no live key adds
+dO / Sk to every key's dV and nothing to dQ or dK, as autograd through
+the plain version gives.  ``flash_attention_backward_simt`` runs the
+CUDA-core kernel on any CUDA call: the card's oracle of the tensor-core
+route, called by no path.
 
 ``flash_attention_scalar`` runs the earlier CUDA-core kernel
 (``csrc/flash_attention.cu``: scalar shared loads, five barriers per
@@ -79,8 +91,8 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["flash_attention", "flash_attention_backward", "flash_attention_scalar", "route", "MAX_HEAD_DIM",
-           "MMA_MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_backward", "flash_attention_backward_simt", "flash_attention_scalar",
+           "route", "backward_route", "MAX_HEAD_DIM", "MMA_MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 MMA_MAX_HEAD_DIM = 128
@@ -91,7 +103,9 @@ launches = 0
 launches_mma = 0
 launches_simt = 0
 launches_scalar = 0  # launches of the earlier CUDA-core kernel, through flash_attention_scalar only
-launches_bwd = 0  # calls of the backward (csrc/flash_attention_bwd.cu: three kernels, counted once a call)
+launches_bwd = 0  # calls of the backward (its launches counted once a call), in all and per route
+launches_bwd_mma = 0
+launches_bwd_simt = 0
 
 
 def route(dtype: torch.dtype, head_dim: int, shapes, strides, data_ptrs) -> str:
@@ -108,6 +122,15 @@ def route(dtype: torch.dtype, head_dim: int, shapes, strides, data_ptrs) -> str:
         if any(n > 1 and st % 8 for n, st in zip(shape[:3], stride[:3], strict=True)):
             return "simt"
     return "mma"
+
+
+def backward_route(q, k, v, o, do, dq, dk, dv) -> str:
+    """The backward kernel a CUDA call takes: ``route`` over all eight
+    (B, heads, S, D) views, from their dtype, shapes, strides and data
+    pointers alone."""
+    views = (q, k, v, o, do, dq, dk, dv)
+    return route(q.dtype, q.shape[3], [t.shape for t in views], [t.stride() for t in views],
+                 [t.data_ptr() for t in views])
 
 
 def _checked(q, k, v, qpos, kpos, out) -> bool:
@@ -213,17 +236,11 @@ def flash_attention_scalar(q, k, v, qpos, kpos, *, causal: bool = True, window: 
     return out
 
 
-def flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, *, causal: bool = True, window: int | None = None,
-                             dq: torch.Tensor | None = None, dk: torch.Tensor | None = None,
-                             dv: torch.Tensor | None = None):
-    """The gradients (dq, dk, dv) of ``flash_attention``'s output against
-    ``do``: q, o, do (B, H, Sq, D), k and v (B, KV, Sk, D) views of one
-    dtype with contiguous features, ``lse`` the forward's f32 (B, H, Sq),
-    the same positions and masks.  Each gradient is written into the view
-    given for it (features contiguous), or a new tensor, in the inputs'
-    dtype.  A CPU call takes the plain version and counts no launch."""
-    global launches_bwd
-    _checked(q, k, v, qpos, kpos, o)
+def _backward_args(q, k, v, o, lse, do, qpos, kpos, dq, dk, dv):
+    """Validate the backward's arguments; the gradient buffers (new
+    contiguous tensors where None) and True for the card, False for the
+    CPU."""
+    on_card = _checked(q, k, v, qpos, kpos, o)
     _checked_lse(lse, q)
     if lse is None or do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError("flash_attention_backward: lse is required and do must match q")
@@ -234,11 +251,13 @@ def flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, *, causal: bool = 
         elif t.shape != want.shape or t.dtype != want.dtype or t.device != want.device:
             raise ValueError("flash_attention_backward: a gradient buffer does not match its input")
         grads.append(t)
-    if q.device.type == "cpu":
-        for t, g in zip(grads, _ref.gqa_flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal, window),
-                        strict=True):
-            t.copy_(g)
-        return tuple(grads)
+    return grads, on_card
+
+
+def _launch_bwd(entry: str, q, k, v, o, lse, do, qpos, kpos, causal, window, grads) -> bool:
+    """Run the backward's C entry ``entry`` on CUDA tensors that
+    ``_backward_args`` passed; False when there is nothing to do (B or Sq
+    is 0: the gradients are zeroed)."""
     views = (q, k, v, o, do, *grads)
     if any(t.stride(-1) != 1 for t in views) or not (qpos.is_contiguous() and kpos.is_contiguous()):
         raise ValueError("flash_attention_backward wants contiguous features and contiguous positions")
@@ -247,14 +266,56 @@ def flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, *, causal: bool = 
     if B * H > 65535:
         raise ValueError(f"flash_attention_backward takes B*H <= 65535, got {B * H}")
     if not (B and Sq):
-        return tuple(g.zero_() for g in grads)
+        for g in grads:
+            g.zero_()
+        return False
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = [s for t in views for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
-        code = _build.load().repro_flash_attention_bwd(
+        code = getattr(_build.load(), entry)(
             _DTYPES[q.dtype], *(t.data_ptr() for t in (q, k, v, o, do, qpos, kpos, lse, delta, *grads)),
             B, H, KV, Sq, Sk, D, *strides, int(bool(causal)), int(window is not None),
             0 if window is None else int(window), 1.0 / math.sqrt(D), _build.current_stream(q.device))
-    _build.check(code, "flash_attention_backward")
-    launches_bwd += 1
+    _build.check(code, f"flash_attention_backward ({entry})")
+    return True
+
+
+def flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, *, causal: bool = True, window: int | None = None,
+                             dq: torch.Tensor | None = None, dk: torch.Tensor | None = None,
+                             dv: torch.Tensor | None = None):
+    """The gradients (dq, dk, dv) of ``flash_attention``'s output against
+    ``do``: q, o, do (B, H, Sq, D), k and v (B, KV, Sk, D) views of one
+    dtype with contiguous features, ``lse`` the forward's f32 (B, H, Sq),
+    the same positions and masks.  Each gradient is written into the view
+    given for it (features contiguous), or a new tensor, in the inputs'
+    dtype.  A CUDA call takes the kernel ``backward_route`` names; a CPU
+    call takes the plain version and counts no launch."""
+    global launches_bwd, launches_bwd_mma, launches_bwd_simt
+    grads, on_card = _backward_args(q, k, v, o, lse, do, qpos, kpos, dq, dk, dv)
+    if not on_card:
+        for t, g in zip(grads, _ref.gqa_flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal, window),
+                        strict=True):
+            t.copy_(g)
+        return tuple(grads)
+    which = backward_route(q, k, v, o, do, *grads)
+    entry = "repro_flash_attention_bwd_mma" if which == "mma" else "repro_flash_attention_bwd"
+    if _launch_bwd(entry, q, k, v, o, lse, do, qpos, kpos, causal, window, grads):
+        launches_bwd += 1
+        if which == "mma":
+            launches_bwd_mma += 1
+        else:
+            launches_bwd_simt += 1
+    return tuple(grads)
+
+
+def flash_attention_backward_simt(q, k, v, o, lse, do, qpos, kpos, *, causal: bool = True,
+                                  window: int | None = None, dq: torch.Tensor | None = None,
+                                  dk: torch.Tensor | None = None, dv: torch.Tensor | None = None):
+    """``flash_attention_backward`` through the CUDA-core kernel whatever
+    the route, CUDA tensors only: the card's oracle of the tensor-core
+    route.  Counts no launch."""
+    grads, on_card = _backward_args(q, k, v, o, lse, do, qpos, kpos, dq, dk, dv)
+    if not on_card:
+        raise ValueError("flash_attention_backward_simt runs the CUDA-core kernel: it takes CUDA tensors only")
+    _launch_bwd("repro_flash_attention_bwd", q, k, v, o, lse, do, qpos, kpos, causal, window, grads)
     return tuple(grads)

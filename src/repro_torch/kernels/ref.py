@@ -239,16 +239,9 @@ def gqa_flash_lse(q, k, qpos, kpos, causal: bool = True, window: int | None = No
     return torch.where(mask.all(-1), math.inf, lse).reshape(B, H, Sq)
 
 
-def gqa_flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal: bool = True, window: int | None = None):
-    """(dq, dk, dv) of ``gqa_flash_attention`` against ``do``, written
-    plainly in f32 from the saved output and log-sum-exp, as the backward
-    kernel computes them: P = exp(s − lse) on a live pair and 0 on a masked
-    one, Δ = rowsum(do ∘ o), dS = P (do·vᵀ − Δ) on a live pair, dv = Pᵀ do,
-    dk = dSᵀ q / √D and dq = dS k / √D, each summed over the G query heads
-    of a kv head.  A row with no live key (lse = +inf) is the uniform mean
-    of V: its weights are 1/Sk in dv and it adds nothing to dq or dk, as
-    autograd through ``gqa_flash_attention`` gives (masked scores pass no
-    gradient).  Returned in the inputs' dtypes."""
+def _gqa_backward(q, k, v, o, lse, do, qpos, kpos, causal, window, weights):
+    """f32 (dq, dk, dv) of the plain backward, each of P (into dv) and dS
+    (into dk and dq) passed through ``weights`` before its products."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
@@ -261,11 +254,50 @@ def gqa_flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal: bool =
     dog = do.float().reshape(B, KV, G, Sq, D)
     delta = (dog * o.float().reshape(B, KV, G, Sq, D)).sum(-1, keepdim=True)
     dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.float())
-    ds = torch.where(mask, 0.0, p * (dp - delta))
-    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    ds = weights(torch.where(mask, 0.0, p * (dp - delta)))
+    dv = torch.einsum("bkgqs,bkgqd->bksd", weights(p), dog)
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, q.float().reshape(B, KV, G, Sq, D)) / math.sqrt(D)
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float()) / math.sqrt(D)
-    return dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.reshape(B, H, Sq, D), dk, dv
+
+
+def gqa_flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal: bool = True, window: int | None = None):
+    """(dq, dk, dv) of ``gqa_flash_attention`` against ``do``, written
+    plainly in f32 from the saved output and log-sum-exp, as the backward
+    kernels compute them: P = exp(s − lse) on a live pair and 0 on a masked
+    one, Δ = rowsum(do ∘ o), dS = P (do·vᵀ − Δ) on a live pair, dv = Pᵀ do,
+    dk = dSᵀ q / √D and dq = dS k / √D, each summed over the G query heads
+    of a kv head.  A row with no live key (lse = +inf) is the uniform mean
+    of V: its weights are 1/Sk in dv and it adds nothing to dq or dk, as
+    autograd through ``gqa_flash_attention`` gives (masked scores pass no
+    gradient).  Returned in the inputs' dtypes."""
+    dq, dk, dv = _gqa_backward(q, k, v, o, lse, do, qpos, kpos, causal, window, lambda x: x)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bf16_terms(x, split: bool = True):
+    """f32 ``x`` as the tensor-core backward feeds it to a product: the
+    sum of two bf16 terms hi = bf16(x) and lo = bf16(x − hi), which
+    carries x to 2^-17 (``split``), or bf16(x) rounded once (off by up to
+    2^-8); in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float() if split else hi
+
+
+def gqa_flash_attention_backward_mma(q, k, v, o, lse, do, qpos, kpos, causal: bool = True,
+                                     window: int | None = None, split: bool = True):
+    """A plain model of ``csrc/flash_attention_bwd_mma.cu``'s arithmetic,
+    for the tests only: q, k, v, o and do as bf16
+    operands; S, dP and Δ summed in f32 from them; P (into dv) and dS
+    (into dk and dq) entering the products as ``bf16_terms`` — hi + lo, or
+    with ``split=False`` rounded once; f32 sums; the gradients rounded once
+    to bf16.  The order of the f32 sums is the CPU's, and they round to
+    nearest: the tensor cores' own f32 sums do not, which is why the
+    kernel adds each tile's sum to its running sums in round-to-nearest
+    f32."""
+    bf = [t.to(torch.bfloat16).float() for t in (q, k, v, o, do)]
+    grads = _gqa_backward(*bf[:4], lse, bf[4], qpos, kpos, causal, window, lambda x: bf16_terms(x, split))
+    return tuple(t.to(torch.bfloat16) for t in grads)
 
 
 def kahan_add(hi, err, delta):

@@ -1,12 +1,15 @@
-"""The flash attention backward kernel and the training path on the card.
+"""The flash attention backward kernels and the training path on the card.
 
-``csrc/flash_attention_bwd.cu`` (through
-``kernels/flash_attention.py::flash_attention_backward``) against its plain
-version on the same saved output and log-sum-exp, and against autograd
-through the plain forward; the forward kernels' ``lse`` against the plain
-log-sum-exp, their output bit for bit what it is without it;
-``ops.FlashAttentionFn`` under autograd on the card; a train step on the
-card against the same step on the CPU.  The limits are chip_smoke.py's
+``kernels/flash_attention.py::flash_attention_backward`` on both routes
+(``csrc/flash_attention_bwd_mma.cu`` on the tensor cores for bf16 with
+D <= 128, ``csrc/flash_attention_bwd.cu`` on the CUDA cores otherwise)
+against its plain version on the same saved output and log-sum-exp, and
+against autograd through the plain forward; the tensor-core route also
+against the CUDA-core kernel (``flash_attention_backward_simt``) on the
+same inputs; the forward kernels' ``lse`` against the plain log-sum-exp,
+their output bit for bit what it is without it; ``ops.FlashAttentionFn``
+under autograd on the card; a train step on the card against the same
+step on the CPU.  The limits are chip_smoke.py's
 ``[train]`` readings: in bf16 2^-7 of each |value| (the gradients are
 rounded once to bf16, up to 2^-8) plus 1e-3 of the tensor's root mean
 square; in f32 1e-4 and 1e-4 (the sums' order); against autograd plus
@@ -93,11 +96,12 @@ def test_backward_against_plain(cuda_device, dt, B, Sq, Sk, H, KV, D, causal, wi
     fin = torch.isfinite(want_lse)
     assert torch.equal(torch.isinf(lse), ~fin) and bool((lse[~fin] > 0).all())
     assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-5 * max(1.0, float(want_lse[fin].abs().max()))
-    before = t_fa.launches_bwd
+    before = (t_fa.launches_bwd, t_fa.launches_bwd_mma)
     got = t_fa.flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal=causal, window=window)
     again = t_fa.flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert t_fa.launches_bwd == before + 2
+    mma = dt == "bf16" and D <= 128 and D % 8 == 0
+    assert (t_fa.launches_bwd, t_fa.launches_bwd_mma) == (before[0] + 2, before[1] + 2 * mma)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert all(g.dtype == q.dtype and bool(torch.isfinite(g).all()) for g in got)
     f32 = [t.float() for t in (q, k, v, o)]
@@ -112,17 +116,86 @@ def test_backward_against_plain(cuda_device, dt, B, Sq, Sk, H, KV, D, causal, wi
         assert max(_reading(w, pl, dt) for w, pl in zip(wrong, plain)) > 1
 
 
+MMA_CASES = [  # bf16: (B, Sq, Sk, H, KV, D, causal, window, dead keys at the head, at the tail)
+    (1, 300, 1601, 6, 1, 128, False, None, 0, 0),
+    (2, 333, 1601, 8, 2, 64, True, None, 40, 17),
+    (2, 300, 311, 6, 1, 64, True, None, 20, 7),
+    (1, 300, 311, 4, 4, 120, True, 33, 0, 9),
+    (1, 1000, 1000, 8, 2, 120, True, 300, 0, 0),
+    (1, 2048, 2048, 12, 2, 128, True, None, 0, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,dead_head,dead_tail", MMA_CASES)
+def test_mma_backward_against_simt(cuda_device, B, Sq, Sk, H, KV, D, causal, window, dead_head, dead_tail):
+    """The tensor-core route against the CUDA-core kernel on the same
+    saved tensors, the plain backward and autograd, with the same limits:
+    both head-width buckets (64, 128; 120 padded), Sq and Sk off a
+    multiple of 64 (Sk = 1601), dead keys at the head (rows with no live
+    key) and the tail, a window, G in {1, 4, 6}; bit for bit on repeat; a
+    causal mask off by one rejected."""
+    q, k, v, do, qpos, kpos = _inputs(cuda_device, "bf16", B, Sq, Sk, H, KV, D, dead_head, dead_tail, causal, seed=7)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=cuda_device)
+    o = t_fa.flash_attention(q, k, v, qpos, kpos, causal=causal, window=window, lse=lse)
+    before = (t_fa.launches_bwd, t_fa.launches_bwd_mma, t_fa.launches_bwd_simt)
+    got = t_fa.flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal=causal, window=window)
+    again = t_fa.flash_attention_backward(q, k, v, o, lse, do, qpos, kpos, causal=causal, window=window)
+    simt = t_fa.flash_attention_backward_simt(q, k, v, o, lse, do, qpos, kpos, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (t_fa.launches_bwd, t_fa.launches_bwd_mma, t_fa.launches_bwd_simt) == (
+        before[0] + 2, before[1] + 2, before[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()) for g in got)
+    f32 = [t.float() for t in (q, k, v, o)]
+    plain = tref.gqa_flash_attention_backward(*f32, lse, do.float(), qpos, kpos, causal, window)
+    leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    tref.gqa_flash_attention(*leaves, qpos, kpos, causal, window).backward(do.float())
+    for g, sm, pl, lf in zip(got, simt, plain, leaves):
+        assert _reading(g, sm, "bf16") <= 1
+        assert _reading(g, pl, "bf16") <= 1
+        assert _reading(g, lf.grad, "bf16", allow=2 * (pl - lf.grad).abs()) <= 1
+    if causal:
+        wrong = t_fa.flash_attention_backward(q, k, v, o, lse, do, qpos + 1, kpos, causal=causal, window=window)
+        assert max(_reading(w, pl, "bf16") for w, pl in zip(wrong, plain)) > 1
+
+
+@pytest.mark.cuda
+def test_mma_long_sums_against_simt(cuda_device):
+    """qwen2-1.5b's attention at S = 8192 (12/2 heads of 128, causal): the
+    early keys' dK and dV sum 49,152 rows.  Kept in the tensor cores'
+    accumulators over the whole sweep (their f32 sums are not rounded to
+    nearest) they read 1.29 against the CUDA-core kernel; each tile is
+    summed from zero and added in round-to-nearest f32.  The plain
+    backward at this size builds several (1, 2, 6, 8192, 8192) f32
+    tensors of 3.2 GB, so the CUDA-core kernel is the reference here
+    (chip_smoke.py [train] holds both to the plain backward, per kv
+    head)."""
+    B, S, H, KV, D = 1, 8192, 12, 2, 128
+    q, k, v, do, qpos, kpos = _inputs(cuda_device, "bf16", B, S, S, H, KV, D, 0, 0, True, seed=8)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda_device)
+    o = t_fa.flash_attention(q, k, v, qpos, kpos, lse=lse)
+    got = t_fa.flash_attention_backward(q, k, v, o, lse, do, qpos, kpos)
+    again = t_fa.flash_attention_backward(q, k, v, o, lse, do, qpos, kpos)
+    simt = t_fa.flash_attention_backward_simt(q, k, v, o, lse, do, qpos, kpos)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert max(_reading(g, sm, "bf16") for g, sm in zip(got, simt)) <= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["bf16", "f32"])
 def test_autograd_function_on_the_card(cuda_device, dt):
     """ops.flash_attention under grad: one forward launch with lse, one
-    backward, the gradients in the model layout bit for bit the wrappers'
-    own on the same tensors (f32: also against the CPU's autograd through
-    the plain version); without grad the forward alone."""
+    backward (bf16 on the tensor-core route, f32 on the CUDA cores), the
+    gradients in the model layout bit for bit the wrappers' own on the
+    same tensors (f32: also against the CPU's autograd through the plain
+    version); without grad the forward alone."""
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     B, S, H, KV, D = 2, 200, 6, 2, 64
     q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=cuda_device).to(DTYPES[dt]) for h in (H, KV, KV, H))
     t_fa.launches = t_fa.launches_mma = t_fa.launches_simt = t_fa.launches_bwd = 0
+    t_fa.launches_bwd_mma = t_fa.launches_bwd_simt = 0
     with torch.no_grad():
         tops.flash_attention(q, k, v, window=50)
     assert (t_fa.launches, t_fa.launches_bwd) == (1, 0)
@@ -132,6 +205,7 @@ def test_autograd_function_on_the_card(cuda_device, dt):
     torch.cuda.synchronize()
     assert (t_fa.launches, t_fa.launches_bwd) == (2, 1)
     assert t_fa.launches_mma == (2 if dt == "bf16" else 0)
+    assert (t_fa.launches_bwd_mma, t_fa.launches_bwd_simt) == ((1, 0) if dt == "bf16" else (0, 1))
     pos = torch.arange(S, device=cuda_device, dtype=torch.int32).expand(B, S).contiguous()
     heads = [t.transpose(1, 2) for t in (q, k, v)]
     lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda_device)

@@ -7,7 +7,10 @@ aligned pointers, strides of axes longer than 1 multiples of 8 elements)
 or ``"simt"`` (the CUDA-core kernel, ``csrc/flash_attention_panel.cu``)
 for everything else.  ``flash_attention_scalar``, the earlier CUDA-core
 kernel kept as the card's oracle of the ``"simt"`` route, takes CUDA
-tensors only.  The kernels run only on a card (tests/test_torch_cuda.py);
+tensors only.  The backward applies the same rule over its eight views
+(``backward_route``: ``"mma"`` is ``csrc/flash_attention_bwd_mma.cu``,
+``"simt"`` ``csrc/flash_attention_bwd.cu``); its oracle
+``flash_attention_backward_simt`` also takes CUDA tensors only.  The kernels run only on a card (tests/test_torch_cuda.py);
 the rules are held here.
 """
 
@@ -121,3 +124,49 @@ def test_scalar_oracle_takes_cuda_tensors_only(dtype):
     with pytest.raises(ValueError, match="CUDA tensors only"):
         t_fa.flash_attention_scalar(q, k, v, pos, pos)
     assert (t_fa.launches, t_fa.launches_mma, t_fa.launches_simt, t_fa.launches_scalar) == before
+
+
+def _model_views(H, KV, D, dtype, misaligned=False, B=2, S=48):
+    """The eight views ``ops.FlashAttentionFn.backward`` hands
+    ``flash_attention_backward``: (B, S, heads, D) tensors transposed to
+    head-major (q, k, v, o, dO, dq, dk, dv); with ``misaligned`` dO starts
+    one element past an aligned address."""
+    q, o, dq = (torch.empty(B, S, H, D, dtype=dtype).transpose(1, 2) for _ in range(3))
+    k, v, dk, dv = (torch.empty(B, S, KV, D, dtype=dtype).transpose(1, 2) for _ in range(4))
+    n = B * S * H * D
+    do = torch.empty(n + misaligned, dtype=dtype)[int(misaligned):].view(B, S, H, D).transpose(1, 2)
+    return q, k, v, o, do, dq, dk, dv
+
+
+@pytest.mark.parametrize("H,KV,D,dtype,misaligned,want", [
+    (12, 2, 128, torch.bfloat16, False, "mma"),   # qwen2-1.5b
+    (32, 8, 120, torch.bfloat16, False, "mma"),   # h2o-danube-3-4b, Dh 120
+    (12, 2, 128, torch.float32, False, "simt"),   # f32
+    (12, 2, 256, torch.bfloat16, False, "simt"),  # Dh 256
+    (12, 2, 128, torch.bfloat16, True, "simt"),   # a misaligned dO
+], ids=["qwen2-1.5b bf16", "danube Dh120 bf16", "qwen2-1.5b f32", "bf16 Dh256", "misaligned dO"])
+def test_backward_route_of_model_layout_views(H, KV, D, dtype, misaligned, want):
+    """The backward's kernel from the eight views' dtype, shapes, strides
+    and data pointers alone: ``backward_route`` is ``route`` over all
+    eight."""
+    views = _model_views(H, KV, D, dtype, misaligned)
+    assert t_fa.backward_route(*views) == want
+    args = ([t.shape for t in views], [t.stride() for t in views], [t.data_ptr() for t in views])
+    assert t_fa.route(dtype, D, *args) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_simt_oracle_takes_cuda_tensors_only(dtype):
+    """flash_attention_backward_simt refuses CPU tensors and counts no
+    launch; flash_attention_backward on them takes the plain version."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(1, h, 20, 16, generator=g).to(dtype) for h in (4, 2, 2, 4))
+    pos = torch.arange(20, dtype=torch.int32)[None]
+    lse = torch.empty(1, 4, 20)
+    o = t_fa.flash_attention(q, k, v, pos, pos, lse=lse)
+    before = (t_fa.launches_bwd, t_fa.launches_bwd_mma, t_fa.launches_bwd_simt)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        t_fa.flash_attention_backward_simt(q, k, v, o, lse, do, pos, pos)
+    grads = t_fa.flash_attention_backward(q, k, v, o, lse, do, pos, pos)
+    assert all(g.dtype == dtype and g.shape == t.shape for g, t in zip(grads, (q, k, v)))
+    assert (t_fa.launches_bwd, t_fa.launches_bwd_mma, t_fa.launches_bwd_simt) == before
