@@ -278,11 +278,24 @@ Phases, each printing its own lines:
               and delete ms at blocks of 64, 256, 819 and 1638 against a
               rebuild (the crossover), the hierarchy-only refresh and its
               stage split (single_linkage, condense, extract), the
-              query p50, peak memory, no host read in an update body or a
-              refresh before its unwrap (set_sync_debug_mode); the three
-              strip kernels bit for bit their plain versions at the
-              stream's shapes (tie-free, an integer grid, a ragged Np, K =
-              10, 100, 2000), timed beside them, cdist and topk;
+              query p50, peak memory (also of an insert through the first
+              route, SW and smask built), no host read in an update body or
+              a refresh before its unwrap (set_sync_debug_mode); the strip
+              kernels bit for bit their plain versions at the stream's
+              shapes (tie-free, an integer grid, a ragged Np, K = 10, 100,
+              2000), timed beside them, cdist and topk; the round minima
+              from the strip's factors (csrc/strip_minima.cu, the update's
+              route) on one insert block's captured strip (5,376 x 32,768)
+              bit for bit its plain version and the first kernel
+              (csrc/dynamic.cu) fed the SW and smask built from the same
+              factors, in round 1, at ~1000-slot components and at one
+              component, with all rows valid and with the stream's rows,
+              and with every slot live; timed (CUDA events and
+              torch.profiler's device time) beside the first kernel and
+              the bound; every round of the insert's
+              Borůvka; that Borůvka through both routes (buffers equal,
+              walls in turns, the strip kernels' device time) and the
+              insert's state through both routes, equal;
      summarizer the online–offline summarizer (core/summarizer.py) at the
               [stream] configuration: the same 262,144 points inserted into
               its host tree in blocks of 8192, a quarter deleted in blocks,
@@ -325,9 +338,15 @@ Phases, each printing its own lines:
      grid_assign, grid_core_distances and grid_round_minima, which stand
      for the JAX package's grid-pruned jnp searches, with their launches
      from [grid] and the visited share as visited_share; strip_dists,
-     strip_topk and strip_round_minima, which stand for the JAX package's
-     jnp strip programs of the exact-dynamic path, with their launches from
-     [exact]; bubble_cd, mutual_reach, grid_core_distances and
+     strip_topk and strip_round_minima_from_dists, which stand for the JAX
+     package's jnp strip programs of the exact-dynamic path, with their
+     launches from [exact] (the round minima on the stream's round 1 with
+     its device time, first_ms for the first kernel on the same inputs,
+     full_ms / full_bound_ms with every row and slot live, the device time
+     of every round and of one insert's Borůvka
+     through both routes), and strip_round_minima, the first version,
+     launched on no path (launches_oracle: its launches as the oracle);
+     bubble_cd, mutual_reach, grid_core_distances and
      grid_round_minima also with launches_mesh, their launches on [mesh]'s
      mesh engines; assign, bubble_cd and mutual_reach also with
      launches_summarizer, their launches over [summarizer]'s cluster()
@@ -475,7 +494,12 @@ EXACT_PLAIN_EVERY = 8  # the update also through the plain versions on the card,
 EXACT_CPU = (2048, 32, 12)  # the CPU replay: points, block, blocks (engines, then handles with s_cap = Np)
 EXACT_TIMED_BLOCKS = (16, 64, 256, 819, 1638)  # 0.1 %, 0.4 %, 1.6 %, 5 % and 10 % of EXACT_N
 EXACT_TOPK = (MIN_PTS, 100, K_STRIP)  # strip_topk's K: the path's, and past the 1024 queue
-EXACT_KERNELS = ("strip_dists", "strip_topk", "strip_round_minima")
+EXACT_KERNELS = ("strip_dists", "strip_topk", "strip_round_minima_from_dists")  # the update's path
+MINIMA_INSTANTIATIONS = 3  # strip_minima.cu: the tile kernel with and without 16-byte loads, and the merge
+# the round minima's label sets at the stream's strip: round 1 (every slot alone), components of ~1000 slots, one
+EXACT_MINIMA_LABELS = ("round 1", "~1000-slot components", "one component")
+NEW_MINIMA = ("minima_tile_kernel", "minima_merge_kernel")  # the kernels of the two round-minima launches
+OLD_MINIMA = ("round_rows_kernel", "round_cols_kernel")
 SUMMARIZER_KERNELS = ("assign", "bubble_cd", "mutual_reach")
 SUMMARIZER_NMI = 0.95  # [summarizer]: against the numpy route (tests/test_summarizer.py's contract)
 EXAMPLES = ("torch_quickstart.py", "torch_streaming_service.py", "torch_dynamic_vs_static.py", "torch_serve_batched.py",
@@ -516,6 +540,37 @@ def time_ms(fn, reps=10, warm=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps=10):
+    """The device time of one call of ``fn``: CUDA events around ``reps``
+    calls queued behind a spin kernel (``torch.cuda._sleep``), so that the
+    host has enqueued them all before the device reaches the first event
+    and the device never waits for the host between them (``time_ms``
+    counts those waits when a call's host work outlasts its kernels).  The
+    spin is lengthened until the first event is still pending once the
+    last call is enqueued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    spin = 4 * reps * (time.perf_counter() - t0) + 1e-3  # seconds
+    torch.cuda.synchronize()
+    for _ in range(4):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin * 2e9))  # cycles; the SM clock is at most ~2 GHz
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        ahead = not a.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return a.elapsed_time(b) / reps
+        spin *= 4
+    raise RuntimeError("device_ms: the host could not get ahead of the device")
 
 
 def host_ms(fn, reps=20):
@@ -696,6 +751,18 @@ def ptxas_bwd(log: str) -> dict:
     return ptxas_entries(log, entry)
 
 
+def ptxas_minima(log: str) -> dict:
+    """{(kernel, 16-byte loads): (registers, stack bytes, spill stores,
+    spill loads)} of csrc/strip_minima.cu's kernels."""
+    import re
+
+    def entry(line):
+        m = re.search(r"Compiling entry function '\S*?minima_(tile|merge)_kernel(?:ILb([01])E)?", line)
+        return (m.group(1), m.group(2) == "1") if m else None
+
+    return ptxas_entries(log, entry)
+
+
 def ptxas_entries(log: str, entry) -> dict:
     """{key: (registers, stack bytes, spill stores, spill loads)} of the
     entry functions for which ``entry(line)`` gives a key."""
@@ -768,6 +835,14 @@ def phase_build():
               f"{len(bwd)} backward instantiations in the ptxas report, not {BWD_INSTANTIATIONS}")
         bad = [key for key, v in bwd.items() if v[1:] != (0, 0, 0)]
         check(not bad, f"backward instantiations with a stack frame or spills: {bad}")
+        minima = ptxas_minima(info["log"])
+        for (kern, vec), (regs, stack, st, ld) in sorted(minima.items()):
+            say(f"[build] strip_minima.cu {kern} vec={vec}: {regs} registers, {stack} bytes stack, spill stores "
+                f"{st} loads {ld}")
+        check(len(minima) == MINIMA_INSTANTIATIONS,
+              f"{len(minima)} strip_minima.cu kernels in the ptxas report, not {MINIMA_INSTANTIATIONS}")
+        bad = [key for key, v in minima.items() if v[1:] != (0, 0, 0)]
+        check(not bad, f"strip_minima.cu kernels with a stack frame or spills: {bad}")
     lib = _build.load()
     for dtype, name in ((0, "f32"), (1, "bf16")):
         plans = []
@@ -4769,7 +4844,7 @@ def phase_train(dev, card):
 
 
 def plain_strips():
-    """A context in which kernels/dynamic.py's three wrappers run their
+    """A context in which kernels/dynamic.py's four wrappers run their
     plain versions whatever the device (the update's plain replay on the
     card)."""
     import contextlib
@@ -4779,7 +4854,8 @@ def plain_strips():
 
     @contextlib.contextmanager
     def ctx():
-        saved = (k_dyn.strip_dists, k_dyn.strip_topk, k_dyn.strip_round_minima)
+        names = ("strip_dists", "strip_topk", "strip_round_minima", "strip_round_minima_from_dists")
+        saved = {name: getattr(k_dyn, name) for name in names}
 
         def dists(rows, X, out=None):
             r = ref.strip_dists(rows, X)
@@ -4788,10 +4864,13 @@ def plain_strips():
         k_dyn.strip_dists = dists
         k_dyn.strip_topk = lambda D, ids, valid, alive, K: ref.strip_topk(D, ids, valid.bool(), alive.bool(), K)
         k_dyn.strip_round_minima = lambda SW, sm, si, lab, E=0: ref.strip_round_minima(SW, sm.bool(), si, lab, E)
+        k_dyn.strip_round_minima_from_dists = lambda D, cd, si, rv, al, lab, E=0: ref.strip_round_minima_from_dists(
+            D, cd, si, rv.bool(), al.bool(), lab, E)
         try:
             yield
         finally:
-            k_dyn.strip_dists, k_dyn.strip_topk, k_dyn.strip_round_minima = saved
+            for name, fn in saved.items():
+                setattr(k_dyn, name, fn)
 
     return ctx()
 
@@ -4954,7 +5033,8 @@ def phase_exact(dev, card):
     check(overflows["small delete"] == 0, f"[exact] a delete block of {small} overflowed: the delete rule never ran")
     stream_s = time.perf_counter() - stream_t0
     launches = exact_counts()
-    check(all(launches[k] > 0 for k in EXACT_KERNELS), f"[exact] stream launches {launches}")
+    check(all(launches[k] > 0 for k in EXACT_KERNELS) and launches["strip_round_minima"] == 0,
+          f"[exact] stream launches {launches}: the first round-minima kernel is the factor kernel's oracle only")
     say(f"[exact] stream: {EXACT_BLOCKS} alternating blocks of {EXACT_BLOCK} ({EXACT_BLOCK / EXACT_N:.2%} of n) and "
         f"{n_small} delete blocks of {small}, every one routed incremental and checked against a rebuild from "
         f"scratch (knn_dst, cd bit for bit; {tally['tied']} rows whose knn_idx differ only at the K-th distance; MST "
@@ -4991,7 +5071,7 @@ def phase_exact(dev, card):
 
     exact_cpu_replay(dev)
     exact_times(dev, eng, rng)
-    numbers = exact_kernels(dev, h.state, EXACT_BLOCK + h._eff_cap(EXACT_BLOCK))
+    numbers = exact_kernels(dev, h, EXACT_BLOCK + h._eff_cap(EXACT_BLOCK), Qs)
     return launches, numbers
 
 
@@ -5167,6 +5247,19 @@ def exact_times(dev, eng, rng):
     say(f"[exact] times at n = {EXACT_N}, Np = {h.capacity}: rebuild {rebuild_ms:.1f} ms; by block (ms, incremental "
         "update with its one read of ok; an overflowed update includes its rebuild): " + "; ".join(
             f"{B} ({f:.2%}) insert {i:.1f}, delete {d:.1f}{' (overflowed)' if o else ''}" for B, f, i, d, o in rows))
+    # the insert of EXACT_BLOCK again through the first route (SW and smask built and held through Borůvka)
+    real_route = dt.boruvka_strip_from_dists
+    dt.boruvka_strip_from_dists = first_route
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        first_ms, _ = wall(lambda: h.insert_block(fresh[:EXACT_BLOCK]))
+        peak_first = (torch.cuda.max_memory_allocated() - base) / 2**20
+    finally:
+        dt.boruvka_strip_from_dists = real_route
+    ins_ms = next(r[2] for r in rows if r[0] == EXACT_BLOCK)
+    say(f"[exact] an insert of {EXACT_BLOCK}: factor route {ins_ms:.1f} ms, peak device memory above the state "
+        f"{peak_update:.0f} MiB; the first route (SW and smask built and held) {first_ms:.1f} ms, "
+        f"{peak_first:.0f} MiB; {peak_first - peak_update:.0f} MiB less")
 
     def crossing(col):
         """The block fraction where the update's time reaches the rebuild's,
@@ -5227,19 +5320,20 @@ def exact_times(dev, eng, rng):
     return cross
 
 
-def exact_kernels(dev, state, U):
-    """The three kernels at the stream's shapes (U = Bp + rk_cap = 5,376 and
+def exact_kernels(dev, h, U, fresh):
+    """The strip kernels at the stream's shapes (U = Bp + rk_cap = 5,376 and
     the rebuild's 32,768 rows, Np = 32,768), bit for bit their plain
     versions on tie-free (the stream's state) and duplicate-heavy (an
     integer grid) data, with an Np that is no multiple of the tile, K = 10,
-    100 and 2000; kernel, plain and library times and the bounds."""
+    100 and 2000; kernel, plain and library times and the bounds; the
+    round minima in ``exact_minima``."""
     import torch
 
     from repro_torch.kernels import dynamic as k_dyn
     from repro_torch.kernels import ref
 
     counts = exact_counts()
-    X, alive, cd = state.X, state.alive, state.cd
+    X, alive = h.state.X, h.state.alive
     Np, d = X.shape
     gen = np.random.default_rng(SEED + 25)
     ids = torch.as_tensor(gen.choice(Np, size=U, replace=False), device=dev)
@@ -5306,26 +5400,213 @@ def exact_kernels(dev, state, U):
         f"every K, also on a 777 x {Np - 13} integer grid")
     del Dm, Dg
 
-    # strip_round_minima on the insert strip's weights: round 1 (every slot alone) and a round of ~1000-slot
-    # components
-    SW = torch.maximum(torch.maximum(D, cd[ids][:, None]), cd[None, :])
-    smask = alive[None, :] & (iota[None, :] != ids[:, None])
-    SW.masked_fill_(~smask, float("inf"))
-    E = Np
-    for lab in (iota, iota // 1000):
-        same("strip_round_minima", k_dyn.strip_round_minima(SW, smask, ids, lab, E),
-             ref.strip_round_minima(SW, smask, ids, lab, E))
-    lab = iota // 1000
-    ms = time_ms(lambda: k_dyn.strip_round_minima(SW, smask, ids, lab, E), reps=10)
-    plain = time_ms(lambda: ref.strip_round_minima(SW, smask, ids, lab, E), reps=1, warm=1)
-    b, by = bound_ms(0.0, 5.0 * U * Np + 8.0 * Np + 4.0 * U + 12.0 * (U + Np))
-    out["strip_round_minima"] = dict(max_abs_err=errs["strip_round_minima"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                                     library_ms=None)
-    say(f"[exact] strip_round_minima ({U} x {Np}, one launch = the row and the column pass): kernel {ms:.4f} ms, "
-        f"plain {plain:.2f}, bound {b:.4f} ({by}, SW and smask read once); bit for bit the plain version in round 1 "
-        "and at ~1000-slot components; no single library call computes it")
+    del D
+    out.update(exact_minima(dev, h, fresh))
     k_dyn.launches.update(counts)  # the checks' launches are not the path's
     return out
+
+
+def built_strip(D, cd, sids, rv, alive):
+    """SW and smask as ``dt.insert_batch`` built them before the factor
+    route: ``max(max(D, cd[sids]), cd)``, +inf off ``rv & alive & (col !=
+    sids)``."""
+    import torch
+
+    iota = torch.arange(D.shape[1], device=D.device)
+    smask = rv[:, None] & alive[None, :] & (iota[None, :] != sids[:, None].long())
+    SW = torch.maximum(D, cd[sids.long()][:, None])
+    SW = torch.maximum(SW, cd[None, :], out=SW)
+    return SW.masked_fill_(~smask, float("inf")), smask
+
+
+def first_route(eu, ev, ew, evalid, sids, D, cd, rv, alive, n):
+    """``boruvka_strip_from_dists`` through the first route: SW and smask
+    built and held through ``boruvka_strip`` (the update before the factor
+    route)."""
+    from repro_torch.core import mst
+
+    return mst.boruvka_strip(eu, ev, ew, evalid, sids, *built_strip(D, cd, sids, rv, alive), n)
+
+
+def exact_minima(dev, h, fresh):
+    """The round minima at the stream's shapes.  One insert block of
+    EXACT_BLOCK points of ``fresh`` (unseen points of the stream's mixture)
+    on the stream's final state (``dt.insert_batch``) is captured: its distance strip (U = 5,376 rows by Np = 32,768), core
+    distances, strip ids, row validity (Bp rows and rk_n RkNN rows valid),
+    live slots and its Borůvka's labels in every round.  Then: the factor
+    kernel bit for bit its plain version and the first kernel (fed the SW
+    and smask built from the same factors) for each label set of
+    EXACT_MINIMA_LABELS with all rows valid and with the stream's rows,
+    timed beside the first kernel, with the bound of the entries that the
+    inputs make active (4 bytes each) and the vectors; the whole strip live
+    (every column, every row: the bound of D read once);
+    every round of the captured Borůvka; the Borůvka through both routes
+    (buffers equal, walls in turns, torch.profiler's device time of the
+    strip kernels); the update's state through both routes, equal."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dynamic_torch as dt
+    from repro_torch.core import mst
+    from repro_torch.kernels import dynamic as k_dyn
+    from repro_torch.kernels import ref
+
+    P = torch.as_tensor(fresh[:EXACT_BLOCK], dtype=torch.float32, device=dev)
+    free = torch.as_tensor(h._free[-EXACT_BLOCK:][::-1], device=dev)
+    valid = torch.ones(EXACT_BLOCK, dtype=torch.bool, device=dev)
+    rk_cap = h._eff_cap(EXACT_BLOCK)
+    seen, labs = {}, []
+    real_route, real_kernel = dt.boruvka_strip_from_dists, k_dyn.strip_round_minima_from_dists
+
+    def capture(*args):
+        seen["args"] = args
+        return real_route(*args)
+
+    def record(D, cd, sids, rv, alive, lab, E=0, **kw):
+        labs.append(lab.clone())
+        return real_kernel(D, cd, sids, rv, alive, lab, E, **kw)
+
+    dt.boruvka_strip_from_dists, k_dyn.strip_round_minima_from_dists = capture, record
+    try:
+        after = dt.insert_batch(h.state, P, free, valid, min_pts=MIN_PTS, rk_cap=rk_cap)
+    finally:
+        dt.boruvka_strip_from_dists, k_dyn.strip_round_minima_from_dists = real_route, real_kernel
+    dt.boruvka_strip_from_dists = first_route
+    try:
+        after_first = dt.insert_batch(h.state, P, free, valid, min_pts=MIN_PTS, rk_cap=rk_cap)
+    finally:
+        dt.boruvka_strip_from_dists = real_route
+    bad = state_equal(after, after_first)
+    check(not bad, f"[exact] an insert block's state through the factor route differs from the first route's in {bad}")
+    eu, ev, ew, evalid, sids, D, cd, rv, alive, n = seen["args"]
+    U, E = D.shape[0], eu.shape[0]
+    iota = torch.arange(n, device=dev)
+    ones = torch.ones(U, dtype=torch.bool, device=dev)
+    err = 0.0
+    old_before = k_dyn.launches["strip_round_minima"]
+
+    def equal(tag, got, want):
+        nonlocal err
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and bool(torch.equal(g, w)), f"[exact] {tag}: differs")
+            if w.is_floating_point():
+                both = torch.isinf(g) & (g == w)
+                g, w = g.masked_fill(both, 0.0), w.masked_fill(both, 0.0)
+            err = max(err, abs_diff(g, w))
+
+    def active(rows, lab, live):
+        slab = lab[sids.long()]
+        return sum(int((rows[r0 : r0 + 1024, None] & live[None, :] & (slab[r0 : r0 + 1024, None] != lab[None, :])).sum())
+                   for r0 in range(0, U, 1024))
+
+    vectors = 4.0 * n + n + 8.0 * n + 4.0 * U + U + 12.0 * (U + n)  # cd, alive, lab, sids, rows; the outputs
+
+    def case(tag, rows, lab, live, plain=False):
+        """One label set: bitwise checks, times and bounds."""
+        got = k_dyn.strip_round_minima_from_dists(D, cd, sids, rows, live, lab, E)
+        SW, smask = built_strip(D, cd, sids, rows, live)
+        equal(f"{tag}: the factor kernel against the first", got, k_dyn.strip_round_minima(SW, smask, sids, lab, E))
+        equal(f"{tag}: the factor kernel against its plain version", got,
+              ref.strip_round_minima_from_dists(D, cd, sids, rows, live, lab, E))
+        acts = active(rows, lab, live)
+
+        def factor():
+            return k_dyn.strip_round_minima_from_dists(D, cd, sids, rows, live, lab, E)
+
+        def first():
+            return k_dyn.strip_round_minima(SW, smask, sids, lab, E)
+
+        r = dict(active=acts, ms=time_ms(factor, reps=20), old_ms=time_ms(first, reps=5),
+                 device_ms=device_ms(factor), old_device_ms=device_ms(first, reps=3))
+        r["bound_ms"], r["bound_by"] = bound_ms(0.0, 4.0 * acts + vectors)
+        r["old_bound_ms"], _ = bound_ms(0.0, 1.0 * U * n + 4.0 * acts + vectors)  # smask whole, SW where active
+        if plain:
+            r["plain_ms"] = time_ms(lambda: ref.strip_round_minima_from_dists(D, cd, sids, rows, live, lab, E),
+                                    reps=1, warm=1)
+            r["old_plain_ms"] = time_ms(lambda: ref.strip_round_minima(SW, smask, sids, lab, E), reps=1, warm=1)
+        del SW, smask
+        say(f"[exact] round minima, {tag}: {acts} active entries of {U} x {n}; factor kernel {r['ms']:.4f} ms "
+            f"(device {r['device_ms']:.4f}), the first kernel {r['old_ms']:.4f} (device {r['old_device_ms']:.4f}; "
+            f"{r['old_ms'] / r['ms']:.1f}x), bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}: active entries' 4 bytes and the vectors; the first kernel's {r['old_bound_ms']:.4f})"
+            + (f"; plain {r['plain_ms']:.2f} (the first's {r['old_plain_ms']:.2f})" if plain else "")
+            + "; bit for bit its plain version and the first kernel")
+        return r
+
+    stream_rows = f"the stream's rows ({int(rv.sum())} of {U} valid: Bp = {EXACT_BLOCK} and rk_n = " \
+                  f"{int(rv[EXACT_BLOCK:].sum())} of rk_cap = {rk_cap})"
+    label_sets = dict(zip(EXACT_MINIMA_LABELS, (iota, iota // 1000 * 1000, torch.zeros_like(iota))))
+    cases = {}
+    for vname, rows in ((stream_rows, rv), ("all rows valid", ones)):
+        for lname, lab in label_sets.items():
+            cases[(vname, lname)] = case(f"{lname}, {vname}, {int(alive.sum())} live slots", rows, lab, alive,
+                                         plain=lname == "round 1")
+    live_all = torch.ones(n, dtype=torch.bool, device=dev)
+    full = case("round 1, every row and every column live (D read once)", ones, iota, live_all)
+    check(full["bound_ms"] > 0.2, f"[exact] the whole strip's bound {full['bound_ms']:.4f} ms")
+    # every round of the captured insert block's Borůvka
+    SW, smask = built_strip(D, cd, sids, rv, alive)
+    rounds = []
+    for i, lab in enumerate(labs):
+        equal(f"round {i + 1} of the insert's Borůvka", k_dyn.strip_round_minima_from_dists(D, cd, sids, rv, alive, lab, E),
+              k_dyn.strip_round_minima(SW, smask, sids, lab, E))
+        acts = active(rv, lab, alive)
+        rounds.append((device_ms(lambda: k_dyn.strip_round_minima_from_dists(D, cd, sids, rv, alive, lab, E)),
+                       device_ms(lambda: k_dyn.strip_round_minima(SW, smask, sids, lab, E), reps=2),
+                       bound_ms(0.0, 4.0 * acts + vectors)[0], acts, int(torch.unique(lab).numel())))
+    say(f"[exact] round minima over the {len(labs)} rounds of one insert block's Borůvka (device ms, the calls "
+        "queued behind a spin: factor kernel / first kernel / bound; active entries; components): " + "; ".join(
+            f"{i + 1}: {a:.4f} / {b:.4f} / {c:.4f}, {d}, {e}" for i, (a, b, c, d, e) in enumerate(rounds))
+        + f"; sums {sum(r[0] for r in rounds):.3f} / {sum(r[1] for r in rounds):.3f} ms")
+
+    # the insert block's Borůvka through both routes
+    def first():
+        return mst.boruvka_strip(eu, ev, ew, evalid, sids, SW, smask, n)
+
+    def factor():
+        return mst.boruvka_strip_from_dists(eu, ev, ew, evalid, sids, D, cd, rv, alive, n)
+
+    a, b = first(), factor()
+    check(all(bool(torch.equal(x, y)) for x, y in zip(a, b)), "[exact] the insert's Borůvka differs between routes")
+    walls = {"first": [], "factor": []}
+    for name, fn in (("first", first), ("factor", factor), ("factor", factor), ("first", first)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    prof = {}
+    for name, fn, keys in (("first", first, OLD_MINIMA), ("factor", factor, NEW_MINIMA)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+        prof[name] = (sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3,
+                      sum(e.self_device_time_total for e in events) / 1e3)
+    say(f"[exact] one insert block's Borůvka ({len(labs)} rounds, U = {U}, Np = {n}), buffers equal: wall (ms, in turns "
+        f"first, factor, factor, first) first route {walls['first'][0]:.2f}, {walls['first'][1]:.2f}; factor route "
+        f"{walls['factor'][0]:.2f}, {walls['factor'][1]:.2f}; torch.profiler device time of the strip kernels "
+        f"{prof['first'][0]:.3f} / {prof['factor'][0]:.3f} ms of {prof['first'][1]:.3f} / {prof['factor'][1]:.3f} busy; "
+        "the update's state through both routes equal")
+    del SW, smask
+    oracle = k_dyn.launches["strip_round_minima"] - old_before
+    check(oracle > 0, "[exact] the first round-minima kernel never ran as the oracle")
+    lead = cases[(stream_rows, "round 1")]
+    whole = cases[("all rows valid", "round 1")]
+    return {
+        "strip_round_minima_from_dists": dict(
+            max_abs_err=err, ms=lead["ms"], plain_ms=lead["plain_ms"], bound_ms=lead["bound_ms"],
+            bound_by=lead["bound_by"], library_ms=None, device_ms=lead["device_ms"], first_ms=lead["old_ms"],
+            first_device_ms=lead["old_device_ms"], full_ms=full["ms"], full_device_ms=full["device_ms"],
+            full_bound_ms=full["bound_ms"], rounds_device_ms=[r[0] for r in rounds],
+            boruvka_ms=min(walls["factor"]), boruvka_first_ms=min(walls["first"]),
+            boruvka_device_ms=prof["factor"][0], boruvka_first_device_ms=prof["first"][0]),
+        "strip_round_minima": dict(
+            max_abs_err=err, ms=whole["old_ms"], plain_ms=whole["old_plain_ms"], bound_ms=whole["old_bound_ms"],
+            bound_by="bytes", library_ms=None, launches_oracle=oracle, stream_ms=lead["old_ms"]),
+    }
 
 
 def watch_plain(names=("pairwise_sqdist", "nearest", "assign", "assign_with_dist", "bubble_core_distances",
@@ -5596,7 +5877,9 @@ def main() -> int:
                # no Pallas kernel: the jnp strip programs of the exact-dynamic path (exact=True)
                "strip_dists": ("dynamic.cu", "src/repro/core/dynamic_jax.py:145"),
                "strip_topk": ("dynamic.cu", "src/repro/core/dynamic_jax.py:187"),
-               "strip_round_minima": ("dynamic.cu", "src/repro/core/mst.py:777")}
+               # the first version: the factor kernel's oracle, launched on no path
+               "strip_round_minima": ("dynamic.cu", "src/repro/core/mst.py:777"),
+               "strip_round_minima_from_dists": ("strip_minima.cu", "src/repro/core/mst.py:777")}
     for name, n in mesh_launches.items():  # the sharded pass's launches on [mesh]'s engines
         numbers[name]["launches_mesh"] = n
     for name, n in summarizer_launches.items():  # the summarizer's cluster() calls on [summarizer]

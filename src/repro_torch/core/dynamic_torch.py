@@ -6,17 +6,19 @@ under the same names and with the same state, rules and tie orders:
 
   insert block (Eq. 11):  T' = MSF(T ∪ (P ∪ M)×V) — the old tree plus every
       edge of the new points P and of the rows M whose kNN horizon a new
-      point entered, as a (|P| + |M|, Np) strip through
-      ``core/mst.py::boruvka_strip``;
+      point entered, as a (|P| + |M|, Np) distance strip through
+      ``core/mst.py::boruvka_strip_from_dists`` (the strip's weights and
+      mask are formed in the kernel, never stored);
   delete block (Eq. 12):  the survivor forest kept outright, completed by a
       dense Borůvka over the ≤ s_cap + 1 contracted components;
   kNN / core distances:   the touched rows' tables recomputed exactly from
       gathered strips.
 
-The strip work runs in the three CUDA kernels of ``kernels/dynamic.py`` on
-the card (plain versions on the CPU): ``strip_dists`` for every distance
-strip and the rebuild's (Np, Np) matrix, ``strip_topk`` for the four kNN
-rebuilds, ``strip_round_minima`` inside ``boruvka_strip``.  Distances are
+The strip work runs in the CUDA kernels of ``kernels/dynamic.py`` on the
+card (plain versions on the CPU): ``strip_dists`` for every distance strip
+and the rebuild's (Np, Np) matrix, ``strip_topk`` for the four kNN
+rebuilds, ``strip_round_minima_from_dists`` inside
+``boruvka_strip_from_dists``.  Distances are
 the DIFF form, never the expansion: the state holds uncentred coordinates
 and every stored raw length is reproducible bit for bit from them.
 
@@ -36,7 +38,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import dynamic as _dyn_k
-from .mst import boruvka, boruvka_edges, boruvka_strip
+from .mst import boruvka, boruvka_edges, boruvka_strip_from_dists
 
 __all__ = [
     "DynState",
@@ -160,7 +162,6 @@ def insert_batch(state: DynState, P, slots, valid, *, min_pts: int, rk_cap: int)
     valid = valid.to(dev).bool()
     Np, K = state.knn_idx.shape
     Bp = P.shape[0]
-    iota = torch.arange(Np, device=dev)
     tgt = torch.where(valid, slots, Np)  # trash-slot scatter for pad rows
 
     alive_old = state.alive
@@ -194,13 +195,8 @@ def insert_batch(state: DynState, P, slots, valid, *, min_pts: int, rk_cap: int)
     # --- Eq. 11 (batched): MSF over T ∪ (P ∪ M)×V ---
     ew_tree = torch.where(state.mst_valid, state_mst_weights(state._replace(cd=cd)), _INF)
     sids = torch.cat([torch.clamp_max(slots, Np - 1), rids])
-    smask = torch.cat([valid[:, None] & alive2[None, :] & (iota[None, :] != slots[:, None]),
-                       rvalid[:, None] & alive2[None, :] & (iota[None, :] != rids[:, None])])
-    SW = torch.maximum(D_strip, cd[sids][:, None])
-    SW = torch.maximum(SW, cd[None, :], out=SW)
-    SW.masked_fill_(~smask, _INF)
-    pay, pay_ok, _ = boruvka_strip(state.mst_u, state.mst_v, ew_tree, state.mst_valid, sids, SW, smask, Np)
-    del SW
+    pay, pay_ok, _ = boruvka_strip_from_dists(state.mst_u, state.mst_v, ew_tree, state.mst_valid, sids, D_strip, cd,
+                                              torch.cat([valid, rvalid]), alive2, Np)
     E = Np
     is_strip = pay >= E
     t_idx = torch.clamp_max(pay, E - 1)

@@ -32,8 +32,13 @@ explicit candidates, the counterparts of ``boruvka_edges_jax`` and
 ``boruvka_strip_jax``: ``boruvka_edges`` over a padded edge list, and
 ``boruvka_strip`` over an edge list plus dense (U, n) row strips, whose
 per-round strip minima come from ``kernels/dynamic.py::strip_round_minima``
-(a CUDA kernel on the card).  Both run the reference's fixed round count
-with its (w, pair id, index or payload) tie rules and no host read.
+(a CUDA kernel on the card).  ``boruvka_strip_from_dists`` is the same
+forest from the strip's factors (distances, core distances, row and column
+masks): its minima come from ``strip_round_minima_from_dists``, which forms
+the weights and the mask in the kernel, so no (U, n) weight strip or mask
+is built; the update takes this route, and the first stays as the JAX
+parity form and the kernel's oracle.  Both run the reference's fixed round
+count with its (w, pair id, index or payload) tie rules and no host read.
 
 The host engines are the port's own copies of the JAX package's numpy
 ones, bit for bit: ``UnionFind``, ``kruskal_edges`` (Kruskal over an
@@ -55,7 +60,7 @@ from ..kernels import grid as _grid_k
 from ..launch.mesh import Mesh, gather, shard_ranges
 
 __all__ = ["UnionFind", "kruskal_edges", "boruvka_dense", "boruvka", "boruvka_shard", "boruvka_grid",
-           "boruvka_grid_shard", "boruvka_edges", "boruvka_strip", "mst_total_weight"]
+           "boruvka_grid_shard", "boruvka_edges", "boruvka_strip", "boruvka_strip_from_dists", "mst_total_weight"]
 
 _BIGID = np.iinfo(np.int32).max
 
@@ -442,9 +447,29 @@ def boruvka_strip(eu, ev, ew, evalid, sids, SW, smask, n: int):
     passes.  Returns ``(pay, pay_valid, labels)``: (n,) int64 payloads
     (``< E`` an edge index, else ``E + row·n + col``), (n,) bool, (n,)
     int64 labels."""
-    dev = SW.device
     E = eu.shape[0]
-    U = SW.shape[0]
+    return _boruvka_strip(eu, ev, ew, evalid, sids, SW.shape[0], n, SW.device, SW.dtype,
+                          lambda lab: _dyn_k.strip_round_minima(SW, smask, sids, lab, E))
+
+
+def boruvka_strip_from_dists(eu, ev, ew, evalid, sids, D, cd, row_valid, alive, n: int):
+    """``boruvka_strip`` on ``SW = max(max(D, cd[sids][:, None]), cd[None,
+    :])`` and ``smask = row_valid[:, None] & alive[None, :] & (col !=
+    sids[:, None])`` without building either: each round's strip minima
+    come from ``strip_round_minima_from_dists`` (a CUDA kernel on the card)
+    over the factors.  ``D`` (U, n) f32 distances, ``cd`` (n,), ``row_valid``
+    (U,), ``alive`` (n,).  The same buffers as ``boruvka_strip`` on that SW
+    and smask, bit for bit."""
+    E = eu.shape[0]
+    sids32 = sids.to(torch.int32)
+    return _boruvka_strip(eu, ev, ew, evalid, sids, D.shape[0], n, D.device, torch.float32,
+                          lambda lab: _dyn_k.strip_round_minima_from_dists(D, cd, sids32, row_valid, alive, lab, E))
+
+
+def _boruvka_strip(eu, ev, ew, evalid, sids, U: int, n: int, dev, wdtype, minima):
+    """The rounds of ``boruvka_strip``; ``minima(lab)`` gives a round's strip
+    minima (row_w, row_eid, row_pay, col_w, col_eid, col_pay)."""
+    E = eu.shape[0]
     rounds, jumps = _rounds(n)
     inf = float("inf")
     iota = torch.arange(n, device=dev)
@@ -462,8 +487,8 @@ def boruvka_strip(eu, ev, ew, evalid, sids, SW, smask, n: int):
         eact = evalid & (lu != lv)
         ewa = torch.where(eact, ew, inf)
         slab = lab[sids]
-        rw, re, rp, cw, ce, cp = _dyn_k.strip_round_minima(SW, smask, sids, lab, E)
-        comp_w = _segment_min_of(n, inf, SW.dtype, dev, ((lu, ewa), (lv, ewa), (slab, rw), (lab, cw)))
+        rw, re, rp, cw, ce, cp = minima(lab)
+        comp_w = _segment_min_of(n, inf, wdtype, dev, ((lu, ewa), (lv, ewa), (slab, rw), (lab, cw)))
         e_hit_u = eact & (ew == comp_w[lu])
         e_hit_v = eact & (ew == comp_w[lv])
         r_hit = rw == comp_w[slab]

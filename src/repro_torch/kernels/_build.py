@@ -31,7 +31,7 @@ _CSRC = Path(__file__).with_name("csrc")
 _BUILD = Path(__file__).with_name("build")
 _SOURCES = ("assign.cu", "assign_ws.cu", "bubble_cd.cu", "bubble_cd_ws.cu", "bubble_cd_walk.cu", "dist_panel.cu",
             "dynamic.cu", "flat_scatter.cu", "grid.cu", "hierarchy.cu", "hierarchy_extract.cu", "hierarchy_par.cu", "mutual_reach.cu", "knn.cu", "knn_ws.cu", "pairwise.cu", "flash_attention.cu", "flash_attention_mma.cu",
-            "flash_attention_panel.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu", "errors.cu")
+            "flash_attention_panel.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu", "strip_minima.cu", "errors.cu")
 _HEADERS = ("common.cuh", "dist_tile.cuh", "warp_select.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -136,6 +136,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_strip_dists_f32.argtypes = [P, I, P, I, I, P, P]
     lib.repro_strip_topk_f32.argtypes = [P, I, I, P, P, P, I, P, P, P]
     lib.repro_strip_round_minima_f32.argtypes = [P, P, P, P, I, I, I, P, P, P, P, P, P, P]
+    lib.repro_strip_minima_plan.argtypes = [I, I, P, P]
+    lib.repro_strip_round_minima_from_dists_f32.argtypes = [P] * 6 + [I] * 4 + [P] * 8
     for fn in (lib.repro_assign_f32, lib.repro_assign_ws_f32, lib.repro_assign_ws_plan, lib.repro_bubble_cd_f32,
                lib.repro_bubble_cd_ws_f32, lib.repro_bubble_cd_walk_f32,
                lib.repro_dist_panel_plan, lib.repro_mutual_reach_panel_f32, lib.repro_mutual_reach_tile_f32,
@@ -146,7 +148,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.repro_single_linkage_par_f32, lib.repro_condense_par_f32,
                lib.repro_eom_f32, lib.repro_extract_f32, lib.repro_flat_scatter_f32, lib.repro_grid_assign_f32,
                lib.repro_grid_core_distances_f32, lib.repro_grid_round_minima_f32, lib.repro_strip_dists_f32,
-               lib.repro_strip_topk_f32, lib.repro_strip_round_minima_f32):
+               lib.repro_strip_topk_f32, lib.repro_strip_round_minima_f32, lib.repro_strip_minima_plan,
+               lib.repro_strip_round_minima_from_dists_f32):
         fn.restype = I
     lib.repro_error_string.argtypes = [I]
     lib.repro_error_string.restype = ctypes.c_char_p

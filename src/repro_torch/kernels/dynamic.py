@@ -1,5 +1,6 @@
 """The exact-dynamic engine's strip work: launch wrappers of the three CUDA
-kernels of ``csrc/dynamic.cu``.
+kernels of ``csrc/dynamic.cu`` and of the round minima's redesign,
+``csrc/strip_minima.cu``.
 
 The PyTorch counterpart of the jnp strip programs of the JAX package's
 exact-dynamic path (``repro/core/dynamic_jax.py`` and
@@ -13,7 +14,12 @@ exact-dynamic path (``repro/core/dynamic_jax.py`` and
                           ``dynamic_jax.py:187``, ``:207``, ``:287``, ``:429``;
   ``strip_round_minima``  one Borůvka round's lexicographic (w, pair id,
                           payload) row and column minima of a strip,
-                          replacing ``mst.py:777-819``.
+                          replacing ``mst.py:777-819``;
+  ``strip_round_minima_from_dists``  the same minima from the strip's
+                          factors (distances, core distances, row and
+                          column masks), the weights and the mask formed
+                          in the kernel: the update's route.  The first
+                          form stays as its bitwise oracle.
 
 Each is bit for bit its plain version in ``kernels/ref.py``: a tensor on
 the CPU takes the plain version, a CUDA tensor launches the kernel, and any
@@ -23,17 +29,20 @@ source's header says why and what the design does about it).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from . import _build
 from . import ref as _ref
 from .hierarchy import _on_card
 
-__all__ = ["strip_dists", "strip_topk", "strip_round_minima", "launches"]
+__all__ = ["strip_dists", "strip_topk", "strip_round_minima", "strip_round_minima_from_dists", "launches"]
 
 _INT32_MAX = 2**31 - 1
 
-launches = {"strip_dists": 0, "strip_topk": 0, "strip_round_minima": 0}
+launches = {"strip_dists": 0, "strip_topk": 0, "strip_round_minima": 0, "strip_round_minima_from_dists": 0}
 
 
 def _launch(name: str, entry: str, device, *args) -> None:
@@ -93,6 +102,11 @@ def strip_topk(D: torch.Tensor, row_ids, row_valid, alive, K: int):
     return out_d, out_i
 
 
+def _check_minima(name: str, U: int, n: int, E: int) -> None:
+    if n * n > _INT32_MAX or E < 0 or E + U * n > _INT32_MAX:
+        raise ValueError(f"{name}: pair ids and payloads must stay int32 (n = {n}, E = {E}, U = {U})")
+
+
 def strip_round_minima(SW: torch.Tensor, smask, sids, lab, E: int = 0):
     """One Borůvka round's strip reductions: per strip row and per column
     of the (U, n) weights ``SW``, the lexicographic minimum of (w, pair id
@@ -107,8 +121,7 @@ def strip_round_minima(SW: torch.Tensor, smask, sids, lab, E: int = 0):
     E = int(E)
     if smask.shape != (U, n) or sids.shape != (U,) or lab.shape != (n,):
         raise ValueError(f"strip_round_minima wants a ({U}, {n}) mask, ({U},) strip ids and ({n},) labels")
-    if n * n > _INT32_MAX or E < 0 or E + U * n > _INT32_MAX:
-        raise ValueError(f"strip_round_minima: pair ids and payloads must stay int32 (n = {n}, E = {E}, U = {U})")
+    _check_minima("strip_round_minima", U, n, E)
     if not on_card:
         return _ref.strip_round_minima(SW, smask.bool(), sids, lab, E)
     dev = SW.device
@@ -124,3 +137,51 @@ def strip_round_minima(SW: torch.Tensor, smask, sids, lab, E: int = 0):
             sids.data_ptr(), lab.data_ptr(), U, n, E, rw.data_ptr(), re.data_ptr(), rp.data_ptr(),
             cw.data_ptr(), ce.data_ptr(), cp.data_ptr())
     return rw, re.long(), rp.long(), cw, ce.long(), cp.long()
+
+
+@functools.lru_cache(maxsize=None)
+def _minima_plan(U: int, n: int, device_index: int) -> tuple[int, int]:
+    """(row chunks, column tiles) of ``strip_minima.cu`` for a (U, n) strip."""
+    nrc, nct = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = _build.load().repro_strip_minima_plan(U, n, ctypes.byref(nrc), ctypes.byref(nct))
+    _build.check(code, "strip_round_minima_from_dists plan")
+    return nrc.value, nct.value
+
+
+def strip_round_minima_from_dists(D: torch.Tensor, cd, sids, row_valid, alive, lab, E: int = 0):
+    """``strip_round_minima`` from the strip's factors: the exact insert's
+    weights ``SW = max(max(D, cd[sids][:, None]), cd[None, :])`` and mask
+    ``smask = row_valid[:, None] & alive[None, :] & (col != sids[:, None])``
+    formed entry by entry in the kernel (one read of ``D`` a round; no (U,
+    n) intermediate).  ``D`` (U, n) distances, ``cd``
+    (n,), ``sids`` (U,) node ids, ``row_valid`` (U,), ``alive`` (n,),
+    ``lab`` (n,) node ids in [0, n).  Returns what ``strip_round_minima``
+    returns on that SW and smask, bit for bit."""
+    on_card = _on_card("strip_round_minima_from_dists", D, cd, sids, row_valid, alive, lab)
+    if D.dim() != 2:
+        raise ValueError(f"strip_round_minima_from_dists wants a (U, n) strip, got {tuple(D.shape)}")
+    U, n = D.shape
+    E = int(E)
+    if cd.shape != (n,) or sids.shape != (U,) or row_valid.shape != (U,) or alive.shape != (n,) or lab.shape != (n,):
+        raise ValueError(f"strip_round_minima_from_dists wants ({n},) core distances, alive and labels and ({U},) "
+                         "strip ids and row validity")
+    _check_minima("strip_round_minima_from_dists", U, n, E)
+    if not on_card:
+        return _ref.strip_round_minima_from_dists(D, cd, sids, row_valid.bool(), alive.bool(), lab, E)
+    dev = D.device
+    D, cd = D.float().contiguous(), cd.float().contiguous()
+    sids, lab = sids.to(torch.int32).contiguous(), lab.long().contiguous()
+    row_valid, alive = row_valid.bool().contiguous(), alive.bool().contiguous()
+    nrc, nct = _minima_plan(U, n, dev.index if dev.index is not None else torch.cuda.current_device())
+    # one f32 buffer (the weights) and one int64 buffer: pair ids, payloads, then the kernel's scratch (nct·U
+    # 64-bit row partials and nrc·n column partials of 12 bytes)
+    w = torch.empty(U + n, dtype=torch.float32, device=dev)
+    ids = torch.empty(2 * (U + n) + nct * U + (3 * nrc * n + 1) // 2, dtype=torch.int64, device=dev)
+    rw, cw = w[:U], w[U:]
+    re, rp, ce, cp = ids[:U], ids[U : 2 * U], ids[2 * U : 2 * U + n], ids[2 * U + n : 2 * (U + n)]
+    _launch("strip_round_minima_from_dists", "repro_strip_round_minima_from_dists_f32", dev, D.data_ptr(),
+            cd.data_ptr(), sids.data_ptr(), row_valid.data_ptr(), alive.data_ptr(), lab.data_ptr(), U, n, E, nrc,
+            ids[2 * (U + n) :].data_ptr(), rw.data_ptr(), re.data_ptr(), rp.data_ptr(), cw.data_ptr(), ce.data_ptr(),
+            cp.data_ptr())
+    return rw, re, rp, cw, ce, cp

@@ -68,6 +68,7 @@ __all__ = [
     "strip_dists",
     "strip_topk",
     "strip_round_minima",
+    "strip_round_minima_from_dists",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -582,8 +583,33 @@ def strip_round_minima(SW, smask, sids, lab, E: int = 0):
     columns with no active entry get (+inf, int32 max, int32 max).
     Returns (row_w f32 (U,), row_eid, row_pay int64 (U,), col_w f32 (n,),
     col_eid, col_pay int64 (n,))."""
-    U, n = SW.shape
-    dev = SW.device
+    return _strip_minima(SW.shape, SW.device, lambda r0, r1: (SW[r0:r1].float(), smask[r0:r1]), sids, lab, E)
+
+
+def strip_round_minima_from_dists(D, cd, sids, row_valid, alive, lab, E: int = 0):
+    """``strip_round_minima`` on the exact insert's weights and mask
+    (``repro/core/dynamic_jax.py:223``), built from the strip's factors a
+    row block at a time: ``SW = max(max(D, cd[sids][:, None]), cd[None,
+    :])``, +inf off ``smask = row_valid[:, None] & alive[None, :] & (col !=
+    sids[:, None])``."""
+    n = D.shape[1]
+    iota = torch.arange(n, device=D.device)
+    sids_l = sids.long()
+
+    def block(r0, r1):
+        s = sids_l[r0:r1]
+        m = row_valid[r0:r1, None] & alive[None, :] & (iota[None, :] != s[:, None])
+        w = torch.maximum(D[r0:r1].float(), cd[s][:, None])
+        w = torch.maximum(w, cd[None, :], out=w)
+        return w.masked_fill_(~m, float("inf")), m
+
+    return _strip_minima(D.shape, D.device, block, sids, lab, E)
+
+
+def _strip_minima(shape, dev, block, sids, lab, E: int):
+    """The reductions of ``strip_round_minima`` over row blocks; ``block(r0,
+    r1)`` gives the blocks' (f32 weights, mask)."""
+    U, n = shape
     inf = float("inf")
     lab = lab.long()
     sids = sids.long()
@@ -596,8 +622,9 @@ def strip_round_minima(SW, smask, sids, lab, E: int = 0):
     ce = torch.full((n,), _INT32_MAX, dtype=torch.int64, device=dev)
     cp = torch.full((n,), _INT32_MAX, dtype=torch.int64, device=dev)
     for r0, r1 in _row_blocks(U, n):
-        act = smask[r0:r1] & (slab[r0:r1, None] != lab[None, :])
-        w = torch.where(act, SW[r0:r1].float(), inf)
+        SWb, mb = block(r0, r1)
+        act = mb & (slab[r0:r1, None] != lab[None, :])
+        w = torch.where(act, SWb, inf)
         s = sids[r0:r1, None]
         eid = torch.where(act, torch.minimum(s, iota[None, :]) * n + torch.maximum(s, iota[None, :]), _INT32_MAX)
         pay = torch.where(act, E + torch.arange(r0, r1, device=dev)[:, None] * n + iota[None, :], _INT32_MAX)

@@ -1182,8 +1182,12 @@ class TestCudaDynamic:
     """The exact-dynamic engine's three kernels (``csrc/dynamic.cu``) bit for
     bit their plain versions: ragged U and Np (multiples of no tile), tie
     heavy integer grids, K not a multiple of 32 and past the 1024 queue, an
-    FMA probe; then a small engine on the card against the same engine on
-    the CPU, state for state."""
+    FMA probe; the factor kernel of the round minima
+    (``csrc/strip_minima.cu``) bit for bit its plain version and the first
+    kernel fed the SW and smask built from the same factors (U = 1, ragged
+    shapes, invalid rows, ties, one component, repeated strip ids, an E at
+    int32's limit, an unaligned strip); then a small engine on the card
+    against the same engine on the CPU, state for state."""
 
     @pytest.mark.parametrize("case", ["spread", "grid", "offset"])
     @pytest.mark.parametrize("shape", [(37, 1001, 3), (64, 128, 16), (5, 77, 40)])
@@ -1253,6 +1257,85 @@ class TestCudaDynamic:
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
+    @staticmethod
+    def _minima_factors(U, n, labels, ties=False, valid=1.0, repeat=False, seed=0):
+        """A strip's factors: distances (small integers with ``ties``), core
+        distances, strip ids (repeated when ``repeat``), row validity, live
+        columns and the round's labels (node ids in [0, n))."""
+        rng = np.random.default_rng([U, n, seed])
+        D = (rng.integers(0, 4, size=(U, n)) if ties else rng.random((U, n)) * 3).astype(np.float32)
+        cd = (rng.integers(0, 3, size=n) if ties else rng.random(n)).astype(np.float32)
+        cd[rng.random(n) < 0.05] = np.inf  # rows with fewer than min_pts live neighbours
+        sids = rng.integers(0, n, size=U) if repeat or U > n else rng.permutation(n)[:U]
+        lab = {"round1": np.arange(n), "merged": np.arange(n) // max(1, n // 7) * max(1, n // 7),
+               "random": rng.integers(0, max(2, n // 7), size=n), "one": np.zeros(n, np.int64)}[labels]
+        return D, cd, sids, rng.random(U) < valid, rng.random(n) < 0.7, lab
+
+    @staticmethod
+    def _old_route(D, cd, sids, row_valid, alive, lab, E):
+        """The first kernel on the SW and smask the update used to build."""
+        from repro_torch.kernels import dynamic as t_dyn
+
+        iota = torch.arange(D.shape[1], device=D.device)
+        smask = row_valid[:, None] & alive[None, :] & (iota[None, :] != sids[:, None].long())
+        SW = torch.maximum(torch.maximum(D, cd[sids.long()][:, None]), cd[None, :])
+        SW.masked_fill_(~smask, float("inf"))
+        return t_dyn.strip_round_minima(SW, smask, sids, lab, E)
+
+    @pytest.mark.parametrize("case", [
+        dict(U=1, n=48, labels="round1"),
+        dict(U=333, n=1001, labels="random"),  # U and n multiples of no tile, n of 4 neither
+        dict(U=517, n=2052, labels="merged", ties=True),
+        dict(U=700, n=1536, labels="round1", valid=0.3),
+        dict(U=64, n=640, labels="random", valid=0.0),  # every row invalid
+        dict(U=260, n=1024, labels="one", ties=True),  # one component: nothing active
+        dict(U=300, n=96, labels="random", ties=True, repeat=True),  # repeated strip ids: payloads break ties
+        dict(U=1100, n=4100, labels="merged", valid=0.8),  # more rows than one chunk stages
+    ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+    def test_strip_round_minima_from_dists_bitwise(self, cuda_device, case):
+        """The factor kernel bit for bit its plain version (on the card and
+        on the CPU) and the first kernel on the SW and smask built from the
+        same factors; one launch a call."""
+        from repro_torch.kernels import dynamic as t_dyn
+
+        U, n = case["U"], case["n"]
+        f = [_t(a).to(cuda_device) for a in self._minima_factors(**case)]
+        E = n + 3
+        t_dyn.launches["strip_round_minima_from_dists"] = 0
+        got = t_dyn.strip_round_minima_from_dists(*f, E=E)
+        assert t_dyn.launches["strip_round_minima_from_dists"] == 1
+        plain = tref.strip_round_minima_from_dists(*f, E=E)
+        host = tref.strip_round_minima_from_dists(*(a.cpu() for a in f), E=E)
+        old = self._old_route(*f, E)
+        for g, p, h, o in zip(got, plain, host, old):
+            assert g.dtype == p.dtype and torch.equal(g, p) and torch.equal(g.cpu(), h) and torch.equal(g, o)
+        assert got[0].shape == (U,) and got[3].shape == (n,)
+
+    def test_strip_round_minima_from_dists_payload_limit(self, cuda_device):
+        """An E that puts the last payload at int32's limit."""
+        from repro_torch.kernels import dynamic as t_dyn
+
+        U, n = 40, 777
+        f = [_t(a).to(cuda_device) for a in self._minima_factors(U, n, "random", valid=0.9)]
+        E = 2**31 - 1 - U * n
+        got = t_dyn.strip_round_minima_from_dists(*f, E=E)
+        want = self._old_route(*f, E)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        with pytest.raises(ValueError, match="int32"):
+            t_dyn.strip_round_minima_from_dists(*f, E=E + 1)
+
+    def test_strip_round_minima_from_dists_offset_view(self, cuda_device):
+        """A strip that starts 4 bytes into its storage (no 16-byte loads)."""
+        from repro_torch.kernels import dynamic as t_dyn
+
+        D, cd, sids, rv, alive, lab = (_t(a).to(cuda_device) for a in self._minima_factors(90, 512, "random"))
+        buf = torch.empty(D.numel() + 1, device=cuda_device)
+        Dv = buf[1:].view(D.shape).copy_(D)
+        got = t_dyn.strip_round_minima_from_dists(Dv, cd, sids, rv, alive, lab, E=7)
+        for g, w in zip(got, tref.strip_round_minima_from_dists(D, cd, sids, rv, alive, lab, E=7)):
+            assert torch.equal(g, w)
+
     def test_engine_on_the_card_equals_the_cpu(self, cuda_device):
         """A DynamicTorchHDBSCAN on the card and one on the CPU through the
         same inserts, deletes and a rebuild: every state field equal."""
@@ -1270,7 +1353,11 @@ class TestCudaDynamic:
         for h in (card, host):
             h.insert_block(X)
             h.delete_block(list(range(0, 24, 2)))
-        assert all(v > 0 for v in t_dyn.launches.values()), t_dyn.launches
+            for i in range(3):  # more insert blocks: RkNN rows of partial validity
+                h.insert_block(X[i::3] + 0.05 * (i + 1))
+        # the update's Borůvka takes the factor route; the first kernel is its oracle only
+        assert t_dyn.launches["strip_round_minima"] == 0, t_dyn.launches
+        assert all(v > 0 for k, v in t_dyn.launches.items() if k != "strip_round_minima"), t_dyn.launches
         for f in card.state._fields:
             assert torch.equal(getattr(card.state, f).cpu(), getattr(host.state, f)), f
 

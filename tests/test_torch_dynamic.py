@@ -136,6 +136,12 @@ class TestPlainStrips:
                                     torch.zeros(8), E=2**31 - 10)
         with pytest.raises(ValueError, match="cuda or cpu"):
             tdyn.strip_dists(X.to("meta"), X.to("meta"))
+        f = (torch.zeros(2, 8), torch.zeros(8), torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.bool),
+             torch.ones(8, dtype=torch.bool), torch.zeros(8, dtype=torch.int64))
+        with pytest.raises(ValueError, match="int32"):
+            tdyn.strip_round_minima_from_dists(*f, E=2**31 - 10)
+        with pytest.raises(ValueError, match="strip_round_minima_from_dists"):
+            tdyn.strip_round_minima_from_dists(*f[:1], torch.zeros(7), *f[2:])
 
 
 def _strip_case(seed: int, ties: bool, n=48, U=10, E=20):
@@ -198,6 +204,99 @@ class TestBoruvka:
         want = jmst.boruvka_edges_jax(jnp.asarray(eu), jnp.asarray(ev), jnp.asarray(ew), jnp.asarray(valid), n)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _factors(seed: int, grid: bool, U: int, n: int, labels: str, valid=0.8, alive=0.7):
+    """A strip's factors: distances (integer-grid points when ``grid``:
+    small integer squares, ties everywhere), core distances (some +inf),
+    strip ids, row validity, live columns, and the round's labels (node ids
+    in [0, n))."""
+    rng = np.random.default_rng(seed)
+    X = _data("grid" if grid else "spread", rng, n, 2)
+    sids = rng.permutation(n)[:U] if U <= n else rng.integers(0, n, size=U)
+    D = tref.strip_dists(_t(X[sids]), _t(X))
+    cd = np.sort(tref.strip_dists(_t(X), _t(X)).numpy(), axis=1)[:, 3].astype(np.float32)
+    cd[rng.random(n) < 0.1] = np.inf
+    step = max(1, n // 5)
+    lab = {"round1": np.arange(n), "merged": np.arange(n) // step * step, "one": np.zeros(n, np.int64),
+           "random": rng.integers(0, n, size=n)}[labels]
+    return D, _t(cd), _t(sids), _t(rng.random(U) < valid), _t(rng.random(n) < alive), _t(lab)
+
+
+def _built(D, cd, sids, row_valid, alive):
+    """SW and smask as the update built them before the factor route."""
+    iota = torch.arange(D.shape[1])
+    smask = row_valid[:, None] & alive[None, :] & (iota[None, :] != sids[:, None].long())
+    SW = torch.maximum(D, cd[sids.long()][:, None])
+    SW = torch.maximum(SW, cd[None, :], out=SW)
+    return SW.masked_fill_(~smask, np.inf), smask
+
+
+class TestFactorRoute:
+    """The round minima and Borůvka from the strip's factors
+    (``ref.strip_round_minima_from_dists``, ``boruvka_strip_from_dists``):
+    identical (bitwise) to the first form on the SW and smask built from the
+    same factors, and to ``boruvka_strip_jax`` fed SW as
+    ``dynamic_jax.insert_batch`` builds it."""
+
+    @pytest.mark.parametrize("labels", ["round1", "merged", "one", "random"])
+    @pytest.mark.parametrize("grid", [False, True], ids=["spread", "grid"])
+    @pytest.mark.parametrize("shape", [(9, 40), (13, 37), (50, 24)], ids=["9x40", "ragged_13x37", "repeats_50x24"])
+    def test_minima_equal_the_built_strip(self, shape, grid, labels, monkeypatch):
+        """Ties, an integer grid, a ragged n, invalid rows, dead columns,
+        +inf core distances, the self column (masked by smask and by the
+        labels alike), repeated strip ids, row blocks of 3 rows."""
+        U, n = shape
+        f = _factors(U * n + grid, grid, U, n, labels)
+        E = 11
+        got = tdyn.strip_round_minima_from_dists(*f, E=E)
+        SW, smask = _built(*f[:5])
+        want = tref.strip_round_minima(SW, smask, f[2], f[5], E)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        monkeypatch.setattr(tref, "_STRIP_ELEMS", 3 * n)
+        for g, w in zip(tref.strip_round_minima_from_dists(*f, E=E), want):
+            assert torch.equal(g, w)
+
+    @pytest.mark.parametrize("grid", [False, True], ids=["spread", "grid"])
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_boruvka_from_dists_matches_reference(self, seed, grid):
+        """The factor route against ``boruvka_strip_jax`` on ``SW =
+        max(D, max(cd[sids], cd))``, +inf off the mask
+        (``dynamic_jax.py:223``), and against the first route."""
+        n, U, E = 40, 12, 30
+        D, cd, sids, rv, alive, _ = _factors(seed, grid, U, n, "round1")
+        rng = np.random.default_rng(seed + 100)
+        eu = rng.integers(0, n, size=E).astype(np.int32)
+        ev = rng.integers(0, n, size=E).astype(np.int32)
+        ew = (rng.integers(1, 5, size=E) if grid else rng.random(E) * 4).astype(np.float32)
+        evalid = (rng.random(E) < 0.7) & (eu != ev)
+        got = tmst.boruvka_strip_from_dists(_t(eu), _t(ev), _t(ew), _t(evalid), sids, D, cd, rv, alive, n)
+        jd, jc, js = jnp.asarray(D.numpy()), jnp.asarray(cd.numpy()), jnp.asarray(sids.numpy())
+        iota = jnp.arange(n)
+        smask = jnp.asarray(rv.numpy())[:, None] & jnp.asarray(alive.numpy())[None, :] & (iota[None, :] != js[:, None])
+        SW = jnp.where(smask, jnp.maximum(jd, jnp.maximum(jc[js][:, None], jc[None, :])), jnp.inf)
+        want = jmst.boruvka_strip_jax(jnp.asarray(eu), jnp.asarray(ev), jnp.asarray(ew), jnp.asarray(evalid), js, SW,
+                                      smask, n)
+        first = tmst.boruvka_strip(_t(eu), _t(ev), _t(ew), _t(evalid), sids, *_built(D, cd, sids, rv, alive), n)
+        for g, w, o in zip(got, want, first):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            assert torch.equal(g, o)
+
+    def test_insert_takes_the_factor_route(self, carried, monkeypatch):
+        """``insert_batch`` hands Borůvka the distance strip and its factors
+        (no (U, Np) weight strip or mask), and never the first route."""
+        seen = []
+        real = dt.boruvka_strip_from_dists
+        monkeypatch.setattr(dt, "boruvka_strip_from_dists", lambda *a: seen.append(a) or real(*a))
+        monkeypatch.setattr(tdyn, "strip_round_minima", lambda *a, **k: pytest.fail("the first route ran"))
+        port = dyn_state_from_reference(_np_state(carried["spread"][0].state), device="cpu")
+        rng = np.random.default_rng(4)
+        P = _data("spread", rng, 4, 3)
+        dt.insert_batch(port, _t(P), _t(np.array([40, 41, 50, 51])), _t(np.ones(4, bool)), min_pts=MP, rk_cap=16)
+        (eu, ev, ew, evalid, sids, D, cd, rv, alive, n), = seen
+        assert D.shape == (4 + 16, 64) and D.dtype == torch.float32 and rv.dtype == torch.bool
+        assert cd.shape == alive.shape == (64,) and n == 64 and bool(rv[:4].all())
 
 
 @pytest.fixture(scope="module")

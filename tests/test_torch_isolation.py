@@ -33,7 +33,7 @@ def test_importing_every_module_pulls_in_no_jax():
         "assert not bad, bad\n"
         "print(' '.join(sorted(m for m in sys.modules if m.startswith('repro_torch'))))\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -231,7 +231,7 @@ def test_serve_cli_on_the_cpu(arch, capsys):
 
 def test_example_on_the_cpu():
     out = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_serve_batched.py"), "--arch", "qwen2-moe-a2.7b",
-                          "--device", "cpu"], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), capture_output=True,
+                          "--device", "cpu"], env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1"), capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "OK"

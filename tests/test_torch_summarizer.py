@@ -315,7 +315,7 @@ def test_exported_names():
 
 
 def test_quickstart_example_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"), "--device", "cpu"],
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

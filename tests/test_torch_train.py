@@ -451,7 +451,7 @@ def test_train_cli_out_defaults_under_tmpdir(tmp_path, monkeypatch):
 
 
 def test_train_cli_refuses_model_parallel(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke", "--device", "cpu",
                         "--model-parallel", "2", "--out", str(tmp_path)], capture_output=True, text=True, env=env,
                        timeout=120)
@@ -459,7 +459,8 @@ def test_train_cli_refuses_model_parallel(tmp_path):
 
 
 def test_example_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread: beside busy test workers, one thread per CPU in the subprocess oversubscribes the machine
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_train_lm_with_curation.py"), "--device",
                           "cpu", "--steps", "60"], env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
