@@ -232,6 +232,26 @@ Phases, each printing its own lines:
               the cross branch moving the logits, and at the gates' 0 the
               same bits as with zero media; layer 0's cross-attention
               against the plain version; profiles; the SMOKE replay;
+     ssm      LM serving and training for the ssm family at published
+              widths: rwkv6-1.6b (24 layers, d_model 2048, 32 heads of
+              64, d_ff 7168, vocab 65,536; the parameter count and FLOPs
+              a token held to the reference's), its bf16 compute copy
+              (RWKV's mixing and decay leaves f32) served as [lm] serves
+              with 32 greedy tokens a request (one prompt of 6144 tokens,
+              96 chunks of 64), its state the same bytes per slot at
+              cache_len 8 and 9000; the long prefill's and a decode
+              step's ms, tokens/s, launches, busy share and the WKV
+              scan's share under torch.profiler (a record_function range
+              around models/rwkv.py::_wkv_chunked); the WKV scan timed on
+              layer 0's inputs beside its bound; 4 layers in f32: the
+              engine's tokens against a teacher-forced prefill, layer 0's
+              WKV at T = 6144 against the serial f64 recurrence; a
+              full-width train step at (4, 2048) (median of 3 after a
+              warm-up, 6N share, peak memory); at 2 layers in f32 remat
+              "none" and "dots" and microbatches=2 against "full" and 1;
+              the SMOKE replay against the CPU; every hand-written
+              kernel's launches over the phase 0 (no kernel lies on this
+              path: the reference's scan is jnp, not Pallas);
      train    LM training at published widths: the flash backward at
               qwen2-1.5b's attention (S = 8192, 12/2 heads of 128,
               causal, bf16), danube's (32/8 of 120, window 4096, S =
@@ -460,6 +480,22 @@ DBRX_ARCH, DBRX_PARAMS, DBRX_LAYERS, DBRX_LONG = "dbrx-132b", 131_596_523_520, 2
 # VLM_LONG-token prefill with seeded media and the cross-attention gates at VLM_GATE: self-attention 12,288² and
 # cross-attention 12,288 x 1601 = 19.7 M both past the flash threshold (4096² = 16.8 M)
 VLM_ARCH, VLM_PARAMS, VLM_LONG, VLM_GATE = "llama-3.2-vision-11b", 10_110_734_344, 12_288, 0.5
+# [ssm]: rwkv6-1.6b at its published widths (configs/rwkv6_1_6b.py: 24 layers, d_model 2048, 32 heads of 64, d_ff 7168,
+# vocab 65,536; random weights from a seed), its bf16 compute copy drawn leaf by leaf, served as [lm] serves (LM_SHORT
+# prompts of 4-16 tokens and one of LM_LONG = 96 chunks of 64, on LM_SLOTS slots) with SSM_NEW greedy tokens each
+SSM_ARCH, SSM_PARAMS, SSM_FLOPS, SSM_NEW = "rwkv6-1.6b", 1_599_823_872, 8_793_636_864, 32
+# the leaves that stay f32 in the compute copy (models/rwkv.py casts each where it reads it)
+SSM_F32_LEAVES = ("mu", "maa_w1", "maa_w2", "decay_mu", "decay_w1", "decay_w2", "bonus_u")
+# [ssm] f32 at full width, SSM_F32_LAYERS layers: the engine's greedy tokens against a teacher-forced prefill (every
+# prefix within one chunk of 64: the longest prompt and its new tokens make 41 + 15 = 56), and layer 0's WKV at
+# T = LM_LONG against the serial f64 recurrence within SSM_WKV_RTOL of the largest |o| and |S|
+SSM_F32_LAYERS, SSM_F32_PROMPTS, SSM_F32_NEW, SSM_WKV_RTOL = 4, (8, 17, 30, 41), 16, 1e-4
+# [ssm] training: a full-width step at SSM_TRAIN (remat "full"), TRAIN_TIMED_STEPS steps, the first a warm-up; then
+# SSM_CUT_LAYERS layers at full width in f32 at SSM_CUT: remat "none" and "dots" and microbatches=2 against "full"
+# and 1 (tests/test_torch_train.py's bounds: the remat losses equal and the leaves within SSM_REMAT_RTOL in relative
+# norm, microbatches' loss within 1e-6 relative and its leaves within SSM_MICRO_RTOL)
+SSM_TRAIN, SSM_CUT_LAYERS, SSM_CUT = (4, 2048), 2, (4, 256)
+SSM_REMAT_RTOL, SSM_MICRO_RTOL = 1e-6, 1e-5
 # [train]: qwen2-1.5b at its published widths (configs/qwen2_1_5b.py: remat "full", bf16 compute over the f32
 # master, random weights from a seed) trained through make_train_step and AdamW: TRAIN_TIMED_STEPS steps at
 # TRAIN_SHORT, the plain _sdpa branch (2048² <= 4096²), and at TRAIN_LONG, the flash branch in every layer, the first
@@ -3827,13 +3863,13 @@ def lm_serve(eng, prompts, new: int):
     return reqs, log
 
 
-def lm_serve_timed(eng, prompts, base: int):
-    """The ragged case through ``eng`` with every prefill and decode step
-    timed (synchronised) and each prefill's flash launches per route
-    counted; the counters are set to 0 just before the run.  Returns the
-    requests, [(S, ms, mma, simt)] per prefill, [(active slots, ms)] per
-    step, the launches of the run, its wall (s) and peak memory (GiB above
-    ``base``)."""
+def lm_serve_timed(eng, prompts, base: int, new: int = LM_NEW):
+    """The ragged case through ``eng`` (``new`` greedy tokens a request)
+    with every prefill and decode step timed (synchronised) and each
+    prefill's flash launches per route counted; the counters are set to 0
+    just before the run.  Returns the requests, [(S, ms, mma, simt)] per
+    prefill, [(active slots, ms)] per step, the launches of the run, its
+    wall (s) and peak memory (GiB above ``base``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as k_fa
@@ -3865,7 +3901,7 @@ def lm_serve_timed(eng, prompts, base: int):
     k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = 0
     t0 = time.perf_counter()
     try:
-        reqs, _ = lm_serve(eng, prompts, LM_NEW)
+        reqs, _ = lm_serve(eng, prompts, new)
     finally:
         del eng._prefill_one  # back to the class's method, with no reference cycle through the engine
         eng.serve_step = serve_step
@@ -3968,11 +4004,15 @@ def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None, p
     return dict(ms=ms, bound_ms=b, max_abs_err=err)
 
 
-def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]"):
+def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]", part: str = "flash"):
     """One call of ``fn`` under torch.profiler: the device's busy time (its
     kernels', copies' and fills' times; one stream), the launches, the
-    flash kernel's share and the idle share against ``wall_ms``, the
-    untraced call's wall."""
+    share of ``part`` and the idle share against ``wall_ms``, the untraced
+    call's wall.  ``part`` is "flash" (the kernels of that name) or the
+    name of a ``record_function`` range that ``fn`` opens (the device time
+    of the kernels launched inside it; the range's own device-side
+    annotation is not a launch).  Returns {launches, busy_ms, part_ms} or
+    None when the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3983,21 +4023,28 @@ def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]"):
         fn()
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA and e.key != part]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     if busy <= 0:
         say(f"{phase} {tag} under torch.profiler: no device time in the trace (traced wall {traced:.2f} ms); idle "
             f"share not measured")
-        return
-    flash = sum(e.self_device_time_total for e in events if "flash" in e.key) / 1e3
+        return None
+    if part == "flash":
+        part_ms = sum(e.self_device_time_total for e in events if "flash" in e.key) / 1e3
+    else:
+        part_ms = sum(e.device_time_total for e in averages if e.key == part and e.device_type == DeviceType.CPU) / 1e3
+    launches = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    say(f"{phase} {tag} under torch.profiler: {sum(e.count for e in events)} launches, device busy {busy:.3f} ms "
-        f"(traced wall {traced:.2f} ms), the flash kernel {flash:.3f} ms of it; against the untraced wall "
-        f"{wall_ms:.3f} ms: idle share {1 - busy / wall_ms:.3f}, flash {flash / wall_ms:.3f}; top device time (ms): "
-        + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
+    say(f"{phase} {tag} under torch.profiler: {launches} launches, device busy {busy:.3f} ms (traced wall "
+        f"{traced:.2f} ms), {part} {part_ms:.3f} ms of it; against the untraced wall {wall_ms:.3f} ms: busy share "
+        f"{busy / wall_ms:.3f}, idle share {1 - busy / wall_ms:.3f}, {part} {part_ms / wall_ms:.3f}; top device "
+        f"time (ms): " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
+    return dict(launches=launches, busy_ms=busy, part_ms=part_ms)
 
 
-def lm_cpu_replay(phase: str, dev, smoke, seed: int):
+def lm_cpu_replay(phase: str, dev, smoke, seed: int,
+                  paths: str = "on the CUDA-core kernel on the card and the plain version on the CPU"):
     """The ragged case at SMOKE size in f32 through ServeEngine on the card
     and on the CPU (plain versions): the sampler's calls in the same
     order, logits within LM_LOGIT_RTOL of the largest, tokens identical
@@ -4030,8 +4077,7 @@ def lm_cpu_replay(phase: str, dev, smoke, seed: int):
     if parted is None:
         check([r.generated for r in card_reqs] == [r.generated for r in cpu_reqs],
               f"{phase} CPU replay: tokens differ")
-    say(f"{phase} CPU replay: {len(cpu_reqs)} requests (the ragged case: one prompt of {LM_LONG}, on the CUDA-core "
-        f"kernel on the card and the plain version on the CPU): "
+    say(f"{phase} CPU replay: {len(cpu_reqs)} requests (the ragged case: one prompt of {LM_LONG}, {paths}): "
         + ("tokens identical" if parted is None else f"parting at sampler call {parted[0]}, a near-tie "
                                                        f"({parted[1]:.2f} of the bound's 2)")
         + f"; logits at most {worst:.3e} apart relative to the largest (limit {LM_LOGIT_RTOL:g}) over "
@@ -4372,6 +4418,327 @@ def phase_vlm(dev, card):
     lm_cpu_replay("[vlm]", dev, C.get_smoke(VLM_ARCH).replace(compute_dtype=torch.float32), SEED + 24)
     say(f"[vlm] done in {time.perf_counter() - t_phase:.1f} s on {card}")
     return launches, numbers
+
+
+def kernel_counts(reset: bool = False) -> dict:
+    """Every hand-written kernel's launch counter, by the kernels line's
+    names (forward and backward flash counted apart); with ``reset``,
+    every counter of every kernel module set to 0 first."""
+    from repro_torch.kernels import assign as k_assign
+    from repro_torch.kernels import bubble_cd as k_bcd
+    from repro_torch.kernels import dynamic as k_dyn
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.kernels import flat_scatter as k_flat
+    from repro_torch.kernels import grid as k_grid
+    from repro_torch.kernels import hierarchy as k_h
+    from repro_torch.kernels import knn as k_knn
+    from repro_torch.kernels import mutual_reach as k_mr
+    from repro_torch.kernels import pairwise as k_pw
+
+    if reset:
+        for mod in (k_assign, k_bcd, k_fa, k_flat, k_h, k_knn, k_mr, k_pw):
+            for name in [n for n in vars(mod) if n.startswith("launches")]:
+                setattr(mod, name, 0)
+        for counts in (k_grid.launches, k_dyn.launches):
+            counts.update(dict.fromkeys(counts, 0))
+    return dict(assign=k_assign.launches, bubble_cd=k_bcd.launches, mutual_reach=k_mr.launches, knn=k_knn.launches,
+                pairwise=k_pw.launches, flash_attention=k_fa.launches, flash_attention_bwd=k_fa.launches_bwd,
+                flat_scatter=k_flat.launches, single_linkage=k_h.launches_single_linkage,
+                condense=k_h.launches_condense, extract=k_h.launches_extract, eom=k_h.launches_eom,
+                **k_grid.launches, **k_dyn.launches)
+
+
+def ssm_wkv_capture(T: int):
+    """Wrap ``models/rwkv.py::_wkv_chunked`` to keep the first call's
+    inputs at sequence length T: layer 0's call of that prefill.  Returns
+    the record, the unwrapped function and a function that unwraps."""
+    from repro_torch.models import rwkv as R
+
+    seen, wkv = {}, R._wkv_chunked
+
+    def capture(*args):
+        if args[0].shape[1] == T and not seen:
+            seen["args"] = tuple(t.clone() for t in args)
+        return wkv(*args)
+
+    R._wkv_chunked = capture
+    return seen, wkv, lambda: setattr(R, "_wkv_chunked", wkv)
+
+
+def ssm_wkv_annotated():
+    """A context in which every ``_wkv_chunked`` call runs inside a
+    ``record_function("rwkv_wkv")`` range (for lm_profile's share)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import rwkv as R
+
+    @contextlib.contextmanager
+    def ctx():
+        wkv = R._wkv_chunked
+
+        def annotated(*args):
+            with torch.profiler.record_function("rwkv_wkv"):
+                return wkv(*args)
+
+        R._wkv_chunked = annotated
+        try:
+            yield
+        finally:
+            R._wkv_chunked = wkv
+
+    return ctx()
+
+
+def wkv_bound(r, S0):
+    """The WKV scan's bound at this call's shapes: the bytes of r, k, v
+    (their dtype), the f32 log decays, u, S0 and S_T read or written once
+    and o written once; the products' FLOPs on the strictly lower
+    triangle (r̃·k̃ and A·v), the chunk states' increments and the carried
+    state's term (4·dh per element), the carry's mul and add, the bonus;
+    at the tensor cores' bf16 peak for bf16, the f32 peak otherwise."""
+    import torch
+
+    B, T, H, dh = r.shape
+    C = min(64, T)
+    n = T // C
+    el = B * T * H * dh
+    nbytes = el * (4 * r.element_size() + 4) + 2 * S0.numel() * 4 + H * dh * 4
+    flops = 2.0 * B * n * H * dh * C * (C - 1) + 4.0 * el * dh + 2.0 * B * n * H * dh * dh + 3.0 * el
+    return bound_ms(flops, nbytes, PEAK_BF16_FLOPS if r.dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+
+
+def serial_wkv64(r, k, v, lw, u, S0):
+    """The recurrence itself in f64 on the card, token by token:
+    o_t = r_t·(S + diag(u) k_t⊗v_t), S = diag(w_t) S + k_t⊗v_t."""
+    import torch
+
+    r, k, v, lw, u, S = (t.double() for t in (r, k, v, lw, u, S0))
+    w, o = lw.exp(), torch.empty_like(r)
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        o[:, t] = (r[:, t, :, :, None] * (S + u[None, :, :, None] * kv)).sum(2)
+        S = w[:, t, :, :, None] * S + kv
+    return o, S
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def phase_ssm(dev, card):
+    """LM serving and training for the ssm family at published widths:
+    rwkv6-1.6b through ServeEngine as [lm] serves, 32 tokens a request,
+    its state O(1) in the sequence; profiles of the long prefill and a
+    decode step with the WKV scan's share; 4 layers in f32 against a
+    teacher-forced prefill and layer 0's WKV at T = 6144 against the
+    serial f64 recurrence; a full-width train step at (4, 2048), the
+    remat modes and microbatches at cut depth; the SMOKE replay against
+    the CPU.  No hand-written kernel lies on this path: every kernel's
+    launches over the phase must stay 0.  Returns the WKV scan's numbers."""
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine
+    from repro_torch.train import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    kernel_counts(reset=True)  # every counter 0 for the phase (later phases reset their own before counting)
+    cfg = C.get(SSM_ARCH)
+    base, params, peak_build = lm_build(cfg, dev, SEED + 40)
+    n_params, fpt = M.count_params(params), M.model_flops_per_token(cfg)
+    say(f"[ssm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.rwkv_heads} heads of "
+        f"{cfg.rwkv_head_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params:,} parameters and "
+        f"model_flops_per_token {fpt:,.0f} (the reference's: {SSM_PARAMS:,} and {SSM_FLOPS:,}); the bf16 compute copy "
+        f"drawn leaf by leaf from a seeded torch.Generator on the card: peak {peak_build:.2f} GiB; on {card}")
+    check(n_params == SSM_PARAMS and fpt == SSM_FLOPS, f"[ssm] {n_params} parameters, {fpt} FLOPs a token")
+    eng = ServeEngine(cfg, params, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED, device=dev)
+    tm = eng.params["blocks"]["tm"]
+    check(all(t.dtype == torch.bfloat16 for t in (tm["wr"]["w"], eng.params["blocks"]["cm"]["wk"]["w"],
+                                                  eng.params["embed"]["table"], eng.params["unembed"]["table"]))
+          and all(tm[k].dtype == torch.float32 for k in SSM_F32_LEAVES)
+          and all(eng.params["blocks"]["cm"][k].dtype == torch.float32 for k in ("mu_k", "mu_r")),
+          "[ssm] the engine does not hold the bf16 compute copy with RWKV's f32 leaves")
+    check(eng.params["blocks"]["tm"]["wr"]["w"] is params["blocks"]["tm"]["wr"]["w"],
+          "[ssm] the engine copied a tree already in the compute dtype")
+    del params
+    per_slot = {n: tree_bytes(eng.model.init_cache(1, n, device="meta")) for n in (8, 9000)}
+    check(per_slot[8] == per_slot[9000] and tree_bytes(eng.caches) == LM_SLOTS * per_slot[8],
+          f"[ssm] state bytes per slot {per_slot}, the engine's {tree_bytes(eng.caches)}")
+
+    prompts = lm_prompts(cfg, np.random.default_rng(SEED + 41))
+    cap, wkv, uncapture = ssm_wkv_capture(LM_LONG)
+    try:
+        run = lm_serve_timed(eng, prompts, base, SSM_NEW)
+    finally:
+        uncapture()
+    check(all(n == 0 for n in run["launches"].values()), f"[ssm] flash launches {run['launches']}")
+    long_ms = [ms for S_, ms, _, _ in run["prefills"] if S_ == LM_LONG][0]
+    short_ms = float(np.median([ms for S_, ms, _, _ in run["prefills"] if S_ != LM_LONG]))
+    full = sorted(ms for active, ms in run["steps"] if active == LM_SLOTS)
+    check(bool(full), "[ssm] no decode step ran with every slot busy")
+    decode_ms = float(np.median(full))
+    say(f"[ssm] ragged serve: {len(run['reqs'])} requests ({LM_SHORT} of 4-16 tokens, one of {LM_LONG} = "
+        f"{LM_LONG // 64} chunks) on {LM_SLOTS} slots, {SSM_NEW} greedy tokens each: all finished; "
+        f"{eng.tokens_out} tokens in {eng.steps} steps, {run['wall'] * 1e3:.1f} ms, "
+        f"{eng.tokens_out / run['wall']:.1f} tokens/s; long prefill {long_ms:.3f} ms "
+        f"({LM_LONG / long_ms * 1e3:.0f} tokens/s, 6N FLOPs {fpt * LM_LONG / (long_ms / 1e3) / PEAK_BF16_FLOPS:.4f} "
+        f"of the bf16 peak); the short prefills {short_ms:.3f} ms (median); decode at {LM_SLOTS} slots "
+        f"{decode_ms:.3f} ms per step (median of {len(full)}; min {full[0]:.3f}, max {full[-1]:.3f}); peak device "
+        f"memory {run['peak']:.2f} GiB serving, {peak_build:.2f} GiB building; state {per_slot[8]:,} bytes per slot "
+        f"at cache_len 8 and at 9000; on {card}")
+    long_toks = torch.as_tensor(prompts[LM_LONG_AT], dtype=torch.int64, device=dev)[None]
+    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    with ssm_wkv_annotated():
+        prof_long = lm_profile(f"the {LM_LONG}-token prefill", lambda: eng.model.prefill(eng.params, long_toks),
+                               long_ms, "[ssm]", part="rwkv_wkv")
+        prof_dec = lm_profile(f"a decode step at {LM_SLOTS} slots",
+                              lambda: eng.model.decode(eng.params, eng.caches, last, 0), decode_ms, "[ssm]",
+                              part="rwkv_wkv")
+
+    # the WKV scan alone, on layer 0's bf16 inputs of the long prefill
+    args = cap["args"]
+    o, S_T = wkv(*args)
+    check(bool(torch.isfinite(o).all()) and bool(torch.isfinite(S_T).all()), "[ssm] non-finite WKV output")
+    wkv_ms = time_ms(lambda: wkv(*args), reps=5)
+    prof_wkv = lm_profile(f"one WKV call at T = {LM_LONG}", lambda: wkv(*args), wkv_ms, "[ssm]")
+    b, by = wkv_bound(args[0], args[5])
+    say(f"[ssm] the WKV scan (models/rwkv.py::_wkv_chunked, torch operations) on layer 0's inputs of the long "
+        f"prefill, (B, T, H, dh) = {tuple(args[0].shape)}, bf16: {wkv_ms:.4f} ms a call, x {cfg.n_layers} layers = "
+        f"{wkv_ms * cfg.n_layers:.3f} ms, {wkv_ms * cfg.n_layers / long_ms:.3f} of the prefill; "
+        f"{prof_wkv['launches'] if prof_wkv else 'not measured'} launches a call; bound {b:.4f} ms ({by}); "
+        f"on {card}")
+    numbers = dict(ms=wkv_ms, launches=prof_wkv["launches"] if prof_wkv else None, bound_ms=b, bound_by=by,
+                   prefill_share=prof_long["part_ms"] / long_ms if prof_long else None,
+                   decode_share=prof_dec["part_ms"] / decode_ms if prof_dec else None)
+    del eng, run, cap, args, o, S_T
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 at full width, cut depth: the engine against a teacher-forced prefill; layer 0's WKV against f64
+    cfg32 = cfg.replace(n_layers=SSM_F32_LAYERS, compute_dtype=torch.float32)
+    values = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED + 42), device=dev)
+    eng = ServeEngine(cfg32, values, slots=len(SSM_F32_PROMPTS), cache_len=128, seed=SEED, device=dev)
+    del values
+    rng = np.random.default_rng(SEED + 43)
+    prompts = [rng.integers(0, cfg32.vocab_size, size=n).astype(np.int32) for n in SSM_F32_PROMPTS]
+    reqs, _ = lm_serve(eng, prompts, SSM_F32_NEW)
+    parted, margins, longest = 0, [], 0
+    with torch.no_grad():
+        for r in reqs:
+            seq = list(r.prompt)
+            for i, got in enumerate(r.generated):
+                longest = max(longest, len(seq))
+                toks = torch.as_tensor(np.asarray(seq), dtype=torch.int64, device=dev)[None]
+                logits = eng.model.prefill(eng.params, toks)[0][0, -1].float().cpu().numpy()[: cfg32.vocab_size]
+                want = int(np.argmax(logits))
+                if want != got:
+                    margins.append(lm_near_tie(logits, want, got))
+                    check(margins[-1] <= 2, f"[ssm] f32: request {r.rid} token {i} is {got}, the teacher-forced "
+                                            f"prefill gives {want} by a margin of {margins[-1]:.2f} logit bounds")
+                    parted += 1
+                    break
+                seq.append(want)
+    check(longest <= 64, f"[ssm] a teacher-forced prefix of {longest} tokens")
+    say(f"[ssm] f32: {cfg32.name} at full width with {cfg32.n_layers} layers in f32, prompts of {SSM_F32_PROMPTS} "
+        f"tokens, {SSM_F32_NEW} greedy tokens each through the engine (the recurrent decode) against a teacher-forced "
+        f"prefill (the chunked scan; prefixes up to {longest} tokens): {len(reqs) - parted} of {len(reqs)} requests "
+        f"identical" + (f", {parted} parting at a near-tie (margins {margins} of the logit bound)" if parted else ""))
+    long32 = torch.as_tensor(np.random.default_rng(SEED + 44).integers(0, cfg32.vocab_size, size=LM_LONG),
+                             dtype=torch.int64, device=dev)[None]
+    cap, wkv, uncapture = ssm_wkv_capture(LM_LONG)
+    try:
+        with torch.no_grad():
+            eng.model.prefill(eng.params, long32)
+    finally:
+        uncapture()
+    args = cap["args"]
+    o, S_T = wkv(*args)
+    t0 = time.perf_counter()
+    o64, S64 = serial_wkv64(*args)
+    serial_s = time.perf_counter() - t0
+    lwc = args[3].reshape(1, LM_LONG // 64, 64, *args[3].shape[2:]).double().cumsum(2)
+    read_o = float((o.double() - o64).abs().max() / o64.abs().max())
+    read_S = float((S_T.double() - S64).abs().max() / S64.abs().max())
+    say(f"[ssm] f32: layer 0's WKV at T = {LM_LONG} on its real inputs (log decays {float(args[3].min()):.4f} to "
+        f"{float(args[3].max()):.4f}, the deepest cumulative log decay in a chunk {float(lwc.min()):.3f}: the clip at "
+        f"-30 does not bind) against the serial f64 recurrence ({serial_s:.1f} s): o {read_o:.3e}, S_T {read_S:.3e} "
+        f"of the largest |value| (limit {SSM_WKV_RTOL:g})")
+    check(float(lwc.min()) > -30, "[ssm] the clip binds on the f32 inputs")
+    check(read_o <= SSM_WKV_RTOL and read_S <= SSM_WKV_RTOL, "[ssm] the chunked WKV leaves the f64 recurrence")
+    del eng, reqs, cap, args, o, S_T, o64, S64, lwc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a full-width train step
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 45), device=dev)
+    state = adamw_init(params)
+    step = M.make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+    pipe = TokenPipeline(cfg.vocab_size, SSM_TRAIN[0], SSM_TRAIN[1], seed=SEED + 46)
+    batches = [pipe.batch_at(i) for i in range(TRAIN_TIMED_STEPS)]
+    pipe.close()
+    torch.cuda.reset_peak_memory_stats()
+    timed = train_steps(step, params, state, batches, dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = [r[2] for r in timed[1:]]
+    step_ms = float(np.median(after))
+    tok_s = SSM_TRAIN[0] * SSM_TRAIN[1] / (step_ms / 1e3)
+    say(f"[ssm] training: {cfg.name} at full width, remat {cfg.remat!r}, bf16 compute over the f32 master, (B, S) = "
+        f"{SSM_TRAIN} ({SSM_TRAIN[1] // 64} chunks): steps {[round(r[2], 3) for r in timed]} ms, the first a "
+        f"warm-up; the other {len(after)}: median {step_ms:.3f} ms, min {min(after):.3f}, max {max(after):.3f} "
+        f"(losses {[round(r[0], 4) for r in timed]}); {tok_s:.0f} tokens/s, 6N FLOPs "
+        f"{fpt * tok_s / PEAK_BF16_FLOPS:.4f} of the 989 TFLOP/s bf16 peak; peak memory {peak:.2f} GiB; on {card}")
+    check(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in timed), "[ssm] a non-finite loss")
+    numbers.update(train_step_ms=step_ms, train_tokens_s=tok_s)
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # cut depth in f32: the remat modes and microbatches against "full" and 1
+    cut = cfg.replace(n_layers=SSM_CUT_LAYERS, compute_dtype=torch.float32)
+    params = M.init_params(cut, torch.Generator(device=dev).manual_seed(SEED + 47), device=dev)
+    pipe = TokenPipeline(cut.vocab_size, SSM_CUT[0], SSM_CUT[1], seed=SEED + 48)
+    tb = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(0).items()}
+    pipe.close()
+    runs = {}
+    for remat, mb in (("full", 1), ("none", 1), ("dots", 1), ("full", 2)):
+        loss, grads = M.make_value_and_grad(cut.replace(remat=remat), microbatches=mb)(params, tb)
+        runs[(remat, mb)] = (float(loss), tree_leaves(grads))
+    ref_loss, ref_g = runs[("full", 1)]
+    readings = []
+    for (remat, mb), (loss, g) in runs.items():
+        if (remat, mb) == ("full", 1):
+            continue
+        worst = max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(g, ref_g))
+        bitwise = loss == ref_loss and all(torch.equal(a, b) for a, b in zip(g, ref_g))
+        readings.append((remat, mb, abs(loss - ref_loss) / abs(ref_loss), worst, bitwise))
+    say(f"[ssm] cut depth: {cut.name} at full width, {SSM_CUT_LAYERS} layers in f32, (B, S) = {SSM_CUT}: against "
+        f"remat 'full' and 1 microbatch (loss {ref_loss:.6f}): "
+        + "; ".join(f"remat {r!r} x{mb}: loss {dl:.2e} relative, leaves at most {w:.2e} in relative norm, bit for bit "
+                    f"{bw}" for r, mb, dl, w, bw in readings)
+        + f" (limits: remat losses equal, leaves {SSM_REMAT_RTOL:g}; microbatches 1e-6 and {SSM_MICRO_RTOL:g})")
+    for remat, mb, dl, w, _ in readings:
+        if mb == 1:
+            check(dl == 0 and w <= SSM_REMAT_RTOL, f"[ssm] remat {remat!r} moves the loss or the gradients")
+        else:
+            check(dl <= 1e-6 and w <= SSM_MICRO_RTOL, "[ssm] microbatches=2 moves the loss or the gradients")
+    del params, runs, ref_g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm_cpu_replay("[ssm]", dev, C.get_smoke(SSM_ARCH).replace(compute_dtype=torch.float32), SEED + 49,
+                  "torch operations on both")
+    moved = kernel_counts()
+    say(f"[ssm] hand-written kernel launches over the phase (no kernel lies on RWKV's path): {json.dumps(moved)}")
+    check(not any(moved.values()), "[ssm] a hand-written kernel was launched")
+    say(f"[ssm] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return numbers
 
 
 def grad_reading(got, want, dt, allow=None):
@@ -5840,6 +6207,7 @@ def main() -> int:
     lm_launches, lm_numbers = phase_lm(dev, card)
     moe_launches, moe_numbers = phase_moe(dev, card)
     vlm_launches, vlm_numbers = phase_vlm(dev, card)
+    phase_ssm(dev, card)
     train_launches, train_numbers = phase_train(dev, card)
     phase_examples()
     launches = dict(run["launches"], eom=run["eom_launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],

@@ -18,8 +18,9 @@ puts a port ``BubbleTreeSummarizer`` over the Bubble-tree of a reference
 engine's checkpoint.  ``lm_params_from_reference`` and
 ``lm_cache_from_reference`` carry an LM's parameter tree and KV cache
 (the reference's ``init_params`` values and ``init_cache``/``prefill``
-caches, leaves as numpy; the dense, MoE and vision families) into the
-port's ``models`` and ``ServeEngine``; ``adamw_state_from_reference``
+caches, leaves as numpy; the dense, MoE, vision and ssm families, RWKV's
+state tree among the caches) into the port's ``models`` and
+``ServeEngine``; ``adamw_state_from_reference``
 carries the reference's ``adamw_init`` / ``adamw_update`` state (``mu``,
 ``nu``, ``step``) beside them, so a port train step continues a reference
 run.
@@ -140,8 +141,10 @@ def lm_params_from_reference(values, cfg, device=None) -> dict:
     key)[0]`` (a nested dict, leaves as numpy through ``np.asarray``,
     layers stacked on axis 0; the MoE's experts as bare (E, …) arrays
     under ``moe``, the vlm's ``self_blocks`` stacked (n_groups, n_self)
-    and its ``cross_blocks`` (n_groups,)): the same keys, shapes and
-    values, on ``device`` (None → cuda).  Raises ``ValueError`` when the
+    and its ``cross_blocks`` (n_groups,), RWKV's ``ln0`` and its blocks'
+    bare mixing and decay leaves under ``tm`` / ``cm``): the same keys,
+    shapes and values (f32 as the reference draws them), on ``device``
+    (None → cuda).  Raises ``ValueError`` when the
     tree is not the port's layout for ``cfg`` (and
     ``NotImplementedError`` for a family the port does not build yet)."""
     dev = resolve_device(device)
@@ -155,8 +158,11 @@ def lm_params_from_reference(values, cfg, device=None) -> dict:
 def lm_cache_from_reference(caches, device=None) -> dict:
     """The port's KV cache from the reference's (``{"self": {"k", "v"},
     "pos"}``, or the vlm's ``{"self_groups": …, "cross_groups": …}`` of
-    two such trees; leaves as numpy): the same values and dtypes (bf16
-    K/V, int32 write heads), on ``device`` (None → cuda)."""
+    two such trees), or RWKV's state tree (``{"shift_tm", "shift_cm",
+    "S"}``, stacked on the layer axis); leaves as numpy: the same values
+    and dtypes (bf16 K/V, int32 write heads; RWKV's shifts bf16 or in the
+    compute dtype as the reference returned them, S f32), on ``device``
+    (None → cuda)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf_tensor(a, dev), caches)
 

@@ -1,5 +1,5 @@
 """Serving entry point: the continuous-batching engine over a zoo model
-of the dense, MoE or vision family.
+of the dense, MoE, vision or ssm (RWKV-6) family.
 
 The port's copy of the JAX package's ``launch/serve.py``, on the card by
 default (``--device cpu`` runs the plain versions on the CPU).  The
@@ -7,10 +7,14 @@ params are drawn from a seeded ``torch.Generator`` on the device leaf by
 leaf into their compute-dtype copy (``models.init_compute_params``), so
 the f32 master is never whole on the card: qwen2-moe-a2.7b (28.6 GB in
 bf16) and llama-3.2-vision-11b (20.2 GB) fit one 80 GB card at full
-width; dbrx-132b (263 GB) does not.
+width; dbrx-132b (263 GB) does not.  The prompts have 4–15 tokens,
+within RWKV's chunk rule (a prompt longer than 64 tokens must be a
+multiple of 64).
 
   python -m repro_torch.launch.serve --arch qwen2-1.5b            # full width, on the card
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --cache-len 1024
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b --max-new 32   # its state is O(1) in cache_len
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke --device cpu \\
       --requests 12 --slots 4 --max-new 12
 """

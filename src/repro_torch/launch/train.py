@@ -1,4 +1,5 @@
-"""Training entry point: a zoo model of the dense, MoE or vision family.
+"""Training entry point: a zoo model of the dense, MoE, vision or ssm
+(RWKV-6) family.
 
 The port's copy of the JAX package's ``launch/train.py``, with its flags
 (and one more, ``--device``) and its ``metrics.jsonl`` records, on the
@@ -25,9 +26,14 @@ The params are drawn from a seeded ``torch.Generator`` on the device.
 One card, no mesh: ``--model-parallel`` other than 1 raises (ROADMAP,
 multi-card training).  At S > 4096 every layer's attention runs the
 flash kernels forward and the hand-written backward
-(``kernels/ops.py::FlashAttentionFn``).
+(``kernels/ops.py::FlashAttentionFn``).  RWKV-6 has no attention; its
+``--seq`` must be at most 64 or a multiple of 64 (the reference's chunk
+rule), checked before anything is built.
 
   python -m repro_torch.launch.train --arch qwen2-1.5b --steps 20 --batch 1 --seq 8192 --out runs/qwen2
+  python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 20 --batch 4 --seq 2048 --out runs/rwkv6
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke --device cpu --steps 10 --batch 2 \
+      --seq 128 --out runs/rwkv6-smoke
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --device cpu \\
       --steps 30 --batch 8 --seq 64 --ckpt-every 10 --out runs/smoke
 """
@@ -50,6 +56,7 @@ from ..data.curation import StreamCurator
 from ..data.pipeline import TokenPipeline
 from ..device import resolve_device
 from ..models import model as M
+from ..models.rwkv import check_length
 from ..train.optim import AdamWConfig, adamw_init
 
 
@@ -76,6 +83,8 @@ def main(argv=None):
         raise SystemExit(f"--model-parallel {args.model_parallel}: the port trains on one card (ROADMAP queue 1, "
                          f"item 9: multi-card training)")
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
+    if cfg.family == "ssm":
+        check_length(args.seq)  # the chunk rule, before anything is built
     dev = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
     store = CheckpointStore(os.path.join(args.out, "ckpt"), keep=2)

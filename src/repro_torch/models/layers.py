@@ -233,7 +233,11 @@ def padded_vocab(v, mult):
 
 
 def embed_apply(p, tokens, dtype):
-    return p["table"].to(dtype)[tokens]
+    """The table's rows at ``tokens``, in ``dtype``.  ``F.embedding``, not
+    indexing: its backward sums each row's gradients in token order, where
+    indexing's (``index_put_`` with accumulate) sums them in a thread
+    order that varies from run to run on the CPU."""
+    return F.embedding(tokens, p["table"].to(dtype))
 
 
 def unembed_apply(p, x):

@@ -1,7 +1,7 @@
 """Model facade: build a zoo architecture and its train and serve steps.
 
 The port's copy of the JAX package's ``models/model.py`` for the dense,
-MoE and vision families:
+MoE, vision and ssm (RWKV-6) families:
 
   model = build_model(cfg)                    # the family's backbone
   params = init_params(cfg, generator)        # f32 master params (values only)
@@ -16,7 +16,8 @@ The reference casts every weight to the compute dtype where it is used
 (``x @ w.astype(x.dtype)``); casting once, at load, gives the same bits,
 so the serving engine keeps only the compute copy.  Norm scales and
 biases are read in f32 by the norms, and the cross-attention gates by
-``tanh``, so they stay f32.  ``init_compute_params`` draws each leaf in
+``tanh``, so they stay f32, as do RWKV's mixing and decay leaves, which
+its model casts where it reads them (``models/rwkv.py``).  ``init_compute_params`` draws each leaf in
 f32 and casts it before the next: a model whose f32 master and compute
 copy together outgrow the card (qwen2-moe-a2.7b: 57 + 29 GB) is built
 with the compute copy and one f32 leaf at a time.
@@ -48,19 +49,22 @@ from ..device import resolve_device
 from ..train.optim import AdamWConfig, adamw_update
 from ..tree import tree_leaves, tree_unflatten
 from . import layers as L
+from .rwkv import RWKVModel
 from .transformer import UniformDecoder, VisionDecoder
 
 __all__ = ["build_model", "init_params", "init_compute_params", "compute_copy", "count_params", "make_prefill",
            "make_serve_step", "make_train_step", "make_value_and_grad", "model_flops_per_token", "xent_loss",
            "loss_fn"]
 
-FAMILIES = {"dense": UniformDecoder, "moe": UniformDecoder, "vlm": VisionDecoder}
+FAMILIES = {"dense": UniformDecoder, "moe": UniformDecoder, "vlm": VisionDecoder, "ssm": RWKVModel}
 # the families of the reference's zoo still to come, each a later slice
-_LATER = ("ssm", "hybrid", "audio")
+_LATER = ("hybrid", "audio")
 
 # tensor leaves that dense / embed / unembed and the experts (bare "gate" /
 # "up" / "down" arrays) cast to the compute dtype; the norms' "scale" and
-# "bias" and the cross-attention gates are cast to f32 where they are used
+# "bias" and the cross-attention gates are cast to f32 where they are used,
+# and RWKV's bare leaves ("mu", "maa_w1", "decay_mu", "bonus_u", ...) to the
+# compute dtype or to f32 where they are used
 _COMPUTE_LEAVES = ("w", "b", "table", "gate", "up", "down")
 
 
@@ -69,7 +73,7 @@ def build_model(cfg: ArchConfig):
         return FAMILIES[cfg.family](cfg)
     if cfg.family in _LATER:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP queue 1, "
-                                  f"item 9: the LM stack beyond the dense, MoE and vision families)")
+                                  f"item 9: the LM stack beyond the dense, MoE, vision and ssm families)")
     raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
@@ -96,9 +100,9 @@ def init_compute_params(cfg: ArchConfig, generator: torch.Generator | None = Non
 
 def compute_copy(params, cfg: ArchConfig, device=None):
     """The params tree with every matmul weight, bias, embedding table and
-    expert array in ``cfg.compute_dtype`` and the norms' leaves and the
-    gates in f32, on ``device`` (None: where they are).  Leaves already so
-    are not copied."""
+    expert array in ``cfg.compute_dtype`` and the norms' leaves, the gates
+    and RWKV's bare leaves in f32, on ``device`` (None: where they are).
+    Leaves already so are not copied."""
     def cast(tree):
         out = {}
         for k, v in tree.items():

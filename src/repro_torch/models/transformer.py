@@ -33,7 +33,9 @@ outputs of the matrix products with no batch dimension (``mm`` /
 as in the reference.  It acts only while grad is enabled; serving
 (``prefill``, ``decode``) never recomputes.
 
-The RWKV and hybrid families are later slices (ROADMAP queue 1).
+The ssm family (RWKV-6) is ``models/rwkv.py``, on ``_Draw``, ``_remat``
+and ``unstack`` from here; the hybrid family is a later slice (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -58,15 +60,16 @@ class _Draw:
     norms, N(0, 0.02²) embedding tables.  With ``dtype`` every matmul
     weight, bias and table is cast to it as soon as it is drawn — the
     compute copy's bits (``model.compute_copy``) without the whole f32
-    master on the device — while the norms and the cross-attention gates
-    stay f32."""
+    master on the device — while the norms, the cross-attention gates and
+    the draws asked for with ``f32=True`` (RWKV's mixing and decay
+    leaves, which the model casts where it reads them) stay f32."""
 
     def __init__(self, gen, device, dtype=None):
         self.gen, self.device, self.dtype = gen, device, dtype
 
-    def normal(self, shape, scale):
+    def normal(self, shape, scale, f32=False):
         t = torch.empty(shape, dtype=torch.float32, device=self.device).normal_(generator=self.gen).mul_(scale)
-        return t if self.dtype is None else t.to(self.dtype)
+        return t if self.dtype is None or f32 else t.to(self.dtype)
 
     def dense(self, lead, d_in, d_out, bias=False):
         p = {"w": self.normal(lead + (d_in, d_out), 1.0 / math.sqrt(d_in))}

@@ -1,20 +1,28 @@
 """Slot-based token serving engine with continuous batching.
 
 The port's copy of the JAX package's ``serving/engine.py`` (``Request``,
-``ServeEngine``) over the port's dense, MoE and vision models (the vision
-model gets zero media, as the reference's engine gives it): a fixed
-device batch of ``slots``, each slot holding one request's KV state
-inside ONE batched cache tree (so a decode step is one call over every
-slot).  Continuous batching = admit new requests into free slots between
-decode steps; finished requests free their slot immediately.
+``ServeEngine``) over the port's dense, MoE, vision and ssm models (the
+vision model gets zero media, as the reference's engine gives it): a
+fixed device batch of ``slots``, each slot holding one request's decode
+state inside ONE batched state tree (so a decode step is one call over
+every slot): a KV cache, or RWKV's per-layer token shifts and (dh, dh)
+states, whose size does not depend on ``cache_len``.  Continuous
+batching = admit new requests into free slots between decode steps;
+finished requests free their slot immediately.
 
   * prefill: per-request prefill produces a length-S cache whose first
     min(S, cache_len) positions are copied into the slot's rows of the
-    batched cache (the rest of the slot is left as it was);
+    batched cache (the rest of the slot is left as it was); an RWKV
+    state, which has no sequence axis, is copied whole into the slot's
+    row, cast to the slot tree's dtype;
   * decode: one ``serve_step`` advances every slot by one token at one
     scalar position, the largest of the active slots' (each row writes
-    its K/V at its own head); inactive slots decode garbage that is
-    masked out;
+    its K/V at its own head; RWKV ignores the position); inactive slots
+    decode garbage that is masked out.  The engine keeps the state tree
+    that the step returns: the dense models' caches written in place,
+    RWKV's new tree, whose token shifts come back in the compute dtype
+    (so under f32 compute they are bf16 until the first decode step and
+    f32 after it, as in the reference engine);
   * greedy or temperature sampling on the host in f64 from
     ``np.random.default_rng(seed)``, EOS/max-token termination.
 
@@ -88,7 +96,7 @@ class ServeEngine:
         first where the slot cache has ``slots`` and the prefill cache 1,
         the sequence axis the first other axis whose lengths differ, of
         which the first min(S, cache_len) positions are copied; the write
-        heads (no sequence axis) are copied whole."""
+        heads and RWKV's states (no sequence axis) are copied whole."""
 
         def put(slot_arr, new_arr):
             if isinstance(slot_arr, dict):

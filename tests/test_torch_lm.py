@@ -71,8 +71,8 @@ DENSE = ("qwen1.5-0.5b", "qwen2-1.5b", "h2o-danube-3-4b", "qwen3-14b")
 FULL_PARAMS = {"qwen1.5-0.5b": 463_987_712, "qwen2-1.5b": 1_543_714_304,
                "h2o-danube-3-4b": 3_961_839_360, "qwen3-14b": 14_768_307_200,
                "qwen2-moe-a2.7b": 14_315_735_040, "dbrx-132b": 131_596_523_520,
-               "llama-3.2-vision-11b": 10_110_734_344}
-LATER = ("rwkv6-1.6b", "zamba2-7b", "whisper-tiny")
+               "llama-3.2-vision-11b": 10_110_734_344, "rwkv6-1.6b": 1_599_823_872}
+LATER = ("zamba2-7b", "whisper-tiny")
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 LAYER_RTOL = 1e-5
 FORWARD_RTOL = {"f32": 1e-5, "bf16": 5e-2}

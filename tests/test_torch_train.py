@@ -91,7 +91,7 @@ STEP_CASES = [("qwen2-1.5b", dt, br) for dt in DTYPES for br in ("sdpa", "flash"
     ("qwen2-moe-a2.7b", "f32", "sdpa"), ("qwen2-moe-a2.7b", "f32", "flash"), ("qwen2-moe-a2.7b", "bf16", "flash"),
     ("llama-3.2-vision-11b", "f32", "mixed"), ("llama-3.2-vision-11b", "bf16", "mixed")]
 FULL_WIDTH = ("qwen1.5-0.5b", "qwen2-1.5b", "h2o-danube-3-4b", "qwen3-14b", "qwen2-moe-a2.7b", "dbrx-132b",
-              "llama-3.2-vision-11b")
+              "llama-3.2-vision-11b", "rwkv6-1.6b")
 
 
 def _cfgs(arch, dt="f32", branch="sdpa", **kw):
