@@ -252,6 +252,36 @@ Phases, each printing its own lines:
               the SMOKE replay against the CPU; every hand-written
               kernel's launches over the phase 0 (no kernel lies on this
               path: the reference's scan is jnp, not Pallas);
+     hybrid   LM serving and training for the hybrid family at published
+              widths: zamba2-7b (81 layers: 13 groups of 5 Mamba-2 blocks
+              and one application of the shared attention block, then 3;
+              d_model 3584, the shared block 32/32 heads of 112 and d_ff
+              14336, SSD 112 heads of 64 with state 64, vocab 32,000; the
+              parameter count and FLOPs a token held to the reference's),
+              its bf16 compute copy (A_log, dt_bias and the norms f32)
+              served as [lm] serves with 16 greedy tokens a request: the
+              6144-token prefill launches the tensor-core flash kernel
+              once per application of the shared block (13) at Dh 112,
+              the short prefills and the decode steps none; the decode
+              state per slot at cache_len 8 and 8192 against the
+              reference's; the long prefill's and a decode step's ms,
+              tokens/s, launches, busy share and the SSD scan's share
+              (a record_function range around models/ssm.py::_ssd_chunked)
+              and the flash kernel's under torch.profiler; the first
+              application's attention against the plain version; the SSD
+              scan timed on layer 0's inputs beside its bound; 9 layers
+              in f32: the engine's tokens on 4 equal prompts against a
+              teacher-forced prefill, layer 0's SSD at T = 6144 against
+              the serial f64 recurrence; 15 layers (2 groups and the tail;
+              the whole model does not train on one card) at (1, 8192):
+              step ms (median of 3 after a warm-up), tokens/s, 6N share,
+              peak memory, the flash launches against the code's
+              prediction (per step and application one forward and one
+              backward, the shared block not recomputed), the shared
+              block's backward at that shape against the plain backward
+              and autograd ([train]'s checks); at 9 layers in f32 remat
+              "none" and "dots" and microbatches=2 against "full" and 1;
+              the SMOKE replay against the CPU;
      train    LM training at published widths: the flash backward at
               qwen2-1.5b's attention (S = 8192, 12/2 heads of 128,
               causal, bf16), danube's (32/8 of 120, window 4096, S =
@@ -380,7 +410,14 @@ Phases, each printing its own lines:
      bound_f32_ms beside the bound at the bf16 peak, train_step_ms (the
      median of the timed steps at
      (1, 8192)) with train_step_ms_min and _max, and train_bwd_share; the
-     two forward flash entries also with launches_train);
+     two forward flash entries also with launches_train; the two forward
+     flash entries with [hybrid]'s launches on its serve and its training
+     steps as launches_hybrid and launches_hybrid_train, and
+     flash_attention_mma with the shared block's call at Dh 112 as
+     hybrid_ms / hybrid_bound_ms; flash_attention_bwd with
+     launches_hybrid_train and the shared block's backward at (1, 8192)
+     as hybrid_ms, hybrid_bound_ms, hybrid_plain_ms, hybrid_library_ms and
+     hybrid_max_abs_err);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -496,6 +533,31 @@ SSM_F32_LAYERS, SSM_F32_PROMPTS, SSM_F32_NEW, SSM_WKV_RTOL = 4, (8, 17, 30, 41),
 # norm, microbatches' loss within 1e-6 relative and its leaves within SSM_MICRO_RTOL)
 SSM_TRAIN, SSM_CUT_LAYERS, SSM_CUT = (4, 2048), 2, (4, 256)
 SSM_REMAT_RTOL, SSM_MICRO_RTOL = 1e-6, 1e-5
+# [hybrid]: zamba2-7b at its published widths (configs/zamba2_7b.py: 81 layers = 13 groups of 5 Mamba-2 blocks and
+# one application of the shared attention block, then a tail of 3; d_model 3584, the shared block 32/32 heads of 112
+# and d_ff 14336; SSD 112 heads of 64, state 64; vocab 32,000; random weights from a seed), its bf16 compute copy
+# drawn leaf by leaf, served as [lm] serves (LM_SHORT prompts of 4-16 tokens and one of LM_LONG = 96 chunks, past the
+# flash threshold in each of the 13 applications) with HYB_NEW greedy tokens each; the decode state per slot at
+# cache_len 8 and 8192 (the reference's jax.eval_shape of init_cache(1, n), run on a CPU)
+HYB_ARCH, HYB_PARAMS, HYB_FLOPS, HYB_NEW = "zamba2-7b", 5_737_416_000, 48_533_872_512, 16
+HYB_STATE_BYTES = {8: 129_248_308, 8192: 1_654_484_020}
+# the leaves that stay f32 in the compute copy (models/ssm.py reads them in f32)
+HYB_F32_LEAVES = ("A_log", "dt_bias")
+# [hybrid] f32 at full width, HYB_F32_LAYERS layers (1 group + the tail): HYB_F32_BATCH prompts of HYB_F32_PROMPT
+# tokens (one position for every row: the engine decodes every row at the largest position, which RoPE sees) and
+# HYB_F32_NEW greedy tokens each against a teacher-forced prefill (every prefix within one chunk of 64); layer 0's
+# SSD at T = LM_LONG against the serial f64 recurrence within HYB_SSD_RTOL of the largest |y| and |h|
+HYB_F32_LAYERS, HYB_F32_BATCH, HYB_F32_PROMPT, HYB_F32_NEW, HYB_SSD_RTOL = 9, 4, 40, 16, 1e-4
+# [hybrid] training: HYB_TRAIN_LAYERS layers at full width (2 groups + the tail; the whole model's f32 master, its
+# gradients and AdamW's two moments are ~92 GB) at HYB_TRAIN, remat "full", TRAIN_TIMED_STEPS steps, the first a
+# warm-up; the shared block's backward at that shape against the plain backward (train_bwd_case); then
+# HYB_F32_LAYERS layers in f32 at SSM_CUT: remat "none" and "dots" and microbatches=2 against "full" and 1
+HYB_TRAIN_LAYERS, HYB_TRAIN = 15, (1, 8192)
+# microbatches=2 against 1 at HYB_F32_LAYERS layers in f32: the two batch shapes take other cuBLAS kernels, whose f32
+# roundings over reductions of up to 14,336 terms reach ~1.3e-5 of each leaf's norm, alike over the leaves (every
+# leaf 0.9e-5 to 1.3e-5 on the card; rwkv6-1.6b's 2 layers of at most 7168: 4.3e-6); the loss stays within 1e-6
+HYB_MICRO_RTOL = 5e-5
+HYB_BWD = ("zamba2-7b shared block bf16", 1, 8192, 8192, 32, 32, 112, True, None, "bf16", 0, 0)
 # [train]: qwen2-1.5b at its published widths (configs/qwen2_1_5b.py: remat "full", bf16 compute over the f32
 # master, random weights from a seed) trained through make_train_step and AdamW: TRAIN_TIMED_STEPS steps at
 # TRAIN_SHORT, the plain _sdpa branch (2048² <= 4096²), and at TRAIN_LONG, the flash branch in every layer, the first
@@ -3921,7 +3983,8 @@ def lm_serve_report(phase: str, eng, run, long_len: int, n_layers: int, peak_bui
     short = [(S, mma, simt) for S, _, mma, simt in prefills if S != long_len]
     long_launches = [(mma, simt) for S, _, mma, simt in prefills if S == long_len]
     say(f"{phase} ragged serve: {len(run['reqs'])} requests ({LM_SHORT} of 4-16 tokens, one of {long_len}) on "
-        f"{LM_SLOTS} slots, cache_len {LM_CACHE_LEN}, {LM_NEW} greedy tokens each: all finished; {eng.tokens_out} "
+        f"{LM_SLOTS} slots, cache_len {LM_CACHE_LEN}, {len(run['reqs'][0].generated)} greedy tokens each: all "
+        f"finished; {eng.tokens_out} "
         f"tokens in {eng.steps} steps, {run['wall'] * 1e3:.1f} ms, {eng.tokens_out / run['wall']:.1f} tokens/s; "
         f"flash launches {json.dumps(launches)}: the long prefill (mma, simt) {long_launches}, the short prefills "
         f"{sum(m + s for _, m, s in short)}, decode 0 (Sq = 1 takes the plain branch)")
@@ -4004,15 +4067,16 @@ def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None, p
     return dict(ms=ms, bound_ms=b, max_abs_err=err)
 
 
-def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]", part: str = "flash"):
+def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]", part: str = "flash", extra: tuple = ()):
     """One call of ``fn`` under torch.profiler: the device's busy time (its
     kernels', copies' and fills' times; one stream), the launches, the
     share of ``part`` and the idle share against ``wall_ms``, the untraced
     call's wall.  ``part`` is "flash" (the kernels of that name) or the
     name of a ``record_function`` range that ``fn`` opens (the device time
     of the kernels launched inside it; the range's own device-side
-    annotation is not a launch).  Returns {launches, busy_ms, part_ms} or
-    None when the trace holds no device time."""
+    annotation is not a launch); ``extra`` names more such ranges, each
+    with its share.  Returns {launches, busy_ms, part_ms, extra_ms (by
+    range)} or None when the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4024,23 +4088,33 @@ def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]", part: str = "flash"
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    events = [e for e in averages if e.device_type == DeviceType.CUDA and e.key != part]
+    ranges = (part,) + tuple(extra)
+    events = [e for e in averages if e.device_type == DeviceType.CUDA and e.key not in ranges]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     if busy <= 0:
         say(f"{phase} {tag} under torch.profiler: no device time in the trace (traced wall {traced:.2f} ms); idle "
             f"share not measured")
         return None
+
+    def range_ms(name):
+        return sum(e.device_time_total for e in averages if e.key == name and e.device_type == DeviceType.CPU) / 1e3
+
     if part == "flash":
         part_ms = sum(e.self_device_time_total for e in events if "flash" in e.key) / 1e3
     else:
-        part_ms = sum(e.device_time_total for e in averages if e.key == part and e.device_type == DeviceType.CPU) / 1e3
+        part_ms = range_ms(part)
+    extra_ms = {name: range_ms(name) for name in extra}
     launches = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
     say(f"{phase} {tag} under torch.profiler: {launches} launches, device busy {busy:.3f} ms (traced wall "
-        f"{traced:.2f} ms), {part} {part_ms:.3f} ms of it; against the untraced wall {wall_ms:.3f} ms: busy share "
-        f"{busy / wall_ms:.3f}, idle share {1 - busy / wall_ms:.3f}, {part} {part_ms / wall_ms:.3f}; top device "
-        f"time (ms): " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
-    return dict(launches=launches, busy_ms=busy, part_ms=part_ms)
+        f"{traced:.2f} ms), {part} {part_ms:.3f} ms of it"
+        + "".join(f", {name} {ms:.3f} ms" for name, ms in extra_ms.items())
+        + f"; against the untraced wall {wall_ms:.3f} ms: busy share {busy / wall_ms:.3f}, idle share "
+        f"{1 - busy / wall_ms:.3f}, {part} {part_ms / wall_ms:.3f}"
+        + "".join(f", {name} {ms / wall_ms:.3f}" for name, ms in extra_ms.items())
+        + "; top device time (ms): "
+        + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
+    return dict(launches=launches, busy_ms=busy, part_ms=part_ms, extra_ms=extra_ms)
 
 
 def lm_cpu_replay(phase: str, dev, smoke, seed: int,
@@ -4448,45 +4522,42 @@ def kernel_counts(reset: bool = False) -> dict:
                 **k_grid.launches, **k_dyn.launches)
 
 
-def ssm_wkv_capture(T: int):
-    """Wrap ``models/rwkv.py::_wkv_chunked`` to keep the first call's
-    inputs at sequence length T: layer 0's call of that prefill.  Returns
-    the record, the unwrapped function and a function that unwraps."""
-    from repro_torch.models import rwkv as R
-
-    seen, wkv = {}, R._wkv_chunked
+def fn_capture(module, name: str, T: int):
+    """Wrap ``module.name`` (a scan whose first argument is (B, T, ...)) to
+    keep the first call's inputs at sequence length T: layer 0's call of
+    that prefill.  Returns the record, the unwrapped function and a
+    function that unwraps."""
+    seen, fn = {}, getattr(module, name)
 
     def capture(*args):
         if args[0].shape[1] == T and not seen:
             seen["args"] = tuple(t.clone() for t in args)
-        return wkv(*args)
+        return fn(*args)
 
-    R._wkv_chunked = capture
-    return seen, wkv, lambda: setattr(R, "_wkv_chunked", wkv)
+    setattr(module, name, capture)
+    return seen, fn, lambda: setattr(module, name, fn)
 
 
-def ssm_wkv_annotated():
-    """A context in which every ``_wkv_chunked`` call runs inside a
-    ``record_function("rwkv_wkv")`` range (for lm_profile's share)."""
+def fn_annotated(module, name: str, label: str):
+    """A context in which every ``module.name`` call runs inside a
+    ``record_function(label)`` range (for lm_profile's shares)."""
     import contextlib
 
     import torch
 
-    from repro_torch.models import rwkv as R
-
     @contextlib.contextmanager
     def ctx():
-        wkv = R._wkv_chunked
+        fn = getattr(module, name)
 
         def annotated(*args):
-            with torch.profiler.record_function("rwkv_wkv"):
-                return wkv(*args)
+            with torch.profiler.record_function(label):
+                return fn(*args)
 
-        R._wkv_chunked = annotated
+        setattr(module, name, annotated)
         try:
             yield
         finally:
-            R._wkv_chunked = wkv
+            setattr(module, name, fn)
 
     return ctx()
 
@@ -4529,6 +4600,76 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def lm_teacher_forced(phase: str, eng, reqs, dev):
+    """Each request's greedy tokens against a teacher-forced prefill of its
+    prompt and the tokens before (a part only at a near-tie, after which
+    the request is not compared).  Returns (requests parted, their margins
+    in logit bounds, the longest prefix)."""
+    import torch
+
+    parted, margins, longest = 0, [], 0
+    vocab = eng.cfg.vocab_size
+    with torch.no_grad():
+        for r in reqs:
+            seq = list(r.prompt)
+            for i, got in enumerate(r.generated):
+                longest = max(longest, len(seq))
+                toks = torch.as_tensor(np.asarray(seq), dtype=torch.int64, device=dev)[None]
+                logits = eng.model.prefill(eng.params, toks)[0][0, -1].float().cpu().numpy()[:vocab]
+                want = int(np.argmax(logits))
+                if want != got:
+                    margins.append(lm_near_tie(logits, want, got))
+                    check(margins[-1] <= 2, f"{phase} f32: request {r.rid} token {i} is {got}, the teacher-forced "
+                                            f"prefill gives {want} by a margin of {margins[-1]:.2f} logit bounds")
+                    parted += 1
+                    break
+                seq.append(want)
+    check(longest <= 64, f"{phase} a teacher-forced prefix of {longest} tokens (the chunk rule: at most 64)")
+    return parted, margins, longest
+
+
+def remat_readings(phase: str, cut, seed: int, dev, micro_rtol: float = SSM_MICRO_RTOL):
+    """``cut`` (f32) at SSM_CUT: remat "none" and "dots" and
+    microbatches=2 against remat "full" and 1 microbatch, the loss and
+    every gradient leaf, under tests/test_torch_train.py's bounds (the
+    microbatches' leaves within ``micro_rtol``)."""
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    params = M.init_params(cut, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    pipe = TokenPipeline(cut.vocab_size, SSM_CUT[0], SSM_CUT[1], seed=seed + 1)
+    tb = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(0).items()}
+    pipe.close()
+    runs = {}
+    for remat, mb in (("full", 1), ("none", 1), ("dots", 1), ("full", 2)):
+        loss, grads = M.make_value_and_grad(cut.replace(remat=remat), microbatches=mb)(params, tb)
+        runs[(remat, mb)] = (float(loss), tree_leaves(grads))
+    ref_loss, ref_g = runs[("full", 1)]
+    readings = []
+    for (remat, mb), (loss, g) in runs.items():
+        if (remat, mb) == ("full", 1):
+            continue
+        worst = max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(g, ref_g))
+        bitwise = loss == ref_loss and all(torch.equal(a, b) for a, b in zip(g, ref_g))
+        readings.append((remat, mb, abs(loss - ref_loss) / abs(ref_loss), worst, bitwise))
+    say(f"{phase} cut depth: {cut.name} at full width, {cut.n_layers} layers in f32, (B, S) = {SSM_CUT}: against "
+        f"remat 'full' and 1 microbatch (loss {ref_loss:.6f}): "
+        + "; ".join(f"remat {r!r} x{mb}: loss {dl:.2e} relative, leaves at most {w:.2e} in relative norm, bit for bit "
+                    f"{bw}" for r, mb, dl, w, bw in readings)
+        + f" (limits: remat losses equal, leaves {SSM_REMAT_RTOL:g}; microbatches 1e-6 and {micro_rtol:g})")
+    for remat, mb, dl, w, _ in readings:
+        if mb == 1:
+            check(dl == 0 and w <= SSM_REMAT_RTOL, f"{phase} remat {remat!r} moves the loss or the gradients")
+        else:
+            check(dl <= 1e-6 and w <= micro_rtol, f"{phase} microbatches=2 moves the loss or the gradients")
+    del params, runs, ref_g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_ssm(dev, card):
     """LM serving and training for the ssm family at published widths:
     rwkv6-1.6b through ServeEngine as [lm] serves, 32 tokens a request,
@@ -4544,9 +4685,9 @@ def phase_ssm(dev, card):
     from repro_torch import configs as C
     from repro_torch.data import TokenPipeline
     from repro_torch.models import model as M
+    from repro_torch.models import rwkv as R
     from repro_torch.serving import ServeEngine
     from repro_torch.train import AdamWConfig, adamw_init
-    from repro_torch.tree import tree_leaves
 
     t_phase = time.perf_counter()
     kernel_counts(reset=True)  # every counter 0 for the phase (later phases reset their own before counting)
@@ -4573,7 +4714,7 @@ def phase_ssm(dev, card):
           f"[ssm] state bytes per slot {per_slot}, the engine's {tree_bytes(eng.caches)}")
 
     prompts = lm_prompts(cfg, np.random.default_rng(SEED + 41))
-    cap, wkv, uncapture = ssm_wkv_capture(LM_LONG)
+    cap, wkv, uncapture = fn_capture(R, "_wkv_chunked", LM_LONG)
     try:
         run = lm_serve_timed(eng, prompts, base, SSM_NEW)
     finally:
@@ -4595,7 +4736,7 @@ def phase_ssm(dev, card):
         f"at cache_len 8 and at 9000; on {card}")
     long_toks = torch.as_tensor(prompts[LM_LONG_AT], dtype=torch.int64, device=dev)[None]
     last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
-    with ssm_wkv_annotated():
+    with fn_annotated(R, "_wkv_chunked", "rwkv_wkv"):
         prof_long = lm_profile(f"the {LM_LONG}-token prefill", lambda: eng.model.prefill(eng.params, long_toks),
                                long_ms, "[ssm]", part="rwkv_wkv")
         prof_dec = lm_profile(f"a decode step at {LM_SLOTS} slots",
@@ -4629,30 +4770,14 @@ def phase_ssm(dev, card):
     rng = np.random.default_rng(SEED + 43)
     prompts = [rng.integers(0, cfg32.vocab_size, size=n).astype(np.int32) for n in SSM_F32_PROMPTS]
     reqs, _ = lm_serve(eng, prompts, SSM_F32_NEW)
-    parted, margins, longest = 0, [], 0
-    with torch.no_grad():
-        for r in reqs:
-            seq = list(r.prompt)
-            for i, got in enumerate(r.generated):
-                longest = max(longest, len(seq))
-                toks = torch.as_tensor(np.asarray(seq), dtype=torch.int64, device=dev)[None]
-                logits = eng.model.prefill(eng.params, toks)[0][0, -1].float().cpu().numpy()[: cfg32.vocab_size]
-                want = int(np.argmax(logits))
-                if want != got:
-                    margins.append(lm_near_tie(logits, want, got))
-                    check(margins[-1] <= 2, f"[ssm] f32: request {r.rid} token {i} is {got}, the teacher-forced "
-                                            f"prefill gives {want} by a margin of {margins[-1]:.2f} logit bounds")
-                    parted += 1
-                    break
-                seq.append(want)
-    check(longest <= 64, f"[ssm] a teacher-forced prefix of {longest} tokens")
+    parted, margins, longest = lm_teacher_forced("[ssm]", eng, reqs, dev)
     say(f"[ssm] f32: {cfg32.name} at full width with {cfg32.n_layers} layers in f32, prompts of {SSM_F32_PROMPTS} "
         f"tokens, {SSM_F32_NEW} greedy tokens each through the engine (the recurrent decode) against a teacher-forced "
         f"prefill (the chunked scan; prefixes up to {longest} tokens): {len(reqs) - parted} of {len(reqs)} requests "
         f"identical" + (f", {parted} parting at a near-tie (margins {margins} of the logit bound)" if parted else ""))
     long32 = torch.as_tensor(np.random.default_rng(SEED + 44).integers(0, cfg32.vocab_size, size=LM_LONG),
                              dtype=torch.int64, device=dev)[None]
-    cap, wkv, uncapture = ssm_wkv_capture(LM_LONG)
+    cap, wkv, uncapture = fn_capture(R, "_wkv_chunked", LM_LONG)
     try:
         with torch.no_grad():
             eng.model.prefill(eng.params, long32)
@@ -4701,36 +4826,7 @@ def phase_ssm(dev, card):
     torch.cuda.empty_cache()
 
     # cut depth in f32: the remat modes and microbatches against "full" and 1
-    cut = cfg.replace(n_layers=SSM_CUT_LAYERS, compute_dtype=torch.float32)
-    params = M.init_params(cut, torch.Generator(device=dev).manual_seed(SEED + 47), device=dev)
-    pipe = TokenPipeline(cut.vocab_size, SSM_CUT[0], SSM_CUT[1], seed=SEED + 48)
-    tb = {k: torch.as_tensor(v).to(dev) for k, v in pipe.batch_at(0).items()}
-    pipe.close()
-    runs = {}
-    for remat, mb in (("full", 1), ("none", 1), ("dots", 1), ("full", 2)):
-        loss, grads = M.make_value_and_grad(cut.replace(remat=remat), microbatches=mb)(params, tb)
-        runs[(remat, mb)] = (float(loss), tree_leaves(grads))
-    ref_loss, ref_g = runs[("full", 1)]
-    readings = []
-    for (remat, mb), (loss, g) in runs.items():
-        if (remat, mb) == ("full", 1):
-            continue
-        worst = max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(g, ref_g))
-        bitwise = loss == ref_loss and all(torch.equal(a, b) for a, b in zip(g, ref_g))
-        readings.append((remat, mb, abs(loss - ref_loss) / abs(ref_loss), worst, bitwise))
-    say(f"[ssm] cut depth: {cut.name} at full width, {SSM_CUT_LAYERS} layers in f32, (B, S) = {SSM_CUT}: against "
-        f"remat 'full' and 1 microbatch (loss {ref_loss:.6f}): "
-        + "; ".join(f"remat {r!r} x{mb}: loss {dl:.2e} relative, leaves at most {w:.2e} in relative norm, bit for bit "
-                    f"{bw}" for r, mb, dl, w, bw in readings)
-        + f" (limits: remat losses equal, leaves {SSM_REMAT_RTOL:g}; microbatches 1e-6 and {SSM_MICRO_RTOL:g})")
-    for remat, mb, dl, w, _ in readings:
-        if mb == 1:
-            check(dl == 0 and w <= SSM_REMAT_RTOL, f"[ssm] remat {remat!r} moves the loss or the gradients")
-        else:
-            check(dl <= 1e-6 and w <= SSM_MICRO_RTOL, "[ssm] microbatches=2 moves the loss or the gradients")
-    del params, runs, ref_g
-    gc.collect()
-    torch.cuda.empty_cache()
+    remat_readings("[ssm]", cfg.replace(n_layers=SSM_CUT_LAYERS, compute_dtype=torch.float32), SEED + 47, dev)
 
     lm_cpu_replay("[ssm]", dev, C.get_smoke(SSM_ARCH).replace(compute_dtype=torch.float32), SEED + 49,
                   "torch operations on both")
@@ -4739,6 +4835,253 @@ def phase_ssm(dev, card):
     check(not any(moved.values()), "[ssm] a hand-written kernel was launched")
     say(f"[ssm] done in {time.perf_counter() - t_phase:.1f} s on {card}")
     return numbers
+
+
+def ssd_bound(x, Bm, h0):
+    """The SSD scan's bound at this call's shapes: x, B and C (their dtype)
+    read once, the f32 Δ, A_log and h0 read and h_T written once, y
+    written once; the FLOPs of the products on each chunk's lower
+    triangle (C·Bᵀ per group, its decay-weighted product with Δx per
+    head), of the chunk states' increments and the carried state's term
+    (2·N·P each per token and head) and of the carry (2·N·P per chunk and
+    head); at the tensor cores' bf16 peak for bf16, the f32 peak otherwise."""
+    import torch
+
+    B, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    C = min(64, T)
+    n = T // C
+    nbytes = x.element_size() * (2 * x.numel() + 2 * Bm.numel()) + 4 * (B * T * H + H) + 2 * 4 * h0.numel()
+    tri = C * (C + 1)
+    flops = B * n * (G * N * tri + H * P * tri) + 4.0 * B * T * H * N * P + 2.0 * B * n * H * N * P
+    return bound_ms(flops, nbytes, PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+
+
+def serial_ssd64(x, dt, Bm, Cm, A_log, h0):
+    """The recurrence itself in f64 on the card, token by token:
+    h_t = exp(Δ_t·A) h_{t-1} + Δ_t x_t ⊗ B_t, y_t = C_t · h_t."""
+    import torch
+
+    rep = x.shape[2] // Bm.shape[2]
+    x, dt, h = x.double(), dt.double(), h0.double()
+    Bh, Ch = (t.double().repeat_interleave(rep, dim=2) for t in (Bm, Cm))  # (B, T, H, N)
+    a = torch.exp(dt * -torch.exp(A_log.double()))  # (B, T, H)
+    y = torch.empty_like(x)
+    for t in range(x.shape[1]):
+        h = a[:, t, :, None, None] * h + (dt[:, t, :, None, None] * Bh[:, t, :, :, None]) * x[:, t, :, None, :]
+        y[:, t] = (Ch[:, t, :, :, None] * h).sum(2)
+    return y, h
+
+
+def phase_hybrid(dev, card):
+    """LM serving and training for the hybrid family at published widths:
+    zamba2-7b through ServeEngine as [lm] serves, HYB_NEW tokens a
+    request, the long prefill on the tensor-core flash kernel at Dh 112 in
+    each of the 13 applications of the shared block and nowhere else; its
+    decode state per slot against the reference's; profiles of the long
+    prefill and a decode step with the SSD scan's and the flash kernel's
+    shares; the first application's attention against the plain version;
+    the SSD scan timed on layer 0's inputs beside its bound; 9 layers in
+    f32: the engine's tokens against a teacher-forced prefill, layer 0's
+    SSD at T = 6144 against the serial f64 recurrence; 15 layers trained
+    at (1, 8192) with the flash launches against the code's prediction,
+    and the shared block's backward at that shape against the plain one;
+    at 9 layers in f32 the remat modes and microbatches; the SMOKE replay
+    against the CPU.  Returns the flash launches of the counted runs (by
+    run) and the Dh 112 kernels' numbers."""
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serving import ServeEngine
+    from repro_torch.train import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    kernel_counts(reset=True)  # every counter 0 for the phase (later phases reset their own before counting)
+    cfg = C.get(HYB_ARCH)
+    apps = (cfg.n_layers - cfg.hybrid_tail) // (cfg.hybrid_group + 1)  # applications of the shared block
+    base, params, peak_build = lm_build(cfg, dev, SEED + 50)
+    n_params, fpt = M.count_params(params), M.model_flops_per_token(cfg)
+    d_inner, H, conv_dim = SSM.ssm_dims(cfg)
+    say(f"[hybrid] {cfg.name}: {cfg.n_layers} layers ({apps} groups of {cfg.hybrid_group} Mamba-2 blocks and one "
+        f"application of the shared attention block, then {cfg.hybrid_tail} Mamba-2 blocks), d_model {cfg.d_model}, "
+        f"the shared block {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} and d_ff {cfg.d_ff}, SSD {H} heads "
+        f"of {cfg.ssm_head_dim} with state {cfg.ssm_state} (d_inner {d_inner}, {cfg.ssm_groups} B/C group, conv "
+        f"width {SSM.CONV_W} over {conv_dim} channels), vocab {cfg.vocab_size}; {n_params:,} parameters and "
+        f"model_flops_per_token {fpt:,.0f} (the reference's: {HYB_PARAMS:,} and {HYB_FLOPS:,}); the bf16 compute "
+        f"copy drawn leaf by leaf from a seeded torch.Generator on the card: peak {peak_build:.2f} GiB; on {card}")
+    check(n_params == HYB_PARAMS and fpt == HYB_FLOPS, f"[hybrid] {n_params} parameters, {fpt} FLOPs a token")
+    eng = ServeEngine(cfg, params, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED, device=dev)
+    mamba, p = eng.params["mamba_groups"]["mamba"], eng.params
+    check(all(mamba[k].dtype == torch.bfloat16 for k in ("in_proj", "out_proj", "conv_w", "conv_b", "D"))
+          and all(t.dtype == torch.bfloat16 for t in (p["shared_attn"]["attn"]["wq"]["w"], p["embed"]["table"],
+                                                      p["unembed"]["table"]))
+          and all(mamba[k].dtype == torch.float32 for k in HYB_F32_LEAVES)
+          and all(t.dtype == torch.float32 for t in (mamba["norm"]["scale"], p["mamba_groups"]["ln"]["scale"],
+                                                     p["shared_attn"]["ln1"]["scale"], p["final_norm"]["scale"])),
+          "[hybrid] the engine does not hold the bf16 compute copy with A_log, dt_bias and the norms in f32")
+    check(mamba["in_proj"] is params["mamba_groups"]["mamba"]["in_proj"],
+          "[hybrid] the engine copied a tree already in the compute dtype")
+    del params, mamba, p
+    per_slot = {n: tree_bytes(eng.model.init_cache(1, n, device="meta")) for n in HYB_STATE_BYTES}
+    check(per_slot == HYB_STATE_BYTES and tree_bytes(eng.caches) == LM_SLOTS * per_slot[LM_CACHE_LEN],
+          f"[hybrid] state bytes per slot {per_slot} (the reference's {HYB_STATE_BYTES}), the engine's "
+          f"{tree_bytes(eng.caches)}")
+
+    prompts = lm_prompts(cfg, np.random.default_rng(SEED + 51))
+    cap, core, uncapture = lm_capture(LM_LONG)
+    ssd_cap, ssd, unssd = fn_capture(SSM, "_ssd_chunked", LM_LONG)
+    try:
+        run = lm_serve_timed(eng, prompts, base, HYB_NEW)
+    finally:
+        uncapture()
+        unssd()
+    launches = {name: {"hybrid": n} for name, n in run["launches"].items()}
+    long_ms, decode_ms = lm_serve_report("[hybrid]", eng, run, LM_LONG, apps, peak_build, base)
+    say(f"[hybrid] {eng.tokens_out / run['wall']:.1f} tokens/s over the ragged serve; the long prefill "
+        f"{LM_LONG / long_ms * 1e3:.0f} tokens/s, 6N FLOPs {fpt * LM_LONG / (long_ms / 1e3) / PEAK_BF16_FLOPS:.4f} of "
+        f"the bf16 peak; decode state {per_slot[8]:,} bytes per slot at cache_len 8 and {per_slot[8192]:,} at 8192 "
+        f"(the Mamba states {per_slot[8] - 2 * apps * 8 * cfg.n_kv_heads * cfg.head_dim * 2 - 4 * apps:,} of them, "
+        f"O(1) in the sequence), {tree_bytes(eng.caches):,} for the engine's {LM_SLOTS} slots; on {card}")
+
+    # the shared block's first application of the long prefill at Dh 112, through the tensor-core kernel
+    q, k, v = cap["q"], cap["k"], cap["v"]
+    views = [t.transpose(1, 2) for t in (q, k, v, torch.empty_like(q))]
+    which = k_fa.route(q.dtype, q.shape[3], [t.shape for t in views], [t.stride() for t in views],
+                       [t.data_ptr() for t in views])
+    check(which == "mma" and q.shape[3] == cfg.head_dim == 112,
+          f"[hybrid] the shared block's attention (Dh {q.shape[3]}) takes the {which!r} route, not 'mma'")
+    flash = lm_flash(f"the shared block (route {which!r}, Dh {q.shape[3]})", core, cap, "bf16", apps, long_ms,
+                     "[hybrid]")
+    del q, k, v, views, cap
+    long_toks = torch.as_tensor(prompts[LM_LONG_AT], dtype=torch.int64, device=dev)[None]
+    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    with fn_annotated(SSM, "_ssd_chunked", "mamba2_ssd"):
+        prof_long = lm_profile(f"the {LM_LONG}-token prefill", lambda: eng.model.prefill(eng.params, long_toks),
+                               long_ms, "[hybrid]", extra=("mamba2_ssd",))
+        prof_dec = lm_profile(f"a decode step at {LM_SLOTS} slots",
+                              lambda: eng.model.decode(eng.params, eng.caches, last, LM_LONG + HYB_NEW), decode_ms,
+                              "[hybrid]", extra=("mamba2_ssd",))
+
+    # the SSD scan alone, on layer 0's bf16 inputs of the long prefill
+    args = ssd_cap["args"]
+    y, h = ssd(*args)
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all()), "[hybrid] non-finite SSD output")
+    ssd_ms = time_ms(lambda: ssd(*args), reps=5)
+    prof_ssd = lm_profile(f"one SSD call at T = {LM_LONG}", lambda: ssd(*args), ssd_ms, "[hybrid]")
+    b, by = ssd_bound(args[0], args[2], args[5])
+    n_mamba = cfg.n_layers - apps
+    say(f"[hybrid] the SSD scan (models/ssm.py::_ssd_chunked, torch operations) on layer 0's inputs of the long "
+        f"prefill, x (B, T, H, P) = {tuple(args[0].shape)}, B/C {tuple(args[2].shape)}, bf16: {ssd_ms:.4f} ms a call, "
+        f"x {n_mamba} Mamba-2 layers = {ssd_ms * n_mamba:.3f} ms, {ssd_ms * n_mamba / long_ms:.3f} of the prefill; "
+        f"{prof_ssd['launches'] if prof_ssd else 'not measured'} launches a call; bound {b:.4f} ms ({by}); on {card}")
+    numbers = dict(hybrid=flash, ssd=dict(
+        ms=ssd_ms, launches=prof_ssd["launches"] if prof_ssd else None, bound_ms=b, bound_by=by,
+        prefill_share=prof_long["extra_ms"]["mamba2_ssd"] / long_ms if prof_long else None,
+        decode_share=prof_dec["extra_ms"]["mamba2_ssd"] / decode_ms if prof_dec else None))
+    del eng, run, ssd_cap, args, y, h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 at full width, cut depth: the engine against a teacher-forced prefill; layer 0's SSD against f64
+    cfg32 = cfg.replace(n_layers=HYB_F32_LAYERS, compute_dtype=torch.float32)
+    values = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED + 52), device=dev)
+    eng = ServeEngine(cfg32, values, slots=HYB_F32_BATCH, cache_len=128, seed=SEED, device=dev)
+    del values
+    rng = np.random.default_rng(SEED + 53)
+    prompts = [rng.integers(0, cfg32.vocab_size, size=HYB_F32_PROMPT).astype(np.int32) for _ in range(HYB_F32_BATCH)]
+    reqs, _ = lm_serve(eng, prompts, HYB_F32_NEW)
+    parted, margins, longest = lm_teacher_forced("[hybrid]", eng, reqs, dev)
+    say(f"[hybrid] f32: {cfg32.name} at full width with {cfg32.n_layers} layers in f32, {HYB_F32_BATCH} prompts of "
+        f"{HYB_F32_PROMPT} tokens, {HYB_F32_NEW} greedy tokens each through the engine (the recurrent decode over "
+        f"the conv and SSD states and the KV cache) against a teacher-forced prefill (the chunked scan; prefixes up "
+        f"to {longest} tokens): {len(reqs) - parted} of {len(reqs)} requests identical"
+        + (f", {parted} parting at a near-tie (margins {margins} of the logit bound)" if parted else ""))
+    long32 = torch.as_tensor(np.random.default_rng(SEED + 54).integers(0, cfg32.vocab_size, size=LM_LONG),
+                             dtype=torch.int64, device=dev)[None]
+    cap, ssd, unssd = fn_capture(SSM, "_ssd_chunked", LM_LONG)
+    try:
+        with torch.no_grad():
+            eng.model.prefill(eng.params, long32)
+    finally:
+        unssd()
+    args = cap["args"]
+    y, h = ssd(*args)
+    t0 = time.perf_counter()
+    y64, h64 = serial_ssd64(*args)
+    serial_s = time.perf_counter() - t0
+    lg = args[1].double() * -torch.exp(args[4].double())  # the log decays Δ·A
+    read_y = float((y.double() - y64).abs().max() / y64.abs().max())
+    read_h = float((h.double() - h64).abs().max() / h64.abs().max())
+    say(f"[hybrid] f32: layer 0's SSD at T = {LM_LONG} on its real inputs (log decays Δ·A {float(lg.min()):.4f} to "
+        f"{float(lg.max()):.4f} a token) against the serial f64 recurrence ({serial_s:.1f} s): y {read_y:.3e}, h_T "
+        f"{read_h:.3e} of the largest |value| (limit {HYB_SSD_RTOL:g})")
+    check(read_y <= HYB_SSD_RTOL and read_h <= HYB_SSD_RTOL, "[hybrid] the chunked SSD leaves the f64 recurrence")
+    del eng, reqs, cap, args, y, h, y64, h64, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training at full width, cut depth: 15 layers (2 applications of the shared block) at (1, 8192)
+    cut = cfg.replace(n_layers=HYB_TRAIN_LAYERS)
+    cut_apps = (cut.n_layers - cut.hybrid_tail) // (cut.hybrid_group + 1)
+    fpt_cut = M.model_flops_per_token(cut)
+    check(cut.remat == "full", f"[hybrid] remat {cut.remat!r}")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cut, torch.Generator(device=dev).manual_seed(SEED + 55), device=dev)
+    state = adamw_init(params)
+    step = M.make_train_step(cut, AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+    pipe = TokenPipeline(cut.vocab_size, HYB_TRAIN[0], HYB_TRAIN[1], seed=SEED + 56)
+    batches = [pipe.batch_at(i) for i in range(TRAIN_TIMED_STEPS)]
+    pipe.close()
+    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = k_fa.launches_bwd = 0
+    k_fa.launches_bwd_mma = k_fa.launches_bwd_simt = 0
+    timed = train_steps(step, params, state, batches, dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t_launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt,
+                  "flash_attention_bwd": k_fa.launches_bwd, "flash_attention_bwd_mma": k_fa.launches_bwd_mma,
+                  "flash_attention_bwd_simt": k_fa.launches_bwd_simt}
+    n = cut_apps * TRAIN_TIMED_STEPS
+    want = {"flash_attention_mma": n, "flash_attention": 0, "flash_attention_bwd": n, "flash_attention_bwd_mma": n,
+            "flash_attention_bwd_simt": 0}
+    after = [r[2] for r in timed[1:]]
+    step_ms = float(np.median(after))
+    tok_s = HYB_TRAIN[0] * HYB_TRAIN[1] / (step_ms / 1e3)
+    say(f"[hybrid] training: {cut.name} at full width cut to {cut.n_layers} layers ({cut_apps} applications of the "
+        f"shared block; {M.count_params(params):,} parameters, model_flops_per_token {fpt_cut:,.0f}), remat "
+        f"{cut.remat!r} on the Mamba-2 blocks only, bf16 compute over the f32 master, (B, S) = {HYB_TRAIN}: steps "
+        f"{[round(r[2], 3) for r in timed]} ms, the first a warm-up; the other {len(after)}: median {step_ms:.3f} ms, "
+        f"min {min(after):.3f}, max {max(after):.3f} (losses {[round(r[0], 4) for r in timed]}); {tok_s:.0f} "
+        f"tokens/s, 6N FLOPs {fpt_cut * tok_s / PEAK_BF16_FLOPS:.4f} of the 989 TFLOP/s bf16 peak; peak memory "
+        f"{peak:.2f} GiB; flash launches {json.dumps(t_launches)}, the code predicts {json.dumps(want)} (per step "
+        f"and application: one forward on the tensor cores, no remat recompute of the shared block, one backward "
+        f"on the tensor cores); on {card}")
+    check(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in timed), "[hybrid] a non-finite loss")
+    check(t_launches == want, "[hybrid] training's flash launches differ from the prediction")
+    for name in ("flash_attention_mma", "flash_attention"):
+        launches[name]["hybrid_train"] = t_launches[name]
+    launches["flash_attention_bwd"] = {"hybrid_train": t_launches["flash_attention_bwd"]}
+    numbers.update(train_step_ms=step_ms, train_tokens_s=tok_s)
+    del params, state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the shared block's backward at the training shape (Dh 112) against the plain backward and autograd
+    numbers["hybrid_bwd"] = train_bwd_case(dev, torch.Generator(device=dev).manual_seed(SEED + 57), HYB_BWD,
+                                           "[hybrid]")
+    remat_readings("[hybrid]", cfg.replace(n_layers=HYB_F32_LAYERS, compute_dtype=torch.float32), SEED + 58, dev,
+                   HYB_MICRO_RTOL)
+    lm_cpu_replay("[hybrid]", dev, C.get_smoke(HYB_ARCH).replace(compute_dtype=torch.float32), SEED + 60)
+    moved = kernel_counts()
+    say(f"[hybrid] hand-written kernel launches over the phase (the flash kernels alone lie on this path; the "
+        f"checks' launches included): {json.dumps(moved)}")
+    check(not any(v for name, v in moved.items() if name not in ("flash_attention", "flash_attention_bwd")),
+          "[hybrid] a kernel off the hybrid path was launched")
+    say(f"[hybrid] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, numbers
 
 
 def grad_reading(got, want, dt, allow=None):
@@ -4790,7 +5133,7 @@ def train_bwd_plain(q, k, v, do, qpos, kpos, causal, window):
         del o, leaves
 
 
-def train_bwd_case(dev, gen, case):
+def train_bwd_case(dev, gen, case, phase: str = "[train]"):
     """The backward on one shape: the route it takes (the tensor cores for
     bf16 with D <= 128, else the CUDA cores), against the plain backward
     and autograd through the plain version (the readings of
@@ -4811,13 +5154,13 @@ def train_bwd_case(dev, gen, case):
     o = k_fa.flash_attention(qh, kh, vh, qpos, kpos, causal=causal, window=window, lse=lse)
     # the serving call (no lse) gives the same bits; the lse is the plain one's (+inf on rows with no live key)
     plain_out = k_fa.flash_attention(qh, kh, vh, qpos, kpos, causal=causal, window=window)
-    check(torch.equal(o, plain_out), f"[train] {label}: the forward's output moved when it wrote the lse")
+    check(torch.equal(o, plain_out), f"{phase} {label}: the forward's output moved when it wrote the lse")
     want_lse = torch.cat([ref.gqa_flash_lse(qh[:, g * (H // KV):(g + 1) * (H // KV)], kh[:, g:g + 1], qpos, kpos,
                                             causal, window) for g in range(KV)], dim=1)
     fin = torch.isfinite(want_lse)
     lse_err = float((lse[fin] - want_lse[fin]).abs().max()) if bool(fin.any()) else 0.0
     check(torch.equal(torch.isinf(lse), ~fin) and lse_err <= 1e-5 * max(1.0, float(want_lse[fin].abs().max())),
-          f"[train] {label}: the forward's lse is {lse_err:.3e} from the plain one's")
+          f"{phase} {label}: the forward's lse is {lse_err:.3e} from the plain one's")
     del plain_out, want_lse, fin
 
     def bwd(qp=qpos, c=causal):
@@ -4831,7 +5174,7 @@ def train_bwd_case(dev, gen, case):
     route = {(1, 0): "mma", (0, 1): "simt"}.get((k_fa.launches_bwd_mma - before[0],
                                                   k_fa.launches_bwd_simt - before[1]))
     want_route = "mma" if dt == "bf16" and D <= 128 else "simt"
-    check(route == want_route, f"[train] {label}: the backward took the route {route}, not {want_route}")
+    check(route == want_route, f"{phase} {label}: the backward took the route {route}, not {want_route}")
     again = bwd()
     simt = simt_bwd() if route == "mma" else None
     torch.cuda.synchronize()
@@ -4849,7 +5192,7 @@ def train_bwd_case(dev, gen, case):
         for i, (w, pl) in enumerate(zip(want, plain)):
             sl = hs if i == 0 else slice(g, g + 1)
             mine = got[i][:, sl]
-            check(bool(torch.isfinite(mine).all()), f"[train] {label}: non-finite gradient")
+            check(bool(torch.isfinite(mine).all()), f"{phase} {label}: non-finite gradient")
             own = max(own, grad_reading(mine, pl, dt))
             # against autograd's exact gradient, allowing twice what Δ = rowsum(dO ∘ O) from the saved (in bf16,
             # rounded) O moves the plain version: |plain - exact|
@@ -4859,11 +5202,11 @@ def train_bwd_case(dev, gen, case):
             if simt is not None:  # the CUDA-core kernel on the same inputs, under the same limits
                 simt_reading = max(simt_reading, grad_reading(mine, simt[i][:, sl], dt))
         del plain
-    check(same, f"[train] {label}: a second run of the backward gave other bits")
+    check(same, f"{phase} {label}: a second run of the backward gave other bits")
     check(own <= 1 and exact <= 1 and simt_reading <= 1,
-          f"[train] {label}: outside tolerance, readings {own:.3f} (the plain backward), {exact:.3f} (autograd), "
+          f"{phase} {label}: outside tolerance, readings {own:.3f} (the plain backward), {exact:.3f} (autograd), "
           f"{simt_reading:.3f} (the CUDA-core kernel)")
-    check(wrong_reading > 1, f"[train] {label}: the check passes a wrong mask (reading {wrong_reading:.3f})")
+    check(wrong_reading > 1, f"{phase} {label}: the check passes a wrong mask (reading {wrong_reading:.3f})")
     del wrong, again, simt
     ms = time_ms(bwd, reps=3, warm=1)
     simt_ms = time_ms(simt_bwd, reps=3, warm=1) if route == "mma" else None
@@ -4918,7 +5261,7 @@ def train_bwd_case(dev, gen, case):
     executed = 20.0 * (64 if D <= 64 else 128) * live * H
     simt_txt = (f", the CUDA-core kernel {simt_ms:.4f} ms on the same call (reading {simt_reading:.3f}); executed "
                 f"{executed / ms / 1e9:.2f} TFLOP/s at 20·DP per live pair" if route == "mma" else "")
-    say(f"[train] backward {label}: route {route}; B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
+    say(f"{phase} backward {label}: route {route}; B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} "
         f"{'causal' if causal else 'non-causal'} window={window} {dt}, {dead_rows} rows without a live key; "
         f"the forward's output the same bits with and without lse, its lse {lse_err:.3e} from the plain one's; "
         f"max_abs_err {err:.3e} (against autograd); readings {own:.3f} against the plain backward on the same "
@@ -6208,6 +6551,7 @@ def main() -> int:
     moe_launches, moe_numbers = phase_moe(dev, card)
     vlm_launches, vlm_numbers = phase_vlm(dev, card)
     phase_ssm(dev, card)
+    hybrid_launches, hybrid_numbers = phase_hybrid(dev, card)
     train_launches, train_numbers = phase_train(dev, card)
     phase_examples()
     launches = dict(run["launches"], eom=run["eom_launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
@@ -6261,6 +6605,15 @@ def main() -> int:
         numbers[name]["launches_train"] = train_launches[name]
     for run, got in dict(moe_numbers, **vlm_numbers).items():  # layer 0's call on the new routes (tensor cores)
         numbers["flash_attention_mma"].update({f"{run}_ms": got["ms"], f"{run}_bound_ms": got["bound_ms"]})
+    for name, by_run in hybrid_launches.items():  # [hybrid]'s serve and its 15-layer training steps, by run
+        numbers[name].update({f"launches_{run}": n for run, n in by_run.items()})
+    # Dh 112: the shared block's first application of the long prefill, and its backward at (1, 8192)
+    got = hybrid_numbers["hybrid"]
+    numbers["flash_attention_mma"].update(hybrid_ms=got["ms"], hybrid_bound_ms=got["bound_ms"])
+    got = hybrid_numbers["hybrid_bwd"]
+    numbers["flash_attention_bwd"].update(hybrid_ms=got["ms"], hybrid_bound_ms=got["bound_ms"],
+                                          hybrid_plain_ms=got["plain_ms"], hybrid_library_ms=got["library_ms"],
+                                          hybrid_max_abs_err=got["max_abs_err"])
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

@@ -18,8 +18,9 @@ puts a port ``BubbleTreeSummarizer`` over the Bubble-tree of a reference
 engine's checkpoint.  ``lm_params_from_reference`` and
 ``lm_cache_from_reference`` carry an LM's parameter tree and KV cache
 (the reference's ``init_params`` values and ``init_cache``/``prefill``
-caches, leaves as numpy; the dense, MoE, vision and ssm families, RWKV's
-state tree among the caches) into the port's ``models`` and
+caches, leaves as numpy; the dense, MoE, vision, ssm and hybrid
+families, RWKV's and the hybrid's state trees among the caches) into the
+port's ``models`` and
 ``ServeEngine``; ``adamw_state_from_reference``
 carries the reference's ``adamw_init`` / ``adamw_update`` state (``mu``,
 ``nu``, ``step``) beside them, so a port train step continues a reference
@@ -142,7 +143,9 @@ def lm_params_from_reference(values, cfg, device=None) -> dict:
     layers stacked on axis 0; the MoE's experts as bare (E, …) arrays
     under ``moe``, the vlm's ``self_blocks`` stacked (n_groups, n_self)
     and its ``cross_blocks`` (n_groups,), RWKV's ``ln0`` and its blocks'
-    bare mixing and decay leaves under ``tm`` / ``cm``): the same keys,
+    bare mixing and decay leaves under ``tm`` / ``cm``, the hybrid's
+    ``mamba_groups`` (n_groups, G), ``shared_attn`` (no leading axis) and
+    ``mamba_tail``): the same keys,
     shapes and values (f32 as the reference draws them), on ``device``
     (None → cuda).  Raises ``ValueError`` when the
     tree is not the port's layout for ``cfg`` (and
@@ -158,11 +161,13 @@ def lm_params_from_reference(values, cfg, device=None) -> dict:
 def lm_cache_from_reference(caches, device=None) -> dict:
     """The port's KV cache from the reference's (``{"self": {"k", "v"},
     "pos"}``, or the vlm's ``{"self_groups": …, "cross_groups": …}`` of
-    two such trees), or RWKV's state tree (``{"shift_tm", "shift_cm",
-    "S"}``, stacked on the layer axis); leaves as numpy: the same values
-    and dtypes (bf16 K/V, int32 write heads; RWKV's shifts bf16 or in the
-    compute dtype as the reference returned them, S f32), on ``device``
-    (None → cuda)."""
+    two such trees), RWKV's state tree (``{"shift_tm", "shift_cm", "S"}``,
+    stacked on the layer axis) or the hybrid's (``{"mamba_groups",
+    "mamba_tail": {"conv", "ssd"}, "attn": a KV cache per application}``);
+    leaves as numpy: the same values and dtypes (bf16 K/V, int32 write
+    heads; RWKV's shifts and the Mamba-2 conv rows bf16 or in the compute
+    dtype as the reference returned them, S and the SSD states f32), on
+    ``device`` (None → cuda)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf_tensor(a, dev), caches)
 

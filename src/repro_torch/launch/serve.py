@@ -1,20 +1,23 @@
 """Serving entry point: the continuous-batching engine over a zoo model
-of the dense, MoE, vision or ssm (RWKV-6) family.
+of the dense, MoE, vision, ssm (RWKV-6) or hybrid (zamba2) family.
 
 The port's copy of the JAX package's ``launch/serve.py``, on the card by
 default (``--device cpu`` runs the plain versions on the CPU).  The
 params are drawn from a seeded ``torch.Generator`` on the device leaf by
 leaf into their compute-dtype copy (``models.init_compute_params``), so
 the f32 master is never whole on the card: qwen2-moe-a2.7b (28.6 GB in
-bf16) and llama-3.2-vision-11b (20.2 GB) fit one 80 GB card at full
-width; dbrx-132b (263 GB) does not.  The prompts have 4–15 tokens,
-within RWKV's chunk rule (a prompt longer than 64 tokens must be a
-multiple of 64).
+bf16), llama-3.2-vision-11b (20.2 GB) and zamba2-7b (11.5 GB, its
+decode state 1.65 GB a slot at cache_len 8192) fit one 80 GB card at
+full width; dbrx-132b (263 GB) does not.  The prompts have 4–15 tokens,
+within the chunk rule of RWKV's and Mamba-2's scans (a prompt longer
+than 64 tokens must be a multiple of 64).
 
   python -m repro_torch.launch.serve --arch qwen2-1.5b            # full width, on the card
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --cache-len 1024
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --max-new 32   # its state is O(1) in cache_len
+  python -m repro_torch.launch.serve --arch zamba2-7b --cache-len 8192
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke --device cpu \\
       --requests 12 --slots 4 --max-new 12
 """

@@ -63,6 +63,16 @@ def layernorm(p, x, eps=1e-5):
     return y.to(dt)
 
 
+def check_length(T: int, chunk: int = 64):
+    """The reference's rule for its chunked scans, RWKV's WKV and Mamba-2's
+    SSD (``T % min(chunk, T) == 0``; both chunks are 64): raises
+    ``ValueError`` for a sequence longer than ``chunk`` tokens that is not
+    a multiple of it."""
+    if T % min(chunk, T):
+        raise ValueError(f"a chunked scan takes a sequence of at most {chunk} tokens or a multiple of {chunk}, "
+                         f"not {T}")
+
+
 def norm(p, x, kind="rmsnorm"):
     return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
 

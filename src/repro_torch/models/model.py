@@ -1,7 +1,8 @@
 """Model facade: build a zoo architecture and its train and serve steps.
 
 The port's copy of the JAX package's ``models/model.py`` for the dense,
-MoE, vision and ssm (RWKV-6) families:
+MoE, vision, ssm (RWKV-6) and hybrid (zamba2: Mamba-2 and a shared
+attention block) families:
 
   model = build_model(cfg)                    # the family's backbone
   params = init_params(cfg, generator)        # f32 master params (values only)
@@ -17,7 +18,9 @@ The reference casts every weight to the compute dtype where it is used
 so the serving engine keeps only the compute copy.  Norm scales and
 biases are read in f32 by the norms, and the cross-attention gates by
 ``tanh``, so they stay f32, as do RWKV's mixing and decay leaves, which
-its model casts where it reads them (``models/rwkv.py``).  ``init_compute_params`` draws each leaf in
+its model casts where it reads them (``models/rwkv.py``), and Mamba-2's
+``A_log`` and ``dt_bias``, which it reads in f32 (``models/ssm.py``).
+``init_compute_params`` draws each leaf in
 f32 and casts it before the next: a model whose f32 master and compute
 copy together outgrow the card (qwen2-moe-a2.7b: 57 + 29 GB) is built
 with the compute copy and one f32 leaf at a time.
@@ -50,22 +53,25 @@ from ..train.optim import AdamWConfig, adamw_update
 from ..tree import tree_leaves, tree_unflatten
 from . import layers as L
 from .rwkv import RWKVModel
-from .transformer import UniformDecoder, VisionDecoder
+from .transformer import HybridDecoder, UniformDecoder, VisionDecoder
 
 __all__ = ["build_model", "init_params", "init_compute_params", "compute_copy", "count_params", "make_prefill",
            "make_serve_step", "make_train_step", "make_value_and_grad", "model_flops_per_token", "xent_loss",
            "loss_fn"]
 
-FAMILIES = {"dense": UniformDecoder, "moe": UniformDecoder, "vlm": VisionDecoder, "ssm": RWKVModel}
-# the families of the reference's zoo still to come, each a later slice
-_LATER = ("hybrid", "audio")
+FAMILIES = {"dense": UniformDecoder, "moe": UniformDecoder, "vlm": VisionDecoder, "ssm": RWKVModel,
+            "hybrid": HybridDecoder}
+# the family of the reference's zoo still to come, a later slice
+_LATER = ("audio",)
 
-# tensor leaves that dense / embed / unembed and the experts (bare "gate" /
-# "up" / "down" arrays) cast to the compute dtype; the norms' "scale" and
-# "bias" and the cross-attention gates are cast to f32 where they are used,
-# and RWKV's bare leaves ("mu", "maa_w1", "decay_mu", "bonus_u", ...) to the
-# compute dtype or to f32 where they are used
-_COMPUTE_LEAVES = ("w", "b", "table", "gate", "up", "down")
+# tensor leaves that dense / embed / unembed, the experts (bare "gate" /
+# "up" / "down" arrays) and Mamba-2 ("in_proj", "out_proj", "conv_w",
+# "conv_b", "D") cast to the compute dtype; the norms' "scale" and "bias"
+# and the cross-attention gates are cast to f32 where they are used,
+# Mamba-2's "A_log" and "dt_bias" read in f32, and RWKV's bare leaves
+# ("mu", "maa_w1", "decay_mu", "bonus_u", ...) cast to the compute dtype or
+# to f32 where they are used
+_COMPUTE_LEAVES = ("w", "b", "table", "gate", "up", "down", "in_proj", "out_proj", "conv_w", "conv_b", "D")
 
 
 def build_model(cfg: ArchConfig):
@@ -73,7 +79,7 @@ def build_model(cfg: ArchConfig):
         return FAMILIES[cfg.family](cfg)
     if cfg.family in _LATER:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP queue 1, "
-                                  f"item 9: the LM stack beyond the dense, MoE, vision and ssm families)")
+                                  f"item 9: the LM stack beyond the dense, MoE, vision, ssm and hybrid families)")
     raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
@@ -99,9 +105,10 @@ def init_compute_params(cfg: ArchConfig, generator: torch.Generator | None = Non
 
 
 def compute_copy(params, cfg: ArchConfig, device=None):
-    """The params tree with every matmul weight, bias, embedding table and
-    expert array in ``cfg.compute_dtype`` and the norms' leaves, the gates
-    and RWKV's bare leaves in f32, on ``device`` (None: where they are).
+    """The params tree with every matmul weight, bias, embedding table,
+    expert array and Mamba-2 projection, convolution and ``D`` in
+    ``cfg.compute_dtype`` and the norms' leaves, the gates, Mamba-2's
+    ``A_log`` and ``dt_bias`` and RWKV's bare leaves in f32, on ``device`` (None: where they are).
     Leaves already so are not copied."""
     def cast(tree):
         out = {}
@@ -123,7 +130,9 @@ def count_params(values) -> int:
 
 def model_flops_per_token(cfg: ArchConfig, values=None) -> float:
     """6·N_active, N_active = params taking part per token (the input
-    embedding's gather excluded, the MoE's experts scaled by k/E).  The
+    embedding's gather excluded, the MoE's experts scaled by k/E, the
+    hybrid's shared attention block counted once per application, by the
+    reference's rule: its q/k/v/o projections and a 3·d·d_ff MLP).  The
     params are counted on the ``meta`` device unless ``values`` is given."""
     if values is None:
         values = init_params(cfg, device="meta")
@@ -138,6 +147,12 @@ def model_flops_per_token(cfg: ArchConfig, values=None) -> float:
         dff = cfg.moe_d_ff or cfg.d_ff
         expert = 3 * cfg.d_model * dff
         n_active = n_active - cfg.n_layers * cfg.n_experts * expert + cfg.n_layers * cfg.n_experts_per_tok * expert
+    if cfg.family == "hybrid":
+        n_groups = (cfg.n_layers - cfg.hybrid_tail) // (cfg.hybrid_group + 1)
+        dh = cfg.head_dim
+        attn_block = (cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads) * dh + cfg.n_heads * dh * cfg.d_model
+                      + 3 * cfg.d_model * cfg.d_ff)
+        n_active += (n_groups - 1) * attn_block
     return 6.0 * n_active
 
 

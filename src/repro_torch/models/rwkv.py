@@ -54,22 +54,13 @@ import torch
 from . import layers as L
 from .transformer import _Draw, _embed_init, _remat, unstack
 
-__all__ = ["LORA_MIX", "LORA_DECAY", "CHUNK", "check_length", "rwkv_block_init", "rwkv_time_mix", "rwkv_channel_mix",
+__all__ = ["LORA_MIX", "LORA_DECAY", "CHUNK", "rwkv_block_init", "rwkv_time_mix", "rwkv_channel_mix",
            "rwkv_block_apply", "rwkv_init_state", "RWKVModel"]
 
 LORA_MIX = 32
 LORA_DECAY = 64
 CHUNK = 64
 CLIP = 30.0  # cumulative log decays are clipped to [-CLIP, 0]
-
-
-def check_length(T: int):
-    """The reference's chunk rule (``T % min(CHUNK, T) == 0``): raises
-    ``ValueError`` for a sequence longer than ``CHUNK`` tokens that is not
-    a multiple of it."""
-    if T % min(CHUNK, T):
-        raise ValueError(f"RWKV's chunked scan takes a sequence of at most {CHUNK} tokens or a multiple of {CHUNK}, "
-                         f"not {T}")
 
 
 def rwkv_block_init(draw: _Draw, lead: tuple, cfg) -> dict:
@@ -145,7 +136,7 @@ def _wkv_chunked(r, k, v, lw, u, S0):
     H, dh) in r's dtype, S_T in f32).  Raises ``ValueError`` for T above
     ``CHUNK`` that is not a multiple of it."""
     B, T, H, dh = r.shape
-    check_length(T)
+    L.check_length(T, CHUNK)
     C = min(CHUNK, T)
     n = T // C
     f32 = torch.float32

@@ -1,14 +1,19 @@
-"""Decoder backbones: the dense and MoE stacks and the vision interleave.
+"""Decoder backbones: the dense and MoE stacks, the vision interleave and
+the hybrid's Mamba-2 groups around one shared attention block.
 
-The port's copy of the JAX package's ``models/transformer.py`` for three
+The port's copy of the JAX package's ``models/transformer.py`` for four
 of its five block layouts:
 
-  dense — uniform [attn + MLP] blocks (``UniformDecoder``);
-  moe   — uniform [attn + MoE] blocks (``UniformDecoder`` with
-          ``n_experts > 0``: dbrx, qwen2-moe);
-  vlm   — llama-3.2-vision (``VisionDecoder``): groups of (period − 1)
-          self blocks and one block with an extra gated cross-attention
-          into the media embeddings.
+  dense  — uniform [attn + MLP] blocks (``UniformDecoder``);
+  moe    — uniform [attn + MoE] blocks (``UniformDecoder`` with
+           ``n_experts > 0``: dbrx, qwen2-moe);
+  vlm    — llama-3.2-vision (``VisionDecoder``): groups of (period − 1)
+           self blocks and one block with an extra gated cross-attention
+           into the media embeddings;
+  hybrid — zamba2 (``HybridDecoder``): groups of Mamba-2 blocks
+           (``models/ssm.py``), each group followed by one application of
+           a single shared attention block with a KV cache of its own,
+           then a tail of Mamba-2 blocks.
 
 The stacked params and caches keep the reference's layout — every block
 leaf has a leading ``n_layers`` axis (the vlm's self blocks
@@ -29,13 +34,13 @@ saves each block's input alone and recomputes the block in the backward
 outputs of the matrix products with no batch dimension (``mm`` /
 ``addmm``: the dense layers; the reference's
 ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest,
-``"none"`` saves everything.  The vlm's cross blocks are not recomputed,
-as in the reference.  It acts only while grad is enabled; serving
-(``prefill``, ``decode``) never recomputes.
+``"none"`` saves everything.  The vlm's cross blocks and the hybrid's
+shared block are not recomputed, as in the reference.  It acts only
+while grad is enabled; serving (``prefill``, ``decode``) never
+recomputes.
 
 The ssm family (RWKV-6) is ``models/rwkv.py``, on ``_Draw``, ``_remat``
-and ``unstack`` from here; the hybrid family is a later slice (ROADMAP
-queue 1).
+and ``unstack`` from here.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch.utils.checkpoint as ckpt
 
 from . import layers as L
 from . import moe as MOE
+from . import ssm as SSM
 
 
 # --------------------------------------------------------------------------
@@ -371,3 +377,116 @@ class VisionDecoder(UniformDecoder):
         x, caches = self._run_blocks(params, x, qpos[:, None], caches=caches,
                                      media=self._media(media, B, token.device))
         return self._logits(params, x), caches
+
+
+# --------------------------------------------------------------------------
+# family: hybrid (zamba2: Mamba-2 blocks + one shared attention block)
+# --------------------------------------------------------------------------
+
+class HybridDecoder:
+    """``hybrid_group`` Mamba-2 blocks then one application of the shared
+    attention block, × ``n_groups``, then ``hybrid_tail`` Mamba-2 blocks.
+
+    Params: ``{"embed", "mamba_groups" (every leaf (n_groups, G, …)),
+    "shared_attn" (one block, no leading axis), "mamba_tail" ((tail, …)),
+    "final_norm", "unembed"}``, each Mamba-2 block ``{"ln", "mamba"}``.
+    States: ``{"mamba_groups": {"conv", "ssd": (n_groups, G, B, …)},
+    "attn": {"self": {"k", "v": (n_groups, B, S, KV, Dh)}, "pos":
+    (n_groups, B)}, "mamba_tail": {"conv", "ssd": (tail, B, …)}}``: one KV
+    cache and write head per application of the shared block.  A run with
+    states writes the KV caches in place and returns new Mamba states.
+    ``forward`` recomputes the Mamba-2 blocks as ``cfg.remat`` says; the
+    shared block is not recomputed, as in the reference."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        G = cfg.hybrid_group
+        self.n_groups = (cfg.n_layers - cfg.hybrid_tail) // (G + 1)
+        if self.n_groups * (G + 1) + cfg.hybrid_tail != cfg.n_layers:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not groups of {G} + 1 and a tail of "
+                             f"{cfg.hybrid_tail}")
+
+    def init(self, generator, device, dtype=None):
+        cfg = self.cfg
+        draw = _Draw(generator, device, dtype)
+
+        def mamba(lead):
+            return {"ln": draw.norm(lead, cfg.d_model), "mamba": SSM.mamba2_init(draw, lead, cfg)}
+
+        return {"embed": _embed_init(draw, cfg), "mamba_groups": mamba((self.n_groups, cfg.hybrid_group)),
+                "shared_attn": _block_init(draw, (), cfg), "mamba_tail": mamba((cfg.hybrid_tail,)),
+                "final_norm": draw.norm((), cfg.d_model), "unembed": _embed_init(draw, cfg)}
+
+    def _mamba_apply(self, blk, h, st=None):
+        y, ns = SSM.mamba2_apply(blk["mamba"], L.rmsnorm(blk["ln"], h), self.cfg, st)
+        return h + y, ns
+
+    def _run(self, params, x, pos, states=None):
+        cfg, G, tail = self.cfg, self.cfg.hybrid_group, self.cfg.hybrid_tail
+        groups = [unstack(t, G) for t in unstack(params["mamba_groups"], self.n_groups)]
+        tail_blocks = unstack(params["mamba_tail"], tail)
+        shared = params["shared_attn"]
+        if states is None:
+            step = _remat(self._mamba_apply, cfg)
+            for g in range(self.n_groups):
+                for blk in groups[g]:
+                    x, _ = step(blk, x)
+                x, _ = block_apply(shared, x, cfg, pos=pos)
+            for blk in tail_blocks:
+                x, _ = step(blk, x)
+            return x, None
+        mg, attn = states["mamba_groups"], states["attn"]
+        new_groups, new_tail = [], []
+        for g in range(self.n_groups):
+            for i, blk in enumerate(groups[g]):
+                x, ns = self._mamba_apply(blk, x, {k: t[g, i] for k, t in mg.items()})
+                new_groups.append(ns)
+            x = _cached_block(shared, x, cfg, pos, attn["self"]["k"][g], attn["self"]["v"][g], attn["pos"][g])
+        for i, blk in enumerate(tail_blocks):
+            x, ns = self._mamba_apply(blk, x, {k: t[i] for k, t in states["mamba_tail"].items()})
+            new_tail.append(ns)
+
+        def stacked(new, lead):
+            return {k: torch.stack([ns[k] for ns in new]).reshape(lead + tuple(new[0][k].shape)) for k in new[0]}
+
+        return x, {"mamba_groups": stacked(new_groups, (self.n_groups, G)), "attn": attn,
+                   "mamba_tail": stacked(new_tail, (tail,))}
+
+    def _logits(self, params, x):
+        return L.unembed_apply(params["unembed"], L.rmsnorm(params["final_norm"], x))
+
+    def forward(self, params, batch):
+        tokens = batch["tokens"]
+        x = L.embed_apply(params["embed"], tokens, self.cfg.compute_dtype)
+        x, _ = self._run(params, x, torch.arange(tokens.shape[1], device=tokens.device))
+        return self._logits(params, x)
+
+    def init_cache(self, batch_size, cache_len, dtype=torch.bfloat16, device=None):
+        """Zero states for ``batch_size`` rows, every leaf allocated at its
+        full shape (the engine writes slots in place): bf16 conv rows
+        (``dtype``), f32 SSD states, ``dtype`` K/V of ``cache_len``."""
+        cfg, G = self.cfg, self.cfg.hybrid_group
+        st = SSM.mamba2_init_state(cfg, batch_size, dtype, device="meta")  # shapes and dtypes
+
+        def mamba(lead):
+            return {k: torch.zeros(lead + tuple(t.shape), dtype=t.dtype, device=device) for k, t in st.items()}
+
+        return {"mamba_groups": mamba((self.n_groups, G)),
+                "attn": _zero_cache((self.n_groups,), batch_size, cache_len, cfg, dtype, device),
+                "mamba_tail": mamba((cfg.hybrid_tail,))}
+
+    def prefill(self, params, tokens):
+        B, S = tokens.shape
+        states = self.init_cache(B, S, device=tokens.device)
+        x = L.embed_apply(params["embed"], tokens, self.cfg.compute_dtype)
+        x, states = self._run(params, x, torch.arange(S, device=tokens.device), states)
+        return self._logits(params, x[:, -1:, :]), states
+
+    def decode(self, params, states, token, pos):
+        """token: (B, 1); pos: a scalar or (B,) positions.  Writes the KV
+        caches in place and returns the tree with new Mamba states."""
+        B = token.shape[0]
+        x = L.embed_apply(params["embed"], token, self.cfg.compute_dtype)
+        qpos = torch.zeros((B,), dtype=torch.int32, device=token.device) + pos
+        x, states = self._run(params, x, qpos[:, None], states)
+        return self._logits(params, x), states
