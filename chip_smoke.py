@@ -282,6 +282,32 @@ Phases, each printing its own lines:
               and autograd ([train]'s checks); at 9 layers in f32 remat
               "none" and "dots" and microbatches=2 against "full" and 1;
               the SMOKE replay against the CPU;
+     audio    LM serving and training for the audio family at published
+              widths: whisper-tiny (4 encoder and 4 decoder layers,
+              d_model 384, 6/6 heads of 64, d_ff 1536, vocab 51,865, 1500
+              frames; the conv front end a stub; the parameter count and
+              FLOPs a token held to the reference's), its bf16 compute
+              copy (the position tables and norms f32) served as [lm]
+              serves with the engine's zero frames, one prompt of 12,288
+              tokens on 4 slots of 16,384: the long prefill launches the
+              tensor-core flash kernel at Dh 64 for both attentions of
+              each decoder layer (causal self 12,288², non-causal cross
+              12,288 x 1500), the encoder (1500²), the short prefills and
+              the decode steps none; layer 0's two calls against the
+              plain version, each timed beside its bound and SDPA's; the
+              long prefill's and a decode step's ms, tokens/s, launches
+              and busy share under torch.profiler; one encode timed; in
+              f32 the decode fed encode(frames) against forward over the
+              same tokens on 4 prompts of seeded frames; the whole model
+              trained at (1, 16,384) (both attentions on the flash
+              kernels) and (4, 2048) (neither): step ms, tokens/s, 6N
+              share, peak memory, the flash launches against the code's
+              prediction (per step and attention two forwards, with the
+              remat recompute, and one backward); the backward at
+              (1, 16,384, 6/6, Dh 64) causal and (1, 16,384 x 1500)
+              non-causal against the plain backward and autograd
+              ([train]'s checks); the SMOKE replay against the CPU; every
+              kernel off the flash path launched 0 times;
      train    LM training at published widths: the flash backward at
               qwen2-1.5b's attention (S = 8192, 12/2 heads of 128,
               causal, bf16), danube's (32/8 of 120, window 4096, S =
@@ -417,7 +443,16 @@ Phases, each printing its own lines:
      hybrid_ms / hybrid_bound_ms; flash_attention_bwd with
      launches_hybrid_train and the shared block's backward at (1, 8192)
      as hybrid_ms, hybrid_bound_ms, hybrid_plain_ms, hybrid_library_ms and
-     hybrid_max_abs_err);
+     hybrid_max_abs_err; the two forward flash entries with [audio]'s
+     launches on its serve as launches_audio and on its training steps as
+     launches_audio_train_1x16384 and launches_audio_train_4x2048,
+     flash_attention_mma with layer 0's Dh 64 calls as audio_ms /
+     audio_bound_ms / audio_library_ms / audio_max_abs_err (causal self)
+     and audio_cross_* (non-causal cross), flash_attention_bwd with the
+     same training launches and the backward at whisper's two shapes as
+     audio_* and audio_cross_* (ms, bound_ms, plain_ms, library_ms,
+     max_abs_err); every layer-0 reading of a forward flash entry with
+     SDPA's time on the same call as <run>_library_ms);
   9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a GPU, outside a checkout
@@ -558,6 +593,26 @@ HYB_TRAIN_LAYERS, HYB_TRAIN = 15, (1, 8192)
 # leaf 0.9e-5 to 1.3e-5 on the card; rwkv6-1.6b's 2 layers of at most 7168: 4.3e-6); the loss stays within 1e-6
 HYB_MICRO_RTOL = 5e-5
 HYB_BWD = ("zamba2-7b shared block bf16", 1, 8192, 8192, 32, 32, 112, True, None, "bf16", 0, 0)
+# [audio]: whisper-tiny at its published widths (configs/whisper_tiny.py: 4 encoder and 4 decoder layers, d_model
+# 384, 6/6 heads of 64, d_ff 1536, vocab 51,865, 1500 frames, 32,768 decoder positions; the conv front end a stub, the
+# encoder takes frame embeddings; random weights from a seed), its bf16 compute copy drawn leaf by leaf, served as
+# [lm] serves (LM_SHORT prompts of 4-16 tokens and one of AUD_LONG tokens on LM_SLOTS slots of AUD_CACHE_LEN) with the
+# engine's zero frames: the long prefill's causal self-attention (12,288²) and cross-attention (12,288 x 1500) are
+# both past the flash threshold (4096² = 16.8 M) at Dh 64 in each of the 4 decoder layers, the encoder's 1500² under
+# it; the counts are the reference's count_params(abstract_params(cfg)) and model_flops_per_token, run on a CPU
+AUD_ARCH, AUD_PARAMS, AUD_FLOPS = "whisper-tiny", 49_646_592, 297_879_552
+AUD_LONG, AUD_CACHE_LEN = 12_288, 16_384
+# [audio] f32 at full width: AUD_F32_BATCH prompts of AUD_F32_PROMPT tokens over seeded non-zero frames, AUD_F32_NEW
+# greedy tokens through decode fed encode(frames) against forward over the prompt and those tokens (teacher
+# forcing): every step's logits within AUD_TEACHER_RTOL of the largest (tests/test_torch_audio.py's bound: decode
+# reads the K/V rounded into the bf16 cache, forward f32 ones; 8.5e-4 at full width on a CPU), the same tokens
+AUD_F32_BATCH, AUD_F32_PROMPT, AUD_F32_NEW, AUD_TEACHER_RTOL = 4, 40, 16, 5e-3
+# [audio] training at full width and depth (remat "full"), TRAIN_TIMED_STEPS steps at each (B, S), the first a
+# warm-up: at (1, 16,384) both attentions of each decoder layer take the flash kernels, at (4, 2048) neither
+AUD_TRAIN = ((1, 16_384), (4, 2048))
+AUD_BWD = (("whisper-tiny self bf16", 1, 16_384, 16_384, 6, 6, 64, True, None, "bf16", 0, 0),
+           ("whisper-tiny cross bf16", 1, 16_384, 1500, 6, 6, 64, False, None, "bf16", 0, 0))
+AUD_SMOKE_LONG = 40  # the SMOKE replay's long prompt: its 64 decoder positions hold it and LM_NEW tokens
 # [train]: qwen2-1.5b at its published widths (configs/qwen2_1_5b.py: remat "full", bf16 compute over the f32
 # master, random weights from a seed) trained through make_train_step and AdamW: TRAIN_TIMED_STEPS steps at
 # TRAIN_SHORT, the plain _sdpa branch (2048² <= 4096²), and at TRAIN_LONG, the flash branch in every layer, the first
@@ -3891,12 +3946,12 @@ def lm_configs():
             C.get_smoke(LM_ARCH).replace(compute_dtype=torch.float32))
 
 
-def lm_prompts(cfg, rng):
-    """The ragged case: LM_SHORT prompts of 4–16 tokens, the LM_LONG-token
-    one at LM_LONG_AT."""
+def lm_prompts(cfg, rng, long_len: int = LM_LONG):
+    """The ragged case: LM_SHORT prompts of 4–16 tokens, the
+    ``long_len``-token one at LM_LONG_AT."""
     prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 17))).astype(np.int32)
                for _ in range(LM_SHORT)]
-    prompts.insert(LM_LONG_AT, rng.integers(0, cfg.vocab_size, size=LM_LONG).astype(np.int32))
+    prompts.insert(LM_LONG_AT, rng.integers(0, cfg.vocab_size, size=long_len).astype(np.int32))
     return prompts
 
 
@@ -3983,13 +4038,13 @@ def lm_serve_report(phase: str, eng, run, long_len: int, n_layers: int, peak_bui
     short = [(S, mma, simt) for S, _, mma, simt in prefills if S != long_len]
     long_launches = [(mma, simt) for S, _, mma, simt in prefills if S == long_len]
     say(f"{phase} ragged serve: {len(run['reqs'])} requests ({LM_SHORT} of 4-16 tokens, one of {long_len}) on "
-        f"{LM_SLOTS} slots, cache_len {LM_CACHE_LEN}, {len(run['reqs'][0].generated)} greedy tokens each: all "
+        f"{LM_SLOTS} slots, cache_len {eng.cache_len}, {len(run['reqs'][0].generated)} greedy tokens each: all "
         f"finished; {eng.tokens_out} "
         f"tokens in {eng.steps} steps, {run['wall'] * 1e3:.1f} ms, {eng.tokens_out / run['wall']:.1f} tokens/s; "
         f"flash launches {json.dumps(launches)}: the long prefill (mma, simt) {long_launches}, the short prefills "
         f"{sum(m + s for _, m, s in short)}, decode 0 (Sq = 1 takes the plain branch)")
     check(long_launches == [(n_layers, 0)], f"{phase} the {long_len}-token prefill did not launch the tensor-core "
-                                            f"kernel once per layer: {long_launches}")
+                                            f"kernel {n_layers} times: {long_launches}")
     check(all(m == s == 0 for _, m, s in short), f"{phase} a short prefill launched a flash kernel")
     check(launches == {"flash_attention_mma": n_layers, "flash_attention": 0},
           f"{phase} flash launches over the run {launches}: a decode step launched the kernel")
@@ -4027,10 +4082,45 @@ def lm_capture(S: int, Sk: int | None = None):
     return seen, core, lambda: setattr(L, "attention_core", core)
 
 
+def sdpa_kw(qpos, kpos, causal: bool, window) -> dict:
+    """The mask arguments of ``F.scaled_dot_product_attention`` for (B, S)
+    position vectors that are the same in every batch row: ``is_causal``
+    where both are ``arange`` and Sq = Sk, none where every key is live and
+    the call is not causal, else the boolean mask of row 0's positions."""
+    import torch
+
+    p, kp = qpos[0], kpos[0]
+    Sq, Sk = p.shape[0], kp.shape[0]
+    ar = torch.arange(max(Sq, Sk), device=p.device, dtype=p.dtype)
+    plain = bool(torch.equal(p, ar[:Sq])) and bool(torch.equal(kp, ar[:Sk].to(kp.dtype))) and window is None
+    if plain and causal and Sq == Sk:
+        return dict(is_causal=True)
+    if plain and not causal:
+        return {}
+    mask = kp[None, :] >= 0
+    if causal:
+        mask = mask & (kp[None, :] <= p[:, None])
+    if window is not None:
+        mask = mask & (kp[None, :] > p[:, None] - window)
+    return dict(attn_mask=mask)
+
+
+def sdpa_ms(q, k, v, qp, kp, causal: bool, window):
+    """One ``F.scaled_dot_product_attention`` call (``enable_gqa``) on the
+    model-layout q, k, v of a captured call with its mask (``sdpa_kw``):
+    its mean ms."""
+    import torch.nn.functional as F
+
+    kw = sdpa_kw(qp, kp, causal, window)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    return time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True, **kw), reps=5)
+
+
 def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None, phase: str = "[lm]"):
     """The captured layer's attention through the kernel (outside any
     counted run) against the plain version one kv head at a time, the
-    [attention] readings; its time, bound and share of the prefill."""
+    [attention] readings; its time, bound, share of the prefill and
+    SDPA's time on the same call."""
     import torch
 
     from repro_torch.kernels import ref
@@ -4054,6 +4144,7 @@ def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None, p
     check(elem <= 1 and row <= 1, f"{tag}: layer 0's attention outside tolerance, readings {elem:.3f} (elements), "
                                   f"{row:.3f} (rows)")
     ms = time_ms(lambda: core(q, k, v, **kw), reps=5)
+    lib = sdpa_ms(q, k, v, qp, kp, causal, kw["window"])
     live = _live_pairs(qp, kp, kw["window"], causal)
     b, by = bound_ms(4.0 * Dh * live * H, q.element_size() * 2 * (q.numel() + k.numel()),
                      PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS)
@@ -4063,8 +4154,8 @@ def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None, p
         f"{'causal' if causal else 'non-causal'}) through the kernel against the plain version: max_abs_err "
         f"{err:.3e}, readings {elem:.3f} (elements), {row:.3f} (rows) of limit 1 (rtol/atol/row "
         f"{'1e-2/2e-3/1e-2' if dt == 'bf16' else '1e-4/2e-4/1e-3'}); kernel {ms:.4f} ms a layer{share}; bound "
-        f"{b:.4f} ms ({by})")
-    return dict(ms=ms, bound_ms=b, max_abs_err=err)
+        f"{b:.4f} ms ({by}); SDPA (enable_gqa) {lib:.4f} ms on the same call")
+    return dict(ms=ms, bound_ms=b, max_abs_err=err, library_ms=lib)
 
 
 def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]", part: str = "flash", extra: tuple = ()):
@@ -4118,18 +4209,20 @@ def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]", part: str = "flash"
 
 
 def lm_cpu_replay(phase: str, dev, smoke, seed: int,
-                  paths: str = "on the CUDA-core kernel on the card and the plain version on the CPU"):
-    """The ragged case at SMOKE size in f32 through ServeEngine on the card
-    and on the CPU (plain versions): the sampler's calls in the same
-    order, logits within LM_LOGIT_RTOL of the largest, tokens identical
-    (or parting only at a near-tie, after which nothing is compared)."""
+                  paths: str = "on the CUDA-core kernel on the card and the plain version on the CPU",
+                  long_len: int = LM_LONG):
+    """The ragged case at SMOKE size in f32 (its long prompt ``long_len``
+    tokens) through ServeEngine on the card and on the CPU (plain
+    versions): the sampler's calls in the same order, logits within
+    LM_LOGIT_RTOL of the largest, tokens identical (or parting only at a
+    near-tie, after which nothing is compared)."""
     import torch
 
     from repro_torch.models import model as M
     from repro_torch.serving import ServeEngine
 
     values = M.init_params(smoke, torch.Generator().manual_seed(seed), device="cpu")
-    prompts = lm_prompts(smoke, np.random.default_rng(seed + 1))
+    prompts = lm_prompts(smoke, np.random.default_rng(seed + 1), long_len)
     runs = []
     for where in (dev, torch.device("cpu")):
         eng = ServeEngine(smoke, values, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED, device=where)
@@ -4151,7 +4244,7 @@ def lm_cpu_replay(phase: str, dev, smoke, seed: int,
     if parted is None:
         check([r.generated for r in card_reqs] == [r.generated for r in cpu_reqs],
               f"{phase} CPU replay: tokens differ")
-    say(f"{phase} CPU replay: {len(cpu_reqs)} requests (the ragged case: one prompt of {LM_LONG}, {paths}): "
+    say(f"{phase} CPU replay: {len(cpu_reqs)} requests (the ragged case: one prompt of {long_len}, {paths}): "
         + ("tokens identical" if parted is None else f"parting at sampler call {parted[0]}, a near-tie "
                                                        f"({parted[1]:.2f} of the bound's 2)")
         + f"; logits at most {worst:.3e} apart relative to the largest (limit {LM_LOGIT_RTOL:g}) over "
@@ -5084,6 +5177,213 @@ def phase_hybrid(dev, card):
     return launches, numbers
 
 
+def phase_audio(dev, card):
+    """LM serving and training for the audio family at published widths:
+    whisper-tiny through ServeEngine as [lm] serves (the engine's zero
+    frames), the AUD_LONG-token prefill on the tensor-core flash kernel at
+    Dh 64 in both attentions of each decoder layer (causal self 12,288²,
+    non-causal cross 12,288 x 1500) and nowhere else; profiles of that
+    prefill and a decode step; layer 0's two calls against the plain
+    version, each timed beside its bound and SDPA's; one encode timed; in
+    f32 the decode fed encode(frames) against forward (teacher forcing);
+    the whole model trained at (1, 16,384) and (4, 2048) with the flash
+    launches against the code's prediction; the backward at whisper's
+    two shapes against the plain backward; the SMOKE replay against the
+    CPU.  Returns the flash launches of the counted runs (by run) and the
+    Dh 64 kernels' numbers."""
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as k_fa
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine
+    from repro_torch.train import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    kernel_counts(reset=True)  # every counter 0 for the phase (later phases reset their own before counting)
+    cfg = C.get(AUD_ARCH)
+    n_attn = 2 * cfg.n_layers  # the flash calls of a long prefill: self- and cross-attention in each decoder layer
+    base, params, peak_build = lm_build(cfg, dev, SEED + 70)
+    n_params, fpt = M.count_params(params), M.model_flops_per_token(cfg)
+    say(f"[audio] {cfg.name}: {cfg.encoder_layers} encoder and {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.n_frames} frames, {cfg.max_dec_pos} decoder positions; {n_params:,} parameters and "
+        f"model_flops_per_token {fpt:,.0f} (the reference's: {AUD_PARAMS:,} and {AUD_FLOPS:,}); the bf16 compute "
+        f"copy drawn leaf by leaf from a seeded torch.Generator on the card: peak {peak_build:.3f} GiB; on {card}")
+    check(n_params == AUD_PARAMS and fpt == AUD_FLOPS, f"[audio] {n_params} parameters, {fpt} FLOPs a token")
+    eng = ServeEngine(cfg, params, slots=LM_SLOTS, cache_len=AUD_CACHE_LEN, seed=SEED, device=dev)
+    p = eng.params
+    dec = p["dec_blocks"]
+    check(all(t.dtype == torch.bfloat16 for t in (p["embed"]["table"], p["enc_blocks"]["attn"]["wq"]["w"],
+                                                  dec["xattn"]["wk"]["w"], dec["mlp"]["down"]["w"]))
+          and all(t.dtype == torch.float32 for t in (p["enc_pos"], p["dec_pos"], p["enc_norm"]["scale"],
+                                                     dec["ln_x"]["bias"])),
+          "[audio] the engine does not hold the bf16 compute copy with the position tables and the norms in f32")
+    check(p["embed"]["table"] is params["embed"]["table"], "[audio] the engine copied a tree already in bf16")
+    del params, p, dec
+    say("[audio] the engine's frames are bf16 zeros (the reference engine's): each prefill encodes them, and each "
+        "decode step passes them unencoded as the encoder's output, so there the cross K/V are 0 and the branch "
+        "adds nothing")
+
+    prompts = lm_prompts(cfg, np.random.default_rng(SEED + 71), AUD_LONG)
+    cap_self, core, unself = lm_capture(AUD_LONG, AUD_LONG)
+    cap_cross, _, uncross = lm_capture(AUD_LONG, cfg.n_frames)
+    try:
+        run = lm_serve_timed(eng, prompts, base)
+    finally:
+        uncross()
+        unself()
+    launches = {name: {"audio": n} for name, n in run["launches"].items()}
+    long_ms, decode_ms = lm_serve_report("[audio]", eng, run, AUD_LONG, n_attn, peak_build, base)
+    say(f"[audio] {eng.tokens_out / run['wall']:.1f} tokens/s over the ragged serve; the long prefill "
+        f"{AUD_LONG / long_ms * 1e3:.0f} tokens/s, 6N FLOPs {fpt * AUD_LONG / (long_ms / 1e3) / PEAK_BF16_FLOPS:.4f} "
+        f"of the bf16 peak; on {card}")
+
+    # layer 0's two calls of the long prefill at Dh 64, through the tensor-core kernel
+    numbers = {}
+    for key, cap, causal, Sk in (("self", cap_self, True, AUD_LONG), ("cross", cap_cross, False, cfg.n_frames)):
+        q, k, v = cap["q"], cap["k"], cap["v"]
+        views = [t.transpose(1, 2) for t in (q, k, v, torch.empty_like(q))]
+        which = k_fa.route(q.dtype, q.shape[3], [t.shape for t in views], [t.stride() for t in views],
+                           [t.data_ptr() for t in views])
+        check(which == "mma" and q.shape[3] == cfg.head_dim == 64 and bool(cap["kw"]["causal"]) == causal
+              and k.shape[1] == Sk, f"[audio] layer 0's {key}-attention (Dh {q.shape[3]}, Sk {k.shape[1]}, causal "
+                                    f"{cap['kw']['causal']}) takes the {which!r} route, not 'mma'")
+        numbers[key] = lm_flash(f"{'causal self' if causal else 'non-causal cross'}-attention (route {which!r}, Dh "
+                                f"{q.shape[3]})", core, cap, "bf16", cfg.n_layers, long_ms, "[audio]")
+        del q, k, v, views
+    del cap_self, cap_cross
+    long_toks = torch.as_tensor(prompts[LM_LONG_AT], dtype=torch.int64, device=dev)[None]
+    prof_long = lm_profile(f"the {AUD_LONG}-token prefill", lambda: eng._prefill_one(eng.params, long_toks), long_ms,
+                           "[audio]")
+    last = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    prof_dec = lm_profile(f"a decode step at {LM_SLOTS} slots",
+                          lambda: eng.model.decode(eng.params, eng.caches, last, AUD_LONG + LM_NEW,
+                                                   eng._frames(LM_SLOTS)), decode_ms, "[audio]")
+    frames = torch.randn((1, cfg.n_frames, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(SEED + 72),
+                         device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        enc = eng.model.encode(eng.params, frames)
+        enc_ms = time_ms(lambda: eng.model.encode(eng.params, frames), reps=10)
+    check(bool(torch.isfinite(enc).all()) and tuple(enc.shape) == (1, cfg.n_frames, cfg.d_model),
+          "[audio] the encoder's output is not finite or not (1, n_frames, d_model)")
+    say(f"[audio] one encode of (1, {cfg.n_frames}) frames ({cfg.encoder_layers} layers, bidirectional attention "
+        f"on the plain branch: {cfg.n_frames}² is under the flash threshold): {enc_ms:.4f} ms, "
+        f"{enc_ms / long_ms:.3f} of the long prefill that runs it; on {card}")
+    numbers.update(prefill_ms=long_ms, decode_ms=decode_ms, encode_ms=enc_ms,
+                   prefill_busy_ms=prof_long["busy_ms"] if prof_long else None,
+                   decode_launches=prof_dec["launches"] if prof_dec else None)
+    del eng, run, enc, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 at full width: decode fed encode(frames) against forward (teacher forcing)
+    cfg32 = cfg.replace(compute_dtype=torch.float32)
+    values = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED + 73), device=dev)
+    model = M.build_model(cfg32)
+    Bf, P, NEW, vocab = AUD_F32_BATCH, AUD_F32_PROMPT, AUD_F32_NEW, cfg.vocab_size
+    frames = torch.randn((Bf, cfg.n_frames, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(SEED + 74),
+                         device=dev)
+    toks = torch.as_tensor(np.random.default_rng(SEED + 75).integers(0, vocab, size=(Bf, P)), dtype=torch.int64,
+                           device=dev)
+    with torch.no_grad():
+        enc = model.encode(values, frames)
+        logits, cache = model.prefill(values, toks, frames)
+        grown = model.init_cache(Bf, P + NEW, device=dev)
+        for name in ("k", "v"):
+            grown["self"][name][:, :, :P] = cache["self"][name]
+        grown["pos"].copy_(cache["pos"])
+        steps = [logits[:, -1, :vocab].float()]
+        picked = [steps[-1].argmax(-1)]
+        for i in range(NEW - 1):
+            logits, grown = model.decode(values, grown, picked[-1][:, None], P + i, enc)
+            steps.append(logits[:, -1, :vocab].float())
+            picked.append(steps[-1].argmax(-1))
+        seq = torch.cat([toks, torch.stack(picked[:-1], 1)], 1)
+        full = model.forward(values, {"frames": frames, "tokens": seq})[:, P - 1:, :vocab].float()
+    worst, margins = 0.0, []
+    for i, got in enumerate(steps):
+        want = full[:, i]
+        check(bool(torch.isfinite(got).all()), "[audio] f32: non-finite logits")
+        worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+        for r in torch.nonzero(got.argmax(-1) != want.argmax(-1)).flatten().tolist():
+            w, g = int(want[r].argmax()), int(got[r].argmax())
+            margins.append(float(want[r, w] - want[r, g]) / (AUD_TEACHER_RTOL * float(want[r].abs().max())))
+    say(f"[audio] f32: {cfg32.name} at full width in f32, {Bf} prompts of {P} tokens over seeded frames, {NEW} greedy "
+        f"tokens each through decode fed encode(frames) (the bf16 KV cache) against forward over the prompt and "
+        f"those tokens: logits at most {worst:.3e} apart relative to the largest (limit {AUD_TEACHER_RTOL:g}); "
+        f"{Bf * NEW - len(margins)} of {Bf * NEW} tokens identical"
+        + (f", {len(margins)} parting at a near-tie (margins {margins} of the bound)" if margins else ""))
+    check(worst <= AUD_TEACHER_RTOL, "[audio] f32: decode leaves forward")
+    check(all(mg <= 2 for mg in margins), f"[audio] f32: a token parts from forward's by more than a near-tie: "
+                                          f"{margins}")
+    del values, model, frames, toks, enc, cache, grown, steps, full, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training at full width and depth
+    check(cfg.remat == "full", f"[audio] remat {cfg.remat!r}")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 76), device=dev)
+    state = adamw_init(params)
+    step = M.make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 77)
+    thr = cfg.flash_threshold
+    launches["flash_attention_bwd"] = {}
+    for Bt, St in AUD_TRAIN:
+        pipe = TokenPipeline(cfg.vocab_size, Bt, St, seed=SEED + 78)
+        frames = torch.randn((Bt, cfg.n_frames, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        batches = [dict(pipe.batch_at(i), frames=frames) for i in range(TRAIN_TIMED_STEPS)]
+        pipe.close()
+        k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = k_fa.launches_bwd = 0
+        k_fa.launches_bwd_mma = k_fa.launches_bwd_simt = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = train_steps(step, params, state, batches, dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt,
+               "flash_attention_bwd": k_fa.launches_bwd, "flash_attention_bwd_mma": k_fa.launches_bwd_mma,
+               "flash_attention_bwd_simt": k_fa.launches_bwd_simt}
+        # per step: each decoder attention past the threshold runs the forward kernel twice (the forward and the
+        # remat recompute of its block) and the backward once; the encoder's 1500² stays on the plain branch
+        calls = cfg.n_layers * (int(St * St > thr) + int(St * cfg.n_frames > thr)) * TRAIN_TIMED_STEPS
+        want = {"flash_attention_mma": 2 * calls, "flash_attention": 0, "flash_attention_bwd": calls,
+                "flash_attention_bwd_mma": calls, "flash_attention_bwd_simt": 0}
+        after = [r[2] for r in timed[1:]]
+        step_ms = float(np.median(after))
+        tok_s = Bt * St / (step_ms / 1e3)
+        say(f"[audio] training: {cfg.name} at full width and depth, remat {cfg.remat!r}, bf16 compute over the f32 "
+            f"master, AdamW, seeded frames in the batch, (B, S) = ({Bt}, {St}): steps "
+            f"{[round(r[2], 3) for r in timed]} ms, the first a warm-up; the other {len(after)}: median "
+            f"{step_ms:.3f} ms, min {min(after):.3f}, max {max(after):.3f} (losses {[round(r[0], 4) for r in timed]}); "
+            f"{tok_s:.0f} tokens/s, 6N FLOPs {fpt * tok_s / PEAK_BF16_FLOPS:.4f} of the 989 TFLOP/s bf16 peak; peak "
+            f"memory {peak:.2f} GiB; flash launches {json.dumps(got)}, the code predicts {json.dumps(want)}; on {card}")
+        check(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in timed), "[audio] a non-finite loss")
+        check(got == want, f"[audio] training's flash launches at ({Bt}, {St}) differ from the prediction")
+        run_name = f"audio_train_{Bt}x{St}"
+        for name in ("flash_attention_mma", "flash_attention", "flash_attention_bwd"):
+            launches[name][run_name] = got[name]
+        numbers[f"train_{Bt}x{St}"] = dict(step_ms=step_ms, tokens_s=tok_s, peak_gib=peak)
+        del batches, frames
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the backward at whisper's two training shapes against the plain backward and autograd
+    for key, case in zip(("bwd_self", "bwd_cross"), AUD_BWD, strict=True):
+        numbers[key] = train_bwd_case(dev, torch.Generator(device=dev).manual_seed(SEED + 79), case, "[audio]")
+    lm_cpu_replay("[audio]", dev, C.get_smoke(AUD_ARCH).replace(compute_dtype=torch.float32), SEED + 80,
+                  "the plain branch on both: the SMOKE shapes are under the flash threshold", AUD_SMOKE_LONG)
+    moved = kernel_counts()
+    say(f"[audio] hand-written kernel launches over the phase (the flash kernels alone lie on this path; the "
+        f"checks' launches included): {json.dumps(moved)}")
+    check(not any(v for name, v in moved.items() if name not in ("flash_attention", "flash_attention_bwd")),
+          "[audio] a kernel off the audio path was launched")
+    say(f"[audio] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, numbers
+
+
 def grad_reading(got, want, dt, allow=None):
     """The gradient check's reading of a backward output against a plain
     one (passing while <= 1): the largest |got - want| / (rtol·|want| +
@@ -5229,16 +5529,7 @@ def train_bwd_case(dev, gen, case, phase: str = "[train]"):
     lib = None
     if not dead_rows:
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
-        if causal and Sq == Sk and window is None and not dead_head and not dead_tail:
-            kw = dict(is_causal=True)
-        else:
-            p, kp = qpos[0], kpos[0]
-            mask = kp[None, :] >= 0
-            if causal:
-                mask = mask & (kp[None, :] <= p[:, None])
-            if window is not None:
-                mask = mask & (kp[None, :] > p[:, None] - window)
-            kw = dict(attn_mask=mask)
+        kw = sdpa_kw(qpos, kpos, causal, window)
 
         def fwd():
             return F.scaled_dot_product_attention(lq, lk, lv, enable_gqa=True, **kw)
@@ -6552,6 +6843,7 @@ def main() -> int:
     vlm_launches, vlm_numbers = phase_vlm(dev, card)
     phase_ssm(dev, card)
     hybrid_launches, hybrid_numbers = phase_hybrid(dev, card)
+    audio_launches, audio_numbers = phase_audio(dev, card)
     train_launches, train_numbers = phase_train(dev, card)
     phase_examples()
     launches = dict(run["launches"], eom=run["eom_launches"], knn=point_launches["knn"], pairwise=point_launches["pairwise"],
@@ -6597,23 +6889,38 @@ def main() -> int:
     for name, n in summarizer_launches.items():  # the summarizer's cluster() calls on [summarizer]
         numbers[name]["launches_summarizer"] = n
     for name, n in lm_launches.items():  # the flash kernels on [lm]'s serving path, and layer 0's call there
-        numbers[name].update(launches_lm=n, lm_ms=lm_numbers[name]["ms"], lm_bound_ms=lm_numbers[name]["bound_ms"])
+        numbers[name].update(launches_lm=n, lm_ms=lm_numbers[name]["ms"], lm_bound_ms=lm_numbers[name]["bound_ms"],
+                             lm_library_ms=lm_numbers[name]["library_ms"])
     for runs in (moe_launches, vlm_launches):  # their launches on [moe]'s and [vlm]'s runs, by run
         for name, by_run in runs.items():
             numbers[name].update({f"launches_{run}": n for run, n in by_run.items()})
     for name in ("flash_attention_mma", "flash_attention"):  # the forward kernels' launches on [train]'s run
         numbers[name]["launches_train"] = train_launches[name]
     for run, got in dict(moe_numbers, **vlm_numbers).items():  # layer 0's call on the new routes (tensor cores)
-        numbers["flash_attention_mma"].update({f"{run}_ms": got["ms"], f"{run}_bound_ms": got["bound_ms"]})
+        numbers["flash_attention_mma"].update({f"{run}_ms": got["ms"], f"{run}_bound_ms": got["bound_ms"],
+                                               f"{run}_library_ms": got["library_ms"]})
     for name, by_run in hybrid_launches.items():  # [hybrid]'s serve and its 15-layer training steps, by run
         numbers[name].update({f"launches_{run}": n for run, n in by_run.items()})
     # Dh 112: the shared block's first application of the long prefill, and its backward at (1, 8192)
     got = hybrid_numbers["hybrid"]
-    numbers["flash_attention_mma"].update(hybrid_ms=got["ms"], hybrid_bound_ms=got["bound_ms"])
+    numbers["flash_attention_mma"].update(hybrid_ms=got["ms"], hybrid_bound_ms=got["bound_ms"],
+                                          hybrid_library_ms=got["library_ms"])
     got = hybrid_numbers["hybrid_bwd"]
     numbers["flash_attention_bwd"].update(hybrid_ms=got["ms"], hybrid_bound_ms=got["bound_ms"],
                                           hybrid_plain_ms=got["plain_ms"], hybrid_library_ms=got["library_ms"],
                                           hybrid_max_abs_err=got["max_abs_err"])
+    for name, by_run in audio_launches.items():  # [audio]'s serve and its training steps at each shape, by run
+        numbers[name].update({f"launches_{run}": n for run, n in by_run.items()})
+    # Dh 64: layer 0's causal self- and non-causal cross-attention of the 12,288-token prefill, and the backward at
+    # whisper's two (1, 16,384) training shapes
+    for key, fwd, bwd in (("audio", "self", "bwd_self"), ("audio_cross", "cross", "bwd_cross")):
+        got = audio_numbers[fwd]
+        numbers["flash_attention_mma"].update({f"{key}_ms": got["ms"], f"{key}_bound_ms": got["bound_ms"],
+                                               f"{key}_library_ms": got["library_ms"],
+                                               f"{key}_max_abs_err": got["max_abs_err"]})
+        got = audio_numbers[bwd]
+        numbers["flash_attention_bwd"].update({f"{key}_{n}": got[n] for n in ("ms", "bound_ms", "plain_ms",
+                                                                              "library_ms", "max_abs_err")})
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
              replaces=tpu, launches=launches[name], **numbers[name])

@@ -18,7 +18,7 @@ puts a port ``BubbleTreeSummarizer`` over the Bubble-tree of a reference
 engine's checkpoint.  ``lm_params_from_reference`` and
 ``lm_cache_from_reference`` carry an LM's parameter tree and KV cache
 (the reference's ``init_params`` values and ``init_cache``/``prefill``
-caches, leaves as numpy; the dense, MoE, vision, ssm and hybrid
+caches, leaves as numpy; the dense, MoE, vision, ssm, hybrid and audio
 families, RWKV's and the hybrid's state trees among the caches) into the
 port's ``models`` and
 ``ServeEngine``; ``adamw_state_from_reference``
@@ -145,11 +145,11 @@ def lm_params_from_reference(values, cfg, device=None) -> dict:
     and its ``cross_blocks`` (n_groups,), RWKV's ``ln0`` and its blocks'
     bare mixing and decay leaves under ``tm`` / ``cm``, the hybrid's
     ``mamba_groups`` (n_groups, G), ``shared_attn`` (no leading axis) and
-    ``mamba_tail``): the same keys,
+    ``mamba_tail``, whisper's ``enc_pos`` / ``dec_pos`` tables beside its
+    ``enc_blocks`` and ``dec_blocks``): the same keys,
     shapes and values (f32 as the reference draws them), on ``device``
     (None → cuda).  Raises ``ValueError`` when the
-    tree is not the port's layout for ``cfg`` (and
-    ``NotImplementedError`` for a family the port does not build yet)."""
+    tree is not the port's layout for ``cfg``."""
     dev = resolve_device(device)
     want = tree_map(lambda t: tuple(t.shape), M.init_params(cfg, device="meta"))
     got = tree_map(lambda a: tuple(np.shape(a)), values)
@@ -160,8 +160,8 @@ def lm_params_from_reference(values, cfg, device=None) -> dict:
 
 def lm_cache_from_reference(caches, device=None) -> dict:
     """The port's KV cache from the reference's (``{"self": {"k", "v"},
-    "pos"}``, or the vlm's ``{"self_groups": …, "cross_groups": …}`` of
-    two such trees), RWKV's state tree (``{"shift_tm", "shift_cm", "S"}``,
+    "pos"}``, whisper's among them, or the vlm's ``{"self_groups": …,
+    "cross_groups": …}`` of two such trees), RWKV's state tree (``{"shift_tm", "shift_cm", "S"}``,
     stacked on the layer axis) or the hybrid's (``{"mamba_groups",
     "mamba_tail": {"conv", "ssd"}, "attn": a KV cache per application}``);
     leaves as numpy: the same values and dtypes (bf16 K/V, int32 write

@@ -1,5 +1,6 @@
 """Serving entry point: the continuous-batching engine over a zoo model
-of the dense, MoE, vision, ssm (RWKV-6) or hybrid (zamba2) family.
+of the dense, MoE, vision, ssm (RWKV-6), hybrid (zamba2) or audio
+(whisper) family.
 
 The port's copy of the JAX package's ``launch/serve.py``, on the card by
 default (``--device cpu`` runs the plain versions on the CPU).  The
@@ -8,7 +9,8 @@ leaf into their compute-dtype copy (``models.init_compute_params``), so
 the f32 master is never whole on the card: qwen2-moe-a2.7b (28.6 GB in
 bf16), llama-3.2-vision-11b (20.2 GB) and zamba2-7b (11.5 GB, its
 decode state 1.65 GB a slot at cache_len 8192) fit one 80 GB card at
-full width; dbrx-132b (263 GB) does not.  The prompts have 4–15 tokens,
+full width; dbrx-132b (263 GB) does not.  whisper-tiny is served as the
+reference's engine serves it: zero frames, encoded at each prefill.  The prompts have 4–15 tokens,
 within the chunk rule of RWKV's and Mamba-2's scans (a prompt longer
 than 64 tokens must be a multiple of 64).
 
@@ -16,8 +18,10 @@ than 64 tokens must be a multiple of 64).
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --cache-len 1024
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --max-new 32   # its state is O(1) in cache_len
   python -m repro_torch.launch.serve --arch zamba2-7b --cache-len 8192
+  python -m repro_torch.launch.serve --arch whisper-tiny --cache-len 448
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke --device cpu \\
       --requests 12 --slots 4 --max-new 12
 """

@@ -1,5 +1,9 @@
 """Training entry point: a zoo model of the dense, MoE, vision, ssm
-(RWKV-6) or hybrid (zamba2) family.
+(RWKV-6) or hybrid (zamba2) family.  The audio family (whisper) is
+refused before anything is built: its batches need ``frames``, which the
+token pipeline does not yield (the reference's CLI stops at its first
+step with a ``KeyError`` there); train it through
+``models.make_train_step`` with the frames in the batch.
 
 The port's copy of the JAX package's ``launch/train.py``, with its flags
 (and one more, ``--device``) and its ``metrics.jsonl`` records, on the
@@ -90,6 +94,10 @@ def main(argv=None):
         raise SystemExit(f"--model-parallel {args.model_parallel}: the port trains on one card (ROADMAP queue 1, "
                          f"item 9: multi-card training)")
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
+    if cfg.family == "audio":
+        raise SystemExit(f"--arch {args.arch}: a batch of the audio family needs 'frames' (B, {cfg.n_frames}, "
+                         f"{cfg.d_model}), which the token pipeline does not yield; train it through "
+                         f"models.make_train_step with the frames in the batch")
     if cfg.family in ("ssm", "hybrid"):
         check_length(args.seq)  # the chunk rule, before anything is built
     dev = resolve_device(args.device)

@@ -1,8 +1,9 @@
 """Model facade: build a zoo architecture and its train and serve steps.
 
-The port's copy of the JAX package's ``models/model.py`` for the dense,
-MoE, vision, ssm (RWKV-6) and hybrid (zamba2: Mamba-2 and a shared
-attention block) families:
+The port's copy of the JAX package's ``models/model.py`` for every family
+of its zoo: dense, MoE, vision, ssm (RWKV-6), hybrid (zamba2: Mamba-2 and
+a shared attention block) and audio (whisper: an encoder over frame
+embeddings and a decoder with cross-attention):
 
   model = build_model(cfg)                    # the family's backbone
   params = init_params(cfg, generator)        # f32 master params (values only)
@@ -17,8 +18,9 @@ The reference casts every weight to the compute dtype where it is used
 (``x @ w.astype(x.dtype)``); casting once, at load, gives the same bits,
 so the serving engine keeps only the compute copy.  Norm scales and
 biases are read in f32 by the norms, and the cross-attention gates by
-``tanh``, so they stay f32, as do RWKV's mixing and decay leaves, which
-its model casts where it reads them (``models/rwkv.py``), and Mamba-2's
+``tanh``, so they stay f32, as do whisper's position tables (``enc_pos``,
+``dec_pos``, cast where they are read), RWKV's mixing and decay leaves,
+which its model casts where it reads them (``models/rwkv.py``), and Mamba-2's
 ``A_log`` and ``dt_bias``, which it reads in f32 (``models/ssm.py``).
 ``init_compute_params`` draws each leaf in
 f32 and casts it before the next: a model whose f32 master and compute
@@ -54,20 +56,22 @@ from ..tree import tree_leaves, tree_unflatten
 from . import layers as L
 from .rwkv import RWKVModel
 from .transformer import HybridDecoder, UniformDecoder, VisionDecoder
+from .whisper import WhisperModel
 
 __all__ = ["build_model", "init_params", "init_compute_params", "compute_copy", "count_params", "make_prefill",
            "make_serve_step", "make_train_step", "make_value_and_grad", "model_flops_per_token", "xent_loss",
            "loss_fn"]
 
 FAMILIES = {"dense": UniformDecoder, "moe": UniformDecoder, "vlm": VisionDecoder, "ssm": RWKVModel,
-            "hybrid": HybridDecoder}
-# the family of the reference's zoo still to come, a later slice
-_LATER = ("audio",)
+            "hybrid": HybridDecoder, "audio": WhisperModel}
+# the families of the reference's zoo still to port: none
+_LATER = ()
 
 # tensor leaves that dense / embed / unembed, the experts (bare "gate" /
 # "up" / "down" arrays) and Mamba-2 ("in_proj", "out_proj", "conv_w",
 # "conv_b", "D") cast to the compute dtype; the norms' "scale" and "bias"
 # and the cross-attention gates are cast to f32 where they are used,
+# whisper's position tables ("enc_pos", "dec_pos") cast where they are read,
 # Mamba-2's "A_log" and "dt_bias" read in f32, and RWKV's bare leaves
 # ("mu", "maa_w1", "decay_mu", "bonus_u", ...) cast to the compute dtype or
 # to f32 where they are used
@@ -77,9 +81,6 @@ _COMPUTE_LEAVES = ("w", "b", "table", "gate", "up", "down", "in_proj", "out_proj
 def build_model(cfg: ArchConfig):
     if cfg.family in FAMILIES:
         return FAMILIES[cfg.family](cfg)
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP queue 1, "
-                                  f"item 9: the LM stack beyond the dense, MoE, vision, ssm and hybrid families)")
     raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
@@ -107,8 +108,9 @@ def init_compute_params(cfg: ArchConfig, generator: torch.Generator | None = Non
 def compute_copy(params, cfg: ArchConfig, device=None):
     """The params tree with every matmul weight, bias, embedding table,
     expert array and Mamba-2 projection, convolution and ``D`` in
-    ``cfg.compute_dtype`` and the norms' leaves, the gates, Mamba-2's
-    ``A_log`` and ``dt_bias`` and RWKV's bare leaves in f32, on ``device`` (None: where they are).
+    ``cfg.compute_dtype`` and the norms' leaves, the gates, whisper's
+    position tables, Mamba-2's ``A_log`` and ``dt_bias`` and RWKV's bare
+    leaves in f32, on ``device`` (None: where they are).
     Leaves already so are not copied."""
     def cast(tree):
         out = {}
@@ -132,8 +134,10 @@ def model_flops_per_token(cfg: ArchConfig, values=None) -> float:
     """6·N_active, N_active = params taking part per token (the input
     embedding's gather excluded, the MoE's experts scaled by k/E, the
     hybrid's shared attention block counted once per application, by the
-    reference's rule: its q/k/v/o projections and a 3·d·d_ff MLP).  The
-    params are counted on the ``meta`` device unless ``values`` is given."""
+    reference's rule: its q/k/v/o projections and a 3·d·d_ff MLP; whisper's
+    position tables and encoder counted whole, as the reference counts
+    them).  The params are counted on the ``meta`` device unless
+    ``values`` is given."""
     if values is None:
         values = init_params(cfg, device="meta")
     total = count_params(values)
@@ -190,9 +194,9 @@ def make_value_and_grad(cfg: ArchConfig, microbatches: int = 1):
     f32 gradient tree (the params' structure) through the compute-dtype
     cast, as the reference's ``jax.value_and_grad`` of its step's loss.
     ``batch`` holds ``tokens`` and ``labels`` (B, S) (and the vlm's
-    ``media``) as tensors on the params' device; it splits into
-    ``microbatches`` equal slices along B, whose gradients are summed in
-    order and divided once."""
+    ``media``, whisper's ``frames``) as tensors on the params' device; it
+    splits into ``microbatches`` equal slices of every entry along B, whose
+    gradients are summed in order and divided once."""
     model = build_model(cfg)
 
     def value_and_grad(params, batch):
@@ -249,6 +253,8 @@ def make_prefill(cfg: ArchConfig):
     model = build_model(cfg)
 
     def prefill(params, batch):
+        if cfg.family == "audio":
+            return model.prefill(params, batch["tokens"], batch["frames"])
         if cfg.family == "vlm":
             return model.prefill(params, batch["tokens"], batch["media"])
         return model.prefill(params, batch["tokens"])
@@ -257,10 +263,14 @@ def make_prefill(cfg: ArchConfig):
 
 
 def make_serve_step(cfg: ArchConfig):
-    """One decode step: (params, caches, token, pos, extras) -> (logits, caches)."""
+    """One decode step: (params, caches, token, pos, extras) -> (logits, caches);
+    ``extras`` holds the vlm's ``media`` or whisper's ``enc`` (the encoder's
+    output)."""
     model = build_model(cfg)
 
     def serve_step(params, caches, token, pos, extras=None):
+        if cfg.family == "audio":
+            return model.decode(params, caches, token, pos, extras["enc"])
         if cfg.family == "vlm":
             return model.decode(params, caches, token, pos, extras["media"])
         return model.decode(params, caches, token, pos)

@@ -1,11 +1,15 @@
 """Slot-based token serving engine with continuous batching.
 
 The port's copy of the JAX package's ``serving/engine.py`` (``Request``,
-``ServeEngine``) over the port's dense, MoE, vision, ssm and hybrid
-models (the vision model gets zero media, as the reference's engine
-gives it): a fixed device batch of ``slots``, each slot holding one
-request's decode state inside ONE batched state tree (so a decode step
-is one call over every slot): a KV cache; RWKV's per-layer token shifts
+``ServeEngine``) over the port's dense, MoE, vision, ssm, hybrid and
+audio models (the vision model gets zero media, as the reference's
+engine gives it; whisper gets zero frames, which its prefill encodes,
+and at every decode step zero frames again, passed as the encoder's
+output without encoding them, as the reference's engine passes them:
+there its cross-attention reads zero K/V and adds nothing): a fixed
+device batch of ``slots``, each slot holding one request's decode state
+inside ONE batched state tree (so a decode step is one call over every
+slot): a KV cache; RWKV's per-layer token shifts
 and (dh, dh) states, whose size does not depend on ``cache_len``; or the
 hybrid's per-layer Mamba-2 conv rows and SSD states (O(1) in the
 sequence) beside one KV cache per application of its shared block.  Continuous
@@ -71,7 +75,7 @@ class ServeEngine:
         self.params = M.compute_copy(params, cfg, self.device)
         self.slots = slots
         self.cache_len = cache_len
-        self.model = M.build_model(cfg)  # raises for the families still to come, audio among them
+        self.model = M.build_model(cfg)
         self.serve_step = M.make_serve_step(cfg)
         self.caches = self.model.init_cache(slots, cache_len, device=self.device)  # owner: serve thread
         self.slot_req: list[Request | None] = [None] * slots  # owner: serve thread
@@ -88,10 +92,18 @@ class ServeEngine:
         cfg = self.cfg
         return torch.zeros((batch, cfg.n_media_tokens, cfg.d_model), dtype=torch.bfloat16, device=self.device)
 
+    def _frames(self, batch: int):
+        """Whisper's frames at prefill and its ``enc`` at decode: bf16 zeros,
+        as the reference's engine gives both."""
+        cfg = self.cfg
+        return torch.zeros((batch, cfg.n_frames, cfg.d_model), dtype=torch.bfloat16, device=self.device)
+
     def _prefill_one(self, params, tokens):
         """(1, S) prompt -> (last logits, cache of length S)."""
         if self.cfg.family == "vlm":
             return self.model.prefill(params, tokens, self._media(1))
+        if self.cfg.family == "audio":
+            return self.model.prefill(params, tokens, self._frames(1))
         return self.model.prefill(params, tokens)
 
     def _write_slot_cache(self, slot: int, cache):
@@ -168,7 +180,11 @@ class ServeEngine:
         for s in active:
             last[s, 0] = self.slot_req[s].generated[-1]
         pos = int(max(self.slot_pos[s] for s in active))  # scalar step pos
-        extras = {"media": self._media(self.slots)} if self.cfg.family == "vlm" else None
+        extras = None
+        if self.cfg.family == "vlm":
+            extras = {"media": self._media(self.slots)}
+        elif self.cfg.family == "audio":
+            extras = {"enc": self._frames(self.slots)}  # unencoded, as the reference's engine passes them
         logits, self.caches = self.serve_step(self.params, self.caches,
                                               torch.as_tensor(last, device=self.device), pos, extras)
         logits = logits[:, -1].float().cpu().numpy()

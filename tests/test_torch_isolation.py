@@ -41,8 +41,8 @@ def test_importing_every_module_pulls_in_no_jax():
     assert len(modules) >= 25
     for name in ("knn", "pairwise", "flash_attention"):
         assert f"repro_torch.kernels.{name}" in modules
-    for name in ("models.transformer", "models.model", "models.moe", "models.rwkv", "models.ssm", "configs.qwen2_1_5b",
-                 "configs.whisper_tiny",
+    for name in ("models.transformer", "models.model", "models.moe", "models.rwkv", "models.ssm", "models.whisper",
+                 "configs.qwen2_1_5b", "configs.whisper_tiny",
                  "serving.engine", "launch.serve", "launch.train", "train", "train.optim", "data.pipeline",
                  "tree"):
         assert f"repro_torch.{name}" in modules

@@ -72,8 +72,7 @@ FULL_PARAMS = {"qwen1.5-0.5b": 463_987_712, "qwen2-1.5b": 1_543_714_304,
                "h2o-danube-3-4b": 3_961_839_360, "qwen3-14b": 14_768_307_200,
                "qwen2-moe-a2.7b": 14_315_735_040, "dbrx-132b": 131_596_523_520,
                "llama-3.2-vision-11b": 10_110_734_344, "rwkv6-1.6b": 1_599_823_872,
-               "zamba2-7b": 5_737_416_000}
-LATER = ("whisper-tiny",)
+               "zamba2-7b": 5_737_416_000, "whisper-tiny": 49_646_592}
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 LAYER_RTOL = 1e-5
 FORWARD_RTOL = {"f32": 1e-5, "bf16": 5e-2}
@@ -386,10 +385,10 @@ def test_count_params_at_full_width(arch):
     assert got == ref == FULL_PARAMS[arch]
 
 
-@pytest.mark.parametrize("arch", LATER)
-def test_build_model_refuses_later_families(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        M.build_model(C.get_smoke(arch))
+def test_build_model_refuses_an_unknown_family():
+    assert M._LATER == ()  # every family of the reference's zoo is ported
+    with pytest.raises(ValueError, match="unknown family 'speech'"):
+        M.build_model(C.get_smoke("whisper-tiny").replace(family="speech"))
 
 
 def test_params_carry_refuses_another_layout(models):
