@@ -13,8 +13,10 @@ Phases, each printing its own lines:
               instantiation (warp-select knn and bubble_cd, assign, the
               distance panel of pairwise and mutual_reach and its norm
               pass, the CUDA-core flash kernel, both flash backward
-              kernels; each must have no stack frame and no spills), and
-              the flash kernel's query rows
+              kernels; each must have no stack frame and no spills; and
+              the wgmma flash forward's two, reported, each required to
+              launch at the 168 registers its setmaxnreg split assumes),
+              and the flash kernel's query rows
               and blocks per SM for each head-dim bucket;
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes, on a tie-free mean-centred table
@@ -176,10 +178,13 @@ Phases, each printing its own lines:
               bf16 and f32) and h2o-danube-3-4b (S = 8192, 32 heads, 8 kv
               heads, Dh 120, window 4096, bf16), and a ragged case with a
               dead-key tail and fully masked rows; the bf16 cases take the
-              tensor-core kernel and the f32 ones the CUDA-core kernel
-              (counted per route); each held against the plain version a
-              few heads at a time, with device times and the host time
-              of one ops call, and shown to reject two wrong outputs; the
+              tensor-core kernel (csrc/flash_attention_wgmma.cu) and the
+              f32 ones the CUDA-core kernel (counted per route); each held
+              against the plain version a few heads at a time, with device
+              times and the host time of one ops call, and shown to reject
+              two wrong outputs; the bf16 cases also held to the first
+              tensor-core kernel (flash_attention_mma_v1, mma.sync), its
+              readings against the plain version and its time beside; the
               f32 cases also held to the earlier CUDA-core kernel
               (flash_attention_scalar) on the same inputs and timed beside
               it; then bf16 at qwen2-1.5b widths with Dh = 256, which the
@@ -393,8 +398,12 @@ Phases, each printing its own lines:
      times, bounds; assign with the per-lane kernel's time as lane_ms,
      mutual_reach and pairwise with the tile kernel's as tile_ms;
      flash_attention with the qwen2-1.5b f32 case and the earlier
-     CUDA-core kernel's time as scalar_ms, flash_attention_mma with the
-     qwen2-1.5b bf16 case, both also with their [lm] launches as
+     CUDA-core kernel's time as scalar_ms, flash_attention_mma (source
+     csrc/flash_attention_wgmma.cu) with the qwen2-1.5b bf16 case and
+     every layer-0 reading's plain time and the first tensor-core
+     kernel's as <run>_plain_ms / <run>_v1_ms; flash_attention_mma_v1
+     (csrc/flash_attention_mma.cu, its oracle, launched on no path) with
+     its own numbers on the qwen2-1.5b bf16 case; both also with their [lm] launches as
      launches_lm and layer 0's call there as lm_ms / lm_bound_ms, their
      launches on [moe]'s serve and dbrx prefill as launches_moe /
      launches_dbrx and on [vlm]'s serve and 12,288-token prefill as
@@ -522,7 +531,12 @@ EPS32 = float(np.finfo(np.float32).eps)
 # dist_panel.cu, the panel for pairwise (D = 0) and mutual_reach (D = 1) + the norm pass;
 # flash_attention_panel.cu, 8 (head-dim bucket D in {32, 64, 128, 256} x element bits K in {32, 16})
 WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu", "flash_attention_panel.cu",
-              "grid.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu")  # grid.cu's: by name, not checked
+              "grid.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu",
+              "flash_attention_wgmma.cu")  # grid.cu's and the wgmma kernel's: by name, not checked for spills
+# flash_attention_wgmma.cu: head-dim bucket {64, 128}; 384 threads at 168 registers (the launch bound's share),
+# of which setmaxnreg moves the producer warpgroup to 40 and the two consumer warpgroups to 232: 128 x 40 + 256 x 232
+# = 384 x 168, so a launch at any other count could leave a consumer's raise waiting
+FWD_INSTANTIATIONS, FWD_REGISTERS = 2, 168
 WS_INSTANTIATIONS = 48 + 6 + 3 + 8
 # flash_attention_bwd.cu: {f32, bf16} x head-dim bucket {64, 128, 256} x {dK/dV, dQ}, and the pre-pass per dtype;
 # flash_attention_bwd_mma.cu: bf16 x head-dim bucket {64, 128} x {dK/dV, dQ}, and its pre-pass
@@ -904,6 +918,18 @@ def ptxas_bwd(log: str) -> dict:
     return ptxas_entries(log, entry)
 
 
+def ptxas_fwd(log: str) -> dict:
+    """{head-dim bucket: (registers, stack bytes, spill stores, spill
+    loads)} of csrc/flash_attention_wgmma.cu's kernel."""
+    import re
+
+    def entry(line):
+        m = re.search(r"Compiling entry function '\S*?flash_wgmma_kernelILi(\d+)E", line)
+        return int(m.group(1)) if m else None
+
+    return ptxas_entries(log, entry)
+
+
 def ptxas_minima(log: str) -> dict:
     """{(kernel, 16-byte loads): (registers, stack bytes, spill stores,
     spill loads)} of csrc/strip_minima.cu's kernels."""
@@ -988,6 +1014,14 @@ def phase_build():
               f"{len(bwd)} backward instantiations in the ptxas report, not {BWD_INSTANTIATIONS}")
         bad = [key for key, v in bwd.items() if v[1:] != (0, 0, 0)]
         check(not bad, f"backward instantiations with a stack frame or spills: {bad}")
+        fwd = ptxas_fwd(info["log"])
+        for DP, (regs, stack, st, ld) in sorted(fwd.items()):
+            say(f"[build] flash_attention_wgmma.cu DP={DP}: {regs} registers at launch (setmaxnreg: producer 40, "
+                f"consumers 232), {stack} bytes stack, spill stores {st} loads {ld}")
+        check(len(fwd) == FWD_INSTANTIATIONS,
+              f"{len(fwd)} wgmma forward instantiations in the ptxas report, not {FWD_INSTANTIATIONS}")
+        check(all(v[0] == FWD_REGISTERS for v in fwd.values()),
+              f"the wgmma forward does not launch at {FWD_REGISTERS} registers: {fwd}")
         minima = ptxas_minima(info["log"])
         for (kern, vec), (regs, stack, st, ld) in sorted(minima.items()):
             say(f"[build] strip_minima.cu {kern} vec={vec}: {regs} registers, {stack} bytes stack, spill stores "
@@ -3796,14 +3830,16 @@ def phase_attention(dev):
         kpos[:, S - dead_tail:] = -1
         cases.append((label, q, k, v, pos, kpos, window, dt))
 
-    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = 0
+    k_fa.launches = k_fa.launches_mma = k_fa.launches_simt = k_fa.launches_mma_v1 = 0
     outs = [ops.flash_attention(q, k, v, qp, kp, causal=True, window=w) for _, q, k, v, qp, kp, w, _ in cases]
     torch.cuda.synchronize()
-    launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt}
+    launches = {"flash_attention_mma": k_fa.launches_mma, "flash_attention": k_fa.launches_simt,
+                "flash_attention_mma_v1": k_fa.launches_mma_v1}
     n_bf16 = sum(dt == "bf16" for *_, dt in cases)
     say(f"[attention] {len(cases)} calls of ops.flash_attention: launches {k_fa.launches}, per route "
         f"{json.dumps(launches)}")
     check(k_fa.launches == len(cases), "flash_attention kernel not launched once per call")
+    check(launches["flash_attention_mma_v1"] == 0, "the first tensor-core kernel launched on the main path")
     check(launches["flash_attention_mma"] == n_bf16, "a bf16 case did not take the tensor-core kernel")
     check(launches["flash_attention"] == len(cases) - n_bf16,
           "an f32 case did not take the CUDA-core kernel (flash_attention_panel.cu)")
@@ -3836,9 +3872,9 @@ def phase_attention(dev):
         B, S, H, Dh = q.shape
         G = H // k.shape[2]
         err, elem, row = 0.0, 0.0, 0.0
-        for g, want in enumerate(plain(q, k, v, qp, kp, window)):
+        wants = [w.float() for w in plain(q, k, v, qp, kp, window)]
+        for g, want in enumerate(wants):
             o = got[:, :, g * G : (g + 1) * G].transpose(1, 2).float()
-            want = want.float()
             check(bool(torch.isfinite(o).all()), f"{label}: non-finite output")
             e, r = flash_reading(o, want, dt)
             check(e <= 1 and r <= 1, f"{label}: kv head {g} outside tolerance, readings {e:.3f} (elements), "
@@ -3886,6 +3922,8 @@ def phase_attention(dev):
             f"sdpa {'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms ({by}, {live} live "
             f"(query, key) pairs per head, at the {dt} peak)")
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b, bound_by=by, library_ms=lib)
+        if dt == "bf16":
+            out[label].update(mma_v1(label, "[attention]", q, k, v, qp, kp, True, window, got, ms, wants))
         if scalar:
             say(f"[attention] {label}: against the earlier CUDA-core kernel max |new - scalar| {scalar['err']:.3e}, "
                 f"readings {scalar['elem']:.3f} (elements), {scalar['row']:.3f} (rows); kernel {ms:.4f} ms, "
@@ -4134,16 +4172,25 @@ def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None, p
     qp = torch.broadcast_to(torch.as_tensor(kw["qpos"]).to(torch.int32), (B, S)).contiguous()
     kp = torch.broadcast_to(torch.as_tensor(kw["kpos"]).to(torch.int32), (B, Sk)).contiguous()
     elem = row = err = 0.0
+    wants = []
     for g in range(KV):
         want = ref.gqa_flash_attention(q[:, :, g * G : (g + 1) * G].transpose(1, 2), k[:, :, g : g + 1].transpose(1, 2),
                                        v[:, :, g : g + 1].transpose(1, 2), qp, kp, causal, kw["window"]).float()
+        wants.append(want)
         o = got[:, :, g * G : (g + 1) * G].transpose(1, 2).float()
         check(bool(torch.isfinite(o).all()), f"{tag}: non-finite attention")
         e, r = flash_reading(o, want, dt)
         elem, row, err = max(elem, e), max(row, r), max(err, float((o - want).abs().max()))
     check(elem <= 1 and row <= 1, f"{tag}: layer 0's attention outside tolerance, readings {elem:.3f} (elements), "
                                   f"{row:.3f} (rows)")
+
+    def plain_all():
+        for g in range(KV):
+            ref.gqa_flash_attention(q[:, :, g * G : (g + 1) * G].transpose(1, 2), k[:, :, g : g + 1].transpose(1, 2),
+                                    v[:, :, g : g + 1].transpose(1, 2), qp, kp, causal, kw["window"])
+
     ms = time_ms(lambda: core(q, k, v, **kw), reps=5)
+    p_ms = time_ms(plain_all, reps=1, warm=0)
     lib = sdpa_ms(q, k, v, qp, kp, causal, kw["window"])
     live = _live_pairs(qp, kp, kw["window"], causal)
     b, by = bound_ms(4.0 * Dh * live * H, q.element_size() * 2 * (q.numel() + k.numel()),
@@ -4154,8 +4201,47 @@ def lm_flash(tag, core, cap, dt: str, n_layers: int, prefill_ms: float | None, p
         f"{'causal' if causal else 'non-causal'}) through the kernel against the plain version: max_abs_err "
         f"{err:.3e}, readings {elem:.3f} (elements), {row:.3f} (rows) of limit 1 (rtol/atol/row "
         f"{'1e-2/2e-3/1e-2' if dt == 'bf16' else '1e-4/2e-4/1e-3'}); kernel {ms:.4f} ms a layer{share}; bound "
-        f"{b:.4f} ms ({by}); SDPA (enable_gqa) {lib:.4f} ms on the same call")
-    return dict(ms=ms, bound_ms=b, max_abs_err=err, library_ms=lib)
+        f"{b:.4f} ms ({by}); plain {p_ms:.4f} ms; SDPA (enable_gqa) {lib:.4f} ms on the same call")
+    out = dict(ms=ms, bound_ms=b, max_abs_err=err, library_ms=lib, plain_ms=p_ms)
+    if dt == "bf16":
+        out.update(mma_v1(tag, phase, q, k, v, qp, kp, causal, kw["window"], got, ms, wants))
+    return out
+
+
+def mma_v1(tag, phase, q, k, v, qp, kp, causal: bool, window, got, ms: float, wants) -> dict:
+    """The first tensor-core kernel (``flash_attention_mma_v1``, outside any
+    counted run) on a model-layout call of the tensor-core route: its
+    readings against the plain version's outputs ``wants`` (one a kv head,
+    f32), the ``wgmma`` kernel's output ``got`` against it under the same
+    limits, the largest |new - v1| and its time beside the new kernel's
+    ``ms``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as k_fa
+
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    old = k_fa.flash_attention_mma_v1(*heads, qp, kp, causal=causal, window=window).transpose(1, 2)
+    G = q.shape[2] // k.shape[2]
+    elem = row = err = 0.0
+    for g, want in enumerate(wants):
+        o = old[:, :, g * G : (g + 1) * G].transpose(1, 2).float()
+        e, r = flash_reading(o, want, "bf16")
+        elem, row, err = max(elem, e), max(row, r), max(err, float((o - want).abs().max()))
+    check(elem <= 1 and row <= 1, f"{tag}: the first tensor-core kernel outside tolerance, readings {elem:.3f} "
+                                  f"(elements), {row:.3f} (rows)")
+    e_new, r_new = flash_reading(got.float(), old.float(), "bf16")
+    diff = float((got.float() - old.float()).abs().max())
+    check(e_new <= 1 and r_new <= 1, f"{tag}: the wgmma kernel outside tolerance of the first tensor-core kernel, "
+                                     f"readings {e_new:.3f} (elements), {r_new:.3f} (rows)")
+    v1_ms = time_ms(lambda: k_fa.flash_attention_mma_v1(*heads, qp, kp, causal=causal, window=window), reps=5)
+    direct = time_ms(lambda: k_fa.flash_attention(*heads, qp, kp, causal=causal, window=window), reps=5)
+    say(f"{phase} {tag}: the first tensor-core kernel (mma.sync, flash_attention_mma.cu) on the same call: readings "
+        f"{elem:.3f} (elements), {row:.3f} (rows) against the plain version; the wgmma kernel against it "
+        f"{e_new:.3f} / {r_new:.3f}, max |new - v1| {diff:.3e}; wgmma {ms:.4f} ms through the call above, "
+        f"{direct:.4f} ms through the wrapper as v1 is called, v1 {v1_ms:.4f} ms ({v1_ms / direct:.2f}x)")
+    del old
+    torch.cuda.empty_cache()
+    return dict(v1_ms=v1_ms, v1_max_abs_diff=diff, v1_max_abs_err=err, wrapper_ms=direct)
 
 
 def lm_profile(tag, fn, wall_ms: float, phase: str = "[lm]", part: str = "flash", extra: tuple = ()):
@@ -5624,7 +5710,7 @@ def train_profile(step, params, state, batch, wall_ms: float, dev):
     busy = union_ms((e.time_range.start, e.time_range.end) for e in kernels)
     bwd = union_ms((e.time_range.start, e.time_range.end) for e in kernels if is_bwd(e.name))
     bwd_events = [e for e in events if is_bwd(e.key)]
-    fwd = sum(e.self_device_time_total for e in events if "flash_mma" in e.key) / 1e3
+    fwd = sum(e.self_device_time_total for e in events if "flash_wgmma" in e.key) / 1e3  # the tensor-core forward
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     say(f"[train] one (1, 8192) step under torch.profiler: device busy {busy:.1f} ms of the untraced wall "
         f"{wall_ms:.1f} ms (busy share {busy / wall_ms:.3f}; the kernels' times sum to {device_sum:.1f} ms, two "
@@ -6804,6 +6890,15 @@ def phase_examples():
     check(not failed, f"examples failed: {failed}")
 
 
+def layer0(run: str, got: dict) -> dict:
+    """A layer-0 reading's numbers for the kernels line, keyed by its run:
+    ms, bound, plain and SDPA, and where the call took the tensor-core
+    route the kernel's ms through its wrapper and the first tensor-core
+    kernel's through its own."""
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms") + (("wrapper_ms", "v1_ms") if "v1_ms" in got else ())
+    return {f"{run}_{key}": got[key] for key in keys}
+
+
 def main() -> int:
     import torch
 
@@ -6853,16 +6948,21 @@ def main() -> int:
     train_numbers.update(launches_mma=train_launches["flash_attention_bwd_mma"],
                          launches_simt=train_launches["flash_attention_bwd_simt"],
                          simt_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu")
+    got = attn_numbers[ATTENTION[0][0]]  # the first tensor-core kernel on qwen2-1.5b's bf16 call, as the oracle
+    mma_v1 = dict(max_abs_err=got["v1_max_abs_err"], ms=got["v1_ms"], plain_ms=got["plain_ms"],
+                  bound_ms=got["bound_ms"], bound_by=got["bound_by"], library_ms=got["library_ms"])
     numbers.update(point_numbers, flash_attention=attn_numbers[ATTENTION[1][0]],
-                   flash_attention_mma=attn_numbers[ATTENTION[0][0]], flat_scatter=online_numbers, **grid_numbers,
-                   **exact_numbers, flash_attention_bwd=train_numbers)
+                   flash_attention_mma=attn_numbers[ATTENTION[0][0]], flash_attention_mma_v1=mma_v1,
+                   flat_scatter=online_numbers, **grid_numbers, **exact_numbers, flash_attention_bwd=train_numbers)
     sources = {"assign": ("assign_ws.cu", "src/repro/kernels/assign.py:21"),
                "bubble_cd": ("bubble_cd_ws.cu", "src/repro/kernels/bubble_cd.py:41"),
                "mutual_reach": ("dist_panel.cu", "src/repro/kernels/mutual_reach.py:23"),
                "knn": ("knn_ws.cu", "src/repro/kernels/knn.py:34"),
                "pairwise": ("dist_panel.cu", "src/repro/kernels/pairwise.py:30"),
                "flash_attention": ("flash_attention_panel.cu", "src/repro/kernels/flash_attention.py:38"),
-               "flash_attention_mma": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38"),
+               "flash_attention_mma": ("flash_attention_wgmma.cu", "src/repro/kernels/flash_attention.py:38"),
+               # the first tensor-core kernel (mma.sync): the wgmma kernel's oracle, launched on no path
+               "flash_attention_mma_v1": ("flash_attention_mma.cu", "src/repro/kernels/flash_attention.py:38"),
                # no Pallas kernel: the JAX package differentiates its jnp online softmax through lax.scan
                "flash_attention_bwd": ("flash_attention_bwd_mma.cu",
                                        "no Pallas kernel: autodiff of _flash_sdpa, src/repro/models/layers.py:171"),
@@ -6889,22 +6989,19 @@ def main() -> int:
     for name, n in summarizer_launches.items():  # the summarizer's cluster() calls on [summarizer]
         numbers[name]["launches_summarizer"] = n
     for name, n in lm_launches.items():  # the flash kernels on [lm]'s serving path, and layer 0's call there
-        numbers[name].update(launches_lm=n, lm_ms=lm_numbers[name]["ms"], lm_bound_ms=lm_numbers[name]["bound_ms"],
-                             lm_library_ms=lm_numbers[name]["library_ms"])
+        numbers[name].update(launches_lm=n, **layer0("lm", lm_numbers[name]))
     for runs in (moe_launches, vlm_launches):  # their launches on [moe]'s and [vlm]'s runs, by run
         for name, by_run in runs.items():
             numbers[name].update({f"launches_{run}": n for run, n in by_run.items()})
     for name in ("flash_attention_mma", "flash_attention"):  # the forward kernels' launches on [train]'s run
         numbers[name]["launches_train"] = train_launches[name]
     for run, got in dict(moe_numbers, **vlm_numbers).items():  # layer 0's call on the new routes (tensor cores)
-        numbers["flash_attention_mma"].update({f"{run}_ms": got["ms"], f"{run}_bound_ms": got["bound_ms"],
-                                               f"{run}_library_ms": got["library_ms"]})
+        numbers["flash_attention_mma"].update(layer0(run, got))
     for name, by_run in hybrid_launches.items():  # [hybrid]'s serve and its 15-layer training steps, by run
         numbers[name].update({f"launches_{run}": n for run, n in by_run.items()})
     # Dh 112: the shared block's first application of the long prefill, and its backward at (1, 8192)
     got = hybrid_numbers["hybrid"]
-    numbers["flash_attention_mma"].update(hybrid_ms=got["ms"], hybrid_bound_ms=got["bound_ms"],
-                                          hybrid_library_ms=got["library_ms"])
+    numbers["flash_attention_mma"].update(layer0("hybrid", got))
     got = hybrid_numbers["hybrid_bwd"]
     numbers["flash_attention_bwd"].update(hybrid_ms=got["ms"], hybrid_bound_ms=got["bound_ms"],
                                           hybrid_plain_ms=got["plain_ms"], hybrid_library_ms=got["library_ms"],
@@ -6915,9 +7012,7 @@ def main() -> int:
     # whisper's two (1, 16,384) training shapes
     for key, fwd, bwd in (("audio", "self", "bwd_self"), ("audio_cross", "cross", "bwd_cross")):
         got = audio_numbers[fwd]
-        numbers["flash_attention_mma"].update({f"{key}_ms": got["ms"], f"{key}_bound_ms": got["bound_ms"],
-                                               f"{key}_library_ms": got["library_ms"],
-                                               f"{key}_max_abs_err": got["max_abs_err"]})
+        numbers["flash_attention_mma"].update(layer0(key, got), **{f"{key}_max_abs_err": got["max_abs_err"]})
         got = audio_numbers[bwd]
         numbers["flash_attention_bwd"].update({f"{key}_{n}": got[n] for n in ("ms", "bound_ms", "plain_ms",
                                                                               "library_ms", "max_abs_err")})

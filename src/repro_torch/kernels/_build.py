@@ -31,6 +31,7 @@ _CSRC = Path(__file__).with_name("csrc")
 _BUILD = Path(__file__).with_name("build")
 _SOURCES = ("assign.cu", "assign_ws.cu", "bubble_cd.cu", "bubble_cd_ws.cu", "bubble_cd_walk.cu", "dist_panel.cu",
             "dynamic.cu", "flat_scatter.cu", "grid.cu", "hierarchy.cu", "hierarchy_extract.cu", "hierarchy_par.cu", "mutual_reach.cu", "knn.cu", "knn_ws.cu", "pairwise.cu", "flash_attention.cu", "flash_attention_mma.cu",
+            "flash_attention_wgmma.cu",
             "flash_attention_panel.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu", "strip_minima.cu", "errors.cu")
 _HEADERS = ("common.cuh", "dist_tile.cuh", "warp_select.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -117,6 +118,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     flash_args = [I, P, P, P, P, P, P] + [I] * 6 + [LL] * 12 + [I, I, I, ctypes.c_float, P]
     lib.repro_flash_attention.argtypes = flash_args
     lib.repro_flash_attention_mma.argtypes = flash_args[:7] + [P] + flash_args[7:]  # + the lse pointer
+    lib.repro_flash_attention_wgmma.argtypes = lib.repro_flash_attention_mma.argtypes
     lib.repro_flash_attention_panel.argtypes = lib.repro_flash_attention_mma.argtypes
     lib.repro_flash_attention_bwd.argtypes = [I] + [P] * 12 + [I] * 6 + [LL] * 24 + [I, I, I, ctypes.c_float, P]
     lib.repro_flash_attention_bwd_mma.argtypes = lib.repro_flash_attention_bwd.argtypes
@@ -142,7 +144,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.repro_bubble_cd_ws_f32, lib.repro_bubble_cd_walk_f32,
                lib.repro_dist_panel_plan, lib.repro_mutual_reach_panel_f32, lib.repro_mutual_reach_tile_f32,
                lib.repro_knn_f32, lib.repro_knn_ws_f32, lib.repro_pairwise_panel_f32, lib.repro_pairwise_tile_f32,
-               lib.repro_flash_attention, lib.repro_flash_attention_mma, lib.repro_flash_attention_panel,
+               lib.repro_flash_attention, lib.repro_flash_attention_mma, lib.repro_flash_attention_wgmma,
+               lib.repro_flash_attention_panel,
                lib.repro_flash_attention_bwd, lib.repro_flash_attention_bwd_mma,
                lib.repro_flash_attention_panel_plan, lib.repro_single_linkage_f32, lib.repro_condense_f32,
                lib.repro_single_linkage_par_f32, lib.repro_condense_par_f32,

@@ -19,16 +19,18 @@ output are 29 MB in bf16 (9 µs at 3.35 TB/s).
 Two kernels, one per route, chosen before the launch by ``route`` from
 dtype, head width, strides and data pointers alone:
 
-- ``"mma"`` (``csrc/flash_attention_mma.cu``): bf16 on the tensor cores —
-  ``mma.sync`` m16n8k16 products with f32 accumulators, K/V tiles of 64
-  keys through a two-stage ``cp.async`` ring, ldmatrix operands.  P
-  enters PV as two bf16 terms (hi + lo, p to 2^-17): rounded once, as the
-  Pallas kernel does, it is off by up to 2^-9 per weight, which on rows
-  with a few live keys is more than the attention check allows.  It
-  takes a call when the dtype is bf16, D ≤ 128 with D % 8 == 0, every
-  data pointer is 16-byte aligned and every batch, head and sequence
-  stride of an axis longer than 1 is a multiple of 8 elements: its
-  16-byte copies need all that.
+- ``"mma"`` (``csrc/flash_attention_wgmma.cu``): bf16 on Hopper's
+  warpgroup tensor cores — blocks of 128 query rows, two consumer
+  warpgroups running ``wgmma`` (Q·Kᵀ from shared memory, P·V with P in
+  registers and V read MN-major) with f32 accumulators, and a producer
+  warp feeding 128-key K/V tiles by TMA into a ring of stages with
+  ``mbarrier``s.  P enters PV as two bf16 terms (hi + lo, p to 2^-17):
+  rounded once, as the Pallas kernel does, it is off by up to 2^-9 per
+  weight, which on rows with a few live keys is more than the attention
+  check allows.  It takes a call when the dtype is bf16, D ≤ 128 with
+  D % 8 == 0, every data pointer is 16-byte aligned and every batch, head
+  and sequence stride of an axis longer than 1 is a multiple of 8
+  elements: TMA needs all that.
 - ``"simt"`` (``csrc/flash_attention_panel.cu``): the CUDA-core kernel in
   f32 arithmetic, for everything else — every f32 call, bf16 with D in
   (128, 256], and bf16 views that the 16-byte copies cannot read.  Each
@@ -76,6 +78,12 @@ the plain version gives.  ``flash_attention_backward_simt`` runs the
 CUDA-core kernel on any CUDA call: the card's oracle of the tensor-core
 route, called by no path.
 
+``flash_attention_mma_v1`` runs the first tensor-core kernel
+(``csrc/flash_attention_mma.cu``: ``mma.sync`` m16n8k16, 64 query rows and
+64-key tiles a block, a two-stage ``cp.async`` ring, ldmatrix operands) on
+any call the ``"mma"`` route takes; the card's tests and ``chip_smoke.py``
+hold the ``wgmma`` kernel to it.  Nothing else calls it.
+
 ``flash_attention_scalar`` runs the earlier CUDA-core kernel
 (``csrc/flash_attention.cu``: scalar shared loads, five barriers per
 32-key tile) on any call the ``"simt"`` route takes; the card's tests and
@@ -91,8 +99,8 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["flash_attention", "flash_attention_backward", "flash_attention_backward_simt", "flash_attention_scalar",
-           "route", "backward_route", "MAX_HEAD_DIM", "MMA_MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_backward", "flash_attention_backward_simt", "flash_attention_mma_v1",
+           "flash_attention_scalar", "route", "backward_route", "MAX_HEAD_DIM", "MMA_MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 MMA_MAX_HEAD_DIM = 128
@@ -102,6 +110,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_mma = 0
 launches_simt = 0
+launches_mma_v1 = 0  # launches of the first tensor-core kernel, through flash_attention_mma_v1 only
 launches_scalar = 0  # launches of the earlier CUDA-core kernel, through flash_attention_scalar only
 launches_bwd = 0  # calls of the backward (its launches counted once a call), in all and per route
 launches_bwd_mma = 0
@@ -212,13 +221,33 @@ def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int | N
     views = (q, k, v, out)
     which = route(q.dtype, q.shape[3], [t.shape for t in views], [t.stride() for t in views],
                   [t.data_ptr() for t in views])
-    entry = "repro_flash_attention_mma" if which == "mma" else "repro_flash_attention_panel"
+    entry = "repro_flash_attention_wgmma" if which == "mma" else "repro_flash_attention_panel"
     if _launch(entry, which, q, k, v, qpos, kpos, causal, window, out, lse):
         launches += 1
         if which == "mma":
             launches_mma += 1
         else:
             launches_simt += 1
+    return out
+
+
+def flash_attention_mma_v1(q, k, v, qpos, kpos, *, causal: bool = True, window: int | None = None,
+                           out: torch.Tensor | None = None, lse: torch.Tensor | None = None) -> torch.Tensor:
+    """``flash_attention`` through the first tensor-core kernel
+    (``csrc/flash_attention_mma.cu``), CUDA tensors the ``"mma"`` route
+    takes only: the card's oracle of the ``wgmma`` kernel."""
+    global launches_mma_v1
+    _checked_lse(lse, q)
+    if not _checked(q, k, v, qpos, kpos, out):
+        raise ValueError("flash_attention_mma_v1 runs the first tensor-core kernel: it takes CUDA tensors only")
+    if out is None:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    views = (q, k, v, out)
+    if route(q.dtype, q.shape[3], [t.shape for t in views], [t.stride() for t in views],
+             [t.data_ptr() for t in views]) != "mma":
+        raise ValueError("flash_attention_mma_v1 takes only the calls of the tensor-core route")
+    if _launch("repro_flash_attention_mma", "mma_v1", q, k, v, qpos, kpos, causal, window, out, lse):
+        launches_mma_v1 += 1
     return out
 
 

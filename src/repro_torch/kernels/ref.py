@@ -301,6 +301,47 @@ def gqa_flash_attention_backward_mma(q, k, v, o, lse, do, qpos, kpos, causal: bo
     return tuple(t.to(torch.bfloat16) for t in grads)
 
 
+def gqa_flash_attention_wgmma(q, k, v, qpos, kpos, causal: bool = True, window: int | None = None,
+                              tile: int = 128, split: bool = True):
+    """A plain model of ``csrc/flash_attention_wgmma.cu``'s arithmetic, for
+    the tests only: q, k and v as bf16 operands; each ``tile`` of keys in
+    order, its scores summed in f32 and scaled into the log2 domain
+    (1/√D · log2 e), a masked one set to −1e30; the online softmax over
+    the tiles (running row max m, p = 2^(s − m) in f32, the row sum l of
+    the f32 p, O rescaled by 2^(m_old − m_new)); P entering P·V as
+    ``bf16_terms`` — hi + lo, or with ``split=False`` rounded once, as the
+    Pallas kernel's ``p.astype(v.dtype)``; f32 sums; O / l rounded once to
+    q's dtype.  A row that met no live key gets the uniform mean of V over
+    the Sk keys.  The order of the f32 sums is the CPU's."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.to(torch.bfloat16).float().reshape(B, KV, G, Sq, D)
+    kf, vf = (t.to(torch.bfloat16).float() for t in (k, v))
+    sl = 1.0 / math.sqrt(D) * math.log2(math.e)
+    m = torch.full((B, KV, G, Sq), -1e30)
+    l = torch.zeros((B, KV, G, Sq))
+    o = torch.zeros((B, KV, G, Sq, D))
+    qp = qpos[:, None, None, :, None]
+    for t0 in range(0, Sk, tile):
+        kp = kpos[:, None, None, None, t0 : t0 + tile]
+        mask = kp < 0
+        if causal:
+            mask = mask | (kp > qp)
+        if window is not None:
+            mask = mask | (kp <= qp - window)
+        s = torch.where(mask, -1e30, torch.einsum("bkgqd,bksd->bkgqs", qf, kf[:, :, t0 : t0 + tile]) * sl)
+        mn = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - mn)
+        p = torch.exp2(s - mn[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum("bkgqs,bksd->bkgqd", bf16_terms(p, split), vf[:, :, t0 : t0 + tile])
+        m = mn
+    mean_v = vf.mean(2)[:, :, None, None, :]
+    out = torch.where((m > -1e30)[..., None], o / l.clamp_min(1e-30)[..., None], mean_v)
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
 def kahan_add(hi, err, delta):
     """Compensated accumulate: (hi, err) += delta with the running f32
     rounding error carried in err (the true sum is ``hi - err``)."""

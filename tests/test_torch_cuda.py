@@ -668,15 +668,24 @@ class TestCudaKernels:
         (1, 300, 311, 4, 4, 120, True, 33, 0, 9),
         (2, 300, 311, 6, 2, 128, True, 100, 20, 7),
         (1, 300, 311, 6, 2, 128, True, None, 0, 0),
+        (1, 333, 333, 4, 2, 112, True, None, 0, 0),
+        (1, 200, 515, 4, 1, 112, False, None, 30, 30),
+        (2, 257, 1500, 6, 6, 64, False, None, 0, 0),
         (2, 129, 700, 3, 3, 32, True, 64, 40, 0),
         (2, 100, 311, 4, 2, 64, False, None, 0, 9),
         (1, 70, 33_000, 2, 1, 64, True, 40_000, 0, 5),
+        (1, 70, 70_000, 2, 1, 128, True, None, 0, 5),
     ])
     def test_flash_mma(self, cuda_device, B, Sq, Sk, H, KV, D, causal, window, dead_head, dead_tail):
-        """bf16 through the tensor-core route: D padded to 16/32/64/128,
-        Sq and Sk not multiples of 64, G in {1, 3, 6}, windows, no causal
-        mask, dead keys at the head (rows with no live key) and the tail,
-        and Sk past 32,768 keys (the tile pre-scan's second chunk)."""
+        """bf16 through the tensor-core route (``csrc/flash_attention_wgmma.cu``):
+        D in {8, 32, 64, 112, 120, 128} padded to 64 or 128, Sq and Sk not
+        multiples of the 128-row block or the 128-key tile, Sq != Sk (cross
+        calls), G in {1, 2, 3, 4, 6}, windows, no causal mask, dead keys at
+        the head (rows with no live key) and the tail, Sk past 65,536 keys
+        (the tile pre-scan's second chunk); held to the plain version and to
+        the first tensor-core kernel (``flash_attention_mma_v1``) under
+        chip_smoke.py's bf16 readings, and its ``lse`` to the plain
+        log-sum-exp."""
         gen = torch.Generator(device=cuda_device).manual_seed(12)
         q = torch.randn(B, H, Sq, D, generator=gen, device=cuda_device).bfloat16()
         k = torch.randn(B, KV, Sk, D, generator=gen, device=cuda_device).bfloat16()
@@ -686,28 +695,45 @@ class TestCudaKernels:
         kpos[:, :dead_head] = -1
         kpos[:, Sk - dead_tail:] = -1
         _reset_fa_counts()
-        got = t_fa.flash_attention(q, k, v, qpos, kpos, causal=causal, window=window)
+        t_fa.launches_mma_v1 = 0
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=cuda_device)
+        got = t_fa.flash_attention(q, k, v, qpos, kpos, causal=causal, window=window, lse=lse)
+        old = t_fa.flash_attention_mma_v1(q, k, v, qpos, kpos, causal=causal, window=window)
         torch.cuda.synchronize()
-        assert _fa_counts() == (1, 0)
+        assert _fa_counts() == (1, 0) and t_fa.launches_mma_v1 == 1
         want = tref.gqa_flash_attention(q.cpu(), k.cpu(), v.cpu(), qpos.cpu(), kpos.cpu(), causal, window)
         live = (kpos[:, None, :] >= 0) & ((kpos[:, None, :] <= qpos[:, :, None]) | (not causal))
         assert bool((~live.any(-1)).any()) == (causal and dead_head > Sk - Sq)
         assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
         elem, row = _flash_reading(got.cpu(), want)
         assert elem <= 1 and row <= 1, (elem, row)
+        elem, row = _flash_reading(got, old)
+        assert elem <= 1 and row <= 1, ("against flash_attention_mma_v1", elem, row)
+        want_lse = tref.gqa_flash_lse(q, k, qpos, kpos, causal, window)
+        fin = torch.isfinite(want_lse)
+        assert torch.equal(torch.isinf(lse), ~fin) and bool((lse[~fin] > 0).all())
+        assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-5 * max(1.0, float(want_lse[fin].abs().max()))
 
-    def test_flash_mma_model_layout(self, cuda_device):
-        """ops.flash_attention in bf16 at Dh 120 (danube's width): the model
-        layout reaches the tensor-core route through strides."""
+    @pytest.mark.parametrize("D,window", [(120, 50), (64, None), (128, 70)])
+    def test_flash_mma_model_layout(self, cuda_device, D, window):
+        """ops.flash_attention in bf16 at Dh 120 (danube's width), 64 and
+        128: the model layout reaches the tensor-core route through strides
+        (TMA reads the (B, S, heads, D) views in place); held to the plain
+        version and to the first tensor-core kernel on the same views."""
         gen = torch.Generator(device=cuda_device).manual_seed(13)
-        q, k, v = (torch.randn(2, 200, h, 120, generator=gen, device=cuda_device).bfloat16() for h in (8, 2, 2))
+        q, k, v = (torch.randn(2, 200, h, D, generator=gen, device=cuda_device).bfloat16() for h in (8, 2, 2))
         _reset_fa_counts()
-        got = tops.flash_attention(q, k, v, window=50)
+        got = tops.flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
         assert _fa_counts() == (1, 0)
-        want = tops.flash_attention(q.cpu(), k.cpu(), v.cpu(), window=50)
+        want = tops.flash_attention(q.cpu(), k.cpu(), v.cpu(), window=window)
         elem, row = _flash_reading(got.cpu(), want)
         assert elem <= 1 and row <= 1, (elem, row)
+        pos = torch.arange(200, device=cuda_device, dtype=torch.int32).expand(2, 200).contiguous()
+        old = t_fa.flash_attention_mma_v1(*(t.transpose(1, 2) for t in (q, k, v)), pos, pos, causal=True,
+                                          window=window).transpose(1, 2)
+        elem, row = _flash_reading(got, old)
+        assert elem <= 1 and row <= 1, ("against flash_attention_mma_v1", elem, row)
 
     def test_flash_bf16_odd_stride_takes_simt(self, cuda_device):
         """A bf16 view whose sequence stride is not a multiple of 8 cannot
