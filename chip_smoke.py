@@ -13,7 +13,9 @@ Phases, each printing its own lines:
               instantiation (warp-select knn and bubble_cd, assign, the
               distance panel of pairwise and mutual_reach and its norm
               pass, the CUDA-core flash kernel, both flash backward
-              kernels; each must have no stack frame and no spills; and
+              kernels, the round minima and the strip distances and top-k
+              of the exact path; each must have no stack frame and no
+              spills; and
               the wgmma flash forward's two, reported, each required to
               launch at the 168 registers its setmaxnreg split assumes),
               and the flash kernel's query rows
@@ -362,9 +364,17 @@ Phases, each printing its own lines:
               query p50, peak memory (also of an insert through the first
               route, SW and smask built), no host read in an update body or
               a refresh before its unwrap (set_sync_debug_mode); the strip
-              kernels bit for bit their plain versions at the stream's
-              shapes (tie-free, an integer grid, a ragged Np, K = 10, 100,
-              2000), timed beside them, cdist and topk; the round minima
+              distances and top-k (csrc/strip_tiles.cu) bit for bit their
+              plain versions and their first kernels (csrc/dynamic.cu) at
+              the stream's shapes (tie-free, an integer grid, a ragged Np,
+              a row slice and a row view off 16 bytes, the rebuild's
+              square, K = 10, 100, 2000), timed in turns with the first
+              kernels, beside the plain versions, cdist (also on the
+              square) and topk, with both bounds of the distances (bytes,
+              and 3·U·Np·d FP32 instructions at half the FMA peak); one
+              insert block and one rebuild through the new and the first
+              strip kernels (states equal, walls in turns, the strip
+              launches' device time by CUDA events); the round minima
               from the strip's factors (csrc/strip_minima.cu, the update's
               route) on one insert block's captured strip (5,376 x 32,768)
               bit for bit its plain version and the first kernel
@@ -429,8 +439,14 @@ Phases, each printing its own lines:
      its device time, first_ms for the first kernel on the same inputs,
      full_ms / full_bound_ms with every row and slot live, the device time
      of every round and of one insert's Borůvka
-     through both routes), and strip_round_minima, the first version,
-     launched on no path (launches_oracle: its launches as the oracle);
+     through both routes; the distances with v1_ms, the first kernel's
+     time, their bytes and instruction bounds, the square's times and
+     bound and cdist's time there, and the insert's and the rebuild's
+     walls and strip-kernel device times through both kernels as insert
+     and rebuild; the top-k with v1_ms and its times at K = 100 and 2000),
+     and strip_round_minima, strip_dists_v1 and strip_topk_v1, the first
+     versions, launched on no path (launches_oracle: their launches as the
+     oracles);
      bubble_cd, mutual_reach, grid_core_distances and
      grid_round_minima also with launches_mesh, their launches on [mesh]'s
      mesh engines; assign, bubble_cd and mutual_reach also with
@@ -666,6 +682,8 @@ MINIMA_INSTANTIATIONS = 3  # strip_minima.cu: the tile kernel with and without 1
 # the round minima's label sets at the stream's strip: round 1 (every slot alone), components of ~1000 slots, one
 EXACT_MINIMA_LABELS = ("round 1", "~1000-slot components", "one component")
 NEW_MINIMA = ("minima_tile_kernel", "minima_merge_kernel")  # the kernels of the two round-minima launches
+STRIP_ORACLES = ("strip_dists_v1", "strip_topk_v1")  # csrc/dynamic.cu's first strip kernels: oracles on no path
+STRIP_INSTANTIATIONS = 1 + 6  # strip_tiles.cu: the distance tile, the top-k at each warp queue 32 ... 1024
 OLD_MINIMA = ("round_rows_kernel", "round_cols_kernel")
 SUMMARIZER_KERNELS = ("assign", "bubble_cd", "mutual_reach")
 SUMMARIZER_NMI = 0.95  # [summarizer]: against the numpy route (tests/test_summarizer.py's contract)
@@ -942,6 +960,18 @@ def ptxas_minima(log: str) -> dict:
     return ptxas_entries(log, entry)
 
 
+def ptxas_strip(log: str) -> dict:
+    """{(kernel, warp queue or 0): (registers, stack bytes, spill stores,
+    spill loads)} of csrc/strip_tiles.cu's kernels."""
+    import re
+
+    def entry(line):
+        m = re.search(r"Compiling entry function '\S*?strip_(dists_tile|topk_vec)_kernel(?:ILi(\d+)E)?", line)
+        return (m.group(1), int(m.group(2) or 0)) if m else None
+
+    return ptxas_entries(log, entry)
+
+
 def ptxas_entries(log: str, entry) -> dict:
     """{key: (registers, stack bytes, spill stores, spill loads)} of the
     entry functions for which ``entry(line)`` gives a key."""
@@ -1030,6 +1060,14 @@ def phase_build():
               f"{len(minima)} strip_minima.cu kernels in the ptxas report, not {MINIMA_INSTANTIATIONS}")
         bad = [key for key, v in minima.items() if v[1:] != (0, 0, 0)]
         check(not bad, f"strip_minima.cu kernels with a stack frame or spills: {bad}")
+        tiles = ptxas_strip(info["log"])
+        for (kern, K), (regs, stack, st, ld) in sorted(tiles.items()):
+            say(f"[build] strip_tiles.cu {kern}{f' K={K}' if K else ''}: {regs} registers, {stack} bytes stack, "
+                f"spill stores {st} loads {ld}")
+        check(len(tiles) == STRIP_INSTANTIATIONS,
+              f"{len(tiles)} strip_tiles.cu kernels in the ptxas report, not {STRIP_INSTANTIATIONS}")
+        bad = [key for key, v in tiles.items() if v[1:] != (0, 0, 0)]
+        check(not bad, f"strip_tiles.cu kernels with a stack frame or spills: {bad}")
     lib = _build.load()
     for dtype, name in ((0, "f32"), (1, "bf16")):
         plans = []
@@ -6120,8 +6158,9 @@ def phase_exact(dev, card):
     check(overflows["small delete"] == 0, f"[exact] a delete block of {small} overflowed: the delete rule never ran")
     stream_s = time.perf_counter() - stream_t0
     launches = exact_counts()
-    check(all(launches[k] > 0 for k in EXACT_KERNELS) and launches["strip_round_minima"] == 0,
-          f"[exact] stream launches {launches}: the first round-minima kernel is the factor kernel's oracle only")
+    check(all(launches[k] > 0 for k in EXACT_KERNELS) and launches["strip_round_minima"] == 0
+          and all(launches[k] == 0 for k in STRIP_ORACLES),
+          f"[exact] stream launches {launches}: the first round-minima, distance and top-k kernels are oracles only")
     say(f"[exact] stream: {EXACT_BLOCKS} alternating blocks of {EXACT_BLOCK} ({EXACT_BLOCK / EXACT_N:.2%} of n) and "
         f"{n_small} delete blocks of {small}, every one routed incremental and checked against a rebuild from "
         f"scratch (knn_dst, cd bit for bit; {tally['tied']} rows whose knn_idx differ only at the K-th distance; MST "
@@ -6409,11 +6448,14 @@ def exact_times(dev, eng, rng):
 
 def exact_kernels(dev, h, U, fresh):
     """The strip kernels at the stream's shapes (U = Bp + rk_cap = 5,376 and
-    the rebuild's 32,768 rows, Np = 32,768), bit for bit their plain
-    versions on tie-free (the stream's state) and duplicate-heavy (an
-    integer grid) data, with an Np that is no multiple of the tile, K = 10,
-    100 and 2000; kernel, plain and library times and the bounds; the
-    round minima in ``exact_minima``."""
+    the rebuild's 32,768 rows, Np = 32,768): the distances and the top-k
+    (csrc/strip_tiles.cu) bit for bit their plain versions and their first
+    kernels (csrc/dynamic.cu) on tie-free (the stream's state) and
+    duplicate-heavy (an integer grid) data, with an Np that is no multiple
+    of the tile, a row view at an offset that is no multiple of 16 bytes
+    and K = 10, 100 and 2000; new, first-kernel, plain and library times in
+    turns and the bounds; an insert block's and a rebuild's strip kernels
+    in ``exact_strip_path``; the round minima in ``exact_minima``."""
     import torch
 
     from repro_torch.kernels import dynamic as k_dyn
@@ -6428,7 +6470,7 @@ def exact_kernels(dev, h, U, fresh):
     valid = torch.ones(U, dtype=torch.bool, device=dev)
     out = {}
 
-    errs = dict.fromkeys(EXACT_KERNELS, 0.0)
+    errs = dict.fromkeys(EXACT_KERNELS + STRIP_ORACLES, 0.0)
 
     def same(name, got, want):
         """Every output bit for bit; the largest absolute difference (equal
@@ -6444,53 +6486,184 @@ def exact_kernels(dev, h, U, fresh):
                     a, b = a.masked_fill(both, 0.0), b.masked_fill(both, 0.0)
                 errs[kernel] = max(errs[kernel], abs_diff(a, b))
 
-    # strip_dists: the insert strip and the rebuild's square, tie-free and grid, and a ragged Np
+    def both(name, fn, fn_v1, plain, *args):
+        """The new kernel and the first against the plain version's result."""
+        want = plain(*args)
+        same(name, fn(*args), want)
+        same(name.replace(" ", "_v1 ", 1) if " " in name else name + "_v1", fn_v1(*args), want)
+        return want
+
+    oracle0 = {k: k_dyn.launches[k] for k in STRIP_ORACLES}
+    # strip_dists: the insert strip, a ragged Np of integer-grid rows, the rebuild's square
     grid = torch.as_tensor(gen.integers(-6, 7, size=(Np - 13, d)), dtype=torch.float32, device=dev)
-    D = k_dyn.strip_dists(rows, X)
-    same("strip_dists", D, ref.strip_dists(rows, X))
-    same("strip_dists grid", k_dyn.strip_dists(grid[:777], grid), ref.strip_dists(grid[:777], grid))
-    full = k_dyn.strip_dists(X, X)
-    same("strip_dists square", full, ref.strip_dists(X, X))
-    del full
-    ms = time_ms(lambda: k_dyn.strip_dists(rows, X), reps=10)
-    ms_sq = time_ms(lambda: k_dyn.strip_dists(X, X), reps=3, warm=1)
+    D = both("strip_dists strip", k_dyn.strip_dists, k_dyn.strip_dists_v1, ref.strip_dists, rows, X)
+    both("strip_dists grid", k_dyn.strip_dists, k_dyn.strip_dists_v1, ref.strip_dists, grid[:777], grid)
+    both("strip_dists square", k_dyn.strip_dists, k_dyn.strip_dists_v1, ref.strip_dists, X, X)
+    # a row slice at an offset that is no multiple of 16 bytes (Np - 13 is odd), as the insert writes D_strip[Bp:]
+    buf = torch.full((779, Np - 13), -7.0, device=dev)
+    k_dyn.strip_dists(grid[:777], grid, out=buf[1:778])
+    same("strip_dists row slice", buf[1:778], ref.strip_dists(grid[:777], grid))
+    check(bool((buf[0] == -7.0).all()) and bool((buf[778] == -7.0).all()),
+          "[exact] strip_dists wrote outside its row slice")
+    del buf
+    torch.cuda.empty_cache()
+    t = dict(zip(("new", "v1"), in_turns(lambda: k_dyn.strip_dists(rows, X), lambda: k_dyn.strip_dists_v1(rows, X),
+                                         reps=10)))
+    t_sq = dict(zip(("new", "v1"), in_turns(lambda: k_dyn.strip_dists(X, X), lambda: k_dyn.strip_dists_v1(X, X),
+                                            reps=3)))
     plain = time_ms(lambda: ref.strip_dists(rows, X), reps=1, warm=1)
     lib = time_ms(lambda: torch.cdist(rows, X), reps=10)
-    b, by = bound_ms(3.0 * U * Np * d, 4.0 * (U * Np + (U + Np) * d))
-    b_sq, by_sq = bound_ms(3.0 * Np * Np * d, 4.0 * (Np * Np + 2 * Np * d))
-    out["strip_dists"] = dict(max_abs_err=errs["strip_dists"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
-    say(f"[exact] strip_dists ({U} x {Np}, d = {d}): kernel {ms:.4f} ms, plain {plain:.2f}, cdist {lib:.4f}, "
-        f"bound {b:.4f} ({by}); the rebuild's {Np} x {Np}: kernel {ms_sq:.3f} ms, bound {b_sq:.3f} ({by_sq}); bit "
-        f"for bit the plain version (also a {777} x {Np - 13} integer grid)")
+    lib_sq = time_ms(lambda: torch.cdist(X, X), reps=3, warm=1)
+    torch.cuda.empty_cache()
 
-    # strip_topk at K = 10 (the path's), 100 and 2000, tie-free and grid
-    sw = []
-    for K in EXACT_TOPK:
-        same(f"strip_topk K={K}", k_dyn.strip_topk(D, ids, valid, alive, K), ref.strip_topk(D, ids, valid, alive, K))
-        sw.append(f"K = {K} {time_ms(lambda: k_dyn.strip_topk(D, ids, valid, alive, K), reps=5):.4f} ms")
+    def dist_bounds(n):
+        """(bound, by) of an (n, Np) strip: the larger of its bytes and its
+        3·n·Np·d FP32 instructions (no FMA) at half the FMA peak; and both."""
+        nbytes = 4.0 * (n * Np + (n + Np) * d)
+        b_ops, _ = bound_ms(3.0 * n * Np * d, 0.0, PEAK_F32_FLOPS / 2)
+        b_bytes, _ = bound_ms(0.0, nbytes)
+        b, by = bound_ms(3.0 * n * Np * d, nbytes, PEAK_F32_FLOPS / 2)
+        return b, by, b_bytes, b_ops
+
+    b, by, b_bytes, b_ops = dist_bounds(U)
+    b_sq, by_sq, b_sq_bytes, b_sq_ops = dist_bounds(Np)
+    out["strip_dists"] = dict(max_abs_err=errs["strip_dists"], ms=t["new"], plain_ms=plain, bound_ms=b, bound_by=by,
+                              library_ms=lib, v1_ms=t["v1"], bytes_bound_ms=b_bytes, instr_bound_ms=b_ops,
+                              square_ms=t_sq["new"], square_v1_ms=t_sq["v1"], square_bound_ms=b_sq,
+                              square_library_ms=lib_sq)
+    out["strip_dists_v1"] = dict(max_abs_err=errs["strip_dists_v1"], ms=t["v1"], plain_ms=plain, bound_ms=b,
+                                 bound_by=by, library_ms=lib, square_ms=t_sq["v1"])
+    say(f"[exact] strip_dists ({U} x {Np}, d = {d}; csrc/strip_tiles.cu): kernel {t['new']:.4f} ms, the first kernel "
+        f"{t['v1']:.4f} ({t['v1'] / t['new']:.2f}x; in turns), plain {plain:.2f}, cdist {lib:.4f}, bound {b:.4f} "
+        f"({by}: bytes {b_bytes:.4f}, 3·U·Np·d FP32 instructions at half the FMA peak {b_ops:.4f}); the rebuild's "
+        f"{Np} x {Np}: kernel {t_sq['new']:.3f} ms, the first kernel {t_sq['v1']:.3f}, cdist {lib_sq:.3f}, bound "
+        f"{b_sq:.3f} ({by_sq}: bytes {b_sq_bytes:.3f}, instructions {b_sq_ops:.3f}); bit for bit the plain version "
+        f"and the first kernel (also a 777 x {Np - 13} integer grid and a row slice of it at an odd offset)")
+
+    # strip_topk at K = 10 (the path's), 100 and 2000: the strip, the grid (Np % 4 = 3), a row view off 16 bytes
     Dg = ref.strip_dists(grid[:777], grid)
-    g_alive = torch.ones(Np - 13, dtype=torch.bool, device=dev)
+    g_alive = torch.as_tensor(gen.random(Np - 13) < 0.8, device=dev)
     g_ids = torch.arange(777, device=dev)
     g_valid = torch.ones(777, dtype=torch.bool, device=dev)
     for K in EXACT_TOPK:
-        same(f"strip_topk grid K={K}", k_dyn.strip_topk(Dg, g_ids, g_valid, g_alive, K),
-             ref.strip_topk(Dg, g_ids, g_valid, g_alive, K))
-    ms = time_ms(lambda: k_dyn.strip_topk(D, ids, valid, alive, MIN_PTS), reps=10)
+        both(f"strip_topk K={K}", k_dyn.strip_topk, k_dyn.strip_topk_v1, ref.strip_topk, D, ids, valid, alive, K)
+        both(f"strip_topk grid K={K}", k_dyn.strip_topk, k_dyn.strip_topk_v1, ref.strip_topk, Dg, g_ids, g_valid,
+             g_alive, K)
+        both(f"strip_topk view K={K}", k_dyn.strip_topk, k_dyn.strip_topk_v1, ref.strip_topk, Dg[1:], g_ids[1:],
+             g_valid[1:], g_alive, K)
+    sw = []
+    for K in EXACT_TOPK:
+        a, c = in_turns(lambda: k_dyn.strip_topk(D, ids, valid, alive, K),
+                        lambda: k_dyn.strip_topk_v1(D, ids, valid, alive, K), reps=5)
+        sw.append((K, a, c, bound_ms(0.0, 4.0 * U * Np + Np + U * (4 + 1 + 8 * K))[0]))
+    ms, ms_v1 = sw[0][1], sw[0][2]
     plain = time_ms(lambda: ref.strip_topk(D, ids, valid, alive, MIN_PTS), reps=1, warm=1)
     iota = torch.arange(Np, device=dev)
     Dm = torch.where(alive[None, :] & (iota[None, :] != ids[:, None]), D, float("inf"))
     lib = time_ms(lambda: torch.topk(Dm, MIN_PTS, dim=1, largest=False), reps=10)
     b, by = bound_ms(0.0, 4.0 * U * Np + Np + U * (4 + 1 + 8 * MIN_PTS))
-    out["strip_topk"] = dict(max_abs_err=errs["strip_topk"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
-    say(f"[exact] strip_topk ({U} x {Np}, K = {MIN_PTS}): kernel {ms:.4f} ms, plain {plain:.2f}, torch.topk on the "
-        f"masked strip {lib:.4f}, bound {b:.4f} ({by}); " + ", ".join(sw) + "; bit for bit the plain version at "
-        f"every K, also on a 777 x {Np - 13} integer grid")
+    by_k = {K: dict(ms=a, v1_ms=c, bound_ms=bb) for K, a, c, bb in sw}
+    out["strip_topk"] = dict(max_abs_err=errs["strip_topk"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                             library_ms=lib, v1_ms=ms_v1, k100=by_k[100], k2000=by_k[K_STRIP])
+    out["strip_topk_v1"] = dict(max_abs_err=errs["strip_topk_v1"], ms=ms_v1, plain_ms=plain, bound_ms=b, bound_by=by,
+                                library_ms=lib, k100_ms=by_k[100]["v1_ms"], k2000_ms=by_k[K_STRIP]["v1_ms"])
+    say(f"[exact] strip_topk ({U} x {Np}, K = {MIN_PTS}; csrc/strip_tiles.cu): kernel {ms:.4f} ms, the first kernel "
+        f"{ms_v1:.4f} ({ms_v1 / ms:.2f}x; in turns), plain {plain:.2f}, torch.topk on the masked strip {lib:.4f}, "
+        f"bound {b:.4f} ({by}); by K (kernel / first kernel / bound): " + ", ".join(
+            f"{K}: {a:.4f} / {c:.4f} / {bb:.4f}" for K, a, c, bb in sw) + "; bit for bit the plain version and the "
+        f"first kernel at every K, also on a 777 x {Np - 13} integer grid and a row view of it off 16 bytes")
     del Dm, Dg
 
     del D
+    out["strip_dists"].update(exact_strip_path(dev, h, fresh))  # insert and rebuild: both strip kernels' device time
+    for k in STRIP_ORACLES:
+        out[k]["launches_oracle"] = k_dyn.launches[k] - oracle0[k]
+        check(out[k]["launches_oracle"] > 0, f"[exact] {k} never ran as the oracle")
     out.update(exact_minima(dev, h, fresh))
     k_dyn.launches.update(counts)  # the checks' launches are not the path's
     return out
+
+
+def timed_strips(which: str, spans: list):
+    """A context in which kernels/dynamic.py's strip_dists and strip_topk
+    launch the redesigned kernels (``which`` "new") or the first ones
+    ("v1"), each call bracketed by CUDA events appended to ``spans``: the
+    device time of each strip launch, whatever the host does between."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.kernels import dynamic as k_dyn
+
+    def timed(fn):
+        def call(*args, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            spans.append((a, b))
+            return out
+
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = k_dyn.strip_dists, k_dyn.strip_topk
+        base = (k_dyn.strip_dists_v1, k_dyn.strip_topk_v1) if which == "v1" else saved
+        k_dyn.strip_dists, k_dyn.strip_topk = timed(base[0]), timed(base[1])
+        try:
+            yield
+        finally:
+            k_dyn.strip_dists, k_dyn.strip_topk = saved
+
+    return ctx()
+
+
+def exact_strip_path(dev, h, fresh):
+    """One insert block of EXACT_BLOCK unseen points on the stream's final
+    state (``dt.insert_batch``: two strip_dists and two strip_topk launches
+    into one 5,376 x 32,768 strip) and one rebuild of that state
+    (``dt.rebuild``: the 32,768² square and its top-k), through the
+    redesigned kernels and through the first ones: the states equal, walls
+    in turns, and the strip launches' device time (CUDA events around each
+    launch, the mean of the two calls of each)."""
+    import torch
+
+    from repro_torch.core import dynamic_torch as dt
+
+    P = torch.as_tensor(fresh[:EXACT_BLOCK], dtype=torch.float32, device=dev)
+    free = torch.as_tensor(h._free[-EXACT_BLOCK:][::-1], device=dev)
+    valid = torch.ones(EXACT_BLOCK, dtype=torch.bool, device=dev)
+    rk_cap = h._eff_cap(EXACT_BLOCK)
+    calls = {"insert": lambda: dt.insert_batch(h.state, P, free, valid, min_pts=MIN_PTS, rk_cap=rk_cap),
+             "rebuild": lambda: dt.rebuild(h.state, min_pts=MIN_PTS)}
+    res = {}
+    for name, fn in calls.items():
+        a = fn()
+        with timed_strips("v1", []):
+            b = fn()
+        bad = state_equal(a, b)
+        check(not bad, f"[exact] the {name} through the first strip kernels differs in {bad}")
+        del a, b
+        walls, spans = {"new": [], "v1": []}, {"new": [], "v1": []}
+        for which in ("new", "v1", "v1", "new"):
+            with timed_strips(which, spans[which]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[which].append((time.perf_counter() - t0) * 1e3)
+        launches = {w: len(v) // 2 for w, v in spans.items()}
+        check(launches["new"] == launches["v1"] > 0, f"[exact] strip launches in the {name}: {launches}")
+        strip_ms = {w: sum(x.elapsed_time(y) for x, y in v) / 2 for w, v in spans.items()}
+        res[name] = dict(wall_ms=min(walls["new"]), v1_wall_ms=min(walls["v1"]), strip_device_ms=strip_ms["new"],
+                         v1_strip_device_ms=strip_ms["v1"], strip_launches=launches["new"])
+        say(f"[exact] one {name} ({'a block of ' + str(EXACT_BLOCK) if name == 'insert' else 'Np = ' + str(h.capacity)}) "
+            f"through the redesigned strip kernels / the first ones, states equal: wall (ms, in turns) "
+            f"{', '.join(f'{w:.2f}' for w in walls['new'])} / {', '.join(f'{w:.2f}' for w in walls['v1'])}; device "
+            f"time of its {launches['new']} strip launches (CUDA events around each) {strip_ms['new']:.3f} / "
+            f"{strip_ms['v1']:.3f} ms")
+    return res
 
 
 def built_strip(D, cd, sids, rv, alive):
@@ -6979,8 +7152,11 @@ def main() -> int:
                "grid_core_distances": ("grid.cu", "src/repro/kernels/grid.py:222"),
                "grid_round_minima": ("grid.cu", "src/repro/core/mst.py:392"),
                # no Pallas kernel: the jnp strip programs of the exact-dynamic path (exact=True)
-               "strip_dists": ("dynamic.cu", "src/repro/core/dynamic_jax.py:145"),
-               "strip_topk": ("dynamic.cu", "src/repro/core/dynamic_jax.py:187"),
+               "strip_dists": ("strip_tiles.cu", "src/repro/core/dynamic_jax.py:145"),
+               "strip_topk": ("strip_tiles.cu", "src/repro/core/dynamic_jax.py:187"),
+               # the first versions: the redesigned kernels' oracles, launched on no path
+               "strip_dists_v1": ("dynamic.cu", "src/repro/core/dynamic_jax.py:145"),
+               "strip_topk_v1": ("dynamic.cu", "src/repro/core/dynamic_jax.py:187"),
                # the first version: the factor kernel's oracle, launched on no path
                "strip_round_minima": ("dynamic.cu", "src/repro/core/mst.py:777"),
                "strip_round_minima_from_dists": ("strip_minima.cu", "src/repro/core/mst.py:777")}

@@ -1,6 +1,8 @@
-"""The exact-dynamic engine's strip work: launch wrappers of the three CUDA
-kernels of ``csrc/dynamic.cu`` and of the round minima's redesign,
-``csrc/strip_minima.cu``.
+"""The exact-dynamic engine's strip work: launch wrappers of the strip
+kernels redesigned for Hopper (``csrc/strip_tiles.cu``: the distances and
+the top-k), of the round minima's redesign (``csrc/strip_minima.cu``) and
+of the first versions of all three (``csrc/dynamic.cu``), which stay as
+their bitwise oracles and run on no path.
 
 The PyTorch counterpart of the jnp strip programs of the JAX package's
 exact-dynamic path (``repro/core/dynamic_jax.py`` and
@@ -21,10 +23,13 @@ exact-dynamic path (``repro/core/dynamic_jax.py`` and
                           in the kernel: the update's route.  The first
                           form stays as its bitwise oracle.
 
-Each is bit for bit its plain version in ``kernels/ref.py``: a tensor on
-the CPU takes the plain version, a CUDA tensor launches the kernel, and any
-other device raises.  Bounds on the H100: bytes, in every case (the
-source's header says why and what the design does about it).
+``strip_dists_v1`` and ``strip_topk_v1`` launch the first kernels of the
+distances and the top-k, the oracles of the redesign.  Each wrapper is bit
+for bit its plain version in ``kernels/ref.py``: a tensor on the CPU takes
+the plain version, a CUDA tensor launches the kernel, and any other device
+raises.  Bounds on the H100: instructions for the distances (3·U·Np·d FP32
+instructions, no FMA), bytes for the rest (each source's header says why
+and what the design does about it).
 """
 
 from __future__ import annotations
@@ -38,11 +43,13 @@ from . import _build
 from . import ref as _ref
 from .hierarchy import _on_card
 
-__all__ = ["strip_dists", "strip_topk", "strip_round_minima", "strip_round_minima_from_dists", "launches"]
+__all__ = ["strip_dists", "strip_dists_v1", "strip_topk", "strip_topk_v1", "strip_round_minima",
+           "strip_round_minima_from_dists", "launches"]
 
 _INT32_MAX = 2**31 - 1
 
-launches = {"strip_dists": 0, "strip_topk": 0, "strip_round_minima": 0, "strip_round_minima_from_dists": 0}
+launches = {"strip_dists": 0, "strip_topk": 0, "strip_round_minima": 0, "strip_round_minima_from_dists": 0,
+            "strip_dists_v1": 0, "strip_topk_v1": 0}
 
 
 def _launch(name: str, entry: str, device, *args) -> None:
@@ -56,39 +63,59 @@ def _launch(name: str, entry: str, device, *args) -> None:
 def strip_dists(rows: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """(U, d) rows and (Np, d) slots → (U, Np) f32 diff-form distances
     ``sqrt(Σ_k (rows[u, k] − X[j, k])²)``, the sum in ascending k with no
-    FMA.  ``out``: a contiguous (U, Np) f32 buffer to write into (a row
-    slice of a larger strip)."""
-    on_card = _on_card("strip_dists", rows, X)
+    FMA (``csrc/strip_tiles.cu``).  ``out``: a contiguous (U, Np) f32
+    buffer to write into (a row slice of a larger strip, at any offset)."""
+    return _dists("strip_dists", "repro_strip_dists_tiles_f32", rows, X, out)
+
+
+def strip_dists_v1(rows: torch.Tensor, X: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """``strip_dists`` through its first kernel (``csrc/dynamic.cu``), the
+    redesign's bitwise oracle: no path calls it."""
+    return _dists("strip_dists_v1", "repro_strip_dists_f32", rows, X, out)
+
+
+def _dists(name: str, entry: str, rows, X, out):
+    on_card = _on_card(name, rows, X)
     if rows.dim() != 2 or X.dim() != 2 or rows.shape[1] != X.shape[1]:
-        raise ValueError(f"strip_dists wants (U, d) rows and (Np, d) slots, got {tuple(rows.shape)} "
+        raise ValueError(f"{name} wants (U, d) rows and (Np, d) slots, got {tuple(rows.shape)} "
                          f"and {tuple(X.shape)}")
     U, Np = rows.shape[0], X.shape[0]
     if out is not None and (out.shape != (U, Np) or out.dtype != torch.float32 or not out.is_contiguous()
                             or out.device != X.device):
-        raise ValueError(f"strip_dists writes a contiguous ({U}, {Np}) f32 buffer on {X.device}")
+        raise ValueError(f"{name} writes a contiguous ({U}, {Np}) f32 buffer on {X.device}")
     if not on_card:
         res = _ref.strip_dists(rows, X)
         return res if out is None else out.copy_(res)
     rows, X = rows.float().contiguous(), X.float().contiguous()
     out = torch.empty((U, Np), dtype=torch.float32, device=X.device) if out is None else out
     if U * Np:
-        _launch("strip_dists", "repro_strip_dists_f32", X.device,
-                rows.data_ptr(), U, X.data_ptr(), Np, rows.shape[1], out.data_ptr())
+        _launch(name, entry, X.device, rows.data_ptr(), U, X.data_ptr(), Np, rows.shape[1], out.data_ptr())
     return out
 
 
 def strip_topk(D: torch.Tensor, row_ids, row_valid, alive, K: int):
-    """Per row u of the (U, Np) strip ``D`` (distances ≥ 0), the K smallest
-    (distance, column) pairs over the columns j with ``row_valid[u] &
-    alive[j] & (j != row_ids[u])``, ascending with ties at the lowest
-    column, padded with (+inf, −1).  Returns ((U, K) f32, (U, K) int32)."""
-    on_card = _on_card("strip_topk", D, row_ids, row_valid, alive)
+    """Per row u of the (U, Np) strip ``D`` (distances ≥ 0, a row view at
+    any offset), the K smallest (distance, column) pairs over the columns
+    j with ``row_valid[u] & alive[j] & (j != row_ids[u])``, ascending with
+    ties at the lowest column, padded with (+inf, −1)
+    (``csrc/strip_tiles.cu``).  Returns ((U, K) f32, (U, K) int32)."""
+    return _topk("strip_topk", "repro_strip_topk_tiles_f32", D, row_ids, row_valid, alive, K)
+
+
+def strip_topk_v1(D: torch.Tensor, row_ids, row_valid, alive, K: int):
+    """``strip_topk`` through its first kernel (``csrc/dynamic.cu``), the
+    redesign's bitwise oracle: no path calls it."""
+    return _topk("strip_topk_v1", "repro_strip_topk_f32", D, row_ids, row_valid, alive, K)
+
+
+def _topk(name: str, entry: str, D, row_ids, row_valid, alive, K):
+    on_card = _on_card(name, D, row_ids, row_valid, alive)
     if D.dim() != 2:
-        raise ValueError(f"strip_topk wants a (U, Np) strip, got {tuple(D.shape)}")
+        raise ValueError(f"{name} wants a (U, Np) strip, got {tuple(D.shape)}")
     U, Np = D.shape
     K = int(K)
     if row_ids.shape != (U,) or row_valid.shape != (U,) or alive.shape != (Np,) or K < 1:
-        raise ValueError(f"strip_topk wants ({U},) row ids and validity, ({Np},) alive and K >= 1")
+        raise ValueError(f"{name} wants ({U},) row ids and validity, ({Np},) alive and K >= 1")
     if not on_card:
         return _ref.strip_topk(D, row_ids, row_valid.bool(), alive.bool(), K)
     D = D.float().contiguous()
@@ -97,8 +124,8 @@ def strip_topk(D: torch.Tensor, row_ids, row_valid, alive, K: int):
     out_d = torch.empty((U, K), dtype=torch.float32, device=D.device)
     out_i = torch.empty((U, K), dtype=torch.int32, device=D.device)
     if U:
-        _launch("strip_topk", "repro_strip_topk_f32", D.device, D.data_ptr(), U, Np, row_ids.data_ptr(),
-                row_valid.data_ptr(), alive.data_ptr(), K, out_d.data_ptr(), out_i.data_ptr())
+        _launch(name, entry, D.device, D.data_ptr(), U, Np, row_ids.data_ptr(), row_valid.data_ptr(),
+                alive.data_ptr(), K, out_d.data_ptr(), out_i.data_ptr())
     return out_d, out_i
 
 

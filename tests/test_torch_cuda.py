@@ -1205,18 +1205,53 @@ def _fma_probe_rows(rng, d=4):
 
 @pytest.mark.cuda
 class TestCudaDynamic:
-    """The exact-dynamic engine's three kernels (``csrc/dynamic.cu``) bit for
-    bit their plain versions: ragged U and Np (multiples of no tile), tie
-    heavy integer grids, K not a multiple of 32 and past the 1024 queue, an
-    FMA probe; the factor kernel of the round minima
-    (``csrc/strip_minima.cu``) bit for bit its plain version and the first
-    kernel fed the SW and smask built from the same factors (U = 1, ragged
-    shapes, invalid rows, ties, one component, repeated strip ids, an E at
-    int32's limit, an unaligned strip); then a small engine on the card
+    """The exact-dynamic engine's strip kernels bit for bit their plain
+    versions: the distances and the top-k (``csrc/strip_tiles.cu``) also
+    bit for bit their first kernels (``csrc/dynamic.cu``, the wrappers
+    ``strip_dists_v1`` / ``strip_topk_v1``), each wrapper one launch a call
+    with the first kernels' counters left at 0: ragged U and Np (multiples
+    of no tile), d from 1 to 200, tie heavy integer grids, K not a multiple
+    of 32 and past the 1024 queue, an FMA probe, a write into a row slice at
+    an offset that is no multiple of 16 bytes, strips whose rows start at
+    every alignment, invalid rows, fewer live columns than K, a row's own
+    index at every place of a 16-byte load; the factor kernel of the round
+    minima (``csrc/strip_minima.cu``) bit for bit its plain version and the
+    first kernel fed the SW and smask built from the same factors (U = 1,
+    ragged shapes, invalid rows, ties, one component, repeated strip ids, an
+    E at int32's limit, an unaligned strip); then a small engine on the card
     against the same engine on the CPU, state for state."""
 
+    @staticmethod
+    def _dists_three_ways(t_dyn, r, x, out=None):
+        """The new kernel (one launch, the first kernel's counter untouched)
+        against the plain version on the card and the CPU and the first
+        kernel."""
+        for k in ("strip_dists", "strip_dists_v1"):
+            t_dyn.launches[k] = 0
+        got = t_dyn.strip_dists(r, x, out=out)
+        assert t_dyn.launches["strip_dists"] == 1 and t_dyn.launches["strip_dists_v1"] == 0
+        assert torch.equal(got, tref.strip_dists(r, x))
+        assert torch.equal(got.cpu(), tref.strip_dists(r.cpu(), x.cpu()))
+        assert torch.equal(got, t_dyn.strip_dists_v1(r, x))
+        return got
+
+    @staticmethod
+    def _topk_three_ways(t_dyn, D, row_ids, valid, alive, K):
+        """The new kernel (one launch, the first kernel's counter untouched)
+        against the plain version and the first kernel."""
+        for k in ("strip_topk", "strip_topk_v1"):
+            t_dyn.launches[k] = 0
+        gd, gi = t_dyn.strip_topk(D, row_ids, valid, alive, K)
+        assert t_dyn.launches["strip_topk"] == 1 and t_dyn.launches["strip_topk_v1"] == 0
+        wd, wi = tref.strip_topk(D, row_ids, valid, alive, K)
+        assert torch.equal(gd, wd) and torch.equal(gi, wi)
+        vd, vi = t_dyn.strip_topk_v1(D, row_ids, valid, alive, K)
+        assert torch.equal(gd, vd) and torch.equal(gi, vi)
+        return gd, gi
+
     @pytest.mark.parametrize("case", ["spread", "grid", "offset"])
-    @pytest.mark.parametrize("shape", [(37, 1001, 3), (64, 128, 16), (5, 77, 40)])
+    @pytest.mark.parametrize("shape", [(37, 1001, 3), (64, 128, 16), (5, 77, 40), (129, 1001, 1), (300, 4099, 16),
+                                       (131, 257, 17), (77, 130, 200)])
     def test_strip_dists_bitwise(self, cuda_device, case, shape):
         from repro_torch.kernels import dynamic as t_dyn
 
@@ -1228,23 +1263,34 @@ class TestCudaDynamic:
             X = (rng.normal(size=(Np, d)) * 3 + (1e3 if case == "offset" else 0)).astype(np.float32)
         rows = X[rng.integers(0, Np, size=U)]
         x, r = _t(X).to(cuda_device), _t(rows).to(cuda_device)
-        t_dyn.launches["strip_dists"] = 0
-        got = t_dyn.strip_dists(r, x)
-        assert t_dyn.launches["strip_dists"] == 1
-        assert torch.equal(got, tref.strip_dists(r, x))
-        assert torch.equal(got.cpu(), tref.strip_dists(r.cpu(), x.cpu()))
+        self._dists_three_ways(t_dyn, r, x)
 
-    @pytest.mark.parametrize("d", [4, 16])
+    @pytest.mark.parametrize("d", [4, 16, 17, 40])
     def test_strip_dists_fma_probe(self, cuda_device, d):
         from repro_torch.kernels import dynamic as t_dyn
 
         a = _t(_fma_probe_rows(np.random.default_rng(d), d)).to(cuda_device)
-        got = t_dyn.strip_dists(a[:1], a)
-        assert torch.equal(got, tref.strip_dists(a[:1], a))
-        assert torch.equal(got.cpu(), tref.strip_dists(a[:1].cpu(), a.cpu()))
+        self._dists_three_ways(t_dyn, a[:1], a)
+
+    @pytest.mark.parametrize("Np,row0", [(1001, 1), (1001, 5), (1003, 3), (4096, 1), (130, 2)])
+    def test_strip_dists_out_row_slice(self, cuda_device, Np, row0):
+        """``out=`` a row slice of a larger strip starting at an offset that
+        is no multiple of 16 bytes (odd Np: every row's alignment differs);
+        the rows around it are untouched."""
+        from repro_torch.kernels import dynamic as t_dyn
+
+        rng = np.random.default_rng(Np + row0)
+        U = 133
+        X = (rng.normal(size=(Np, 16)) * 3 + 50).astype(np.float32)
+        x = _t(X).to(cuda_device)
+        r = x[torch.as_tensor(rng.integers(0, Np, size=U), device=cuda_device)]
+        buf = torch.full((row0 + U + 2, Np), -7.0, device=cuda_device)
+        self._dists_three_ways(t_dyn, r, x, out=buf[row0 : row0 + U])
+        assert torch.equal(buf[row0 : row0 + U], tref.strip_dists(r, x))
+        assert bool((buf[:row0] == -7.0).all()) and bool((buf[row0 + U :] == -7.0).all())
 
     @pytest.mark.parametrize("case", ["spread", "grid"])
-    @pytest.mark.parametrize("K", [1, 10, 33, 100, 1024, 1500])
+    @pytest.mark.parametrize("K", [1, 10, 33, 100, 1024, 1025, 1500, 2000])
     def test_strip_topk_bitwise(self, cuda_device, case, K):
         from repro_torch.kernels import dynamic as t_dyn
 
@@ -1257,11 +1303,56 @@ class TestCudaDynamic:
         row_ids = torch.as_tensor(ids, device=cuda_device)
         valid = torch.as_tensor(rng.random(U) < 0.9, device=cuda_device)
         alive = torch.as_tensor(rng.random(Np) < 0.8, device=cuda_device)
-        t_dyn.launches["strip_topk"] = 0
-        gd, gi = t_dyn.strip_topk(D, row_ids, valid, alive, K)
-        assert t_dyn.launches["strip_topk"] == 1
-        wd, wi = tref.strip_topk(D, row_ids, valid, alive, K)
-        assert torch.equal(gd, wd) and torch.equal(gi, wi)
+        self._topk_three_ways(t_dyn, D, row_ids, valid, alive, K)
+
+    @pytest.mark.parametrize("K", [10, 100, 1025])
+    @pytest.mark.parametrize("Np", [2049, 2050, 2051, 2052])
+    @pytest.mark.parametrize("view", [0, 1, 2, 3])
+    def test_strip_topk_rows_at_every_alignment(self, cuda_device, Np, view, K):
+        """Np % 4 in {1, 2, 3, 0} and a strip that starts ``view`` floats into
+        its storage (the insert's ``D_strip[Bp:]``): rows start at every
+        alignment, so the head, the 16-byte body and the tail all vary;
+        ``alive`` starts an odd byte into its storage; each row's own index
+        sits at every place of a 16-byte load and in the head and tail, on
+        a tie-heavy grid where its distance 0 is the row's minimum."""
+        from repro_torch.kernels import dynamic as t_dyn
+
+        rng = np.random.default_rng([Np, view, K])
+        U = 61
+        X = rng.integers(-3, 4, size=(Np, 2)).astype(np.float32)
+        ids = np.concatenate([np.arange(8), Np - 1 - np.arange(8), rng.integers(0, Np, size=U - 16)])
+        x = _t(X).to(cuda_device)
+        row_ids = torch.as_tensor(ids, device=cuda_device)
+        D = tref.strip_dists(x[row_ids], x)
+        buf = torch.empty(D.numel() + view, device=cuda_device)
+        Dv = buf[view:].view(U, Np).copy_(D)
+        live = torch.zeros(Np + 1, dtype=torch.bool, device=cuda_device)
+        alive = live[1:].copy_(torch.as_tensor(rng.random(Np) < 0.7, device=cuda_device))
+        alive[row_ids[:16]] = True
+        valid = torch.ones(U, dtype=torch.bool, device=cuda_device)
+        gd, gi = self._topk_three_ways(t_dyn, Dv, row_ids, valid, alive, K)
+        assert not bool((gi == row_ids[:, None].int()).any())
+
+    @pytest.mark.parametrize("K", [1, 10, 1025, 2000])
+    def test_strip_topk_invalid_rows_and_few_live(self, cuda_device, K):
+        """Every row invalid: (+inf, −1) throughout; then 5 live columns,
+        fewer than K, and a mix of valid rows."""
+        from repro_torch.kernels import dynamic as t_dyn
+
+        rng = np.random.default_rng(K)
+        U, Np = 40, 3001
+        x = _t(rng.normal(size=(Np, 4)).astype(np.float32)).to(cuda_device)
+        row_ids = torch.as_tensor(rng.integers(0, Np, size=U), device=cuda_device)
+        D = tref.strip_dists(x[row_ids], x)
+        alive = torch.ones(Np, dtype=torch.bool, device=cuda_device)
+        gd, gi = self._topk_three_ways(t_dyn, D, row_ids, torch.zeros(U, dtype=torch.bool, device=cuda_device),
+                                       alive, K)
+        assert bool(torch.isinf(gd).all()) and bool((gi == -1).all())
+        few = torch.zeros(Np, dtype=torch.bool, device=cuda_device)
+        few[torch.as_tensor(rng.choice(Np, size=5, replace=False), device=cuda_device)] = True
+        valid = torch.as_tensor(rng.random(U) < 0.5, device=cuda_device)
+        gd, gi = self._topk_three_ways(t_dyn, D, row_ids, valid, few, K)
+        assert bool((gi[:, 5:] == -1).all())
 
     @pytest.mark.parametrize("ties", [False, True], ids=["tie_free", "ties"])
     @pytest.mark.parametrize("shape", [(10, 48), (333, 1001)])
@@ -1381,9 +1472,11 @@ class TestCudaDynamic:
             h.delete_block(list(range(0, 24, 2)))
             for i in range(3):  # more insert blocks: RkNN rows of partial validity
                 h.insert_block(X[i::3] + 0.05 * (i + 1))
-        # the update's Borůvka takes the factor route; the first kernel is its oracle only
-        assert t_dyn.launches["strip_round_minima"] == 0, t_dyn.launches
-        assert all(v > 0 for k, v in t_dyn.launches.items() if k != "strip_round_minima"), t_dyn.launches
+        # the update's Borůvka takes the factor route and the strips the redesigned kernels; the first kernels
+        # are their oracles only
+        oracles = ("strip_round_minima", "strip_dists_v1", "strip_topk_v1")
+        assert all(t_dyn.launches[k] == 0 for k in oracles), t_dyn.launches
+        assert all(v > 0 for k, v in t_dyn.launches.items() if k not in oracles), t_dyn.launches
         for f in card.state._fields:
             assert torch.equal(getattr(card.state, f).cpu(), getattr(host.state, f)), f
 

@@ -97,6 +97,35 @@ class TestPlainStrips:
         got = tdyn.strip_dists(rows, X, out=buf[3:16])
         assert torch.equal(got, whole) and torch.equal(buf[3:16], whole)
 
+    @pytest.mark.parametrize("name", ["strip_dists", "strip_dists_v1"])
+    def test_strip_dists_out_row_slice_on_the_cpu(self, name):
+        """Both wrappers write ``out`` (a row slice at an odd offset) with the
+        plain version's bits and leave the rows around it alone."""
+        rng = np.random.default_rng(3)
+        X, rows = _t(_data("spread", rng, 51, 16)), _t(_data("spread", rng, 13, 16))
+        buf = torch.full((17, 51), -7.0)
+        got = getattr(tdyn, name)(rows, X, out=buf[1:14])
+        assert torch.equal(got, tref.strip_dists(rows, X)) and got.data_ptr() == buf[1:14].data_ptr()
+        assert bool((buf[:1] == -7.0).all()) and bool((buf[14:] == -7.0).all())
+
+    @pytest.mark.parametrize("name", ["strip_topk", "strip_topk_v1"])
+    def test_strip_topk_row_view_on_the_cpu(self, name):
+        """Both wrappers on a strip that starts one float into its storage,
+        against the reference's masked ``lax.top_k``."""
+        rng = np.random.default_rng(4)
+        X = _data("grid", rng, 41, 3)
+        ids = rng.integers(0, 41, size=9)
+        D = tref.strip_dists(_t(X[ids]), _t(X))
+        buf = torch.empty(D.numel() + 1)
+        Dv = buf[1:].view(D.shape).copy_(D)
+        alive = rng.random(41) < 0.7
+        got_d, got_i = getattr(tdyn, name)(Dv, _t(ids), torch.ones(9, dtype=torch.bool), _t(alive), 7)
+        m = alive[None, :] & (np.arange(41)[None, :] != ids[:, None])
+        neg, idx = jax.lax.top_k(-jnp.where(jnp.asarray(m), jnp.asarray(D.numpy()), jnp.inf), 7)
+        nd = -np.asarray(neg)
+        np.testing.assert_array_equal(got_d.numpy(), nd)
+        np.testing.assert_array_equal(got_i.numpy(), np.where(np.isfinite(nd), np.asarray(idx), -1))
+
     @pytest.mark.parametrize("K", [1, 5, 12])
     @pytest.mark.parametrize("case", ["spread", "grid"])
     def test_strip_topk_matches_top_k(self, case, K):
@@ -126,11 +155,29 @@ class TestPlainStrips:
 
     def test_wrappers_refuse_bad_input(self):
         X = torch.zeros(8, 3)
-        with pytest.raises(ValueError, match="strip_dists"):
-            tdyn.strip_dists(torch.zeros(4, 2), X)
-        with pytest.raises(ValueError, match="strip_topk"):
-            tdyn.strip_topk(torch.zeros(4, 8), torch.zeros(3), torch.ones(4, dtype=torch.bool),
-                            torch.ones(8, dtype=torch.bool), 2)
+        for dists in (tdyn.strip_dists, tdyn.strip_dists_v1):  # the redesign and its oracle, the first kernel
+            with pytest.raises(ValueError, match=dists.__name__):
+                dists(torch.zeros(4, 2), X)
+            with pytest.raises(ValueError, match=dists.__name__):
+                dists(torch.zeros(4, 3), X, out=torch.empty(4, 9))
+            with pytest.raises(ValueError, match="cuda or cpu"):
+                dists(X.to("meta"), X.to("meta"))
+        for topk in (tdyn.strip_topk, tdyn.strip_topk_v1):
+            with pytest.raises(ValueError, match=topk.__name__):
+                topk(torch.zeros(4, 8), torch.zeros(3), torch.ones(4, dtype=torch.bool),
+                     torch.ones(8, dtype=torch.bool), 2)
+            with pytest.raises(ValueError, match=topk.__name__):
+                topk(torch.zeros(4, 8), torch.zeros(4), torch.ones(4, dtype=torch.bool),
+                     torch.ones(8, dtype=torch.bool), 0)
+        # on the CPU the first kernels' wrappers take the plain versions too, and count no launch
+        before = dict(tdyn.launches)
+        rows = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+        assert torch.equal(tdyn.strip_dists_v1(rows, X), tref.strip_dists(rows, X))
+        D, ids, ok = tref.strip_dists(rows, X), torch.arange(4), torch.ones(4, dtype=torch.bool)
+        for got, want in zip(tdyn.strip_topk_v1(D, ids, ok, torch.ones(8, dtype=torch.bool), 3),
+                             tref.strip_topk(D, ids, ok, torch.ones(8, dtype=torch.bool), 3)):
+            assert torch.equal(got, want)
+        assert tdyn.launches == before
         with pytest.raises(ValueError, match="int32"):
             tdyn.strip_round_minima(torch.zeros(2, 8), torch.ones(2, 8, dtype=torch.bool), torch.zeros(2),
                                     torch.zeros(8), E=2**31 - 10)

@@ -72,6 +72,19 @@ def test_default_device_raises_without_a_gpu():
         get_backend()
 
 
+def test_variant_modules_are_covered():
+    """The card-only timing modules (``python -m repro_torch.kernels.<name>``)
+    are held to the same no-JAX rule and import on a machine without a card."""
+    files = _port_files()
+    names = ("flash_variants", "flash_fwd_variants", "flash_bwd_variants", "hierarchy_variants", "strip_variants")
+    for name in names:
+        assert PORT / "kernels" / f"{name}.py" in files, name
+    code = "import importlib\n" + "".join(f"importlib.import_module('repro_torch.kernels.{n}')\n" for n in names)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_training_modules_are_covered():
     files = _port_files()
     for rel in ("src/repro_torch/train/optim.py", "src/repro_torch/launch/train.py", "src/repro_torch/data/pipeline.py",
