@@ -17,7 +17,9 @@ Phases, each printing its own lines:
               of the exact path; each must have no stack frame and no
               spills; and
               the wgmma flash forward's two, reported, each required to
-              launch at the 168 registers its setmaxnreg split assumes),
+              launch at the 168 registers its setmaxnreg split assumes;
+              the grid kernels', reported by name, with the five widths of
+              the redesigned round kernel csrc/grid_round.cu required),
               and the flash kernel's query rows
               and blocks per SM for each head-dim bucket;
   3. kernels  each kernel against its plain PyTorch version on the card,
@@ -117,6 +119,14 @@ Phases, each printing its own lines:
               the panel's W; each kernel against its plain version, timed
               beside it (and assign beside cdist+min) with the visited
               share of rows x tiles and the bound from the visited tiles;
+              grid_round_minima (csrc/grid_round.cu) bit for bit its first
+              kernel (grid_round_minima_v1, csrc/grid.cu: launched 0 times
+              on the stream) in round 1, timed in turns with it, and in
+              every round of one pass (the pass's own labels and hopeless
+              masks), over the mesh ranges too: per round the live rows and
+              both kernels' device ms, row-tile visits and longest walk of
+              a CTA, with both bounds (the visits' operations, the walk's
+              visits one after another on one SM);
               the grid pass and the dense pass stage by stage, end to end
               in turns, peak device memory, launches per pass, a
               torch.profiler pass, and the grid pass under
@@ -432,7 +442,14 @@ Phases, each printing its own lines:
      launches from [online] and one launch's time as launch_ms;
      grid_assign, grid_core_distances and grid_round_minima, which stand
      for the JAX package's grid-pruned jnp searches, with their launches
-     from [grid] and the visited share as visited_share; strip_dists,
+     from [grid] and the visited share as visited_share;
+     grid_round_minima (source csrc/grid_round.cu) also with its cluster
+     size, v1_ms (the first kernel's round-1 call in the same turns), one
+     pass's device ms over its rounds for the new kernel, the first and the
+     new at one CTA a block (pass_ms, v1_pass_ms, c1_pass_ms) and the
+     rounds' ms (rounds_ms, v1_rounds_ms); grid_round_minima_v1
+     (csrc/grid.cu, its oracle, launched on no path) with its round-1
+     numbers and launches_oracle; strip_dists,
      strip_topk and strip_round_minima_from_dists, which stand for the JAX
      package's jnp strip programs of the exact-dynamic path, with their
      launches from [exact] (the round minima on the stream's round 1 with
@@ -547,8 +564,9 @@ EPS32 = float(np.finfo(np.float32).eps)
 # dist_panel.cu, the panel for pairwise (D = 0) and mutual_reach (D = 1) + the norm pass;
 # flash_attention_panel.cu, 8 (head-dim bucket D in {32, 64, 128, 256} x element bits K in {32, 16})
 WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu", "flash_attention_panel.cu",
-              "grid.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu",
-              "flash_attention_wgmma.cu")  # grid.cu's and the wgmma kernel's: by name, not checked for spills
+              "grid.cu", "grid_round.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu",
+              "flash_attention_wgmma.cu")  # the grid's and the wgmma kernel's: by name, not checked for spills
+GRID_ROUND_INSTANTIATIONS = 5  # grid_round.cu: compiled widths 16, 32, 64, 128 and the feature-slice kernel
 # flash_attention_wgmma.cu: head-dim bucket {64, 128}; 384 threads at 168 registers (the launch bound's share),
 # of which setmaxnreg moves the producer warpgroup to 40 and the two consumer warpgroups to 232: 128 x 40 + 256 x 232
 # = 384 x 168, so a launch at any other count could leave a consumer's raise waiting
@@ -904,11 +922,14 @@ def ptxas_ws(log: str) -> dict:
 
 def ptxas_grid(log: str) -> dict:
     """{(kernel, K): (registers, stack bytes, spill stores, spill loads)} of
-    csrc/grid.cu's kernels (K the Eq. 6 kernel's queue length, else 0)."""
+    csrc/grid.cu's kernels (K the Eq. 6 kernel's queue length, else 0) and
+    csrc/grid_round.cu's (grid_round_tiles, K its compiled width: 16, 32,
+    64, 128, or 0 for feature slices)."""
     import re
 
     def entry(line):
-        m = re.search(r"Compiling entry function '\S*?(grid_assign|grid_round|grid_cd)_kernel(?:ILi(\d+)E)?", line)
+        m = re.search(r"Compiling entry function '\S*?(grid_assign|grid_round|grid_cd|grid_round_tiles)_kernel"
+                      r"(?:ILi(\d+)E)?", line)
         return (m.group(1), int(m.group(2) or 0)) if m else None
 
     return ptxas_entries(log, entry)
@@ -1034,8 +1055,13 @@ def phase_build():
               f"{len(ws)} register-tile instantiations in the ptxas report, not {WS_INSTANTIATIONS}")
         bad = [key for key, v in ws.items() if v[1:] != (0, 0, 0)]
         check(not bad, f"register-tile instantiations with a stack frame or spills: {bad}")
-        for (kern, K), (regs, stack, st, ld) in sorted(ptxas_grid(info["log"]).items()):
-            say(f"[build] grid.cu {kern} K={K}: {regs} registers, {stack} bytes stack, spill stores {st} loads {ld}")
+        grid = ptxas_grid(info["log"])
+        for (kern, K), (regs, stack, st, ld) in sorted(grid.items()):
+            src = "grid_round.cu" if kern == "grid_round_tiles" else "grid.cu"
+            say(f"[build] {src} {kern} K={K}: {regs} registers, {stack} bytes stack, spill stores {st} loads {ld}")
+        tiles = [k for k in grid if k[0] == "grid_round_tiles"]
+        check(len(tiles) == GRID_ROUND_INSTANTIATIONS,
+              f"{len(tiles)} grid_round.cu kernels in the ptxas report, not {GRID_ROUND_INSTANTIATIONS}")
         bwd = ptxas_bwd(info["log"])
         for (kern, bits, D, part), (regs, stack, st, ld) in sorted(bwd.items()):
             say(f"[build] flash backward {kern} {part} D={D} bits={bits}: {regs} registers, {stack} bytes "
@@ -2216,6 +2242,7 @@ def phase_tenants(dev, card):
 
 
 GRID_KERNELS = ("grid_assign", "grid_core_distances", "grid_round_minima")
+GRID_ORACLE = "grid_round_minima_v1"  # csrc/grid.cu's first round kernel: the oracle, launched on no path
 
 
 def grid_counts(reset: bool = False) -> dict:
@@ -2223,7 +2250,7 @@ def grid_counts(reset: bool = False) -> dict:
     from repro_torch.kernels import grid as k_grid
 
     if reset:
-        for name in GRID_KERNELS:
+        for name in GRID_KERNELS + (GRID_ORACLE,):
             k_grid.launches[name] = 0
     return dict(k_grid.launches)
 
@@ -2327,8 +2354,9 @@ def phase_grid(dev, run, card):
         f"spatial_index=True, on {card}: {wall:.2f} s wall ([stream] {run['wall_s']:.2f} s, its checkpoint "
         f"excluded), peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; {len(history)} "
         f"passes; launches {json.dumps(launches)}; dense kernels {json.dumps(dense)}")
-    for name, n in launches.items():
-        check(n > 0, f"[grid] kernel {name} never launched on the spatial stream")
+    for name in GRID_KERNELS:
+        check(launches[name] > 0, f"[grid] kernel {name} never launched on the spatial stream")
+    check(launches[GRID_ORACLE] == 0, f"[grid] the first round kernel ran on the stream: {launches}")
     check(dense["assign"] == dense["bubble_cd"] == dense["mutual_reach"] == 0,
           f"[grid] the spatial stream ran dense kernels: {dense}")
     n_passes = eng.stats["recluster_count"]
@@ -2812,30 +2840,156 @@ def grid_kernels(dev, run, X):
     report("grid_core_distances", Lp, v, ms, plain, None, err,
            f" on the {int(keep.sum())} of {L} rows with a clear crossing; " + ", ".join(sweep))
 
-    # grid_round_minima: Borůvka's first round (every row its own component)
+    # grid_round_minima: Borůvka's first round (every row its own component), the new kernel
+    # (csrc/grid_round.cu) bit for bit the first (csrc/grid.cu), both within tolerance of the plain version
     labels = torch.arange(Lp, device=dev)
     hopeless = torch.zeros(Lp, dtype=torch.bool, device=dev)
-    rw, re = k_grid.grid_round_minima(grid, views, cd, labels, hopeless)
-    pw, pe = ref.grid_round_minima(grid, views, cd, labels, hopeless)
+    args = (grid, views, cd, labels, hopeless)
+    rw, re = k_grid.grid_round_minima(*args)
+    ow, oe = k_grid.grid_round_minima_v1(*args)
+    check(bool(torch.equal(rw, ow)) and bool(torch.equal(re, oe)),
+          f"[grid] grid_round_minima differs from its first kernel ({int((rw != ow).sum())} w, "
+          f"{int((re != oe).sum())} eid)")
+    pw, pe = ref.grid_round_minima(*args)
     err, _ = compare("grid_round_minima", rw[:L], pw[:L], dist_tol(rep_t[:L], rep_t[:L], pw[:L]))
     same_e = float((re[:L] == pe[:L]).double().mean())
     check(same_e >= 0.99, f"[grid] grid_round_minima: only {same_e:.4f} of the edge ids equal the plain version's")
-    ms = time_ms(lambda: k_grid.grid_round_minima(grid, views, cd, labels, hopeless), reps=20)
-    plain = time_ms(lambda: ref.grid_round_minima(grid, views, cd, labels, hopeless), reps=1, warm=1)
-    v = visits_of(lambda: k_grid.grid_round_minima(grid, views, cd, labels, hopeless))["grid_round_minima"]
-    report("grid_round_minima", Lp, v, ms, plain, None, err,
-           f"; {same_e:.4f} of the rows' edge ids equal")
-    grid_counts()  # the checks' launches are not the path's: the caller's counts were read before
-    for name in GRID_KERNELS:
+    times = {"new": [], "v1": []}  # in turns: new, v1, v1, new (the whole call: the kernel and the scatter)
+    for which in ("new", "v1", "v1", "new"):
+        fn = k_grid.grid_round_minima if which == "new" else k_grid.grid_round_minima_v1
+        times[which].append(time_ms(lambda: fn(*args), reps=20))
+    ms, v1_ms = float(np.mean(times["new"])), float(np.mean(times["v1"]))
+    plain = time_ms(lambda: ref.grid_round_minima(*args), reps=1, warm=1)
+    got = visits_of(lambda: k_grid.grid_round_minima(*args))
+    v, walk = got["grid_round_minima"], got["grid_round_longest"]
+    v1_visits = visits_of(lambda: k_grid.grid_round_minima_v1(*args))["grid_round_minima"]
+    # the bound and the visited share count the visits the function needs: the first kernel's, which stops on the
+    # block's bests; the new kernel's extra visits (each CTA of a cluster stops on its own bests) stand apart
+    report("grid_round_minima", Lp, v1_visits, ms, plain, None, err,
+           f"; bit for bit the first kernel; {same_e:.4f} of the rows' edge ids equal the plain version's; in turns "
+           f"new {', '.join(f'{t:.4f}' for t in times['new'])} ms, first kernel "
+           f"{', '.join(f'{t:.4f}' for t in times['v1'])} ms; the new kernel's own row-tile visits {v} "
+           f"(+{v - v1_visits} from the per-CTA stop, in no bound); longest walk of a CTA {walk} at cluster "
+           f"{k_grid.ROUND_CLUSTER}")
+    report("grid_round_minima_v1", Lp, v1_visits, v1_ms, plain, None, err, " (the first kernel, csrc/grid.cu)")
+    out["grid_round_minima"].update(v1_ms=v1_ms, kernel_visits=v, extra_visits=v - v1_visits)
+    rounds, sums = grid_rounds(dev, run["table_full"])
+    out["grid_round_minima"].update(cluster=k_grid.ROUND_CLUSTER, **sums,
+                                    rounds_ms=[round(r["ms"], 4) for r in rounds],
+                                    v1_rounds_ms=[round(r["v1_ms"], 4) for r in rounds])
+    after = grid_counts()  # the checks' launches are not the path's: the caller's counts were read before
+    out[GRID_ORACLE]["launches_oracle"] = after[GRID_ORACLE] - counts[GRID_ORACLE]
+    check(out[GRID_ORACLE]["launches_oracle"] > 0, "[grid] the first round kernel never ran as the oracle")
+    for name in GRID_KERNELS + (GRID_ORACLE,):
         k_grid.launches[name] = counts[name]
     return out
 
 
+N_SM = 132  # the H100 SXM's streaming multiprocessors
+ROUND_REPS = 20  # [grid] rounds: launches timed per round and kernel
+
+
+def grid_rounds(dev, table):
+    """Every round of one grid Borůvka pass at Lp = 8192 on the stream's
+    table: the pass's own labels and hopeless masks (``boruvka_grid`` with
+    its search hooked), and per round the live rows, each kernel's device
+    ms (CUDA events behind a spin, ``ROUND_REPS`` launches over the round's
+    blocks, no scatter) and its longest walk (the most tiles one CTA
+    visited); the new kernel bit for bit the first in every round and over
+    the mesh ranges.  The round's row-tile visits and its ops bound count
+    what the function needs, the first kernel's visits; the new kernel's
+    extra visits (each CTA of a cluster stops on its own bests) stand apart
+    and enter no bound.  The first kernel's walk comes from its own visits
+    of one block at a time; the new kernel at one CTA a block must repeat
+    its visits and walk.  Returns the per-round records and the sums of a
+    pass."""
+    import torch
+
+    from repro_torch.core.mst import boruvka_grid
+    from repro_torch.kernels import grid as k_grid
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import shard_ranges
+
+    rep, extent, n_b, _ = table
+    L, d = rep.shape
+    (rep_t, nb_t, ext_t), mp, _ = ops._prepare_table(rep, n_b, extent, MIN_PTS, dev)
+    grid, views = ops._grid_table(rep_t, L)
+    cd = k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views)
+    Lp, NT, NB, T = rep_t.shape[0], grid.tile_lo.shape[0], views.order.shape[0], grid.tile
+    visit_flops = 2.0 * 64 * T * d  # one tile visited by a 64-row block
+    search, v1 = k_grid.grid_round_minima, k_grid.grid_round_minima_v1
+    records = []
+
+    def counted(fn):
+        got = visits_of(fn)
+        return got["grid_round_minima"], got["grid_round_longest"]
+
+    def walk_bound(walk):
+        return walk * visit_flops / (PEAK_F32_FLOPS / N_SM) * 1e3
+
+    def hook(g, v, cd_, labels, hopeless, blocks=None):
+        args = (g, v, cd_, labels, hopeless, (0, NB))
+        rec = dict(round=len(records) + 1, live=int((g.valid & ~hopeless[g.orig.long()]).sum()))
+        old = v1(*args)
+        rec["v1_ms"] = device_ms(lambda: v1(*args), reps=ROUND_REPS)
+        rec["visits"], _ = counted(lambda: v1(*args))
+        # the first kernel's walk: its visits of one block at a time over the block's 64 rows
+        rec["v1_walk"] = max(counted(lambda: v1(*args[:5], (b, b + 1)))[0] // min(64, Lp - 64 * b)
+                             for b in range(NB)) if rec["visits"] else 0
+        c1 = counted(lambda: search(*args, cluster=1))
+        check(c1 == (rec["visits"], rec["v1_walk"]), f"[grid] round {rec['round']}: the new kernel at one CTA "
+              f"a block visited {c1}, the first kernel {rec['visits'], rec['v1_walk']} (visits, walk)")
+        got = search(*args)
+        check(torch.equal(got[0], old[0]) and torch.equal(got[1], old[1]),
+              f"[grid] round {rec['round']}: the new kernel differs from the first "
+              f"({int((got[0] != old[0]).sum())} w, {int((got[1] != old[1]).sum())} eid)")
+        for k in MESH_KS[1:]:
+            for b0, b1 in shard_ranges(NB, k):
+                if b1 > b0:
+                    a = search(g, v, cd_, labels, hopeless, blocks=(b0, b1))
+                    check(torch.equal(a[0], old[0][b0 * 64 : b1 * 64]) and torch.equal(a[1], old[1][b0 * 64 : b1 * 64]),
+                          f"[grid] round {rec['round']}: blocks [{b0}, {b1}) differ from the first kernel")
+        rec["ms"] = device_ms(lambda: search(*args), reps=ROUND_REPS)
+        rec["c1_ms"] = device_ms(lambda: search(*args, cluster=1), reps=ROUND_REPS)
+        own, rec["walk"] = counted(lambda: search(*args))
+        rec["extra_visits"] = own - rec["visits"]
+        rec["bound_ms"], _ = bound_ms(visit_flops * rec["visits"] / 64, 0.0)
+        rec["v1_walk_bound_ms"], rec["walk_bound_ms"] = walk_bound(rec["v1_walk"]), walk_bound(rec["walk"])
+        records.append(rec)
+        return search(g, v, cd_, labels, hopeless, blocks=blocks)
+
+    k_grid.grid_round_minima = hook
+    try:
+        boruvka_grid(grid, cd, views)
+    finally:
+        k_grid.grid_round_minima = search
+    check(len(records) == Lp.bit_length(), f"[grid] {len(records)} rounds in a pass at Lp = {Lp}")
+    say(f"[grid] the rounds of one Borůvka pass at L={L}, Lp={Lp}, d={d} ({NB} blocks x {NT} tiles; device ms a "
+        f"launch by CUDA events over {ROUND_REPS}; visits = the rows x tiles the function needs, the first kernel's; "
+        f"walk = the most tiles one CTA visited; bounds: ops = 2·d FLOPs per needed (row, column) at 67 TFLOP/s, "
+        f"walk = the kernel's walk, its visits one after another at one SM's 1/{N_SM} of it):")
+    for r in records:
+        say(f"[grid]   round {r['round']}: live rows {r['live']}; visits {r['visits']} "
+            f"({r['visits'] / (Lp * NT):.4f} of rows x tiles), ops bound {r['bound_ms']:.4f} ms; first kernel "
+            f"{r['v1_ms']:.4f} ms, walk {r['v1_walk']} (bound {r['v1_walk_bound_ms']:.4f}); new (cluster "
+            f"{k_grid.ROUND_CLUSTER}) {r['ms']:.4f} ms, walk {r['walk']} (bound {r['walk_bound_ms']:.4f}), extra "
+            f"visits from the per-CTA stop {r['extra_visits']} (in no bound); new at one CTA {r['c1_ms']:.4f} ms")
+    sums = {"v1_pass_ms": sum(r["v1_ms"] for r in records), "pass_ms": sum(r["ms"] for r in records),
+            "c1_pass_ms": sum(r["c1_ms"] for r in records)}
+    say(f"[grid] one pass's {len(records)} rounds, device ms: " + ", ".join(f"{k} {v:.4f}" for k, v in sums.items())
+        + f"; extra visits from the per-CTA stop {sum(r['extra_visits'] for r in records)} of "
+        f"{sum(r['visits'] for r in records)}; the new kernel bit for bit the first in every round and over the "
+        f"mesh ranges (k = {', '.join(map(str, MESH_KS[1:]))})")
+    return records, sums
+
+
 def grid_pass(dev, table):
     """One offline pass at Lp = 8192 through offline_recluster_from_table,
-    spatial and dense: stage by stage, end to end in turns, peak device
-    memory above what was allocated before, launches per pass, the visited
-    share per kernel, a torch.profiler pass, and the grid pass with no
+    spatial and dense: stage by stage, end to end in turns (the grid pass
+    also with its round search on the first round kernel, to compare the
+    two kernels' pass), peak device memory above what was allocated
+    before, launches per pass, the visited share per kernel, a
+    torch.profiler pass of each grid variant, and the grid pass with no
     host synchronisation allowed from build_grid to extract."""
     import torch
     from torch.autograd import DeviceType
@@ -2851,19 +3005,29 @@ def grid_pass(dev, table):
         return ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=stage,
                                                 spatial_index=spatial)
 
+    def run_v1():  # the grid pass with its round search on the first round kernel (csrc/grid.cu)
+        search = k_grid.grid_round_minima
+        k_grid.grid_round_minima = k_grid.grid_round_minima_v1
+        try:
+            return run(True)
+        finally:
+            k_grid.grid_round_minima = search
+
     t = {True: {}, False: {}}
     for _ in range(2):  # the second round is the one reported (warm caches)
         res = {sp: run(sp, stage_timer(t[sp])) for sp in (False, True)}
     check(_same_partition(res[True].labels, res[False].labels), "[grid] the grid pass's partition differs")
+    check(np.array_equal(run_v1().labels, res[True].labels), "[grid] the pass on the first round kernel differs")
     for sp, name in ((False, "dense"), (True, "grid")):
         say(f"[grid] {name} pass at L={L}, Lp={ops._pow2_rows(L)} (ms): "
             + ", ".join(f"{k} {v:.2f}" for k, v in t[sp].items()) + f"; total {sum(t[sp].values()):.2f}")
-    walls = {False: [], True: []}
-    for sp in (False, True, True, False, False, True):
+    passes = {"dense": lambda: run(False), "grid": lambda: run(True), "grid on the first round kernel": run_v1}
+    walls = {name: [] for name in passes}
+    for name in list(passes) + list(passes)[::-1] + list(passes):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(sp)
-        walls[sp].append((time.perf_counter() - t0) * 1e3)
+        passes[name]()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
     peak = {}
     for sp in (False, True):
         torch.cuda.synchronize()
@@ -2875,33 +3039,40 @@ def grid_pass(dev, table):
     before = grid_counts()
     v = visits_of(lambda: run(True))
     after = grid_counts()
+    v1v = visits_of(run_v1)  # the visits the rounds need: the first kernel's, which stops on each block's bests
     per_pass = {k: after[k] - before[k] for k in GRID_KERNELS}
     NT = ops._pow2_rows(L) // k_grid.DEFAULT_TILE
     Lp = ops._pow2_rows(L)
-    say(f"[grid] end to end, in turns (ms): dense {', '.join(f'{w:.2f}' for w in walls[False])}; grid "
-        f"{', '.join(f'{w:.2f}' for w in walls[True])}; peak device memory above the table: dense "
-        f"{peak[False]:.1f} MiB, grid {peak[True]:.1f} MiB; grid launches per pass {json.dumps(per_pass)}; visited "
-        f"share of rows x tiles: Eq. 6 {v['grid_core_distances'] / (Lp * NT):.4f}, Borůvka rounds "
-        f"{v['grid_round_minima'] / (Lp * NT * max(per_pass['grid_round_minima'], 1)):.4f} per round")
+    rounds = Lp * NT * max(per_pass["grid_round_minima"], 1)
+    say(f"[grid] end to end, in turns (ms): " + "; ".join(f"{name} {', '.join(f'{w:.2f}' for w in ws)}"
+                                                         for name, ws in walls.items())
+        + f"; peak device memory above the table: dense {peak[False]:.1f} MiB, grid {peak[True]:.1f} MiB; grid "
+        f"launches per pass {json.dumps(per_pass)}; visited share of rows x tiles: Eq. 6 "
+        f"{v['grid_core_distances'] / (Lp * NT):.4f}, Borůvka rounds {v1v['grid_round_minima'] / rounds:.4f} per "
+        f"round (the first kernel's visits, what the rounds need; the new kernel's "
+        f"{v['grid_round_minima'] / rounds:.4f}, its per-CTA stop's extra visits "
+        f"{v['grid_round_minima'] - v1v['grid_round_minima']})")
     check(per_pass["grid_core_distances"] == 1 and per_pass["grid_assign"] == 0
-          and per_pass["grid_round_minima"] == ops._pow2_rows(L).bit_length(),
-          f"[grid] launches in one pass: {per_pass}")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(True)
-        traced = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    wall = float(np.median(walls[True]))
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    if busy > 0:
-        say(f"[grid] torch.profiler, one grid pass: {sum(e.count for e in events)} launches, device busy "
-            f"{busy:.3f} ms (traced wall {traced:.2f} ms); against the untraced wall {wall:.2f} ms: idle share "
-            f"{1 - busy / wall:.3f}; top device time (ms): "
-            + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
-    else:
-        say(f"[grid] torch.profiler: no device time in the trace; idle share not measured")
+          and per_pass["grid_round_minima"] == ops._pow2_rows(L).bit_length()
+          and after[GRID_ORACLE] == before[GRID_ORACLE], f"[grid] launches in one pass: {per_pass}, first round "
+          f"kernel {after[GRID_ORACLE] - before[GRID_ORACLE]}")
+    for name in ("grid", "grid on the first round kernel"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            passes[name]()
+            traced = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        wall = float(np.median(walls[name]))
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+        if busy > 0:
+            say(f"[grid] torch.profiler, one {name} pass: {sum(e.count for e in events)} launches, device busy "
+                f"{busy:.3f} ms (traced wall {traced:.2f} ms); against the untraced wall {wall:.2f} ms: idle share "
+                f"{1 - busy / wall:.3f}; top device time (ms): "
+                + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} x{e.count}" for e in top))
+        else:
+            say(f"[grid] torch.profiler, one {name} pass: no device time in the trace; idle share not measured")
 
     def no_sync(name, fn, *args, **kw):
         if name in ("prepare", "unwrap"):
@@ -7150,7 +7321,9 @@ def main() -> int:
                # no Pallas kernel: the JAX package's grid-pruned jnp searches (spatial_index=True)
                "grid_assign": ("grid.cu", "src/repro/kernels/grid.py:355"),
                "grid_core_distances": ("grid.cu", "src/repro/kernels/grid.py:222"),
-               "grid_round_minima": ("grid.cu", "src/repro/core/mst.py:392"),
+               "grid_round_minima": ("grid_round.cu", "src/repro/core/mst.py:392"),
+               # the first round kernel: the redesign's oracle, launched on no path
+               "grid_round_minima_v1": ("grid.cu", "src/repro/core/mst.py:392"),
                # no Pallas kernel: the jnp strip programs of the exact-dynamic path (exact=True)
                "strip_dists": ("strip_tiles.cu", "src/repro/core/dynamic_jax.py:145"),
                "strip_topk": ("strip_tiles.cu", "src/repro/core/dynamic_jax.py:187"),

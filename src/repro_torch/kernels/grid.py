@@ -24,15 +24,23 @@ well inside that envelope.
 
 The grid itself (``build_grid``, ``_block_views``, ``_query_views``) is
 O(L·d) torch code on the table's device plus one (NB, NT) sort; nothing
-reads the device.  The three searches are hand-written CUDA kernels
-(``csrc/grid.cu``), one block per 64 query rows:
+reads the device.  The three searches are hand-written CUDA kernels, one
+block (or cluster of blocks) per 64 query rows:
 
   ``grid_assign``          nearest valid rep per query row (ingest and
-                           serve), replacing ``grid.py:355``;
+                           serve), replacing ``grid.py:355``
+                           (``csrc/grid.cu``);
   ``grid_core_distances``  Eq. 6 over each row's (distance, index) walk,
-                           replacing ``grid.py:222`` / ``:255``;
+                           replacing ``grid.py:222`` / ``:255``
+                           (``csrc/grid.cu``);
   ``grid_round_minima``    one Borůvka round's lightest outgoing
-                           (w, edge id) per row, replacing ``mst.py:392``.
+                           (w, edge id) per row, replacing ``mst.py:392``
+                           (``csrc/grid_round.cu``: a prefetched tile ring,
+                           the walk split across a cluster of
+                           ``ROUND_CLUSTER`` CTAs).
+
+``grid_round_minima_v1`` launches the round's first kernel
+(``csrc/grid.cu``), the redesign's bitwise oracle: no path calls it.
 
 The Eq. 6 and Borůvka searches take a range of query blocks: the
 sharded offline pass (``mesh=``) gives each shard a contiguous range
@@ -47,6 +55,8 @@ rows' features are read by broadcast, and lane j of each warp owns column
 j of the tile, so a visit is 8 rows × d FMAs per thread with no (rows, L)
 buffer anywhere.  A tensor on the CPU takes the plain version in
 ``kernels/ref.py``; a CUDA tensor launches the kernel or raises.
+``track_visits`` counts the kernels' row-tile visits on the card, and for
+``grid_round_minima`` also the longest walk of one CTA.
 """
 
 from __future__ import annotations
@@ -68,11 +78,13 @@ __all__ = [
     "grid_assign",
     "grid_core_distances",
     "grid_round_minima",
+    "grid_round_minima_v1",
     "grid_core_distances_shard",
     "track_visits",
     "visit_counts",
     "DEFAULT_TILE",
     "DEFAULT_BLOCK",
+    "ROUND_CLUSTER",
 ]
 
 # quantisation bits per grid dimension; with <= 3 interleaved dims the
@@ -86,8 +98,11 @@ DEFAULT_BLOCK = 64  # query rows per block: csrc/grid.cu kRows
 _LB_CHUNK = 1 << 24  # floats of one (blocks, tiles, d) gap chunk in _lower_bounds
 _INT32_MAX = 2**31 - 1
 
-launches = {"grid_assign": 0, "grid_core_distances": 0, "grid_round_minima": 0}
-_visits: torch.Tensor | None = None  # (3,) int64 on the card while track_visits is on
+ROUND_CLUSTER = 8  # CTAs a query block in grid_round_minima's launch (python -m repro_torch.kernels.grid_variants)
+
+launches = {"grid_assign": 0, "grid_core_distances": 0, "grid_round_minima": 0, "grid_round_minima_v1": 0}
+# (4,) int64 on the card while track_visits is on: visits of assign, Eq. 6, the round; the round's longest walk
+_visits: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,17 +260,20 @@ def _query_views(grid: GridIndex, x: torch.Tensor, block: int = DEFAULT_BLOCK):
 
 def track_visits(on: bool, device=None) -> None:
     """Start (zeroed) or stop counting the kernels' row-tile visits on the
-    card: each visit of a tile adds the rows of the block that visit it.
-    ``visit_counts()`` reads them (a host sync): for measurement only."""
+    card: each visit of a tile adds the rows of the block that visit it
+    (both round kernels count under ``grid_round_minima``), and
+    ``grid_round_minima``'s kernel also keeps the most tiles one CTA
+    visited (``grid_round_longest``).  ``visit_counts()`` reads them (a host
+    sync): for measurement only."""
     global _visits
-    _visits = torch.zeros(3, dtype=torch.int64, device=device) if on else None
+    _visits = torch.zeros(4, dtype=torch.int64, device=device) if on else None
 
 
 def visit_counts() -> dict:
     if _visits is None:
         return {}
-    a, c, r = (int(v) for v in _visits.cpu())
-    return {"grid_assign": a, "grid_core_distances": c, "grid_round_minima": r}
+    a, c, r, w = (int(v) for v in _visits.cpu())
+    return {"grid_assign": a, "grid_core_distances": c, "grid_round_minima": r, "grid_round_longest": w}
 
 
 def _visit_ptr(slot: int, device):
@@ -414,31 +432,52 @@ def grid_core_distances_shard(grid: GridIndex, n_b, extent, min_pts: int, dim: i
     return _scatter(grid, gather(parts, grid.pts.device))[0]
 
 
-def grid_round_minima(grid: GridIndex, views: GridViews, cd, labels, hopeless, blocks=None):
+def grid_round_minima(grid: GridIndex, views: GridViews, cd, labels, hopeless, blocks=None,
+                      cluster: int = ROUND_CLUSTER):
     """One Borůvka round's search: per row (ORIGINAL order), the lightest
     edge to another component by (w, canonical edge id), with
     ``w = max(d, cd_r, cd_c)`` and ``eid = min(o_r, o_c)·n + max(o_r, o_c)``.
     Invalid and ``hopeless`` rows find nothing: (+inf, int32 max).  Returns
     (row_w f32 (n,), row_eid int32 (n,)); with ``blocks = (b0, b1)`` only
-    those query blocks run, and the two are their rows' in SORTED order."""
-    on_card = _checked_grid(grid, "grid_round_minima", cd, labels, hopeless)
+    those query blocks run, and the two are their rows' in SORTED order
+    (``csrc/grid_round.cu``).  ``cluster``: CTAs a query block on the card,
+    1, 2, 4 or 8; the bits do not depend on it."""
+    if cluster not in (1, 2, 4, 8):
+        raise ValueError(f"grid_round_minima: cluster must be 1, 2, 4 or 8, got {cluster}")
+    return _round_minima("grid_round_minima", "repro_grid_round_tiles_f32", (cluster,), grid, views, cd, labels,
+                         hopeless, blocks)
+
+
+def grid_round_minima_v1(grid: GridIndex, views: GridViews, cd, labels, hopeless, blocks=None):
+    """``grid_round_minima`` through its first kernel (``csrc/grid.cu``),
+    the redesign's bitwise oracle: no path calls it."""
+    return _round_minima("grid_round_minima_v1", "repro_grid_round_minima_f32", (), grid, views, cd, labels,
+                         hopeless, blocks)
+
+
+def _round_minima(name: str, entry: str, extra: tuple, grid: GridIndex, views: GridViews, cd, labels, hopeless,
+                  blocks):
+    """The round's checks, its plain version on the CPU, and the launch of
+    C entry ``entry``, which takes the arguments ``extra`` before its
+    outputs."""
+    on_card = _checked_grid(grid, name, cd, labels, hopeless)
     n = grid.pts.shape[0]
     cd = cd.float().contiguous()
     labels = labels.long().contiguous()
     hopeless = hopeless.bool().contiguous()
     if cd.shape != (n,) or labels.shape != (n,) or hopeless.shape != (n,):
-        raise ValueError(f"grid_round_minima wants ({n},) cd, labels and hopeless")
-    _views_ok(grid, views, n, "grid_round_minima")
+        raise ValueError(f"{name} wants ({n},) cd, labels and hopeless")
+    _views_ok(grid, views, n, name)
     b0, b1, rows = _block_range(grid, views, blocks)
     if not on_card:
         return _ref.grid_round_minima(grid, views, cd, labels, hopeless, blocks=blocks)
     w_s = torch.empty(rows, dtype=torch.float32, device=cd.device)
     e_s = torch.empty(rows, dtype=torch.int32, device=cd.device)
     if rows:
-        _launch("grid_round_minima", "repro_grid_round_minima_f32", cd.device,
+        _launch(name, entry, cd.device,
                 *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
-                cd.data_ptr(), labels.data_ptr(), hopeless.data_ptr(), b0, b1 - b0, w_s.data_ptr(), e_s.data_ptr(),
-                _visit_ptr(2, cd.device))
+                cd.data_ptr(), labels.data_ptr(), hopeless.data_ptr(), b0, b1 - b0, *extra, w_s.data_ptr(),
+                e_s.data_ptr(), _visit_ptr(2, cd.device))
     return (w_s, e_s) if blocks is not None else _scatter(grid, w_s, e_s)
 
 

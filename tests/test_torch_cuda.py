@@ -1122,9 +1122,10 @@ class TestCudaGrid:
         rep_p, g, (cd_p,) = _padded_grid(rep, cd)
         W = t_mr.mutual_reachability(rep_p, rep_p, cd_p, cd_p, zero_diag=True, n_valid=1001)
         want = boruvka(W)
-        t_grid.launches["grid_round_minima"] = 0
+        t_grid.launches["grid_round_minima"] = t_grid.launches["grid_round_minima_v1"] = 0
         got = boruvka_grid(g, cd_p)
         assert t_grid.launches["grid_round_minima"] == 11  # ceil(log2 1024) + 1 rounds
+        assert t_grid.launches["grid_round_minima_v1"] == 0
         for name, a, b in zip(("eu", "ev", "ew", "valid"), got, want):
             assert torch.equal(a, b), name
         assert int(got[3].sum()) == 1000
@@ -1184,6 +1185,129 @@ class TestCudaGrid:
             got = w[:L].double().cpu().numpy() ** 2
             want = self_sq.min(1)
         assert np.abs(got - want).max() < 2e-5
+
+
+def _round_case(case, rng, d):
+    """(grid, core distances in original order) for the round kernels'
+    cases: ``_grid_case``'s tables at L = 1001 padded as the offline pass
+    pads them, and ``sparse``, a 1024-row table of which 300 rows, spread
+    over the Morton order, are valid."""
+    from repro_torch.kernels import grid as t_grid
+
+    if case == "sparse":
+        rep = _t(_centred(rng, 1024, d)).cuda()
+        valid = torch.as_tensor(rng.permutation(1024) < 300).cuda()
+        g = t_grid.build_grid(rep, valid)
+        cd = _t(rng.uniform(0.0, 0.3, size=1024).astype(np.float32)).cuda()
+        return g, cd
+    rep = _t(_grid_case(case, rng, 1001, d)).cuda()
+    n_b = _t(rng.integers(1, 6, size=1001).astype(np.float32)).cuda()
+    extent = _t(rng.uniform(0.05, 0.5, size=1001).astype(np.float32)).cuda()
+    cd = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=5, dim=d)
+    _, g, (cd_p,) = _padded_grid(rep, cd)
+    return g, cd_p
+
+
+@pytest.mark.cuda
+class TestCudaGridRound:
+    """The Borůvka round's redesigned kernel (``csrc/grid_round.cu``, a
+    prefetched tile ring and the walk split across a cluster) bit for bit
+    its first kernel (``csrc/grid.cu``, ``grid_round_minima_v1``) in w and
+    eid: in every round of ``boruvka_grid``'s passes, at every cluster size,
+    with most rows invalid, in an all-hopeless round, at each compiled width
+    (d = 2, 5, 16: 16 features; 17: 32; 40: 64; 100: 128; 200: two slices of
+    128), and with the cluster's ranks visiting tiles past the order's end
+    (tiny tables)."""
+
+    @pytest.mark.parametrize("case,d", [(c, d) for c in ("spread", "dup", "collinear", "zeros", "sparse")
+                                        for d in (2, 16, 200)]
+                             + [("spread", d) for d in (5, 17, 40, 100)])
+    def test_every_round_equals_v1(self, cuda_device, monkeypatch, case, d):
+        from repro_torch.core.mst import boruvka_grid
+        from repro_torch.kernels import grid as t_grid
+
+        g, cd = _round_case(case, np.random.default_rng(36), d)
+        want = boruvka_grid(g, cd)
+        search, seen = t_grid.grid_round_minima, []
+
+        def both(grid, views, cd, labels, hopeless, blocks=None):
+            got = search(grid, views, cd, labels, hopeless, blocks=blocks)
+            old = t_grid.grid_round_minima_v1(grid, views, cd, labels, hopeless, blocks=blocks)
+            for c in (1, 2, 4):
+                other = search(grid, views, cd, labels, hopeless, blocks, cluster=c)
+                assert all(torch.equal(a, b) for a, b in zip(other, old)), (len(seen), c)
+            assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1]), len(seen)
+            seen.append(int((grid.valid & ~hopeless[grid.orig.long()]).sum()))
+            return got
+
+        monkeypatch.setattr(t_grid, "grid_round_minima", both)
+        got = boruvka_grid(g, cd)
+        assert len(seen) == 11 and seen[-1] == 0, seen  # the last rounds have no live row
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("d", [16, 200])
+    def test_all_hopeless_round(self, cuda_device, d):
+        from repro_torch.kernels import grid as t_grid
+
+        g, cd = _round_case("spread", np.random.default_rng(37), d)
+        views = t_grid._block_views(g)
+        Lp = cd.shape[0]
+        labels = torch.zeros(Lp, dtype=torch.int64, device=cuda_device)
+        hopeless = torch.ones(Lp, dtype=torch.bool, device=cuda_device)
+        t_grid.track_visits(True, torch.device(cuda_device))
+        try:
+            w, e = t_grid.grid_round_minima(g, views, cd, labels, hopeless)
+            visits = t_grid.visit_counts()
+        finally:
+            t_grid.track_visits(False)
+        assert bool(torch.isinf(w).all()) and bool((e == 2**31 - 1).all())
+        assert visits["grid_round_minima"] == 0 and visits["grid_round_longest"] == 0
+        ow, oe = t_grid.grid_round_minima_v1(g, views, cd, labels, hopeless)
+        assert torch.equal(w, ow) and torch.equal(e, oe)
+
+    @pytest.mark.parametrize("L", [1, 5, 20, 33, 100])
+    def test_small_tables(self, cuda_device, L):
+        """One to four tiles of fewer than 32 rows: the ranks of a cluster of
+        up to 8 start past the order's end."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(38)
+        rep = _t(_centred(rng, L, 3)).to(cuda_device)
+        _, g, (cd,) = _padded_grid(rep, _t(rng.uniform(0.0, 0.2, size=L).astype(np.float32)).to(cuda_device))
+        Lp = cd.shape[0]
+        views = t_grid._block_views(g)
+        labels = torch.as_tensor(rng.integers(0, 3, size=Lp), device=cuda_device)
+        hopeless = torch.zeros(Lp, dtype=torch.bool, device=cuda_device)
+        want = t_grid.grid_round_minima_v1(g, views, cd, labels, hopeless)
+        for c in (1, 2, 4, 8):
+            got = t_grid.grid_round_minima(g, views, cd, labels, hopeless, None, cluster=c)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), c
+
+    def test_visits_at_one_cta_equal_v1(self, cuda_device):
+        """At a cluster of one the kernel walks as the first kernel does: the
+        same row-tile visits; a larger cluster visits at least as many."""
+        from repro_torch.kernels import grid as t_grid
+
+        g, cd = _round_case("spread", np.random.default_rng(39), 16)
+        views = t_grid._block_views(g)
+        Lp = cd.shape[0]
+        labels = torch.arange(Lp, device=cuda_device)
+        hopeless = torch.zeros(Lp, dtype=torch.bool, device=cuda_device)
+        counts = {}
+        for name, c in (("v1", None), ("c1", 1), ("c4", 4)):
+            t_grid.track_visits(True, torch.device(cuda_device))
+            try:
+                if c is None:
+                    t_grid.grid_round_minima_v1(g, views, cd, labels, hopeless)
+                else:
+                    t_grid.grid_round_minima(g, views, cd, labels, hopeless, None, cluster=c)
+                counts[name] = t_grid.visit_counts()
+            finally:
+                t_grid.track_visits(False)
+        assert counts["c1"]["grid_round_minima"] == counts["v1"]["grid_round_minima"] > 0
+        assert counts["c4"]["grid_round_minima"] >= counts["c1"]["grid_round_minima"]
+        assert 0 < counts["c4"]["grid_round_longest"] <= counts["c1"]["grid_round_longest"]
 
 
 def _fma_probe_rows(rng, d=4):
@@ -1560,6 +1684,8 @@ class TestCudaMesh:
             assert torch.equal(got, cd_s[b0 * 64 : b1 * 64]), (b0, b1)
             gw, ge = t_grid.grid_round_minima(g, views, cd, labels, hopeless, blocks=(b0, b1))
             assert torch.equal(gw, w_s[b0 * 64 : b1 * 64]) and torch.equal(ge, e_s[b0 * 64 : b1 * 64]), (b0, b1)
+            ow, oe = t_grid.grid_round_minima_v1(g, views, cd, labels, hopeless, blocks=(b0, b1))
+            assert torch.equal(gw, ow) and torch.equal(ge, oe), (b0, b1)
 
     @pytest.mark.parametrize("spatial", [False, True], ids=["dense", "spatial"])
     def test_sharded_pass(self, cuda_device, spatial):

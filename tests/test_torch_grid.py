@@ -39,6 +39,8 @@ a member's distance, invalid rows contribute nothing whatever they hold,
 and a larger bucket changes nothing.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,6 +54,7 @@ from repro_torch.core.bubble_flat import BubbleFlat
 from repro_torch.core.bubble_tree import BubbleTree
 from repro_torch.core.mst import boruvka, boruvka_grid
 from repro_torch.kernels import grid as tgrid
+from repro_torch.kernels import grid_variants
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -162,24 +165,67 @@ class TestBuildGrid:
 
 
 class TestWrappers:
-    @pytest.mark.parametrize("case", ["assign_width", "cd_rows", "round_rows", "views_dtype", "tile_rows"])
+    @pytest.mark.parametrize("case", ["assign_width", "cd_rows", "round_rows", "views_dtype", "tile_rows",
+                                      "round_rows_v1", "views_dtype_v1", "round_cluster"])
     def test_bad_shapes_raise(self, case):
+        """The round cases for both round wrappers: ``grid_round_minima`` and
+        its first kernel's, ``grid_round_minima_v1`` (the ``_v1`` cases);
+        a cluster size the kernel is not built for."""
         repp, nbp, extp, valid = _padded(*_table("blobs", 8))
         g = tgrid.build_grid(_t(repp), _t(valid))
         views = tgrid._block_views(g)
         z = torch.zeros(LP)
+        round_fn = tgrid.grid_round_minima_v1 if case.endswith("_v1") else tgrid.grid_round_minima
         with pytest.raises(ValueError):
             if case == "assign_width":
                 tgrid.grid_assign(g, torch.zeros(4, 3))
             elif case == "cd_rows":
                 tgrid.grid_core_distances(g, _t(nbp[:-1]), _t(extp), MIN_PTS, 8)
-            elif case == "round_rows":
-                tgrid.grid_round_minima(g, views, z[:-1], torch.arange(LP), z.bool())
-            elif case == "views_dtype":
+            elif case.startswith("round_rows"):
+                round_fn(g, views, z[:-1], torch.arange(LP), z.bool())
+            elif case.startswith("views_dtype"):
                 bad = tgrid.GridViews(order=views.order.long(), lbs=views.lbs, block=views.block)
-                tgrid.grid_round_minima(g, bad, z, torch.arange(LP), z.bool())
+                round_fn(g, bad, z, torch.arange(LP), z.bool())
+            elif case == "round_cluster":
+                tgrid.grid_round_minima(g, views, z, torch.arange(LP), z.bool(), cluster=3)
             else:
                 tgrid.build_grid(torch.zeros(100, 2), torch.ones(100, dtype=torch.bool))
+
+    def test_round_wrappers_first_round(self):
+        """Borůvka's first round (every row its own label, none hopeless) on
+        the ``blobs`` table at d = 8: both round wrappers take the plain
+        version on the CPU, bit for bit; against the JAX package's
+        ``_grid_round_minima`` fed the same core distances, each row's w
+        within the distance tolerance and its edge id equal."""
+        from repro.core.mst import _grid_round_minima
+
+        rep, nb, ext = _table("blobs", 8)
+        repp, nbp, extp, valid = _padded(rep, nb, ext)
+        gj, gt = _grids(repp, valid)
+        views = tgrid._block_views(gt)
+        cd = tgrid.grid_core_distances(gt, _t(nbp), _t(extp), MIN_PTS, 8, views)
+        labels, hopeless = torch.arange(LP), torch.zeros(LP, dtype=torch.bool)
+        want = tref.grid_round_minima(gt, views, cd, labels, hopeless)
+        for fn in (tgrid.grid_round_minima, tgrid.grid_round_minima_v1):
+            got = fn(gt, views, cd, labels, hopeless)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), fn.__name__
+        NT = gt.tile_lo.shape[0]
+        bws, bes = _grid_round_minima(gj, jnp.asarray(cd.numpy()), jnp.arange(LP, dtype=jnp.int32),
+                                      jnp.zeros(LP, dtype=bool), jgrid._block_views(gj, 64), NT, LP // NT, LP, 64)
+        jw, je = np.empty(LP, np.float32), np.empty(LP, np.int32)
+        jw[np.asarray(gj.orig)], je[np.asarray(gj.orig)] = np.asarray(bws).reshape(-1), np.asarray(bes).reshape(-1)
+        tw, te = want[0].numpy(), want[1].numpy()
+        assert np.isfinite(tw[:L]).all() and np.isinf(tw[L:]).all() and np.isinf(jw[L:]).all()
+        np.testing.assert_array_less(np.abs(tw[:L] - jw[:L]), RTOL * jw[:L] + _allowance(rep, jw[:L]))
+        np.testing.assert_array_equal(te, je)
+
+    @pytest.mark.parametrize("name", list(grid_variants.VARIANTS))
+    def test_variant_patches_apply(self, name):
+        """Every text patch of ``python -m repro_torch.kernels.grid_variants``
+        matches the shipped ``csrc/grid_round.cu`` exactly once."""
+        src = (Path(tgrid.__file__).with_name("csrc") / "grid_round.cu").read_text()
+        out = grid_variants._apply(name, src, grid_variants.VARIANTS[name])
+        assert (out == src) == (not grid_variants.VARIANTS[name])
 
 
 class TestAgainstReference:

@@ -76,7 +76,8 @@ def test_variant_modules_are_covered():
     """The card-only timing modules (``python -m repro_torch.kernels.<name>``)
     are held to the same no-JAX rule and import on a machine without a card."""
     files = _port_files()
-    names = ("flash_variants", "flash_fwd_variants", "flash_bwd_variants", "hierarchy_variants", "strip_variants")
+    names = ("flash_variants", "flash_fwd_variants", "flash_bwd_variants", "hierarchy_variants", "strip_variants",
+             "grid_variants")
     for name in names:
         assert PORT / "kernels" / f"{name}.py" in files, name
     code = "import importlib\n" + "".join(f"importlib.import_module('repro_torch.kernels.{n}')\n" for n in names)
