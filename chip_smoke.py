@@ -114,11 +114,18 @@ Phases, each printing its own lines:
               kernels launched and the dense distance kernels not; on the
               full table (L = 5,243, Lp = 8192) grid_core_distances bit for
               bit bubble_cd at min_pts 10, 100 and 2000 (the strip route),
-              grid_assign bit for bit assign at the ingest and query
-              shapes, boruvka_grid's buffers bit for bit dense Borůvka on
-              the panel's W; each kernel against its plain version, timed
-              beside it (and assign beside cdist+min) with the visited
-              share of rows x tiles and the bound from the visited tiles;
+              grid_assign (csrc/grid_assign.cu) bit for bit assign and its
+              first kernel (grid_assign_v1, csrc/grid.cu: launched 0 times
+              on every stream) at the ingest and query shapes and on the
+              d = 200 stream, boruvka_grid's buffers bit for bit dense
+              Borůvka on the panel's W; each kernel against its plain
+              version, timed beside it with the visited share of rows x
+              tiles and the bound from the visited tiles; grid_assign at
+              both shapes in turns with its first kernel, the kernel alone
+              and the whole call, each kernel's visits and longest walk of
+              a CTA, the bound from the visits the function needs (the
+              first kernel's), cdist+min, and one whole call's launches,
+              device busy and host enqueue under torch.profiler;
               grid_round_minima (csrc/grid_round.cu) bit for bit its first
               kernel (grid_round_minima_v1, csrc/grid.cu: launched 0 times
               on the stream) in round 1, timed in turns with it, and in
@@ -443,6 +450,13 @@ Phases, each printing its own lines:
      grid_assign, grid_core_distances and grid_round_minima, which stand
      for the JAX package's grid-pruned jnp searches, with their launches
      from [grid] and the visited share as visited_share;
+     grid_assign (source csrc/grid_assign.cu) also with its cluster size,
+     v1_ms (the first kernel alone in the same turns), the whole call's
+     call_ms, v1_call_ms and host_ms, its own visits (kernel_visits,
+     extra_visits), the longest walks (walk, v1_walk), the profiled call's
+     call_launches, and the query shape's numbers as query;
+     grid_assign_v1 (csrc/grid.cu, its oracle, launched on no path) with
+     its ingest-shape numbers and launches_oracle;
      grid_round_minima (source csrc/grid_round.cu) also with its cluster
      size, v1_ms (the first kernel's round-1 call in the same turns), one
      pass's device ms over its rounds for the new kernel, the first and the
@@ -567,6 +581,7 @@ WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu", "
               "grid.cu", "grid_round.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu",
               "flash_attention_wgmma.cu")  # the grid's and the wgmma kernel's: by name, not checked for spills
 GRID_ROUND_INSTANTIATIONS = 5  # grid_round.cu: compiled widths 16, 32, 64, 128 and the feature-slice kernel
+GRID_ASSIGN_INSTANTIATIONS = 5  # grid_assign.cu: the same widths
 # flash_attention_wgmma.cu: head-dim bucket {64, 128}; 384 threads at 168 registers (the launch bound's share),
 # of which setmaxnreg moves the producer warpgroup to 40 and the two consumer warpgroups to 232: 128 x 40 + 256 x 232
 # = 384 x 168, so a launch at any other count could leave a consumer's raise waiting
@@ -923,12 +938,14 @@ def ptxas_ws(log: str) -> dict:
 def ptxas_grid(log: str) -> dict:
     """{(kernel, K): (registers, stack bytes, spill stores, spill loads)} of
     csrc/grid.cu's kernels (K the Eq. 6 kernel's queue length, else 0) and
-    csrc/grid_round.cu's (grid_round_tiles, K its compiled width: 16, 32,
-    64, 128, or 0 for feature slices)."""
+    csrc/grid_round.cu's and csrc/grid_assign.cu's (grid_round_tiles,
+    grid_assign_tiles; K the compiled width: 16, 32, 64, 128, or 0 for
+    feature slices)."""
     import re
 
     def entry(line):
-        m = re.search(r"Compiling entry function '\S*?(grid_assign|grid_round|grid_cd|grid_round_tiles)_kernel"
+        m = re.search(r"Compiling entry function '\S*?(grid_assign_tiles|grid_round_tiles|grid_assign|grid_round|grid_cd)"
+                      r"_kernel"
                       r"(?:ILi(\d+)E)?", line)
         return (m.group(1), int(m.group(2) or 0)) if m else None
 
@@ -1057,11 +1074,12 @@ def phase_build():
         check(not bad, f"register-tile instantiations with a stack frame or spills: {bad}")
         grid = ptxas_grid(info["log"])
         for (kern, K), (regs, stack, st, ld) in sorted(grid.items()):
-            src = "grid_round.cu" if kern == "grid_round_tiles" else "grid.cu"
+            src = {"grid_round_tiles": "grid_round.cu", "grid_assign_tiles": "grid_assign.cu"}.get(kern, "grid.cu")
             say(f"[build] {src} {kern} K={K}: {regs} registers, {stack} bytes stack, spill stores {st} loads {ld}")
-        tiles = [k for k in grid if k[0] == "grid_round_tiles"]
-        check(len(tiles) == GRID_ROUND_INSTANTIATIONS,
-              f"{len(tiles)} grid_round.cu kernels in the ptxas report, not {GRID_ROUND_INSTANTIATIONS}")
+        for kern, src, want in (("grid_round_tiles", "grid_round.cu", GRID_ROUND_INSTANTIATIONS),
+                                ("grid_assign_tiles", "grid_assign.cu", GRID_ASSIGN_INSTANTIATIONS)):
+            tiles = [k for k in grid if k[0] == kern]
+            check(len(tiles) == want, f"{len(tiles)} {src} kernels in the ptxas report, not {want}")
         bwd = ptxas_bwd(info["log"])
         for (kern, bits, D, part), (regs, stack, st, ld) in sorted(bwd.items()):
             say(f"[build] flash backward {kern} {part} D={D} bits={bits}: {regs} registers, {stack} bytes "
@@ -2242,7 +2260,8 @@ def phase_tenants(dev, card):
 
 
 GRID_KERNELS = ("grid_assign", "grid_core_distances", "grid_round_minima")
-GRID_ORACLE = "grid_round_minima_v1"  # csrc/grid.cu's first round kernel: the oracle, launched on no path
+# csrc/grid.cu's first round and assign kernels: the redesigns' oracles, launched on no path
+GRID_ORACLES = ("grid_round_minima_v1", "grid_assign_v1")
 
 
 def grid_counts(reset: bool = False) -> dict:
@@ -2250,9 +2269,17 @@ def grid_counts(reset: bool = False) -> dict:
     from repro_torch.kernels import grid as k_grid
 
     if reset:
-        for name in GRID_KERNELS + (GRID_ORACLE,):
+        for name in GRID_KERNELS + GRID_ORACLES:
             k_grid.launches[name] = 0
     return dict(k_grid.launches)
+
+
+def no_oracle(tag: str, before: dict):
+    """Fail if a first grid kernel (an oracle) launched since ``before``
+    (``grid_counts()``): the stream ``tag`` names runs the new kernels only."""
+    after = grid_counts()
+    ran = {n: after[n] - before[n] for n in GRID_ORACLES if after[n] != before[n]}
+    check(not ran, f"[{tag}] the first grid kernels ran on the path: {ran}")
 
 
 def drive_stream(eng, X, Qs, drop):
@@ -2356,7 +2383,7 @@ def phase_grid(dev, run, card):
         f"passes; launches {json.dumps(launches)}; dense kernels {json.dumps(dense)}")
     for name in GRID_KERNELS:
         check(launches[name] > 0, f"[grid] kernel {name} never launched on the spatial stream")
-    check(launches[GRID_ORACLE] == 0, f"[grid] the first round kernel ran on the stream: {launches}")
+    check(all(launches[n] == 0 for n in GRID_ORACLES), f"[grid] a first grid kernel ran on the stream: {launches}")
     check(dense["assign"] == dense["bubble_cd"] == dense["mutual_reach"] == 0,
           f"[grid] the spatial stream ran dense kernels: {dense}")
     n_passes = eng.stats["recluster_count"]
@@ -2640,6 +2667,7 @@ def mesh_engine(dev, card):
     launches = {}
     for sp in (False, True):
         name = "grid" if sp else "dense"
+        before = grid_counts()
         plain_hist, plain_served, *_ = drive_stream(StreamingClusterEngine(DIM, spatial_index=sp, **kw), X, Qs, drop)
         eng = StreamingClusterEngine(DIM, spatial_index=sp, mesh=(dev,) * MESH_ENGINE_K, **kw)
         mesh_counts(reset=True)
@@ -2647,6 +2675,7 @@ def mesh_engine(dev, card):
         hist, served, ingest_ms, retire_ms, lat = drive_stream(eng, X, Qs, drop)
         wall = time.perf_counter() - t0
         counts = mesh_counts()
+        no_oracle(f"mesh {name} engines", before)
         check(sorted(hist) == sorted(plain_hist), f"[mesh] {name} engine: published versions differ")
         for v in sorted(hist):
             same_result(f"[mesh] {name} engine version {v}", hist[v].result, plain_hist[v].result)
@@ -2736,12 +2765,20 @@ def grid_bitwise(tag, dev, table, q_ingest, snap, Qs, min_pts_list):
     di, dd = k_assign.assign(q, r, with_dist=True)
     check(bool(torch.equal(gi, di)) and bool(torch.equal(gd, dd)),
           f"[{tag}] grid_assign at the ingest shape differs from assign ({int((gi != di).sum())} indices)")
+    Lp = rep_t.shape[0]  # ops.assign's grid: the reps padded as the offline pass pads them
+    g_in = k_grid.build_grid(torch.cat([r, r.new_full((Lp - L, d), ops._PAD_COORD)]), torch.arange(Lp, device=dev) < L)
+    oi, od = k_grid.grid_assign_v1(g_in, q)
+    check(bool(torch.equal(gi, oi)) and bool(torch.equal(gd, od)),
+          f"[{tag}] grid_assign at the ingest shape differs from grid_assign_v1 ({int((gi != oi).sum())} indices)")
     entry = _build_entry(snap, dev, spatial=True)
     qq = torch.as_tensor((Qs[:QUERY_CHUNK] - entry.center[None, :]).astype(np.float32), device=dev)
     gi, gd = k_grid.grid_assign(entry.grid, qq)
     di, dd = k_assign.assign(qq, entry.reps, with_dist=True)
     check(bool(torch.equal(gi, di)) and bool(torch.equal(gd, dd)),
           f"[{tag}] grid_assign at the query shape differs from assign ({int((gi != di).sum())} indices)")
+    oi, od = k_grid.grid_assign_v1(entry.grid, qq)
+    check(bool(torch.equal(gi, oi)) and bool(torch.equal(gd, od)),
+          f"[{tag}] grid_assign at the query shape differs from grid_assign_v1 ({int((gi != oi).sum())} indices)")
     cd = k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views)
     W = k_mr.mutual_reachability(rep_t, rep_t, cd, cd, zero_diag=True, n_valid=L)
     want = boruvka(W)
@@ -2750,7 +2787,8 @@ def grid_bitwise(tag, dev, table, q_ingest, snap, Qs, min_pts_list):
     for name, a, b in zip(("eu", "ev", "ew", "valid"), got, want):
         check(bool(torch.equal(a, b)), f"[{tag}] boruvka_grid's {name} differs from dense Borůvka's")
     say(f"[{tag}] L={L}, Lp={rep_t.shape[0]}, d={d}: grid_core_distances bit for bit bubble_cd at min_pts "
-        f"{', '.join(routes)}; grid_assign bit for bit assign at the ingest shape ({q.shape[0]} rows x {L} reps) "
+        f"{', '.join(routes)}; grid_assign bit for bit assign and grid_assign_v1 at the ingest shape ({q.shape[0]} "
+        f"rows x {L} reps) "
         f"and the query shape ({qq.shape[0]} rows x the final snapshot's {snap.n_bubbles} in its bucket "
         f"{entry.bucket}); boruvka_grid's (eu, ev, ew, valid) bit for bit dense Borůvka on the panel's W "
         f"({int(got[3].sum())} edges)")
@@ -2769,6 +2807,65 @@ def visits_of(fn):
         return k_grid.visit_counts()
     finally:
         k_grid.track_visits(False)
+
+
+def call_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler after a warm call: device
+    launches, device busy ms, the host's enqueue (the call returning, before
+    the synchronisation) and the busiest kernel's ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = max((e.self_device_time_total for e in events), default=0.0) / 1e3
+    return dict(launches=sum(e.count for e in events), busy_ms=sum(e.self_device_time_total for e in events) / 1e3,
+                enqueue_ms=enqueue, kernel_ms=top)
+
+
+def assign_shape(g, qx, reps, d) -> dict:
+    """Both assign kernels at one shape (queries ``qx`` against the grid
+    ``g`` of ``reps``): the kernel alone on the Morton-sorted queries
+    (device ms behind a spin) and the whole call (time_ms), each in turns
+    new, v1, v1, new; the host enqueue of both calls; the visits the
+    function needs (the first kernel's, which stops on each block's bests)
+    and the bound from them, the new kernel's own visits and the longest
+    walk of a CTA of both; cdist+min as the library; one whole call under
+    torch.profiler."""
+    import torch
+
+    from repro_torch.kernels import grid as k_grid
+
+    xs, _, views = k_grid._query_views(g, qx)
+    kern = {"new": lambda: k_grid._assign_sorted("grid_assign", "repro_grid_assign_tiles_f32",
+                                                 (k_grid.ASSIGN_CLUSTER,), g, xs, views),
+            "v1": lambda: k_grid._assign_sorted("grid_assign_v1", "repro_grid_assign_f32", (), g, xs, views)}
+    call = {"new": lambda: k_grid.grid_assign(g, qx), "v1": lambda: k_grid.grid_assign_v1(g, qx)}
+    turns, call_turns = {"new": [], "v1": []}, {"new": [], "v1": []}
+    for which in ("new", "v1", "v1", "new"):
+        turns[which].append(device_ms(kern[which], reps=20))
+        call_turns[which].append(time_ms(call[which], reps=20))
+    v1 = visits_of(kern["v1"])
+    new = visits_of(kern["new"])
+    B, NT = qx.shape[0], g.tile_lo.shape[0]
+    flops = 2.0 * d * g.tile * v1["grid_assign"]
+    nbytes = 4.0 * (g.pts.shape[0] * d + 2 * views.order.numel() + B * (d + 2))
+    b, by = bound_ms(flops, nbytes)
+    return dict(ms=float(np.mean(turns["new"])), v1_ms=float(np.mean(turns["v1"])), turns=turns,
+                call_ms=float(np.mean(call_turns["new"])), v1_call_ms=float(np.mean(call_turns["v1"])),
+                call_turns=call_turns, host_ms=host_ms(call["new"]), v1_host_ms=host_ms(call["v1"]),
+                visits=v1["grid_assign"], kernel_visits=new["grid_assign"],
+                extra_visits=new["grid_assign"] - v1["grid_assign"], walk=new["grid_assign_longest"],
+                v1_walk=v1["grid_assign_longest"], bound_ms=b, bound_by=by,
+                library_ms=time_ms(lambda: torch.cdist(qx, reps).min(dim=1)), blocks=views.order.shape[0],
+                tiles=NT, profile=call_profile(call["new"]))
 
 
 def grid_kernels(dev, run, X):
@@ -2807,24 +2904,52 @@ def grid_kernels(dev, run, X):
     gidx, gdist = k_grid.grid_assign(g, qt)
     check(bool(torch.equal(gidx[qperm], pidx)), "[grid] grid_assign: indices differ from the plain version")
     err, _ = compare("grid_assign", gdist[qperm], psq.sqrt(), dist_tol(qt, r, psq.sqrt()))
-    # the kernel alone on Morton-sorted queries; the call adds the queries' sort, visit lists and scatter
-    xs_i, _, v_i = k_grid._query_views(g, q)
-    ms = time_ms(lambda: k_grid._assign_sorted(g, xs_i, v_i), reps=20)
-    call = time_ms(lambda: k_grid.grid_assign(g, q), reps=20)
-    host = host_ms(lambda: k_grid.grid_assign(g, q))
-    plain = time_ms(lambda: ref.grid_assign(g, xs_i, v_i), reps=1, warm=1)
-    lib = time_ms(lambda: torch.cdist(q, r).min(dim=1))
-    v = visits_of(lambda: k_grid._assign_sorted(g, xs_i, v_i))["grid_assign"]
-    xs_q, _, v_q = k_grid._query_views(entry.grid, qq)
-    qms = time_ms(lambda: k_grid._assign_sorted(entry.grid, xs_q, v_q), reps=50)
-    qcall = time_ms(lambda: k_grid.grid_assign(entry.grid, qq), reps=50)
-    qv = visits_of(lambda: k_grid._assign_sorted(entry.grid, xs_q, v_q))["grid_assign"]
-    report("grid_assign", q.shape[0], v, ms, plain, lib, err,
-           f" ({q.shape[0]} rows x {L} reps, the ingest shape; the whole call with the queries' Morton sort and "
-           f"visit lists {call:.4f} ms, host enqueue {host:.4f} ms; at the query shape, {qq.shape[0]} rows x "
-           f"{entry.n_bubbles} reps in {entry.bucket}: kernel {qms:.4f} ms, call {qcall:.4f} ms, "
-           f"{qv / (qq.shape[0] * entry.grid.tile_lo.shape[0]):.4f} of the pairs visited, "
-           f"{-(-qq.shape[0] // 64)} blocks)")
+    # the first kernel on the same rows: its own error against the plain version, and bit for bit the new kernel
+    vidx, vdist = k_grid.grid_assign_v1(g, qt)
+    check(bool(torch.equal(vidx[qperm], pidx)), "[grid] grid_assign_v1: indices differ from the plain version")
+    v1_err, _ = compare("grid_assign_v1", vdist[qperm], psq.sqrt(), dist_tol(qt, r, psq.sqrt()))
+    check(bool(torch.equal(vidx, gidx)) and bool(torch.equal(vdist, gdist)),
+          f"[grid] grid_assign differs from grid_assign_v1 on the tie-free rows ({int((vidx != gidx).sum())} indices, "
+          f"{int((vdist != gdist).sum())} distances)")
+    plain = None
+    shapes = {}
+    for shape, gg, qx, reps in (("ingest", g, q, r), ("query", entry.grid, qq, entry.reps)):
+        shapes[shape] = assign_shape(gg, qx, reps, d)
+        if plain is None:
+            xs_i, _, v_i = k_grid._query_views(gg, qx)
+            plain = time_ms(lambda: ref.grid_assign(gg, xs_i, v_i), reps=1, warm=1)
+    ing, qry = shapes["ingest"], shapes["query"]
+    report("grid_assign", q.shape[0], ing["visits"], ing["ms"], plain, ing["library_ms"], err,
+           f" ({q.shape[0]} rows x {L} reps, the ingest shape: the kernel alone on Morton-sorted queries, device ms "
+           f"behind a spin; the bound counts the visits the function needs, the first kernel's)")
+    report("grid_assign_v1", q.shape[0], ing["visits"], ing["v1_ms"], plain, ing["library_ms"], v1_err,
+           " (the first kernel, csrc/grid.cu)")
+    for shape, got in shapes.items():
+        n_rows = q.shape[0] if shape == "ingest" else qq.shape[0]
+        reps_n = L if shape == "ingest" else f"the final snapshot's {entry.n_bubbles} in its bucket {entry.bucket}"
+        say(f"[grid] grid_assign, {shape} shape ({n_rows} rows x {reps_n}, {got['blocks']} blocks x {got['tiles']} "
+            f"tiles), in turns new, v1, v1, new: kernel alone {', '.join(f'{t:.4f}' for t in got['turns']['new'])} "
+            f"ms [v1 {', '.join(f'{t:.4f}' for t in got['turns']['v1'])}]; the whole call (Morton sort, visit lists, "
+            f"search, scatter) {', '.join(f'{t:.4f}' for t in got['call_turns']['new'])} ms [v1 "
+            f"{', '.join(f'{t:.4f}' for t in got['call_turns']['v1'])}], host enqueue {got['host_ms']:.4f} ms [v1 "
+            f"{got['v1_host_ms']:.4f}]; bound {got['bound_ms']:.4f} ms ({got['bound_by']}: the {got['visits']} "
+            f"row-tile visits the function needs, the first kernel's, {got['visits'] / (n_rows * got['tiles']):.4f} "
+            f"of rows x tiles); library {got['library_ms']:.4f} ms (cdist+min)")
+        say(f"[grid] grid_assign, {shape} shape: the new kernel's own visits {got['kernel_visits']} "
+            f"(+{got['extra_visits']} from the cluster's stop, in no bound); longest walk of a CTA {got['walk']} at "
+            f"cluster {k_grid.ASSIGN_CLUSTER} [v1 {got['v1_walk']}]; one whole call under torch.profiler: "
+            f"{got['profile']['launches']} device launches, device busy {got['profile']['busy_ms']:.4f} ms, host "
+            f"enqueue {got['profile']['enqueue_ms']:.4f} ms (traced), of which the search kernel "
+            f"{got['profile']['kernel_ms']:.4f} ms")
+    out["grid_assign"].update(cluster=k_grid.ASSIGN_CLUSTER, v1_ms=ing["v1_ms"], call_ms=ing["call_ms"],
+                              v1_call_ms=ing["v1_call_ms"], host_ms=ing["host_ms"], kernel_visits=ing["kernel_visits"],
+                              extra_visits=ing["extra_visits"], walk=ing["walk"], v1_walk=ing["v1_walk"],
+                              call_launches=ing["profile"]["launches"],
+                              query={k: qry[k] for k in ("ms", "v1_ms", "call_ms", "v1_call_ms", "host_ms", "bound_ms",
+                                                         "bound_by", "library_ms", "visits", "kernel_visits",
+                                                         "extra_visits", "walk", "v1_walk")})
+    out["grid_assign_v1"].update(walk=ing["v1_walk"], call_ms=ing["v1_call_ms"],
+                                 query={"ms": qry["v1_ms"], "call_ms": qry["v1_call_ms"], "walk": qry["v1_walk"]})
 
     # grid_core_distances at MIN_PTS, against the plain version on the rows whose crossing is clear
     cd = k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views)
@@ -2878,9 +3003,10 @@ def grid_kernels(dev, run, X):
                                     rounds_ms=[round(r["ms"], 4) for r in rounds],
                                     v1_rounds_ms=[round(r["v1_ms"], 4) for r in rounds])
     after = grid_counts()  # the checks' launches are not the path's: the caller's counts were read before
-    out[GRID_ORACLE]["launches_oracle"] = after[GRID_ORACLE] - counts[GRID_ORACLE]
-    check(out[GRID_ORACLE]["launches_oracle"] > 0, "[grid] the first round kernel never ran as the oracle")
-    for name in GRID_KERNELS + (GRID_ORACLE,):
+    for name in GRID_ORACLES:
+        out[name]["launches_oracle"] = after[name] - counts[name]
+        check(out[name]["launches_oracle"] > 0, f"[grid] the first kernel {name} never ran as the oracle")
+    for name in GRID_KERNELS + GRID_ORACLES:
         k_grid.launches[name] = counts[name]
     return out
 
@@ -3054,8 +3180,8 @@ def grid_pass(dev, table):
         f"{v['grid_round_minima'] - v1v['grid_round_minima']})")
     check(per_pass["grid_core_distances"] == 1 and per_pass["grid_assign"] == 0
           and per_pass["grid_round_minima"] == ops._pow2_rows(L).bit_length()
-          and after[GRID_ORACLE] == before[GRID_ORACLE], f"[grid] launches in one pass: {per_pass}, first round "
-          f"kernel {after[GRID_ORACLE] - before[GRID_ORACLE]}")
+          and all(after[n] == before[n] for n in GRID_ORACLES), f"[grid] launches in one pass: {per_pass}, first "
+          f"kernels {[after[n] - before[n] for n in GRID_ORACLES]}")
     for name in ("grid", "grid on the first round kernel"):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3100,6 +3226,7 @@ def grid_online(dev, X, drop, kw, card):
 
     eng = StreamingClusterEngine(DIM, spatial_index=True, device_online=True, **kw)
     parity, history, pids = [], {}, []
+    before = grid_counts()
 
     def note(before):
         snap = eng.snapshot
@@ -3126,6 +3253,7 @@ def grid_online(dev, X, drop, kw, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(eng.stats["device_online_blocks"] > 0 and parity, "[grid] the device-online grid stream ran no flat pass")
+    no_oracle("grid", before)
     say(f"[grid] device_online=True with spatial_index=True on {card}: {wall:.2f} s wall, "
         f"{eng.stats['device_online_blocks']} blocks on the device, {len(history)} snapshots; {len(parity)} passes "
         f"from the flat table, each with the partition of the host-table grid pass on the same tree (MST weight "
@@ -3147,7 +3275,7 @@ def grid_wide(dev):
     X, Qs = data[:N_WIDE], data[N_WIDE:]
     eng = StreamingClusterEngine(WIDE_DIM, spatial_index=True, min_pts=MIN_PTS, compression=COMPRESSION,
                                  epsilon=EPSILON, max_block=BLOCK, device=dev)
-    snaps = []
+    snaps, before = [], grid_counts()
     for i in range(0, N_WIDE, BLOCK):
         v0 = 0 if eng.snapshot is None else eng.snapshot.version
         eng.ingest(X[i : i + BLOCK])
@@ -3157,6 +3285,7 @@ def grid_wide(dev):
     eng.flush()
     if eng.snapshot.version != v0:
         snaps.append((eng.snapshot, eng._table.capture(eng.tree.n_points).table()))
+    no_oracle("grid", before)
     for snap, (rep, extent, n_b, _) in snaps:
         dense = ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev)
         check(_same_partition(snap.bubble_labels, dense.labels),
@@ -7319,11 +7448,12 @@ def main() -> int:
                # no Pallas kernel: the JAX package's segment sums + _kahan_add of device-online ingest
                "flat_scatter": ("flat_scatter.cu", "src/repro/core/bubble_flat.py:93"),
                # no Pallas kernel: the JAX package's grid-pruned jnp searches (spatial_index=True)
-               "grid_assign": ("grid.cu", "src/repro/kernels/grid.py:355"),
+               "grid_assign": ("grid_assign.cu", "src/repro/kernels/grid.py:355"),
                "grid_core_distances": ("grid.cu", "src/repro/kernels/grid.py:222"),
                "grid_round_minima": ("grid_round.cu", "src/repro/core/mst.py:392"),
-               # the first round kernel: the redesign's oracle, launched on no path
+               # the first round and assign kernels: the redesigns' oracles, launched on no path
                "grid_round_minima_v1": ("grid.cu", "src/repro/core/mst.py:392"),
+               "grid_assign_v1": ("grid.cu", "src/repro/kernels/grid.py:355"),
                # no Pallas kernel: the jnp strip programs of the exact-dynamic path (exact=True)
                "strip_dists": ("strip_tiles.cu", "src/repro/core/dynamic_jax.py:145"),
                "strip_topk": ("strip_tiles.cu", "src/repro/core/dynamic_jax.py:187"),

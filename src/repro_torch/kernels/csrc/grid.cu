@@ -2,19 +2,24 @@
 // the ports of the JAX package's jnp programs repro/kernels/grid.py::
 // grid_assign (:355), grid_core_distances (:222, _cd_block_values :255) and
 // repro/core/mst.py::_grid_round_minima (:392).  No Pallas kernel stands
-// behind them; on the TPU they are lax.scan / while_loop programs.
+// behind them; on the TPU they are lax.scan / while_loop programs.  The
+// Eq. 6 kernel here is on the path; the assign and round kernels here are
+// the first kernels, redesigned in csrc/grid_assign.cu and
+// csrc/grid_round.cu (a thread a row, a prefetched tile ring, the walk split
+// across a cluster), and stay as those kernels' bitwise oracles
+// (grid_assign_v1, grid_round_minima_v1), launched on no path.
 //
-// One block per 64 query rows (kRows).  The table is Morton-sorted into
-// tiles of T <= 32 rows, and each block walks its own list of tiles in
-// ascending lower bound (order, lbs: computed by torch code in grid.py).
-// Per visited tile, the block stages the tile's rows in shared memory once
-// for all its rows; lane j of every warp owns column j of the tile, and each
-// warp takes R of the block's rows, whose features it reads by broadcast.
-// After the visit each thread votes whether any of its rows could still
-// gain from the NEXT tile, and __syncthreads_or ends the walk at the first
-// tile none could: the skip is strict (a bound equal to an answer is
-// visited), so ties are never lost.  The loops end inside the kernel; the
-// host reads nothing.
+// The layout of this file's kernels: one block per 64 query rows (kRows).
+// The table is Morton-sorted into tiles of T <= 32 rows, and each block
+// walks its own list of tiles in ascending lower bound (order, lbs:
+// computed by torch code in grid.py).  Per visited tile, the block stages
+// the tile's rows in shared memory once for all its rows; lane j of every
+// warp owns column j of the tile, and each warp takes R of the block's rows,
+// whose features it reads by broadcast.  After the visit each thread votes
+// whether any of its rows could still gain from the NEXT tile, and
+// __syncthreads_or ends the walk at the first tile none could: the skip is
+// strict (a bound equal to an answer is visited), so ties are never lost.
+// The loops end inside the kernel; the host reads nothing.
 //
 // Exactness against the dense kernels.  Every norm and dot product is one
 // __fmaf_rn chain over the features in ascending order (zero-padded to a
@@ -27,7 +32,7 @@
 // never candidates.
 //
 // Bound on the H100: operations, 64 x 32 x d FMAs per visited tile; the
-// table, visit lists and outputs are a few MB.  This first kernel is simple,
+// table, visit lists and outputs are a few MB.  These kernels are simple,
 // not fast: one tile in flight per block (no cp.async ring), and a table's
 // own rows as queries give NB = Lp / 64 blocks, 128 at Lp = 8192 on 132 SMs.
 #include "warp_select.cuh"
@@ -220,7 +225,10 @@ grid_assign_kernel(const float* __restrict__ x, int n, const float* __restrict__
       dist_out[row] = sqrtf(best[r]);
     }
   }
-  if (visits != nullptr && threadIdx.x == 0) atomicAdd(visits, (unsigned long long)visited * min(kRows, n - x0));
+  if (visits != nullptr && threadIdx.x == 0) {
+    atomicAdd(visits, (unsigned long long)visited * min(kRows, n - x0));
+    atomicMax(visits + 1, (unsigned long long)visited);  // the longest walk of a block
+  }
 }
 
 // ------------------------------------------------------- Borůvka round
@@ -582,8 +590,8 @@ bool bad_blocks(int Lp, int block0, int nblocks) {
 // bool: the sorted table in NT tiles of T rows; order (ceil(n / 64), NT)
 // int32 and lbs (ceil(n / 64), NT) f32 each block's tiles by ascending
 // lb_sq - slack; idx_out (n,) int32, dist_out (n,) f32 in sorted order;
-// visits: null or one 64-bit counter of row-tile visits.  Returns
-// cudaGetLastError() after the launch.
+// visits: null or two 64-bit counters (row-tile visits, added; the longest
+// walk of a block, a maximum).  Returns cudaGetLastError() after the launch.
 extern "C" int repro_grid_assign_f32(const void* x, int n, const void* pts, const void* orig, const void* valid,
                                      int Lp, int d, int T, const void* order, const void* lbs, int NT,
                                      void* idx_out, void* dist_out, void* visits, void* stream) {

@@ -18,7 +18,9 @@
 // was its longest walk, 164 of 256 tiles at Lp = 8192, at ~2.5 us a visit.
 // Bound on the H100: operations, 2·d FLOPs per (row, visited column).
 //
-// The design:
+// The design (the sizes, the ring's geometry and copies, the header ring,
+// the cluster's merge and launch are grid_tiles.cuh's, shared with
+// csrc/grid_assign.cu):
 //  * The walk is split across a thread-block cluster of C CTAs per 64-row
 //    block (cudaLaunchKernelEx with a cluster dimension; kernels/grid.py
 //    launches C = 8): rank r visits positions r, r + C, r + 2C, ... of the
@@ -80,59 +82,28 @@
 // python -m repro_torch.kernels.grid_variants times other ring depths, the
 // cluster size (an argument), and variants it patches into this source: 1-D
 // bulk copies on mbarriers, a label skip, and probes of where the time goes.
-#include <cuda_runtime.h>
-
-#include <cooperative_groups.h>
-#include <climits>
-#include <cstdint>
-
-#include "common.cuh"
+#include "grid_tiles.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
+using namespace repro::tiles;
 
 constexpr int kStages = 4;  // ring depth S: visits in flight = S - 1
 
 constexpr int kAhead = kStages - 1;
 constexpr int kHdr = kAhead + 2;  // header ring: written a visit before the copies, read up to kAhead after
-constexpr int kRows = 64;         // query rows a block: kernels/grid.py DEFAULT_BLOCK
-constexpr int kWarps = kRows / 32;
-constexpr int kThreads = kRows;   // a row a thread
-constexpr int kMaxTile = 32;      // tile rows: the columns a row sweeps
-constexpr int kSlice = 128;       // features a stage
 constexpr int kSub = 16;          // features a register slice of the row
 constexpr int kGatherWarp = kWarps - 1;
-constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kStages >= 1 && kAhead + 2 <= 32, "ring depth");
 
-__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
-__device__ __forceinline__ float nan_() { return __int_as_float(0x7fffffff); }
-
-// The compiled feature width of a launch: d up to 128 runs one slice of DP
-// = 16, 32, 64 or 128 features (zero past d, which leaves every chain's
-// bits alone) with the loops unrolled; wider d runs DP = 0, slices of
-// kSlice features.
-inline int width_for(int d) { return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 0; }
-
-// Shared-memory plan: the padded slice width, its stride and the offsets
-// (bytes) of every region.
-struct Plan {
-  int d, dp, w, sd, sn;  // features, padded width, slice width, row stride, slices
-  size_t xs, stages, stage_floats, ocol, labc, cdc, hdr_t, hdr_l, fw, fe, cval, bytes;
-  __host__ __device__ Plan(int d_, int DP) : d(d_) {
-    dp = DP > 0 ? DP : (d + 3) & ~3;
-    w = dp < kSlice ? dp : kSlice;
-    sd = w | 4;
-    sn = (dp + w - 1) / w;
-    stage_floats = (size_t)kMaxTile * sd + (sn > 1 ? (size_t)kRows * sd : 0);
-    size_t at = 0;
-    xs = at;
-    at += sn == 1 ? sizeof(float) * kRows * sd : 0;
-    stages = at;
-    at += sizeof(float) * kStages * stage_floats;
-    labc = at = (at + 15) & ~size_t(15);
+// Shared-memory plan: the ring (grid_tiles.cuh's Slices), then the offsets
+// (bytes) of this kernel's regions.
+struct Plan : Slices {
+  size_t labc, ocol, cdc, hdr_t, hdr_l, fw, fe, cval, bytes;
+  __host__ __device__ Plan(int d_, int DP) : Slices(d_, DP, kStages) {
+    size_t at = end;
+    labc = at;
     at += sizeof(long long) * kStages * kMaxTile;
     ocol = at;
     at += sizeof(int) * kStages * kMaxTile;
@@ -152,41 +123,8 @@ struct Plan {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async4b(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Start the copies of features [k0, k0 + width) of rows [r0, r0 + rows) of
-// the row-major (n, d) table into dst (row stride sd), zero past n and d:
-// 16 bytes a copy when vec4 (d % 4 == 0, 16-byte aligned), else 4.
-__device__ __forceinline__ void copy_rows(float* dst, const float* __restrict__ src, int r0, int rows, int n, int d,
-                                          int k0, int width, int sd, bool vec4) {
-  if (vec4) {
-    const int groups = width / 4;
-    for (int t = threadIdx.x; t < rows * groups; t += kThreads) {
-      const int r = t / groups, f = k0 + 4 * (t - r * groups);
-      const bool ok = r0 + r < n && f < d;
-      repro::cp_async16(dst + r * sd + (f - k0), ok ? src + (size_t)(r0 + r) * d + f : src, ok);
-    }
-  } else {
-    for (int t = threadIdx.x; t < rows * width; t += kThreads) {
-      const int r = t / width, f = k0 + (t - r * width);
-      const bool ok = r0 + r < n && f < d;
-      repro::cp_async4(dst + r * sd + (f - k0), ok ? src + (size_t)(r0 + r) * d + f : src, ok);
-    }
-  }
 }
 
 // A squared distance above sq_cap(c) has a root above c: the product
@@ -213,13 +151,7 @@ struct Args {
   unsigned long long* visits;  // null, or [rows x tiles visited, the longest walk of a CTA]
 };
 
-// A visit's raw (ord, lb, in range), loaded clamped and resolved a visit
-// later, and a tile column's raw (orig, valid, in range).
-struct Raw {
-  int tile;
-  float l;
-  bool ok;
-};
+// A tile column's raw (orig, valid, in range).
 struct Col {
   int o;
   bool v, ok;
@@ -249,8 +181,6 @@ grid_round_tiles_kernel(const Args a, int C) {
   const int x0 = blk * kRows, row = x0 + tid;
   const int Lp = a.Lp, T = a.T, NT = a.NT, sn = DP > 0 ? 1 : P.sn;
   const bool vec4 = a.d % 4 == 0 && reinterpret_cast<uintptr_t>(a.pts) % 16 == 0;
-  const int* ord = a.order + (size_t)blk * NT;
-  const float* lb = a.lbs + (size_t)blk * NT;
 
   // The block's rows first: an empty round leaves here.  Every load of a
   // level is issued before any is used.
@@ -268,17 +198,7 @@ grid_round_tiles_kernel(const Args a, int C) {
     return;
   }
 
-  // Iteration q: visit q / sn, feature slice q % sn.  The CTA's visit v is
-  // position rank + v·C of the block's order.
-  auto load_visit = [&](int v) {
-    const int t = rank + v * C;
-    const int tc = min(t, NT - 1);
-    return Raw{ord[tc], lb[tc], t < NT};
-  };
-  auto resolve = [&](const Raw& r, int& tile, float& l) {  // (tile, lb), or (-1, +inf) past the order's end
-    l = r.ok ? r.l : inf();
-    tile = r.ok && r.l < inf() ? r.tile : -1;
-  };
+  // Iteration q: visit q / sn, feature slice q % sn.
   auto load_col = [&](int tile) {  // this lane's column of tile, raw
     const int p = max(tile, 0) * T + min(lane, T - 1);
     return Col{a.orig[p], a.valid[p], tile >= 0 && lane < T};
@@ -301,36 +221,26 @@ grid_round_tiles_kernel(const Args a, int C) {
       cp_async4b(cdc + at, a.cd + o);
     }
   };
+  // The gather warp's state entering iteration k: the header ring at the
+  // visit in progress at iteration k + kAhead, and the raw columns of
+  // iteration k + kAhead (col0).
   const bool gw = warp == kGatherWarp;
-  // The gather warp's state entering iteration k: the tile and bound of
-  // the visit in progress at iteration k + kAhead (cur_t, cur_l), the raw
-  // visit of iteration k + kAhead + 1 where that starts one (nxt), and the
-  // raw columns of iteration k + kAhead (col0).
-  int cur_t = -1;
-  float cur_l = inf();
-  Raw nxt{0, 0.f, false};
+  Headers<kHdr> hdr(hdr_t, hdr_l, a.order + (size_t)blk * NT, a.lbs + (size_t)blk * NT, NT, rank, C, sn, lane);
   Col col0{0, false, false}, col1{0, false, false};
-  auto write_hdr = [&](int q) {
-    if (lane == 0) {
-      hdr_t[q % kHdr] = cur_t;
-      hdr_l[q % kHdr] = cur_l;
-    }
-  };
 
   // Prologue: headers of iterations 0 .. kAhead, gathers of 0 .. kAhead - 1,
   // the columns of kAhead, the raw visit of kAhead + 1; the first kAhead
   // iterations' copies, a commit group each.
   if (gw) {
     for (int q = 0; q <= kAhead; ++q) {
-      if (q % sn == 0) resolve(load_visit(q / sn), cur_t, cur_l);
-      write_hdr(q);
+      hdr.prime(q);
       if (last(q)) {
-        const Col c = load_col(cur_t);
+        const Col c = load_col(hdr.cur_t);
         if (q < kAhead) gather(q, c);
         else col0 = c;
       }
     }
-    if ((kAhead + 1) % sn == 0) nxt = load_visit((kAhead + 1) / sn);
+    hdr.fetch(kAhead + 1);
   }
   if (sn == 1) copy_rows(xs, a.pts, x0, kRows, Lp, a.d, 0, P.dp, P.sd, vec4);
   __syncthreads();
@@ -356,10 +266,9 @@ grid_round_tiles_kernel(const Args a, int C) {
     issue(k + kAhead);
     if (gw) {
       const int q1 = k + kAhead + 1;
-      if (q1 % sn == 0) resolve(nxt, cur_t, cur_l);
-      write_hdr(q1);
-      if (last(q1)) col1 = load_col(cur_t);
-      if ((q1 + 1) % sn == 0) nxt = load_visit((q1 + 1) / sn);
+      hdr.step(q1);
+      if (last(q1)) col1 = load_col(hdr.cur_t);
+      hdr.fetch(q1 + 1);
     }
     if constexpr (kAhead == 0) {
       if (gw && last(k)) gather(k, col0);
@@ -502,32 +411,15 @@ grid_round_tiles_kernel(const Args a, int C) {
     const int share = kRows / C;
     if (tid < share) {
       const int i = rank * share + tid;
-      float v = inf();
-      int e = INT_MAX;
-      for (int c = 0; c < C; ++c) {
-        const float ov = *cluster.map_shared_rank(fw + i, c);
-        const int oe = *cluster.map_shared_rank(fe + i, c);
-        if (ov < v || (ov == v && oe < e)) {
-          v = ov;
-          e = oe;
-        }
-      }
+      const Best b = cluster_min(cluster, fw, fe, i, C);
       if (x0 + i < Lp) {
-        a.w_out[x0 + i - a.block0 * kRows] = v;
-        a.eid_out[x0 + i - a.block0 * kRows] = e;
+        a.w_out[x0 + i - a.block0 * kRows] = b.v;
+        a.eid_out[x0 + i - a.block0 * kRows] = b.e;
       }
     }
     cluster.sync();  // no CTA leaves while another reads its shared memory
   }
-  if (a.visits != nullptr && tid == 0) {
-    atomicAdd(a.visits, (unsigned long long)visited * min(kRows, Lp - x0));
-    atomicMax(a.visits + 1, (unsigned long long)visited);
-  }
-}
-
-bool bad_grid(int Lp, int d, int T, int NT) {
-  return Lp <= 0 || d <= 0 || T <= 0 || T > kMaxTile || NT <= 0 || (long long)T * NT != Lp ||
-         (long long)Lp * Lp >= INT_MAX;
+  count_visits(a.visits, visited, min(kRows, Lp - x0));
 }
 
 bool bad_blocks(int Lp, int block0, int nblocks) {
@@ -549,8 +441,7 @@ extern "C" int repro_grid_round_tiles_f32(const void* pts, const void* orig, con
                                           const void* order, const void* lbs, int NT, const void* cd,
                                           const void* labels, const void* hopeless, int block0, int nblocks,
                                           int cluster, void* w_out, void* eid_out, void* visits, void* stream) {
-  if (bad_grid(Lp, d, T, NT) || bad_blocks(Lp, block0, nblocks) ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8))
+  if (bad_grid(Lp, d, T, NT) || bad_blocks(Lp, block0, nblocks) || !good_cluster(cluster))
     return static_cast<int>(cudaErrorInvalidValue);
   const int DP = width_for(d);
   const Plan P(d, DP);
@@ -559,26 +450,10 @@ extern "C" int repro_grid_round_tiles_f32(const void* pts, const void* orig, con
                                     : DP == 64  ? grid_round_tiles_kernel<64>
                                     : DP == 128 ? grid_round_tiles_kernel<128>
                                                 : grid_round_tiles_kernel<0>;
-  const cudaError_t err = repro::allow_smem(kernel, P.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const Args args{static_cast<const float*>(pts), static_cast<const int*>(orig), static_cast<const bool*>(valid),
                   Lp, d, T, static_cast<const int*>(order), static_cast<const float*>(lbs), NT,
                   static_cast<const float*>(cd), static_cast<const long long*>(labels),
                   static_cast<const bool*>(hopeless), block0, static_cast<float*>(w_out),
                   static_cast<int*>(eid_out), static_cast<unsigned long long*>(visits)};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(nblocks * cluster));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = P.bytes;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t launch = cudaLaunchKernelEx(&cfg, kernel, args, cluster);
-  if (launch != cudaSuccess) return static_cast<int>(launch);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clusters(kernel, args, nblocks, cluster, P.bytes, stream);
 }

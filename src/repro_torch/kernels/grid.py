@@ -29,7 +29,9 @@ block (or cluster of blocks) per 64 query rows:
 
   ``grid_assign``          nearest valid rep per query row (ingest and
                            serve), replacing ``grid.py:355``
-                           (``csrc/grid.cu``);
+                           (``csrc/grid_assign.cu``: a prefetched tile ring
+                           carrying the columns' attributes, the walk split
+                           across a cluster of ``ASSIGN_CLUSTER`` CTAs);
   ``grid_core_distances``  Eq. 6 over each row's (distance, index) walk,
                            replacing ``grid.py:222`` / ``:255``
                            (``csrc/grid.cu``);
@@ -39,8 +41,9 @@ block (or cluster of blocks) per 64 query rows:
                            the walk split across a cluster of
                            ``ROUND_CLUSTER`` CTAs).
 
-``grid_round_minima_v1`` launches the round's first kernel
-(``csrc/grid.cu``), the redesign's bitwise oracle: no path calls it.
+``grid_assign_v1`` and ``grid_round_minima_v1`` launch the first assign
+and round kernels (``csrc/grid.cu``), the redesigns' bitwise oracles: no
+path calls them.
 
 The Eq. 6 and Borůvka searches take a range of query blocks: the
 sharded offline pass (``mesh=``) gives each shard a contiguous range
@@ -49,14 +52,20 @@ block's answers do not depend on which blocks share a launch, and the
 range's rows come back in sorted order for the lead device to scatter.
 
 Bound on the H100: operations.  Each visited tile costs 64 × 32 × d FMAs
-of dot product; the table and the visit lists are a few MB.  The tile is
-staged in shared memory once per visit for all 64 rows of the block, the
-rows' features are read by broadcast, and lane j of each warp owns column
-j of the tile, so a visit is 8 rows × d FMAs per thread with no (rows, L)
-buffer anywhere.  A tensor on the CPU takes the plain version in
+of dot product; the table and the visit lists are a few MB.  Every kernel
+stages a visited tile in shared memory once for all 64 rows of its block
+and reads the tile's rows by broadcast, with no (rows, L) buffer anywhere.
+The layouts differ.  The assign and round kernels (``csrc/grid_assign.cu``,
+``csrc/grid_round.cu``) give a thread a row, 64 threads a CTA: a visit is
+32 columns × d FMAs a thread, the tiles come through a ring of
+``cp.async`` copies a few visits ahead, and a block's walk is split over
+the CTAs of a cluster.  The Eq. 6 kernel and the first kernels
+(``csrc/grid.cu``) give lane j of each warp column j of the tile and a
+warp 8 of the block's rows: a visit is 8 rows × d FMAs a thread, one tile
+in flight.  A tensor on the CPU takes the plain version in
 ``kernels/ref.py``; a CUDA tensor launches the kernel or raises.
 ``track_visits`` counts the kernels' row-tile visits on the card, and for
-``grid_round_minima`` also the longest walk of one CTA.
+the assign and round kernels also the longest walk of one CTA.
 """
 
 from __future__ import annotations
@@ -79,12 +88,14 @@ __all__ = [
     "grid_core_distances",
     "grid_round_minima",
     "grid_round_minima_v1",
+    "grid_assign_v1",
     "grid_core_distances_shard",
     "track_visits",
     "visit_counts",
     "DEFAULT_TILE",
     "DEFAULT_BLOCK",
     "ROUND_CLUSTER",
+    "ASSIGN_CLUSTER",
 ]
 
 # quantisation bits per grid dimension; with <= 3 interleaved dims the
@@ -99,9 +110,14 @@ _LB_CHUNK = 1 << 24  # floats of one (blocks, tiles, d) gap chunk in _lower_boun
 _INT32_MAX = 2**31 - 1
 
 ROUND_CLUSTER = 8  # CTAs a query block in grid_round_minima's launch (python -m repro_torch.kernels.grid_variants)
+ASSIGN_CLUSTER = 8  # CTAs a query block in grid_assign's launch (python -m repro_torch.kernels.grid_variants assign)
+CLUSTERS = (1, 2, 4, 8)  # the cluster sizes the kernels are built for
 
-launches = {"grid_assign": 0, "grid_core_distances": 0, "grid_round_minima": 0, "grid_round_minima_v1": 0}
-# (4,) int64 on the card while track_visits is on: visits of assign, Eq. 6, the round; the round's longest walk
+launches = {"grid_assign": 0, "grid_core_distances": 0, "grid_round_minima": 0, "grid_round_minima_v1": 0,
+            "grid_assign_v1": 0}
+# (5,) int64 on the card while track_visits is on, by slot (_SLOTS): the row-tile visits of assign (both kernels)
+# and its longest walk of a CTA, of Eq. 6, of the round (both kernels) and its longest walk
+_SLOTS = ("grid_assign", "grid_assign_longest", "grid_core_distances", "grid_round_minima", "grid_round_longest")
 _visits: torch.Tensor | None = None
 
 
@@ -260,26 +276,31 @@ def _query_views(grid: GridIndex, x: torch.Tensor, block: int = DEFAULT_BLOCK):
 
 def track_visits(on: bool, device=None) -> None:
     """Start (zeroed) or stop counting the kernels' row-tile visits on the
-    card: each visit of a tile adds the rows of the block that visit it
-    (both round kernels count under ``grid_round_minima``), and
-    ``grid_round_minima``'s kernel also keeps the most tiles one CTA
-    visited (``grid_round_longest``).  ``visit_counts()`` reads them (a host
-    sync): for measurement only."""
+    card: each visit of a tile adds the live rows of the block that visit it
+    (both assign kernels count under ``grid_assign``, both round kernels
+    under ``grid_round_minima``), and the assign and round kernels also keep
+    the most tiles one CTA visited (``grid_assign_longest``,
+    ``grid_round_longest``).  ``visit_counts()`` reads them (a host sync):
+    for measurement only."""
     global _visits
-    _visits = torch.zeros(4, dtype=torch.int64, device=device) if on else None
+    _visits = torch.zeros(len(_SLOTS), dtype=torch.int64, device=device) if on else None
 
 
 def visit_counts() -> dict:
+    """{slot: count} for the five slots of ``_SLOTS`` while counting is on
+    (``grid_assign``, ``grid_assign_longest``, ``grid_core_distances``,
+    ``grid_round_minima``, ``grid_round_longest``), else {}."""
     if _visits is None:
         return {}
-    a, c, r, w = (int(v) for v in _visits.cpu())
-    return {"grid_assign": a, "grid_core_distances": c, "grid_round_minima": r, "grid_round_longest": w}
+    return dict(zip(_SLOTS, (int(v) for v in _visits.cpu())))
 
 
-def _visit_ptr(slot: int, device):
+def _visit_ptr(slot: str, device):
+    """The counter of ``slot`` (a kernel with a longest walk writes it at the
+    next slot too), or None while counting is off or on another device."""
     if _visits is None or _visits.device != device:
         return None
-    return _visits[slot:].data_ptr()
+    return _visits[_SLOTS.index(slot):].data_ptr()
 
 
 def _checked_grid(grid: GridIndex, what: str, *tensors) -> bool:
@@ -317,23 +338,39 @@ def _views_ok(grid: GridIndex, views: GridViews, n_rows: int, what: str) -> None
         raise ValueError(f"{what}: visit lists {tuple(views.order.shape)} for {NB} blocks x {NT} tiles")
 
 
-def grid_assign(grid: GridIndex, x: torch.Tensor):
+def grid_assign(grid: GridIndex, x: torch.Tensor, cluster: int = ASSIGN_CLUSTER):
     """(B, d) f32 queries → (idx int32 (B,), dist f32 (B,)): the nearest
     VALID rep by (clamped squared distance, original index) and the square
     root of that distance, bitwise the dense assign kernel on the valid
     rows.  ``idx`` is the original row, ``Lp`` where the table has no valid
-    row at all."""
-    _checked_grid(grid, "grid_assign", x)
+    row at all (``csrc/grid_assign.cu``).  ``cluster``: CTAs a query block on
+    the card, 1, 2, 4 or 8; the bits do not depend on it."""
+    if cluster not in CLUSTERS:
+        raise ValueError(f"grid_assign: cluster must be 1, 2, 4 or 8, got {cluster}")
+    return _assign("grid_assign", "repro_grid_assign_tiles_f32", (cluster,), grid, x)
+
+
+def grid_assign_v1(grid: GridIndex, x: torch.Tensor):
+    """``grid_assign`` through its first kernel (``csrc/grid.cu``), the
+    redesign's bitwise oracle: no path calls it."""
+    return _assign("grid_assign_v1", "repro_grid_assign_f32", (), grid, x)
+
+
+def _assign(name: str, entry: str, extra: tuple, grid: GridIndex, x: torch.Tensor):
+    """``grid_assign``'s checks, the queries' Morton sort and visit lists,
+    the search (``_assign_sorted``) and the scatter back to the queries'
+    order."""
+    _checked_grid(grid, name, x)
     x = x.float().contiguous()
     if x.dim() != 2 or x.shape[1] != grid.pts.shape[1] or x.device != grid.pts.device:
-        raise ValueError(f"grid_assign wants (B, {grid.pts.shape[1]}) queries on {grid.pts.device}, "
+        raise ValueError(f"{name} wants (B, {grid.pts.shape[1]}) queries on {grid.pts.device}, "
                          f"got {tuple(x.shape)} on {x.device}")
     B = x.shape[0]
     if B == 0:
         return (torch.empty(0, dtype=torch.int32, device=x.device),
                 torch.empty(0, dtype=torch.float32, device=x.device))
     xs, qperm, views = _query_views(grid, x)
-    idx_s, dist_s = _assign_sorted(grid, xs, views)
+    idx_s, dist_s = _assign_sorted(name, entry, extra, grid, xs, views)
     idx = torch.empty_like(idx_s)
     dist = torch.empty_like(dist_s)
     idx[qperm] = idx_s
@@ -341,19 +378,21 @@ def grid_assign(grid: GridIndex, x: torch.Tensor):
     return idx, dist
 
 
-def _assign_sorted(grid: GridIndex, xs: torch.Tensor, views: GridViews):
+def _assign_sorted(name: str, entry: str, extra: tuple, grid: GridIndex, xs: torch.Tensor, views: GridViews):
     """``grid_assign``'s search over queries already in Morton order, with
-    their blocks' visit lists: (idx, dist) in that order."""
+    their blocks' visit lists: (idx, dist) in that order; its plain version
+    on the CPU, and on the card the launch of C entry ``entry``, which takes
+    the arguments ``extra`` before its outputs."""
     B = xs.shape[0]
     if grid.pts.device.type == "cpu":
         idx_s, sq_s = _ref.grid_assign(grid, xs, views)
         return idx_s, torch.sqrt(sq_s)
-    _views_ok(grid, views, B, "grid_assign")
+    _views_ok(grid, views, B, name)
     idx_s = torch.empty(B, dtype=torch.int32, device=xs.device)
     dist_s = torch.empty(B, dtype=torch.float32, device=xs.device)
-    _launch("grid_assign", "repro_grid_assign_f32", xs.device,
+    _launch(name, entry, xs.device,
             xs.data_ptr(), B, *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(),
-            views.order.shape[1], idx_s.data_ptr(), dist_s.data_ptr(), _visit_ptr(0, xs.device))
+            views.order.shape[1], *extra, idx_s.data_ptr(), dist_s.data_ptr(), _visit_ptr("grid_assign", xs.device))
     return idx_s, dist_s
 
 
@@ -403,7 +442,7 @@ def grid_core_distances(grid: GridIndex, n_b, extent, min_pts: int, dim: int,
         _launch("grid_core_distances", "repro_grid_core_distances_f32", out.device,
                 *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
                 n_b.data_ptr(), extent.data_ptr(), min(min_pts, Lp), min_pts, dim, b0, b1 - b0, out.data_ptr(),
-                _visit_ptr(1, out.device))
+                _visit_ptr("grid_core_distances", out.device))
     return out if blocks is not None else _scatter(grid, out)[0]
 
 
@@ -442,7 +481,7 @@ def grid_round_minima(grid: GridIndex, views: GridViews, cd, labels, hopeless, b
     those query blocks run, and the two are their rows' in SORTED order
     (``csrc/grid_round.cu``).  ``cluster``: CTAs a query block on the card,
     1, 2, 4 or 8; the bits do not depend on it."""
-    if cluster not in (1, 2, 4, 8):
+    if cluster not in CLUSTERS:
         raise ValueError(f"grid_round_minima: cluster must be 1, 2, 4 or 8, got {cluster}")
     return _round_minima("grid_round_minima", "repro_grid_round_tiles_f32", (cluster,), grid, views, cd, labels,
                          hopeless, blocks)
@@ -477,7 +516,7 @@ def _round_minima(name: str, entry: str, extra: tuple, grid: GridIndex, views: G
         _launch(name, entry, cd.device,
                 *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
                 cd.data_ptr(), labels.data_ptr(), hopeless.data_ptr(), b0, b1 - b0, *extra, w_s.data_ptr(),
-                e_s.data_ptr(), _visit_ptr(2, cd.device))
+                e_s.data_ptr(), _visit_ptr("grid_round_minima", cd.device))
     return (w_s, e_s) if blocks is not None else _scatter(grid, w_s, e_s)
 
 

@@ -1,7 +1,9 @@
-"""Time variants of the grid Borůvka round's kernel side by side on one card.
+"""Time variants of the grid's round and assign kernels side by side on one card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.grid_variants    # one NVIDIA GPU
+    PYTHONPATH=src python -m repro_torch.kernels.grid_variants             # both, one NVIDIA GPU
+    PYTHONPATH=src python -m repro_torch.kernels.grid_variants assign      # or round: one of them
 
+**The Borůvka round** (``csrc/grid_round.cu``).
 Each variant is ``csrc/grid_round.cu`` with text patches applied (every
 patch must match the shipped source exactly once), built by ``nvcc`` into a
 library of its own under ``build/`` and called through the same C entry as
@@ -28,8 +30,25 @@ events around 20 launches over the round's blocks, queued behind a spin)
 beside the first kernel (``grid_round_minima_v1``); every variant's output
 is checked bit for bit against the first kernel's (the probes' are
 reported, not required), and ptxas's registers, stack and spills of each
-variant's d <= 16 kernel are printed.  Nothing in the port calls this
-module.
+variant's d <= 16 kernel are printed.
+
+**The assign kernel** (``csrc/grid_assign.cu``), the same way: the ring
+depth (1, 2, 4 and 8 stages), the cluster size (the entry's argument, 1, 2,
+4 and 8), the stop and the candidate filter on each CTA's own bests, and
+the filter alone on them (the shipped kernel stops and filters on the
+cluster's bests, which each CTA publishes in its shared memory and its
+peers read through distributed shared memory without a barrier), 6 CTAs an
+SM at up to 168 registers (8 at 128 shipped), and a probe that keeps the
+bits and sums each warp's SM clocks by phase (the wait and barrier, the
+copies and the header, the FMAs, the candidates and the vote).  Two shapes
+on the same table: the ingest shape (the stream's first 8192 points, centred
+by the representatives' mean as the engine's ingest centres them) and the
+query shape (4096 of the held-out queries, centred the same way), each
+timed on its Morton-sorted queries and visit lists beside the first kernel
+(``grid_assign_v1``), every variant bit for bit the first kernel's idx and
+dist, with the row-tile visits and the longest walk of a CTA.
+
+Nothing in the port calls this module.
 """
 
 from __future__ import annotations
@@ -47,8 +66,9 @@ from . import grid as _grid
 
 SEED, N_POINTS, N_QUERIES, DIM, BLOCK = 20241209 + 1, 262_144, 65_536, 16, 8192  # chip_smoke.py's [grid] data
 MIN_PTS, COMPRESSION, EPSILON = 10, 0.02, 0.2
+QUERY_SHAPE = 4096  # the serve plane's query chunk
 REPS = 20
-CLUSTERS = (1, 2, 4, 8)
+CLUSTERS = _grid.CLUSTERS
 
 _STAGES = "constexpr int kStages = 4;"
 _UPDATE = "const bool lt = (keep >> c & 1u) && "
@@ -64,7 +84,7 @@ _TILE_COPY = "    copy_rows(st, a.pts, tile * T, T, Lp, a.d, k0, width, P.sd, ve
 
 # a 1-D bulk copy a tile (T·d·4 bytes, d % 4 == 0) completing on the stage's mbarrier; the tile's rows at stride d
 _BULK = [
-    ("// Start the copies of features", r"""// Wait until the barrier's phase with the given parity has completed; a
+    ("// A squared distance above sq_cap", r"""// Wait until the barrier's phase with the given parity has completed; a
 // wait that cannot end traps after ~2^28 polls instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   uint32_t done, polls = 0;
@@ -87,12 +107,10 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
                ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-// Start the copies of features"""),
-    ("row stride, slices\n", "row stride, slices\n  int ld;                // tile row stride: dp where a tile is one bulk copy\n"),
-    ("cval, bytes;", "cval, bars, bytes;"),
-    ("    stage_floats = (size_t)kMaxTile * sd",
-     "    ld = d % 4 == 0 && sn == 1 && dp == d ? dp : sd;\n    stage_floats = (size_t)kMaxTile * ld"),
-    ("    ocol = at;", "    bars = at;\n    at += 8 * kStages;\n    ocol = at;"),
+// A squared distance above sq_cap"""),
+    # the stages keep their size: a tile's rows at stride ld <= sd
+    ("cval, bytes;", "cval, bars, bytes;\n  int ld;  // tile row stride: dp where a tile is one bulk copy"),
+    ("    ocol = at;", "    ld = d % 4 == 0 && sn == 1 && dp == d ? dp : sd;\n    bars = at;\n    at += 8 * kStages;\n    ocol = at;"),
     ("  int* fe = reinterpret_cast<int*>(smem + P.fe);\n",
      "  int* fe = reinterpret_cast<int*>(smem + P.fe);\n"
      "  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + P.bars);\n"),
@@ -166,6 +184,46 @@ VARIANTS = {
 }
 PHASES = ("wait and barrier", "copies and the gather warp", "FMAs", "candidates and the vote")
 
+# csrc/grid_assign.cu shares the round's anchors _STAGES, _LOOP, _BREAK, _STAGE, _FIN and _DRAIN; its own:
+_A_END = "    if constexpr (kAhead > 0) repro::cp_async_commit();\n  }\n"
+_A_SHARED = ("      if (C > 1 && want) {  // the cluster's best: the stop, and the filter of the next visits\n"
+             "        const float cb = cluster_best(bs);\n        want = nl <= cb;\n        thr = cb;\n      }\n")
+# the stop and the filter on each CTA's own bests (its peers' published bests never read)
+_A_OWN_STOP = [(_A_SHARED, "")]
+# the stop on the cluster's bests, the filter on the CTA's own
+_A_OWN_FILTER = [("        thr = cb;\n", "")]
+# each warp's SM clocks summed by phase of the walk into visits[2 .. 5]
+_A_CLOCKS = [
+    (_LOOP, "  long long clk[4] = {0, 0, 0, 0}, tick = clock64();\n"
+              "  auto mark = [&](int phase) {\n    const long long now = clock64();\n"
+              "    clk[phase] += now - tick;\n    tick = now;\n  };\n" + _LOOP),
+    (_BREAK, _BREAK + "    mark(0);\n"),
+    (_STAGE, "    mark(1);\n" + _STAGE),
+    (_FIN, "    mark(2);\n" + _FIN),
+    (_A_END, _A_END.replace("  }\n", "    mark(3);\n  }\n")),
+    (_DRAIN, "  if (lane == 0 && a.visits != nullptr) {\n"
+               "    for (int i = 0; i < 4; ++i) atomicAdd(a.visits + 2 + i, (unsigned long long)clk[i]);\n  }\n"
+               + _DRAIN),
+]
+ASSIGN_VARIANTS = {
+    "shipped: 4 stages, 16-byte cp.async, stop and filter on the cluster's bests": [],
+    "1 stage": [(_STAGES, _STAGES.replace("4", "1"))],
+    "2 stages": [(_STAGES, _STAGES.replace("4", "2"))],
+    "8 stages": [(_STAGES, _STAGES.replace("4", "8"))],
+    "stop and filter on each CTA's own bests": _A_OWN_STOP,
+    "filter on each CTA's own bests": _A_OWN_FILTER,
+    # room for more values in registers: 6 CTAs an SM at <= 168 registers instead of 8 at 128
+    "6 CTAs an SM": [("__launch_bounds__(kThreads, 8)", "__launch_bounds__(kThreads, 6)")],
+    # the shipped bits, with each warp's SM clocks summed by phase of the walk
+    "probe: phase clocks": _A_CLOCKS,
+}
+ASSIGN_PHASES = ("wait and barrier", "copies and the header", "FMAs", "candidates and the vote")
+# per kernel: the source, its variants, its C entry and the mangled name of its d <= 16 instantiation
+KINDS = {
+    "round": ("grid_round.cu", VARIANTS, "repro_grid_round_tiles_f32", "grid_round_tiles_kernelILi16E"),
+    "assign": ("grid_assign.cu", ASSIGN_VARIANTS, "repro_grid_assign_tiles_f32", "grid_assign_tiles_kernelILi16E"),
+}
+
 
 def _apply(name: str, text: str, changes) -> str:
     for old, new in changes:
@@ -175,20 +233,22 @@ def _apply(name: str, text: str, changes) -> str:
     return text
 
 
-def _ptxas(log: str) -> str:
+def _ptxas(log: str, kernel: str = KINDS["round"][3]) -> str:
     """Registers, stack and spills of the d <= 16 instantiation."""
-    m = re.search(r"grid_round_tiles_kernelILi16E.*?\n.*?(\d+) bytes stack frame, (\d+) bytes spill stores.*?\n"
+    m = re.search(kernel + r".*?\n.*?(\d+) bytes stack frame, (\d+) bytes spill stores.*?\n"
                   r".*?Used (\d+) registers", log)
     return f"{m.group(3)} registers, {m.group(1)} bytes stack, {m.group(2)} bytes spilled" if m else "?"
 
 
-def build() -> list[dict]:
-    """One library per variant, built in parallel: [{name, lib, ptxas}]."""
-    src = (_build._CSRC / "grid_round.cu").read_text()
-    out = _build._BUILD / "grid_variants"
+def build(kind: str = "round") -> list[dict]:
+    """One library per variant of ``kind`` (``KINDS``), built in parallel:
+    [{name, lib, ptxas}]."""
+    source, variants, entry, kernel = KINDS[kind]
+    src = (_build._CSRC / source).read_text()
+    out = _build._BUILD / "grid_variants" / kind
     out.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for i, (name, changes) in enumerate(VARIANTS.items()):
+    for i, (name, changes) in enumerate(variants.items()):
         cu = out / f"v{i}.cu"
         cu.write_text(_apply(name, src, changes))
         cmd = [_build._nvcc(), *_build._ARCH, *_build._FLAGS, "-shared", "-I", str(_build._CSRC), str(cu),
@@ -201,20 +261,27 @@ def build() -> list[dict]:
         if p.returncode:
             raise RuntimeError(f"variant library {i} failed to build:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(out / f"v{i}.so"))
-        lib.repro_grid_round_tiles_f32.argtypes = main.repro_grid_round_tiles_f32.argtypes
-        libs.append(dict(name=name, lib=lib, ptxas=_ptxas(log)))
+        getattr(lib, entry).argtypes = getattr(main, entry).argtypes
+        libs.append(dict(name=name, lib=lib, ptxas=_ptxas(log, kernel)))
     return libs
 
 
-def stream_table(dev):
+def stream_points():
+    """The [grid] stream's points and its held-out queries (chip_smoke.py's
+    [stream] data, drawn together)."""
+    rng = np.random.default_rng(SEED)
+    n = N_POINTS + N_QUERIES
+    centres = rng.normal(scale=3.0, size=(20, DIM))
+    data = centres[rng.integers(0, 20, size=n)] + rng.normal(size=(n, DIM)) + 50.0
+    return data[:N_POINTS], data[N_POINTS:]
+
+
+def stream_table(dev, X=None):
     """The [grid] stream's table after its full flush: the engine's
     representatives, extents and masses (chip_smoke.py's [stream] data)."""
     from .. import StreamingClusterEngine
 
-    rng = np.random.default_rng(SEED)
-    n = N_POINTS + N_QUERIES  # drawn with the queries, as chip_smoke.py draws them
-    centres = rng.normal(scale=3.0, size=(20, DIM))
-    X = (centres[rng.integers(0, 20, size=n)] + rng.normal(size=(n, DIM)) + 50.0)[:N_POINTS]
+    X = stream_points()[0] if X is None else X
     eng = StreamingClusterEngine(DIM, min_pts=MIN_PTS, compression=COMPRESSION, epsilon=EPSILON, max_block=BLOCK,
                                  device=dev, spatial_index=True)
     for i in range(0, N_POINTS, BLOCK):
@@ -273,18 +340,34 @@ def _turns(calls: dict) -> dict:
     return times
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    kinds = argv or ["round", "assign"]
+    if any(k not in KINDS for k in kinds):
+        print(f"grid_variants: kinds are {sorted(KINDS)}, got {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("grid_variants: no CUDA device", file=sys.stderr)
         return 2
-    libs = build()
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi)
+    dev = torch.device("cuda")
+    X, Qs = stream_points()
+    table = stream_table(dev, X)
+    code = 0
+    for kind in kinds:
+        code = code or (round_variants(dev, table) if kind == "round" else assign_variants(dev, table, X, Qs))
+    return code
+
+
+def round_variants(dev, table) -> int:
+    """The round kernel's variants in every working round of one pass and one
+    empty round."""
+    libs = build("round")
     for v in libs:
         print(f"library {v['name']!r}: {v['ptxas']}")
-    dev = torch.device("cuda")
-    grid, views, cd, rounds = pass_rounds(dev, stream_table(dev))
+    grid, views, cd, rounds = pass_rounds(dev, table)
     Lp, d = grid.pts.shape
     if grid.pts.data_ptr() % 16:
         raise RuntimeError("the bulk-copy variant wants a 16-byte aligned table")
@@ -343,6 +426,85 @@ def main() -> int:
         if bad:
             print(f"grid_variants: not bit for bit the first kernel: {bad}", file=sys.stderr)
             return 1
+    return 0
+
+
+
+def assign_variants(dev, table, X, Qs) -> int:
+    """The assign kernel's variants at the ingest and query shapes on the
+    stream's table."""
+    libs = build("assign")
+    for v in libs:
+        print(f"assign library {v['name']!r}: {v['ptxas']}")
+    rep = table[0]
+    L, d = rep.shape
+    mu = rep.mean(axis=0)
+    r = torch.as_tensor((rep - mu).astype(np.float32), device=dev)
+    Lp = 1 << (L - 1).bit_length()
+    grid = _grid.build_grid(torch.cat([r, r.new_full((Lp - L, d), 1e6)]), torch.arange(Lp, device=dev) < L)
+    NT = grid.tile_lo.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    # the kernels alone, as grid.py launches them: the first kernel, and the shipped one at each cluster size
+    kernels = {"v1": ("grid_assign_v1", "repro_grid_assign_f32", ())}
+    kernels.update({c: ("grid_assign", "repro_grid_assign_tiles_f32", (c,)) for c in CLUSTERS})
+    bad = []
+    for shape, pts in (("ingest", X[:BLOCK]), ("query", Qs[:QUERY_SHAPE])):
+        q = torch.as_tensor((pts - mu).astype(np.float32), device=dev)
+        xs, _, views = _grid._query_views(grid, q)
+        B = xs.shape[0]
+        want = _grid._assign_sorted(*kernels["v1"], grid, xs, views)
+        outs, calls, counts = {}, {}, {}
+        for v in libs:
+            idx = torch.empty(B, dtype=torch.int32, device=dev)
+            dist = torch.empty(B, device=dev)
+            outs[v["name"]] = (idx, dist)
+
+            def call(lib=v["lib"], idx=idx, dist=dist, visits=None):
+                _build.check(lib.repro_grid_assign_tiles_f32(
+                    xs.data_ptr(), B, *_grid._grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), NT,
+                    _grid.ASSIGN_CLUSTER, idx.data_ptr(), dist.data_ptr(), visits, stream), "grid assign variant")
+
+            calls[v["name"]] = call
+            counters = torch.zeros(2 + len(ASSIGN_PHASES), dtype=torch.int64, device=dev)
+            call(visits=counters.data_ptr())
+            counts[v["name"]] = counters.cpu().numpy()
+            if v is libs[0]:
+                for c in CLUSTERS:
+                    calls[f"shipped at cluster {c}"] = lambda c=c: _grid._assign_sorted(*kernels[c], grid, xs, views)
+        same = {name: bool(torch.equal(i, want[0]) and torch.equal(t, want[1])) for name, (i, t) in outs.items()}
+        walks = {}
+        for c in kernels:
+            _grid.track_visits(True, dev)
+            try:
+                got = _grid._assign_sorted(*kernels[c], grid, xs, views)
+                vc = _grid.visit_counts()
+            finally:
+                _grid.track_visits(False)
+            walks[c] = (vc["grid_assign"], vc["grid_assign_longest"])
+            if c != "v1":
+                same[f"shipped at cluster {c}"] = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        calls["first kernel (csrc/grid.cu)"] = lambda: _grid._assign_sorted(*kernels["v1"], grid, xs, views)
+        times = _turns(calls)
+        v1v, v1w = walks["v1"]
+        print(f"assign, {shape} shape: {B} queries x L = {L} reps (Lp = {Lp}, d = {d}), {views.order.shape[0]} "
+              f"blocks x {NT} tiles; first kernel: {v1v} row-tile visits ({v1v / (B * NT):.4f} of rows x tiles), "
+              f"longest walk of a CTA {v1w}; the shipped kernel (visits, extra, longest walk) by cluster: "
+              + ", ".join(f"{c}: {walks[c][0]}, +{walks[c][0] - v1v}, {walks[c][1]}" for c in CLUSTERS)
+              + f"; libraries at cluster {_grid.ASSIGN_CLUSTER}:")
+        for name, t in times.items():
+            extra = ""
+            if name in counts:
+                extra = f"; visits {int(counts[name][0])}, longest walk {int(counts[name][1])}"
+            print(f"  {name}: {' / '.join(f'{x:.4f}' for x in t)} ms"
+                  + (f"; bit for bit the first kernel: {same[name]}" if name in same else "") + extra)
+        split = counts["probe: phase clocks"][2:].astype(np.float64)
+        if split.sum() > 0:
+            print("  the walk's SM clocks by phase, all warps: "
+                  + ", ".join(f"{p} {c / split.sum():.3f}" for p, c in zip(ASSIGN_PHASES, split)))
+        bad += [f"{shape}: {n}" for n, ok in same.items() if not ok]
+    if bad:
+        print(f"grid_variants: assign variants not bit for bit the first kernel: {bad}", file=sys.stderr)
+        return 1
     return 0
 
 

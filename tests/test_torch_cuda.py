@@ -24,7 +24,10 @@ dense Borůvka on the panel's W of the same core distances.  The sharded
 offline pass's strip launches (``-k Mesh``: bubble_cd over row ranges on
 both routes, the panel with a global ``row0``, the grid kernels over
 block ranges) are held bit for bit to the same rows of the whole launch,
-and the pass on ``("cuda:0",) * k`` to the unsharded pass.
+and the pass on ``("cuda:0",) * k`` to the unsharded pass.  The redesigned
+assign and round kernels (``csrc/grid_assign.cu``, ``csrc/grid_round.cu``)
+are held bit for bit to their first kernels in ``csrc/grid.cu``
+(``grid_assign_v1``, ``grid_round_minima_v1``) at every cluster size.
 Tolerances: indices identical on tie-free centred data; values within
 1e-5 relative plus the f32 cancellation allowance of the expanded
 distance form, which the kernel and the plain version round in different
@@ -1308,6 +1311,142 @@ class TestCudaGridRound:
         assert counts["c1"]["grid_round_minima"] == counts["v1"]["grid_round_minima"] > 0
         assert counts["c4"]["grid_round_minima"] >= counts["c1"]["grid_round_minima"]
         assert 0 < counts["c4"]["grid_round_longest"] <= counts["c1"]["grid_round_longest"]
+
+
+def _assign_visits(fn):
+    """(row-tile visits, longest walk of a CTA) of the assign kernels during
+    one call of ``fn``."""
+    from repro_torch.kernels import grid as t_grid
+
+    t_grid.track_visits(True, torch.device("cuda"))
+    try:
+        fn()
+        got = t_grid.visit_counts()
+    finally:
+        t_grid.track_visits(False)
+    return got["grid_assign"], got["grid_assign_longest"]
+
+
+@pytest.mark.cuda
+class TestCudaGridAssign:
+    """The spatial index's redesigned nearest-rep search
+    (``csrc/grid_assign.cu``: a thread a row, a prefetched tile ring that
+    carries the tile's columns, the walk split across a cluster) bit for bit
+    its first kernel (``csrc/grid.cu``, ``grid_assign_v1``) and the dense
+    assign kernel, idx and dist: at every cluster size, each compiled width
+    (d = 2: 4-byte copies, 16 in registers, 40: 64 from shared memory, 200:
+    two slices of 128), ragged query counts, a table with no valid row, and
+    its visits and longest walk at one CTA a block equal to the first
+    kernel's."""
+
+    @pytest.mark.parametrize("case", ["spread", "dup", "collinear", "zeros"])
+    @pytest.mark.parametrize("d", [2, 16, 40, 200])
+    def test_equals_v1_and_dense(self, cuda_device, case, d):
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(41)
+        rep = _t(_grid_case(case, rng, 1001, d)).to(cuda_device)
+        on = rep[torch.as_tensor(rng.integers(0, 1001, size=350), device=cuda_device)]
+        q = torch.cat([on, _t(_centred(rng, 350, d)).to(cuda_device)])
+        _, g, _ = _padded_grid(rep)
+        didx, ddist = t_assign.assign(q, rep, with_dist=True)
+        oidx, odist = t_grid.grid_assign_v1(g, q)
+        assert torch.equal(oidx, didx) and torch.equal(odist, ddist)
+        for c in t_grid.CLUSTERS:
+            t_grid.launches["grid_assign"] = t_grid.launches["grid_assign_v1"] = 0
+            idx, dist = t_grid.grid_assign(g, q, cluster=c)
+            assert t_grid.launches["grid_assign"] == 1 and t_grid.launches["grid_assign_v1"] == 0
+            assert torch.equal(idx, oidx), (c, int((idx != oidx).sum()))
+            assert torch.equal(dist, odist), c
+
+    @pytest.mark.parametrize("B", [1, 63, 65, 4097])
+    def test_ragged_query_counts(self, cuda_device, B):
+        """The last block's rows past B are not live: the same bits as the
+        first kernel at every cluster size, visits counted over live rows
+        only (equal to the first kernel's at one CTA a block)."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(42)
+        rep = _t(_centred(rng, 3001, 16)).to(cuda_device)
+        q = _t(_centred(rng, B, 16)).to(cuda_device)
+        _, g, _ = _padded_grid(rep)
+        want = t_grid.grid_assign_v1(g, q)
+        didx, ddist = t_assign.assign(q, rep, with_dist=True)
+        assert torch.equal(want[0], didx) and torch.equal(want[1], ddist)
+        for c in t_grid.CLUSTERS:
+            got = t_grid.grid_assign(g, q, cluster=c)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), c
+        assert _assign_visits(lambda: t_grid.grid_assign(g, q, cluster=1)) == \
+            _assign_visits(lambda: t_grid.grid_assign_v1(g, q))
+
+    @pytest.mark.parametrize("d", [2, 16, 200])
+    def test_no_valid_row(self, cuda_device, d):
+        """A table with no valid row: Lp and +inf for every query, and no
+        visit (the first bound is +inf)."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(43)
+        rep = _t(_centred(rng, 256, d)).to(cuda_device)
+        g = t_grid.build_grid(rep, torch.zeros(256, dtype=torch.bool, device=cuda_device))
+        q = _t(_centred(rng, 100, d)).to(cuda_device)
+        for c in t_grid.CLUSTERS:
+            visits = []
+
+            def call(c=c):
+                visits.append(t_grid.grid_assign(g, q, cluster=c))
+
+            assert _assign_visits(call) == (0, 0)
+            idx, dist = visits[0]
+            assert bool((idx == 256).all()) and bool(torch.isinf(dist).all())
+        oidx, odist = t_grid.grid_assign_v1(g, q)
+        assert torch.equal(oidx, idx) and torch.equal(odist, dist)
+
+    @pytest.mark.parametrize("L", [1, 5, 20, 33, 100])
+    def test_small_tables(self, cuda_device, L):
+        """One to four tiles of fewer than 32 rows (odd valid-byte spans):
+        the ranks of a cluster start past the order's end."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(44)
+        rep = _t(_centred(rng, L, 3)).to(cuda_device)
+        q = _t(_centred(rng, 70, 3)).to(cuda_device)
+        _, g, _ = _padded_grid(rep)
+        want = t_grid.grid_assign_v1(g, q)
+        didx, ddist = t_assign.assign(q, rep, with_dist=True)
+        assert torch.equal(want[0], didx) and torch.equal(want[1], ddist)
+        for c in t_grid.CLUSTERS:
+            got = t_grid.grid_assign(g, q, cluster=c)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), c
+
+    def test_visits_at_one_cta_equal_v1(self, cuda_device):
+        """At a cluster of one the kernel walks as the first kernel does: the
+        same row-tile visits and longest walk; a larger cluster visits at
+        least as many tiles in all and walks no further."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(45)
+        rep = _t(_grid_case("spread", rng, 4001, 16)).to(cuda_device)
+        q = _t(_centred(rng, 8192, 16)).to(cuda_device)
+        _, g, _ = _padded_grid(rep)
+        v1 = _assign_visits(lambda: t_grid.grid_assign_v1(g, q))
+        c1 = _assign_visits(lambda: t_grid.grid_assign(g, q, cluster=1))
+        c8 = _assign_visits(lambda: t_grid.grid_assign(g, q, cluster=8))
+        assert c1 == v1 and v1[0] > 0 and v1[1] > 0
+        assert c8[0] >= c1[0] and 0 < c8[1] <= c1[1]
+
+    def test_path_never_launches_v1(self, cuda_device):
+        """``ops.assign(..., spatial_index=True)`` launches the new kernel
+        once a call and the first kernel never, with the dense bits."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(46)
+        rep = _t(_centred(rng, 1001, 16)).to(cuda_device)
+        q = _t(_centred(rng, 500, 16)).to(cuda_device)
+        t_grid.launches["grid_assign"] = t_grid.launches["grid_assign_v1"] = 0
+        gi, gd = tops.assign(q, rep, with_dist=True, spatial_index=True)
+        assert t_grid.launches["grid_assign"] == 1 and t_grid.launches["grid_assign_v1"] == 0
+        di, dd = t_assign.assign(q, rep, with_dist=True)
+        assert torch.equal(gi, di) and torch.equal(gd, dd)
 
 
 def _fma_probe_rows(rng, d=4):

@@ -166,19 +166,24 @@ class TestBuildGrid:
 
 class TestWrappers:
     @pytest.mark.parametrize("case", ["assign_width", "cd_rows", "round_rows", "views_dtype", "tile_rows",
-                                      "round_rows_v1", "views_dtype_v1", "round_cluster"])
+                                      "round_rows_v1", "views_dtype_v1", "round_cluster", "assign_width_v1",
+                                      "assign_cluster"])
     def test_bad_shapes_raise(self, case):
-        """The round cases for both round wrappers: ``grid_round_minima`` and
-        its first kernel's, ``grid_round_minima_v1`` (the ``_v1`` cases);
-        a cluster size the kernel is not built for."""
+        """The assign and round cases for both wrappers of each:
+        ``grid_assign`` / ``grid_round_minima`` and their first kernels',
+        ``grid_assign_v1`` / ``grid_round_minima_v1`` (the ``_v1`` cases); a
+        cluster size the kernels are not built for."""
         repp, nbp, extp, valid = _padded(*_table("blobs", 8))
         g = tgrid.build_grid(_t(repp), _t(valid))
         views = tgrid._block_views(g)
         z = torch.zeros(LP)
         round_fn = tgrid.grid_round_minima_v1 if case.endswith("_v1") else tgrid.grid_round_minima
+        assign_fn = tgrid.grid_assign_v1 if case.endswith("_v1") else tgrid.grid_assign
         with pytest.raises(ValueError):
-            if case == "assign_width":
-                tgrid.grid_assign(g, torch.zeros(4, 3))
+            if case.startswith("assign_width"):
+                assign_fn(g, torch.zeros(4, 3))
+            elif case == "assign_cluster":
+                tgrid.grid_assign(g, torch.zeros(4, 8), cluster=3)
             elif case == "cd_rows":
                 tgrid.grid_core_distances(g, _t(nbp[:-1]), _t(extp), MIN_PTS, 8)
             elif case.startswith("round_rows"):
@@ -218,6 +223,45 @@ class TestWrappers:
         assert np.isfinite(tw[:L]).all() and np.isinf(tw[L:]).all() and np.isinf(jw[L:]).all()
         np.testing.assert_array_less(np.abs(tw[:L] - jw[:L]), RTOL * jw[:L] + _allowance(rep, jw[:L]))
         np.testing.assert_array_equal(te, je)
+
+    @pytest.mark.parametrize("B", [1, 63, 65, 130])
+    def test_assign_wrappers(self, B):
+        """Both assign wrappers (``grid_assign``, on the card
+        ``csrc/grid_assign.cu``, and ``grid_assign_v1``, its first kernel in
+        ``csrc/grid.cu``) take the plain version on the CPU: bit for bit
+        ``ref.grid_assign`` over the Morton-sorted queries and their visit
+        lists, idx and dist, on the ``blobs`` table at d = 8 with a ragged
+        query count (blocks of 64), at every cluster size."""
+        rep, nb, ext = _table("blobs", 8)
+        repp, _, _, valid = _padded(rep, nb, ext)
+        g = tgrid.build_grid(_t(repp), _t(valid))
+        Q = _t((np.random.default_rng(B).normal(size=(B, 8)) * 0.8).astype(np.float32))
+        xs, qperm, views = tgrid._query_views(g, Q)
+        pidx, psq = tref.grid_assign(g, xs, views)
+        want_idx, want_dist = torch.empty_like(pidx), torch.empty_like(psq)
+        want_idx[qperm], want_dist[qperm] = pidx, torch.sqrt(psq)
+        assert bool((want_idx < L).all()) and bool(valid[want_idx.long()].all())
+        got = [tgrid.grid_assign_v1(g, Q)] + [tgrid.grid_assign(g, Q, cluster=c) for c in tgrid.CLUSTERS]
+        for idx, dist in got:
+            assert torch.equal(idx, want_idx) and torch.equal(dist, want_dist)
+
+    def test_assign_wrappers_no_valid_row(self):
+        """A table with no valid row: every query gets ``Lp`` and +inf from
+        both wrappers (every tile's bound is +inf, nothing is visited)."""
+        repp, _, _, valid = _padded(*_table("blobs", 8))
+        g = tgrid.build_grid(_t(repp), _t(np.zeros_like(valid)))
+        Q = _t(_dataset("blobs", 8, 9, n=70))
+        for idx, dist in (tgrid.grid_assign(g, Q), tgrid.grid_assign_v1(g, Q)):
+            assert bool((idx == LP).all()) and bool(torch.isinf(dist).all())
+
+    @pytest.mark.parametrize("name", list(grid_variants.ASSIGN_VARIANTS))
+    def test_assign_variant_patches_apply(self, name):
+        """Every text patch of the assign kernel's variants in ``python -m
+        repro_torch.kernels.grid_variants`` matches the shipped
+        ``csrc/grid_assign.cu`` exactly once."""
+        src = (Path(tgrid.__file__).with_name("csrc") / "grid_assign.cu").read_text()
+        out = grid_variants._apply(name, src, grid_variants.ASSIGN_VARIANTS[name])
+        assert (out == src) == (not grid_variants.ASSIGN_VARIANTS[name])
 
     @pytest.mark.parametrize("name", list(grid_variants.VARIANTS))
     def test_variant_patches_apply(self, name):

@@ -86,6 +86,24 @@ def test_variant_modules_are_covered():
     assert out.returncode == 0, out.stderr
 
 
+def test_csrc_sources_include_only_the_port():
+    """Every kernel source and header on disk (``kernels/csrc``; that the
+    build lists them all is ``test_torch_routes.py``'s) includes nothing but
+    the port's own headers and the toolkit's: no source of the JAX package,
+    no package of finished kernels."""
+    from repro_torch.kernels import _build
+
+    csrc = PORT / "kernels" / "csrc"
+    for path in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
+        for line in path.read_text().splitlines():
+            if line.startswith("#include"):
+                inc = line.split()[1]
+                if inc.startswith('"'):
+                    assert inc.strip('"') in _build._HEADERS, f"{path.name}: {line}"
+                else:
+                    assert not any(k in inc for k in ("cutlass", "cute", "cub/", "thrust", "torch")), f"{path.name}: {line}"
+
+
 def test_training_modules_are_covered():
     files = _port_files()
     for rel in ("src/repro_torch/train/optim.py", "src/repro_torch/launch/train.py", "src/repro_torch/data/pipeline.py",
