@@ -19,7 +19,9 @@ Phases, each printing its own lines:
               the wgmma flash forward's two, reported, each required to
               launch at the 168 registers its setmaxnreg split assumes;
               the grid kernels', reported by name, with the five widths of
-              the redesigned round kernel csrc/grid_round.cu required),
+              the redesigned round and assign kernels, and the Eq. 6
+              kernel csrc/grid_cd.cu's ten (the five widths by lists of 12
+              and 16 slots) and six queues, required),
               and the flash kernel's query rows
               and blocks per SM for each head-dim bucket;
   3. kernels  each kernel against its plain PyTorch version on the card,
@@ -112,8 +114,17 @@ Phases, each printing its own lines:
               with the dense engine's partition (and counted bit for bit),
               the served chunks bit for bit the dense engine's, the grid
               kernels launched and the dense distance kernels not; on the
-              full table (L = 5,243, Lp = 8192) grid_core_distances bit for
-              bit bubble_cd at min_pts 10, 100 and 2000 (the strip route),
+              full table (L = 5,243, Lp = 8192) grid_core_distances
+              (csrc/grid_cd.cu) bit for bit bubble_cd at min_pts 10, 100 and
+              2000 (the strip route) and its first kernel
+              (grid_core_distances_v1, csrc/grid.cu: launched 0 times on
+              every stream), both timed alone in turns there with their
+              row-tile visits and longest walks of a CTA and the bound from
+              the visits the function needs (each valid row's tiles
+              whose bound is at most the distance of its min_pts
+              crossing),
+              and the grid pass also timed with its Eq. 6 search on the
+              first kernel,
               grid_assign (csrc/grid_assign.cu) bit for bit assign and its
               first kernel (grid_assign_v1, csrc/grid.cu: launched 0 times
               on every stream) at the ingest and query shapes and on the
@@ -151,8 +162,10 @@ Phases, each printing its own lines:
               to unwrap; its stages, Borůvka's gathers, end to end in turns
               beside the unsharded pass, launches per pass and peak device
               memory; each shard's strip launches (bubble_cd, mutual_reach,
-              grid_core_distances, grid_round_minima) bit for bit the same
-              rows of the whole launch, timed one by one beside it, and each
+              grid_core_distances, grid_round_minima; grid_core_distances
+              also at every cluster size and through its first kernel) bit
+              for bit the same rows of the whole launch, timed one by one
+              beside it, and each
               shard's peak memory; the same dense at k = 4 and 8 on a table
               of L = 20,000 bubbles (Lp = 32,768, one W 4 GiB) with the
               per-shard W bytes; then the [stream] configuration cut to
@@ -457,6 +470,12 @@ Phases, each printing its own lines:
      call_launches, and the query shape's numbers as query;
      grid_assign_v1 (csrc/grid.cu, its oracle, launched on no path) with
      its ingest-shape numbers and launches_oracle;
+     grid_core_distances (source csrc/grid_cd.cu) also with its cluster
+     size, v1_ms (the first kernel alone in the same turns), its own visits
+     (kernel_visits), the longest walks (walk, v1_walk, walk_c1) and the
+     numbers at min_pts 100 and 2000 (min_pts_100, min_pts_2000);
+     grid_core_distances_v1 (csrc/grid.cu, its oracle, launched on no
+     path) with its min_pts 10 numbers and launches_oracle;
      grid_round_minima (source csrc/grid_round.cu) also with its cluster
      size, v1_ms (the first kernel's round-1 call in the same turns), one
      pass's device ms over its rounds for the new kernel, the first and the
@@ -578,10 +597,12 @@ EPS32 = float(np.finfo(np.float32).eps)
 # dist_panel.cu, the panel for pairwise (D = 0) and mutual_reach (D = 1) + the norm pass;
 # flash_attention_panel.cu, 8 (head-dim bucket D in {32, 64, 128, 256} x element bits K in {32, 16})
 WS_SOURCES = ("knn_ws.cu", "bubble_cd_ws.cu", "assign_ws.cu", "dist_panel.cu", "flash_attention_panel.cu",
-              "grid.cu", "grid_round.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu",
+              "grid.cu", "grid_round.cu", "grid_cd.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu",
               "flash_attention_wgmma.cu")  # the grid's and the wgmma kernel's: by name, not checked for spills
 GRID_ROUND_INSTANTIATIONS = 5  # grid_round.cu: compiled widths 16, 32, 64, 128 and the feature-slice kernel
 GRID_ASSIGN_INSTANTIATIONS = 5  # grid_assign.cu: the same widths
+GRID_CD_REG_INSTANTIATIONS = 10  # grid_cd.cu's register route: the same widths x lists of 12 and 16 slots
+GRID_CD_WS_INSTANTIATIONS = 6  # grid_cd.cu's warp-select route: the queues 32 ... 1024
 # flash_attention_wgmma.cu: head-dim bucket {64, 128}; 384 threads at 168 registers (the launch bound's share),
 # of which setmaxnreg moves the producer warpgroup to 40 and the two consumer warpgroups to 232: 128 x 40 + 256 x 232
 # = 384 x 168, so a launch at any other count could leave a consumer's raise waiting
@@ -938,16 +959,21 @@ def ptxas_ws(log: str) -> dict:
 def ptxas_grid(log: str) -> dict:
     """{(kernel, K): (registers, stack bytes, spill stores, spill loads)} of
     csrc/grid.cu's kernels (K the Eq. 6 kernel's queue length, else 0) and
-    csrc/grid_round.cu's and csrc/grid_assign.cu's (grid_round_tiles,
-    grid_assign_tiles; K the compiled width: 16, 32, 64, 128, or 0 for
-    feature slices)."""
+    csrc/grid_round.cu's, csrc/grid_assign.cu's and csrc/grid_cd.cu's
+    (grid_round_tiles, grid_assign_tiles, grid_cd_reg: K the compiled
+    width, 16, 32, 64, 128, or 0 for feature slices, and for grid_cd_reg
+    the list's slots after it, as "16/12"; grid_cd_ws: K the queue
+    length)."""
     import re
 
     def entry(line):
-        m = re.search(r"Compiling entry function '\S*?(grid_assign_tiles|grid_round_tiles|grid_assign|grid_round|grid_cd)"
+        m = re.search(r"Compiling entry function '\S*?(grid_assign_tiles|grid_round_tiles|grid_cd_reg|grid_cd_ws"
+                      r"|grid_assign|grid_round|grid_cd)"
                       r"_kernel"
-                      r"(?:ILi(\d+)E)?", line)
-        return (m.group(1), int(m.group(2) or 0)) if m else None
+                      r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
+        if not m:
+            return None
+        return (m.group(1), f"{m.group(2)}/{m.group(3)}" if m.group(3) else int(m.group(2) or 0))
 
     return ptxas_entries(log, entry)
 
@@ -1074,10 +1100,13 @@ def phase_build():
         check(not bad, f"register-tile instantiations with a stack frame or spills: {bad}")
         grid = ptxas_grid(info["log"])
         for (kern, K), (regs, stack, st, ld) in sorted(grid.items()):
-            src = {"grid_round_tiles": "grid_round.cu", "grid_assign_tiles": "grid_assign.cu"}.get(kern, "grid.cu")
+            src = {"grid_round_tiles": "grid_round.cu", "grid_assign_tiles": "grid_assign.cu",
+                   "grid_cd_reg": "grid_cd.cu", "grid_cd_ws": "grid_cd.cu"}.get(kern, "grid.cu")
             say(f"[build] {src} {kern} K={K}: {regs} registers, {stack} bytes stack, spill stores {st} loads {ld}")
         for kern, src, want in (("grid_round_tiles", "grid_round.cu", GRID_ROUND_INSTANTIATIONS),
-                                ("grid_assign_tiles", "grid_assign.cu", GRID_ASSIGN_INSTANTIATIONS)):
+                                ("grid_assign_tiles", "grid_assign.cu", GRID_ASSIGN_INSTANTIATIONS),
+                                ("grid_cd_reg", "grid_cd.cu", GRID_CD_REG_INSTANTIATIONS),
+                                ("grid_cd_ws", "grid_cd.cu", GRID_CD_WS_INSTANTIATIONS)):
             tiles = [k for k in grid if k[0] == kern]
             check(len(tiles) == want, f"{len(tiles)} {src} kernels in the ptxas report, not {want}")
         bwd = ptxas_bwd(info["log"])
@@ -2260,8 +2289,9 @@ def phase_tenants(dev, card):
 
 
 GRID_KERNELS = ("grid_assign", "grid_core_distances", "grid_round_minima")
-# csrc/grid.cu's first round and assign kernels: the redesigns' oracles, launched on no path
-GRID_ORACLES = ("grid_round_minima_v1", "grid_assign_v1")
+# csrc/grid.cu's first round, assign and Eq. 6 kernels: the redesigns' oracles, launched on no path
+GRID_ORACLES = ("grid_round_minima_v1", "grid_assign_v1", "grid_core_distances_v1")
+CD_SWEEP = (MIN_PTS, 100, 2000)  # [grid]: the path's min_pts, the Eq. 6 kernel's warp-select route in one and two rounds
 
 
 def grid_counts(reset: bool = False) -> dict:
@@ -2549,6 +2579,12 @@ def mesh_strips(tag, dev, rep, nb, ext, k, spatial: bool):
             g_w, g_e = k_grid.grid_round_minima(grid, views, cd, labels, hopeless, blocks=(b0, b1))
             r = slice(b0 * bn, b1 * bn)
             check(bool(torch.equal(g_cd, cd_s[r])), f"[{tag}] grid_core_distances blocks [{b0}, {b1}) differ")
+            for c in k_grid.CLUSTERS:
+                got = k_grid.grid_core_distances(grid, nb, ext, mp, d, views, blocks=(b0, b1), cluster=c)
+                check(bool(torch.equal(got, g_cd)), f"[{tag}] grid_core_distances blocks [{b0}, {b1}) at cluster {c} "
+                      f"differ from the default cluster's")
+            got = k_grid.grid_core_distances_v1(grid, nb, ext, mp, d, views, blocks=(b0, b1))
+            check(bool(torch.equal(got, g_cd)), f"[{tag}] grid_core_distances_v1 blocks [{b0}, {b1}) differ")
             check(bool(torch.equal(g_w, w_s[r])) and bool(torch.equal(g_e, e_s[r])),
                   f"[{tag}] grid_round_minima blocks [{b0}, {b1}) differ")
             times["grid_core_distances"].append(time_ms(
@@ -2951,19 +2987,43 @@ def grid_kernels(dev, run, X):
     out["grid_assign_v1"].update(walk=ing["v1_walk"], call_ms=ing["v1_call_ms"],
                                  query={"ms": qry["v1_ms"], "call_ms": qry["v1_call_ms"], "walk": qry["v1_walk"]})
 
-    # grid_core_distances at MIN_PTS, against the plain version on the rows whose crossing is clear
+    # grid_core_distances (csrc/grid_cd.cu) and its first kernel (csrc/grid.cu) at MIN_PTS against the plain version on
+    # the rows whose crossing is clear; both kernels alone in turns at each of CD_SWEEP, bit for bit each other there
     cd = k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views)
+    cd_v1 = k_grid.grid_core_distances_v1(grid, nb_t, ext_t, mp, d, views)
     pcd = ref.grid_core_distances(grid, views, nb_t, ext_t, mp, d)
     keep = clear_crossings(rep_t[:L], nb_t[:L], mp)
-    err, _ = compare("grid_core_distances", cd[:L][keep], pcd[:L][keep], dist_tol(rep_t[:L], rep_t[:L], pcd[:L][keep]))
-    ms = time_ms(lambda: k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views), reps=20)
+    tol = dist_tol(rep_t[:L], rep_t[:L], pcd[:L][keep])
+    err, _ = compare("grid_core_distances", cd[:L][keep], pcd[:L][keep], tol)
+    v1_err, _ = compare("grid_core_distances_v1", cd_v1[:L][keep], pcd[:L][keep], tol)
     plain = time_ms(lambda: ref.grid_core_distances(grid, views, nb_t, ext_t, mp, d), reps=1, warm=1)
-    v = visits_of(lambda: k_grid.grid_core_distances(grid, nb_t, ext_t, mp, d, views))["grid_core_distances"]
-    sweep = []
-    for m in (100, K_STRIP):
-        sweep.append(f"min_pts {m} {time_ms(lambda: k_grid.grid_core_distances(grid, nb_t, ext_t, m, d, views)):.4f} ms")
-    report("grid_core_distances", Lp, v, ms, plain, None, err,
-           f" on the {int(keep.sum())} of {L} rows with a clear crossing; " + ", ".join(sweep))
+    sweep = cd_turns(grid, views, nb_t, ext_t, float(nb_t.sum()), d)
+    main = sweep[0]
+    report("grid_core_distances", Lp, main["visits"], main["ms"], plain, None, err,
+           f" on the {int(keep.sum())} of {L} rows with a clear crossing (the kernel alone, device ms behind a spin; "
+           f"the bound counts the visits the function needs: each valid row's tiles up to its min_pts crossing)")
+    report("grid_core_distances_v1", Lp, main["visits"], main["v1_ms"], plain, None, v1_err,
+           " (the first kernel, csrc/grid.cu)")
+    for got in sweep:
+        say(f"[grid] grid_core_distances at min_pts {got['min_pts']} ({got['route']}), bit for bit the first kernel, "
+            f"in turns new, v1, v1, new: {', '.join(f'{t:.4f}' for t in got['turns']['new'])} ms [v1 "
+            f"{', '.join(f'{t:.4f}' for t in got['turns']['v1'])}]; bound {got['bound_ms']:.4f} ms ({got['bound_by']}: "
+            f"the {got['visits']} row-tile visits the function needs, {got['visits'] / (Lp * NT):.4f} of rows x "
+            f"tiles: each valid row's tiles whose bound is at most the distance of its min_pts crossing, counted "
+            f"once); "
+            f"row-tile visits of the new kernel at cluster {k_grid.CD_CLUSTER} {got['kernel_visits']}, at 1 "
+            f"{got['c1_visits']}, of v1 {got['v1_visits']} (in no bound); longest walk of a CTA {got['walk']} at "
+            f"cluster {k_grid.CD_CLUSTER}, "
+            f"{got['walk_c1']} at 1 [v1 {got['v1_walk']}]")
+    out["grid_core_distances"].update(
+        cluster=k_grid.CD_CLUSTER, v1_ms=main["v1_ms"], kernel_visits=main["kernel_visits"],
+        c1_visits=main["c1_visits"], walk=main["walk"],
+        walk_c1=main["walk_c1"], v1_walk=main["v1_walk"],
+        **{f"min_pts_{got['min_pts']}": {k: got[k] for k in ("ms", "v1_ms", "bound_ms", "bound_by", "visits",
+                                                              "kernel_visits", "c1_visits", "v1_visits", "walk",
+                                                              "walk_c1",
+                                                              "v1_walk")} for got in sweep[1:]})
+    out["grid_core_distances_v1"].update(walk=main["v1_walk"], visits=main["v1_visits"])
 
     # grid_round_minima: Borůvka's first round (every row its own component), the new kernel
     # (csrc/grid_round.cu) bit for bit the first (csrc/grid.cu), both within tolerance of the plain version
@@ -3009,6 +3069,86 @@ def grid_kernels(dev, run, X):
     for name in GRID_KERNELS + GRID_ORACLES:
         k_grid.launches[name] = counts[name]
     return out
+
+
+def cd_turns(grid, views, nb, ext, mass, d) -> list:
+    """Both Eq. 6 kernels on the [grid] table at each of CD_SWEEP (clamped
+    to the mass as the pass clamps it): bit for bit each other; the kernel
+    alone over every block (device ms behind a spin, no scatter) in turns
+    new, v1, v1, new; the row-tile visits and the longest walk of a CTA of
+    both, and of the new kernel at one CTA a block; the bound from the
+    visits the function needs (``cd_needed_visits``), not from a kernel's:
+    past the register route the new kernel's k-th lags as v1's does, and
+    past 1024 keys each round walks again."""
+    import torch
+
+    from repro_torch.kernels import grid as k_grid
+    from repro_torch.kernels import ops
+
+    NB = views.order.shape[0]
+    Lp = grid.pts.shape[0]
+    out = []
+    for m in CD_SWEEP:
+        mpc = ops._clamp_min_pts(m, mass)
+        args = (grid, nb, ext, mpc, d, views, (0, NB))
+        kern = {"new": lambda: k_grid.grid_core_distances(*args), "v1": lambda: k_grid.grid_core_distances_v1(*args)}
+        a, b = kern["new"](), kern["v1"]()
+        check(bool(torch.equal(a, b)), f"[grid] grid_core_distances at min_pts {mpc} differs from its first kernel "
+              f"({int((a != b).sum())} rows)")
+        turns = {"new": [], "v1": []}
+        for which in ("new", "v1", "v1", "new"):
+            turns[which].append(device_ms(kern[which], reps=20))
+        new, v1 = visits_of(kern["new"]), visits_of(kern["v1"])
+        one = visits_of(lambda: k_grid.grid_core_distances(*args, cluster=1))
+        need = cd_needed_visits(grid, views, nb, mpc)
+        flops = 2.0 * d * grid.tile * need
+        nbytes = 4.0 * (Lp * (d + 4) + 2 * views.order.numel())
+        b, by = bound_ms(flops, nbytes)
+        out.append(dict(min_pts=mpc, route="registers" if min(mpc, Lp) <= 16 else "warp-select",
+                        ms=float(np.mean(turns["new"])), v1_ms=float(np.mean(turns["v1"])), turns=turns,
+                        visits=need, c1_visits=one["grid_core_distances"], kernel_visits=new["grid_core_distances"],
+                        v1_visits=v1["grid_core_distances"], walk=new["grid_core_longest"],
+                        walk_c1=one["grid_core_longest"], v1_walk=v1["grid_core_longest"], bound_ms=b, bound_by=by))
+    return out
+
+
+def cd_needed_visits(grid, views, nb, min_pts) -> int:
+    """The row-tile visits Eq. 6 needs at min_pts on the sorted table: per
+    valid row, the tiles whose bound (its block's, the kernels' lower
+    bound) is at most the distance of its min_pts crossing, counted once
+    however many passes or rounds a kernel makes, and none for invalid
+    rows.  The crossing is the first of the row's k = min(min_pts, Lp)
+    nearest keys (the row itself at 0) at which their masses ``nb`` sum to
+    min_pts, else the k-th: the keys past it change no bit of the answer,
+    and every key up to its distance must be seen to place it.  A kernel
+    visits more: each tile for every row of its block (v1 for every row of
+    a pass), until the last row's k-th.  The distances are the plain
+    version's (``ref._tile_sq`` against every valid row), which may differ
+    from the kernels' FMA chains in the last bit; the masses are whole, so
+    their sums do not depend on the order."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    pts, valid, lbs = grid.pts, grid.valid, views.lbs
+    Lp, NB, bn = pts.shape[0], lbs.shape[0], views.block
+    k = min(int(min_pts), Lp)
+    mass = nb.float()[grid.orig.long()]  # column p's mass, by sorted position
+    xx = (pts * pts).sum(-1)
+    reach = torch.full((NB * bn,), float("-inf"), device=pts.device)
+    for r0 in range(0, Lp, 1024):
+        r1 = min(Lp, r0 + 1024)
+        dm = torch.sqrt(ref._tile_sq(pts[None, r0:r1], xx[None, r0:r1], pts[None], xx[None])[0])
+        at = torch.arange(r1 - r0, device=pts.device)
+        dm[at, at + r0] = 0.0  # the row itself
+        dm = torch.where(valid[None, :], dm, float("inf"))
+        dist, col = dm.topk(k, dim=1, largest=False, sorted=True)
+        csum = torch.where(torch.isfinite(dist), mass[col], 0.0).cumsum(1)
+        hit = csum >= float(min_pts)
+        cross = torch.where(hit.any(1), hit.to(torch.int8).argmax(1), k - 1)
+        reach[r0:r1] = torch.where(valid[r0:r1], dist.gather(1, cross[:, None])[:, 0], float("-inf"))
+    need = torch.isfinite(lbs)[:, None, :] & (lbs[:, None, :] <= reach.view(NB, bn)[:, :, None])
+    return int(need.sum())
 
 
 N_SM = 132  # the H100 SXM's streaming multiprocessors
@@ -3112,8 +3252,9 @@ def grid_rounds(dev, table):
 def grid_pass(dev, table):
     """One offline pass at Lp = 8192 through offline_recluster_from_table,
     spatial and dense: stage by stage, end to end in turns (the grid pass
-    also with its round search on the first round kernel, to compare the
-    two kernels' pass), peak device memory above what was allocated
+    also with its round search on the first round kernel, and with its
+    Eq. 6 search on the first Eq. 6 kernel, to compare each pair of
+    kernels' pass), peak device memory above what was allocated
     before, launches per pass, the visited share per kernel, a
     torch.profiler pass of each grid variant, and the grid pass with no
     host synchronisation allowed from build_grid to extract."""
@@ -3131,23 +3272,29 @@ def grid_pass(dev, table):
         return ops.offline_recluster_from_table(rep, n_b, extent, MIN_PTS, device=dev, stage=stage,
                                                 spatial_index=spatial)
 
-    def run_v1():  # the grid pass with its round search on the first round kernel (csrc/grid.cu)
-        search = k_grid.grid_round_minima
-        k_grid.grid_round_minima = k_grid.grid_round_minima_v1
-        try:
-            return run(True)
-        finally:
-            k_grid.grid_round_minima = search
+    def on_first(name):  # the grid pass with the search `name` on its first kernel (csrc/grid.cu)
+        def run_first():
+            search = getattr(k_grid, name)
+            setattr(k_grid, name, getattr(k_grid, name + "_v1"))
+            try:
+                return run(True)
+            finally:
+                setattr(k_grid, name, search)
+        return run_first
+
+    run_v1, run_cd_v1 = on_first("grid_round_minima"), on_first("grid_core_distances")
 
     t = {True: {}, False: {}}
     for _ in range(2):  # the second round is the one reported (warm caches)
         res = {sp: run(sp, stage_timer(t[sp])) for sp in (False, True)}
     check(_same_partition(res[True].labels, res[False].labels), "[grid] the grid pass's partition differs")
     check(np.array_equal(run_v1().labels, res[True].labels), "[grid] the pass on the first round kernel differs")
+    check(np.array_equal(run_cd_v1().labels, res[True].labels), "[grid] the pass on the first Eq. 6 kernel differs")
     for sp, name in ((False, "dense"), (True, "grid")):
         say(f"[grid] {name} pass at L={L}, Lp={ops._pow2_rows(L)} (ms): "
             + ", ".join(f"{k} {v:.2f}" for k, v in t[sp].items()) + f"; total {sum(t[sp].values()):.2f}")
-    passes = {"dense": lambda: run(False), "grid": lambda: run(True), "grid on the first round kernel": run_v1}
+    passes = {"dense": lambda: run(False), "grid": lambda: run(True), "grid on the first round kernel": run_v1,
+              "grid on the first Eq. 6 kernel": run_cd_v1}
     walls = {name: [] for name in passes}
     for name in list(passes) + list(passes)[::-1] + list(passes):
         torch.cuda.synchronize()
@@ -3182,7 +3329,7 @@ def grid_pass(dev, table):
           and per_pass["grid_round_minima"] == ops._pow2_rows(L).bit_length()
           and all(after[n] == before[n] for n in GRID_ORACLES), f"[grid] launches in one pass: {per_pass}, first "
           f"kernels {[after[n] - before[n] for n in GRID_ORACLES]}")
-    for name in ("grid", "grid on the first round kernel"):
+    for name in ("grid", "grid on the first round kernel", "grid on the first Eq. 6 kernel"):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -7449,11 +7596,12 @@ def main() -> int:
                "flat_scatter": ("flat_scatter.cu", "src/repro/core/bubble_flat.py:93"),
                # no Pallas kernel: the JAX package's grid-pruned jnp searches (spatial_index=True)
                "grid_assign": ("grid_assign.cu", "src/repro/kernels/grid.py:355"),
-               "grid_core_distances": ("grid.cu", "src/repro/kernels/grid.py:222"),
+               "grid_core_distances": ("grid_cd.cu", "src/repro/kernels/grid.py:222"),
                "grid_round_minima": ("grid_round.cu", "src/repro/core/mst.py:392"),
-               # the first round and assign kernels: the redesigns' oracles, launched on no path
+               # the first round, assign and Eq. 6 kernels: the redesigns' oracles, launched on no path
                "grid_round_minima_v1": ("grid.cu", "src/repro/core/mst.py:392"),
                "grid_assign_v1": ("grid.cu", "src/repro/kernels/grid.py:355"),
+               "grid_core_distances_v1": ("grid.cu", "src/repro/kernels/grid.py:222"),
                # no Pallas kernel: the jnp strip programs of the exact-dynamic path (exact=True)
                "strip_dists": ("strip_tiles.cu", "src/repro/core/dynamic_jax.py:145"),
                "strip_topk": ("strip_tiles.cu", "src/repro/core/dynamic_jax.py:187"),

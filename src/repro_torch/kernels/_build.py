@@ -30,10 +30,10 @@ __all__ = ["load", "check", "current_stream", "build_info"]
 _CSRC = Path(__file__).with_name("csrc")
 _BUILD = Path(__file__).with_name("build")
 _SOURCES = ("assign.cu", "assign_ws.cu", "bubble_cd.cu", "bubble_cd_ws.cu", "bubble_cd_walk.cu", "dist_panel.cu",
-            "dynamic.cu", "flat_scatter.cu", "grid.cu", "grid_assign.cu", "grid_round.cu", "hierarchy.cu", "hierarchy_extract.cu", "hierarchy_par.cu", "mutual_reach.cu", "knn.cu", "knn_ws.cu", "pairwise.cu", "flash_attention.cu", "flash_attention_mma.cu",
+            "dynamic.cu", "flat_scatter.cu", "grid.cu", "grid_assign.cu", "grid_cd.cu", "grid_round.cu", "hierarchy.cu", "hierarchy_extract.cu", "hierarchy_par.cu", "mutual_reach.cu", "knn.cu", "knn_ws.cu", "pairwise.cu", "flash_attention.cu", "flash_attention_mma.cu",
             "flash_attention_wgmma.cu",
             "flash_attention_panel.cu", "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu", "strip_minima.cu", "strip_tiles.cu", "errors.cu")
-_HEADERS = ("common.cuh", "dist_tile.cuh", "grid_tiles.cuh", "warp_select.cuh")
+_HEADERS = ("common.cuh", "dist_tile.cuh", "grid_tiles.cuh", "grid_ws.cuh", "warp_select.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _NVCC_TIMEOUT_S = 900
@@ -135,6 +135,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_grid_assign_f32.argtypes = [P, I, P, P, P, I, I, I, P, P, I, P, P, P, P]
     lib.repro_grid_assign_tiles_f32.argtypes = [P, I, P, P, P, I, I, I, P, P, I, I, P, P, P, P]
     lib.repro_grid_core_distances_f32.argtypes = [P, P, P, I, I, I, P, P, I, P, P, I, I, I, I, I, P, P, P]
+    lib.repro_grid_cd_tiles_f32.argtypes = [P, P, P, I, I, I, P, P, I, P, P, I, I, I, I, I, I, P, P, P]
     lib.repro_grid_round_minima_f32.argtypes = [P, P, P, I, I, I, P, P, I, P, P, P, I, I, P, P, P, P]
     lib.repro_grid_round_tiles_f32.argtypes = [P, P, P, I, I, I, P, P, I, P, P, P, I, I, I, P, P, P, P]
     lib.repro_strip_dists_f32.argtypes = [P, I, P, I, I, P, P]
@@ -157,7 +158,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.repro_grid_core_distances_f32, lib.repro_grid_round_minima_f32, lib.repro_strip_dists_f32,
                lib.repro_strip_topk_f32, lib.repro_strip_round_minima_f32, lib.repro_strip_minima_plan,
                lib.repro_strip_round_minima_from_dists_f32, lib.repro_strip_dists_tiles_f32,
-               lib.repro_strip_topk_tiles_f32, lib.repro_grid_round_tiles_f32, lib.repro_grid_assign_tiles_f32):
+               lib.repro_strip_topk_tiles_f32, lib.repro_grid_round_tiles_f32, lib.repro_grid_assign_tiles_f32,
+               lib.repro_grid_cd_tiles_f32):
         fn.restype = I
     lib.repro_error_string.argtypes = [I]
     lib.repro_error_string.restype = ctypes.c_char_p

@@ -3,11 +3,11 @@
 // grid_assign (:355), grid_core_distances (:222, _cd_block_values :255) and
 // repro/core/mst.py::_grid_round_minima (:392).  No Pallas kernel stands
 // behind them; on the TPU they are lax.scan / while_loop programs.  The
-// Eq. 6 kernel here is on the path; the assign and round kernels here are
-// the first kernels, redesigned in csrc/grid_assign.cu and
-// csrc/grid_round.cu (a thread a row, a prefetched tile ring, the walk split
-// across a cluster), and stay as those kernels' bitwise oracles
-// (grid_assign_v1, grid_round_minima_v1), launched on no path.
+// three kernels here are the first kernels, redesigned in
+// csrc/grid_assign.cu, csrc/grid_cd.cu and csrc/grid_round.cu (a thread a
+// row, a prefetched tile ring, the walk split across a cluster), and stay as
+// those kernels' bitwise oracles (grid_assign_v1, grid_core_distances_v1,
+// grid_round_minima_v1), launched on no path.
 //
 // The layout of this file's kernels: one block per 64 query rows (kRows).
 // The table is Morton-sorted into tiles of T <= 32 rows, and each block
@@ -35,121 +35,16 @@
 // table, visit lists and outputs are a few MB.  These kernels are simple,
 // not fast: one tile in flight per block (no cp.async ring), and a table's
 // own rows as queries give NB = Lp / 64 blocks, 128 at Lp = 8192 on 132 SMs.
-#include "warp_select.cuh"
+#include "grid_ws.cuh"
 
 namespace {
 
-namespace ws = repro::ws;
-using ws::Key;
-
-constexpr int kRows = 64;  // query rows per block: kernels/grid.py DEFAULT_BLOCK
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxTile = 32;  // tile rows, one per lane
-constexpr int kSlice = 128;   // features per staged slice
-
-__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
-
-// The staged feature slices of width d: padded width dp (a multiple of 4),
-// slice width w, shared-memory row stride sd (sd / 4 odd: the 16-byte
-// loads of eight consecutive rows hit distinct banks) and slice count.
-struct Slices {
-  int d, dp, w, sd, n;
-  __host__ __device__ explicit Slices(int d_) : d(d_) {
-    dp = (d + 3) & ~3;
-    w = dp < kSlice ? dp : kSlice;
-    sd = w | 4;
-    n = (dp + w - 1) / w;
-  }
-  __host__ __device__ size_t smem_bytes() const { return sizeof(float) * (size_t)(kRows + kMaxTile) * sd; }
-};
-
-// Features [k0, k0 + width) of rows [r0, r0 + rows) of a row-major (n, d)
-// table into dst (row stride sd); zero past n and d.  vec4: d % 4 == 0 and
-// src 16-byte aligned.  Call with the whole block; the caller synchronises.
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int r0, int rows, int n, int d,
-                                      int k0, int width, int sd, bool vec4) {
-  const int groups = width / 4;
-  for (int t = threadIdx.x; t < rows * groups; t += kThreads) {
-    const int r = t / groups, f = k0 + 4 * (t - r * groups);
-    const int row = r0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < n) {
-      const float* p = src + (size_t)row * d + f;
-      if (vec4) {
-        if (f < d) v = *reinterpret_cast<const float4*>(p);
-      } else {
-        if (f < d) v.x = p[0];
-        if (f + 1 < d) v.y = p[1];
-        if (f + 2 < d) v.z = p[2];
-        if (f + 3 < d) v.w = p[3];
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * sd + (f - k0)) = v;
-  }
-}
-
-// Squared norm of `row` of a (n, d) table as one ascending chain.
-__device__ __forceinline__ float row_norm(const float* __restrict__ src, int row, int n, int d) {
-  return row < n ? repro::dot_chain(src + (size_t)row * d, src + (size_t)row * d, d) : 0.f;
-}
-
-// The norms of this warp's R rows (row0 ..): lane r chains row r, then
-// every lane takes them all.
-template <int R>
-__device__ __forceinline__ void warp_norms(const float* __restrict__ src, int row0, int n, int d, float (&xx)[R]) {
-  const int lane = threadIdx.x & 31;
-  const float mine = lane < R ? row_norm(src, row0 + lane, n, d) : 0.f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) xx[r] = __shfl_sync(ws::kFull, mine, r);
-}
-
-// One visit: the dot products of this lane's column of tile `tile` with the
-// warp's R staged rows (xs rows row_off ..), and the column's squared norm,
-// each one chain over the features in ascending order.  Stages the tile
-// (and, past one slice, the block's rows) slice by slice; call with the
-// whole block.
-template <int R>
-__device__ __forceinline__ void visit(float* xs, float* ys, const float* __restrict__ x, int x0, int xn,
-                                      const float* __restrict__ pts, int tile, int T, int Lp, const Slices& s,
-                                      bool vec4x, bool vec4y, int row_off, float (&acc)[R], float& yy) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  yy = 0.f;
-  for (int sl = 0; sl < s.n; ++sl) {
-    const int k0 = sl * s.w, width = min(s.w, s.dp - k0);
-    if (s.n > 1) stage(xs, x, x0, kRows, xn, s.d, k0, width, s.sd, vec4x);
-    stage(ys, pts, tile * T, T, Lp, s.d, k0, width, s.sd, vec4y);
-    __syncthreads();
-    if (lane < T) {
-      const float4* yp = reinterpret_cast<const float4*>(ys + lane * s.sd);
-      const float4* xp = reinterpret_cast<const float4*>(xs + row_off * s.sd);
-      const int q = s.sd / 4;
-      for (int g = 0; g < width / 4; ++g) {
-        const float4 v = yp[g];
-        yy = __fmaf_rn(v.x, v.x, yy);
-        yy = __fmaf_rn(v.y, v.y, yy);
-        yy = __fmaf_rn(v.z, v.z, yy);
-        yy = __fmaf_rn(v.w, v.w, yy);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4 u = xp[r * q + g];
-          acc[r] = __fmaf_rn(u.x, v.x, acc[r]);
-          acc[r] = __fmaf_rn(u.y, v.y, acc[r]);
-          acc[r] = __fmaf_rn(u.z, v.z, acc[r]);
-          acc[r] = __fmaf_rn(u.w, v.w, acc[r]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this slice before the next is staged
-  }
-}
-
-// The warp's minimum of a value >= 0 (or +inf); -0 counts as +0.
-__device__ __forceinline__ float warp_min_nonneg(float v) {
-  return __uint_as_float(__reduce_min_sync(ws::kFull, __float_as_uint(v) & 0x7fffffffu));
-}
+// The block, the staging, the norms, a visit, the warp's minimum and the
+// Eq. 6 kernel's queue shape, offers and walk: grid_ws.cuh, which
+// grid_cd.cu's warp-select route shares; the launch's checks: grid_tiles.cuh.
+using namespace repro::grid_ws;
+using repro::tiles::bad_blocks;
+using repro::tiles::bad_grid;
 
 __device__ __forceinline__ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -348,75 +243,6 @@ grid_round_kernel(const float* __restrict__ pts, const int* __restrict__ orig, c
 // still-walking row's queued k-th distance.  Invalid rows write 0; output in
 // ORIGINAL order.
 template <int K>
-struct CdShape {
-  static constexpr int T = K <= 64 ? 2 : (K <= 256 ? 4 : 8);  // thread-queue length
-  static constexpr int R = K <= 64 ? 8 : (K <= 128 ? 4 : (K <= 256 ? 2 : 1));
-  static constexpr int kPasses = kRows / (kWarps * R);
-};
-
-// WarpSelect::offer for keys at or above lo only.
-template <int K, int T>
-__device__ __forceinline__ void offer_from(ws::WarpSelect<K, T>& s, float sq, int j, bool valid, Key lo) {
-  if (valid && !(sq >= s.thr2)) {
-    const Key key = ws::make_key(sqrtf(sq), j);
-    if (key >= lo && key < s.kth) {
-#pragma unroll
-      for (int t = T - 1; t > 0; --t) s.tq[t] = s.tq[t - 1];
-      s.tq[0] = key;
-      ++s.nv;
-    }
-  }
-}
-
-// The Eq. 6 walk over one row's selected keys: entries 0 .. kq - 1 of the
-// queue in ascending order, continuing (csum, last) from earlier rounds.
-struct Walk {
-  float csum = 0.f, m_last = 0.f, nb_last = 0.f, ext_last = 0.f;
-  float dstar = 0.f, before = 0.f, nb_c = 1.f, ext_c = 0.f;
-  bool done = false, ended = false;
-};
-
-template <int K, int T>
-__device__ __forceinline__ void walk(const ws::WarpSelect<K, T>& sel, int kq, const float* __restrict__ nb,
-                                     const float* __restrict__ ext, float mp, Walk& st) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int q = 0; q < K / 32; ++q) {
-    if (st.done || st.ended || q * 32 >= kq) break;
-    const int e = q * 32 + lane;
-    const Key key = sel.w[q];
-    const bool real = e < kq && key != ws::kEmpty;
-    const float dist = ws::key_dist(key);
-    float nb_e = 0.f, ext_e = 0.f;
-    if (real) {
-      nb_e = nb[ws::key_index(key)];
-      ext_e = ext[ws::key_index(key)];
-    }
-    const int cnt = __popc(__ballot_sync(ws::kFull, real));  // the real keys are a prefix
-#pragma unroll 1
-    for (int t = 0; t < cnt; ++t) {
-      const float m_t = __shfl_sync(ws::kFull, dist, t);
-      const float nb_t = __shfl_sync(ws::kFull, nb_e, t);
-      const float ext_t = __shfl_sync(ws::kFull, ext_e, t);
-      const float next = __fadd_rn(st.csum, nb_t);
-      if (next >= mp) {
-        st.dstar = m_t;
-        st.before = st.csum;
-        st.nb_c = nb_t;
-        st.ext_c = ext_t;
-        st.done = true;
-        break;
-      }
-      st.csum = next;
-      st.m_last = m_t;
-      st.nb_last = nb_t;
-      st.ext_last = ext_t;
-    }
-    if (!st.done && cnt < min(32, kq - q * 32)) st.ended = true;  // no valid row left
-  }
-}
-
-template <int K>
 __global__ void __launch_bounds__(kThreads)
 grid_cd_kernel(const float* __restrict__ pts, const int* __restrict__ orig, const bool* __restrict__ valid, int Lp,
                int d, int T, const int* __restrict__ order, const float* __restrict__ lbs, int NT,
@@ -437,6 +263,7 @@ grid_cd_kernel(const float* __restrict__ pts, const int* __restrict__ orig, cons
   const float mp = static_cast<float>(min_pts);
   if (s.n == 1) stage(xs, pts, x0, kRows, Lp, d, 0, s.dp, s.sd, vec4);
   unsigned long long visited = 0;
+  int walked = 0;  // tiles this block visited, over its passes and rounds
 
   for (int pass = 0; pass < S::kPasses; ++pass) {
     const int row_off = pass * kWarps * R + warp * R;
@@ -496,6 +323,7 @@ grid_cd_kernel(const float* __restrict__ pts, const int* __restrict__ orig, cons
           }
         }
         visited += rows_here;
+        ++walked;
         bool want = false;
         const float nl = t + 1 < NT ? lb[t + 1] : inf();
         if (nl < inf()) {
@@ -538,7 +366,10 @@ grid_cd_kernel(const float* __restrict__ pts, const int* __restrict__ orig, cons
       }
     }
   }
-  if (visits != nullptr && threadIdx.x == 0) atomicAdd(visits, visited);
+  if (visits != nullptr && threadIdx.x == 0) {
+    atomicAdd(visits, visited);
+    atomicMax(visits + 1, (unsigned long long)walked);  // the longest walk of a block
+  }
 }
 
 template <typename Kernel>
@@ -574,16 +405,6 @@ int launch_cd(const CdArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_grid(int Lp, int d, int T, int NT) {
-  return Lp <= 0 || d <= 0 || T <= 0 || T > kMaxTile || NT <= 0 || (long long)T * NT != Lp ||
-         (long long)Lp * Lp >= INT_MAX;
-}
-
-// [block0, block0 + nblocks) within the table's ceil(Lp / 64) query blocks
-bool bad_blocks(int Lp, int block0, int nblocks) {
-  return block0 < 0 || nblocks < 1 || block0 > (Lp + kRows - 1) / kRows - nblocks;
-}
-
 }  // namespace
 
 // x (n, d) Morton-sorted queries; pts (Lp, d), orig (Lp,) int32, valid (Lp,)
@@ -611,7 +432,8 @@ extern "C" int repro_grid_assign_f32(const void* x, int n, const void* pts, cons
 // range in the sharded offline pass; each block's values do not depend on
 // which blocks share the launch); nb, ext (Lp,) f32 in original order;
 // 1 <= k = min(min_pts, Lp); out (nblocks * 64,) f32: the blocks' rows in
-// sorted order (0 on invalid rows).
+// sorted order (0 on invalid rows); visits: null or two 64-bit counters
+// (row-tile visits, added; the longest walk of a block, a maximum).
 extern "C" int repro_grid_core_distances_f32(const void* pts, const void* orig, const void* valid, int Lp, int d,
                                              int T, const void* order, const void* lbs, int NT, const void* nb,
                                              const void* ext, int k, int min_pts, int dim, int block0, int nblocks,

@@ -116,17 +116,6 @@ struct Plan : Slices {
   }
 };
 
-// This thread's row's best as peer CTA `rank` of the cluster last published
-// it: a 32-bit distributed-shared-memory address mapped and read where it is
-// used (volatile: never hoisted into a register held across the walk).
-__device__ __forceinline__ float peer_best(const float* mine, int rank) {
-  uint32_t at;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(at) : "r"(smem_u32(mine)), "r"(rank));
-  asm volatile("ld.volatile.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(at));
-  return v;
-}
-
 struct Args {
   const float* x;
   int n;

@@ -127,13 +127,6 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
-// A squared distance above sq_cap(c) has a root above c: the product
-// (c+)^2 of c's successor rounded up; +inf for c = +inf.
-__device__ __forceinline__ float sq_cap(float c) {
-  const float up = __int_as_float(__float_as_int(c) + 1);
-  return c < inf() ? __fmul_ru(up, up) : inf();
-}
-
 struct Args {
   const float* pts;
   const int* orig;
@@ -420,10 +413,6 @@ grid_round_tiles_kernel(const Args a, int C) {
     cluster.sync();  // no CTA leaves while another reads its shared memory
   }
   count_visits(a.visits, visited, min(kRows, Lp - x0));
-}
-
-bool bad_blocks(int Lp, int block0, int nblocks) {
-  return block0 < 0 || nblocks < 1 || block0 > (Lp + kRows - 1) / kRows - nblocks;
 }
 
 }  // namespace

@@ -1,19 +1,20 @@
-// The tile walk shared by the grid's redesigned kernels, grid_round.cu and
-// grid_assign.cu (plain C interface, sm_90a).  A block of 64 query rows,
-// a thread a row, walks its list of the table's tiles in ascending lower
-// bound, split across a thread-block cluster of C CTAs: rank r visits
-// positions r, r + C, r + 2C, ... of the block's order.  A ring of stages
+// The tile walk shared by the grid's redesigned kernels, grid_round.cu,
+// grid_assign.cu and grid_cd.cu (plain C interface, sm_90a).  A block of 64
+// query rows, a thread a row, walks its list of the table's tiles in
+// ascending lower bound, split across a thread-block cluster of C CTAs: rank
+// r visits positions r, r + C, r + 2C, ... of the block's order.  A ring of stages
 // in shared memory, filled by cp.async copies visits ahead, holds each
 // visit's tile rows (and past one slice of kSlice features, a slice of them
 // and of the block's query rows); one warp writes each iteration's (tile,
 // bound) into a small header ring a visit before its copies start.  At the
-// end the C partial (value, index) per row merge through distributed shared
-// memory in lexicographic order, which does not depend on C.
+// end the C partial answers per row merge through distributed shared memory
+// in an order that does not depend on C.
 //
-// Here: the sizes, the ring's slice geometry, the copies, the visit list
-// and its header ring, the cluster's merge and the cluster launch.  Each
-// kernel keeps its ring depth kStages, its regions past the ring, its FMA
-// chains and its candidates.
+// Here: the sizes and the launch's checks, the square cap of a distance
+// bound, the ring's slice geometry, the copies, the visit list and its
+// header ring, a peer's published value, the cluster's (value, index) merge
+// and the cluster launch.  Each kernel keeps its ring depth kStages, its
+// regions past the ring, its FMA chains and its candidates.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +51,18 @@ inline bool good_cluster(int C) { return C == 1 || C == 2 || C == 4 || C == kMax
 inline bool bad_grid(int Lp, int d, int T, int NT) {
   return Lp <= 0 || d <= 0 || T <= 0 || T > kMaxTile || NT <= 0 || (long long)T * NT != Lp ||
          (long long)Lp * Lp >= INT_MAX;
+}
+
+// [block0, block0 + nblocks) within the table's ceil(Lp / 64) query blocks
+inline bool bad_blocks(int Lp, int block0, int nblocks) {
+  return block0 < 0 || nblocks < 1 || block0 > (Lp + kRows - 1) / kRows - nblocks;
+}
+
+// A squared distance above sq_cap(c) has a root above c: the product
+// (c+)^2 of c's successor rounded up; +inf for c = +inf.
+__device__ __forceinline__ float sq_cap(float c) {
+  const float up = __int_as_float(__float_as_int(c) + 1);
+  return c < inf() ? __fmul_ru(up, up) : inf();
 }
 
 // The ring's geometry: the padded width dp, the slice width w, its row
@@ -173,6 +186,18 @@ struct Best {
   int e;
 };
 
+// The value at `mine` as peer CTA `rank` of the cluster last published it in
+// its shared memory: a 32-bit distributed-shared-memory address mapped and
+// read where it is used (volatile: never hoisted into a register held across
+// the walk).
+__device__ __forceinline__ float peer_best(const float* mine, int rank) {
+  uint32_t at;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(at) : "r"(smem_u32(mine)), "r"(rank));
+  asm volatile("ld.volatile.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(at));
+  return v;
+}
+
 // Row i of the block: the lexicographic minimum of the C CTAs' (vs[i],
 // es[i]), read through distributed shared memory.
 __device__ __forceinline__ Best cluster_min(cg::cluster_group& cluster, const float* vs, const int* es, int i, int C) {
@@ -194,17 +219,17 @@ __device__ __forceinline__ void count_visits(unsigned long long* visits, int vis
   }
 }
 
-// kernel(args, C) over nblocks query blocks of C CTAs of kThreads, a
+// kernel(args, C) over nblocks query blocks of C CTAs of `threads`, a
 // thread-block cluster a block, with bytes of dynamic shared memory.
 // Returns cudaGetLastError() after the launch.
 template <typename Args>
 inline int launch_clusters(void (*kernel)(const Args, int), const Args& args, int nblocks, int C, size_t bytes,
-                           void* stream) {
+                           void* stream, int threads = kThreads) {
   const cudaError_t err = repro::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(nblocks * C));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];

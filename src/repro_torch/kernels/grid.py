@@ -34,16 +34,21 @@ block (or cluster of blocks) per 64 query rows:
                            across a cluster of ``ASSIGN_CLUSTER`` CTAs);
   ``grid_core_distances``  Eq. 6 over each row's (distance, index) walk,
                            replacing ``grid.py:222`` / ``:255``
-                           (``csrc/grid.cu``);
+                           (``csrc/grid_cd.cu``: a thread a row with its
+                           first k keys in registers up to k = 16, the
+                           walk split across a cluster of ``CD_CLUSTER``
+                           CTAs stopping on the cluster's k-th; above, the
+                           first kernel's warp-select queues, its passes
+                           spread over the CTAs);
   ``grid_round_minima``    one Borůvka round's lightest outgoing
                            (w, edge id) per row, replacing ``mst.py:392``
                            (``csrc/grid_round.cu``: a prefetched tile ring,
                            the walk split across a cluster of
                            ``ROUND_CLUSTER`` CTAs).
 
-``grid_assign_v1`` and ``grid_round_minima_v1`` launch the first assign
-and round kernels (``csrc/grid.cu``), the redesigns' bitwise oracles: no
-path calls them.
+``grid_assign_v1``, ``grid_core_distances_v1`` and
+``grid_round_minima_v1`` launch the first kernels (``csrc/grid.cu``), the
+redesigns' bitwise oracles: no path calls them.
 
 The Eq. 6 and Borůvka searches take a range of query blocks: the
 sharded offline pass (``mesh=``) gives each shard a contiguous range
@@ -55,17 +60,18 @@ Bound on the H100: operations.  Each visited tile costs 64 × 32 × d FMAs
 of dot product; the table and the visit lists are a few MB.  Every kernel
 stages a visited tile in shared memory once for all 64 rows of its block
 and reads the tile's rows by broadcast, with no (rows, L) buffer anywhere.
-The layouts differ.  The assign and round kernels (``csrc/grid_assign.cu``,
-``csrc/grid_round.cu``) give a thread a row, 64 threads a CTA: a visit is
-32 columns × d FMAs a thread, the tiles come through a ring of
-``cp.async`` copies a few visits ahead, and a block's walk is split over
-the CTAs of a cluster.  The Eq. 6 kernel and the first kernels
-(``csrc/grid.cu``) give lane j of each warp column j of the tile and a
-warp 8 of the block's rows: a visit is 8 rows × d FMAs a thread, one tile
+The layouts differ.  The redesigned kernels (``csrc/grid_assign.cu``,
+``csrc/grid_cd.cu`` up to k = 16, ``csrc/grid_round.cu``) give a thread a
+row, 64 threads a CTA: a visit is 32 columns × d FMAs a thread, the tiles
+come through a ring of ``cp.async`` copies a few visits ahead, and a
+block's walk is split over the CTAs of a cluster.  The first kernels
+(``csrc/grid.cu``), and ``csrc/grid_cd.cu`` past k = 16 (its passes and
+walk spread over the cluster), give lane j of each warp column j of the tile and a
+warp R of the block's rows: a visit is R rows × d FMAs a thread, one tile
 in flight.  A tensor on the CPU takes the plain version in
 ``kernels/ref.py``; a CUDA tensor launches the kernel or raises.
-``track_visits`` counts the kernels' row-tile visits on the card, and for
-the assign and round kernels also the longest walk of one CTA.
+``track_visits`` counts the kernels' row-tile visits on the card and the
+longest walk of one CTA.
 """
 
 from __future__ import annotations
@@ -89,6 +95,7 @@ __all__ = [
     "grid_round_minima",
     "grid_round_minima_v1",
     "grid_assign_v1",
+    "grid_core_distances_v1",
     "grid_core_distances_shard",
     "track_visits",
     "visit_counts",
@@ -96,6 +103,7 @@ __all__ = [
     "DEFAULT_BLOCK",
     "ROUND_CLUSTER",
     "ASSIGN_CLUSTER",
+    "CD_CLUSTER",
 ]
 
 # quantisation bits per grid dimension; with <= 3 interleaved dims the
@@ -111,13 +119,15 @@ _INT32_MAX = 2**31 - 1
 
 ROUND_CLUSTER = 8  # CTAs a query block in grid_round_minima's launch (python -m repro_torch.kernels.grid_variants)
 ASSIGN_CLUSTER = 8  # CTAs a query block in grid_assign's launch (python -m repro_torch.kernels.grid_variants assign)
+CD_CLUSTER = 8  # CTAs a query block in grid_core_distances' launch (python -m repro_torch.kernels.grid_variants cd)
 CLUSTERS = (1, 2, 4, 8)  # the cluster sizes the kernels are built for
 
 launches = {"grid_assign": 0, "grid_core_distances": 0, "grid_round_minima": 0, "grid_round_minima_v1": 0,
-            "grid_assign_v1": 0}
-# (5,) int64 on the card while track_visits is on, by slot (_SLOTS): the row-tile visits of assign (both kernels)
-# and its longest walk of a CTA, of Eq. 6, of the round (both kernels) and its longest walk
-_SLOTS = ("grid_assign", "grid_assign_longest", "grid_core_distances", "grid_round_minima", "grid_round_longest")
+            "grid_assign_v1": 0, "grid_core_distances_v1": 0}
+# (6,) int64 on the card while track_visits is on, by slot (_SLOTS): the row-tile visits of assign, Eq. 6 and the
+# round (both kernels of each), each followed by its longest walk of a CTA
+_SLOTS = ("grid_assign", "grid_assign_longest", "grid_core_distances", "grid_core_longest", "grid_round_minima",
+          "grid_round_longest")
 _visits: torch.Tensor | None = None
 
 
@@ -277,27 +287,28 @@ def _query_views(grid: GridIndex, x: torch.Tensor, block: int = DEFAULT_BLOCK):
 def track_visits(on: bool, device=None) -> None:
     """Start (zeroed) or stop counting the kernels' row-tile visits on the
     card: each visit of a tile adds the live rows of the block that visit it
-    (both assign kernels count under ``grid_assign``, both round kernels
-    under ``grid_round_minima``), and the assign and round kernels also keep
+    (both kernels of a search count under its name: ``grid_assign``,
+    ``grid_core_distances``, ``grid_round_minima``), and every kernel keeps
     the most tiles one CTA visited (``grid_assign_longest``,
-    ``grid_round_longest``).  ``visit_counts()`` reads them (a host sync):
-    for measurement only."""
+    ``grid_core_longest``, ``grid_round_longest``).  ``visit_counts()``
+    reads them (a host sync): for measurement only."""
     global _visits
     _visits = torch.zeros(len(_SLOTS), dtype=torch.int64, device=device) if on else None
 
 
 def visit_counts() -> dict:
-    """{slot: count} for the five slots of ``_SLOTS`` while counting is on
+    """{slot: count} for the six slots of ``_SLOTS`` while counting is on
     (``grid_assign``, ``grid_assign_longest``, ``grid_core_distances``,
-    ``grid_round_minima``, ``grid_round_longest``), else {}."""
+    ``grid_core_longest``, ``grid_round_minima``, ``grid_round_longest``),
+    else {}."""
     if _visits is None:
         return {}
     return dict(zip(_SLOTS, (int(v) for v in _visits.cpu())))
 
 
 def _visit_ptr(slot: str, device):
-    """The counter of ``slot`` (a kernel with a longest walk writes it at the
-    next slot too), or None while counting is off or on another device."""
+    """The counter of ``slot`` (the kernel writes its longest walk at the
+    next slot), or None while counting is off or on another device."""
     if _visits is None or _visits.device != device:
         return None
     return _visits[_SLOTS.index(slot):].data_ptr()
@@ -416,33 +427,55 @@ def _scatter(grid: GridIndex, *sorted_vals):
 
 
 def grid_core_distances(grid: GridIndex, n_b, extent, min_pts: int, dim: int,
-                        views: GridViews | None = None, blocks=None) -> torch.Tensor:
+                        views: GridViews | None = None, blocks=None, cluster: int = CD_CLUSTER) -> torch.Tensor:
     """Eq. 6 bubble core distances over the grid: ``n_b``/``extent`` (Lp,)
     in ORIGINAL row order, the result too (0 on invalid rows).  Bitwise the
     dense Eq. 6 kernels on the valid rows, for a pre-clamped ``min_pts``
     (at most the valid rows' mass).  With ``blocks = (b0, b1)`` only those
     query blocks run, and the result is their rows' values in SORTED
-    order."""
-    on_card = _checked_grid(grid, "grid_core_distances", n_b, extent)
+    order (``csrc/grid_cd.cu``).  ``cluster``: CTAs a query block on the
+    card, 1, 2, 4 or 8 (past k = 16 at most that many: the warp-select route
+    gives them its passes first and splits a walk over at most 2); the bits
+    do not depend on it."""
+    if cluster not in CLUSTERS:
+        raise ValueError(f"grid_core_distances: cluster must be 1, 2, 4 or 8, got {cluster}")
+    return _core_distances("grid_core_distances", "repro_grid_cd_tiles_f32", (cluster,), grid, n_b, extent, min_pts,
+                           dim, views, blocks)
+
+
+def grid_core_distances_v1(grid: GridIndex, n_b, extent, min_pts: int, dim: int,
+                           views: GridViews | None = None, blocks=None) -> torch.Tensor:
+    """``grid_core_distances`` through its first kernel (``csrc/grid.cu``),
+    the redesign's bitwise oracle: no path calls it."""
+    return _core_distances("grid_core_distances_v1", "repro_grid_core_distances_f32", (), grid, n_b, extent,
+                           min_pts, dim, views, blocks)
+
+
+def _core_distances(name: str, entry: str, extra: tuple, grid: GridIndex, n_b, extent, min_pts: int, dim: int,
+                    views: GridViews | None, blocks) -> torch.Tensor:
+    """The Eq. 6 search's checks, its plain version on the CPU, and the
+    launch of C entry ``entry``, which takes the arguments ``extra`` before
+    its output."""
+    on_card = _checked_grid(grid, name, n_b, extent)
     Lp, d = grid.pts.shape
     n_b, extent = n_b.float().contiguous(), extent.float().contiguous()
     if n_b.shape != (Lp,) or extent.shape != (Lp,):
-        raise ValueError(f"grid_core_distances wants ({Lp},) masses and extents, got "
-                         f"{tuple(n_b.shape)} and {tuple(extent.shape)}")
+        raise ValueError(f"{name} wants ({Lp},) masses and extents, got {tuple(n_b.shape)} and "
+                         f"{tuple(extent.shape)}")
     min_pts, dim = int(min_pts), int(dim)
     if min_pts < 1 or dim < 1:
         raise ValueError(f"min_pts and dim must be >= 1, got {min_pts}, {dim}")
     views = _block_views(grid) if views is None else views
-    _views_ok(grid, views, Lp, "grid_core_distances")
+    _views_ok(grid, views, Lp, name)
     b0, b1, rows = _block_range(grid, views, blocks)
     if not on_card:
         return _ref.grid_core_distances(grid, views, n_b, extent, min_pts, dim, blocks=blocks)
     out = torch.empty(rows, dtype=torch.float32, device=grid.pts.device)
     if rows:
-        _launch("grid_core_distances", "repro_grid_core_distances_f32", out.device,
+        _launch(name, entry, out.device,
                 *_grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), views.order.shape[1],
-                n_b.data_ptr(), extent.data_ptr(), min(min_pts, Lp), min_pts, dim, b0, b1 - b0, out.data_ptr(),
-                _visit_ptr("grid_core_distances", out.device))
+                n_b.data_ptr(), extent.data_ptr(), min(min_pts, Lp), min_pts, dim, b0, b1 - b0, *extra,
+                out.data_ptr(), _visit_ptr("grid_core_distances", out.device))
     return out if blocks is not None else _scatter(grid, out)[0]
 
 

@@ -1,7 +1,7 @@
-"""Time variants of the grid's round and assign kernels side by side on one card.
+"""Time variants of the grid's round, assign and Eq. 6 kernels side by side on one card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.grid_variants             # both, one NVIDIA GPU
-    PYTHONPATH=src python -m repro_torch.kernels.grid_variants assign      # or round: one of them
+    PYTHONPATH=src python -m repro_torch.kernels.grid_variants             # all three, one NVIDIA GPU
+    PYTHONPATH=src python -m repro_torch.kernels.grid_variants assign      # or round, or cd: some of them
 
 **The Borůvka round** (``csrc/grid_round.cu``).
 Each variant is ``csrc/grid_round.cu`` with text patches applied (every
@@ -48,6 +48,27 @@ timed on its Morton-sorted queries and visit lists beside the first kernel
 (``grid_assign_v1``), every variant bit for bit the first kernel's idx and
 dist, with the row-tile visits and the longest walk of a CTA.
 
+**The Eq. 6 kernel** (``csrc/grid_cd.cu``), the same way, on the stream's
+table as the offline pass pads it (Lp = 8192, its own rows as 128 query
+blocks).  At min_pts 10 (the register route, k = 10): the ring depth (1,
+2, 4 and 8 stages), the cluster size (1, 2, 4 and 8), the stop on each
+CTA's own k-th and on the cluster's least k-th alone (the shipped kernel
+stops on the least of the cluster's k-th and its largest j-th, j = ceil(k
+/ C), which each CTA publishes in its shared memory and its peers read
+through distributed shared memory), the warp-select route forced at k = 10
+(the register route's cap set to 0), the register list at 16 and 32
+slots (12 shipped up to k = 12, 16 to 16), and two probes that keep the bits: the kept columns
+and list inserts of every row, and each warp's SM clocks by phase of the
+walk.  At min_pts 13 and 16 (the register route's 16-slot list): the
+shipped kernel against the warp-select route forced there.  At min_pts 17, 64, 100
+and 2000 (the warp-select route: queues of 32 and 64 in one pass, 128 in
+two, two rounds of 1024 in eight passes): the cluster sizes, the stop on
+the cluster's bound (the shipped route stops each CTA on its own k-th) and
+a walk split over up to 8 CTAs (the shipped route gives the cluster's CTAs
+the passes first and splits a walk over at most 2).  Everything beside
+the first kernel (``grid_core_distances_v1``), bit for bit its output, with
+the row-tile visits and the longest walk of a CTA.
+
 Nothing in the port calls this module.
 """
 
@@ -84,7 +105,7 @@ _TILE_COPY = "    copy_rows(st, a.pts, tile * T, T, Lp, a.d, k0, width, P.sd, ve
 
 # a 1-D bulk copy a tile (T·d·4 bytes, d % 4 == 0) completing on the stage's mbarrier; the tile's rows at stride d
 _BULK = [
-    ("// A squared distance above sq_cap", r"""// Wait until the barrier's phase with the given parity has completed; a
+    ("struct Args {\n", r"""// Wait until the barrier's phase with the given parity has completed; a
 // wait that cannot end traps after ~2^28 polls instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   uint32_t done, polls = 0;
@@ -107,7 +128,8 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
                ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-// A squared distance above sq_cap"""),
+struct Args {
+"""),
     # the stages keep their size: a tile's rows at stride ld <= sd
     ("cval, bytes;", "cval, bars, bytes;\n  int ld;  // tile row stride: dp where a tile is one bulk copy"),
     ("    ocol = at;", "    ld = d % 4 == 0 && sn == 1 && dp == d ? dp : sd;\n    bars = at;\n    at += 8 * kStages;\n    ocol = at;"),
@@ -218,10 +240,100 @@ ASSIGN_VARIANTS = {
     "probe: phase clocks": _A_CLOCKS,
 }
 ASSIGN_PHASES = ("wait and barrier", "copies and the header", "FMAs", "candidates and the vote")
+
+# csrc/grid_cd.cu's register route shares the assign kernel's anchors (the ring, the loop, its clocks); its own:
+_CD_SHARED = ("      if (C > 1 && want) {  // the cluster's k-th: the stop, and the filter of the next visits\n"
+              "        const float cb = fminf(fminf(kd, pk), fmaxf(jd, pj));\n        want = nl <= cb;\n"
+              "        thr = sq_cap(cb);\n      }\n")
+_CD_READS = "    if (C > 1 && live && last(k)) {  // the peers' bounds for this visit's vote: every load issued, then reduced\n"
+# the warp-select route's split walks stop on the cluster's bound, as the register route's do: each CTA publishes
+# its rows' k-th and j-th (j = ceil(kq / C)) in its shared memory after every visit, reads its peers' (lane c, peer
+# c) at each visit's start, and votes on the least k-th and the largest j-th; reset between rounds
+_WS_PEER_STOP = [
+    ("struct WsPlan : gw::Slices {\n",
+     "// The warp's maximum of a value >= 0 (or +inf).\n"
+     "__device__ __forceinline__ float warp_max_nonneg(float v) {\n"
+     "  return __uint_as_float(__reduce_max_sync(kFull, __float_as_uint(v) & 0x7fffffffu));\n}\n\n"
+     "struct WsPlan : gw::Slices {\n"),
+    ("  size_t xs, ys, bneed, blo, lst, bytes;", "  size_t xs, ys, kpub, jpub, bneed, blo, lst, bytes;"),
+    ("    bneed = at;\n", "    kpub = at;\n    at += sizeof(float) * kRows;\n    jpub = at;\n"
+                        "    at += sizeof(float) * kRows;\n    bneed = at;\n"),
+    ("  int* bneed = reinterpret_cast<int*>(smem + P.bneed);\n",
+     "  float* kpub = reinterpret_cast<float*>(smem + P.kpub);\n"
+     "  float* jpub = reinterpret_cast<float*>(smem + P.jpub);\n"
+     "  int* bneed = reinterpret_cast<int*>(smem + P.bneed);\n"),
+    ("  cg::cluster_group cluster = cg::this_cluster();\n  unsigned long long visited = 0;\n",
+     "  if (tid < kRows) kpub[tid] = jpub[tid] = inf();\n  cg::cluster_group cluster = cg::this_cluster();\n"
+     "  if (C > 1) cluster.sync();  // every CTA's published bounds set before a peer reads them\n"
+     "  unsigned long long visited = 0;\n"),
+    ("      const int kq = min(K, a.k - kdone);\n",
+     "      const int kq = min(K, a.k - kdone);\n      const int jr = (kq + C - 1) / C;\n"),
+    ("        const int tile = ord[t];\n",
+     "        const int tile = ord[t];\n        float pk[R], pj[R];\n#pragma unroll\n"
+     "        for (int r = 0; r < R; ++r) {\n"
+     "          const bool rd = C > 1 && need[r] && lane < C && lane != rank;\n"
+     "          pk[r] = rd ? peer_best(kpub + row_off + r, lane) : inf();\n"
+     "          pj[r] = rd ? peer_best(jpub + row_off + r, lane) : 0.f;\n        }\n"),
+    ("        bool want = false;\n        const float nl = t + C < NT ? lb[t + C] : inf();\n",
+     "        float kd[R], jd[R];\n#pragma unroll\n        for (int r = 0; r < R; ++r) {\n"
+     "          kd[r] = kth_dist(sel[r].kth);\n"
+     "          jd[r] = C > 1 ? kth_dist(__shfl_sync(kFull, ws::pick(sel[r].w, (jr - 1) >> 5), (jr - 1) & 31)) : kd[r];\n"
+     "        }\n        if (C > 1 && lane == 0) {\n#pragma unroll\n          for (int r = 0; r < R; ++r) {\n"
+     "            if (need[r]) {\n"
+     "              *reinterpret_cast<volatile float*>(kpub + row_off + r) = kd[r];\n"
+     "              *reinterpret_cast<volatile float*>(jpub + row_off + r) = jd[r];\n            }\n          }\n"
+     "        }\n        bool want = false;\n        const float nl = t + C < NT ? lb[t + C] : inf();\n"),
+    ("          for (int r = 0; r < R; ++r) want |= need[r] && nl <= kth_dist(sel[r].kth);\n",
+     "          for (int r = 0; r < R; ++r) {\n"
+     "            const float b = C > 1 ? fminf(fminf(kd[r], gw::warp_min_nonneg(pk[r])), "
+     "fmaxf(jd[r], warp_max_nonneg(pj[r]))) : kd[r];\n"
+     "            want |= need[r] && nl <= b;\n          }\n"),
+    ("        cluster.sync();  // the broadcast written, every peer's lists read\n",
+     "        if (lane == 0) {\n          for (int r = 0; r < R; ++r) kpub[row_off + r] = jpub[row_off + r] = inf();\n"
+     "        }\n        cluster.sync();  // the broadcast written, every peer's lists read\n"),
+]
+CD_VARIANTS = {
+    "shipped: 4 stages, stop on the cluster's bound, register lists of 12 and 16": [],
+    "1 stage": [(_STAGES, _STAGES.replace("4", "1"))],
+    "2 stages": [(_STAGES, _STAGES.replace("4", "2"))],
+    "8 stages": [(_STAGES, _STAGES.replace("4", "8"))],
+    # the register route: each CTA stops on its own k-th (its peers' published values never read)
+    "stop on each CTA's own k-th": [(_CD_SHARED, ""), (_CD_READS, _CD_READS.replace("C > 1", "false"))],
+    # the register route: the stop on the cluster's least k-th alone, without the largest j-th
+    "stop on the cluster's k-th alone": [("const float cb = fminf(fminf(kd, pk), fmaxf(jd, pj));",
+                                          "const float cb = fminf(kd, pk);")],
+    # the warp-select route's split walks: the stop on the cluster's bound (each CTA's own k-th shipped)
+    "warp-select stop on the cluster's bound": _WS_PEER_STOP,
+    # the warp-select route's walk split over up to 8 CTAs (2 shipped)
+    "warp-select walk split up to 8 ways": [("constexpr int kWsSplit = 2;", "constexpr int kWsSplit = 8;")],
+    # the register list's slots at k = 10: 16 (the larger list's) or 32 (the cap's limit) instead of 12
+    "register list of 16": [("return k <= kRegSmall ?", "return k <= 0 ?")],
+    "register list of 32": [("return k <= kRegSmall ?", "return k <= 0 ?"),
+                            ("constexpr int kRegK = 16;", "constexpr int kRegK = 32;")],
+    # the register cap at 0: every k on the warp-select route
+    "warp-select route at every k": [("  if (k <= kRegK) return", "  if (k <= 0) return")],
+    # the shipped bits, with each thread's kept columns and list inserts summed into visits[2], visits[3]
+    "probe: kept columns and inserts": [
+        ("  int visited = 0;\n  bool want = hdr_t[0] >= 0;\n",
+         "  int visited = 0;\n  bool want = hdr_t[0] >= 0;\n  unsigned long long n_kept = 0, n_ins = 0;\n"),
+        ("      if (keep != 0) {  // past a walk's first tiles, seldom\n",
+         "      if (keep != 0) {  // past a walk's first tiles, seldom\n        n_kept += __popc(keep);\n"),
+        ("          if (sq <= cap) {\n", "          if (sq <= cap) {\n            ++n_ins;\n"),
+        (_DRAIN, "  if (a.visits != nullptr) {\n    atomicAdd(a.visits + 2, n_kept);\n    atomicAdd(a.visits + 3, n_ins);\n  }\n"
+                 + _DRAIN)],
+    # the shipped bits, with each warp's SM clocks summed by phase of the walk
+    "probe: phase clocks": _A_CLOCKS,
+}
+CD_PHASES = ("wait and barrier", "copies and the header", "FMAs", "candidates, the list and the vote")
+# the path's; the register route's 16-slot list (13, 16) against the warp-select route there; the warp-select route's
+# queues of 32, 64, 128, 1024 (two rounds)
+CD_MIN_PTS = (10, 13, 16, 17, 64, 100, 2000)
+CD_EDGE = (13, 16)  # where the register route's 16-slot list runs: timed against the warp-select route alone
 # per kernel: the source, its variants, its C entry and the mangled name of its d <= 16 instantiation
 KINDS = {
     "round": ("grid_round.cu", VARIANTS, "repro_grid_round_tiles_f32", "grid_round_tiles_kernelILi16E"),
     "assign": ("grid_assign.cu", ASSIGN_VARIANTS, "repro_grid_assign_tiles_f32", "grid_assign_tiles_kernelILi16E"),
+    "cd": ("grid_cd.cu", CD_VARIANTS, "repro_grid_cd_tiles_f32", "grid_cd_reg_kernelILi16ELi12E"),
 }
 
 
@@ -342,7 +454,7 @@ def _turns(calls: dict) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    kinds = argv or ["round", "assign"]
+    kinds = argv or list(KINDS)
     if any(k not in KINDS for k in kinds):
         print(f"grid_variants: kinds are {sorted(KINDS)}, got {argv}", file=sys.stderr)
         return 2
@@ -357,7 +469,12 @@ def main(argv=None) -> int:
     table = stream_table(dev, X)
     code = 0
     for kind in kinds:
-        code = code or (round_variants(dev, table) if kind == "round" else assign_variants(dev, table, X, Qs))
+        if kind == "round":
+            code = code or round_variants(dev, table)
+        elif kind == "assign":
+            code = code or assign_variants(dev, table, X, Qs)
+        else:
+            code = code or cd_variants(dev, table)
     return code
 
 
@@ -504,6 +621,92 @@ def assign_variants(dev, table, X, Qs) -> int:
         bad += [f"{shape}: {n}" for n, ok in same.items() if not ok]
     if bad:
         print(f"grid_variants: assign variants not bit for bit the first kernel: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cd_variants(dev, table) -> int:
+    """The Eq. 6 kernel's variants on the stream's table as the offline pass
+    pads it, at each of ``CD_MIN_PTS``."""
+    from . import ops
+
+    libs = build("cd")
+    for v in libs:
+        print(f"cd library {v['name']!r}: {v['ptxas']}")
+    rep, extent, n_b, _ = table
+    L, d = rep.shape
+    (rep_t, nb_t, ext_t), _, _ = ops._prepare_table(rep, n_b, extent, MIN_PTS, dev)
+    grid, views = ops._grid_table(rep_t, L)
+    Lp = rep_t.shape[0]
+    NB, NT = views.order.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    bad = []
+    for m in CD_MIN_PTS:
+        mp = ops._clamp_min_pts(m, float(n_b.sum()))
+        args = (grid, nb_t, ext_t, mp, d, views, (0, NB))
+        want = _grid.grid_core_distances_v1(*args)
+        if m == MIN_PTS:
+            chosen = libs
+        elif m in CD_EDGE:
+            chosen = [v for v in libs if v is libs[0] or v["name"] == "warp-select route at every k"]
+        else:
+            chosen = [v for v in libs if v is libs[0] or v["name"].startswith("warp-select") and "every k" not in v["name"]]
+        outs, calls, counts = {}, {}, {}
+        for v in chosen:
+            out = torch.empty(NB * 64, device=dev)
+            outs[v["name"]] = out
+
+            def call(lib=v["lib"], out=out, visits=None):
+                _build.check(lib.repro_grid_cd_tiles_f32(
+                    *_grid._grid_args(grid), views.order.data_ptr(), views.lbs.data_ptr(), NT, nb_t.data_ptr(),
+                    ext_t.data_ptr(), min(mp, Lp), mp, d, 0, NB, _grid.CD_CLUSTER, out.data_ptr(), visits, stream),
+                    "grid Eq. 6 variant")
+
+            calls[v["name"]] = call
+            counters = torch.zeros(2 + len(CD_PHASES), dtype=torch.int64, device=dev)
+            call(visits=counters.data_ptr())
+            counts[v["name"]] = counters.cpu().numpy()
+            if v is libs[0]:
+                for c in CLUSTERS:
+                    calls[f"shipped at cluster {c}"] = lambda c=c: _grid.grid_core_distances(*args, cluster=c)
+        same = {name: bool(torch.equal(out, want)) for name, out in outs.items()}
+        walks = {}
+        for c in ("v1",) + CLUSTERS:
+            _grid.track_visits(True, dev)
+            try:
+                got = (_grid.grid_core_distances_v1(*args) if c == "v1"
+                       else _grid.grid_core_distances(*args, cluster=c))
+                vc = _grid.visit_counts()
+            finally:
+                _grid.track_visits(False)
+            walks[c] = (vc["grid_core_distances"], vc["grid_core_longest"])
+            if c != "v1":
+                same[f"shipped at cluster {c}"] = bool(torch.equal(got, want))
+        calls["first kernel (csrc/grid.cu)"] = lambda: _grid.grid_core_distances_v1(*args)
+        times = _turns(calls)
+        v1v, v1w = walks["v1"]
+        print(f"Eq. 6 at min_pts {mp} (k = {min(mp, Lp)}): L = {L}, Lp = {Lp}, d = {d}, {NB} blocks x {NT} tiles; "
+              f"first kernel: {v1v} row-tile visits ({v1v / (Lp * NT):.4f} of rows x tiles), longest walk of a CTA "
+              f"{v1w}; the shipped kernel (visits, against v1's, longest walk) by cluster: "
+              + ", ".join(f"{c}: {walks[c][0]}, {walks[c][0] - v1v:+d}, {walks[c][1]}" for c in CLUSTERS)
+              + f"; libraries at cluster {_grid.CD_CLUSTER}:")
+        for name, t in times.items():
+            extra = ""
+            if name in counts:
+                extra = f"; visits {int(counts[name][0])}, longest walk {int(counts[name][1])}"
+            print(f"  {name}: {' / '.join(f'{x:.4f}' for x in t)} ms"
+                  + (f"; bit for bit the first kernel: {same[name]}" if name in same else "") + extra)
+        if "probe: kept columns and inserts" in counts:
+            kept, ins = counts["probe: kept columns and inserts"][2:4]
+            print(f"  kept columns {int(kept)}, list inserts {int(ins)} over the rows' walks")
+        if "probe: phase clocks" in counts:
+            split = counts["probe: phase clocks"][2:].astype(np.float64)
+            if split.sum() > 0:
+                print("  the walk's SM clocks by phase, all warps: "
+                      + ", ".join(f"{p} {c / split.sum():.3f}" for p, c in zip(CD_PHASES, split)))
+        bad += [f"min_pts {mp}: {n}" for n, ok in same.items() if not ok]
+    if bad:
+        print(f"grid_variants: Eq. 6 variants not bit for bit the first kernel: {bad}", file=sys.stderr)
         return 1
     return 0
 

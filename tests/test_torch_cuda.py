@@ -27,7 +27,9 @@ block ranges) are held bit for bit to the same rows of the whole launch,
 and the pass on ``("cuda:0",) * k`` to the unsharded pass.  The redesigned
 assign and round kernels (``csrc/grid_assign.cu``, ``csrc/grid_round.cu``)
 are held bit for bit to their first kernels in ``csrc/grid.cu``
-(``grid_assign_v1``, ``grid_round_minima_v1``) at every cluster size.
+(``grid_assign_v1``, ``grid_round_minima_v1``) at every cluster size, and
+so is the redesigned Eq. 6 kernel (``csrc/grid_cd.cu``) to
+``grid_core_distances_v1``.
 Tolerances: indices identical on tie-free centred data; values within
 1e-5 relative plus the f32 cancellation allowance of the expanded
 distance form, which the kernel and the plain version round in different
@@ -1447,6 +1449,135 @@ class TestCudaGridAssign:
         assert t_grid.launches["grid_assign"] == 1 and t_grid.launches["grid_assign_v1"] == 0
         di, dd = t_assign.assign(q, rep, with_dist=True)
         assert torch.equal(gi, di) and torch.equal(gd, dd)
+
+
+def _cd_visits(fn):
+    """(row-tile visits, longest walk of a CTA) of the Eq. 6 kernels during
+    one call of ``fn``."""
+    from repro_torch.kernels import grid as t_grid
+
+    t_grid.track_visits(True, torch.device("cuda"))
+    try:
+        fn()
+        got = t_grid.visit_counts()
+    finally:
+        t_grid.track_visits(False)
+    return got["grid_core_distances"], got["grid_core_longest"]
+
+
+@pytest.mark.cuda
+class TestCudaGridCoreDistances:
+    """The spatial index's redesigned Eq. 6 search (``csrc/grid_cd.cu``: the
+    walk split across a cluster that stops on the cluster's k-th, a thread a
+    row with its first k keys in registers up to k = 16, the first kernel's
+    warp-select queues above) bit for bit its first kernel (``csrc/grid.cu``,
+    ``grid_core_distances_v1``) and the dense ``bubble_cd``: at every cluster
+    size, each compiled width (d = 2: 4-byte copies, 16 in registers, 40: 64
+    from shared memory, 200: two slices of 128), min_pts on both sides of
+    the register lists' edges (12 and 16 slots) and of the queue's 1024 (unit masses there, so
+    the crossing is the min_pts-th row and a second round of selection
+    carries the walk), block ranges, a table with fewer valid rows than
+    min_pts, and its visits at one CTA a block against the first kernel's."""
+
+    @pytest.mark.parametrize("min_pts", [1, 2, 10, 12, 13, 16, 17, 100, 1024, 1025, 2000])
+    @pytest.mark.parametrize("case", ["spread", "dup", "collinear", "zeros"])
+    @pytest.mark.parametrize("d", [2, 16, 40, 200])
+    def test_equals_v1_and_dense(self, cuda_device, case, d, min_pts):
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(51)
+        L = 3001 if min_pts >= 1024 else 1001
+        rep = _t(_grid_case(case, rng, L, d)).to(cuda_device)
+        masses = np.ones(L) if min_pts >= 1024 else rng.integers(1, 6, size=L)
+        n_b = _t(masses.astype(np.float32)).to(cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=L).astype(np.float32)).to(cuda_device)
+        _, g, (nb_p, ext_p) = _padded_grid(rep, n_b, extent)
+        want = t_grid.grid_core_distances_v1(g, nb_p, ext_p, min_pts, d)
+        dense = t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=d)
+        assert torch.equal(want[:L], dense), int((want[:L] != dense).sum())
+        for c in t_grid.CLUSTERS:
+            t_grid.launches["grid_core_distances"] = t_grid.launches["grid_core_distances_v1"] = 0
+            got = t_grid.grid_core_distances(g, nb_p, ext_p, min_pts, d, cluster=c)
+            assert t_grid.launches["grid_core_distances"] == 1 and t_grid.launches["grid_core_distances_v1"] == 0
+            assert torch.equal(got, want), (c, int((got != want).sum()))
+
+    @pytest.mark.parametrize("min_pts", [10, 17, 100, 2000])
+    def test_block_ranges(self, cuda_device, min_pts):
+        """Each block range at every cluster size: bit for bit the same rows
+        of the whole launch and the first kernel's range."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(52)
+        rep = _t(_grid_case("spread", rng, 3001, 16)).to(cuda_device)
+        n_b = _t(rng.integers(1, 6, size=3001).astype(np.float32)).to(cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=3001).astype(np.float32)).to(cuda_device)
+        _, g, (nb_p, ext_p) = _padded_grid(rep, n_b, extent)
+        views = t_grid._block_views(g)
+        whole = t_grid.grid_core_distances(g, nb_p, ext_p, min_pts, 16, views)[g.orig.long()]  # sorted order
+        NB = views.order.shape[0]
+        for b0, b1 in ((0, 1), (0, NB), (5, 17), (NB - 1, NB), (30, 47)):
+            want = t_grid.grid_core_distances_v1(g, nb_p, ext_p, min_pts, 16, views, blocks=(b0, b1))
+            assert torch.equal(want, whole[b0 * 64 : b1 * 64]), (b0, b1)
+            for c in t_grid.CLUSTERS:
+                got = t_grid.grid_core_distances(g, nb_p, ext_p, min_pts, 16, views, blocks=(b0, b1), cluster=c)
+                assert torch.equal(got, want), (b0, b1, c)
+
+    @pytest.mark.parametrize("min_pts,unit", [(30, True), (50, False), (2000, True)])
+    def test_fewer_valid_rows_than_min_pts(self, cuda_device, min_pts, unit):
+        """20 valid rows in a 32-row table: with unit masses the walk ends
+        short of min_pts and the last entry plays the crossing bubble (the
+        first kernel's rule); with masses of 4 it crosses within the 20
+        rows, also bit for bit the dense kernel."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(53)
+        rep = _t(_centred(rng, 20, 3)).to(cuda_device)
+        n_b = torch.full((20,), 1.0 if unit else 4.0, device=cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=20).astype(np.float32)).to(cuda_device)
+        _, g, (nb_p, ext_p) = _padded_grid(rep, n_b, extent)
+        want = t_grid.grid_core_distances_v1(g, nb_p, ext_p, min_pts, 3)
+        assert bool(torch.isfinite(want).all()) and bool((want[:20] > 0).all())
+        if not unit:
+            assert torch.equal(want[:20], t_bcd.bubble_core_distances(rep, n_b, extent, min_pts=min_pts, dim=3))
+        for c in t_grid.CLUSTERS:
+            assert torch.equal(t_grid.grid_core_distances(g, nb_p, ext_p, min_pts, 3, cluster=c), want), c
+
+    @pytest.mark.parametrize("min_pts", [10, 100])
+    def test_visits_at_one_cta(self, cuda_device, min_pts):
+        """At a cluster of one the register route's exact k-th stops no later
+        than the first kernel's queued one (at most its visits and walk); the
+        warp-select route walks as the first kernel does; a cluster of 8
+        walks no further than one CTA."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(54)
+        rep = _t(_grid_case("spread", rng, 6001, 16)).to(cuda_device)
+        n_b = _t(rng.integers(1, 6, size=6001).astype(np.float32)).to(cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=6001).astype(np.float32)).to(cuda_device)
+        _, g, (nb_p, ext_p) = _padded_grid(rep, n_b, extent)
+        v1 = _cd_visits(lambda: t_grid.grid_core_distances_v1(g, nb_p, ext_p, min_pts, 16))
+        c1 = _cd_visits(lambda: t_grid.grid_core_distances(g, nb_p, ext_p, min_pts, 16, cluster=1))
+        c8 = _cd_visits(lambda: t_grid.grid_core_distances(g, nb_p, ext_p, min_pts, 16, cluster=8))
+        assert v1[0] > 0 and v1[1] > 0
+        if min_pts <= 16:
+            assert c1[0] <= v1[0] and c1[1] <= v1[1]
+        else:
+            assert c1 == v1
+        assert 0 < c8[1] <= c1[1]
+
+    def test_path_never_launches_v1(self, cuda_device):
+        """``ops.bubble_core_distances(spatial_index=True)`` launches the new
+        kernel once a call and the first kernel never, with the dense bits."""
+        from repro_torch.kernels import grid as t_grid
+
+        rng = np.random.default_rng(55)
+        rep = _t(_centred(rng, 1001, 16)).to(cuda_device)
+        n_b = _t(rng.integers(1, 6, size=1001).astype(np.float32)).to(cuda_device)
+        extent = _t(rng.uniform(0.05, 0.5, size=1001).astype(np.float32)).to(cuda_device)
+        t_grid.launches["grid_core_distances"] = t_grid.launches["grid_core_distances_v1"] = 0
+        got = tops.bubble_core_distances(rep, n_b, extent, 10, spatial_index=True)
+        assert t_grid.launches["grid_core_distances"] == 1 and t_grid.launches["grid_core_distances_v1"] == 0
+        assert torch.equal(got, tops.bubble_core_distances(rep, n_b, extent, 10))
 
 
 def _fma_probe_rows(rng, d=4):

@@ -167,7 +167,7 @@ class TestBuildGrid:
 class TestWrappers:
     @pytest.mark.parametrize("case", ["assign_width", "cd_rows", "round_rows", "views_dtype", "tile_rows",
                                       "round_rows_v1", "views_dtype_v1", "round_cluster", "assign_width_v1",
-                                      "assign_cluster"])
+                                      "assign_cluster", "cd_cluster"])
     def test_bad_shapes_raise(self, case):
         """The assign and round cases for both wrappers of each:
         ``grid_assign`` / ``grid_round_minima`` and their first kernels',
@@ -184,6 +184,8 @@ class TestWrappers:
                 assign_fn(g, torch.zeros(4, 3))
             elif case == "assign_cluster":
                 tgrid.grid_assign(g, torch.zeros(4, 8), cluster=3)
+            elif case == "cd_cluster":
+                tgrid.grid_core_distances(g, _t(nbp), _t(extp), MIN_PTS, 8, views, cluster=3)
             elif case == "cd_rows":
                 tgrid.grid_core_distances(g, _t(nbp[:-1]), _t(extp), MIN_PTS, 8)
             elif case.startswith("round_rows"):
@@ -254,6 +256,48 @@ class TestWrappers:
         for idx, dist in (tgrid.grid_assign(g, Q), tgrid.grid_assign_v1(g, Q)):
             assert bool((idx == LP).all()) and bool(torch.isinf(dist).all())
 
+    @pytest.mark.parametrize("k", [16, 17, 1030])
+    def test_core_distances_wrappers(self, k):
+        """Both Eq. 6 wrappers (``grid_core_distances``, on the card
+        ``csrc/grid_cd.cu``, at every cluster size, and
+        ``grid_core_distances_v1``, its first kernel in ``csrc/grid.cu``) take
+        the plain version on the CPU: bit for bit ``ref.grid_core_distances``,
+        whole and over block ranges, at min_pts on both sides of the new
+        kernel's register route (k <= 16) and past the warp-select queue's
+        1024 (a 1088-row table, 1060 valid, unit masses: a second round of
+        selection; block ranges only, the plain top-k at k = 1030 being
+        slow)."""
+        if k <= 17:
+            rep, nb, ext = _table("blobs", 8)
+            repp, nbp, extp, valid = _padded(rep, nb, ext)
+            ranges = [None, (0, 1), (1, 2), (0, 2)]
+        else:
+            rng = np.random.default_rng(7)
+            rep = _dataset("uniform", 2, 7, n=1060)
+            repp, nbp, extp, valid = _padded(rep, np.ones(1060, np.float32),
+                                             rng.uniform(0.05, 0.5, 1060).astype(np.float32), Lp=1088)
+            ranges = [(0, 1), (16, 17)]
+        g = tgrid.build_grid(_t(repp), _t(valid))
+        views = tgrid._block_views(g)
+        d = repp.shape[1]
+        for blocks in ranges:
+            want = tref.grid_core_distances(g, views, _t(nbp), _t(extp), k, d, blocks=blocks)
+            got = [tgrid.grid_core_distances_v1(g, _t(nbp), _t(extp), k, d, views, blocks=blocks)]
+            got += [tgrid.grid_core_distances(g, _t(nbp), _t(extp), k, d, views, blocks=blocks, cluster=c)
+                    for c in tgrid.CLUSTERS]
+            assert bool(torch.isfinite(want).all()) and bool((want > 0).any())
+            for c, out in zip(("v1",) + tgrid.CLUSTERS, got):
+                assert torch.equal(out, want), (blocks, c)
+
+    @pytest.mark.parametrize("name", list(grid_variants.CD_VARIANTS))
+    def test_cd_variant_patches_apply(self, name):
+        """Every text patch of the Eq. 6 kernel's variants in ``python -m
+        repro_torch.kernels.grid_variants cd`` matches the shipped
+        ``csrc/grid_cd.cu`` exactly once."""
+        src = (Path(tgrid.__file__).with_name("csrc") / "grid_cd.cu").read_text()
+        out = grid_variants._apply(name, src, grid_variants.CD_VARIANTS[name])
+        assert (out == src) == (not grid_variants.CD_VARIANTS[name])
+
     @pytest.mark.parametrize("name", list(grid_variants.ASSIGN_VARIANTS))
     def test_assign_variant_patches_apply(self, name):
         """Every text patch of the assign kernel's variants in ``python -m
@@ -286,15 +330,18 @@ class TestAgainstReference:
         jd = np.sqrt(np.maximum((Q.astype(np.float32) ** 2).sum(1) + np.asarray(jm), 0.0))
         np.testing.assert_array_less(np.abs(td.numpy() - jd), RTOL * jd + _allowance(np.vstack([rep, Q]), jd))
 
+    @pytest.mark.parametrize("min_pts", [MIN_PTS, 16, 17])
     @pytest.mark.parametrize("d", DIMS)
     @pytest.mark.parametrize("kind", TIE_FREE)
-    def test_core_distances(self, kind, d):
+    def test_core_distances(self, kind, d, min_pts):
+        """Also at min_pts 16 and 17, the edge of the card kernel's register
+        route (``csrc/grid_cd.cu``)."""
         rep, n_b, extent = _table(kind, d)
         repp, nbp, extp, valid = _padded(rep, n_b, extent)
         gj, gt = _grids(repp, valid)
-        want = np.asarray(jgrid.grid_core_distances(gj, jnp.asarray(nbp), jnp.asarray(extp), MIN_PTS, d))
-        got = tgrid.grid_core_distances(gt, _t(nbp), _t(extp), MIN_PTS, d).numpy()
-        keep = _clear_crossings(rep, n_b, MIN_PTS)
+        want = np.asarray(jgrid.grid_core_distances(gj, jnp.asarray(nbp), jnp.asarray(extp), min_pts, d))
+        got = tgrid.grid_core_distances(gt, _t(nbp), _t(extp), min_pts, d).numpy()
+        keep = _clear_crossings(rep, n_b, min_pts)
         assert keep.sum() > L // 2
         w = want[:L][keep]
         np.testing.assert_array_less(np.abs(got[:L][keep] - w), RTOL * w + _allowance(rep, w))
